@@ -1,0 +1,238 @@
+"""Response-time evaluators of the port: the batched AMVA frontier
+(``amva_frontier`` on ``kernels/amva``) and the batched QN tier
+(``BatchedQNEvaluator`` on ``qn_sim`` and ``kernels/qn_event``).
+
+Caches are content-addressed exactly as in the reference: keys are
+``(profile_hash, vm_name, nu, seed)`` with the same ``profile_hash``, so a
+cache filled by the reference can feed the port (``core.interop``).  The
+MapReduce route is ported; a DAG profile raises ``NotImplementedError``
+(its K-stage event kernel is later work).  The point-wise evaluator
+(``make_qn_evaluator``) waits for the scalar gait.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import partition as _partition
+from repro_torch.core import qn_sim
+from repro_torch.core.mva import workload_demand
+from repro_torch.core.problem import ApplicationClass, VMType
+from repro_torch.core.workload import (
+    DAG,
+    profile_hash,
+    samples_digest,
+    workload_kind,
+)
+from repro_torch.kernels.amva import ops as amva_ops
+from repro_torch.obs import trace as _obs_trace
+
+
+class _ContextDigests:
+    """Per-(class, vm) evaluation-context digests, memoizing the replay
+    sample digest (lists can be thousands of floats); the profile part is
+    rehashed per call so same-named classes with different profiles get
+    different keys."""
+
+    def __init__(self, samples: Optional[Dict], *, min_jobs: int,
+                 warmup_jobs: int, replications: int):
+        self.samples = samples or {}
+        self.sim = dict(min_jobs=min_jobs, warmup_jobs=warmup_jobs,
+                        replications=replications)
+        self._sdig: Dict[tuple, str] = {}
+
+    def sample_digest(self, cls: ApplicationClass, vm: VMType) -> str:
+        k = (cls.name, vm.name)
+        if k not in self._sdig:
+            self._sdig[k] = samples_digest(self.samples.get(k))
+        return self._sdig[k]
+
+    def digest(self, prof, cls: ApplicationClass, vm: VMType) -> str:
+        return profile_hash(prof, cls.think_ms, cls.h_users, vm.slots,
+                            samples_dig=self.sample_digest(cls, vm),
+                            **self.sim)
+
+
+def fused_qn_call(profs: Sequence["object"], think_ms: Sequence[float],
+                  h_users: int, slots: Sequence[int], *,
+                  min_jobs: int = 40, warmup_jobs: int = 8,
+                  replications: int = 2, seed: int = 0,
+                  m_samples=None, r_samples=None, device=None,
+                  defer: bool = False):
+    """ONE fused simulator dispatch over the points of a fusion group
+    (shared ``h_users``, replay lists and simulation parameters); each
+    lane keeps its own logical budget and seed.  ``defer=True`` returns a
+    ``qn_sim.PendingBatch``."""
+    return qn_sim.response_time_batch(
+        n_map=np.asarray([p.n_map for p in profs], np.int64),
+        n_reduce=np.asarray([p.n_reduce for p in profs], np.int64),
+        m_avg=np.asarray([p.m_avg for p in profs], np.float32),
+        r_avg=np.asarray([p.r_avg for p in profs], np.float32),
+        think_ms=np.asarray(think_ms, np.float32),
+        h_users=int(h_users),
+        slots=np.asarray(slots, np.int64),
+        min_jobs=min_jobs, warmup_jobs=warmup_jobs,
+        seed=seed, replications=replications,
+        m_samples=m_samples, r_samples=r_samples, device=device,
+        defer=defer)
+
+
+def fused_eval_call(kind: str, profs: Sequence["object"],
+                    think_ms: Sequence[float], h_users: int,
+                    slots: Sequence[int], *, min_jobs: int = 40,
+                    warmup_jobs: int = 8, replications: int = 2,
+                    seed: int = 0, samples=None, device=None,
+                    defer: bool = False):
+    """Workload dispatch of a fusion group: MapReduce windows go to
+    ``fused_qn_call``; DAG windows are not ported yet."""
+    if kind == DAG:
+        raise NotImplementedError("DAG workloads are not ported yet")
+    with _obs_trace.span("fused_dispatch", cat="fusion", kind=kind,
+                         points=len(profs), h_users=int(h_users),
+                         replay=samples is not None,
+                         devices=_partition.shard_count(len(profs))):
+        ms, rs = samples if samples is not None else (None, None)
+        return fused_qn_call(profs, think_ms, h_users, slots,
+                             min_jobs=min_jobs, warmup_jobs=warmup_jobs,
+                             replications=replications, seed=seed,
+                             m_samples=ms, r_samples=rs, device=device,
+                             defer=defer)
+
+
+class BatchedQNEvaluator:
+    """QN-tier evaluator that evaluates whole candidate sweeps per fused
+    dispatch: cached points are gathered from the shared dict cache, the
+    misses of each fusion group (workload kind, ``h_users``, replay lists)
+    go to the device in one call, and every result lands in the cache
+    under the reference's ``(profile_hash, vm, nu, seed)`` keys.
+
+    Counters: ``device_calls`` fused dispatches made,
+    ``points_evaluated`` simulator configurations they covered."""
+
+    def __init__(self, min_jobs: int = 40, warmup_jobs: int = 8,
+                 replications: int = 2, seed: int = 0,
+                 cache: Optional[dict] = None,
+                 samples: Optional[Dict] = None, device=None):
+        self.device = resolve_device(device)
+        self.min_jobs = min_jobs
+        self.warmup_jobs = warmup_jobs
+        self.replications = replications
+        self.seed = seed
+        self.cache = cache if cache is not None else {}
+        self.samples = samples or {}
+        self._ctx = _ContextDigests(self.samples, min_jobs=min_jobs,
+                                    warmup_jobs=warmup_jobs,
+                                    replications=replications)
+        self.device_calls = 0
+        self.points_evaluated = 0
+        self._counter_lock = threading.Lock()
+
+    def evaluate_frontier(self, cls: ApplicationClass, vm: VMType,
+                          nus: Sequence[int]) -> np.ndarray:
+        """Response time for every nu in ``nus`` (one dispatch for all
+        cache misses)."""
+        return np.asarray(
+            self.evaluate_many((cls, vm, int(n)) for n in nus))
+
+    def evaluate_many(
+        self, items: Iterable[Tuple[ApplicationClass, VMType, int]],
+    ) -> List[float]:
+        """Evaluate arbitrary (class, vm, nu) points with one dispatch per
+        fusion group and one host sync for the whole round.  Returns times
+        aligned with ``items``."""
+        items = list(items)
+        keys: List[tuple] = []
+        profs: List[object] = []
+        todo: Dict[tuple, list] = {}
+        seen = set()
+        for idx, (cls, vm, nu) in enumerate(items):
+            prof = cls.profile_for(vm)
+            profs.append(prof)
+            key = (self._ctx.digest(prof, cls, vm), vm.name, int(nu),
+                   self.seed)
+            keys.append(key)
+            if key in self.cache or key in seen:
+                continue
+            seen.add(key)
+            replay = (cls.name, vm.name) if (cls.name, vm.name) \
+                in self.samples else None
+            todo.setdefault((workload_kind(prof), cls.h_users, replay),
+                            []).append(idx)
+        # dispatch every group first, then read all results in one sync
+        inflight: List[Tuple[list, "qn_sim.PendingBatch"]] = []
+        for (kind, h_users, replay), idxs in todo.items():
+            smp = self.samples[replay] if replay is not None else None
+            pending = fused_eval_call(
+                kind, [profs[i] for i in idxs],
+                [items[i][0].think_ms for i in idxs],
+                h_users,
+                [int(items[i][2]) * items[i][1].slots for i in idxs],
+                min_jobs=self.min_jobs, warmup_jobs=self.warmup_jobs,
+                seed=self.seed, replications=self.replications,
+                samples=smp, device=self.device, defer=True)
+            inflight.append((idxs, pending))
+            with self._counter_lock:
+                self.device_calls += 1
+                self.points_evaluated += len(idxs)
+        if inflight:
+            results = qn_sim.resolve_batches(p for _, p in inflight)
+            for (idxs, _), ts in zip(inflight, results):
+                for i, t in zip(idxs, ts):
+                    self.cache[keys[i]] = float(t)
+        return [self.cache[k] for k in keys]
+
+    def __call__(self, cls: ApplicationClass, vm: VMType, nu: int) -> float:
+        return float(self.evaluate_frontier(cls, vm, [nu])[0])
+
+
+def make_batched_qn_evaluator(min_jobs: int = 40, warmup_jobs: int = 8,
+                              replications: int = 2, seed: int = 0,
+                              cache: Optional[dict] = None,
+                              samples: Optional[Dict] = None,
+                              device=None) -> BatchedQNEvaluator:
+    return BatchedQNEvaluator(min_jobs=min_jobs, warmup_jobs=warmup_jobs,
+                              replications=replications, seed=seed,
+                              cache=cache, samples=samples, device=device)
+
+
+def amva_frontier(cls: ApplicationClass, vm: VMType, nu_lo: int, nu_hi: int,
+                  device=None) -> np.ndarray:
+    """Analytic T for every nu in [nu_lo, nu_hi] in ONE ``amva`` kernel
+    launch (the plain version on the CPU)."""
+    dev = resolve_device(device)
+    prof = cls.profile_for(vm)
+    nus = np.arange(nu_lo, nu_hi + 1)
+    a, b = workload_demand(prof)
+    n = len(nus)
+    a_over_c = torch.as_tensor(a / (nus * vm.slots), dtype=torch.float32)
+    full = lambda v: torch.full((n,), v, dtype=torch.float32)
+    args = [x.to(dev) for x in (a_over_c, full(b), full(cls.think_ms),
+                                full(float(cls.h_users)))]
+    with _obs_trace.span("kernel:amva", cat="kernel", points=n):
+        return amva_ops.ps_fixed_point(*args).cpu().numpy()
+
+
+def amva_nu_seed(cls: ApplicationClass, vm: VMType, nu0: int,
+                 span: int, *, max_nu: int = 8192, device=None) -> int:
+    """AMVA-frontier seed for one QN search lane: the smallest nu in a
+    window around the analytic proposal ``nu0`` whose frontier response
+    time meets the deadline.  The window starts at
+    ``[nu0 - span//2, nu0 + span]`` and is re-anchored downward while its
+    feasible minimum sits on the lower edge."""
+    span = max(2, span)
+    lo = max(1, int(nu0) - span // 2)
+    hi = min(max_nu, int(nu0) + span)
+    while True:
+        ts = amva_frontier(cls, vm, lo, hi, device=device)
+        feas = np.where(ts <= cls.deadline_ms)[0]
+        if len(feas) == 0:
+            return hi                       # infeasible window: sweep climbs
+        nu_star = lo + int(feas[0])
+        if nu_star > lo or lo == 1:
+            return nu_star                  # interior (or floor) minimum
+        hi = nu_star                        # feasible on the lower edge:
+        lo = max(1, hi - span)              # look below, keep the edge

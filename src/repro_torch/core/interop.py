@@ -1,0 +1,63 @@
+"""Carry a planning problem and its evaluation state across from the JAX
+reference package, through JSON and numpy only (nothing of the reference
+is imported).
+
+  * ``problem_from_reference`` — a reference ``Problem.to_json()`` document
+    becomes a port ``Problem`` (the schema is shared);
+  * ``samples_from_reference`` — replay lists ``{(class, vm): (m, r)}``
+    as float32 numpy arrays, the form both packages digest;
+  * ``cache_from_reference`` — a reference evaluation cache, keyed
+    ``(profile_hash, vm_name, nu, seed)``: the port computes the same
+    ``profile_hash``, so adopted entries are hits for the same points.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import numpy as np
+
+from repro_torch.core.problem import Problem
+
+
+def problem_from_reference(doc: str) -> Problem:
+    """Port ``Problem`` from a reference ``Problem.to_json()`` document."""
+    return Problem.from_json(doc)
+
+
+def samples_from_reference(samples: Dict) -> Dict[Tuple[str, str], tuple]:
+    """Replay lists keyed ``(class_name, vm_name)`` -> ``(m_list, r_list)``,
+    checked (1-D, non-empty, finite) and converted to float32 arrays."""
+    out = {}
+    for key, pair in samples.items():
+        if not (isinstance(key, tuple) and len(key) == 2
+                and all(isinstance(k, str) for k in key)):
+            raise ValueError(f"sample key must be (class, vm): {key!r}")
+        ms, rs = (np.asarray(x, np.float32) for x in pair)
+        for x in (ms, rs):
+            if x.ndim != 1 or x.size == 0 or not np.isfinite(x).all():
+                raise ValueError(f"replay list of {key} must be a finite, "
+                                 "non-empty 1-D array")
+        out[key] = (ms, rs)
+    return out
+
+
+def cache_from_reference(cache: Dict) -> Dict[tuple, float]:
+    """Check a reference evaluation cache and return it as a port cache
+    (a new dict; values as Python floats, ``inf`` allowed for points where
+    no job completed)."""
+    out = {}
+    for key, val in cache.items():
+        ok = (isinstance(key, tuple) and len(key) == 4
+              and isinstance(key[0], str) and len(key[0]) == 16
+              and isinstance(key[1], str)
+              and all(isinstance(k, (int, np.integer))
+                      and not isinstance(k, bool) for k in key[2:]))
+        if not ok:
+            raise ValueError("cache key must be (profile_hash, vm, nu, "
+                             f"seed): {key!r}")
+        t = float(val)
+        if math.isnan(t) or t < 0:
+            raise ValueError(f"cache value of {key!r} is not a time: {val!r}")
+        out[(key[0], key[1], int(key[2]), int(key[3]))] = t
+    return out

@@ -1,0 +1,110 @@
+"""The port's ``amva`` fixed point against the reference's Pallas kernel
+(interpret mode on the CPU), bit for bit, and the analytic tier
+(``repro_torch.core.mva``) against ``repro.core.mva``.
+
+Inputs come from a numpy seed (and, for the 512-lane case, from the
+reference test's own generator, which includes the lane that is still
+1.95e-4 from its fixed point after 40 rounds: the port must give the same
+40-round value, not a converged one).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import mva as ref_mva
+from repro.core.problem import JobProfile as RefJobProfile
+from repro.kernels.amva import ops as ref_amva_ops
+from repro_torch.core import mva
+from repro_torch.core.problem import JobProfile
+from repro_torch.kernels.amva import ops as amva_ops
+from repro_torch.kernels.amva import ref as amva_ref
+
+
+def _batch(n, seed=0):
+    g = np.random.default_rng(seed + n)
+    a = (np.abs(g.normal(size=n)) * 1e4).astype(np.float32)
+    b = (np.abs(g.normal(size=n)) * 1e3).astype(np.float32)
+    z = np.full(n, 1e4, np.float32)
+    h = np.round(np.abs(g.normal(size=n)) * 10 + 1).astype(np.float32)
+    return a, b, z, h
+
+
+def _port(args):
+    return amva_ops.ps_fixed_point(*(torch.tensor(x) for x in args))
+
+
+# N values below, on and across the reference's (8, 128) tile edges
+@pytest.mark.parametrize("n", [1, 7, 97, 128, 129, 1000, 1024, 1025])
+def test_ps_fixed_point_bit_exact_vs_pallas(n):
+    args = _batch(n)
+    want = np.asarray(ref_amva_ops.ps_fixed_point(*map(jnp.asarray, args)))
+    assert np.array_equal(want, _port(args).numpy())
+
+
+def test_512_lane_case_of_the_failing_reference_test():
+    key = jax.random.key(0)
+    n = 512
+    a = jnp.abs(jax.random.normal(jax.random.fold_in(key, n), (n,))) * 1e4
+    b = jnp.abs(jax.random.normal(jax.random.fold_in(key, n + 1), (n,))) * 1e3
+    z = jnp.full((n,), 1e4)
+    h = jnp.round(jnp.abs(jax.random.normal(
+        jax.random.fold_in(key, n + 2), (n,))) * 10 + 1)
+    args = tuple(np.asarray(x, np.float32) for x in (a, b, z, h))
+    want = np.asarray(ref_amva_ops.ps_fixed_point(*map(jnp.asarray, args)))
+    got = _port(args).numpy()
+    assert np.array_equal(want, got)
+    # the same lane stays unconverged at 40 rounds, as in the reference
+    t80 = amva_ref.ps_fixed_point(*(torch.tensor(x) for x in args),
+                                  iters=80).numpy()
+    rel = np.abs(t80 - got) / np.abs(t80)
+    assert rel.max() > 1e-4
+
+
+def test_ps_response_batch_matches_reference_oracle():
+    args = _batch(300, seed=5)
+    want = np.asarray(ref_mva.ps_response_batch(*map(jnp.asarray, args)))
+    got = mva.ps_response_batch(*(torch.tensor(x) for x in args))
+    assert np.array_equal(want, got.numpy())
+
+
+def test_wrapper_counts_only_kernel_launches():
+    before = amva_ops.ps_fixed_point.launches
+    _port(_batch(9))
+    assert amva_ops.ps_fixed_point.launches == before   # CPU: plain version
+
+
+def test_wrapper_rejects_bad_inputs():
+    x = torch.ones(4)
+    with pytest.raises(ValueError):
+        amva_ops.ps_fixed_point(x, x, x, torch.ones(5))
+    with pytest.raises(ValueError):
+        amva_ops.ps_fixed_point(x.double(), x, x, x)
+    with pytest.raises(ValueError):
+        amva_ops.ps_fixed_point(x[None], x[None], x[None], x[None])
+
+
+def _profiles(k):
+    g = np.random.default_rng(k)
+    for _ in range(k):
+        nm, nr = int(g.integers(1, 600)), int(g.integers(0, 80))
+        m, r = float(g.uniform(500, 9000)), float(g.uniform(300, 5000))
+        yield (dict(n_map=nm, n_reduce=nr, m_avg=m, m_max=2.3 * m,
+                    r_avg=r, r_max=2.1 * r, s1_max=float(g.uniform(0, 300))))
+
+
+@pytest.mark.parametrize("k", [3, 8])
+def test_scalar_analytic_tier_exact(k):
+    for d in _profiles(k):
+        p, rp = JobProfile(**d), RefJobProfile(**d)
+        assert mva.aria_demand(p) == ref_mva.aria_demand(rp)
+        for slots in (1, 7, 64, 433):
+            for h, z in ((1, 0.0), (10, 10_000.0), (40, 3_000.0)):
+                assert mva.job_response(p, slots, z, h) == \
+                    ref_mva.job_response(rp, slots, z, h)
+        assert mva.mva_response(d["m_avg"], 5_000.0, 12) == \
+            ref_mva.mva_response(d["m_avg"], 5_000.0, 12)
+        for deadline in (30_000.0, 200_000.0, 1e7):
+            assert mva.min_slots_for_deadline(p, 10_000.0, 10, deadline) == \
+                ref_mva.min_slots_for_deadline(rp, 10_000.0, 10, deadline)

@@ -1,0 +1,90 @@
+"""The port's CUDA kernels on the card, against their plain versions on
+the same inputs.  Marked ``cuda``: on a host without a card every test
+skips (the fixture decides, at run time).  On the card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.optimizer import DSpace4Cloud
+from repro_torch.core.problem import (ApplicationClass, JobProfile, Problem,
+                                      VMType)
+from repro_torch.kernels.amva import ops as amva_ops
+from repro_torch.kernels.amva import ref as amva_ref
+from repro_torch.kernels.qn_event import ops as qn_ops
+from repro_torch.kernels.qn_event import ref as qn_ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card on this host")
+    return torch.device("cuda", 0)
+
+
+# S = 8192 slots do not fit in shared memory: the kernel keeps them in a
+# global scratch slice instead
+@pytest.mark.parametrize("replay,S", [(False, 64), (True, 64), (True, 8192)])
+def test_qn_event_kernel_bit_identical_to_plain(dev, replay, S):
+    g = np.random.default_rng(1)
+    E, H = 1024, 6
+    caps = [1, 3, S, 17, 1, 40, 8, S]
+    nea = [E, E, E, E // 3, 0, 7, E, E]
+    B = len(caps)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    lanes = (i32([8, 8, 40, 12, 1, 30, 5, 64]), i32([2, 1, 8, 3, 1, 0, 4, 2]),
+             i32(caps), i32(nea), f32(g.uniform(50, 90, B)),
+             f32(g.uniform(20, 60, B)), f32(g.uniform(500, 3000, B)))
+    seeds = torch.arange(B, device=dev) * 1000
+    smp = (f32(g.uniform(30, 90, 100)), f32(g.uniform(20, 50, 33))) \
+        if replay else (None, None)
+    tables = qn_ops.event_streams(lanes[6], seeds, lanes[3], h_users=H,
+                                  n_events=E, m_samples=smp[0],
+                                  r_samples=smp[1])
+    kw = dict(max_slots=S, warmup_jobs=2, replay=replay)
+    before = qn_ops.qn_event.launches
+    ks, kc = qn_ops.qn_event(*lanes, *tables, **kw)
+    assert qn_ops.qn_event.launches == before + 1
+    ps, pc = qn_ref.qn_event(*lanes, *tables, **kw)
+    assert torch.equal(ks, ps) and torch.equal(kc, pc)
+    assert kc[4] == 0 and kc.sum() > 0
+
+
+@pytest.mark.parametrize("n", [1, 97, 128, 4097])
+def test_amva_kernel_bit_identical_to_plain(dev, n):
+    g = np.random.default_rng(n)
+    args = [torch.tensor(x, dtype=torch.float32, device=dev) for x in (
+        np.abs(g.normal(size=n)) * 1e4, np.abs(g.normal(size=n)) * 1e3,
+        np.full(n, 1e4), np.round(np.abs(g.normal(size=n)) * 10 + 1))]
+    assert torch.equal(amva_ops.ps_fixed_point(*args),
+                       amva_ref.ps_fixed_point(*args))
+
+
+def test_planner_on_the_card_matches_the_plain_path(dev):
+    prof = JobProfile(n_map=8, n_reduce=2, m_avg=3000, m_max=7000,
+                      r_avg=1500, r_max=3500)
+    vms = [VMType(name="m4.xlarge", cores=4, sigma=0.07, pi=0.22,
+                  containers_per_core=2),
+           VMType(name="c20.node", cores=20, sigma=0.35, pi=0.90,
+                  speed=1.35)]
+    prob = Problem(classes=[ApplicationClass(
+        name="c", h_users=8, think_ms=2_000, deadline_ms=9_000,
+        profiles={"m4.xlarge": prof, "c20.node": prof.scaled(1.35)})],
+        vm_types=vms)
+    g = np.random.default_rng(2)
+    samples = {("c", vm.name): (g.lognormal(8.0, 0.4, 128).astype(np.float32),
+                                g.lognormal(7.3, 0.4, 64).astype(np.float32))
+               for vm in vms}
+    card = DSpace4Cloud(prob, samples=samples, min_jobs=6).run_fast()
+    cpu = DSpace4Cloud(prob, samples=samples, min_jobs=6,
+                       device="cpu").run_fast()
+    for name, sol in cpu.solutions.items():
+        got = card.solutions[name]
+        assert (got.vm_type, got.nu, got.reserved, got.spot) == \
+            (sol.vm_type, sol.nu, sol.reserved, sol.spot)
+    assert card.qn_dispatches == cpu.qn_dispatches
