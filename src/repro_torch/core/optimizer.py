@@ -113,7 +113,7 @@ class DSpace4Cloud:
     def __init__(self, problem: Problem, *, min_jobs: int = 40,
                  replications: int = 2, seed: int = 0, samples=None,
                  batched: bool = True, window: int = 16,
-                 race: bool = True, deployment=None,
+                 deployment=None,
                  cache: Optional[dict] = None, device=None):
         if not batched:
             raise NotImplementedError(
@@ -123,7 +123,6 @@ class DSpace4Cloud:
                 "private-cloud deployments are not ported yet")
         self.problem = problem
         self.window = window
-        self.race = race
         self._qn_cache: dict = cache if cache is not None else {}
         self._rank_cache: Optional[Dict[str, List[ClassSolution]]] = None
         self.evaluate = make_batched_qn_evaluator(
@@ -132,16 +131,13 @@ class DSpace4Cloud:
         self.device = self.evaluate.device
 
     def _ranking(self) -> Dict[str, List[ClassSolution]]:
-        """Per-class analytic candidate ranking (memoized); truncated to
-        the argmin when racing is off."""
+        """Per-class analytic candidate ranking (memoized); every ranked
+        VM type races."""
         if self._rank_cache is None:
             with _obs_trace.span("tier:kkt", cat="tier",
                                  classes=len(self.problem.classes)):
                 self._rank_cache = rank_vm_types(self.problem)
-        ranking = self._rank_cache
-        if not self.race:
-            ranking = {name: cands[:1] for name, cands in ranking.items()}
-        return ranking
+        return self._rank_cache
 
     # ----------------------------------------------------- resumable steps
     def run_steps(self):

@@ -17,9 +17,9 @@ def shard_count(lanes: int = None) -> int:
     return 1
 
 
-def bucket_lanes(n: int, shards: int = 1, *, grid: str = None) -> int:
+def bucket_lanes(n: int, shards: int = 1) -> int:
     """Candidate-axis bucket of a dispatch over ``shards`` devices."""
     if shards != 1:
         raise NotImplementedError("lane sharding across devices is not "
                                   "ported yet")
-    return _shapes.bucket_lanes(n, grid=grid)
+    return _shapes.bucket_lanes(n)

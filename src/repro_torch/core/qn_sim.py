@@ -72,11 +72,9 @@ def _count_dispatch(n: int = 1, *, lanes: int = None, padded_lanes: int = 0,
                     bucket_padded_events: int = 0,
                     shard_padded_lanes: int = 0,
                     shard_padded_events: int = 0,
-                    devices: int = 1, kind: str = "mapreduce",
-                    impl: str = "cuda") -> None:
+                    devices: int = 1) -> None:
     with _REG.lock:
         _QN_COUNTERS["dispatches"].inc(n)
-        _QN_COUNTERS["dispatches"].labels(kind=kind, impl=impl).inc(n)
         _QN_COUNTERS["lanes"].inc(n if lanes is None else lanes)
         _QN_COUNTERS["padded_lanes"].inc(padded_lanes)
         _QN_COUNTERS["events_total"].inc(events_total)
@@ -261,7 +259,7 @@ def response_time_batch(n_map, n_reduce, m_avg, r_avg, think_ms,
         bucket_padded_events=scan_len * bucket_pad * R,
         shard_padded_lanes=shard_pad * R,
         shard_padded_events=scan_len * shard_pad * R,
-        devices=shards, kind="mapreduce", impl=impl)
+        devices=shards)
 
     def t(x, dt):
         return torch.as_tensor(np.asarray(x), dtype=dt).to(dev)

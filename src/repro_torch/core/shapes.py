@@ -1,59 +1,19 @@
-"""Geometric shape bucketing for every static jit axis.
+"""Geometric shape bucketing of the simulator's dispatch axes.
 
-Every static axis a jitted simulator program specializes on — padded vmap
-lanes, ``max_slots``, scan lengths, DAG stage counts — is quantized to a
-geometric bucket grid before it reaches ``jax.jit``.  Nearby shapes then
-share ONE compiled executable (the padding tail is masked, so results are
-bit-identical to exact padding), which is what lets "fewer dispatches"
-translate into "less wall time": without bucketing, every distinct padded
-combination recompiles from scratch.
+The reference quantizes every static axis of a jitted simulator program
+to a bucket grid so that nearby shapes share one compiled executable.
+The port keeps the same buckets because the dispatch accounting
+(``qn_sim.sim_stats``/``padding_stats``) and the lane layout must equal
+the reference's call for call.  The grid is the reference's default
+``geo`` grid: powers of two plus their 1.5x midpoints (1, 2, 3, 4, 6, 8,
+12, 16, 24, 32, 48, 64, 96, 128, 192, ...).
 
-Two grids:
-
-  * ``pow2`` — powers of two: 1, 2, 4, 8, 16, ... (the historical grid);
-  * ``geo``  — the ×1.5 refinement: powers of two plus their 1.5× midpoints
-    (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, ...).  Worst
-    -case padding waste drops from 2× to 1.5× per axis at the cost of more
-    distinct shapes; with the persistent compile cache
-    (``repro.obs.compile``) the extra compiles are one-time, while padding
-    waste is paid on every dispatch.
-
-The default grid is ``geo``; ``REPRO_BUCKET_GRID=pow2`` restores the
-historical grid exactly.  Two axes are deliberately NOT configurable:
-
-  * *logical event budgets* (``qn_sim.padded_event_budget`` and the DAG
-    analogue) stay on the pow2 grid unconditionally — they are RNG fold
-    offsets, so changing their grid would change simulated values;
-  * ``h_users`` is never bucketed — the initial think-time draw has shape
-    ``(H,)``, so padding it would change the random stream.
-
-Invariants (property-tested in ``tests/test_shapes.py``):
-``bucket(n) >= n``, ``bucket`` is monotone non-decreasing, idempotent, and
-``bucket(n, grid="pow2") == pow2(n)`` for every n.
+Logical event budgets (``qn_sim.padded_event_budget``) stay on the pow2
+grid: they are RNG fold offsets, so their grid is part of the simulated
+values.  ``h_users`` is never bucketed: the initial think-time draw has
+shape ``(H,)``.
 """
 from __future__ import annotations
-
-import os
-
-GRIDS = ("pow2", "geo")
-
-_DEFAULT_GRID = os.environ.get("REPRO_BUCKET_GRID", "geo")
-if _DEFAULT_GRID not in GRIDS:                     # pragma: no cover - env
-    raise ValueError(
-        f"REPRO_BUCKET_GRID must be one of {GRIDS}, got {_DEFAULT_GRID!r}")
-
-
-def default_grid() -> str:
-    return _DEFAULT_GRID
-
-
-def set_default_grid(grid: str) -> None:
-    """Select the bucket grid for calls that don't pass one (tests use this
-    to pin a grid; production code should prefer the env var)."""
-    global _DEFAULT_GRID
-    if grid not in GRIDS:
-        raise ValueError(f"grid must be one of {GRIDS}, got {grid!r}")
-    _DEFAULT_GRID = grid
 
 
 def pow2(n: int) -> int:
@@ -61,48 +21,24 @@ def pow2(n: int) -> int:
     return 1 << max(int(n) - 1, 0).bit_length()
 
 
-def bucket(n: int, *, grid: str = None, floor: int = 1) -> int:
-    """Smallest grid point >= max(n, floor).
-
-    ``grid="pow2"``: powers of two.  ``grid="geo"``: powers of two and
-    their 1.5× midpoints (3·2^k).  ``None`` uses the process default.
-    """
-    grid = _DEFAULT_GRID if grid is None else grid
-    if grid not in GRIDS:
-        raise ValueError(f"grid must be one of {GRIDS}, got {grid!r}")
+def bucket(n: int, *, floor: int = 1) -> int:
+    """Smallest point of the geo grid >= max(n, floor): a power of two or
+    its 1.5x midpoint 3·2^k."""
     n = max(int(n), int(floor), 1)
     p = pow2(n)
-    if grid == "geo":
-        # the midpoint 3·2^(k-2) sits between 2^(k-1) and 2^k
-        mid = 3 * (p // 4)
-        if mid >= n:
-            return mid
-    return p
+    # the midpoint 3·2^(k-2) sits between 2^(k-1) and 2^k
+    mid = 3 * (p // 4)
+    return mid if mid >= n else p
 
 
-def bucket_lanes(n: int, *, grid: str = None) -> int:
-    """Bucket a vmap lane count (candidate × replication axis).  Padding
-    lanes replicate a real lane and are dropped on the way out — lane
-    results are independent, so values are unchanged."""
-    return bucket(n, grid=grid)
+def bucket_lanes(n: int) -> int:
+    """Bucket a lane count (candidate axis).  Padding lanes replicate a
+    real lane and are dropped on the way out — lane results are
+    independent, so values are unchanged."""
+    return bucket(n)
 
 
-def bucket_slots(n: int, *, grid: str = None) -> int:
-    """Bucket a ``max_slots`` axis.  Slots past the logical capacity are
-    masked by ``slot_enabled`` and hold +inf sentinels, so the padded tail
-    never wins a selection — values are unchanged."""
-    return bucket(n, grid=grid)
-
-
-def bucket_events(n: int) -> int:
-    """Bucket a LOGICAL event budget.  Pinned to pow2 regardless of the
-    default grid: the logical budget is the RNG fold offset of the
-    think-redraw stream, so its grid is part of the simulated values."""
-    return pow2(n)
-
-
-def bucket_stages(n: int, *, grid: str = None) -> int:
-    """Bucket a DAG stage-array length.  Each lane carries its true stage
-    count (traced) and clips every stage index to it, so padded stages are
-    unreachable — values are unchanged."""
-    return bucket(n, grid=grid)
+def bucket_slots(n: int) -> int:
+    """Bucket a ``max_slots`` axis.  Slots past a lane's capacity are
+    disabled and never win a selection — values are unchanged."""
+    return bucket(n)

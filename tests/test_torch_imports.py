@@ -98,9 +98,11 @@ def test_chip_smoke_alone_or_without_a_card_fails(tmp_path):
     scripts = [alone]
     if not torch.cuda.is_available():
         scripts.append(ROOT / "chip_smoke.py")
-    for script in scripts:
-        out = subprocess.run([sys.executable, str(script)],
-                             capture_output=True, text=True, timeout=120,
-                             cwd=str(script.parent))
-        assert out.returncode != 0
-        assert '"ok"' not in out.stdout
+    procs = [subprocess.Popen([sys.executable, str(script)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.DEVNULL, text=True,
+                              cwd=str(script.parent)) for script in scripts]
+    for proc in procs:                  # both run at once
+        stdout, _ = proc.communicate(timeout=120)
+        assert proc.returncode != 0
+        assert '"ok"' not in stdout

@@ -34,7 +34,7 @@ torch.set_num_threads(1)    # the plain event loop is many tiny ops
 M4 = VMType(name="m4.xlarge", cores=4, sigma=0.07, pi=0.22,
             containers_per_core=2)
 C20 = VMType(name="c20.node", cores=20, sigma=0.35, pi=0.90, speed=1.35)
-KW = dict(min_jobs=6)
+KW = dict(min_jobs=4)
 
 
 def _exp_problem():
