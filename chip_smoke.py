@@ -1,26 +1,42 @@
-"""Drive the PyTorch/CUDA port of the planner on one CUDA card.
+"""Drive the PyTorch/CUDA port on one CUDA card: the planner and the
+LM serving path.
 
     python3 chip_smoke.py
 
 Phases, each printing one line or a few:
-  1. the device, and the card's name and power limit from nvidia-smi;
-  2. build the CUDA kernels from src/repro_torch/csrc (one nvcc call);
+  1. the device, the card's name and power limit from nvidia-smi, and the
+     matmul settings (TF32 and reduced-precision bf16 reductions off);
+  2. build the CUDA kernels from src/repro_torch/csrc (one nvcc process per
+     source, all at once);
   3. hold each kernel against its plain PyTorch version on the card, on
      identical inputs: qn_event in exponential and replay mode (padding,
      single-slot and short-budget lanes) at a reduced event budget, amva
-     at several sizes; both must be bit-identical;
-  4. the main path at real size: the paper's §4.3 scenario (TPC-DS Q1 on
-     250 GB, 10 users, 160 s deadline, m4.xlarge + CINECA, JMT-replayer
-     mode) through DSpace4Cloud.run() and .run_fast() at the defaults,
-     and the quickstart problem (exponential mode) through .run(); each
-     drive resets the kernels' launch counts first and reads them after;
-     a small replay problem is also planned on the card and on the CPU
-     (plain versions), and the decisions must agree;
-  5. each kernel's time at the main path's shapes (CUDA events, after a
-     warm-up), its bound, and its plain version's time.
-The second-to-last line is the kernels' JSON record, the last line
-{"ok": true, "device": {...}}.  Any failure exits nonzero before it.
-Needs one CUDA card, nvcc, and the repository's src/ beside this file.
+     at several sizes, both bit-identical; flash_attention at granite's
+     prefill (S = 1024, a ragged 777, and the two serving rounds' prompt
+     lengths), gemma3's local window, stablelm's head dim 80, a non-causal
+     case, and float32 cases at head dims 64 and 128, within the
+     reference's tolerances (2e-2 bf16, 2e-5 f32);
+  4. the planner's main path at real size: the paper's §4.3 scenario
+     (TPC-DS Q1 on 250 GB, 10 users, 160 s deadline, m4.xlarge + CINECA,
+     JMT-replayer mode) through DSpace4Cloud.run() and .run_fast() at the
+     defaults, and the quickstart problem (exponential mode) through
+     .run(); a small replay problem is also planned on the card and on the
+     CPU (plain versions), and the decisions must agree;
+  5. the serving path: granite-3-2b at full width and depth (40 layers)
+     with seeded random weights, BatchingEngine(max_batch=4, greedy)
+     serving 8 requests of 256-1024 prompt tokens and 32 generated tokens
+     in 2 rounds; every prefill layer must launch the flash kernel (80
+     launches); then the same engine at depth 2 on the card and on the CPU
+     with the same weights and prompts, whose logits must agree;
+  6. each kernel's time at the main path's shapes (CUDA events, after a
+     warm-up), its bound, its plain version's time and, for
+     flash_attention, the time of torch's scaled_dot_product_attention on
+     the same tensors (a yardstick only: the port never calls it).
+Each drive of a main path sets the kernels' launch counts to 0 just before
+it and reads them just after.  The second-to-last line is the kernels'
+JSON record, the last line {"ok": true, "device": {...}}.  Any failure
+exits nonzero before it.  Needs one CUDA card, nvcc, and the repository's
+src/ beside this file.
 """
 from __future__ import annotations
 
@@ -39,6 +55,16 @@ H100_FP32_OPS_PER_S = 67e12     # non-tensor float32, H100 SXM data sheet
 # one non-tensor instruction per lane per clock: the float32 rate above
 # counts an FMA as two operations; a compare or a max is one instruction
 H100_INSTR_PER_S = H100_FP32_OPS_PER_S / 2
+H100_BF16_OPS_PER_S = 989e12    # dense tensor cores, H100 SXM data sheet
+# the reference's own tolerances (tests/test_kernels.py).  The kernel and
+# its plain version both compute in float32, so the bf16 cases differ
+# only by the rounding of the output; the float32 cases at 2e-5 are the
+# ones that would see a key tile dropped from a row's band
+FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# card vs CPU logits at depth 2, full width: bf16 activations, and cuBLAS
+# and the CPU's GEMMs sum in other orders; measured 7.8e-3 (one bf16 ulp
+# at the logits' magnitude) on an H100, the tolerance is four times that
+CARD_CPU_TOL = 0.03125
 
 # Decisions of the JAX reference (src/repro) for the same calls, printed by
 #   PYTHONPATH=src JAX_PLATFORMS=cpu python -m benchmarks.port_reference_decisions
@@ -169,6 +195,309 @@ def decisions(report) -> dict:
             for name, s in report.solutions.items()}
 
 
+# ----------------------------------------------------------- LM serving
+# flash_attention checks: (name, B, S, H, KV, Dh, dtype, causal, window)
+FA_CHECKS = [
+    ("granite prefill", 4, 1024, 32, 8, 64, torch.bfloat16, True, 0),
+    ("granite prefill, ragged S", 4, 777, 32, 8, 64, torch.bfloat16, True,
+     0),
+    ("gemma3 local", 1, 2048, 32, 16, 128, torch.bfloat16, True, 1024),
+    ("stablelm", 2, 512, 32, 32, 80, torch.bfloat16, True, 0),
+    ("non-causal", 2, 300, 8, 2, 64, torch.bfloat16, False, 0),
+    ("float32", 2, 513, 8, 4, 128, torch.float32, True, 128),
+    ("granite prefill, float32", 4, 777, 32, 8, 64, torch.float32, True, 0),
+]
+
+
+def serve_prompts(vocab_size: int):
+    """serve_full's 8 requests: lengths in [256, 1024] and tokens, from
+    numpy seed 0."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(256, 1025, size=8)
+    return lens, [rng.integers(1, vocab_size, size=int(n)).tolist()
+                  for n in lens]
+
+
+def fa_inputs(dev, B, S, H, KV, Dh, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn((B, S, n, Dh), generator=g, device=dev
+                             ).to(dtype) for n in (H, KV, KV))
+
+
+def check_flash(dev, fa_ops, fa_ref) -> float:
+    """Kernel against plain at FA_CHECKS and at the prefill shapes of
+    serve_full's two rounds; the largest abs error."""
+    from repro_torch.configs.registry import get_config
+
+    lens, _ = serve_prompts(get_config("granite-3-2b").vocab_size)
+    rounds = [(f"granite serving round {r}", 4, int(lens[4 * r:4 * r + 4]
+               .max()), 32, 8, 64, torch.bfloat16, True, 0) for r in (0, 1)]
+    worst = 0.0
+    for i, (name, B, S, H, KV, Dh, dtype, causal, window) in \
+            enumerate(FA_CHECKS + rounds):
+        q, k, v = fa_inputs(dev, B, S, H, KV, Dh, dtype, i)
+        out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        want = fa_ref.flash_attention(q, k, v, causal=causal, window=window)
+        err = float((out.float() - want.float()).abs().max())
+        tol = FA_TOL[dtype]
+        ok = out.dtype == dtype and bool(torch.isfinite(out).all()) and \
+            torch.allclose(out.float(), want.float(), atol=tol, rtol=tol)
+        worst = max(worst, err)
+        print(f"[check] flash_attention {name}: B={B} S={S} H={H} KV={KV} "
+              f"Dh={Dh} {str(dtype)[6:]} causal={causal} window={window}: "
+              f"max_abs_err={err:.3e} (tol {tol:g} abs + rel) ok={ok}",
+              flush=True)
+        if not ok:
+            fail(f"flash_attention differs from its plain version ({name})")
+    return worst
+
+
+def left_pad(prompts):
+    S = max(len(p) for p in prompts)
+    toks = np.zeros((len(prompts), S), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, S - len(p):] = p
+    return torch.from_numpy(toks)
+
+
+def to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def reset_launches(*wrappers):
+    for w in wrappers:
+        w.launches = 0
+
+
+def serve_full(dev, wrappers):
+    """granite-3-2b at full width and depth through BatchingEngine on the
+    card: 8 requests, 2 rounds.  Returns the flash launches of the drive."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.sharding import init_params, param_count
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import api
+    from repro_torch.serve import step
+    from repro_torch.serve.engine import BatchingEngine
+
+    cfg = get_config("granite-3-2b")
+    specs = api.param_specs(cfg)
+    t0 = time.perf_counter()
+    params = init_params(specs, torch.Generator(device=dev).manual_seed(0))
+    eng = BatchingEngine(cfg, params, max_batch=4, temperature=0.0)
+    del params                        # the engine keeps its bf16 copy
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    lens, prompts = serve_prompts(cfg.vocab_size)
+    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} "
+          f"(padded {cfg.padded_vocab}); {param_count(specs)} parameters, "
+          f"f32 init + bf16 working copy in {init_s:.2f} s, peak "
+          f"{init_peak / 1e9:.3f} GB; prompt lengths {lens.tolist()}, "
+          f"gen_len 32, max_batch 4", flush=True)
+    for p in prompts:
+        eng.submit(p, gen_len=32)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(*wrappers)
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_fa = fa_ops.flash_attention.launches
+    others = {w.__name__: w.launches for w in wrappers
+              if w is not fa_ops.flash_attention}
+    peak = torch.cuda.max_memory_allocated()
+    for r in done:
+        print(f"[serve] request {r.rid}: prompt {len(r.tokens)} tokens, "
+              f"latency {r.latency_s * 1e3:.1f} ms, output "
+              f"{r.output[:8]}...", flush=True)
+    for i, st in enumerate(eng.round_stats):
+        print(f"[serve] round {i}: batch {st['batch']}, prompt_len "
+              f"{st['prompt_len']}, prefill {st['prefill_s'] * 1e3:.2f} ms, "
+              f"decode {st['decode_s_per_step'] * 1e3:.3f} ms/step over "
+              f"{st['decode_steps']} steps", flush=True)
+    print(f"[serve] summarize: {json.dumps(BatchingEngine.summarize(done))}"
+          f"; wall {wall:.3f} s; max_memory_allocated {peak} B "
+          f"({peak / 1e9:.3f} GB); flash_attention launches {n_fa} "
+          f"(expected {2 * cfg.n_layers}); other kernels {others}",
+          flush=True)
+    if n_fa != 2 * cfg.n_layers:
+        fail(f"serving launched the flash kernel {n_fa} times, not "
+             f"{2 * cfg.n_layers} (one per prefill layer per round)")
+    if any(others.values()):
+        fail(f"serving launched planner kernels: {others}")
+    if len(done) != 8 or any(
+            len(r.output) != 32 or not all(0 <= t < cfg.vocab_size
+                                           for t in r.output)
+            for r in done):
+        fail("serving returned malformed outputs")
+    # round 0's first-step logits: finite, and their argmax is the first
+    # token the engine chose for each request
+    toks = left_pad(prompts[:4]).to(dev)
+    logits, _ = step.make_prefill_step(cfg, cache_len=toks.shape[1] + 32)(
+        eng.params, {"tokens": toks})
+    first = [r.output[0] for r in done[:4]]
+    if tuple(logits.shape) != (4, 1, cfg.padded_vocab) or \
+            not bool(torch.isfinite(logits).all()) or \
+            logits[:, 0].argmax(-1).tolist() != first:
+        fail("round 0's prefill logits are not finite or disagree with "
+             "the engine's first tokens")
+    return n_fa, eng, prompts
+
+
+def serve_card_vs_cpu(dev):
+    """The same engine at full width, depth 2, on the card and on the CPU
+    with the same weights and prompts; logits compared along the CPU's
+    greedy tokens."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.sharding import init_params
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import api
+    from repro_torch.serve import step
+    from repro_torch.serve.engine import BatchingEngine
+
+    cfg = get_config("granite-3-2b").replace(n_layers=2)
+    params = init_params(api.param_specs(cfg),
+                         torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
+               for n in (256, 201)]
+    gen_len = 8
+    devices = (dev, torch.device("cpu"))
+    outs, secs, steps = [], [], []
+    for d in devices:
+        eng = BatchingEngine(cfg, to_device(params, d), max_batch=2)
+        for p in prompts:
+            eng.submit(p, gen_len=gen_len)
+        before = fa_ops.flash_attention.launches
+        t0 = time.perf_counter()
+        outs.append([r.output for r in eng.run()])
+        secs.append(time.perf_counter() - t0)
+        n_fa = fa_ops.flash_attention.launches - before
+        if n_fa != (cfg.n_layers if d.type == "cuda" else 0):
+            fail(f"depth-2 engine on {d}: {n_fa} flash launches")
+    card, cpu = outs
+    # teacher-forced along the CPU's tokens: the logits of every step
+    for d in devices:
+        w = step.working_params(cfg, to_device(params, d))
+        toks = left_pad(prompts).to(d)
+        logits, caches = step.make_prefill_step(
+            cfg, cache_len=toks.shape[1] + gen_len)(w, {"tokens": toks})
+        got = [logits[:, 0].float().cpu()]
+        decode = step.make_decode_step(cfg)
+        for t in range(1, gen_len):
+            tok = torch.tensor([[o[t - 1]] for o in cpu], device=d)
+            logits, caches = decode(w, tok, caches, toks.shape[1] + t - 1)
+            got.append(logits[:, 0].float().cpu())
+        steps.append(got)
+    diffs = [float((a - b).abs().max()) for a, b in zip(*steps)]
+    print(f"[serve] card vs cpu, {cfg.name} depth {cfg.n_layers}, prompts "
+          f"{[len(p) for p in prompts]}, {gen_len} tokens: engine "
+          f"{secs[0]:.2f} s on the card, {secs[1]:.2f} s on the cpu; "
+          f"first-step logits max abs diff {diffs[0]:.4e}, over all "
+          f"{gen_len} steps {max(diffs):.4e} (tol {CARD_CPU_TOL}); greedy "
+          f"tokens equal: {card == cpu}", flush=True)
+    if max(diffs) > CARD_CPU_TOL:
+        fail("card and cpu logits differ beyond the tolerance")
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        at = next((t for t, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if at is None:
+            continue
+        lg = steps[1][at][i]
+        margin = float(lg[b[at]] - lg[a[at]])
+        print(f"[serve] request {i} diverges at token {at}: cpu {b[at]}, "
+              f"card {a[at]}, cpu margin {margin:.4e}", flush=True)
+        if margin > CARD_CPU_TOL:
+            fail("card and cpu greedy tokens differ beyond a near tie")
+    return max(diffs)
+
+
+def profile_serving(dev, eng, prompts):
+    """Device busy share and top kernels of one prefill (round 0's
+    prompts) and of 8 decode steps after it, torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import step
+
+    cfg = eng.cfg
+    toks = left_pad(prompts[:4]).to(dev)
+    prefill = step.make_prefill_step(cfg, cache_len=toks.shape[1] + 32)
+    decode = step.make_decode_step(cfg)
+    logits, caches = prefill(eng.params, {"tokens": toks})
+    torch.cuda.synchronize()
+
+    def decode_8():
+        nonlocal logits, caches
+        token = step.greedy_sample(logits[:, 0])[:, None]
+        for t in range(8):
+            logits, caches = decode(eng.params, token, caches,
+                                    toks.shape[1] + t)
+            token = step.greedy_sample(logits[:, 0])[:, None]
+            token.tolist()
+
+    phases = [("prefill", lambda: prefill(eng.params, {"tokens": toks})),
+              ("decode x8", decode_8)]
+    for name, fn in phases:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_kernel = collections.Counter()
+        n_kernels = 0
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                by_kernel[ev.name] += ev.time_range.elapsed_us() / 1e3
+                n_kernels += 1
+        busy = sum(by_kernel.values())
+        top = ", ".join(f"{k[:48]}={v:.3f}"
+                        for k, v in by_kernel.most_common(6))
+        print(f"[profile] serve {name} (B=4, S={toks.shape[1]}): wall "
+              f"{wall_ms:.2f} ms, device busy {busy:.2f} ms "
+              f"({100 * busy / wall_ms:.1f}%), {n_kernels} kernels; "
+              f"top ms: {top}" if busy > 0 else
+              f"[profile] serve {name}: wall {wall_ms:.2f} ms, device time "
+              f"not measured (no device activity recorded)", flush=True)
+
+
+def time_flash(dev, fa_ops, fa_ref):
+    """The flash kernel at granite's prefill shape: kernel, plain version,
+    torch's SDPA (yardstick), and the bound."""
+    import torch.nn.functional as F
+
+    B, S, H, KV, Dh = 4, 1024, 32, 8, 64
+    q, k, v = fa_inputs(dev, B, S, H, KV, Dh, torch.bfloat16, 99)
+    out = fa_ops.flash_attention(q, k, v)
+    sdpa = lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, enable_gqa=True)
+    lib_err = float((sdpa().transpose(1, 2).float() - out.float())
+                    .abs().max())
+    ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v), 20)
+    plain_ms = cuda_ms(lambda: fa_ref.flash_attention(q, k, v), 5)
+    lib_ms = cuda_ms(sdpa, 20)
+    # bytes: q, k, v read once, o written once; operations: the live
+    # (causal) query-key pairs, 2 flops each for q.k and for p.v per Dh
+    nbytes = 2 * (2 * B * S * H * Dh + 2 * B * S * KV * Dh)
+    flops = 4 * B * H * Dh * (S * (S + 1) // 2)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_OPS_PER_S
+    bound = 1e3 * max(t_bytes, t_ops)
+    print(f"[time] flash_attention B={B} S={S} H={H} KV={KV} Dh={Dh} bf16 "
+          f"causal: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), "
+          f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (max abs diff to "
+          f"the kernel {lib_err:.3e}), bound {bound:.5f} ms ({nbytes} bytes,"
+          f" {flops} flops)", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a "
@@ -182,6 +511,8 @@ def main() -> None:
     from repro_torch.kernels import build
     from repro_torch.kernels.amva import ops as amva_ops
     from repro_torch.kernels.amva import ref as amva_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.qn_event import ops as qn_ops
     from repro_torch.kernels.qn_event import ref as qn_ref
     from repro_torch.obs import trace
@@ -193,8 +524,14 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
-          f"{kind} x{torch.cuda.device_count()}", flush=True)
+          f"{kind} x{torch.cuda.device_count()}; matmul allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32} "
+          f"allow_bf16_reduced_precision_reduction="
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}",
+          flush=True)
     print(smi, flush=True)
 
     # ---------------------------------------------------------------- build
@@ -258,6 +595,9 @@ def main() -> None:
             fail(f"amva differs from its plain version at N={n}")
     print(f"[check] amva N=1,7,97,128,1000,4097: bit-identical=True",
           flush=True)
+    fa_err = check_flash(dev, fa_ops, fa_ref)
+    wrappers = (qn_ops.qn_event, amva_ops.ps_fixed_point,
+                fa_ops.flash_attention)
 
     # ------------------------------------------------------------ main path
     DSpace4Cloud = optimizer.DSpace4Cloud
@@ -269,12 +609,11 @@ def main() -> None:
               ("quickstart.run", lambda: DSpace4Cloud(
                    quickstart_problem(problem), min_jobs=20,
                    replications=1).run())]
-    launches = {"qn_event": 0, "amva": 0}
+    launches = {"qn_event": 0, "amva": 0, "flash_attention": 0}
     mismatches = []
     shape_count = collections.Counter()
     for name, drive in drives:
-        qn_ops.qn_event.launches = 0
-        amva_ops.ps_fixed_point.launches = 0
+        reset_launches(*wrappers)
         qn_sim.reset_sim_stats()
         t0 = time.perf_counter()
         with trace.tracing() as tracer:
@@ -315,6 +654,8 @@ def main() -> None:
                  f"{rep.qn_dispatches}")
         if name.endswith("run_fast") and n_amva <= 0:
             fail(f"{name}: the amva kernel was not launched")
+        if fa_ops.flash_attention.launches:
+            fail(f"{name}: the planner launched the flash kernel")
         for cls, sol in got.items():
             if not (np.isfinite(sol["predicted_ms"]) and sol["nu"] >= 1
                     and sol["reserved"] + sol["spot"] == sol["nu"]):
@@ -356,6 +697,13 @@ def main() -> None:
     print(f"[main] small replay problem, card vs cpu: decisions equal; "
           f"predicted_ms card={[v['predicted_ms'] for v in on_card.values()]}"
           f" cpu={[v['predicted_ms'] for v in on_cpu.values()]}", flush=True)
+
+    # --------------------------------------------------------- LM serving
+    launches["flash_attention"], eng, prompts = serve_full(dev, wrappers)
+    profile_serving(dev, eng, prompts)
+    del eng
+    torch.cuda.empty_cache()
+    card_cpu_diff = serve_card_vs_cpu(dev)
 
     # ---------------------------------------------------------------- times
     # qn_event at every dispatch shape of the Q1 run() above: lanes of
@@ -452,6 +800,8 @@ def main() -> None:
     print(f"[time] amva N={n_am}: {am_ms:.4f} ms/launch, plain "
           f"{am_plain_ms:.3f} ms, bound {am_bound:.6f} ms", flush=True)
 
+    fa_time = time_flash(dev, fa_ops, fa_ref)
+
     record = {"kernels": [
         {"name": "qn_event", "route": "cuda",
          "source": "src/repro_torch/csrc/qn_event.cu",
@@ -475,6 +825,15 @@ def main() -> None:
                       > am_bytes / H100_BYTES_PER_S else "bytes"),
          "library_ms": None,
          "library_note": "no single PyTorch call iterates the fixed point"},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:87",
+         "launches": launches["flash_attention"], "max_abs_err": fa_err,
+         **fa_time,
+         "shape": "B=4 S=1024 H=32 KV=8 Dh=64 bf16 causal",
+         "library_note": "torch.nn.functional.scaled_dot_product_attention"
+                         "(is_causal=True, enable_gqa=True)",
+         "card_vs_cpu_logits_max_abs_diff": card_cpu_diff},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

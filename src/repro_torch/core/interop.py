@@ -8,7 +8,9 @@ is imported).
     as float32 numpy arrays, the form both packages digest;
   * ``cache_from_reference`` — a reference evaluation cache, keyed
     ``(profile_hash, vm_name, nu, seed)``: the port computes the same
-    ``profile_hash``, so adopted entries are hits for the same points.
+    ``profile_hash``, so adopted entries are hits for the same points;
+  * ``params_from_reference`` — a reference model parameter tree (nested
+    dicts of arrays, stacked group axes and all) as the port's tensors.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import math
 from typing import Dict, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.problem import Problem
 
@@ -61,3 +64,23 @@ def cache_from_reference(cache: Dict) -> Dict[tuple, float]:
             raise ValueError(f"cache value of {key!r} is not a time: {val!r}")
         out[(key[0], key[1], int(key[2]), int(key[3]))] = t
     return out
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":          # ml_dtypes: carry the bits
+        t = torch.from_numpy(a.view(np.uint16).astype(np.int16))
+        return t.view(torch.bfloat16).to(device)
+    if a.dtype not in (np.float32, np.int32):
+        raise ValueError(f"parameter dtype {a.dtype} is not float32, "
+                         "bfloat16 or int32")
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def params_from_reference(tree, device="cpu"):
+    """A reference parameter tree (nested dicts whose leaves are arrays, as
+    ``numpy.asarray`` gives them) as the same tree of torch tensors on
+    ``device``, bit for bit; the stacked group axes stay."""
+    if isinstance(tree, dict):
+        return {k: params_from_reference(v, device) for k, v in tree.items()}
+    return _tensor(tree, device)

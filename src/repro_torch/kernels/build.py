@@ -1,10 +1,13 @@
 """Build and bind the port's CUDA kernels.
 
-Every ``src/repro_torch/csrc/*.cu`` file is compiled by one ``nvcc`` call
-into a shared library with a plain C interface, which ``ctypes`` loads:
+Every ``src/repro_torch/csrc/*.cu`` file is compiled by its own ``nvcc``
+process, all started together, and the objects are linked into one shared
+library with a plain C interface, which ``ctypes`` loads:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
-         -shared -Xcompiler -fPIC -o build/repro_torch/libqn_<hash>.so ...
+         -Xcompiler -fPIC -c -o <source>.o <source>.cu      (each source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o build/repro_torch/libqn_<hash>.so *.o
 
 ``--fmad=false`` keeps the compiler from contracting any multiply-add:
 the kernels write ``__fmaf_rn`` exactly where the reference's XLA
@@ -32,15 +35,19 @@ from repro_torch.obs import compile as _obs_compile
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
-FLAGS = (ARCH, "-std=c++17", "-O3", "--fmad=false", "-shared",
-         "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+FLAGS = (ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
+         "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures: (name, argtypes); every entry point returns an int
 # (the cudaError_t of its launch)
 SIGNATURES = {
     "amva_ps_launch": [_P, _P, _P, _P, _P, _I, _I, _P],
     "qn_event_launch": [_P] * 11 + [_P, _P, _P, _P] + [_I] * 6 + [_P],
+    # q, k, v, o; B, S, H, KV, Dh; (b, s, head) strides of q, k, v, o;
+    # causal, window, dtype; stream
+    "flash_attention_launch": [_P] * 4 + [_I] * 5 + [_L] * 12
+                              + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()
@@ -67,20 +74,38 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _run_all(cmds):
+    """Run the commands at once; their joined output, or raise."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(outs)
+    for p in procs:
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{log}")
+    return log
+
+
 def _compile(out: Path) -> None:
     global build_log
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *FLAGS, "-o", str(tmp), *map(str, sources())]
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [out.with_name(f"{tag}.{src.stem}.o") for src in sources()]
+    tmp = out.with_name(f"{tag}.so.tmp")
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    ms = (time.perf_counter() - t0) * 1e3
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    try:
+        build_log = _run_all([[nvcc, *FLAGS, "-c", "-o", str(obj), str(src)]
+                              for src, obj in zip(sources(), objs)])
+        build_log += _run_all([[nvcc, ARCH, "-shared", "-o", str(tmp),
+                                *map(str, objs)]])
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, out)
-    _obs_compile.record_build(ms)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    _obs_compile.record_build((time.perf_counter() - t0) * 1e3)
 
 
 def library() -> ctypes.CDLL:
@@ -107,3 +132,19 @@ def check(rc: int, kernel: str) -> None:
     """Raise when a C entry point reports a CUDA error."""
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
+
+
+if __name__ == "__main__":
+    # Build time of one nvcc over every source against one nvcc per source
+    # in parallel plus a link (what library() runs), alternated twice:
+    #   PYTHONPATH=src python -m repro_torch.kernels.build
+    out = BUILD_DIR / "timing"
+    out.mkdir(parents=True, exist_ok=True)
+    one = [_nvcc(), *FLAGS, "-shared", "-o", str(out / "one.so"),
+           *map(str, sources())]
+    for way, build in 2 * [("one nvcc", lambda: _run_all([one])),
+                           ("parallel", lambda: _compile(out / "par.so"))]:
+        t0 = time.perf_counter()
+        build()
+        print(f"[build] {way}: {time.perf_counter() - t0:.2f} s", flush=True)
+    shutil.rmtree(out)

@@ -1,0 +1,48 @@
+"""Serving launcher: ``python -m repro_torch.launch.serve --arch <id>``.
+Random-inits a reduced config from a seeded generator on the device,
+serves a synthetic request stream through the batching engine and prints
+latency/throughput.  ``--device`` defaults to the CUDA card and fails
+without one; ``--device cpu`` runs the plain PyTorch versions of the
+kernels."""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.registry import ARCH_IDS, get_smoke_config
+from repro_torch.distributed.sharding import init_params
+from repro_torch.models import api
+from repro_torch.serve.engine import BatchingEngine
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="granite-3-2b", choices=list(ARCH_IDS))
+    ap.add_argument("--requests", type=int, default=12)
+    ap.add_argument("--prompt", type=int, default=24)
+    ap.add_argument("--gen", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the current CUDA card)")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(api.param_specs(cfg), gen)
+    eng = BatchingEngine(cfg, params, max_batch=args.batch)
+    rng = np.random.default_rng(0)
+    for _ in range(args.requests):
+        prompt = rng.integers(1, cfg.vocab_size, size=args.prompt).tolist()
+        eng.submit(prompt, gen_len=args.gen)
+    done = eng.run()
+    summary = BatchingEngine.summarize(done)
+    print(summary)
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,251 @@
+"""Transformer building blocks on torch tensors: norms, rope, attention
+(full and one-token decode over a ring cache) and the MLP.
+
+Parameters are plain dicts of tensors described by ``ParamSpec`` trees
+(``distributed.sharding``), with the reference's names and layouts.  Every
+matmul casts its weight to the activation dtype, as the reference's
+``p["wq"].astype(h.dtype)`` does; a bf16 working copy made once
+(``serve.step.working_params``) gives the same bits, and the cast is then a
+no-op.
+
+Full self-attention goes through ``kernels.flash_attention.ops``: the
+hand-written kernel for a CUDA tensor, its plain version for a CPU tensor
+(the reference's ``attn_impl="pallas"``).  ``attn_impl="exact"`` is
+``attention_exact``, the reference's einsum oracle.  The reference's
+chunked route (``attention_chunked``, a training-memory device) and its
+two-buffer decode cache come with the training slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import DTYPES, ParamSpec
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import NEG_INF
+
+Params = Dict[str, Any]
+
+
+# --------------------------------------------------------------------------
+# Norms / activations / rope
+# --------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps) * (1.0 + w.float())
+    return out.to(dt)
+
+
+def activation_fn(name: str):
+    if name == "silu":
+        return F.silu
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "relu2":
+        return lambda x: torch.square(F.relu(x))
+    raise ValueError(f"unknown activation {name}")
+
+
+_FREQS: Dict[tuple, torch.Tensor] = {}
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """``1 / theta ** (i / half)``, computed once per (head_dim, theta,
+    device) on the CPU and copied over: every device gets the same bits,
+    and a decode step makes no host-to-device copy (a synchronizing one
+    per layer would stall the host's run-ahead)."""
+    key = (head_dim, float(theta), str(torch.device(device or "cpu")))
+    if key not in _FREQS:
+        half = head_dim // 2
+        exps = torch.arange(half, dtype=torch.float32) / half
+        freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32),
+                                exps)
+        _FREQS[key] = freqs.to(device)
+    return _FREQS[key]
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, Dh); positions: broadcastable to (..., S)."""
+    dt = x.dtype
+    half = x.shape[-1] // 2
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    ang = positions[..., :, None, None].float() * freqs        # (...,S,1,half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(dt)
+
+
+# --------------------------------------------------------------------------
+# Attention — exact / decode
+# --------------------------------------------------------------------------
+
+def _gqa_expand(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B,S,KV,Dh) -> (B,S,H,Dh) by repeating each kv head."""
+    n_kv = k.shape[-2]
+    if n_kv == n_heads:
+        return k
+    return torch.repeat_interleave(k, n_heads // n_kv, dim=-2)
+
+
+def attention_exact(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Reference attention. q:(B,Sq,H,Dh) k,v:(B,Sk,KV,Dh).  As in the
+    reference, the logits and probabilities round to q's dtype."""
+    n_heads = q.shape[-2]
+    k = _gqa_expand(k, n_heads)
+    v = _gqa_expand(v, n_heads)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    qpos = torch.arange(q.shape[1], device=q.device)
+    kpos = torch.arange(k.shape[1], device=q.device)
+    mask = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool,
+                      device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    logits = logits.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_positions: torch.Tensor,
+                     cur_pos: int, *, window: int = 0) -> torch.Tensor:
+    """One-token attention over a (ring-buffered) cache.
+
+    q: (B,1,H,Dh); caches: (B,Sc,KV,Dh); cache_positions: (Sc,) absolute
+    positions per slot (-1 = unwritten); cur_pos: the current position.
+    GQA via grouped einsums (no repeat-expansion of the cache).
+    """
+    B, _, H, Dh = q.shape
+    KV = k_cache.shape[-2]
+    qg = q[:, 0].reshape(B, KV, H // KV, Dh)
+    scale = 1.0 / math.sqrt(Dh)
+    logits = torch.einsum("bkgd,bskd->bkgs", qg, k_cache).float() * scale
+    valid = (cache_positions >= 0) & (cache_positions <= cur_pos)
+    if window:
+        valid &= cache_positions > cur_pos - window
+    logits = logits.masked_fill(~valid, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgs,bskd->bkgd", probs, v_cache)
+    return out.reshape(B, 1, H, Dh)
+
+
+# --------------------------------------------------------------------------
+# Attention block (params + apply)
+# --------------------------------------------------------------------------
+
+def attn_specs(cfg: ModelConfig, prefix: Tuple[int, ...] = ()) -> Params:
+    D, Q, KV = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    pd = cfg.param_dtype
+    lead = prefix
+    ax = ("layers",) * len(prefix)
+    return {
+        "ln": ParamSpec(lead + (D,), "float32", ax + ("embed",), init="zeros"),
+        "wq": ParamSpec(lead + (D, Q), pd, ax + ("embed", "heads_merged")),
+        "wk": ParamSpec(lead + (D, KV), pd, ax + ("embed", "heads_merged")),
+        "wv": ParamSpec(lead + (D, KV), pd, ax + ("embed", "heads_merged")),
+        "wo": ParamSpec(lead + (Q, D), pd, ax + ("heads_merged", "embed")),
+    }
+
+
+def make_cache(cfg: ModelConfig, batch: int, length: int) -> Params:
+    """Decode KV cache: one bf16 ring of ``length`` slots (pos -1 =
+    unwritten), on torch's default device."""
+    shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=torch.bfloat16),
+            "v": torch.zeros(shape, dtype=torch.bfloat16),
+            "pos": torch.full((length,), -1, dtype=torch.int32)}
+
+
+def attn_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
+               positions: torch.Tensor, window: int = 0, causal: bool = True,
+               cache: Optional[Params] = None, cur_pos: Optional[int] = None,
+               attn_impl: str = "auto", return_kv: bool = False):
+    """Self-attention block with pre-norm and residual.
+
+    Modes:
+      * full (train / prefill): ``cache is None``; optionally
+        ``return_kv`` to hand back roped K/V for cache construction.
+      * decode: ``cache`` given -- one-token query written into the ring
+        at slot ``cur_pos % length``.  The port updates the cache tensors
+        in place (the reference returns new arrays): no copy of the cache
+        per token.  Returns the same dict.
+    """
+    B = x.shape[0]
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    q = (h @ p["wq"].to(h.dtype)).reshape(B, -1, cfg.n_heads, cfg.head_dim)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = (h @ p["wk"].to(h.dtype)).reshape(B, -1, cfg.n_kv_heads,
+                                          cfg.head_dim)
+    v = (h @ p["wv"].to(h.dtype)).reshape(B, -1, cfg.n_kv_heads,
+                                          cfg.head_dim)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    if cache is None:                                # full self-attention
+        S = q.shape[1]
+        if attn_impl == "auto":
+            out = fa_ops.flash_attention(q, k, v, causal=causal,
+                                         window=window)
+        elif attn_impl == "exact":
+            out = attention_exact(q, k, v, causal=causal, window=window)
+        else:
+            raise ValueError(f"unknown attn_impl {attn_impl!r}")
+        out = out.reshape(B, S, cfg.q_dim) @ p["wo"].to(h.dtype)
+        return x + out, ((k, v) if return_kv else None)
+
+    # ---- decode: single token, single ring --------------------------------
+    assert cur_pos is not None
+    slot = int(cur_pos) % cache["k"].shape[1]
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    cache["pos"][slot] = int(cur_pos)
+    out = attention_decode(q, cache["k"].to(h.dtype), cache["v"].to(h.dtype),
+                           cache["pos"], int(cur_pos), window=window)
+    out = out.reshape(B, 1, cfg.q_dim) @ p["wo"].to(h.dtype)
+    return x + out, cache
+
+
+# --------------------------------------------------------------------------
+# MLP block
+# --------------------------------------------------------------------------
+
+def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None,
+              prefix: Tuple[int, ...] = ()) -> Params:
+    D = cfg.d_model
+    F_ = d_ff if d_ff is not None else cfg.d_ff
+    pd = cfg.param_dtype
+    lead, ax = prefix, ("layers",) * len(prefix)
+    wi_cols = 2 * F_ if cfg.gated_mlp else F_
+    return {
+        "ln": ParamSpec(lead + (D,), "float32", ax + ("embed",), init="zeros"),
+        "wi": ParamSpec(lead + (D, wi_cols), pd, ax + ("embed", "mlp")),
+        "wo": ParamSpec(lead + (F_, D), pd, ax + ("mlp", "embed")),
+    }
+
+
+def mlp_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    act = activation_fn(cfg.activation)
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    hi = h @ p["wi"].to(h.dtype)
+    if cfg.gated_mlp:
+        gate, up = torch.chunk(hi, 2, dim=-1)
+        hi = act(gate) * up
+    else:
+        hi = act(hi)
+    return x + hi @ p["wo"].to(h.dtype)
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return DTYPES[cfg.dtype]

@@ -1,0 +1,242 @@
+"""Decoder-LM assembly for the ``dense`` family (global-only and
+local:global attention), on torch tensors.
+
+Layers are organized in repeating groups (``cfg.layer_kinds()``), with the
+reference's parameter tree: ``groups`` holds each group position's
+parameters stacked along a leading axis of ``n_groups`` (when there is more
+than one group), ``tail`` the layers that do not fill a group.  The
+reference's ``lax.scan`` over the stacked groups is a Python loop over the
+leading axis here; remat has no forward effect and is dropped.  MoE,
+Mamba2/hybrid and shared-attention models raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import ParamSpec
+from repro_torch.models import layers as L
+
+Params = Dict[str, Any]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for the model families later slices of the port bring."""
+    if cfg.is_encoder_decoder or cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder models and the patches/frames "
+            "front ends are not ported yet; they come after the Mamba2 "
+            "serving slice (ROADMAP Queue 1 item 1)")
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers are not ported yet; they come after "
+            "the Mamba2 serving slice (ROADMAP Queue 1 item 1)")
+    if cfg.family in ("ssm", "hybrid") or cfg.hybrid_mamba_per_attn \
+            or cfg.shared_attn:
+        raise NotImplementedError(
+            f"{cfg.name}: Mamba2 / hybrid / shared-attention models come "
+            "with the Mamba2 serving slice and the ssd_fwd kernel "
+            "(ROADMAP Queue 1 item 1)")
+
+
+def _scale_embeddings(cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    # the reference multiplies by a Python float, which JAX rounds to the
+    # activation dtype first (bf16: sqrt(2048) -> 45.25)
+    scale = torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype).item()
+    return h * scale
+
+
+def _embed(cfg: ModelConfig, emb: torch.Tensor,
+           tokens: torch.Tensor) -> torch.Tensor:
+    h = emb[tokens.long()].to(L.compute_dtype(cfg))
+    return _scale_embeddings(cfg, h) if cfg.tie_embeddings else h
+
+
+def _logits_from_hidden(cfg: ModelConfig, h: torch.Tensor,
+                        emb: torch.Tensor) -> torch.Tensor:
+    """Unembedding with vocab-pad masking."""
+    logits = torch.einsum("bsd,vd->bsv", h, emb.to(h.dtype))
+    if cfg.logits_softcap:
+        c = cfg.logits_softcap
+        logits = torch.tanh(logits / c) * c
+    if cfg.padded_vocab != cfg.vocab_size:
+        logits[..., cfg.vocab_size:] = -1e9
+    return logits
+
+
+# --------------------------------------------------------------------------
+# Param specs
+# --------------------------------------------------------------------------
+
+def _block_specs(cfg: ModelConfig, prefix) -> Params:
+    return {"attn": L.attn_specs(cfg, prefix),
+            "mlp": L.mlp_specs(cfg, prefix=prefix)}
+
+
+def param_specs(cfg: ModelConfig) -> Params:
+    check_supported(cfg)
+    D = cfg.d_model
+    kinds = cfg.layer_kinds()
+    ng = cfg.n_groups
+    specs: Params = {
+        "embed": ParamSpec((cfg.padded_vocab, D), cfg.param_dtype,
+                           ("vocab", "embed")),
+        "final_ln": ParamSpec((D,), "float32", ("embed",), init="zeros"),
+    }
+    stacked_prefix = (ng,) if ng > 1 else ()
+    specs["groups"] = {f"l{i}": _block_specs(cfg, stacked_prefix)
+                       for i in range(len(kinds))}
+    if cfg.n_tail_layers:
+        specs["tail"] = {f"l{i}": _block_specs(cfg, ())
+                         for i in range(cfg.n_tail_layers)}
+    return specs
+
+
+# --------------------------------------------------------------------------
+# Forward (prefill)
+# --------------------------------------------------------------------------
+
+def _layer_window(cfg: ModelConfig, kind: str) -> int:
+    return cfg.local_window if kind == "local" else 0
+
+
+def _index(tree, g: int):
+    """Group ``g`` of a stacked tree (views, no copy)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, g) for k, v in tree.items()}
+    return tree[g]
+
+
+def _groups(cfg: ModelConfig, tree):
+    """The per-group slices of a ``groups`` tree, in order."""
+    if cfg.n_groups > 1:
+        return [_index(tree, g) for g in range(cfg.n_groups)]
+    return [tree]
+
+
+def _kv_to_ring(cfg: ModelConfig, kind: str, kv, cache_len: int):
+    """Convert prefill K/V into the decode ring-buffer cache layout."""
+    k, v = kv
+    S = k.shape[1]
+    window = _layer_window(cfg, kind)
+    length = min(window, cache_len) if window else cache_len
+    pos = torch.arange(S, dtype=torch.int32, device=k.device)
+    if S >= length:
+        shift = (S - length) % length
+        k_r = torch.roll(k[:, S - length:], shift, dims=1)
+        v_r = torch.roll(v[:, S - length:], shift, dims=1)
+        p_r = torch.roll(pos[S - length:], shift, dims=0)
+    else:
+        padlen = length - S
+        k_r = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, padlen))
+        v_r = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, padlen))
+        p_r = torch.cat([pos, torch.full((padlen,), -1, dtype=torch.int32,
+                                         device=k.device)])
+    return {"k": k_r.to(torch.bfloat16), "v": v_r.to(torch.bfloat16),
+            "pos": p_r}
+
+
+def _stack(caches):
+    """List of per-group cache trees -> one tree stacked on a new axis 0."""
+    first = caches[0]
+    if isinstance(first, dict):
+        return {k: _stack([c[k] for c in caches]) for k in first}
+    return torch.stack(caches)
+
+
+def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
+            attn_impl: str = "auto", want_caches: bool = False,
+            cache_len: int = 0):
+    """Full forward.  Returns (logits, aux_loss, caches|None); the dense
+    family has no auxiliary loss (a zero).  ``want_caches`` additionally
+    returns decode caches of length ``cache_len`` (defaults to the
+    sequence length)."""
+    check_supported(cfg)
+    kinds = cfg.layer_kinds()
+    emb = params["embed"]
+    h = _embed(cfg, emb, tokens)
+    B, S, _ = h.shape
+    positions = torch.arange(S, device=h.device).expand(B, S)
+    cache_len = cache_len or S
+
+    def layer(h, kind, bp):
+        h, kv = L.attn_apply(cfg, bp["attn"], h, positions=positions,
+                             window=_layer_window(cfg, kind),
+                             attn_impl=attn_impl, return_kv=want_caches)
+        h = L.mlp_apply(cfg, bp["mlp"], h)
+        return h, (_kv_to_ring(cfg, kind, kv, cache_len)
+                   if want_caches else None)
+
+    group_caches = []
+    for gp in _groups(cfg, params["groups"]):
+        caches = {}
+        for i, kind in enumerate(kinds):
+            h, caches[f"l{i}"] = layer(h, kind, gp[f"l{i}"])
+        group_caches.append(caches)
+    tail_caches = {}
+    for i, kind in enumerate(kinds[: cfg.n_tail_layers]):
+        h, tail_caches[f"l{i}"] = layer(h, kind, params["tail"][f"l{i}"])
+
+    h = L.rms_norm(h, params["final_ln"], cfg.norm_eps)
+    logits = _logits_from_hidden(cfg, h, emb)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if not want_caches:
+        return logits, aux, None
+    groups = _stack(group_caches) if cfg.n_groups > 1 else group_caches[0]
+    return logits, aux, {"groups": groups, "tail": tail_caches}
+
+
+# --------------------------------------------------------------------------
+# Decode (one token, ring-buffer caches)
+# --------------------------------------------------------------------------
+
+def init_caches(cfg: ModelConfig, batch: int, cache_len: int) -> Params:
+    """Zero-initialized decode caches (pos = -1 -> masked), on torch's
+    default device."""
+    check_supported(cfg)
+    kinds = cfg.layer_kinds()
+
+    def one(kind: str) -> Params:
+        window = _layer_window(cfg, kind)
+        length = min(window, cache_len) if window else cache_len
+        return L.make_cache(cfg, batch, length)
+
+    groups = [{f"l{i}": one(kind) for i, kind in enumerate(kinds)}
+              for _ in range(cfg.n_groups)]
+    tail = {f"l{i}": one(kind)
+            for i, kind in enumerate(kinds[: cfg.n_tail_layers])}
+    return {"groups": _stack(groups) if cfg.n_groups > 1 else groups[0],
+            "tail": tail}
+
+
+def decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor,
+                caches: Params, cur_pos: int):
+    """One decode step.  token: (B,1) int; cur_pos: the position being
+    written.  Returns (logits (B,1,V), caches): the caches are updated in
+    place and returned."""
+    check_supported(cfg)
+    kinds = cfg.layer_kinds()
+    emb = params["embed"]
+    h = _embed(cfg, emb, token)
+    B = h.shape[0]
+    cur_pos = int(cur_pos)
+    positions = torch.full((B, 1), cur_pos, device=h.device)
+
+    def layer(h, kind, bp, cache):
+        h, _ = L.attn_apply(cfg, bp["attn"], h, positions=positions,
+                            window=_layer_window(cfg, kind), cache=cache,
+                            cur_pos=cur_pos)
+        return L.mlp_apply(cfg, bp["mlp"], h)
+
+    for gp, gc in zip(_groups(cfg, params["groups"]),
+                      _groups(cfg, caches["groups"])):
+        for i, kind in enumerate(kinds):
+            h = layer(h, kind, gp[f"l{i}"], gc[f"l{i}"])
+    for i, kind in enumerate(kinds[: cfg.n_tail_layers]):
+        h = layer(h, kind, params["tail"][f"l{i}"], caches["tail"][f"l{i}"])
+
+    h = L.rms_norm(h, params["final_ln"], cfg.norm_eps)
+    return _logits_from_hidden(cfg, h, emb), caches

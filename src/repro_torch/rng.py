@@ -15,6 +15,9 @@ What is bit-exact against ``jax.random``: ``key``, ``split``,
 ``exponential`` is ``-log1p(-uniform)``: torch's ``log1p`` is not XLA's,
 and the two differ by one ulp on a few percent of draws
 (``tests/test_torch_rng.py`` states the measured count).
+``categorical`` draws the same uniform bits as ``jax.random.categorical``;
+its Gumbel noise goes through torch's ``log``, so the two agree wherever
+the winning category is not a near tie.
 """
 from __future__ import annotations
 
@@ -126,3 +129,15 @@ def randint(k: torch.Tensor, shape: Sequence[int], minval: int,
     mult = ((mult * mult) & MASK32) % span
     off = ((higher % span) * mult + (lower % span)) & MASK32
     return int(minval) + off % span
+
+
+def categorical(k: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1)`` for one key: the
+    Gumbel-max trick, ``argmax(logits - log(-log(u)))`` over the last
+    axis, with ``u`` the uniform draws of ``logits``'s shape clamped to
+    [tiny, 1) as the reference does.  ``k`` may lie on another device
+    than ``logits``."""
+    tiny = torch.finfo(torch.float32).tiny
+    u = uniform(k.to(logits.device), logits.shape)
+    u = torch.clamp_min(u * (1.0 - tiny) + tiny, tiny)
+    return torch.argmax(-torch.log(-torch.log(u)) + logits.float(), dim=-1)

@@ -1,0 +1,58 @@
+"""Serving steps: prefill (builds caches) and decode (one token)."""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict
+
+import torch
+
+from repro_torch import rng
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import api
+from repro_torch.models.layers import compute_dtype
+
+Params = Dict[str, Any]
+
+
+NORMS = ("ln", "final_ln")      # norm scales: used in float32
+
+
+def working_params(cfg: ModelConfig, params: Params) -> Params:
+    """The parameters as the steps use them: every weight but the norm
+    scales cast once to the activation dtype.  The reference casts each
+    weight at every use (``w.astype(h.dtype)``); a cast made once gives
+    the same bits, and the model code's own casts then copy nothing."""
+    dt = compute_dtype(cfg)
+
+    def cast(tree):
+        return {k: v if k in NORMS else
+                (cast(v) if isinstance(v, dict) else v.to(dt))
+                for k, v in tree.items()}
+    return cast(params)
+
+
+def make_prefill_step(cfg: ModelConfig, *, cache_len: int = 0) -> Callable:
+    def prefill(params: Params, batch: Dict[str, torch.Tensor]):
+        logits, _, caches = api.forward_logits(
+            cfg, params, batch, want_caches=True, cache_len=cache_len)
+        return logits[:, -1:], caches
+    return prefill
+
+
+def make_decode_step(cfg: ModelConfig) -> Callable:
+    def decode(params: Params, token: torch.Tensor, caches: Params,
+               cur_pos: int):
+        return api.decode_step(cfg, params, token, caches, cur_pos)
+    return decode
+
+
+def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
+    """First index of the maximum over the last axis (ties go to the
+    smaller index, as ``jnp.argmax`` does)."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def sample_token(logits: torch.Tensor, key: torch.Tensor,
+                 temperature: float = 1.0) -> torch.Tensor:
+    if temperature == 0.0:
+        return greedy_sample(logits)
+    return rng.categorical(key, logits.float() / temperature).to(torch.int32)

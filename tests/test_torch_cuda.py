@@ -11,10 +11,17 @@ import torch
 from repro_torch.core.optimizer import DSpace4Cloud
 from repro_torch.core.problem import (ApplicationClass, JobProfile, Problem,
                                       VMType)
+from repro_torch.configs.registry import get_smoke_config
+from repro_torch.distributed.sharding import init_params
 from repro_torch.kernels.amva import ops as amva_ops
 from repro_torch.kernels.amva import ref as amva_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.qn_event import ops as qn_ops
 from repro_torch.kernels.qn_event import ref as qn_ref
+
+from repro_torch.models import api
+from repro_torch.serve import step
 
 pytestmark = pytest.mark.cuda
 
@@ -88,3 +95,79 @@ def test_planner_on_the_card_matches_the_plain_path(dev):
         assert (got.vm_type, got.nu, got.reserved, got.spot) == \
             (sol.vm_type, sol.nu, sol.reserved, sol.spot)
     assert card.qn_dispatches == cpu.qn_dispatches
+
+
+# B, S, H, KV, Dh, causal, window: every head dim of the repo's configs
+# (16 ... 192) and the largest the kernel takes, ragged S, GQA, windows
+FA_CARD_CASES = [
+    (2, 128, 4, 2, 16, True, 0), (1, 77, 4, 4, 32, True, 0),
+    (2, 200, 8, 2, 64, True, 0), (1, 300, 4, 4, 80, True, 64),
+    (1, 129, 6, 3, 96, False, 0), (1, 64, 2, 1, 112, True, 0),
+    (1, 257, 4, 2, 128, True, 100), (1, 95, 2, 2, 192, False, 17),
+    (1, 100, 2, 1, 256, True, 0), (3, 1, 4, 2, 64, True, 0),
+]
+
+
+@pytest.mark.parametrize("case", FA_CARD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(dev, case, dtype):
+    B, S, H, KV, Dh, causal, window = case
+    g = torch.Generator(device=dev).manual_seed(S * H + Dh)
+    q, k, v = (torch.randn((B, S, n, Dh), generator=g, device=dev
+                           ).to(dtype) for n in (H, KV, KV))
+    before = fa_ops.flash_attention.launches
+    out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before + 1
+    want = fa_ref.flash_attention(q, k, v, causal=causal, window=window)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2   # the reference's
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_kernel_reads_strided_inputs(dev):
+    """q, k and v as views into one fused projection (no copies)."""
+    B, S, H, KV, Dh = 2, 150, 8, 2, 64
+    g = torch.Generator(device=dev).manual_seed(0)
+    qkv = torch.randn((B, S, H + 2 * KV, Dh), generator=g, device=dev,
+                      dtype=torch.bfloat16)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    out = fa_ops.flash_attention(q, k, v)
+    want = fa_ref.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous())
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_flash_attention_kernel_raises_on_bad_input(dev):
+    q = torch.zeros((1, 8, 4, 12), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        fa_ops.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "gemma3-27b"])
+def test_serving_steps_on_the_card_match_the_cpu(dev, arch):
+    cfg = get_smoke_config(arch)
+    params = init_params(api.param_specs(cfg), torch.Generator().manual_seed(1))
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        1, cfg.vocab_size, (2, 37)))
+    token = torch.tensor([[5], [9]])
+    out = {}
+    for d in ("cpu", dev):
+        p = _to(step.working_params(cfg, params), d)
+        before = fa_ops.flash_attention.launches
+        logits, caches = step.make_prefill_step(cfg, cache_len=45)(
+            p, {"tokens": toks.to(d)})
+        launched = fa_ops.flash_attention.launches - before
+        assert launched == (cfg.n_layers if d == dev else 0)
+        dec, _ = step.make_decode_step(cfg)(p, token.to(d), caches, 37)
+        out[str(d)] = (logits.float().cpu(), dec.float().cpu())
+    for a, b in zip(out["cpu"], out[str(dev)]):
+        # bfloat16 activations; cuBLAS and the CPU sum in other orders
+        torch.testing.assert_close(b, a, atol=0.08, rtol=0)
+
+
+def _to(tree, d):
+    if isinstance(tree, dict):
+        return {k: _to(v, d) for k, v in tree.items()}
+    return tree.to(d)

@@ -27,6 +27,10 @@ def _port_modules():
 def test_importing_every_module_leaves_jax_and_repro_out():
     mods = list(_port_modules())
     assert len(mods) > 20
+    for m in ("repro_torch.configs.registry", "repro_torch.models.api",
+              "repro_torch.kernels.flash_attention.ops",
+              "repro_torch.serve.engine", "repro_torch.launch.serve"):
+        assert m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -88,6 +92,17 @@ def test_entry_points_without_a_device_raise_on_a_cpu_host():
     assert resolve_device("cpu") == torch.device("cpu")
     t = DSpace4Cloud(prob, device="cpu", min_jobs=4).run_fast()
     assert np.isfinite(t.solutions["c"].predicted_ms)
+
+
+def test_serve_launcher_without_a_device_raises_on_a_cpu_host():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card: the default device exists")
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--requests", "1"])
+    summary = serve.main(["--device", "cpu", "--requests", "3",
+                          "--prompt", "5", "--gen", "2", "--batch", "2"])
+    assert summary["n"] == 3 and summary["tokens_per_s"] > 0
 
 
 def test_chip_smoke_alone_or_without_a_card_fails(tmp_path):
