@@ -1,5 +1,5 @@
 """Drive the PyTorch/CUDA port on one CUDA card: the planner and the
-LM serving path.
+LM serving path (dense, Mamba2 and hybrid models).
 
     python3 chip_smoke.py
 
@@ -13,21 +13,32 @@ Phases, each printing one line or a few:
      single-slot and short-budget lanes) at a reduced event budget, amva
      at several sizes, both bit-identical; flash_attention at granite's
      prefill (S = 1024, a ragged 777, and the two serving rounds' prompt
-     lengths), gemma3's local window, stablelm's head dim 80, a non-causal
-     case, and float32 cases at head dims 64 and 128, within the
-     reference's tolerances (2e-2 bf16, 2e-5 f32);
+     lengths), gemma3's local window, stablelm's head dim 80, zamba2's
+     shared attention (H = KV = 32, head dim 112), a non-causal case, and
+     float32 cases at head dims 64 and 128, within the reference's
+     tolerances (2e-2 bf16, 2e-5 f32); ssd_scan at the reference's four
+     SSD cases in f32 and bf16, the mamba2 serving rounds' shapes (S = 896
+     and 512, 48 heads, N = 128) and zamba2's (112 heads, N = 64), a
+     sequence shorter than the chunk, strided inputs and mamba2's shape
+     in float32, within the reference's tolerances (5e-2 bf16, 1e-4 f32);
   4. the planner's main path at real size: the paper's §4.3 scenario
      (TPC-DS Q1 on 250 GB, 10 users, 160 s deadline, m4.xlarge + CINECA,
      JMT-replayer mode) through DSpace4Cloud.run() and .run_fast() at the
      defaults, and the quickstart problem (exponential mode) through
      .run(); a small replay problem is also planned on the card and on the
      CPU (plain versions), and the decisions must agree;
-  5. the serving path: granite-3-2b at full width and depth (40 layers)
-     with seeded random weights, BatchingEngine(max_batch=4, greedy)
-     serving 8 requests of 256-1024 prompt tokens and 32 generated tokens
-     in 2 rounds; every prefill layer must launch the flash kernel (80
-     launches); then the same engine at depth 2 on the card and on the CPU
-     with the same weights and prompts, whose logits must agree;
+  5. the serving path at full width and depth with seeded random weights,
+     BatchingEngine(max_batch=4, greedy) serving 8 requests of 32
+     generated tokens in 2 rounds: granite-3-2b (40 layers; prompts of
+     256-1024 tokens; 80 flash launches), mamba2-780m (48 Mamba2 layers;
+     prompts of 128 x 2..8 tokens, since a Mamba2 prefill length must be a
+     multiple of the SSD chunk; 96 ssd_scan launches and no other) and
+     zamba2-7b (81 layers, 27 x (2 Mamba2 + 1 shared attention); the same
+     prompts; 108 ssd_scan and 54 flash launches); each is profiled
+     (device busy share, launches per layer, the kernels' share of the
+     prefill's device time) and then compared with the CPU at depth 2
+     (granite, mamba2) or 3 (zamba2, one group) with the same weights and
+     prompts, whose logits must agree;
   6. each kernel's time at the main path's shapes (CUDA events, after a
      warm-up), its bound, its plain version's time and, for
      flash_attention, the time of torch's scaled_dot_product_attention on
@@ -61,10 +72,23 @@ H100_BF16_OPS_PER_S = 989e12    # dense tensor cores, H100 SXM data sheet
 # only by the rounding of the output; the float32 cases at 2e-5 are the
 # ones that would see a key tile dropped from a row's band
 FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-# card vs CPU logits at depth 2, full width: bf16 activations, and cuBLAS
-# and the CPU's GEMMs sum in other orders; measured 7.8e-3 (one bf16 ulp
-# at the logits' magnitude) on an H100, the tolerance is four times that
+# the reference's (tests/test_kernels.py), on y and on the final state
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# card vs CPU logits at depth 2 (3 for zamba2), full width: bf16
+# activations, and cuBLAS and the CPU's GEMMs sum in other orders; granite
+# measured 7.8e-3 (one bf16 ulp at the logits' magnitude) on an H100, the
+# tolerance is four times that (mamba2 measured 5.9e-3, zamba2 1.2e-2)
 CARD_CPU_TOL = 0.03125
+# (arch, launches each kernel must show over the 8-request drive, depth of
+# the card-vs-CPU comparison); a kernel not named must show none
+SERVE_CASES = [
+    ("granite-3-2b", {"flash_attention": 80}, 2),
+    ("mamba2-780m", {"ssd_scan": 96}, 2),
+    ("zamba2-7b", {"ssd_scan": 108, "flash_attention": 54}, 3),
+]
+# the device kernels' names, for their share of a profiled prefill
+DEVICE_KERNELS = {"flash_attention": "fa_fwd_kernel",
+                  "ssd_scan": "ssd_fwd_kernel"}
 
 # Decisions of the JAX reference (src/repro) for the same calls, printed by
 #   PYTHONPATH=src JAX_PLATFORMS=cpu python -m benchmarks.port_reference_decisions
@@ -203,19 +227,49 @@ FA_CHECKS = [
      0),
     ("gemma3 local", 1, 2048, 32, 16, 128, torch.bfloat16, True, 1024),
     ("stablelm", 2, 512, 32, 32, 80, torch.bfloat16, True, 0),
+    ("zamba2 shared attention prefill", 4, 896, 32, 32, 112,
+     torch.bfloat16, True, 0),
     ("non-causal", 2, 300, 8, 2, 64, torch.bfloat16, False, 0),
     ("float32", 2, 513, 8, 4, 128, torch.float32, True, 128),
     ("granite prefill, float32", 4, 777, 32, 8, 64, torch.float32, True, 0),
 ]
 
 
-def serve_prompts(vocab_size: int):
-    """serve_full's 8 requests: lengths in [256, 1024] and tokens, from
-    numpy seed 0."""
+def serve_prompts(cfg):
+    """The 8 requests of a serving drive, from numpy seed 0: lengths in
+    [256, 1024] for a dense model; for a Mamba2 or hybrid model 128 x
+    [2, 8] (896, 768, 640, 384, 512, 256, 256, 256), since the reference's
+    engine left-pads each round to its longest prompt and a Mamba2 prefill
+    length must be a multiple of the SSD chunk (128)."""
     rng = np.random.default_rng(0)
-    lens = rng.integers(256, 1025, size=8)
-    return lens, [rng.integers(1, vocab_size, size=int(n)).tolist()
+    lens = (128 * rng.integers(2, 9, size=8) if cfg.ssm
+            else rng.integers(256, 1025, size=8))
+    return lens, [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
                   for n in lens]
+
+
+def layer_counts(cfg):
+    """(Mamba2 layers, attention layers) of a config: one ssd_scan or one
+    flash launch each per prefill."""
+    n_ssd = cfg.all_layer_kinds().count("mamba")
+    return n_ssd, cfg.n_layers - n_ssd
+
+
+def describe(cfg) -> str:
+    """A config's widths, without reading attention fields an SSM lacks."""
+    D = cfg.d_model
+    parts = [f"{cfg.n_layers} layers", f"d_model {D}"]
+    if cfg.ssm:
+        ssm = cfg.ssm
+        parts.append(f"Mamba2 d_inner {ssm.d_inner(D)}, {ssm.n_heads(D)} SSD "
+                     f"heads of {ssm.head_dim}, state {ssm.d_state}, chunk "
+                     f"{ssm.chunk}")
+    if cfg.family != "ssm":
+        parts.append(f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
+                     f"{cfg.head_dim}, d_ff {cfg.d_ff}"
+                     + (" (one shared block)" if cfg.shared_attn else ""))
+    parts.append(f"vocab {cfg.vocab_size} (padded {cfg.padded_vocab})")
+    return ", ".join(parts)
 
 
 def fa_inputs(dev, B, S, H, KV, Dh, dtype, seed):
@@ -229,7 +283,7 @@ def check_flash(dev, fa_ops, fa_ref) -> float:
     serve_full's two rounds; the largest abs error."""
     from repro_torch.configs.registry import get_config
 
-    lens, _ = serve_prompts(get_config("granite-3-2b").vocab_size)
+    lens, _ = serve_prompts(get_config("granite-3-2b"))
     rounds = [(f"granite serving round {r}", 4, int(lens[4 * r:4 * r + 4]
                .max()), 32, 8, 64, torch.bfloat16, True, 0) for r in (0, 1)]
     worst = 0.0
@@ -272,18 +326,20 @@ def reset_launches(*wrappers):
         w.launches = 0
 
 
-def serve_full(dev, wrappers):
-    """granite-3-2b at full width and depth through BatchingEngine on the
-    card: 8 requests, 2 rounds.  Returns the flash launches of the drive."""
+def serve_full(dev, kernels, arch, expect):
+    """``arch`` at full width and depth through BatchingEngine on the card:
+    8 requests, 2 rounds.  ``expect`` names the launches each kernel must
+    show over the drive (the others none).  Returns (the launches by
+    kernel, the engine, the prompts)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.distributed.sharding import init_params, param_count
-    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import api
     from repro_torch.serve import step
     from repro_torch.serve.engine import BatchingEngine
 
-    cfg = get_config("granite-3-2b")
+    cfg = get_config(arch)
     specs = api.param_specs(cfg)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(specs, torch.Generator(device=dev).manual_seed(0))
     eng = BatchingEngine(cfg, params, max_batch=4, temperature=0.0)
@@ -292,50 +348,44 @@ def serve_full(dev, wrappers):
     init_s = time.perf_counter() - t0
     init_peak = torch.cuda.max_memory_allocated()
     torch.cuda.empty_cache()
-    lens, prompts = serve_prompts(cfg.vocab_size)
-    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
-          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} "
-          f"(padded {cfg.padded_vocab}); {param_count(specs)} parameters, "
-          f"f32 init + bf16 working copy in {init_s:.2f} s, peak "
-          f"{init_peak / 1e9:.3f} GB; prompt lengths {lens.tolist()}, "
+    lens, prompts = serve_prompts(cfg)
+    print(f"[serve] {cfg.name}: {describe(cfg)}; {param_count(specs)} "
+          f"parameters, f32 init + bf16 working copy in {init_s:.2f} s, "
+          f"peak {init_peak / 1e9:.3f} GB; prompt lengths {lens.tolist()}, "
           f"gen_len 32, max_batch 4", flush=True)
     for p in prompts:
         eng.submit(p, gen_len=32)
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(*wrappers)
+    reset_launches(*kernels.values())
     t0 = time.perf_counter()
     done = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    n_fa = fa_ops.flash_attention.launches
-    others = {w.__name__: w.launches for w in wrappers
-              if w is not fa_ops.flash_attention}
+    got = {name: w.launches for name, w in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
     for r in done:
-        print(f"[serve] request {r.rid}: prompt {len(r.tokens)} tokens, "
-              f"latency {r.latency_s * 1e3:.1f} ms, output "
+        print(f"[serve] {cfg.name} request {r.rid}: prompt {len(r.tokens)} "
+              f"tokens, latency {r.latency_s * 1e3:.1f} ms, output "
               f"{r.output[:8]}...", flush=True)
     for i, st in enumerate(eng.round_stats):
-        print(f"[serve] round {i}: batch {st['batch']}, prompt_len "
-              f"{st['prompt_len']}, prefill {st['prefill_s'] * 1e3:.2f} ms, "
-              f"decode {st['decode_s_per_step'] * 1e3:.3f} ms/step over "
+        print(f"[serve] {cfg.name} round {i}: batch {st['batch']}, "
+              f"prompt_len {st['prompt_len']}, prefill "
+              f"{st['prefill_s'] * 1e3:.2f} ms, decode "
+              f"{st['decode_s_per_step'] * 1e3:.3f} ms/step over "
               f"{st['decode_steps']} steps", flush=True)
-    print(f"[serve] summarize: {json.dumps(BatchingEngine.summarize(done))}"
-          f"; wall {wall:.3f} s; max_memory_allocated {peak} B "
-          f"({peak / 1e9:.3f} GB); flash_attention launches {n_fa} "
-          f"(expected {2 * cfg.n_layers}); other kernels {others}",
-          flush=True)
-    if n_fa != 2 * cfg.n_layers:
-        fail(f"serving launched the flash kernel {n_fa} times, not "
-             f"{2 * cfg.n_layers} (one per prefill layer per round)")
-    if any(others.values()):
-        fail(f"serving launched planner kernels: {others}")
+    want = {name: expect.get(name, 0) for name in kernels}
+    print(f"[serve] {cfg.name} summarize: "
+          f"{json.dumps(BatchingEngine.summarize(done))}; wall {wall:.3f} s;"
+          f" max_memory_allocated {peak} B ({peak / 1e9:.3f} GB); launches "
+          f"{got} (expected {want})", flush=True)
+    if got != want:
+        fail(f"{cfg.name}: kernel launches {got}, expected {want} (one per "
+             "prefill layer of its kind per round)")
     if len(done) != 8 or any(
             len(r.output) != 32 or not all(0 <= t < cfg.vocab_size
                                            for t in r.output)
             for r in done):
-        fail("serving returned malformed outputs")
+        fail(f"{cfg.name}: serving returned malformed outputs")
     # round 0's first-step logits: finite, and their argmax is the first
     # token the engine chose for each request
     toks = left_pad(prompts[:4]).to(dev)
@@ -345,23 +395,23 @@ def serve_full(dev, wrappers):
     if tuple(logits.shape) != (4, 1, cfg.padded_vocab) or \
             not bool(torch.isfinite(logits).all()) or \
             logits[:, 0].argmax(-1).tolist() != first:
-        fail("round 0's prefill logits are not finite or disagree with "
-             "the engine's first tokens")
-    return n_fa, eng, prompts
+        fail(f"{cfg.name}: round 0's prefill logits are not finite or "
+             "disagree with the engine's first tokens")
+    return got, eng, prompts
 
 
-def serve_card_vs_cpu(dev):
-    """The same engine at full width, depth 2, on the card and on the CPU
-    with the same weights and prompts; logits compared along the CPU's
-    greedy tokens."""
+def serve_card_vs_cpu(dev, kernels, arch, depth):
+    """The same engine at full width, cut to ``depth`` layers, on the card
+    and on the CPU with the same weights and prompts; logits compared
+    along the CPU's greedy tokens."""
     from repro_torch.configs.registry import get_config
     from repro_torch.distributed.sharding import init_params
-    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import api
     from repro_torch.serve import step
     from repro_torch.serve.engine import BatchingEngine
 
-    cfg = get_config("granite-3-2b").replace(n_layers=2)
+    cfg = get_config(arch).replace(n_layers=depth)
+    n_ssd, n_attn = layer_counts(cfg)
     params = init_params(api.param_specs(cfg),
                          torch.Generator().manual_seed(1))
     rng = np.random.default_rng(1)
@@ -374,13 +424,17 @@ def serve_card_vs_cpu(dev):
         eng = BatchingEngine(cfg, to_device(params, d), max_batch=2)
         for p in prompts:
             eng.submit(p, gen_len=gen_len)
-        before = fa_ops.flash_attention.launches
+        reset_launches(*kernels.values())
         t0 = time.perf_counter()
         outs.append([r.output for r in eng.run()])
         secs.append(time.perf_counter() - t0)
-        n_fa = fa_ops.flash_attention.launches - before
-        if n_fa != (cfg.n_layers if d.type == "cuda" else 0):
-            fail(f"depth-2 engine on {d}: {n_fa} flash launches")
+        got = {name: w.launches for name, w in kernels.items()}
+        want = {name: 0 for name in kernels}
+        if d.type == "cuda":
+            want.update(flash_attention=n_attn, ssd_scan=n_ssd)
+        if got != want:
+            fail(f"{cfg.name} depth {depth} engine on {d}: launches {got}, "
+                 f"expected {want}")
     card, cpu = outs
     # teacher-forced along the CPU's tokens: the logits of every step
     for d in devices:
@@ -403,17 +457,18 @@ def serve_card_vs_cpu(dev):
           f"{gen_len} steps {max(diffs):.4e} (tol {CARD_CPU_TOL}); greedy "
           f"tokens equal: {card == cpu}", flush=True)
     if max(diffs) > CARD_CPU_TOL:
-        fail("card and cpu logits differ beyond the tolerance")
+        fail(f"{cfg.name}: card and cpu logits differ beyond the tolerance")
     for i, (a, b) in enumerate(zip(card, cpu)):
         at = next((t for t, (x, y) in enumerate(zip(a, b)) if x != y), None)
         if at is None:
             continue
         lg = steps[1][at][i]
         margin = float(lg[b[at]] - lg[a[at]])
-        print(f"[serve] request {i} diverges at token {at}: cpu {b[at]}, "
-              f"card {a[at]}, cpu margin {margin:.4e}", flush=True)
+        print(f"[serve] {cfg.name} request {i} diverges at token {at}: cpu "
+              f"{b[at]}, card {a[at]}, cpu margin {margin:.4e}", flush=True)
         if margin > CARD_CPU_TOL:
-            fail("card and cpu greedy tokens differ beyond a near tie")
+            fail(f"{cfg.name}: card and cpu greedy tokens differ beyond a "
+                 "near tie")
     return max(diffs)
 
 
@@ -440,9 +495,9 @@ def profile_serving(dev, eng, prompts):
             token = step.greedy_sample(logits[:, 0])[:, None]
             token.tolist()
 
-    phases = [("prefill", lambda: prefill(eng.params, {"tokens": toks})),
-              ("decode x8", decode_8)]
-    for name, fn in phases:
+    phases = [("prefill", lambda: prefill(eng.params, {"tokens": toks}), 1),
+              ("decode x8", decode_8, 8)]
+    for name, fn, steps in phases:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -458,20 +513,26 @@ def profile_serving(dev, eng, prompts):
         busy = sum(by_kernel.values())
         top = ", ".join(f"{k[:48]}={v:.3f}"
                         for k, v in by_kernel.most_common(6))
-        print(f"[profile] serve {name} (B=4, S={toks.shape[1]}): wall "
-              f"{wall_ms:.2f} ms, device busy {busy:.2f} ms "
-              f"({100 * busy / wall_ms:.1f}%), {n_kernels} kernels; "
-              f"top ms: {top}" if busy > 0 else
-              f"[profile] serve {name}: wall {wall_ms:.2f} ms, device time "
-              f"not measured (no device activity recorded)", flush=True)
+        per_layer = n_kernels / cfg.n_layers / steps
+        shares = {k: sum(v for kn, v in by_kernel.items() if dk in kn)
+                  for k, dk in DEVICE_KERNELS.items()}
+        share = "; ".join(f"{k} {v:.3f} ms ({100 * v / busy:.1f}% of device "
+                          f"time)" for k, v in shares.items() if v)
+        print(f"[profile] {cfg.name} serve {name} (B=4, S={toks.shape[1]}): "
+              f"wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
+              f"({100 * busy / wall_ms:.1f}%), {n_kernels} kernels "
+              f"({per_layer:.1f} per layer{' per step' if steps > 1 else ''}"
+              f"); {share or 'no port kernel'}; top ms: {top}" if busy > 0
+              else f"[profile] {cfg.name} serve {name}: wall {wall_ms:.2f} "
+              f"ms, device time not measured (no device activity recorded)",
+              flush=True)
 
 
-def time_flash(dev, fa_ops, fa_ref):
-    """The flash kernel at granite's prefill shape: kernel, plain version,
-    torch's SDPA (yardstick), and the bound."""
+def time_flash(dev, fa_ops, fa_ref, B, S, H, KV, Dh):
+    """The flash kernel at a prefill shape (bf16, causal): kernel, plain
+    version, torch's SDPA (yardstick), and the bound."""
     import torch.nn.functional as F
 
-    B, S, H, KV, Dh = 4, 1024, 32, 8, 64
     q, k, v = fa_inputs(dev, B, S, H, KV, Dh, torch.bfloat16, 99)
     out = fa_ops.flash_attention(q, k, v)
     sdpa = lambda: F.scaled_dot_product_attention(
@@ -498,6 +559,102 @@ def time_flash(dev, fa_ops, fa_ref):
             "bound_by": "operations" if t_ops > t_bytes else "bytes"}
 
 
+# ssd_scan checks: (name, B, S, H, P, N, chunk, dtypes of x, dt and B/C)
+F32_3, BF16_3 = (torch.float32,) * 3, (torch.bfloat16,) * 3
+SERVING = (torch.bfloat16, torch.float32, torch.bfloat16)
+SSD_CHECKS = [(f"reference case {i} {str(t[0])[6:]}", *case, t)
+              for t in (F32_3, BF16_3)
+              for i, case in enumerate([(2, 64, 3, 16, 16, 16),
+                                        (1, 128, 4, 32, 64, 32),
+                                        (1, 96, 2, 64, 128, 32),
+                                        (2, 64, 5, 16, 32, 64)])] + [
+    ("mamba2 serving round 0", 4, 896, 48, 64, 128, 128, SERVING),
+    ("mamba2 serving round 1", 4, 512, 48, 64, 128, 128, SERVING),
+    ("zamba2 serving round 0", 4, 896, 112, 64, 64, 128, SERVING),
+    ("S < chunk (clamped to 96)", 2, 96, 48, 64, 128, 128, SERVING),
+    ("mamba2 shape, float32", 2, 512, 48, 64, 128, 128, F32_3),
+]
+
+
+def ssd_inputs(dev, B, S, H, P, N, types, seed):
+    """x, dt, A, B_, C_ as the reference's SSD test makes them: normal x,
+    B, C; dt = softplus(normal); A = -exp(0.3 normal) in float32."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    tx, tdt, tbc = types
+    return (rnd(B, S, H, P).to(tx),
+            torch.nn.functional.softplus(rnd(B, S, H)).to(tdt),
+            -torch.exp(rnd(H) * 0.3), rnd(B, S, N).to(tbc),
+            rnd(B, S, N).to(tbc))
+
+
+def check_ssd(dev, ssd_ops, ssd_ref) -> float:
+    """Kernel against plain at SSD_CHECKS and on strided views; the
+    largest abs error over y and the final state."""
+    worst = 0.0
+    cases = [(name, (B, S, H, P, N, types), chunk, None)
+             for name, B, S, H, P, N, chunk, types in SSD_CHECKS]
+    cases.append(("strided x, B and C views", (4, 512, 96, 64, 128, SERVING),
+                  128, "strided"))
+    for i, (name, (B, S, H, P, N, types), chunk, how) in enumerate(cases):
+        x, dt, A, Bm, Cm = ssd_inputs(dev, B, S, H, P, N, types, 100 + i)
+        if how == "strided":           # every other head; B, C of one tensor
+            bc = torch.cat([Bm, Cm], dim=-1)
+            x, dt, A = x[:, :, ::2], dt[:, :, ::2], A[::2]
+            Bm, Cm = bc[..., :N], bc[..., N:]
+            H //= 2
+        y, st = ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=chunk)
+        torch.cuda.synchronize()
+        want_y, want_st = ssd_ref.ssd(x, dt, A, Bm, Cm, chunk=chunk)
+        tol = SSD_TOL[types[0]]
+        err = max(float((y.float() - want_y.float()).abs().max()),
+                  float((st - want_st).abs().max()))
+        ok = y.dtype == x.dtype and st.dtype == torch.float32 and \
+            bool(torch.isfinite(y).all()) and \
+            torch.allclose(y.float(), want_y.float(), atol=tol, rtol=tol) \
+            and torch.allclose(st, want_st, atol=tol, rtol=tol)
+        worst = max(worst, err)
+        print(f"[check] ssd_scan {name}: B={B} S={S} H={H} P={P} N={N} "
+              f"chunk={chunk} x/dt/B {'/'.join(str(t)[6:] for t in types)}"
+              f": max_abs_err={err:.3e} (tol {tol:g} abs + rel) ok={ok}",
+              flush=True)
+        if not ok:
+            fail(f"ssd_scan differs from its plain version ({name})")
+    return worst
+
+
+def time_ssd(dev, ssd_ops, ssd_ref):
+    """The SSD kernel at mamba2-780m's prefill shape (B=4, S=1024; x, B, C
+    bf16, dt f32): kernel, plain version, and the bound."""
+    B, S, H, P, N, Q = 4, 1024, 48, 64, 128, 128
+    args = ssd_inputs(dev, B, S, H, P, N, SERVING, 7)
+    ms = cuda_ms(lambda: ssd_ops.ssd(*args, chunk=Q), 20)
+    plain_ms = cuda_ms(lambda: ssd_ref.ssd(*args, chunk=Q), 3)
+    # bytes: every input read once, y and the final state written once;
+    # operations, per (b, h, chunk): (C B^T o L) xdt over the Q(Q+1)/2
+    # pairs s <= l, C state^T and the state update, 2 flops per
+    # multiply-add; and C B^T over the same pairs once per (b, chunk),
+    # since the heads share it
+    nbytes = sum(a.numel() * a.element_size() for a in args) \
+        + args[0].numel() * args[0].element_size() + 4 * B * H * P * N
+    nc = S // Q
+    flops = B * H * nc * (Q * (Q + 1) * P + 4 * Q * P * N) \
+        + B * nc * Q * (Q + 1) * N
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_OPS_PER_S
+    bound = 1e3 * max(t_bytes, t_ops)
+    print(f"[time] ssd_scan B={B} S={S} H={H} P={P} N={N} chunk={Q} x/B/C "
+          f"bf16 dt f32: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} "
+          f"TFLOP/s), plain {plain_ms:.4f} ms, bound {bound:.5f} ms "
+          f"({nbytes} bytes, {flops} flops)", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes the chunked "
+                            "SSD scan",
+            "shape": f"B={B} S={S} H={H} P={P} N={N} chunk={Q}, x/B/C bf16, "
+                     "dt f32"}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a "
@@ -515,6 +672,8 @@ def main() -> None:
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.qn_event import ops as qn_ops
     from repro_torch.kernels.qn_event import ref as qn_ref
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
     from repro_torch.obs import trace
 
     dev = torch.device("cuda", 0)
@@ -596,8 +755,11 @@ def main() -> None:
     print(f"[check] amva N=1,7,97,128,1000,4097: bit-identical=True",
           flush=True)
     fa_err = check_flash(dev, fa_ops, fa_ref)
-    wrappers = (qn_ops.qn_event, amva_ops.ps_fixed_point,
-                fa_ops.flash_attention)
+    ssd_err = check_ssd(dev, ssd_ops, ssd_ref)
+    kernels = {"qn_event": qn_ops.qn_event, "amva": amva_ops.ps_fixed_point,
+               "flash_attention": fa_ops.flash_attention,
+               "ssd_scan": ssd_ops.ssd}
+    wrappers = tuple(kernels.values())
 
     # ------------------------------------------------------------ main path
     DSpace4Cloud = optimizer.DSpace4Cloud
@@ -609,7 +771,7 @@ def main() -> None:
               ("quickstart.run", lambda: DSpace4Cloud(
                    quickstart_problem(problem), min_jobs=20,
                    replications=1).run())]
-    launches = {"qn_event": 0, "amva": 0, "flash_attention": 0}
+    launches = dict.fromkeys(kernels, 0)
     mismatches = []
     shape_count = collections.Counter()
     for name, drive in drives:
@@ -654,8 +816,8 @@ def main() -> None:
                  f"{rep.qn_dispatches}")
         if name.endswith("run_fast") and n_amva <= 0:
             fail(f"{name}: the amva kernel was not launched")
-        if fa_ops.flash_attention.launches:
-            fail(f"{name}: the planner launched the flash kernel")
+        if fa_ops.flash_attention.launches or ssd_ops.ssd.launches:
+            fail(f"{name}: the planner launched a model kernel")
         for cls, sol in got.items():
             if not (np.isfinite(sol["predicted_ms"]) and sol["nu"] >= 1
                     and sol["reserved"] + sol["spot"] == sol["nu"]):
@@ -699,11 +861,16 @@ def main() -> None:
           f" cpu={[v['predicted_ms'] for v in on_cpu.values()]}", flush=True)
 
     # --------------------------------------------------------- LM serving
-    launches["flash_attention"], eng, prompts = serve_full(dev, wrappers)
-    profile_serving(dev, eng, prompts)
-    del eng
-    torch.cuda.empty_cache()
-    card_cpu_diff = serve_card_vs_cpu(dev)
+    by_path, card_cpu_diff = {}, {}
+    for arch, expect, depth in SERVE_CASES:
+        got, eng, prompts = serve_full(dev, kernels, arch, expect)
+        for name, n in got.items():
+            launches[name] += n
+        by_path[arch] = {k: n for k, n in got.items() if n}
+        profile_serving(dev, eng, prompts)
+        del eng
+        torch.cuda.empty_cache()
+        card_cpu_diff[arch] = serve_card_vs_cpu(dev, kernels, arch, depth)
 
     # ---------------------------------------------------------------- times
     # qn_event at every dispatch shape of the Q1 run() above: lanes of
@@ -800,7 +967,10 @@ def main() -> None:
     print(f"[time] amva N={n_am}: {am_ms:.4f} ms/launch, plain "
           f"{am_plain_ms:.3f} ms, bound {am_bound:.6f} ms", flush=True)
 
-    fa_time = time_flash(dev, fa_ops, fa_ref)
+    fa_time = time_flash(dev, fa_ops, fa_ref, 4, 1024, 32, 8, 64)
+    fa_zamba2 = time_flash(dev, fa_ops, fa_ref, 4, 896, 32, 32, 112)
+    ssd_time = time_ssd(dev, ssd_ops, ssd_ref)
+    path_launches = lambda k: {a: n[k] for a, n in by_path.items() if k in n}
 
     record = {"kernels": [
         {"name": "qn_event", "route": "cuda",
@@ -833,6 +1003,15 @@ def main() -> None:
          "shape": "B=4 S=1024 H=32 KV=8 Dh=64 bf16 causal",
          "library_note": "torch.nn.functional.scaled_dot_product_attention"
                          "(is_causal=True, enable_gqa=True)",
+         "launches_by_path": path_launches("flash_attention"),
+         "card_vs_cpu_logits_max_abs_diff": card_cpu_diff,
+         "at_zamba2_prefill": {"shape": "B=4 S=896 H=32 KV=32 Dh=112 bf16 "
+                                        "causal", **fa_zamba2}},
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan/kernel.py:69",
+         "launches": launches["ssd_scan"], "max_abs_err": ssd_err,
+         **ssd_time, "launches_by_path": path_launches("ssd_scan"),
          "card_vs_cpu_logits_max_abs_diff": card_cpu_diff},
     ]}
     print(json.dumps(record), flush=True)

@@ -149,6 +149,11 @@ class ModelConfig:
             return ("local",) * self.local_global_ratio + ("global",)
         return ("global",)
 
+    def all_layer_kinds(self) -> Tuple[str, ...]:
+        """Kind of every layer, in order: the groups, then the tail."""
+        kinds = self.layer_kinds()
+        return kinds * self.n_groups + kinds[: self.n_tail_layers]
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 

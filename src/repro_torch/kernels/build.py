@@ -48,6 +48,10 @@ SIGNATURES = {
     # causal, window, dtype; stream
     "flash_attention_launch": [_P] * 4 + [_I] * 5 + [_L] * 12
                               + [_I] * 3 + [_P],
+    # x, dt, A, B, C, y, state; B, S, H, P, N, chunk; (b, s, head) strides
+    # of x and dt, A's stride, (b, s) strides of B and C; dtypes of x, dt,
+    # A, B/C; stream
+    "ssd_scan_launch": [_P] * 7 + [_I] * 6 + [_L] * 11 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

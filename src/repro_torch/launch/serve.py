@@ -3,7 +3,13 @@ Random-inits a reduced config from a seeded generator on the device,
 serves a synthetic request stream through the batching engine and prints
 latency/throughput.  ``--device`` defaults to the CUDA card and fails
 without one; ``--device cpu`` runs the plain PyTorch versions of the
-kernels."""
+kernels.
+
+As in the reference, every request of a round is left-padded to the
+round's longest prompt, and a Mamba2 (``mamba2-780m``) or hybrid
+(``zamba2-7b``) prefill needs that length to be a multiple of the SSD
+chunk: 16 in the smoke configs, so pass e.g. ``--prompt 32`` (the default
+of 24 raises ``ValueError`` for them)."""
 from __future__ import annotations
 
 import argparse

@@ -1,6 +1,7 @@
 """Family-dispatched model API: one entry point per operation.  The port
-has the dense decoder family; encoder-decoder models and the
-``patches``/``frames`` front ends raise ``NotImplementedError``."""
+has the dense, ssm (Mamba2) and hybrid (Zamba2) decoder families; MoE and
+encoder-decoder models and the ``patches``/``frames`` front ends raise
+``NotImplementedError``."""
 from __future__ import annotations
 
 from typing import Any, Dict

@@ -1,13 +1,17 @@
-"""Decoder-LM assembly for the ``dense`` family (global-only and
-local:global attention), on torch tensors.
+"""Decoder-LM assembly for the ``dense``, ``ssm`` (Mamba2) and ``hybrid``
+(Zamba2: Mamba2 blocks and one shared attention block) families, on torch
+tensors.
 
 Layers are organized in repeating groups (``cfg.layer_kinds()``), with the
 reference's parameter tree: ``groups`` holds each group position's
 parameters stacked along a leading axis of ``n_groups`` (when there is more
-than one group), ``tail`` the layers that do not fill a group.  The
-reference's ``lax.scan`` over the stacked groups is a Python loop over the
-leading axis here; remat has no forward effect and is dropped.  MoE,
-Mamba2/hybrid and shared-attention models raise ``NotImplementedError``.
+than one group), ``tail`` the layers that do not fill a group.  A hybrid
+group's ``attn`` position has no parameters of its own: every application
+uses the top-level ``shared_attn`` tree, and each application keeps its own
+KV ring.  The reference's ``lax.scan`` over the stacked groups is a Python
+loop over the leading axis here; remat has no forward effect and is
+dropped.  MoE models, encoder-decoder models and the modality front ends
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -19,27 +23,22 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import ParamSpec
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
 
 Params = Dict[str, Any]
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the model families later slices of the port bring."""
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers are not ported yet; they are the next "
+            "model family (ROADMAP Queue 1 item 1)")
     if cfg.is_encoder_decoder or cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models and the patches/frames "
-            "front ends are not ported yet; they come after the Mamba2 "
-            "serving slice (ROADMAP Queue 1 item 1)")
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet; they come after "
-            "the Mamba2 serving slice (ROADMAP Queue 1 item 1)")
-    if cfg.family in ("ssm", "hybrid") or cfg.hybrid_mamba_per_attn \
-            or cfg.shared_attn:
-        raise NotImplementedError(
-            f"{cfg.name}: Mamba2 / hybrid / shared-attention models come "
-            "with the Mamba2 serving slice and the ssd_fwd kernel "
-            "(ROADMAP Queue 1 item 1)")
+            "front ends are not ported yet; they come after MoE (ROADMAP "
+            "Queue 1 item 1)")
 
 
 def _scale_embeddings(cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
@@ -71,7 +70,11 @@ def _logits_from_hidden(cfg: ModelConfig, h: torch.Tensor,
 # Param specs
 # --------------------------------------------------------------------------
 
-def _block_specs(cfg: ModelConfig, prefix) -> Params:
+def _block_specs(cfg: ModelConfig, kind: str, prefix) -> Params:
+    if kind == "mamba":
+        return M.mamba_specs(cfg, prefix)
+    if kind == "attn" and cfg.shared_attn:
+        return {}       # parameters live in the top-level shared_attn entry
     return {"attn": L.attn_specs(cfg, prefix),
             "mlp": L.mlp_specs(cfg, prefix=prefix)}
 
@@ -87,11 +90,14 @@ def param_specs(cfg: ModelConfig) -> Params:
         "final_ln": ParamSpec((D,), "float32", ("embed",), init="zeros"),
     }
     stacked_prefix = (ng,) if ng > 1 else ()
-    specs["groups"] = {f"l{i}": _block_specs(cfg, stacked_prefix)
-                       for i in range(len(kinds))}
+    specs["groups"] = {f"l{i}": _block_specs(cfg, kind, stacked_prefix)
+                       for i, kind in enumerate(kinds)}
     if cfg.n_tail_layers:
-        specs["tail"] = {f"l{i}": _block_specs(cfg, ())
-                         for i in range(cfg.n_tail_layers)}
+        specs["tail"] = {f"l{i}": _block_specs(cfg, kind, ())
+                         for i, kind in enumerate(kinds[: cfg.n_tail_layers])}
+    if cfg.shared_attn:
+        specs["shared_attn"] = {"attn": L.attn_specs(cfg, ()),
+                                "mlp": L.mlp_specs(cfg, prefix=())}
     return specs
 
 
@@ -147,13 +153,20 @@ def _stack(caches):
     return torch.stack(caches)
 
 
+def _attn_params(cfg: ModelConfig, kind: str, bp: Params,
+                 shared: Optional[Params]) -> Params:
+    """The attention and MLP parameters a layer of ``kind`` uses."""
+    return shared if kind == "attn" and cfg.shared_attn else bp
+
+
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
             attn_impl: str = "auto", want_caches: bool = False,
             cache_len: int = 0):
-    """Full forward.  Returns (logits, aux_loss, caches|None); the dense
-    family has no auxiliary loss (a zero).  ``want_caches`` additionally
-    returns decode caches of length ``cache_len`` (defaults to the
-    sequence length)."""
+    """Full forward.  Returns (logits, aux_loss, caches|None); the ported
+    families have no auxiliary loss (a zero).  ``want_caches``
+    additionally returns decode caches: Mamba2 states and conv histories,
+    and KV rings of length ``cache_len`` (defaults to the sequence
+    length)."""
     check_supported(cfg)
     kinds = cfg.layer_kinds()
     emb = params["embed"]
@@ -161,12 +174,16 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     B, S, _ = h.shape
     positions = torch.arange(S, device=h.device).expand(B, S)
     cache_len = cache_len or S
+    shared = params.get("shared_attn")
 
     def layer(h, kind, bp):
-        h, kv = L.attn_apply(cfg, bp["attn"], h, positions=positions,
+        if kind == "mamba":
+            return M.mamba_apply(cfg, bp, h, return_state=want_caches)
+        ap = _attn_params(cfg, kind, bp, shared)
+        h, kv = L.attn_apply(cfg, ap["attn"], h, positions=positions,
                              window=_layer_window(cfg, kind),
                              attn_impl=attn_impl, return_kv=want_caches)
-        h = L.mlp_apply(cfg, bp["mlp"], h)
+        h = L.mlp_apply(cfg, ap["mlp"], h)
         return h, (_kv_to_ring(cfg, kind, kv, cache_len)
                    if want_caches else None)
 
@@ -200,6 +217,8 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int) -> Params:
     kinds = cfg.layer_kinds()
 
     def one(kind: str) -> Params:
+        if kind == "mamba":
+            return M.make_mamba_cache(cfg, batch)
         window = _layer_window(cfg, kind)
         length = min(window, cache_len) if window else cache_len
         return L.make_cache(cfg, batch, length)
@@ -224,12 +243,16 @@ def decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor,
     B = h.shape[0]
     cur_pos = int(cur_pos)
     positions = torch.full((B, 1), cur_pos, device=h.device)
+    shared = params.get("shared_attn")
 
     def layer(h, kind, bp, cache):
-        h, _ = L.attn_apply(cfg, bp["attn"], h, positions=positions,
+        if kind == "mamba":
+            return M.mamba_apply(cfg, bp, h, cache=cache)[0]
+        ap = _attn_params(cfg, kind, bp, shared)
+        h, _ = L.attn_apply(cfg, ap["attn"], h, positions=positions,
                             window=_layer_window(cfg, kind), cache=cache,
                             cur_pos=cur_pos)
-        return L.mlp_apply(cfg, bp["mlp"], h)
+        return L.mlp_apply(cfg, ap["mlp"], h)
 
     for gp, gc in zip(_groups(cfg, params["groups"]),
                       _groups(cfg, caches["groups"])):

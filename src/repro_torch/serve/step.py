@@ -13,18 +13,23 @@ from repro_torch.models.layers import compute_dtype
 Params = Dict[str, Any]
 
 
-NORMS = ("ln", "final_ln")      # norm scales: used in float32
+# the leaves the reference uses in float32 and never casts to the
+# activation dtype: norm scales (``ln``, ``final_ln``, Mamba2's
+# ``gate_ln``), Mamba2's ``A_log`` (A = -exp(A_log) in f32) and
+# ``dt_bias`` (added to dt in f32)
+FLOAT32_LEAVES = ("ln", "final_ln", "gate_ln", "A_log", "dt_bias")
 
 
 def working_params(cfg: ModelConfig, params: Params) -> Params:
-    """The parameters as the steps use them: every weight but the norm
-    scales cast once to the activation dtype.  The reference casts each
-    weight at every use (``w.astype(h.dtype)``); a cast made once gives
-    the same bits, and the model code's own casts then copy nothing."""
+    """The parameters as the steps use them: every weight but
+    ``FLOAT32_LEAVES`` cast once to the activation dtype.  The reference
+    casts those other weights at every use (``w.astype(h.dtype)``); a
+    cast made once gives the same bits, and the model code's own casts
+    then copy nothing."""
     dt = compute_dtype(cfg)
 
     def cast(tree):
-        return {k: v if k in NORMS else
+        return {k: v if k in FLOAT32_LEAVES else
                 (cast(v) if isinstance(v, dict) else v.to(dt))
                 for k, v in tree.items()}
     return cast(params)

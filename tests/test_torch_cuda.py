@@ -19,7 +19,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.qn_event import ops as qn_ops
 from repro_torch.kernels.qn_event import ref as qn_ref
-
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.models import api
 from repro_torch.serve import step
 
@@ -105,6 +106,7 @@ FA_CARD_CASES = [
     (1, 129, 6, 3, 96, False, 0), (1, 64, 2, 1, 112, True, 0),
     (1, 257, 4, 2, 128, True, 100), (1, 95, 2, 2, 192, False, 17),
     (1, 100, 2, 1, 256, True, 0), (3, 1, 4, 2, 64, True, 0),
+    (2, 256, 32, 32, 112, True, 0),     # zamba2-7b's shared attention
 ]
 
 
@@ -145,22 +147,95 @@ def test_flash_attention_kernel_raises_on_bad_input(dev):
         fa_ops.flash_attention(q, q, q)
 
 
-@pytest.mark.parametrize("arch", ["granite-3-2b", "gemma3-27b"])
+# B, S, H, P, N, chunk: the reference's SSD_CASES (tests/test_kernels.py),
+# the smoke configs' shape, zamba2's (N=64) and mamba2's (N=128) at full
+# width, the largest the kernel takes, and S < chunk (the clamp)
+SSD_CARD_CASES = [
+    (2, 64, 3, 16, 16, 16), (1, 128, 4, 32, 64, 32),
+    (1, 96, 2, 64, 128, 32), (2, 64, 5, 16, 32, 64),
+    (2, 48, 8, 16, 16, 16), (2, 256, 112, 64, 64, 128),
+    (1, 384, 48, 64, 128, 128), (1, 256, 3, 128, 128, 128),
+    (3, 40, 4, 64, 128, 128),
+]
+SSD_DTYPES = {  # x, dt, B/C: all f32, all bf16, and the serving path's mix
+    "float32": (torch.float32,) * 3, "bfloat16": (torch.bfloat16,) * 3,
+    "serving": (torch.bfloat16, torch.float32, torch.bfloat16)}
+
+
+def _ssd_inputs(dev, B, S, H, P, N, types, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    tx, tdt, tbc = types
+    return (rnd(B, S, H, P).to(tx),
+            torch.nn.functional.softplus(rnd(B, S, H)).to(tdt),
+            -torch.exp(rnd(H) * 0.3), rnd(B, S, N).to(tbc),
+            rnd(B, S, N).to(tbc))
+
+
+@pytest.mark.parametrize("case", SSD_CARD_CASES)
+@pytest.mark.parametrize("types", list(SSD_DTYPES))
+def test_ssd_kernel_matches_plain(dev, case, types):
+    B, S, H, P, N, chunk = case
+    args = _ssd_inputs(dev, B, S, H, P, N, SSD_DTYPES[types], S + H + P)
+    before = ssd_ops.ssd.launches
+    y, state = ssd_ops.ssd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd.launches == before + 1
+    want_y, want_state = ssd_ref.ssd(*args, chunk=chunk)
+    tol = 1e-4 if types == "float32" else 5e-2      # the reference's
+    assert y.dtype == args[0].dtype and state.dtype == torch.float32
+    torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(state, want_state, atol=tol, rtol=tol)
+
+
+def test_ssd_kernel_reads_strided_inputs(dev):
+    """x as a head-strided view and B/C as views into one projection."""
+    B, S, H, P, N = 2, 256, 6, 64, 128
+    x, dt, A, _, _ = _ssd_inputs(dev, B, S, 2 * H, P, N,
+                                 SSD_DTYPES["serving"], 3)
+    bc = torch.randn((B, S, 2 * N), device=dev).to(torch.bfloat16)
+    args = (x[:, :, ::2], dt[:, :, :H], A[:H], bc[..., :N], bc[..., N:])
+    y, state = ssd_ops.ssd(*args, chunk=128)
+    want_y, want_state = ssd_ref.ssd(*(a.contiguous() for a in args),
+                                     chunk=128)
+    torch.testing.assert_close(y.float(), want_y.float(), atol=5e-2,
+                               rtol=5e-2)
+    torch.testing.assert_close(state, want_state, atol=5e-2, rtol=5e-2)
+
+
+def test_ssd_kernel_raises_on_bad_input(dev):
+    x, dt, A, Bm, Cm = _ssd_inputs(dev, 1, 48, 2, 16, 16,
+                                   SSD_DTYPES["float32"], 0)
+    with pytest.raises(ValueError, match="multiple"):
+        ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=32)
+    with pytest.raises(ValueError, match="device"):
+        ssd_ops.ssd(x, dt.cpu(), A, Bm, Cm, chunk=16)
+    with pytest.raises(ValueError, match="head dim"):
+        ssd_ops.ssd(torch.zeros((1, 16, 2, 130), device=dev),
+                    dt[:, :16], A, Bm[:, :16], Cm[:, :16], chunk=16)
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "gemma3-27b",
+                                  "mamba2-780m", "zamba2-7b"])
 def test_serving_steps_on_the_card_match_the_cpu(dev, arch):
     cfg = get_smoke_config(arch)
     params = init_params(api.param_specs(cfg), torch.Generator().manual_seed(1))
+    S = 48 if cfg.ssm else 37       # Mamba2: a multiple of the SSD chunk
     toks = torch.from_numpy(np.random.default_rng(2).integers(
-        1, cfg.vocab_size, (2, 37)))
+        1, cfg.vocab_size, (2, S)))
     token = torch.tensor([[5], [9]])
+    n_ssd = cfg.all_layer_kinds().count("mamba")
     out = {}
     for d in ("cpu", dev):
         p = _to(step.working_params(cfg, params), d)
-        before = fa_ops.flash_attention.launches
-        logits, caches = step.make_prefill_step(cfg, cache_len=45)(
+        before = (fa_ops.flash_attention.launches, ssd_ops.ssd.launches)
+        logits, caches = step.make_prefill_step(cfg, cache_len=S + 8)(
             p, {"tokens": toks.to(d)})
-        launched = fa_ops.flash_attention.launches - before
-        assert launched == (cfg.n_layers if d == dev else 0)
-        dec, _ = step.make_decode_step(cfg)(p, token.to(d), caches, 37)
+        launched = (fa_ops.flash_attention.launches - before[0],
+                    ssd_ops.ssd.launches - before[1])
+        want = (cfg.n_layers - n_ssd, n_ssd) if d == dev else (0, 0)
+        assert launched == want
+        dec, _ = step.make_decode_step(cfg)(p, token.to(d), caches, S)
         out[str(d)] = (logits.float().cpu(), dec.float().cpu())
     for a, b in zip(out["cpu"], out[str(dev)]):
         # bfloat16 activations; cuBLAS and the CPU sum in other orders

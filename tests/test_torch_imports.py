@@ -29,6 +29,7 @@ def test_importing_every_module_leaves_jax_and_repro_out():
     assert len(mods) > 20
     for m in ("repro_torch.configs.registry", "repro_torch.models.api",
               "repro_torch.kernels.flash_attention.ops",
+              "repro_torch.kernels.ssd_scan.ops", "repro_torch.models.mamba2",
               "repro_torch.serve.engine", "repro_torch.launch.serve"):
         assert m in mods
     code = ("import importlib, sys\n"

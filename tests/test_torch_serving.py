@@ -276,8 +276,7 @@ def test_init_caches_match_the_reference_layout(arch):
 
 
 def test_unported_families_raise():
-    for arch in ("mamba2-780m", "zamba2-7b", "qwen2-moe-a2.7b",
-                 "whisper-tiny", "phi-3-vision-4.2b"):
+    for arch in ("qwen2-moe-a2.7b", "whisper-tiny", "phi-3-vision-4.2b"):
         if arch not in treg.ARCH_IDS:
             continue
         with pytest.raises(NotImplementedError):
@@ -318,10 +317,10 @@ PROMPTS = [(list(range(3, 12)), 4), (list(range(40, 45)), 3),   # padded
            (list(range(100, 109)), 4), ([7, 8, 9], 2), (list(range(60, 66)), 4)]
 
 
-def _ref_engine_loop(cfg, params, prompts, max_batch, attn_impl):
+def _ref_engine_loop(cfg, params, prompts, max_batch, **impl):
     """The reference engine's round loop (greedy), with its prefill's
-    ``attn_impl`` chosen.  Returns each request's output and its logits
-    (V,) at every step."""
+    routes (``attn_impl``, ``ssd_impl``) chosen.  Returns each request's
+    output and its logits (V,) at every step."""
     outs, logits_of = [], []
     decode = jax.jit(jstep.make_decode_step(cfg))
     for r0 in range(0, len(prompts), max_batch):
@@ -332,7 +331,7 @@ def _ref_engine_loop(cfg, params, prompts, max_batch, attn_impl):
         for i, (p, _) in enumerate(batch):
             toks[i, max_prompt - len(p):] = p
         prefill = jax.jit(jstep.make_prefill_step(
-            cfg, cache_len=max_prompt + max_gen, attn_impl=attn_impl))
+            cfg, cache_len=max_prompt + max_gen, **impl))
         logits, caches = prefill(params, {"tokens": jnp.asarray(toks)})
         steps = []
         for step in range(max_gen):
@@ -362,7 +361,7 @@ def _port_engine(ct, pt, prompts, max_batch, temperature=0.0):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_engine_matches_reference_loop_on_pallas_in_float32(arch):
     cj, ct, pj, pt = _setup(arch, "float32")
-    want, ref_logits = _ref_engine_loop(cj, pj, PROMPTS, 3, "pallas")
+    want, ref_logits = _ref_engine_loop(cj, pj, PROMPTS, 3, attn_impl="pallas")
     got, done = _port_engine(ct, pt, PROMPTS, 3)
     assert got == want
     assert all(len(r.output) == g for r, (_, g) in zip(done, PROMPTS))
@@ -387,7 +386,7 @@ def test_engine_matches_reference_engine_in_bfloat16(arch):
     for p, g in PROMPTS:
         eng.submit(p, gen_len=g)
     want = [r.output for r in eng.run()]
-    loop, ref_logits = _ref_engine_loop(cj, pj, PROMPTS, 3, "auto")
+    loop, ref_logits = _ref_engine_loop(cj, pj, PROMPTS, 3, attn_impl="auto")
     assert loop == want                 # the loop is the reference engine's
     got, _ = _port_engine(ct, pt, PROMPTS, 3)
     assert [len(g) for g in got] == [len(w) for w in want]
