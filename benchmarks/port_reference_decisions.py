@@ -5,10 +5,13 @@ the card, printed as the JSON that ``chip_smoke.REFERENCE`` holds.
 
 The calls: the paper's §4.3 scenario (``scenario_problem("Q1", 10,
 160_000.0)`` with its replay lists) through ``DSpace4Cloud.run()`` and
-``.run_fast()`` at the defaults, each on a fresh instance, and the
-quickstart problem through ``DSpace4Cloud(problem, min_jobs=20,
-replications=1).run()``.  On a CPU host the real-size calls take about
-half a minute each.
+``.run_fast()`` at the defaults, and through the point-wise gait
+``DSpace4Cloud(batched=False).run()`` at the defaults, each on a fresh
+instance; and the quickstart problem through ``DSpace4Cloud(problem,
+min_jobs=20, replications=1).run()`` in both gaits (the point-wise one
+walks its two classes in two threads).  On a CPU host the real-size
+batched calls take about half a minute each, the point-wise one a minute
+or more.
 """
 from __future__ import annotations
 
@@ -46,6 +49,11 @@ def main() -> None:
         "Q1-10u.run_fast": DSpace4Cloud(prob, samples=samples).run_fast(),
         "quickstart.run": DSpace4Cloud(quickstart_problem(), min_jobs=20,
                                        replications=1).run(),
+        "Q1-10u.run_pointwise": DSpace4Cloud(prob, samples=samples,
+                                             batched=False).run(),
+        "quickstart.run_pointwise": DSpace4Cloud(
+            quickstart_problem(), min_jobs=20, replications=1,
+            batched=False).run(parallel=True),
     }
     print(json.dumps({name: {
         "qn_dispatches": r.qn_dispatches,

@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port on one CUDA card: the planner and the
-LM serving path (dense, Mamba2 and hybrid models).
+"""Drive the PyTorch/CUDA port on one CUDA card: the planner in both
+gaits and the LM serving path (dense, Mamba2 and hybrid models).
 
     python3 chip_smoke.py
 
@@ -11,7 +11,8 @@ Phases, each printing one line or a few:
   3. hold each kernel against its plain PyTorch version on the card, on
      identical inputs: qn_event in exponential and replay mode (padding,
      single-slot and short-budget lanes) at a reduced event budget, amva
-     at several sizes, both bit-identical; flash_attention at granite's
+     at several sizes, both bit-identical; mva (exact MVA) at N = 1 ..
+     4097 and H = 0, 1, 4, 5, 25, bit-identical; flash_attention at granite's
      prefill (S = 1024, a ragged 777, and the two serving rounds' prompt
      lengths), gemma3's local window, stablelm's head dim 80, zamba2's
      shared attention (H = KV = 32, head dim 112), a non-causal case, and
@@ -25,8 +26,18 @@ Phases, each printing one line or a few:
      (TPC-DS Q1 on 250 GB, 10 users, 160 s deadline, m4.xlarge + CINECA,
      JMT-replayer mode) through DSpace4Cloud.run() and .run_fast() at the
      defaults, and the quickstart problem (exponential mode) through
-     .run(); a small replay problem is also planned on the card and on the
-     CPU (plain versions), and the decisions must agree;
+     .run(); the point-wise gait (DSpace4Cloud(batched=False).run(), one
+     single-lane qn_event launch per probe and replication) on Q1-10u at
+     the defaults (32 launches) and on quickstart, its two classes walked
+     in two threads; every decision must equal the reference's, and every
+     predicted response time too: exactly in replay mode (Q1-10u), within
+     a relative 1e-3 in exponential mode (quickstart).  The point-wise
+     simulator's degenerate case (one map, one tiny reduce, one slot: a
+     single-station closed network) through the scalar simulate() and
+     through response_time_batch, each within 0.08 of exact MVA on the mva
+     kernel (itself held bit-identical to its plain version there).  A
+     small replay problem is also planned on the card and on the CPU
+     (plain versions): decisions and response times must be equal;
   5. the serving path at full width and depth with seeded random weights,
      BatchingEngine(max_batch=4, greedy) serving 8 requests of 32
      generated tokens in 2 rounds: granite-3-2b (40 layers; prompts of
@@ -39,8 +50,12 @@ Phases, each printing one line or a few:
      prefill's device time) and then compared with the CPU at depth 2
      (granite, mamba2) or 3 (zamba2, one group) with the same weights and
      prompts, whose logits must agree;
-  6. each kernel's time at the main path's shapes (CUDA events, after a
-     warm-up), its bound, its plain version's time and, for
+  6. qn_event held bit-identical to its plain version at every dispatch
+     shape of the Q1-10u drives (the batched run's B = 32 lanes and the
+     point-wise walk's single lanes), the depth cut to 8192 events; each
+     kernel's time at the main path's shapes (CUDA events, after a
+     warm-up; mva at N = 4097, H = 25 and at the degenerate case's N = 1,
+     H = 5), its bound, its plain version's time and, for
      flash_attention, the time of torch's scaled_dot_product_attention on
      the same tensors (a yardstick only: the port never calls it).
 Each drive of a main path sets the kernels' launch counts to 0 just before
@@ -86,6 +101,18 @@ SERVE_CASES = [
     ("mamba2-780m", {"ssd_scan": 96}, 2),
     ("zamba2-7b", {"ssd_scan": 108, "flash_attention": 54}, 3),
 ]
+# sizes of the mva check: the reference's kernel test (tests/test_kernels.py)
+# and the degenerate case's H = 5 below; H = 0 returns the demand
+MVA_NS = (1, 7, 128, 1000, 1024, 4096, 4097)
+MVA_HS = (0, 1, 4, 5, 25)
+# the point-wise simulator's degenerate case (tests/test_qn_sim.py and
+# tests/test_batched_qn.py of the reference): one map of 1000 ms, one
+# reduce of 1 ms, one slot, 5 users thinking 10 s: a single-station closed
+# network of demand 1001 ms, whose exact MVA response both simulations
+# must meet within the reference's own 0.08
+DEGENERATE = dict(n_map=1, n_reduce=1, m_avg=1000.0, r_avg=1.0,
+                  think_ms=10_000.0, h_users=5)
+DEGENERATE_TOL = 0.08
 # the device kernels' names, for their share of a profiled prefill
 DEVICE_KERNELS = {"flash_attention": "fa_fwd_kernel",
                   "ssd_scan": "ssd_fwd_kernel"}
@@ -124,6 +151,43 @@ REFERENCE = {
  },
  "quickstart.run": {
   "qn_dispatches": 2,
+  "classes": {
+   "bi-dashboards": {
+    "vm_type": "m4.xlarge",
+    "nu": 5,
+    "reserved": 4,
+    "spot": 1,
+    "cost_per_h": 0.95,
+    "predicted_ms": 49770.77734375,
+    "feasible": True
+   },
+   "nightly-etl": {
+    "vm_type": "m4.xlarge",
+    "nu": 2,
+    "reserved": 1,
+    "spot": 1,
+    "cost_per_h": 0.29000000000000004,
+    "predicted_ms": 409866.53125,
+    "feasible": True
+   }
+  }
+ },
+ "Q1-10u.run_pointwise": {
+  "qn_dispatches": 32,
+  "classes": {
+   "Q1-10u": {
+    "vm_type": "m4.xlarge",
+    "nu": 40,
+    "reserved": 28,
+    "spot": 12,
+    "cost_per_h": 7.0,
+    "predicted_ms": 158747.29693983402,
+    "feasible": True
+   }
+  }
+ },
+ "quickstart.run_pointwise": {
+  "qn_dispatches": 4,
   "classes": {
    "bi-dashboards": {
     "vm_type": "m4.xlarge",
@@ -664,7 +728,8 @@ def main() -> None:
         fail("src/repro_torch not found beside chip_smoke.py")
     sys.path.insert(0, os.path.join(root, "src"))
 
-    from repro_torch.core import optimizer, problem, qn_sim, tpcds
+    from repro_torch.core import mva, optimizer, problem, qn_sim, tpcds
+    from repro_torch.core.shapes import bucket_slots
     from repro_torch.kernels import build
     from repro_torch.kernels.amva import ops as amva_ops
     from repro_torch.kernels.amva import ref as amva_ref
@@ -754,9 +819,26 @@ def main() -> None:
             fail(f"amva differs from its plain version at N={n}")
     print(f"[check] amva N=1,7,97,128,1000,4097: bit-identical=True",
           flush=True)
+    # exact MVA at the reference's kernel-test sizes (tests/test_kernels.py)
+    mva_err = 0.0
+    for n in MVA_NS:
+        d = f32(np.abs(gen.normal(size=n)) * 10 + 1)
+        z = f32(np.full(n, 1e4))
+        for h_users in MVA_HS:
+            k = amva_ops.mva_response(d, z, h_users)
+            p = amva_ref.mva_response(d, z, h_users)
+            mva_err = max(mva_err, float((k - p).abs().max()))
+            if not torch.equal(k, p) or (h_users == 0
+                                         and not torch.equal(k, d)):
+                fail(f"mva differs from its plain version at N={n} "
+                     f"H={h_users}")
+    print(f"[check] mva N={','.join(map(str, MVA_NS))} x H="
+          f"{','.join(map(str, MVA_HS))}: "
+          f"bit-identical=True (H=0 returns the demand)", flush=True)
     fa_err = check_flash(dev, fa_ops, fa_ref)
     ssd_err = check_ssd(dev, ssd_ops, ssd_ref)
     kernels = {"qn_event": qn_ops.qn_event, "amva": amva_ops.ps_fixed_point,
+               "mva": amva_ops.mva_response,
                "flash_attention": fa_ops.flash_attention,
                "ssd_scan": ssd_ops.ssd}
     wrappers = tuple(kernels.values())
@@ -764,16 +846,25 @@ def main() -> None:
     # ------------------------------------------------------------ main path
     DSpace4Cloud = optimizer.DSpace4Cloud
     prob, samples, _ = tpcds.scenario_problem("Q1", 10, 160_000.0)
+    quick = quickstart_problem(problem)
     drives = [("Q1-10u.run", lambda: DSpace4Cloud(
                    prob, samples=samples).run()),
               ("Q1-10u.run_fast", lambda: DSpace4Cloud(
                    prob, samples=samples).run_fast()),
               ("quickstart.run", lambda: DSpace4Cloud(
-                   quickstart_problem(problem), min_jobs=20,
-                   replications=1).run())]
+                   quick, min_jobs=20, replications=1).run()),
+              # the point-wise gait: one qn_event launch per probe and
+              # replication; quickstart's two classes walk in two threads
+              ("Q1-10u.run_pointwise", lambda: DSpace4Cloud(
+                   prob, samples=samples, batched=False).run()),
+              ("quickstart.run_pointwise", lambda: DSpace4Cloud(
+                   quick, min_jobs=20, replications=1,
+                   batched=False).run(parallel=True))]
     launches = dict.fromkeys(kernels, 0)
     mismatches = []
     shape_count = collections.Counter()
+    pw_shape_count = collections.Counter()   # the point-wise walk's B=1
+    plans = {}
     for name, drive in drives:
         reset_launches(*wrappers)
         qn_sim.reset_sim_stats()
@@ -786,66 +877,149 @@ def main() -> None:
             shape_count.update(
                 (sp.args["lanes"], sp.args["scan_len"], sp.args["max_slots"],
                  sp.args["h_users"]) for sp in tracer.by_name("kernel:cuda"))
-        n_qn = qn_ops.qn_event.launches
-        n_amva = amva_ops.ps_fixed_point.launches
-        launches["qn_event"] += n_qn
-        launches["amva"] += n_amva
+        if name == "Q1-10u.run_pointwise":
+            # each probe is one single-lane launch per replication, at the
+            # bucketed slots of its nu and the class's event budget
+            probes = [(tr.cls, nu) for tr in rep.traces.values()
+                      for nu, _, _ in tr.moves]
+            reps, e_pw = (rep.qn_dispatches // len(probes),
+                          rep.telemetry["qn"]["events_total"]
+                          // rep.qn_dispatches)
+            for cname, nu in probes:
+                c_pw = next(c for c in prob.classes if c.name == cname)
+                vm_pw = prob.vm_by_name(rep.initial[cname].vm_type)
+                pw_shape_count[(1, e_pw, bucket_slots(nu * vm_pw.slots),
+                                c_pw.h_users)] += reps
+            if sum(pw_shape_count.values()) != rep.qn_dispatches:
+                fail(f"{name}: the probes {probes} do not account for "
+                     f"{rep.qn_dispatches} dispatches")
+        got_launches = {k: w.launches for k, w in kernels.items()}
+        for k, n in got_launches.items():
+            launches[k] += n
+        n_qn = got_launches["qn_event"]
+        n_amva = got_launches["amva"]
         got = decisions(rep)
+        plans[name] = {"wall_s": wall, "qn_dispatches": rep.qn_dispatches,
+                       "qn_event_launches": n_qn,
+                       "ms_per_dispatch": 1e3 * wall / max(1,
+                                                           rep.qn_dispatches)}
         print(f"[main] {name}: wall={wall:.3f} s qn_dispatches="
-              f"{rep.qn_dispatches} launches qn_event={n_qn} amva={n_amva} "
+              f"{rep.qn_dispatches} ({plans[name]['ms_per_dispatch']:.2f} ms "
+              f"of wall each) launches qn_event={n_qn} amva={n_amva} "
               f"events={rep.telemetry['qn']['events_total']} "
               f"decisions={json.dumps(got)}", flush=True)
-        ref = REFERENCE.get(name)
-        if ref is not None:
-            print(f"[main] {name} reference: qn_dispatches="
-                  f"{ref['qn_dispatches']} decisions="
-                  f"{json.dumps(ref['classes'])}", flush=True)
-            for cls, want in ref["classes"].items():
-                have = got[cls]
-                same = all(have[k] == want[k] for k in
-                           ("vm_type", "nu", "reserved", "spot"))
-                if not same or ref["qn_dispatches"] != rep.qn_dispatches:
-                    mismatches.append(name)
-                print(f"[main] {name} {cls}: predicted_ms port "
-                      f"{have['predicted_ms']!r} reference "
-                      f"{want['predicted_ms']!r} equal="
-                      f"{have['predicted_ms'] == want['predicted_ms']}",
-                      flush=True)
+        if name.endswith("pointwise"):
+            print(f"[main] {name} probes: "
+                  f"{ {k: [m[0] for m in t.moves] for k, t in rep.traces.items()} }",
+                  flush=True)
+        ref = REFERENCE[name]
+        # replay mode (Q1-10u) draws no logarithm: its response times must
+        # be the reference's bit for bit; exponential mode (quickstart)
+        # within the relative 1e-3 that last-ulp draws leave
+        rel_tol = 0.0 if name.startswith("Q1-10u") else 1e-3
+        print(f"[main] {name} reference: qn_dispatches="
+              f"{ref['qn_dispatches']} decisions="
+              f"{json.dumps(ref['classes'])}", flush=True)
+        for cls, want in ref["classes"].items():
+            have = got[cls]
+            same = all(have[k] == want[k] for k in
+                       ("vm_type", "nu", "reserved", "spot", "cost_per_h",
+                        "feasible"))
+            rel = abs(have["predicted_ms"] - want["predicted_ms"]) \
+                / want["predicted_ms"]
+            if not same or ref["qn_dispatches"] != rep.qn_dispatches \
+                    or rel > rel_tol:
+                mismatches.append(name)
+            print(f"[main] {name} {cls}: predicted_ms port "
+                  f"{have['predicted_ms']!r} reference "
+                  f"{want['predicted_ms']!r} rel {rel:.3e} (tol {rel_tol})",
+                  flush=True)
         if n_qn != rep.qn_dispatches or n_qn <= 0:
             fail(f"{name}: qn_event launches {n_qn} != fused dispatches "
                  f"{rep.qn_dispatches}")
         if name.endswith("run_fast") and n_amva <= 0:
             fail(f"{name}: the amva kernel was not launched")
-        if fa_ops.flash_attention.launches or ssd_ops.ssd.launches:
-            fail(f"{name}: the planner launched a model kernel")
+        if any(got_launches[k] for k in ("mva", "flash_attention",
+                                         "ssd_scan")):
+            fail(f"{name}: the planner launched a kernel off its path: "
+                 f"{got_launches}")
         for cls, sol in got.items():
             if not (np.isfinite(sol["predicted_ms"]) and sol["nu"] >= 1
                     and sol["reserved"] + sol["spot"] == sol["nu"]):
                 fail(f"{name}: malformed solution for {cls}: {sol}")
     print(f"[main] decisions differing from the reference: "
           f"{sorted(set(mismatches)) or 'none'}", flush=True)
+    if mismatches:
+        fail(f"decisions differ from the reference's: {sorted(set(mismatches))}")
 
-    # device busy share of one Q1 run() (torch.profiler, CUDA activity)
+    # device busy share of one plan in each gait (torch.profiler, CUDA
+    # activity)
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof_run:
-        t0 = time.perf_counter()
-        DSpace4Cloud(prob, samples=samples).run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kernel = collections.Counter()
-    for ev in prof_run.events():       # device-side kernel records only
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[ev.name] += ev.time_range.elapsed_us() / 1e3
-    busy_ms = sum(by_kernel.values())
-    top = ", ".join(f"{k[:40]}={v:.2f}" for k, v in by_kernel.most_common(5))
-    print(f"[profile] Q1-10u.run: wall {wall_ms:.2f} ms, device busy "
-          f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
-          f"{100 * (1 - busy_ms / wall_ms):.1f}%; top ms: {top}"
-          if busy_ms > 0 else
-          f"[profile] Q1-10u.run: wall {wall_ms:.2f} ms, device time not "
-          f"measured (the profiler recorded no device activity)",
-          flush=True)
+    for label, plan in [
+            ("Q1-10u.run", lambda: DSpace4Cloud(prob, samples=samples).run()),
+            ("Q1-10u.run_pointwise", lambda: DSpace4Cloud(
+                prob, samples=samples, batched=False).run())]:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof_run:
+            t0 = time.perf_counter()
+            plan()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_kernel = collections.Counter()
+        for ev in prof_run.events():       # device-side kernel records only
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                by_kernel[ev.name] += ev.time_range.elapsed_us() / 1e3
+        busy_ms = sum(by_kernel.values())
+        top = ", ".join(f"{k[:40]}={v:.2f}"
+                        for k, v in by_kernel.most_common(5))
+        print(f"[profile] {label}: wall {wall_ms:.2f} ms, device busy "
+              f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
+              f"{100 * (1 - busy_ms / wall_ms):.1f}%; top ms: {top}"
+              if busy_ms > 0 else
+              f"[profile] {label}: wall {wall_ms:.2f} ms, device time not "
+              f"measured (the profiler recorded no device activity)",
+              flush=True)
+
+    # the point-wise simulator's degenerate case against exact MVA on the
+    # card: the scalar simulate() (3 replications, one launch each) and
+    # response_time_batch (one launch), the reference's own two checks
+    reset_launches(*wrappers)
+    m_scalar, c_scalar = qn_sim.simulate(qn_sim.QNParams(
+        **DEGENERATE, slots=1, n_events=60_000, warmup_jobs=50, seed=1), 3)
+    t_batch = float(qn_sim.response_time_batch(
+        **DEGENERATE, slots=np.array([1]), min_jobs=400, warmup_jobs=50,
+        seed=1, replications=3)[0])
+    demand = DEGENERATE["m_avg"] + DEGENERATE["r_avg"]
+    mva_args = (f32([demand]), f32([DEGENERATE["think_ms"]]),
+                DEGENERATE["h_users"])
+    exact_t = amva_ops.mva_response(*mva_args)
+    torch.cuda.synchronize()
+    got_launches = {k: w.launches for k, w in kernels.items()}
+    if not torch.equal(exact_t, amva_ref.mva_response(*mva_args)):
+        fail("mva differs from its plain version at the degenerate case")
+    exact = float(exact_t[0])
+    want_launches = dict.fromkeys(kernels, 0)
+    want_launches.update(qn_event=4, mva=1)
+    for k, n in got_launches.items():
+        launches[k] += n
+    rel = {"simulate": abs(m_scalar - exact) / exact,
+           "response_time_batch": abs(t_batch - exact) / exact}
+    host_exact = mva.mva_response(demand, DEGENERATE["think_ms"],
+                                  DEGENERATE["h_users"])
+    print(f"[pointwise] degenerate case (demand {demand:g} ms, think "
+          f"{DEGENERATE['think_ms']:g} ms, H={DEGENERATE['h_users']}, one "
+          f"slot): exact MVA on the card {exact!r} (host float64 "
+          f"{host_exact!r}); simulate(3 replications) {m_scalar!r} over "
+          f"{c_scalar:g} jobs, rel {rel['simulate']:.4f}; "
+          f"response_time_batch {t_batch!r}, rel "
+          f"{rel['response_time_batch']:.4f} (tol {DEGENERATE_TOL}); "
+          f"launches {got_launches}", flush=True)
+    if got_launches != want_launches:
+        fail(f"degenerate case: launches {got_launches}, expected "
+             f"{want_launches}")
+    if not (c_scalar > 1000 and max(rel.values()) <= DEGENERATE_TOL):
+        fail("the point-wise simulator's degenerate case is not within "
+             f"{DEGENERATE_TOL} of exact MVA")
 
     small, small_samples = small_replay_problem(problem)
     on_card = decisions(DSpace4Cloud(small, samples=small_samples,
@@ -854,9 +1028,11 @@ def main() -> None:
                                     min_jobs=10, device="cpu").run())
     for cls in on_cpu:
         a, b = on_card[cls], on_cpu[cls]
-        if any(a[k] != b[k] for k in ("vm_type", "nu", "reserved", "spot")):
+        if any(a[k] != b[k] for k in ("vm_type", "nu", "reserved", "spot",
+                                      "predicted_ms")):
             fail(f"small replay problem: card {a} != cpu {b}")
-    print(f"[main] small replay problem, card vs cpu: decisions equal; "
+    print(f"[main] small replay problem, card vs cpu: decisions and "
+          f"response times equal; "
           f"predicted_ms card={[v['predicted_ms'] for v in on_card.values()]}"
           f" cpu={[v['predicted_ms'] for v in on_cpu.values()]}", flush=True)
 
@@ -897,7 +1073,10 @@ def main() -> None:
                                             lane_args[3], **streams_kw)
         return lane_args, make
 
-    shapes = [s for s, _ in shape_count.most_common()]
+    # the point-wise walk's single-lane shapes too (B=1, one per bucket of
+    # slots it probed)
+    shapes = [s for s, _ in shape_count.most_common()] + \
+        [s for s, _ in pw_shape_count.most_common()]
     checked = {}
     for Bm, E_main, S_main, H_main in shapes:
         lane_args, make = main_lanes(Bm, E_main, S_main, H_main)
@@ -918,9 +1097,11 @@ def main() -> None:
                      float((kc - pc).abs().max()))
         cut_ms = cuda_ms(lambda: qn_ops.qn_event(*cut, **cut_kw), 3)
         checked[(Bm, E_main, S_main, H_main)] = (plain_ms, cut_ms)
+        n_disp = (shape_count + pw_shape_count)[(Bm, E_main, S_main, H_main)]
         print(f"[check] qn_event at the main path's widths B={Bm} "
-              f"S={S_main} H={H_main}, E={E_cut}: bit-identical=True; "
-              f"kernel {cut_ms:.3f} ms, plain {plain_ms:.1f} ms", flush=True)
+              f"S={S_main} H={H_main}, E={E_cut} ({n_disp} of the drives' "
+              f"dispatches): bit-identical=True; kernel {cut_ms:.3f} ms, "
+              f"plain {plain_ms:.1f} ms", flush=True)
 
     (Bm, E_main, S_main, H_main), n_shape = shape_count.most_common(1)[0]
     lane_args, make = main_lanes(Bm, E_main, S_main, H_main)
@@ -967,6 +1148,55 @@ def main() -> None:
     print(f"[time] amva N={n_am}: {am_ms:.4f} ms/launch, plain "
           f"{am_plain_ms:.3f} ms, bound {am_bound:.6f} ms", flush=True)
 
+    # mva at the reference test's largest size and at the degenerate case
+    def time_mva(n, h_users):
+        d = f32(np.abs(gen.normal(size=n)) * 10 + 1)
+        z = f32(np.full(n, 1e4))
+        ms = cuda_ms(lambda: amva_ops.mva_response(d, z, h_users), 200)
+        plain_ms = cuda_ms(lambda: amva_ref.mva_response(d, z, h_users), 5)
+        # the kernel's own device time, apart from the wrapper's host time
+        with profile(activities=[ProfilerActivity.CUDA]) as prof_mva:
+            for _ in range(20):
+                amva_ops.mva_response(d, z, h_users)
+            torch.cuda.synchronize()
+        dev_us = [ev.time_range.elapsed_us() for ev in prof_mva.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA
+                  and "amva_mva_kernel" in ev.name]
+        device_ms = sum(dev_us) / len(dev_us) / 1e3 if dev_us else None
+        # bytes: d and z read, R written; operations: 1+q, d*(.), r+z, the
+        # division and x*r per user per candidate
+        nbytes, flops = 12 * n, 5 * h_users * n
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_FP32_OPS_PER_S
+        bound = 1e3 * max(t_bytes, t_ops)
+        print(f"[time] mva N={n} H={h_users}: {ms:.4f} ms/launch (the "
+              f"kernel alone on the device: "
+              f"{'not measured' if device_ms is None else f'{device_ms:.4f} ms'}"
+              f"), plain {plain_ms:.3f} ms, bound {bound:.3e} ms ({nbytes} "
+              f"bytes, {flops} flops)", flush=True)
+        return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                "bound_ms": bound,
+                "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+    mva_time = time_mva(4097, 25)
+    mva_degenerate = time_mva(1, DEGENERATE["h_users"])
+    # one point-wise dispatch: a single lane of the Q1 drive's shape
+    S_pw = bucket_slots(REFERENCE["Q1-10u.run_pointwise"]["classes"][
+        cls.name]["nu"] * vm.slots)
+    lane_pw, make_pw = main_lanes(1, E_main, S_pw, H_main)
+    tables_pw = make_pw()
+    streams_pw_ms = cuda_ms(make_pw, 3)
+    qn_pw_ms = cuda_ms(lambda: qn_ops.qn_event(
+        *lane_pw, *tables_pw, max_slots=S_pw, warmup_jobs=8, replay=True), 3)
+    pw = plans["Q1-10u.run_pointwise"]
+    pw.update(qn_event_ms_b1=qn_pw_ms, event_streams_ms_b1=streams_pw_ms)
+    print(f"[time] point-wise plan Q1-10u: wall {pw['wall_s']:.3f} s for "
+          f"{pw['qn_dispatches']} dispatches, {pw['ms_per_dispatch']:.2f} ms "
+          f"each; one dispatch's parts at B=1 E={E_main} S={S_pw} "
+          f"H={H_main}: qn_event {qn_pw_ms:.3f} ms, event_streams "
+          f"{streams_pw_ms:.3f} ms (batched run(): "
+          f"{plans['Q1-10u.run']['wall_s']:.3f} s for "
+          f"{plans['Q1-10u.run']['qn_dispatches']} dispatches)", flush=True)
+
     fa_time = time_flash(dev, fa_ops, fa_ref, 4, 1024, 32, 8, 64)
     fa_zamba2 = time_flash(dev, fa_ops, fa_ref, 4, 896, 32, 32, 112)
     ssd_time = time_ssd(dev, ssd_ops, ssd_ref)
@@ -984,7 +1214,8 @@ def main() -> None:
          "bound_by": ("operations" if qn_ops_n / H100_INSTR_PER_S
                       > qn_bytes / H100_BYTES_PER_S else "bytes"),
          "library_ms": None,
-         "library_note": "no single PyTorch call simulates the network"},
+         "library_note": "no single PyTorch call simulates the network",
+         "plans": plans},
         {"name": "amva", "route": "cuda",
          "source": "src/repro_torch/csrc/amva.cu",
          "replaces": "src/repro/kernels/amva/kernel.py:94",
@@ -995,6 +1226,14 @@ def main() -> None:
                       > am_bytes / H100_BYTES_PER_S else "bytes"),
          "library_ms": None,
          "library_note": "no single PyTorch call iterates the fixed point"},
+        {"name": "mva", "route": "cuda",
+         "source": "src/repro_torch/csrc/amva.cu",
+         "replaces": "src/repro/kernels/amva/kernel.py:103",
+         "launches": launches["mva"], "max_abs_err": mva_err,
+         **mva_time, "shape": "N=4097 H=25",
+         "library_ms": None,
+         "library_note": "no PyTorch call runs the MVA recursion",
+         "at_degenerate_case": {"shape": "N=1 H=5", **mva_degenerate}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:87",

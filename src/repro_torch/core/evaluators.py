@@ -1,18 +1,23 @@
-"""Response-time evaluators of the port: the batched AMVA frontier
-(``amva_frontier`` on ``kernels/amva``) and the batched QN tier
-(``BatchedQNEvaluator`` on ``qn_sim`` and ``kernels/qn_event``).
+"""Response-time evaluators of the port, at the reference's tiers:
+
+  * ``amva_frontier`` — the batched AMVA frontier on ``kernels/amva``;
+  * ``make_qn_evaluator`` — the paper's point-wise QN tier, one scalar
+    simulation (``qn_sim.response_time``) per probe;
+  * ``BatchedQNEvaluator`` — the batched QN tier, whole candidate sweeps
+    per fused dispatch of ``kernels/qn_event``.
 
 Caches are content-addressed exactly as in the reference: keys are
-``(profile_hash, vm_name, nu, seed)`` with the same ``profile_hash``, so a
-cache filled by the reference can feed the port (``core.interop``).  The
-MapReduce route is ported; a DAG profile raises ``NotImplementedError``
-(its K-stage event kernel is later work).  The point-wise evaluator
-(``make_qn_evaluator``) waits for the scalar gait.
+``(profile_hash, vm_name, nu, seed)`` with the same ``profile_hash``, for
+both QN evaluators, so one cache serves both gaits and a cache filled by
+the reference can feed the port (``core.interop``).  The MapReduce route
+is ported; a DAG profile raises ``NotImplementedError`` (its K-stage
+event kernel is later work).
 """
 from __future__ import annotations
 
 import threading
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, \
+    Tuple
 
 import numpy as np
 import torch
@@ -45,6 +50,9 @@ class _ContextDigests:
                         replications=replications)
         self._sdig: Dict[tuple, str] = {}
 
+    def replay_for(self, cls: ApplicationClass, vm: VMType):
+        return self.samples.get((cls.name, vm.name))
+
     def sample_digest(self, cls: ApplicationClass, vm: VMType) -> str:
         k = (cls.name, vm.name)
         if k not in self._sdig:
@@ -55,6 +63,44 @@ class _ContextDigests:
         return profile_hash(prof, cls.think_ms, cls.h_users, vm.slots,
                             samples_dig=self.sample_digest(cls, vm),
                             **self.sim)
+
+
+def make_qn_evaluator(min_jobs: int = 40, warmup_jobs: int = 8,
+                      replications: int = 2, seed: int = 0,
+                      cache: Optional[dict] = None,
+                      samples: Optional[Dict] = None,
+                      device=None) -> Callable:
+    """The point-wise QN evaluator: ``evaluate(cls, vm, nu)`` runs one
+    scalar simulation (one ``qn_event`` dispatch per replication) on
+    ``device``, which is resolved here, once, so that calls from worker
+    threads use it too.  ``samples`` maps ``(class_name, vm_name)`` to
+    replay lists ``(m_list, r_list)`` (JMT replayer mode).  The cache key
+    is the batched evaluator's, so the two gaits share one cache."""
+    dev = resolve_device(device)
+    cache = cache if cache is not None else {}
+    ctx = _ContextDigests(samples, min_jobs=min_jobs,
+                          warmup_jobs=warmup_jobs, replications=replications)
+
+    def evaluate(cls: ApplicationClass, vm: VMType, nu: int) -> float:
+        prof = cls.profile_for(vm)
+        key = (ctx.digest(prof, cls, vm), vm.name, int(nu), seed)
+        if key in cache:
+            return cache[key]
+        if workload_kind(prof) == DAG:
+            raise NotImplementedError("DAG workloads are not ported yet")
+        smp = ctx.replay_for(cls, vm)
+        ms, rs = smp if smp is not None else (None, None)
+        t = qn_sim.response_time(
+            n_map=prof.n_map, n_reduce=prof.n_reduce,
+            m_avg=prof.m_avg, r_avg=prof.r_avg,
+            think_ms=cls.think_ms, h_users=cls.h_users,
+            slots=nu * vm.slots, min_jobs=min_jobs,
+            warmup_jobs=warmup_jobs, seed=seed,
+            replications=replications, m_samples=ms, r_samples=rs,
+            device=dev)
+        cache[key] = t
+        return t
+    return evaluate
 
 
 def fused_qn_call(profs: Sequence["object"], think_ms: Sequence[float],

@@ -1,4 +1,9 @@
-"""Parallel Local Search Optimizer — Algorithm 1, batched gait.
+"""Parallel Local Search Optimizer — Algorithm 1, in two gaits.
+
+``optimize_class`` is the paper-verbatim point-wise walk: one evaluator
+call (one scalar simulation) per probed nu, up while infeasible, down
+while feasible, then one step back.  ``hill_climb`` runs it for every
+class of a problem, in worker threads when ``parallel``.
 
 ``sweep_requests`` proposes a *window* of nu candidates around the
 incumbent, receives the whole window's response times from one fused
@@ -10,21 +15,25 @@ whose ``optimal_mix`` cost at the smallest nu it can still end at exceeds
 the incumbent's QN-verified cost is retired without further dispatches.
 ``sweep_class``/``race_class`` run one job each.
 
-The climber only talks to the evaluator through ``(cls, vm, nu)`` probes,
-so it is the reference's code unchanged; the paper-verbatim point-wise
-walk (``optimize_class``/``hill_climb``) waits for the scalar gait.
+The climber only talks to the evaluator through ``(cls, vm, nu)``
+probes, so it is the reference's code unchanged.
 """
 from __future__ import annotations
 
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
 from repro_torch.core.pricing import mix_cost, optimal_mix
-from repro_torch.core.problem import ApplicationClass, ClassSolution, VMType
+from repro_torch.core.problem import ApplicationClass, ClassSolution, \
+    Problem, VMType
 from repro_torch.obs import trace as _obs_trace
+
+# evaluator: (cls, vm, nu) -> predicted response time [ms]
+Evaluator = Callable[[ApplicationClass, VMType, int], float]
 
 
 def request_id(cls_name: str, vm_name: str) -> str:
@@ -50,6 +59,46 @@ def _solution(cls: ApplicationClass, vm: VMType, nu: int,
     return ClassSolution(vm_type=vm.name, nu=nu, reserved=r, spot=s,
                          cost_per_h=cost, predicted_ms=t,
                          feasible=t <= cls.deadline_ms)
+
+
+def optimize_class(cls: ApplicationClass, vm: VMType, nu0: int,
+                   evaluate: Evaluator, max_nu: int = 8192,
+                   stall_patience: int = 6,
+                   trace: Optional[HCTrace] = None) -> ClassSolution:
+    """Algorithm 1 body for one class, point-wise.
+
+    ``stall_patience`` guards the pursuit of feasibility: when the
+    response time has floored above the deadline (no cluster size can
+    help), that many consecutive increments without >0.5% improvement
+    abort with an infeasible verdict."""
+    t_start = time.time()
+    tr = trace if trace is not None else HCTrace(cls=cls.name)
+    nu = max(1, nu0)
+    t = evaluate(cls, vm, nu)
+    tr.evals += 1
+    tr.moves.append((nu, t, t <= cls.deadline_ms))
+
+    if t > cls.deadline_ms:                        # pursuit of feasibility
+        stall = 0
+        while t > cls.deadline_ms and nu < max_nu and stall < stall_patience:
+            nu += 1                                # IncrementCluster
+            t_new = evaluate(cls, vm, nu)
+            stall = stall + 1 if t_new > t * 0.995 else 0
+            t = t_new
+            tr.evals += 1
+            tr.moves.append((nu, t, t <= cls.deadline_ms))
+    else:                                          # cost optimization
+        while nu > 1:
+            t_next = evaluate(cls, vm, nu - 1)     # DecrementCluster probe
+            tr.evals += 1
+            tr.moves.append((nu - 1, t_next, t_next <= cls.deadline_ms))
+            if t_next <= cls.deadline_ms:
+                nu -= 1
+                t = t_next
+            else:
+                break                              # IncrementCluster (back)
+    tr.wall_s = time.time() - t_start
+    return _solution(cls, vm, nu, t)
 
 
 def sweep_requests(cls: ApplicationClass, vm: VMType, nu0: int, *,
@@ -332,3 +381,28 @@ def race_class(cls: ApplicationClass, lanes: Sequence[Tuple[VMType, int]],
                     results[vm.name] = np.asarray(
                         [evaluator(cls, vm, int(n)) for n in nus], float)
         n_round += 1
+
+
+def hill_climb(
+    problem: Problem, initial: Dict[str, ClassSolution],
+    evaluate: Evaluator, *, parallel: bool = True, max_nu: int = 8192,
+) -> Tuple[Dict[str, ClassSolution], Dict[str, HCTrace]]:
+    """Algorithm 1: a parallel for over the classes (the point-wise
+    ``optimize_class``), one worker thread per class up to 8 when
+    ``parallel`` and there is more than one class."""
+    traces = {c.name: HCTrace(cls=c.name) for c in problem.classes}
+
+    def run_one(cls: ApplicationClass) -> Tuple[str, ClassSolution]:
+        init = initial[cls.name]
+        vm = problem.vm_by_name(init.vm_type)
+        sol = optimize_class(cls, vm, init.nu, evaluate, max_nu=max_nu,
+                             trace=traces[cls.name])
+        return cls.name, sol
+
+    if parallel and len(problem.classes) > 1:
+        with ThreadPoolExecutor(
+                max_workers=min(8, len(problem.classes))) as ex:
+            results = dict(ex.map(run_one, problem.classes))
+    else:
+        results = dict(map(run_one, problem.classes))
+    return results, traces

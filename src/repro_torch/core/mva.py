@@ -14,8 +14,9 @@ Three layers, as in the reference:
 3. ``mva_response``: textbook exact MVA for a single-server closed network.
 
 The scalar functions run on Python floats (float64) and equal the
-reference's exactly.  ``ps_response_batch`` is the float32 tensor version
-over many candidates: the plain version behind ``kernels/amva``.
+reference's exactly.  ``ps_response_batch`` and ``mva_response_batch``
+are their float32 tensor versions over many candidates: the plain
+versions behind ``kernels/amva``.
 """
 from __future__ import annotations
 
@@ -86,6 +87,24 @@ def ps_response_batch(a_over_c: torch.Tensor, b: torch.Tensor,
         m = h_users * t / (t + think)
         t = fma32(a_over_c, torch.clamp(m, min=1.0), b)
     return t
+
+
+def mva_response_batch(demand: torch.Tensor, think: torch.Tensor,
+                       h_users: int) -> torch.Tensor:
+    """float32 exact single-station MVA over candidates (``(N,)`` each),
+    with the reference's rounding: ``1 + q``, ``d * (.)``, ``r + z``, an
+    IEEE division of the float32 ``h`` by it, ``x * r``, each rounded once
+    (the reference contracts none of them).  ``h_users = 0`` returns
+    ``demand``, as the reference's kernel does."""
+    q = torch.zeros_like(demand)
+    r = demand.clone()
+    for h in range(1, int(h_users) + 1):
+        r = demand * (1.0 + q)
+        # a tensor numerator: ``float / tensor`` would multiply by the
+        # reciprocal, two roundings
+        x = torch.full_like(r, float(h)) / (r + think)
+        q = x * r
+    return r
 
 
 def min_slots_for_deadline(p, think: float, h_users: int,

@@ -8,9 +8,14 @@ simulator (``hillclimb.race_requests``, every round one fused
 every racing lane from the batched AMVA frontier (``amva_nu_seed`` on the
 ``amva`` kernel).
 
-The port plans the paper's public cloud with the batched gait:
-``deployment=`` (the private-cloud plane) and ``batched=False`` (the
-point-wise walk) raise ``NotImplementedError`` until they are ported.
+``batched=False`` is the paper's point-wise gait instead: the evaluator
+runs one scalar simulation per probe (``make_qn_evaluator``, one
+single-lane ``qn_event`` dispatch per replication), and ``run()`` walks
+each class on its analytically-ranked VM type with Algorithm 1
+(``hillclimb.hill_climb``, the classes in worker threads).  Both gaits
+share the cache keys and the per-point numbers.  The port plans the
+paper's public cloud: ``deployment=`` (the private-cloud plane) raises
+``NotImplementedError`` until it is ported.
 """
 from __future__ import annotations
 
@@ -21,10 +26,12 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from repro_torch import resolve_device
 from repro_torch.core import qn_sim
-from repro_torch.core.evaluators import amva_nu_seed, make_batched_qn_evaluator
-from repro_torch.core.hillclimb import HCTrace, race_class, race_requests, \
-    request_id
+from repro_torch.core.evaluators import amva_nu_seed, \
+    make_batched_qn_evaluator, make_qn_evaluator
+from repro_torch.core.hillclimb import HCTrace, hill_climb, race_class, \
+    race_requests, request_id
 from repro_torch.core.milp import rank_vm_types
 from repro_torch.core.problem import ApplicationClass, ClassSolution, \
     Problem, VMType, solution_cost
@@ -106,29 +113,31 @@ def _report(sols: Dict[str, ClassSolution], traces: Dict[str, HCTrace],
 
 
 class DSpace4Cloud:
-    """The tool: optimization scenario of Figure 3 (public cloud, batched
-    raced gait).  ``device`` is where the kernels run: the current CUDA
-    device by default, ``"cpu"`` for their plain versions."""
+    """The tool: optimization scenario of Figure 3 (public cloud).
+    ``batched=True`` probes the QN tier through the batched evaluator
+    (raced window sweeps), ``batched=False`` through the point-wise one
+    (Algorithm 1 per class in ``run()``).  ``device`` is where the kernels
+    run: the current CUDA device by default, ``"cpu"`` for their plain
+    versions."""
 
     def __init__(self, problem: Problem, *, min_jobs: int = 40,
                  replications: int = 2, seed: int = 0, samples=None,
                  batched: bool = True, window: int = 16,
                  deployment=None,
                  cache: Optional[dict] = None, device=None):
-        if not batched:
-            raise NotImplementedError(
-                "the point-wise gait (batched=False) is not ported yet")
         if deployment is not None or problem.deployment is not None:
             raise NotImplementedError(
                 "private-cloud deployments are not ported yet")
         self.problem = problem
         self.window = window
+        self.batched = batched
+        self.device = resolve_device(device)
         self._qn_cache: dict = cache if cache is not None else {}
         self._rank_cache: Optional[Dict[str, List[ClassSolution]]] = None
-        self.evaluate = make_batched_qn_evaluator(
+        maker = make_batched_qn_evaluator if batched else make_qn_evaluator
+        self.evaluate = maker(
             min_jobs=min_jobs, replications=replications, seed=seed,
-            cache=self._qn_cache, samples=samples, device=device)
-        self.device = self.evaluate.device
+            cache=self._qn_cache, samples=samples, device=self.device)
 
     def _ranking(self) -> Dict[str, List[ClassSolution]]:
         """Per-class analytic candidate ranking (memoized); every ranked
@@ -175,10 +184,27 @@ class DSpace4Cloud:
             proposed = nxt
         return _report(sols, traces, init, t0, snap0, self.problem)
 
-    def run(self) -> RunReport:
-        """Analytic ranking + QN-verified raced sweeps: every scheduling
-        round's windows, across all classes and VM-type lanes, are one
-        ``evaluate_many`` call (one fused dispatch per fusion group)."""
+    def run(self, parallel: bool = True) -> RunReport:
+        """Analytic ranking + QN-verified search.  Batched: raced sweeps,
+        every scheduling round's windows, across all classes and VM-type
+        lanes, one ``evaluate_many`` call (one fused dispatch per fusion
+        group).  Point-wise: Algorithm 1 per class on its analytically
+        cheapest VM type, the classes in worker threads when
+        ``parallel``."""
+        if not self.batched:
+            with _obs_trace.span("solve", cat="solve", mode="pointwise",
+                                 classes=len(self.problem.classes)):
+                t0 = time.time()
+                snap0 = _snapshot()
+                init = {name: cands[0]
+                        for name, cands in self._ranking().items()}
+                sols, hc_traces = hill_climb(self.problem, init,
+                                             self.evaluate,
+                                             parallel=parallel)
+                traces = {request_id(name, init[name].vm_type): tr
+                          for name, tr in hc_traces.items()}
+                return _report(sols, traces, init, t0, snap0, self.problem)
+
         gen = self.run_steps()
         with _obs_trace.span("solve", cat="solve", mode="batched",
                              classes=len(self.problem.classes)):

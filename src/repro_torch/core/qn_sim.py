@@ -1,6 +1,6 @@
-"""Batched closed fork-join QN simulation (paper §3.1, Figure 2) on PyTorch.
+"""Closed fork-join QN simulation (paper §3.1, Figure 2) on PyTorch.
 
-The port of the reference's batched path (``repro/core/qn_sim.py``):
+The port of the reference's ``repro/core/qn_sim.py``, both gaits.
 ``response_time_batch`` marshals a candidate sweep into one flat lane
 batch (lane = candidate x replication), pads it exactly as the reference
 does (candidate axis to the shape grid, ``max_slots`` to its bucket, scan
@@ -12,11 +12,15 @@ reference's formulas, so the two packages' counter deltas agree call for
 call.  The device decides the implementation: CUDA tensors launch the
 kernel, CPU tensors take its plain version.
 
-The scalar point-wise gait (``simulate``/``response_time``) is not ported
-yet.
+The scalar point-wise gait (``simulate``/``response_time``, the paper's
+one simulation per probe) runs each replication as one single-lane
+``kernels.qn_event`` dispatch with the same buckets, seed and budget as
+the reference's scalar program, so a scalar probe equals the same
+candidate's lane of ``response_time_batch`` exactly.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Tuple
 
 import numpy as np
@@ -28,6 +32,20 @@ from repro_torch.core import shapes as _shapes
 from repro_torch.kernels.qn_event import ops as qn_event_ops
 from repro_torch.obs import metrics as _obs_metrics
 from repro_torch.obs import trace as _obs_trace
+
+
+@dataclass(frozen=True)
+class QNParams:
+    n_map: int
+    n_reduce: int
+    m_avg: float                 # mean map-task service [ms]
+    r_avg: float                 # mean reduce-task service [ms]
+    think_ms: float              # Z_i
+    h_users: int
+    slots: int                   # FCR capacity = total containers
+    n_events: int = 200_000
+    warmup_jobs: int = 10
+    seed: int = 0
 
 
 def events_needed(n_map: int, n_reduce: int, warmup_jobs: int,
@@ -278,3 +296,66 @@ def response_time_batch(n_map, n_reduce, m_avg, r_avg, think_ms,
             warmup_jobs=warmup_jobs)
     pending = PendingBatch(mean, cnt, C, R)
     return pending if defer else pending.resolve()
+
+
+def _simulate(p: QNParams, replications: int, m_samples, r_samples,
+              device) -> Tuple[float, float]:
+    """The scalar gait: each replication is one single-lane dispatch of
+    ``kernels.qn_event`` at the pow2 budget of ``p.n_events`` (fold offset
+    and scan length alike) and the bucketed ``max_slots``, seeded
+    ``p.seed + 1000*r``.  Replay mode ignores the profile means."""
+    dev = resolve_device(device)
+    ne = _shapes.bucket_events(p.n_events)
+    replay = m_samples is not None
+    if replay:
+        ms = torch.as_tensor(np.asarray(m_samples, np.float32), device=dev)
+        rs = torch.as_tensor(np.asarray(r_samples, np.float32), device=dev)
+        m_avg = r_avg = 0.0
+    else:
+        ms = rs = None
+        m_avg, r_avg = p.m_avg, p.r_avg
+
+    def t(x, dt):
+        return torch.tensor([x], dtype=dt, device=dev)
+
+    i32, f32 = torch.int32, torch.float32
+    lane = (t(p.n_map, i32), t(p.n_reduce, i32), t(m_avg, f32),
+            t(r_avg, f32), t(p.think_ms, f32), t(p.slots, i32))
+    span_args = dict(events=ne, replay=True) if replay else dict(events=ne)
+    outs = []
+    for r in range(replications):
+        _count_dispatch(events_total=ne, events_useful=ne)
+        with _obs_trace.span("kernel:scalar", cat="kernel", **span_args):
+            outs.append(torch.cat(qn_event_ops.sim_batch(
+                *lane, t(p.seed + 1000 * r, torch.int64), t(ne, i32),
+                ms, rs, h_users=int(p.h_users),
+                max_slots=_shapes.bucket_slots(p.slots), n_events=ne,
+                warmup_jobs=p.warmup_jobs)))
+    if not outs:
+        return _combine([], [])
+    res = torch.stack(outs).cpu().numpy()      # one read for all of them
+    return _combine(res[:, 0], res[:, 1])
+
+
+def simulate(p: QNParams, replications: int = 3,
+             device=None) -> Tuple[float, float]:
+    """Returns (mean response [ms], total completed jobs counted) of
+    ``replications`` exponential-mode runs, one dispatch each."""
+    return _simulate(p, replications, None, None, device)
+
+
+def response_time(n_map: int, n_reduce: int, m_avg: float, r_avg: float,
+                  think_ms: float, h_users: int, slots: int,
+                  min_jobs: int = 40, warmup_jobs: int = 10,
+                  seed: int = 0, replications: int = 2,
+                  m_samples=None, r_samples=None, device=None) -> float:
+    """Mean response time of one configuration, one dispatch per
+    replication.  With ``m_samples``/``r_samples`` service times replay
+    the duration lists (JMT replayer mode); otherwise they are exponential
+    with the profile means."""
+    p = QNParams(n_map=n_map, n_reduce=n_reduce, m_avg=m_avg, r_avg=r_avg,
+                 think_ms=think_ms, h_users=h_users, slots=slots,
+                 n_events=events_needed(n_map, n_reduce, warmup_jobs,
+                                        min_jobs),
+                 warmup_jobs=warmup_jobs, seed=seed)
+    return _simulate(p, replications, m_samples, r_samples, device)[0]

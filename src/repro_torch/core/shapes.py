@@ -42,3 +42,10 @@ def bucket_slots(n: int) -> int:
     """Bucket a ``max_slots`` axis.  Slots past a lane's capacity are
     disabled and never win a selection — values are unchanged."""
     return bucket(n)
+
+
+def bucket_events(n: int) -> int:
+    """Bucket a logical event budget: always pow2, since the budget is the
+    RNG fold offset of the think-redraw stream and so part of the
+    simulated values."""
+    return pow2(n)

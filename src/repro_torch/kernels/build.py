@@ -17,7 +17,7 @@ one loads from ``build/repro_torch/`` without compiling
 (``obs.compile`` counts both).  The build runs at first use, never at
 import; a build that fails raises.  Each C entry point returns
 ``cudaGetLastError()`` after its launch, and ``check`` raises on a
-nonzero code.
+nonzero code; ``count`` then adds the launch to the wrapper's count.
 """
 from __future__ import annotations
 
@@ -43,6 +43,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # (the cudaError_t of its launch)
 SIGNATURES = {
     "amva_ps_launch": [_P, _P, _P, _P, _P, _I, _I, _P],
+    # demand, think, r_out; n, h_users; stream
+    "amva_mva_launch": [_P, _P, _P, _I, _I, _P],
     "qn_event_launch": [_P] * 11 + [_P, _P, _P, _P] + [_I] * 6 + [_P],
     # q, k, v, o; B, S, H, KV, Dh; (b, s, head) strides of q, k, v, o;
     # causal, window, dtype; stream
@@ -55,6 +57,7 @@ SIGNATURES = {
 }
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib = None
 build_log = ""          # nvcc's output of the last build (ptxas usage)
 
@@ -136,6 +139,13 @@ def check(rc: int, kernel: str) -> None:
     """Raise when a C entry point reports a CUDA error."""
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
+
+
+def count(wrapper) -> None:
+    """Add one to ``wrapper.launches``, under a lock: the point-wise
+    planner launches kernels from worker threads."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 if __name__ == "__main__":

@@ -70,7 +70,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             B, S, H, k.shape[2], Dh, *strides, int(bool(causal)), window,
             _DTYPES[q.dtype], stream)
     build.check(rc, "flash_attention")
-    flash_attention.launches += 1
+    build.count(flash_attention)
     return out
 
 

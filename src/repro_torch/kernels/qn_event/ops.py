@@ -110,7 +110,7 @@ def qn_event(n_map, n_reduce, slots_cap, n_events_active, m_avg, r_avg,
             B, H, int(max_slots), E, int(warmup_jobs), int(bool(replay)),
             stream)
     build.check(rc, "qn_event")
-    qn_event.launches += 1
+    build.count(qn_event)
     return resp_sum, resp_cnt
 
 

@@ -92,7 +92,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             C_.data_ptr(), y.data_ptr(), state.data_ptr(), Bb, S, H, P, N,
             chunk, *strides, *dtypes, stream)
     build.check(rc, "ssd_scan")
-    ssd.launches += 1
+    build.count(ssd)
     return y, state
 
 

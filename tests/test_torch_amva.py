@@ -1,6 +1,7 @@
-"""The port's ``amva`` fixed point against the reference's Pallas kernel
-(interpret mode on the CPU), bit for bit, and the analytic tier
-(``repro_torch.core.mva``) against ``repro.core.mva``.
+"""The port's ``amva`` fixed point and exact MVA against the reference's
+Pallas kernels (interpret mode on the CPU) and their jnp oracles, bit for
+bit, and the analytic tier (``repro_torch.core.mva``) against
+``repro.core.mva``.
 
 Inputs come from a numpy seed (and, for the 512-lane case, from the
 reference test's own generator, which includes the lane that is still
@@ -15,6 +16,7 @@ import torch
 
 from repro.core import mva as ref_mva
 from repro.core.problem import JobProfile as RefJobProfile
+from repro.kernels.amva import kernel as ref_amva_kernel
 from repro.kernels.amva import ops as ref_amva_ops
 from repro_torch.core import mva
 from repro_torch.core.problem import JobProfile
@@ -83,6 +85,64 @@ def test_wrapper_rejects_bad_inputs():
         amva_ops.ps_fixed_point(x.double(), x, x, x)
     with pytest.raises(ValueError):
         amva_ops.ps_fixed_point(x[None], x[None], x[None], x[None])
+
+
+def _mva_batch(n):
+    g = np.random.default_rng(100 + n)
+    d = (np.abs(g.normal(size=n)) * 10 + 1).astype(np.float32)
+    return d, np.full(n, 1e4, np.float32)
+
+
+# the reference's grid (tests/test_kernels.py::test_mva_kernel_vs_ref)
+@pytest.mark.parametrize("n", [5, 300, 1024])
+@pytest.mark.parametrize("h_users", [1, 4, 25])
+def test_mva_response_bit_exact_vs_pallas_and_oracle(n, h_users):
+    d, z = _mva_batch(n)
+    want = np.asarray(ref_amva_kernel.mva_fwd(jnp.asarray(d), jnp.asarray(z),
+                                              h_users=h_users))
+    oracle = np.asarray(ref_mva.mva_response_batch(jnp.asarray(d),
+                                                   jnp.asarray(z), h_users))
+    assert np.array_equal(want, oracle)
+    td, tz = torch.tensor(d), torch.tensor(z)
+    before = amva_ops.mva_response.launches
+    for got in (amva_ref.mva_response(td, tz, h_users),
+                amva_ops.mva_response(td, tz, h_users),
+                mva.mva_response_batch(td, tz, h_users)):
+        assert got.dtype == torch.float32
+        assert np.array_equal(want, got.numpy())
+    assert amva_ops.mva_response.launches == before     # CPU: plain version
+
+
+def test_mva_response_with_no_users_returns_demand():
+    """H = 0: the reference's kernel keeps its initial carry (q, r) =
+    (0, d); its ``lax.scan`` oracle has no such case."""
+    d, z = _mva_batch(300)
+    want = np.asarray(ref_amva_kernel.mva_fwd(jnp.asarray(d), jnp.asarray(z),
+                                              h_users=0))
+    assert np.array_equal(want, d)
+    assert np.array_equal(amva_ops.mva_response(
+        torch.tensor(d), torch.tensor(z), 0).numpy(), d)
+
+
+def test_mva_response_matches_the_scalar_recursion():
+    """The float32 batch against the float64 scalar ``mva_response`` of
+    both packages, on the degenerate single-station case."""
+    got = amva_ops.mva_response(torch.tensor([1001.0]),
+                                torch.tensor([10_000.0]), 5)
+    exact = ref_mva.mva_response(1001.0, 10_000.0, 5)
+    assert exact == mva.mva_response(1001.0, 10_000.0, 5)
+    assert float(got[0]) == pytest.approx(exact, rel=1e-6)
+
+
+def test_mva_wrapper_rejects_bad_inputs():
+    x = torch.ones(4)
+    with pytest.raises(ValueError):
+        amva_ops.mva_response(x, torch.ones(5), 3)
+    with pytest.raises(ValueError):
+        amva_ops.mva_response(x.double(), x.double(), 3)
+    for h in (-1, 2.5, True):
+        with pytest.raises(ValueError):
+            amva_ops.mva_response(x, x, h)
 
 
 def _profiles(k):

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import qn_sim
 from repro_torch.core.optimizer import DSpace4Cloud
 from repro_torch.core.problem import (ApplicationClass, JobProfile, Problem,
                                       VMType)
@@ -71,6 +72,106 @@ def test_amva_kernel_bit_identical_to_plain(dev, n):
         np.full(n, 1e4), np.round(np.abs(g.normal(size=n)) * 10 + 1))]
     assert torch.equal(amva_ops.ps_fixed_point(*args),
                        amva_ref.ps_fixed_point(*args))
+
+
+# the reference's grid (tests/test_kernels.py), larger sizes and H = 200;
+# H = 0 returns the demand
+@pytest.mark.parametrize("n", [1, 5, 300, 1024, 4097])
+@pytest.mark.parametrize("h_users", [0, 1, 4, 25, 200])
+def test_mva_kernel_bit_identical_to_plain(dev, n, h_users):
+    g = np.random.default_rng(n + h_users)
+    d = torch.tensor(np.abs(g.normal(size=n)) * 10 + 1, dtype=torch.float32,
+                     device=dev)
+    z = torch.full((n,), 1e4, dtype=torch.float32, device=dev)
+    before = amva_ops.mva_response.launches
+    out = amva_ops.mva_response(d, z, h_users)
+    assert amva_ops.mva_response.launches == before + 1
+    assert torch.equal(out, amva_ref.mva_response(d, z, h_users))
+    if h_users == 0:
+        assert torch.equal(out, d)
+
+
+def _two_class_problem():
+    """Two classes (so the point-wise walk runs them in two threads) on
+    two VM types, task counts small enough for the plain versions."""
+    vms = [VMType(name="m4.xlarge", cores=4, sigma=0.07, pi=0.22,
+                  containers_per_core=2),
+           VMType(name="c20.node", cores=20, sigma=0.35, pi=0.90,
+                  speed=1.35)]
+    profs = [JobProfile(n_map=8, n_reduce=2, m_avg=3000, m_max=7000,
+                        r_avg=1500, r_max=3500),
+             JobProfile(n_map=12, n_reduce=3, m_avg=9000, m_max=14000,
+                        r_avg=6000, r_max=9000)]
+    return Problem(classes=[ApplicationClass(
+        name=f"c{i}", h_users=4 + 4 * i, think_ms=2_000 + 3_000 * i,
+        deadline_ms=20_000 + 10_000 * i, eta=0.3,
+        profiles={"m4.xlarge": p, "c20.node": p.scaled(1.35)})
+        for i, p in enumerate(profs)], vm_types=vms)
+
+
+def _two_class_samples(prob):
+    g = np.random.default_rng(3)
+    return {(c.name, vm.name): (
+        g.lognormal(8.0, 0.4, 128).astype(np.float32),
+        g.lognormal(7.3, 0.4, 64).astype(np.float32))
+        for c in prob.classes for vm in prob.vm_types}
+
+
+def _pointwise_card_and_cpu(prob, samples):
+    """The point-wise walk with its two classes in two worker threads, on
+    the card and on the CPU; every probe's replication is one
+    ``qn_event`` launch on the card, none lost to the threads."""
+    before = qn_ops.qn_event.launches
+    card = DSpace4Cloud(prob, samples=samples, batched=False,
+                        min_jobs=6).run(parallel=True)
+    assert qn_ops.qn_event.launches - before == card.qn_dispatches > 0
+    cpu = DSpace4Cloud(prob, samples=samples, batched=False, min_jobs=6,
+                       device="cpu").run(parallel=True)
+    for name, sol in cpu.solutions.items():
+        got = card.solutions[name]
+        assert (got.vm_type, got.nu, got.reserved, got.spot) == \
+            (sol.vm_type, sol.nu, sol.reserved, sol.spot)
+    assert card.qn_dispatches == cpu.qn_dispatches
+    return card, cpu
+
+
+def test_pointwise_plan_on_the_card_matches_the_cpu(dev):
+    """Exponential mode: the card's decisions are the CPU's, and its
+    response times agree within the relative 1e-3 that the exponential
+    draws' last-ulp differences leave (``test_torch_slice.py``)."""
+    card, cpu = _pointwise_card_and_cpu(_two_class_problem(), None)
+    for name, sol in cpu.solutions.items():
+        assert card.solutions[name].predicted_ms == \
+            pytest.approx(sol.predicted_ms, rel=1e-3)
+
+
+def test_pointwise_replay_plan_on_the_card_equals_the_cpu(dev):
+    """Replay mode draws no logarithm: the card's response times are the
+    CPU's bit for bit."""
+    prob = _two_class_problem()
+    card, cpu = _pointwise_card_and_cpu(prob, _two_class_samples(prob))
+    for name, sol in cpu.solutions.items():
+        assert card.solutions[name].predicted_ms == sol.predicted_ms
+
+
+@pytest.mark.parametrize("replay", [False, True])
+def test_scalar_probe_equals_its_batched_lane_on_the_card(dev, replay):
+    """A scalar probe (one single-lane launch per replication) equals the
+    same candidate's lane of one batched launch exactly, on the card."""
+    g = np.random.default_rng(4)
+    ms, rs = (g.lognormal(np.log(700), 0.5, 96).astype(np.float32),
+              g.lognormal(np.log(250), 0.5, 40).astype(np.float32)) \
+        if replay else (None, None)
+    kw = dict(n_map=6, n_reduce=2, m_avg=1200.0, r_avg=500.0,
+              think_ms=9000.0, h_users=3, min_jobs=4, warmup_jobs=4,
+              seed=11, replications=2, m_samples=ms, r_samples=rs,
+              device=dev)
+    slots = [2, 3, 5]
+    before = qn_ops.qn_event.launches
+    scalar = [qn_sim.response_time(slots=s, **kw) for s in slots]
+    assert qn_ops.qn_event.launches - before == 2 * len(slots)
+    batched = qn_sim.response_time_batch(slots=np.asarray(slots), **kw)
+    assert np.array_equal(np.asarray(scalar), batched)
 
 
 def test_planner_on_the_card_matches_the_plain_path(dev):

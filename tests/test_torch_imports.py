@@ -87,11 +87,19 @@ def test_entry_points_without_a_device_raise_on_a_cpu_host():
     with pytest.raises(RuntimeError, match="CUDA"):
         DSpace4Cloud(prob)
     with pytest.raises(RuntimeError, match="CUDA"):
+        DSpace4Cloud(prob, batched=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluators.make_qn_evaluator()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        qn_sim.response_time(4, 1, 100.0, 50.0, 1000.0, 2, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
         qn_sim.response_time_batch(4, 1, 100.0, 50.0, 1000.0, 2, [2])
     with pytest.raises(RuntimeError, match="CUDA"):
         evaluators.amva_frontier(cls, vm, 1, 4)
     assert resolve_device("cpu") == torch.device("cpu")
     t = DSpace4Cloud(prob, device="cpu", min_jobs=4).run_fast()
+    assert np.isfinite(t.solutions["c"].predicted_ms)
+    t = DSpace4Cloud(prob, device="cpu", min_jobs=4, batched=False).run()
     assert np.isfinite(t.solutions["c"].predicted_ms)
 
 

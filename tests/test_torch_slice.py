@@ -189,8 +189,6 @@ def test_unported_options_raise():
     prob, _ = _exp_problem()
     pprob, _ = _port_args(prob, None)
     with pytest.raises(NotImplementedError):
-        DSpace4Cloud(pprob, batched=False, device="cpu")
-    with pytest.raises(NotImplementedError):
         DSpace4Cloud(pprob, deployment=object(), device="cpu")
     doc = prob.to_json().replace('"deployment": null',
                                  '"deployment": {"hosts": []}')
