@@ -7,7 +7,10 @@ Phases, each printing one line or a few:
   1. the device, the card's name and power limit from nvidia-smi, and the
      matmul settings (TF32 and reduced-precision bf16 reductions off);
   2. build the CUDA kernels from src/repro_torch/csrc (one nvcc process per
-     source, all at once);
+     source, all at once); print each flash_attention instance's
+     registers and spills (ptxas) and its wgmma (HGMMA) and TMA
+     (UTMALDG) instruction counts (cuobjdump -sass), and fail if the bf16
+     kernel has none of either;
   3. hold each kernel against its plain PyTorch version on the card, on
      identical inputs: qn_event in exponential and replay mode (padding,
      single-slot and short-budget lanes) at a reduced event budget, amva
@@ -15,8 +18,9 @@ Phases, each printing one line or a few:
      4097 and H = 0, 1, 4, 5, 25, bit-identical; flash_attention at granite's
      prefill (S = 1024, a ragged 777, and the two serving rounds' prompt
      lengths), gemma3's local window, stablelm's head dim 80, zamba2's
-     shared attention (H = KV = 32, head dim 112), a non-causal case, and
-     float32 cases at head dims 64 and 128, within the reference's
+     shared attention (H = KV = 32, head dim 112), a non-causal case, the
+     wgmma kernel's edges (head dims 8 and 256, S = 1 and 65, GQA group
+     8), and float32 cases at head dims 64 and 128, within the reference's
      tolerances (2e-2 bf16, 2e-5 f32); ssd_scan at the reference's four
      SSD cases in f32 and bf16, the mamba2 serving rounds' shapes (S = 896
      and 512, 48 heads, N = 128) and zamba2's (112 heads, N = 64), a
@@ -55,7 +59,8 @@ Phases, each printing one line or a few:
      point-wise walk's single lanes), the depth cut to 8192 events; each
      kernel's time at the main path's shapes (CUDA events, after a
      warm-up; mva at N = 4097, H = 25 and at the degenerate case's N = 1,
-     H = 5), its bound, its plain version's time and, for
+     H = 5; for mva and flash_attention also the kernel's own device time
+     from torch.profiler), its bound, its plain version's time and, for
      flash_attention, the time of torch's scaled_dot_product_attention on
      the same tensors (a yardstick only: the port never calls it).
 Each drive of a main path sets the kernels' launch counts to 0 just before
@@ -69,6 +74,7 @@ from __future__ import annotations
 import collections
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -82,10 +88,12 @@ H100_FP32_OPS_PER_S = 67e12     # non-tensor float32, H100 SXM data sheet
 # counts an FMA as two operations; a compare or a max is one instruction
 H100_INSTR_PER_S = H100_FP32_OPS_PER_S / 2
 H100_BF16_OPS_PER_S = 989e12    # dense tensor cores, H100 SXM data sheet
-# the reference's own tolerances (tests/test_kernels.py).  The kernel and
-# its plain version both compute in float32, so the bf16 cases differ
-# only by the rounding of the output; the float32 cases at 2e-5 are the
-# ones that would see a key tile dropped from a row's band
+# the reference's own tolerances (tests/test_kernels.py).  The plain
+# version computes in float32; the bf16 kernel rounds P to bf16 for its
+# P.V product (relative 2^-9 on weights that sum to one) and rounds the
+# output, both well inside 2e-2.  The float32 kernel computes in float32
+# throughout, so its cases at 2e-5 are the ones that would see a key tile
+# dropped from a row's band
 FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # the reference's (tests/test_kernels.py), on y and on the final state
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
@@ -114,7 +122,7 @@ DEGENERATE = dict(n_map=1, n_reduce=1, m_avg=1000.0, r_avg=1.0,
                   think_ms=10_000.0, h_users=5)
 DEGENERATE_TOL = 0.08
 # the device kernels' names, for their share of a profiled prefill
-DEVICE_KERNELS = {"flash_attention": "fa_fwd_kernel",
+DEVICE_KERNELS = {"flash_attention": "fa_wgmma_kernel",
                   "ssd_scan": "ssd_fwd_kernel"}
 
 # Decisions of the JAX reference (src/repro) for the same calls, printed by
@@ -294,6 +302,12 @@ FA_CHECKS = [
     ("zamba2 shared attention prefill", 4, 896, 32, 32, 112,
      torch.bfloat16, True, 0),
     ("non-causal", 2, 300, 8, 2, 64, torch.bfloat16, False, 0),
+    ("head dim 8", 2, 300, 8, 2, 8, torch.bfloat16, True, 0),
+    ("head dim 256, GQA group 8", 1, 777, 8, 1, 256, torch.bfloat16, True,
+     0),
+    ("S = 1", 4, 1, 32, 8, 64, torch.bfloat16, True, 0),
+    ("S = 65", 2, 65, 32, 8, 64, torch.bfloat16, True, 0),
+    ("GQA group 8, window", 2, 512, 32, 4, 128, torch.bfloat16, True, 64),
     ("float32", 2, 513, 8, 4, 128, torch.float32, True, 128),
     ("granite prefill, float32", 4, 777, 32, 8, 64, torch.float32, True, 0),
 ]
@@ -334,6 +348,50 @@ def describe(cfg) -> str:
                      + (" (one shared block)" if cfg.shared_attn else ""))
     parts.append(f"vocab {cfg.vocab_size} (padded {cfg.padded_vocab})")
     return ", ".join(parts)
+
+
+def flash_instance(mangled: str):
+    """'fa_wgmma_kernel<64, 2, 128>' for a line naming a flash_attention
+    kernel instance by its mangled name, else None."""
+    m = re.search(r"(fa_(?:wgmma|f32)_kernel)I((?:Li\d+E)+)", mangled)
+    if m is None:
+        return None
+    return f"{m.group(1)}<{', '.join(re.findall(r'Li([0-9]+)E', m.group(2)))}>"
+
+
+def flash_ptxas(log: str) -> dict:
+    """Registers, spills and static shared memory of each flash_attention
+    kernel instance, from the ptxas log of the build (-Xptxas -v)."""
+    usage, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = flash_instance(ln)
+        elif name and ("spill" in ln or ": Used" in ln):
+            key = "spill" if "spill" in ln else "used"
+            usage.setdefault(name, {}).setdefault(
+                key, ln.split(": ", 1)[-1].strip())
+    return {k: "; ".join(v.values()) for k, v in usage.items()}
+
+
+def flash_sass(lib) -> dict:
+    """Counts of wgmma (HGMMA) and TMA tile loads (UTMALDG) in each
+    flash_attention kernel instance of the built library's SASS
+    (cuobjdump -sass)."""
+    from repro_torch.kernels import build
+
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = flash_instance(ln)
+            if name:
+                counts[name] = dict.fromkeys(("HGMMA", "UTMALDG"), 0)
+        elif name:
+            for op in counts[name]:
+                counts[name][op] += f" {op}." in ln or f" {op} " in ln
+    return counts
 
 
 def fa_inputs(dev, B, S, H, KV, Dh, dtype, seed):
@@ -592,9 +650,43 @@ def profile_serving(dev, eng, prompts):
               flush=True)
 
 
+def device_ms(fn, kernel: str, reps: int = 20):
+    """The mean device time (ms) of the launches of ``kernel`` over
+    ``reps`` calls of ``fn`` (torch.profiler), None if the profiler saw
+    none, and the first such launch's attributes in the trace (registers
+    per thread, shared memory, blocks per SM; {} where absent)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import build
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [ev.time_range.elapsed_us() for ev in prof.events()
+          if ev.device_type == torch.autograd.DeviceType.CUDA
+          and kernel in ev.name]
+    path = build.BUILD_DIR / f"trace_{os.getpid()}.json"
+    try:
+        prof.export_chrome_trace(str(path))
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    finally:
+        path.unlink(missing_ok=True)
+    args = next((e.get("args", {}) for e in events
+                 if e.get("cat") == "kernel" and kernel in e.get("name", "")),
+                {})
+    launch = {k: args[k] for k in ("registers per thread", "shared memory",
+                                   "blocks per SM", "grid", "block")
+              if k in args}
+    return (sum(us) / len(us) / 1e3 if us else None), launch
+
+
 def time_flash(dev, fa_ops, fa_ref, B, S, H, KV, Dh):
-    """The flash kernel at a prefill shape (bf16, causal): kernel, plain
-    version, torch's SDPA (yardstick), and the bound."""
+    """The flash kernel at a prefill shape (bf16, causal): kernel (CUDA
+    events around the call, and its device time alone), plain version,
+    torch's SDPA (yardstick), the bound, and the float32 route's kernel
+    on the same inputs in float32."""
     import torch.nn.functional as F
 
     q, k, v = fa_inputs(dev, B, S, H, KV, Dh, torch.bfloat16, 99)
@@ -605,22 +697,30 @@ def time_flash(dev, fa_ops, fa_ref, B, S, H, KV, Dh):
     lib_err = float((sdpa().transpose(1, 2).float() - out.float())
                     .abs().max())
     ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v), 20)
+    dev_ms, launch = device_ms(lambda: fa_ops.flash_attention(q, k, v),
+                               DEVICE_KERNELS["flash_attention"])
     plain_ms = cuda_ms(lambda: fa_ref.flash_attention(q, k, v), 5)
     lib_ms = cuda_ms(sdpa, 20)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    f32_ms = cuda_ms(lambda: fa_ops.flash_attention(qf, kf, vf), 5)
     # bytes: q, k, v read once, o written once; operations: the live
     # (causal) query-key pairs, 2 flops each for q.k and for p.v per Dh
     nbytes = 2 * (2 * B * S * H * Dh + 2 * B * S * KV * Dh)
     flops = 4 * B * H * Dh * (S * (S + 1) // 2)
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_OPS_PER_S
     bound = 1e3 * max(t_bytes, t_ops)
+    dev_txt = "not measured" if dev_ms is None else \
+        f"{dev_ms:.4f} ms ({flops / dev_ms / 1e9:.2f} TFLOP/s)"
     print(f"[time] flash_attention B={B} S={S} H={H} KV={KV} Dh={Dh} bf16 "
-          f"causal: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), "
-          f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (max abs diff to "
-          f"the kernel {lib_err:.3e}), bound {bound:.5f} ms ({nbytes} bytes,"
-          f" {flops} flops)", flush=True)
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound,
-            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+          f"causal: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s; on "
+          f"the device alone {dev_txt}; launch {launch}), plain "
+          f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (max abs diff to the "
+          f"kernel {lib_err:.3e}), bound {bound:.5f} ms ({nbytes} bytes, "
+          f"{flops} flops); the float32 route {f32_ms:.4f} ms", flush=True)
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "float32_route_ms": f32_ms}
 
 
 # ssd_scan checks: (name, B, S, H, P, N, chunk, dtypes of x, dt and B/C)
@@ -766,6 +866,15 @@ def main() -> None:
     print(f"[build] {time.perf_counter() - t0:.2f} s "
           f"(libqn_{build.source_hash()}.so); ptxas: {' | '.join(usage)}",
           flush=True)
+    for name, props in flash_ptxas(build.build_log).items():
+        print(f"[build] {name}: {props}", flush=True)
+    sass = flash_sass(build.BUILD_DIR / f"libqn_{build.source_hash()}.so")
+    print(f"[build] SASS of the flash kernels (cuobjdump -sass): {sass}",
+          flush=True)
+    if any(not all(c.values()) for n, c in sass.items() if "wgmma" in n) \
+            or not any("wgmma" in n for n in sass):
+        fail("the bf16 flash kernel issues no wgmma (HGMMA) or no TMA load "
+             "(UTMALDG)")
 
     # ----------------------------------------------- kernels vs plain (card)
     gen = np.random.default_rng(11)
@@ -1155,14 +1264,8 @@ def main() -> None:
         ms = cuda_ms(lambda: amva_ops.mva_response(d, z, h_users), 200)
         plain_ms = cuda_ms(lambda: amva_ref.mva_response(d, z, h_users), 5)
         # the kernel's own device time, apart from the wrapper's host time
-        with profile(activities=[ProfilerActivity.CUDA]) as prof_mva:
-            for _ in range(20):
-                amva_ops.mva_response(d, z, h_users)
-            torch.cuda.synchronize()
-        dev_us = [ev.time_range.elapsed_us() for ev in prof_mva.events()
-                  if ev.device_type == torch.autograd.DeviceType.CUDA
-                  and "amva_mva_kernel" in ev.name]
-        device_ms = sum(dev_us) / len(dev_us) / 1e3 if dev_us else None
+        dev_ms, _ = device_ms(lambda: amva_ops.mva_response(d, z, h_users),
+                              "amva_mva_kernel")
         # bytes: d and z read, R written; operations: 1+q, d*(.), r+z, the
         # division and x*r per user per candidate
         nbytes, flops = 12 * n, 5 * h_users * n
@@ -1170,10 +1273,10 @@ def main() -> None:
         bound = 1e3 * max(t_bytes, t_ops)
         print(f"[time] mva N={n} H={h_users}: {ms:.4f} ms/launch (the "
               f"kernel alone on the device: "
-              f"{'not measured' if device_ms is None else f'{device_ms:.4f} ms'}"
+              f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}"
               f"), plain {plain_ms:.3f} ms, bound {bound:.3e} ms ({nbytes} "
               f"bytes, {flops} flops)", flush=True)
-        return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+        return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
                 "bound_ms": bound,
                 "bound_by": "operations" if t_ops > t_bytes else "bytes"}
 

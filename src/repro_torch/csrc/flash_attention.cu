@@ -1,4 +1,4 @@
-// FlashAttention-2 forward: softmax attention with an online softmax,
+// FlashAttention forward: softmax attention with an online softmax,
 // causal and sliding-window masks, and GQA.
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py, flash_attention_fwd
@@ -7,73 +7,113 @@
 // axis, skips k blocks outside the causal/window band with pl.when, and
 // maps q head h to kv head h / (H / KV).
 //
-// It computes what _fa_kernel computes: q, k and v upcast to f32; logits
-// q.k^T * 1/sqrt(Dh), set to the finite NEG_INF = -0.7 * FLT_MAX where
-// masked (causal kpos <= qpos, window kpos > qpos - window); m, l and acc
-// in f32, corr = exp(m_prev - m_new); out = acc / max(l, 1e-37), cast to
-// q's type.  The finite NEG_INF matters: a row whose keys in a visited tile
-// are all masked gets m = NEG_INF and p = exp(0) = 1, and the next live
-// tile wipes that out through corr = exp(NEG_INF - m) = 0; with -inf that
-// step would be NaN.  Every row has at least its diagonal key.
-//
-// Design.  One block of 128 threads owns one (b, h, q tile of BQ rows); the
-// k loop runs inside the block, over the k tiles of BK keys that hold a
-// key inside the causal/window band of the q tile (the pl.when skip), in
-// ascending order.  Q, K and V tiles are staged in shared memory as f32,
-// read through the strides of the (B,S,H,Dh) layout (no transposed copy);
-// rows past S and columns past Dh are zero, and keys past S are masked, so
-// the ragged last tile of any S needs no padding.  Thread (ty, tx) of the
-// 8 x 16 grid owns q rows ty + 8r: their scores at keys tx + 16c, their m
-// and l, and their output columns tx + 16c; the 16 threads of a row are
-// one half-warp, so the row max and sum are shuffles.  Blocks of the last
-// q tiles, which visit the most k tiles under the causal mask, start first.
-// Head dims up to 64, 128 and 256 (any multiple of 8) take three instances
-// with (BQ, BK) = (64, 64), (64, 32), (32, 32), so shared memory stays at
-// 65-113 KB and acc at <= 64 registers a thread.
+// It computes what _fa_kernel computes: logits q.k^T * 1/sqrt(Dh) in f32,
+// set to the finite NEG_INF = -0.7 * FLT_MAX where masked (causal kpos <=
+// qpos, window kpos > qpos - window); m, l and acc in f32, corr =
+// exp(m_prev - m_new); out = acc / max(l, 1e-37), cast to q's type.  The
+// finite NEG_INF matters: a row whose keys in a visited tile are all
+// masked gets m = NEG_INF and p = exp(0) = 1, and the next live tile wipes
+// that out through corr = exp(NEG_INF - m) = 0; with -inf that step would
+// be NaN.  Every row has at least its diagonal key.
 //
 // What bounds it on the H100: at granite-3-2b's prefill (B=4, S=1024,
 // H=32, KV=8, Dh=64, bf16, causal) the function reads and writes 42 MB
-// (12.5 us at 3.35 TB/s) and does 2*B*H*S^2*Dh = 17.2 GFLOP (17.4 us at the
-// tensor cores' 989 TFLOP/s bf16 rate), so operations bound it.  This
-// kernel is the simple, correct first version: f32 arithmetic on the CUDA
-// cores (67 TFLOP/s peak, and about one shared-memory load per three
-// multiply-adds), so it cannot come near that bound; wgmma on bf16 tiles
-// fed by TMA is the next step.  The library is built with --fmad=false (for the
-// bit parity of qn_event and amva); the two dot products here spell their
-// multiply-adds as __fmaf_rn, which that flag leaves alone.  Attention
-// parity with the plain version is held by tolerance, not bits.
+// (12.5 us at 3.35 TB/s) and does 4*B*H*Dh*S(S+1)/2 = 17.2 GFLOP on its
+// live query-key pairs (17.4 us at the tensor cores' 989 TFLOP/s bf16):
+// operations bound it.  At zamba2-7b's shared attention (B=4, S=896,
+// H=KV=32, Dh=112) it moves 103 MB (30.7 us) for 23.0 GFLOP (23.3 us):
+// bytes bound it.
+//
+// Two routes, chosen by the inputs' dtype; neither falls back to the other.
+//
+// bfloat16: fa_wgmma_kernel, built from Hopper's TMA, mbarriers and wgmma.
+// One block owns one (b, q head, tile of 64 * NWG q rows): NWG consumer
+// warpgroups of 64 rows each (wgmma's M) and a producer warpgroup, one
+// thread of which issues the loads.  Blocks of the last q tiles, which
+// visit the most k tiles under the causal mask, start first.  The k loop
+// visits, in ascending order, the k tiles of BK keys that hold a key
+// inside the band of the block's rows (the pl.when skip), so a tile
+// wholly outside it is never loaded.  K/V tiles are not shared between
+// the q heads of a GQA group: each block loads its kv head's tiles (L2
+// serves the group's other heads).  What the design does about the four
+// limits of the first, f32 SIMT version:
+//  1. Arithmetic.  Both products run on the tensor cores:
+//     S = Q.K^T as wgmma m64nBKk16 with Q and K read from shared memory,
+//     O += P.V as wgmma m64nDPk16 with P as the register operand, bf16 in
+//     and f32 accumulation.  P is rounded to bf16 (the reference keeps it
+//     in f32): its relative error 2^-9 on weights that sum to one stays
+//     well inside the reference's 2e-2 tolerance, so no hi/lo split of P
+//     is needed.  The row sum l adds up the unrounded f32 p.
+//  2. Staging.  TMA copies whole tiles (4-D tensor maps over the (Dh,
+//     heads, S, B) layout, the byte strides taken from the tensors', so
+//     no transposed copy is made) in 128-byte-swizzled boxes 64 columns
+//     wide, the layout wgmma's descriptors read without bank conflicts.
+//     TMA's zero fill pads Dh to a multiple of 64 and the rows past S;
+//     keys past S stay masked.  The producer keeps a 2-stage K/V ring
+//     ahead of the consumers, one "full" and one "empty" mbarrier per
+//     stage, so the next tile's load overlaps this tile's math.
+//  3. P never touches shared memory: the f32 accumulator fragment of S
+//     (each quad of lanes owns a row: max and sum are two shuffles) is,
+//     pair by pair, the register A fragment of the P.V product.  Only
+//     tiles that cross the band's edge or S are masked.  The logits are
+//     kept in log2 units (scaled by log2(e)/sqrt(Dh)), so every
+//     exponential is one exp2f; the softmax's share of the issue slots
+//     bounds this kernel as much as the tensor cores do.
+//  4. Tiles.  128 q rows (64 at Dh 256) against BK = 128 keys at Dh <= 64
+//     and 64 above, 384 threads (256 at Dh 256), one block an SM.  The
+//     producer warpgroup hands its registers to the consumers
+//     (setmaxnreg: 24 and 240 a thread), which hold S, P and O without
+//     spilling at every head dim.
+// V's tile is (keys, Dh) with Dh contiguous, so it is the MN-major B
+// operand of P.V (wgmma's transpose-B form for bf16): its descriptor's
+// leading byte offset steps over 64-column blocks (BK * 128 bytes), its
+// stride byte offset over 8-key groups (1024 bytes).  A wait on an
+// mbarrier that never completes traps after ~2^35 cycles instead of
+// hanging the card.  TMA needs a 16-byte-aligned base and byte strides
+// that are multiples of 16: the wrapper checks both and raises.  The
+// driver's cuTensorMapEncodeTiled is reached through
+// cudaGetDriverEntryPoint, so the library links against the runtime
+// alone.
+//
+// float32: fa_f32_kernel, the first port's SIMT kernel, f32 on the CUDA
+// cores (TF32 would break the reference's 2e-5; no served model runs
+// attention in f32).  One block of 128 threads per (b, h, q tile of BQ
+// rows); Q, K and V tiles staged in shared memory, read through the
+// strides; thread (ty, tx) of the 8 x 16 grid owns q rows ty + 8r, its
+// keys tx + 16c and output columns tx + 16c, the row max and sum
+// half-warp shuffles.  (BQ, BK) = (64, 64), (64, 32), (32, 32) for head
+// dims up to 64, 128 and 256.
+//
+// The library is built with --fmad=false (for the bit parity of qn_event
+// and amva): multiply-adds that should fuse are spelled __fmaf_rn.
+// Attention parity with the plain version is held by tolerance, not bits.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cfloat>
 #include <cmath>
+#include <cstdint>
 
 namespace {
 
 constexpr float FA_NEG_INF = (float)(-0.7 * (double)FLT_MAX);
-constexpr int TX = 16;               // threads along keys / head dim
-constexpr int TY = 8;                // threads along q rows
-constexpr int THREADS = TX * TY;
 constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 struct Strides {                     // element strides of (B, S, heads)
   long long b, s, h;
 };
 
-template <typename T, int DMAX, int BQ, int BK>
+// ------------------------------------------------------------ float32 route
+constexpr int TX = 16;               // threads along keys / head dim
+constexpr int TY = 8;                // threads along q rows
+constexpr int THREADS = TX * TY;
+
+template <int DMAX, int BQ, int BK>
 __global__ void __launch_bounds__(THREADS)
-fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, int S, int group,
-              int Dh, Strides qs, Strides ks, Strides vs, Strides os,
-              int causal, int window, float scale) {
+fa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, int S,
+              int group, int Dh, Strides qs, Strides ks, Strides vs,
+              Strides os, int causal, int window, float scale) {
   constexpr int RT = BQ / TY;        // q rows per thread
   constexpr int CK = BK / TX;        // keys per thread
   constexpr int CT = DMAX / TX;      // output columns per thread
@@ -88,15 +128,13 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / group;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + kvh * ks.h;
-  const T* vb = v + b * vs.b + kvh * vs.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + kvh * ks.h;
+  const float* vb = v + b * vs.b + kvh * vs.h;
 
   for (int e = tid; e < BQ * DMAX; e += THREADS) {
     const int i = e / DMAX, d = e % DMAX;
-    float x = 0.f;
-    if (q0 + i < S && d < Dh) x = to_f32(qb[(q0 + i) * qs.s + d]);
-    sQ[i * LDQ + d] = x;
+    sQ[i * LDQ + d] = q0 + i < S && d < Dh ? qb[(q0 + i) * qs.s + d] : 0.f;
   }
 
   float m[RT], l[RT], acc[RT][CT];
@@ -115,13 +153,9 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();                 // the previous tile's readers are done
     for (int e = tid; e < BK * DMAX; e += THREADS) {
       const int j = e / DMAX, d = e % DMAX;
-      float kx = 0.f, vx = 0.f;
-      if (k0 + j < S && d < Dh) {
-        kx = to_f32(kb[(k0 + j) * ks.s + d]);
-        vx = to_f32(vb[(k0 + j) * vs.s + d]);
-      }
-      sK[j * LDQ + d] = kx;
-      sV[j * DMAX + d] = vx;
+      const bool in = k0 + j < S && d < Dh;
+      sK[j * LDQ + d] = in ? kb[(k0 + j) * ks.s + d] : 0.f;
+      sV[j * DMAX + d] = in ? vb[(k0 + j) * vs.s + d] : 0.f;
     }
     __syncthreads();
 
@@ -190,7 +224,7 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* ob = o + b * os.b + h * os.h;
+  float* ob = o + b * os.b + h * os.h;
 #pragma unroll
   for (int r = 0; r < RT; ++r) {
     const int qpos = q0 + ty + r * TY;
@@ -199,51 +233,503 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < CT; ++c) {
       const int d = tx + c * TX;
-      if (d < Dh) store_as(&ob[qpos * os.s + d], acc[r][c] / den);
+      if (d < Dh) ob[qpos * os.s + d] = acc[r][c] / den;
     }
   }
 }
 
-template <typename T, int DMAX, int BQ, int BK>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int H, int group, int Dh, Strides qs,
-                   Strides ks, Strides vs, Strides os, int causal, int window,
-                   float scale, cudaStream_t stream) {
+template <int DMAX, int BQ, int BK>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       int B, int S, int H, int group, int Dh, Strides qs,
+                       Strides ks, Strides vs, Strides os, int causal,
+                       int window, float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)BQ * (DMAX + 1) +
                                        (size_t)BK * (DMAX + 1) +
                                        (size_t)BK * DMAX +
                                        (size_t)BQ * (BK + 1));
-  auto kernel = fa_fwd_kernel<T, DMAX, BQ, BK>;
+  auto kernel = fa_f32_kernel<DMAX, BQ, BK>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, group, Dh, qs, ks, vs,
-      os, causal, window, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, group, Dh, qs,
+      ks, vs, os, causal, window, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     int B, int S, int H, int group, int Dh, Strides qs,
-                     Strides ks, Strides vs, Strides os, int causal,
-                     int window, float scale, cudaStream_t st) {
-  if (Dh <= 64)
-    return launch<T, 64, 64, 64>(q, k, v, o, B, S, H, group, Dh, qs, ks, vs,
-                                 os, causal, window, scale, st);
-  if (Dh <= 128)
-    return launch<T, 128, 64, 32>(q, k, v, o, B, S, H, group, Dh, qs, ks, vs,
-                                  os, causal, window, scale, st);
-  return launch<T, 256, 32, 32>(q, k, v, o, B, S, H, group, Dh, qs, ks, vs,
-                                os, causal, window, scale, st);
+// --------------------------------------------------------------- bf16 route
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// Wait until the phase of parity `parity` completes; trap, rather than
+// hang the card, if it never does.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1LL << 35)) __trap();
+}
+
+// One TMA box of the 4-D map into shared memory at `dst`, completing
+// its bytes on the mbarrier `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keep the compiler from moving reads of wgmma's accumulators above the
+// wait that completes them.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// wgmma shared-memory matrix descriptor for a 128-byte-swizzled operand:
+// start address, leading and stride byte offsets (16-byte units).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(sbo >> 4) << 32 | 1ull << 62;
+}
+
+// m64nNk16, f32 += bf16 * bf16.  _ss: A and B from shared memory, both
+// K-major; _rs: A from registers, B from shared memory, MN-major.  The
+// first _ss of a product passes scale_d = 0 (D = A.B).
+#define FA_D8(i)                                                         \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+__device__ __forceinline__ void wgmma_ss_n64(
+    float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_n128(
+    float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24), FA_D8(32), FA_D8(40),
+        FA_D8(48), FA_D8(56)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(
+    float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24), FA_D8(32), FA_D8(40),
+        FA_D8(48), FA_D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n256(
+    float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24), FA_D8(32), FA_D8(40),
+        FA_D8(48), FA_D8(56), FA_D8(64), FA_D8(72), FA_D8(80), FA_D8(88),
+        FA_D8(96), FA_D8(104), FA_D8(112), FA_D8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+#undef FA_D8
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+  else wgmma_rs_n256(d, a, db);
+}
+
+template <int DP, int NWG, int BK>
+struct Cfg {
+  static constexpr int QROWS = 64 * NWG;          // q rows of a block
+  static constexpr int CB = DP / 64;              // 128-byte column blocks
+  static constexpr int STAGES = 2;                // K/V ring
+  static constexpr int THREADS = 128 * NWG + 128;  // + the producer
+  static constexpr uint32_t Q_BYTES = QROWS * DP * 2;
+  static constexpr uint32_t KV_BYTES = BK * DP * 2;   // one K or V tile
+  static constexpr uint32_t OFF_K = Q_BYTES;
+  static constexpr uint32_t OFF_V = OFF_K + STAGES * KV_BYTES;
+  static constexpr uint32_t OFF_BAR = OFF_V + STAGES * KV_BYTES;
+  // barriers: q, full[STAGES], empty[STAGES]; + 1024 for the alignment
+  // of the swizzle atoms
+  static constexpr uint32_t SMEM = OFF_BAR + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+// Shared memory holds each tile as CB column blocks of rows x 128 bytes,
+// 128-byte swizzled by TMA; every block starts on a 1024-byte boundary.
+template <int DP, int NWG, int BK>
+__global__ void __launch_bounds__(Cfg<DP, NWG, BK>::THREADS, 1)
+fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                __nv_bfloat16* __restrict__ o, int S, int group, int Dh,
+                Strides os, int causal, int window, float scale_log2) {
+  using C = Cfg<DP, NWG, BK>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sQ = base, sK = base + C::OFF_K, sV = base + C::OFF_V;
+  const uint32_t bar_q = base + C::OFF_BAR;
+  const uint32_t bar_full = bar_q + 8;                 // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * C::STAGES;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * C::QROWS;
+  const int h = blockIdx.y, b = blockIdx.z;
+  // k tiles holding a key inside the band of rows q0 .. min(q0+QROWS, S)-1
+  const int k_end = causal ? min(q0 + C::QROWS, S) : S;
+  const int k_begin = window ? max(0, q0 - window + 1) : 0;
+  const int k_first = (k_begin / BK) * BK;
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 4 * NWG);    // one arrival a warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // The producer warpgroup: one thread issues every TMA load.  With two
+  // consumer warpgroups a block launches at 168 registers a thread (three
+  // warps share each quarter of the SM's register file); the producer
+  // hands its registers over, so a consumer thread may use 240.
+  if (warp >= 4 * NWG) {
+    if constexpr (NWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (tid == 128 * NWG) {
+      const int kvh = h / group;
+      mbar_expect_tx(bar_q, C::Q_BYTES);
+      for (int c = 0; c < C::CB; ++c)
+        tma_load(sQ + c * C::QROWS * 128, &tq, bar_q, 64 * c, h, q0, b);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int k0 = k_first; k0 < k_end; k0 += BK) {
+        mbar_wait(bar_empty + 8 * stage, phase ^ 1);
+        const uint32_t full = bar_full + 8 * stage;
+        mbar_expect_tx(full, 2 * C::KV_BYTES);
+        for (int c = 0; c < C::CB; ++c) {
+          const uint32_t off = stage * C::KV_BYTES + c * BK * 128;
+          tma_load(sK + off, &tk, full, 64 * c, kvh, k0, b);
+          tma_load(sV + off, &tv, full, 64 * c, kvh, k0, b);
+        }
+        if (++stage == C::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  if constexpr (NWG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+  // a consumer warpgroup: rows qw0 .. qw0+63; this thread holds rows
+  // qpos0 and qpos0 + 8 of every accumulator, at columns 8j + cq, +1
+  const int wg = warp / 4;
+  const int qw0 = q0 + 64 * wg;
+  const int qpos0 = qw0 + 16 * (warp % 4) + lane / 4, qpos1 = qpos0 + 8;
+  const int cq = 2 * (lane % 4);
+  const int ksteps = (Dh + 15) / 16;             // of Q.K^T, 16 columns each
+  const uint32_t sQw = sQ + wg * 64 * 128;
+
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  float m0 = FA_NEG_INF, m1 = FA_NEG_INF, l0 = 0.f, l1 = 0.f;
+
+  mbar_wait(bar_q, 0);
+  __syncwarp();                      // wgmma wants the warp converged
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int k0 = k_first; k0 < k_end; k0 += BK) {
+    mbar_wait(bar_full + 8 * stage, phase);
+    __syncwarp();
+    const uint32_t sKs = sK + stage * C::KV_BYTES;
+    const uint32_t sVs = sV + stage * C::KV_BYTES;
+
+    // S = Q.K^T over the head dim, 16 columns a step
+    float s[BK / 2];
+    wgmma_fence();
+    for (int t = 0; t < ksteps; ++t) {
+      const uint32_t off = (t % 4) * 32;          // within the 128-byte row
+      const uint64_t da =
+          smem_desc(sQw + (t / 4) * C::QROWS * 128 + off, 16, 1024);
+      const uint64_t db = smem_desc(sKs + (t / 4) * BK * 128 + off, 16, 1024);
+      if constexpr (BK == 128) wgmma_ss_n128(s, da, db, t);
+      else wgmma_ss_n64(s, da, db, t);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(s);
+
+    // scale to log2 units and mask (only a tile that crosses the band's
+    // edge or S)
+    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > qw0) ||
+                      (window && k0 <= qw0 + 63 - window);
+    float mx0 = FA_NEG_INF, mx1 = FA_NEG_INF;
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      float x = s[i] * scale_log2;
+      const bool lo = i % 4 < 2;                   // row qpos0, else qpos1
+      if (edge) {
+        const int kpos = k0 + 8 * (i / 4) + cq + i % 2;
+        const int qpos = lo ? qpos0 : qpos1;
+        const bool live = kpos < S && (!causal || kpos <= qpos) &&
+                          (!window || kpos > qpos - window);
+        x = live ? x : FA_NEG_INF;
+      }
+      s[i] = x;
+      if (lo) mx0 = fmaxf(mx0, x);
+      else mx1 = fmaxf(mx1, x);
+    }
+    // a row's 4 owners are one quad of lanes
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+
+    // p = 2^(s - m) in f32 for l, rounded to bf16 pairs for P.V: pair
+    // i/2 of the S fragment is register i/2 % 4 of k-step i/8's A fragment
+    float sum0 = 0.f, sum1 = 0.f;
+    uint32_t pa[BK / 4];
+#pragma unroll
+    for (int i = 0; i < BK / 2; i += 2) {
+      const bool lo = i % 4 < 2;
+      const float mm = lo ? mn0 : mn1;
+      const float p0 = exp2f(s[i] - mm), p1 = exp2f(s[i + 1] - mm);
+      if (lo) sum0 += p0 + p1;
+      else sum1 += p0 + p1;
+      const __nv_bfloat162 pr = __floats2bfloat162_rn(p0, p1);
+      pa[i / 2] = *reinterpret_cast<const uint32_t*>(&pr);
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      sum0 += __shfl_xor_sync(FULL, sum0, off);
+      sum1 += __shfl_xor_sync(FULL, sum1, off);
+    }
+    l0 = __fmaf_rn(l0, c0, sum0);
+    l1 = __fmaf_rn(l1, c1, sum1);
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] *= i % 4 < 2 ? c0 : c1;
+
+    // O += P.V over the tile's keys, 16 a step
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < BK / 16; ++t) {
+      const uint32_t a[4] = {pa[4 * t], pa[4 * t + 1], pa[4 * t + 2],
+                             pa[4 * t + 3]};
+      wgmma_rs<DP>(acc, a, smem_desc(sVs + t * 16 * 128, BK * 128, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(acc);
+    if (lane == 0) mbar_arrive(bar_empty + 8 * stage);   // stage is free
+    if (++stage == C::STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  __nv_bfloat16* ob = o + b * os.b + h * os.h;
+  const float d0 = fmaxf(l0, 1e-37f), d1 = fmaxf(l1, 1e-37f);
+#pragma unroll
+  for (int i = 0; i < DP / 2; i += 2) {
+    const bool lo = i % 4 < 2;
+    const int qpos = lo ? qpos0 : qpos1, col = 8 * (i / 4) + cq;
+    const float den = lo ? d0 : d1;
+    if (qpos < S && col < Dh)
+      *reinterpret_cast<__nv_bfloat162*>(ob + qpos * os.s + col) =
+          __floats2bfloat162_rn(acc[i] / den, acc[i + 1] / den);
+  }
+}
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda).
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (B, S, heads, Dh) bf16 tensor as a 4-D map over (Dh, heads, S, B) in
+// boxes of 64 columns (128 bytes, the swizzle's span) x `rows` positions
+// of one head; columns past Dh and rows past S read as zeros.
+bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int B, int S,
+            int heads, int Dh, Strides st, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)Dh, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2,
+                                 (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DP, int NWG, int BK>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* o, int B, int S, int H, int KV, int Dh,
+                         Strides qs, Strides ks, Strides vs, Strides os,
+                         int causal, int window, float scale_log2,
+                         cudaStream_t stream) {
+  using C = Cfg<DP, NWG, BK>;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv;
+  if (!encode(fn, &tq, q, B, S, H, Dh, qs, C::QROWS) ||
+      !encode(fn, &tk, k, B, S, KV, Dh, ks, BK) ||
+      !encode(fn, &tv, v, B, S, KV, Dh, vs, BK))
+    return cudaErrorInvalidValue;
+  auto kernel = fa_wgmma_kernel<DP, NWG, BK>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + C::QROWS - 1) / C::QROWS, H, B);
+  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H / KV, Dh, os, causal,
+      window, scale_log2);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike).  Strides are in
-// elements; the head dim must be contiguous.
+// elements; the head dim must be contiguous.  bfloat16 also needs
+// 16-byte-aligned bases and strides that are multiples of 8 (TMA).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int S,
     int H, int KV, int Dh, long long qsb, long long qss, long long qsh,
@@ -257,12 +743,30 @@ extern "C" int flash_attention_launch(
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
       os{osb, oss, osh};
   const float scale = (float)(1.0 / sqrt((double)Dh));
+  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)Dh));
+  const int g = H / KV;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err =
-      dtype == 0
-          ? dispatch<float>(q, k, v, o, B, S, H, H / KV, Dh, qs, ks, vs, os,
-                            causal, window, scale, st)
-          : dispatch<__nv_bfloat16>(q, k, v, o, B, S, H, H / KV, Dh, qs, ks,
-                                    vs, os, causal, window, scale, st);
+  cudaError_t err;
+  if (dtype == 0) {
+    if (Dh <= 64)
+      err = launch_f32<64, 64, 64>(q, k, v, o, B, S, H, g, Dh, qs, ks, vs,
+                                   os, causal, window, scale, st);
+    else if (Dh <= 128)
+      err = launch_f32<128, 64, 32>(q, k, v, o, B, S, H, g, Dh, qs, ks, vs,
+                                    os, causal, window, scale, st);
+    else
+      err = launch_f32<256, 32, 32>(q, k, v, o, B, S, H, g, Dh, qs, ks, vs,
+                                    os, causal, window, scale, st);
+  } else {
+    if (Dh <= 64)
+      err = launch_wgmma<64, 2, 128>(q, k, v, o, B, S, H, KV, Dh, qs, ks,
+                                     vs, os, causal, window, scale_log2, st);
+    else if (Dh <= 128)
+      err = launch_wgmma<128, 2, 64>(q, k, v, o, B, S, H, KV, Dh, qs, ks,
+                                     vs, os, causal, window, scale_log2, st);
+    else
+      err = launch_wgmma<256, 1, 64>(q, k, v, o, B, S, H, KV, Dh, qs, ks,
+                                     vs, os, causal, window, scale_log2, st);
+  }
   return (int)err;
 }

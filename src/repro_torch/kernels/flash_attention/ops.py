@@ -1,11 +1,12 @@
 """Wrapper of the flash-attention forward.
 
 A CUDA tensor launches the hand-written kernel ``csrc/flash_attention.cu``
-(the counterpart of the reference's ``flash_attention_fwd``/``_fa_kernel``);
-a CPU tensor takes the plain version in ``ref.py``.  The inputs keep the
-reference's (B,S,H,Dh)/(B,S,KV,Dh) layout: the kernel reads them through
-their strides, so no transposed copy is made.  ``flash_attention.launches``
-counts kernel launches.
+(the counterpart of the reference's ``flash_attention_fwd``/``_fa_kernel``):
+bfloat16 takes its wgmma route, whose tiles TMA loads, float32 its SIMT
+route.  A CPU tensor takes the plain version in ``ref.py``.  The inputs
+keep the reference's (B,S,H,Dh)/(B,S,KV,Dh) layout: the kernel reads them
+through their strides, so no transposed copy is made.
+``flash_attention.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -44,6 +45,31 @@ def _check(q, k, v, window):
                          f"[8, {MAX_HEAD_DIM}]")
     if window < 0:
         raise ValueError(f"window {window} < 0")
+    if q.is_cuda and q.dtype == torch.bfloat16:
+        _check_tma(q, k, v)
+
+
+def _strides(x):
+    """(b, s, head) element strides of a (B,S,n,Dh) tensor.  A dim of
+    size 1 never multiplies a nonzero index, so it gets its contiguous
+    stride, whatever torch reports for it."""
+    _, S, n, Dh = x.shape
+    natural = (S * n * Dh, n * Dh, Dh)
+    return [st if size > 1 else nat
+            for st, size, nat in zip(x.stride()[:3], x.shape[:3], natural)]
+
+
+def _check_tma(*tensors):
+    """The bfloat16 kernel loads its tiles with TMA, which needs a
+    16-byte-aligned base and byte strides that are multiples of 16."""
+    for x in tensors:
+        if x.data_ptr() % 16:
+            raise ValueError("flash_attention's bfloat16 kernel needs a "
+                             "16-byte-aligned base (TMA)")
+        if any(st % 8 for st in _strides(x)):
+            raise ValueError(f"flash_attention's bfloat16 kernel needs "
+                             f"strides that are multiples of 16 bytes "
+                             f"(TMA), not {x.stride()}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -61,7 +87,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if out.numel() == 0:
         return out
-    strides = [s for x in (q, k, v, out) for s in x.stride()[:3]]
+    strides = [s for x in (q, k, v, out) for s in _strides(x)]
     lib = build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -228,16 +228,79 @@ def test_flash_attention_kernel_matches_plain(dev, case, dtype):
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
 
 
-def test_flash_attention_kernel_reads_strided_inputs(dev):
+# bfloat16 edge cases of the wgmma kernel (B, S, H, KV, Dh, causal,
+# window): head dims 8 ... 256 (TMA zero-fills the columns past Dh), S
+# around the 64-row warpgroup and 128-row block edges and a ragged 777,
+# GQA groups 1, 4 and 8, windows 0, 1, 64 and 1024
+FA_EDGE_CASES = [
+    (2, 200, 4, 4, 8, True, 0), (2, 200, 8, 2, 16, True, 0),
+    (2, 300, 4, 1, 80, True, 64), (2, 256, 8, 8, 112, False, 0),
+    (1, 300, 8, 2, 128, True, 1), (1, 300, 8, 1, 256, True, 0),
+    (3, 1, 4, 1, 64, True, 0), (2, 63, 8, 1, 64, True, 0),
+    (2, 65, 4, 4, 64, False, 0), (1, 127, 4, 1, 128, True, 64),
+    (1, 129, 8, 2, 64, True, 0), (2, 777, 8, 2, 64, True, 0),
+    (1, 2048, 8, 2, 128, True, 1024), (1, 777, 8, 1, 112, False, 1024),
+    (1, 65, 8, 8, 256, False, 1),
+]
+
+
+@pytest.mark.parametrize("case", FA_EDGE_CASES)
+def test_flash_attention_wgmma_kernel_edge_shapes(dev, case):
+    B, S, H, KV, Dh, causal, window = case
+    g = torch.Generator(device=dev).manual_seed(S * H + Dh + window)
+    q, k, v = (torch.randn((B, S, n, Dh), generator=g, device=dev
+                           ).to(torch.bfloat16) for n in (H, KV, KV))
+    before = fa_ops.flash_attention.launches
+    out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before + 1
+    want = fa_ref.flash_attention(q, k, v, causal=causal, window=window)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def _fused_qkv(dev, B, S, H, KV, Dh):
     """q, k and v as views into one fused projection (no copies)."""
-    B, S, H, KV, Dh = 2, 150, 8, 2, 64
     g = torch.Generator(device=dev).manual_seed(0)
     qkv = torch.randn((B, S, H + 2 * KV, Dh), generator=g, device=dev,
                       dtype=torch.bfloat16)
-    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    return qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+
+
+def _heads_first(dev, B, S, H, KV, Dh):
+    """(B, n, S, Dh) tensors seen as (B, S, n, Dh): the head stride
+    exceeds the position stride."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    return tuple(torch.randn((B, n, S, Dh), generator=g, device=dev,
+                             dtype=torch.bfloat16).transpose(1, 2)
+                 for n in (H, KV, KV))
+
+
+def test_flash_attention_kernel_reads_strided_inputs(dev):
+    """q, k and v as views into one fused projection (no copies)."""
+    q, k, v = _fused_qkv(dev, 2, 150, 8, 2, 64)
+    before = fa_ops.flash_attention.launches
     out = fa_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before + 1
     want = fa_ref.flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous())
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("make,shape", [
+    (_fused_qkv, (1, 300, 32, 32, 112)), (_heads_first, (2, 150, 8, 2, 64)),
+    (_heads_first, (1, 129, 4, 1, 256))])
+def test_flash_attention_kernel_reads_non_contiguous_heads(dev, make, shape):
+    q, k, v = make(dev, *shape)
+    before = fa_ops.flash_attention.launches
+    out = fa_ops.flash_attention(q, k, v, window=64)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before + 1
+    want = fa_ref.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), window=64)
     torch.testing.assert_close(out.float(), want.float(), atol=2e-2,
                                rtol=2e-2)
 
@@ -246,6 +309,29 @@ def test_flash_attention_kernel_raises_on_bad_input(dev):
     q = torch.zeros((1, 8, 4, 12), device=dev)
     with pytest.raises(ValueError, match="head dim"):
         fa_ops.flash_attention(q, q, q)
+
+
+def _misaligned(dev):
+    """A view one element (2 bytes) past an aligned base."""
+    buf = torch.zeros(8 * 2 * 64 + 8, device=dev, dtype=torch.bfloat16)
+    return buf[1:1 + 8 * 2 * 64].view(1, 8, 2, 64)
+
+
+def _odd_head_stride(dev):
+    """Heads 68 elements (136 bytes) apart: not a multiple of 16 bytes."""
+    return torch.zeros((1, 8, 2, 68), device=dev,
+                       dtype=torch.bfloat16)[..., :64]
+
+
+@pytest.mark.parametrize("make,match", [(_misaligned, "16-byte-aligned"),
+                                        (_odd_head_stride, "multiples of 16")])
+def test_flash_attention_kernel_raises_where_tma_cannot_read(dev, make,
+                                                             match):
+    q = make(dev)
+    before = fa_ops.flash_attention.launches
+    with pytest.raises(ValueError, match=match):
+        fa_ops.flash_attention(q, q, q)
+    assert fa_ops.flash_attention.launches == before
 
 
 # B, S, H, P, N, chunk: the reference's SSD_CASES (tests/test_kernels.py),

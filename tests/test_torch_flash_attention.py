@@ -1,8 +1,11 @@
 """The port's flash attention on the CPU (its plain version, which a CPU
 tensor takes) against the reference: the Pallas kernel in interpret mode
 on the reference's own cases, ``attention_exact`` at ragged sequence
-lengths the Pallas kernel cannot take, and the wrapper's input checks.
-Inputs are made with numpy from a seed and handed to both."""
+lengths the Pallas kernel cannot take, the arithmetic of the card's
+bfloat16 kernel (emulated here) against both, and the wrapper's input
+checks.  Inputs are made with numpy from a seed and handed to both."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -67,6 +70,70 @@ def test_plain_matches_exact_attention_at_ragged_lengths(case):
            TOL["float32"])
 
 
+def _wgmma_arithmetic(q, k, v, *, causal, window, block_k=None):
+    """What the card's bfloat16 kernel computes, in plain torch: f32
+    logits of the bf16 inputs in log2 units (times log2(e)/sqrt(Dh)), an
+    online softmax over tiles of ``block_k`` keys (the kernel's: 128 up
+    to Dh 64, else 64) with the finite NEG_INF and exp2, p rounded to
+    bf16 as the A operand of P.V (f32 accumulation), l summed from the
+    unrounded p, out = acc / max(l, 1e-37) in bf16.  Visiting every tile
+    from key 0 matches the kernel, which skips tiles outside its rows'
+    band: a tile all masked for a row before its live keys is wiped by
+    corr = 0, one after them adds p = 0."""
+    B, S, H, Dh = q.shape
+    block_k = block_k or (128 if Dh <= 64 else 64)
+    G = H // k.shape[2]
+    qf = q.float().transpose(1, 2)                               # B,H,S,Dh
+    kf, vf = (x.float().repeat_interleave(G, dim=2).transpose(1, 2)
+              for x in (k, v))
+    band = fa_ref.band_mask(S, causal, window)
+    m = torch.full((B, H, S), fa_ref.NEG_INF)
+    l = torch.zeros((B, H, S))
+    acc = torch.zeros((B, H, S, Dh))
+    for k0 in range(0, S, block_k):
+        ks = slice(k0, k0 + block_k)
+        s = (qf @ kf[:, :, ks].transpose(-1, -2)) * (math.log2(math.e)
+                                                     / math.sqrt(Dh))
+        s = s.masked_fill(~band[:, ks], fa_ref.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + p.bfloat16().float() @ vf[:, :, ks]
+        m = m_new
+    out = acc / l.clamp_min(1e-37)[..., None]
+    return out.transpose(1, 2).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", FA_CASES)
+def test_wgmma_rounding_within_tolerance_of_pallas_kernel(case):
+    """The bf16 kernel rounds P to bf16 where the reference keeps it in
+    f32 (relative error 2^-9 on weights that sum to one): its arithmetic
+    stays within the reference's bf16 tolerance of the Pallas kernel."""
+    B, S, H, KV, Dh, causal, window, blk = case
+    (qj, kj, vj), (qt, kt, vt) = _qkv(S + H + Dh, B, S, H, KV, Dh,
+                                      "bfloat16")
+    want = fa_kernel.flash_attention_fwd(
+        qj, kj, vj, causal=causal, window=window, block_q=blk, block_k=blk,
+        interpret=True)
+    got = _wgmma_arithmetic(qt, kt, vt, causal=causal, window=window)
+    _close(want, got, TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("case", RAGGED)
+def test_wgmma_rounding_within_tolerance_at_ragged_lengths(case):
+    """The same at ragged S, GQA and windows, against the reference's
+    exact attention on the same bf16 inputs, with 128- and 64-key
+    tiles."""
+    B, S, H, KV, Dh, causal, window = case
+    (qj, kj, vj), (qt, kt, vt) = _qkv(S, B, S, H, KV, Dh, "bfloat16")
+    want = ref_attention_exact(qj, kj, vj, causal=causal, window=window)
+    for block_k in (128, 64):
+        _close(want, _wgmma_arithmetic(qt, kt, vt, causal=causal,
+                                       window=window, block_k=block_k),
+               TOL["bfloat16"])
+
+
 def test_masked_rows_never_see_masked_keys():
     """A key outside the band gets exactly zero weight: changing it leaves
     the output unchanged."""
@@ -99,6 +166,32 @@ def _t(shape, dtype=torch.float32):
 def test_wrapper_rejects_what_the_kernel_does_not_take(args, match):
     with pytest.raises(ValueError, match=match):
         fa_ops.flash_attention(*args)
+
+
+def _bf16(shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+def test_tma_check_rejects_a_misaligned_base():
+    q = _bf16(8 * 2 * 64 + 8)[1:1 + 8 * 2 * 64].view(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        fa_ops._check_tma(q)
+
+
+def test_tma_check_rejects_strides_off_16_bytes():
+    q = _bf16((1, 8, 2, 68))[..., :64]        # heads 136 bytes apart
+    with pytest.raises(ValueError, match="multiples of 16"):
+        fa_ops._check_tma(q)
+    fa_ops._check_tma(_bf16((1, 8, 2, 72))[..., :64])     # 144 bytes
+
+
+def test_tma_strides_ignore_dims_of_size_one():
+    """A dim of size 1 gets its contiguous stride, whatever torch reports:
+    it never multiplies a nonzero index."""
+    x = torch.as_strided(_bf16(64), (1, 1, 1, 64), (3, 5, 7, 1))
+    assert fa_ops._strides(x) == [64, 64, 64]
+    fa_ops._check_tma(x)
+    assert fa_ops._strides(_bf16((2, 9, 3, 16))) == [9 * 3 * 16, 48, 16]
 
 
 def test_wrapper_rejects_other_devices_and_negative_windows():
