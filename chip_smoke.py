@@ -7,13 +7,18 @@ Phases, each printing one line or a few:
   1. the device, the card's name and power limit from nvidia-smi, and the
      matmul settings (TF32 and reduced-precision bf16 reductions off);
   2. build the CUDA kernels from src/repro_torch/csrc (one nvcc process per
-     source, all at once); print each flash_attention instance's
-     registers and spills (ptxas) and its wgmma (HGMMA) and TMA
-     (UTMALDG) instruction counts (cuobjdump -sass), and fail if the bf16
-     kernel has none of either;
+     source, all at once); print the registers and spills (ptxas) of the
+     two qn_event kernels, of the draw-table kernel and of each
+     flash_attention instance, and each flash instance's wgmma (HGMMA)
+     and TMA (UTMALDG) instruction counts (cuobjdump -sass), and fail if
+     the bf16 kernel has none of either;
   3. hold each kernel against its plain PyTorch version on the card, on
-     identical inputs: qn_event in exponential and replay mode (padding,
-     single-slot and short-budget lanes) at a reduced event budget, amva
+     identical inputs: the draw tables (event_streams) bit-identical in
+     both modes; qn_event in exponential and replay mode (padding,
+     single-slot and short-budget lanes) at a reduced event budget, both
+     kernels (qn_event_fast and, asked for, qn_event_general), and at
+     H = 2049 users (qn_event_general in shared memory) and H = 12000
+     (its state in a global scratch slice), amva
      at several sizes, both bit-identical; mva (exact MVA) at N = 1 ..
      4097 and H = 0, 1, 4, 5, 25, bit-identical; flash_attention at granite's
      prefill (S = 1024, a ragged 777, and the two serving rounds' prompt
@@ -56,9 +61,14 @@ Phases, each printing one line or a few:
      prompts, whose logits must agree;
   6. qn_event held bit-identical to its plain version at every dispatch
      shape of the Q1-10u drives (the batched run's B = 32 lanes and the
-     point-wise walk's single lanes), the depth cut to 8192 events; each
-     kernel's time at the main path's shapes (CUDA events, after a
-     warm-up; mva at N = 4097, H = 25 and at the degenerate case's N = 1,
+     point-wise walk's single lanes), both kernels, the depth cut to 16384
+     events (every lane completes jobs past the warm-up), and the draw
+     tables at those shapes at full depth; each kernel's time at the main
+     path's shapes (CUDA events, after a warm-up; qn_event (and
+     qn_event_general asked for at the same shapes, and alone at H = 2049
+     and 12000) and the draw tables at B = 32 and B = 1, beside the
+     figures of the kernel they replaced; mva at N = 4097, H = 25 and
+     at the degenerate case's N = 1,
      H = 5; for mva and flash_attention also the kernel's own device time
      from torch.profiler), its bound, its plain version's time and, for
      flash_attention, the time of torch's scaled_dot_product_attention on
@@ -87,6 +97,9 @@ H100_FP32_OPS_PER_S = 67e12     # non-tensor float32, H100 SXM data sheet
 # one non-tensor instruction per lane per clock: the float32 rate above
 # counts an FMA as two operations; a compare or a max is one instruction
 H100_INSTR_PER_S = H100_FP32_OPS_PER_S / 2
+# 32-bit integer adds, shifts and logic: Hopper's SM has 64 INT32 lanes
+# against its 128 float32 lanes, so half the rate above
+H100_INT32_OPS_PER_S = H100_INSTR_PER_S / 2
 H100_BF16_OPS_PER_S = 989e12    # dense tensor cores, H100 SXM data sheet
 # the reference's own tolerances (tests/test_kernels.py).  The plain
 # version computes in float32; the bf16 kernel rounds P to bf16 for its
@@ -121,6 +134,25 @@ MVA_HS = (0, 1, 4, 5, 25)
 DEGENERATE = dict(n_map=1, n_reduce=1, m_avg=1000.0, r_avg=1.0,
                   think_ms=10_000.0, h_users=5)
 DEGENERATE_TOL = 0.08
+# the event loop's and the draw tables' times before this kernel design,
+# and the Q1-10u plan walls they gave (chip_smoke.py on an NVIDIA H100
+# 80GB HBM3 at 700 W; PERF.md), printed beside this run's in the [time]
+# lines only (the kernels line holds this run's measurements)
+QN_BEFORE = {"qn_event_b32_ms": 115.261, "qn_event_b1_ms": 103.359,
+             "event_streams_b32_ms": 41.252, "event_streams_b1_ms": 19.160,
+             "run_s": 0.305, "run_pointwise_s": 4.004}
+# the integer-pipe instructions a threefry2x32 needs: its 20 rounds'
+# rotates (funnel shifts, SHF) and xors (LOP3), the key schedule's xor
+# (one three-input LOP3) and the output xor: 20 + 20 + 1 + 1.  Its adds
+# (in the rounds and the key injections) issue mostly as IMAD on the FMA
+# pipe beside them (the [build] line counts the kernel's SASS), so they
+# are not counted against the integer pipe
+THREEFRY_INT32_OPS = 42
+# the draw tables' threefry calls: per event 4 (exponential mode: key_i,
+# its bits, the think key, its bits) or 7 (replay mode: key_i, the two
+# halves of split(key_i), their bits, the think key and its bits); per
+# lane split(key); per user its bits
+THREEFRY_PER_EVENT = {False: 4, True: 7}
 # the device kernels' names, for their share of a profiled prefill
 DEVICE_KERNELS = {"flash_attention": "fa_wgmma_kernel",
                   "ssd_scan": "ssd_fwd_kernel"}
@@ -359,13 +391,22 @@ def flash_instance(mangled: str):
     return f"{m.group(1)}<{', '.join(re.findall(r'Li([0-9]+)E', m.group(2)))}>"
 
 
-def flash_ptxas(log: str) -> dict:
+def qn_instance(mangled: str):
+    """'qn_event_fast' (or the general event loop, or the draw-table
+    kernel) for a line naming it by its mangled name, else None."""
+    m = re.search(r"(qn_event_fast|qn_event_general|qn_streams_kernel)",
+                  mangled)
+    return m.group(1) if m else None
+
+
+def flash_ptxas(log: str, namer=flash_instance) -> dict:
     """Registers, spills and static shared memory of each flash_attention
-    kernel instance, from the ptxas log of the build (-Xptxas -v)."""
+    kernel instance (or of each kernel ``namer`` names), from the ptxas
+    log of the build (-Xptxas -v)."""
     usage, name = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            name = flash_instance(ln)
+            name = namer(ln)
         elif name and ("spill" in ln or ": Used" in ln):
             key = "spill" if "spill" in ln else "used"
             usage.setdefault(name, {}).setdefault(
@@ -373,10 +414,10 @@ def flash_ptxas(log: str) -> dict:
     return {k: "; ".join(v.values()) for k, v in usage.items()}
 
 
-def flash_sass(lib) -> dict:
-    """Counts of wgmma (HGMMA) and TMA tile loads (UTMALDG) in each
-    flash_attention kernel instance of the built library's SASS
-    (cuobjdump -sass)."""
+def sass_counts(lib, namer, ops) -> dict:
+    """Counts of the instructions ``ops`` in each kernel of the built
+    library's SASS (cuobjdump -sass) that ``namer`` names: for the flash
+    instances, wgmma (HGMMA) and TMA tile loads (UTMALDG)."""
     from repro_torch.kernels import build
 
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
@@ -385,9 +426,9 @@ def flash_sass(lib) -> dict:
     counts, name = {}, None
     for ln in sass.splitlines():
         if "Function :" in ln:
-            name = flash_instance(ln)
+            name = namer(ln)
             if name:
-                counts[name] = dict.fromkeys(("HGMMA", "UTMALDG"), 0)
+                counts[name] = dict.fromkeys(ops, 0)
         elif name:
             for op in counts[name]:
                 counts[name][op] += f" {op}." in ln or f" {op} " in ln
@@ -866,15 +907,24 @@ def main() -> None:
     print(f"[build] {time.perf_counter() - t0:.2f} s "
           f"(libqn_{build.source_hash()}.so); ptxas: {' | '.join(usage)}",
           flush=True)
+    for name, props in flash_ptxas(build.build_log, qn_instance).items():
+        print(f"[build] {name}: {props}", flush=True)
     for name, props in flash_ptxas(build.build_log).items():
         print(f"[build] {name}: {props}", flush=True)
-    sass = flash_sass(build.BUILD_DIR / f"libqn_{build.source_hash()}.so")
+    lib_path = build.BUILD_DIR / f"libqn_{build.source_hash()}.so"
+    sass = sass_counts(lib_path, flash_instance, ("HGMMA", "UTMALDG"))
     print(f"[build] SASS of the flash kernels (cuobjdump -sass): {sass}",
           flush=True)
     if any(not all(c.values()) for n, c in sass.items() if "wgmma" in n) \
             or not any("wgmma" in n for n in sass):
         fail("the bf16 flash kernel issues no wgmma (HGMMA) or no TMA load "
              "(UTMALDG)")
+    streams_sass = sass_counts(
+        lib_path, lambda ln: "qn_streams_kernel" if "qn_streams_kernel"
+        in ln else None, ("SHF", "LOP3", "IMAD", "IADD3"))
+    print(f"[build] SASS of the draw-table kernel (its threefry2x32 "
+          f"instances: rotates SHF and xors LOP3 on the integer pipe, adds "
+          f"mostly IMAD on the FMA pipe): {streams_sass}", flush=True)
 
     # ----------------------------------------------- kernels vs plain (card)
     gen = np.random.default_rng(11)
@@ -896,25 +946,96 @@ def main() -> None:
     m_list = f32(gen.lognormal(np.log(5000), 0.5, 2048))
     r_list = f32(gen.lognormal(np.log(2500), 0.5, 2048))
     qn_err = 0.0
+    streams_checked = []
+    streams_err = [0.0]
+
+    def check_streams(tm_, seeds_, nea_, H_, E_, smp_, tag):
+        """The draw-table kernel against its plain version: every table
+        bit for bit (torch.equal); returns the kernel's tables."""
+        kw_ = dict(h_users=H_, n_events=E_, m_samples=smp_[0],
+                   r_samples=smp_[1])
+        got_ = qn_ops.event_streams(tm_, seeds_, nea_, **kw_)
+        want_ = qn_ref.event_streams(tm_, seeds_, nea_, **kw_)
+        same_ = all(torch.equal(a, b) for a, b in zip(got_, want_))
+        streams_err[0] = max([streams_err[0]] + [
+            float((a - b).abs().max()) for a, b in zip(got_, want_)
+            if a.numel()])
+        streams_checked.append(tag)
+        if not same_:
+            fail(f"event_streams differs from its plain version ({tag})")
+        return got_
+
     for replay in (False, True):
         smp = (m_list, r_list) if replay else (None, None)
-        tables = qn_ops.event_streams(tm, seeds, nea, h_users=H, n_events=E,
-                                      m_samples=smp[0], r_samples=smp[1])
+        tables = check_streams(tm, seeds, nea, H, E, smp,
+                               f"B={B} E={E} H={H} replay={replay}")
+        print(f"[check] event_streams replay={replay} B={B} E={E} H={H}: "
+              f"bit-identical=True", flush=True)
         args = (nm, nr, cap, nea, ma, ra, tm, *tables)
         kw = dict(max_slots=S, warmup_jobs=8, replay=replay)
         ks, kc = qn_ops.qn_event(*args, **kw)
+        gs, gc = qn_ops.qn_event(*args, general=True, **kw)
         ps, pc = qn_ref.qn_event(*args, **kw)
         same = torch.equal(ks, ps) and torch.equal(kc, pc)
+        same_general = torch.equal(gs, ps) and torch.equal(gc, pc)
         qn_err = max(qn_err, float((ks - ps).abs().max()),
-                     float((kc - pc).abs().max()))
+                     float((kc - pc).abs().max()),
+                     float((gs - ps).abs().max()),
+                     float((gc - pc).abs().max()))
         print(f"[check] qn_event replay={replay} B={B} E={E} S={S} H={H}: "
-              f"bit-identical={same} jobs={kc.tolist()}", flush=True)
-        if not same:
+              f"bit-identical={same} (qn_event_general: {same_general}) "
+              f"jobs={kc.tolist()}", flush=True)
+        if not (same and same_general):
             fail(f"qn_event differs from its plain version (replay={replay})")
         if float(kc.sum()) <= 0:
             fail("qn_event check completed no job")
     if float(kc[7]) != 0.0:
         fail("a padding lane (zero budget) reported jobs")
+    # more than 32 users (and a slot count past the main path's) take the
+    # kernel for any H; H = 2049 once raised on the card.  Long thinks let
+    # jobs finish within the budget
+    H_big, E_big = 2049, 4096
+    lanes_big = (i32([8, 30]), i32([2, 3]), i32([64, 7]), i32([E_big, E_big]),
+                 f32([60.0, 80.0]), f32([30.0, 45.0]), f32([1.5e5, 1.0e5]))
+    seeds_big = torch.tensor([7, 1007], dtype=torch.int64, device=dev)
+    smp_big = (f32(gen.uniform(30, 90, 37)), f32(gen.uniform(20, 50, 11)))
+    tables_big = check_streams(lanes_big[6], seeds_big, lanes_big[3], H_big,
+                               E_big, smp_big, f"B=2 E={E_big} H={H_big}")
+    kw = dict(max_slots=64, warmup_jobs=2, replay=True)
+    ks, kc = qn_ops.qn_event(*lanes_big, *tables_big, **kw)
+    ps, pc = qn_ref.qn_event(*lanes_big, *tables_big, **kw)
+    same = torch.equal(ks, ps) and torch.equal(kc, pc)
+    qn_err = max(qn_err, float((ks - ps).abs().max()),
+                 float((kc - pc).abs().max()))
+    print(f"[check] event_streams and qn_event B=2 E={E_big} S=64 "
+          f"H={H_big}: bit-identical={same} jobs={kc.tolist()}", flush=True)
+    if not same:
+        fail(f"qn_event differs from its plain version at H={H_big}")
+    if float(kc.min()) <= 0:
+        fail(f"qn_event at H={H_big} completed no job in a lane")
+    # H = 12000 users outgrow the card's 227 KB of shared memory a block:
+    # qn_event_general keeps the lane's state in a global scratch slice
+    H_huge, E_huge = 12000, 1024
+    lanes_huge = (*lanes_big[:3], i32([E_huge, E_huge]), *lanes_big[4:])
+    tables_huge = check_streams(lanes_huge[6], seeds_big, lanes_huge[3],
+                                H_huge, E_huge, smp_big,
+                                f"B=2 E={E_huge} H={H_huge}")
+    scratch_bytes = build.library().qn_event_scratch_bytes(H_huge, 64,
+                                                           E_huge)
+    if scratch_bytes <= 0:
+        fail(f"qn_event at H={H_huge} does not take the global scratch")
+    ks, kc = qn_ops.qn_event(*lanes_huge, *tables_huge, **kw)
+    ps, pc = qn_ref.qn_event(*lanes_huge, *tables_huge, **kw)
+    same = torch.equal(ks, ps) and torch.equal(kc, pc)
+    qn_err = max(qn_err, float((ks - ps).abs().max()),
+                 float((kc - pc).abs().max()))
+    print(f"[check] event_streams and qn_event B=2 E={E_huge} S=64 "
+          f"H={H_huge} (global scratch, {scratch_bytes} bytes a lane): "
+          f"bit-identical={same} jobs={kc.tolist()}", flush=True)
+    if not same:
+        fail(f"qn_event differs from its plain version at H={H_huge}")
+    if float(kc.min()) <= 0:
+        fail(f"qn_event at H={H_huge} completed no job in a lane")
     amva_err = 0.0
     for n in (1, 7, 97, 128, 1000, 4097):
         a = f32(np.abs(gen.normal(size=n)) * 1e4)
@@ -946,7 +1067,9 @@ def main() -> None:
           f"bit-identical=True (H=0 returns the demand)", flush=True)
     fa_err = check_flash(dev, fa_ops, fa_ref)
     ssd_err = check_ssd(dev, ssd_ops, ssd_ref)
-    kernels = {"qn_event": qn_ops.qn_event, "amva": amva_ops.ps_fixed_point,
+    kernels = {"qn_event": qn_ops.qn_event,
+               "event_streams": qn_ops.event_streams,
+               "amva": amva_ops.ps_fixed_point,
                "mva": amva_ops.mva_response,
                "flash_attention": fa_ops.flash_attention,
                "ssd_scan": ssd_ops.ssd}
@@ -1014,7 +1137,8 @@ def main() -> None:
                                                            rep.qn_dispatches)}
         print(f"[main] {name}: wall={wall:.3f} s qn_dispatches="
               f"{rep.qn_dispatches} ({plans[name]['ms_per_dispatch']:.2f} ms "
-              f"of wall each) launches qn_event={n_qn} amva={n_amva} "
+              f"of wall each) launches qn_event={n_qn} event_streams="
+              f"{got_launches['event_streams']} amva={n_amva} "
               f"events={rep.telemetry['qn']['events_total']} "
               f"decisions={json.dumps(got)}", flush=True)
         if name.endswith("pointwise"):
@@ -1046,6 +1170,10 @@ def main() -> None:
         if n_qn != rep.qn_dispatches or n_qn <= 0:
             fail(f"{name}: qn_event launches {n_qn} != fused dispatches "
                  f"{rep.qn_dispatches}")
+        if got_launches["event_streams"] != n_qn:
+            fail(f"{name}: event_streams launches "
+                 f"{got_launches['event_streams']} != qn_event launches "
+                 f"{n_qn} (one table draw a dispatch)")
         if name.endswith("run_fast") and n_amva <= 0:
             fail(f"{name}: the amva kernel was not launched")
         if any(got_launches[k] for k in ("mva", "flash_attention",
@@ -1108,7 +1236,7 @@ def main() -> None:
         fail("mva differs from its plain version at the degenerate case")
     exact = float(exact_t[0])
     want_launches = dict.fromkeys(kernels, 0)
-    want_launches.update(qn_event=4, mva=1)
+    want_launches.update(qn_event=4, event_streams=4, mva=1)
     for k, n in got_launches.items():
         launches[k] += n
     rel = {"simulate": abs(m_scalar - exact) / exact,
@@ -1161,12 +1289,15 @@ def main() -> None:
     # qn_event at every dispatch shape of the Q1 run() above: lanes of
     # m4.xlarge candidates up to the shape's max_slots, 2 replications.
     # Each shape is held against the plain version with the depth cut to
-    # E_cut events; the commonest one is also timed at full depth.
+    # E_cut events, deep enough that every lane completes jobs past the
+    # main path's 8 warm-up jobs (a Q1 job is ~1000 events: 500 maps
+    # dispatched and completed); the commonest one is also timed at full
+    # depth.
     cls = prob.classes[0]
     vm = prob.vm_types[0]
     prof = cls.profile_for(vm)
     m_s, r_s = samples[(cls.name, vm.name)]
-    E_cut = 8192
+    E_cut = 16384
 
     def main_lanes(Bm, E_main, S_main, H_main):
         nu_top = max(1, S_main // vm.slots)
@@ -1180,6 +1311,10 @@ def main() -> None:
                           m_samples=f32(m_s), r_samples=f32(r_s))
         make = lambda: qn_ops.event_streams(lane_args[6], seeds_m,
                                             lane_args[3], **streams_kw)
+        make.plain = lambda: qn_ref.event_streams(lane_args[6], seeds_m,
+                                                  lane_args[3], **streams_kw)
+        make.seeds_nea = (seeds_m, lane_args[3])
+        make.samples = (streams_kw["m_samples"], streams_kw["r_samples"])
         return lane_args, make
 
     # the point-wise walk's single-lane shapes too (B=1, one per bucket of
@@ -1189,36 +1324,51 @@ def main() -> None:
     checked = {}
     for Bm, E_main, S_main, H_main in shapes:
         lane_args, make = main_lanes(Bm, E_main, S_main, H_main)
-        tables = make()
+        tables = check_streams(lane_args[6], *make.seeds_nea, H_main, E_main,
+                               make.samples, f"B={Bm} E={E_main} H={H_main}")
         cut = (*lane_args[:3], i32([E_cut] * Bm), *lane_args[4:], tables[0],
                *(t[:, :E_cut].contiguous() for t in tables[1:]))
         cut_kw = dict(max_slots=S_main, warmup_jobs=8, replay=True)
         ks, kc = qn_ops.qn_event(*cut, **cut_kw)
+        gs, gc = qn_ops.qn_event(*cut, general=True, **cut_kw)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ps, pc = qn_ref.qn_event(*cut, **cut_kw)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        if not (torch.equal(ks, ps) and torch.equal(kc, pc)):
+        if not (torch.equal(ks, ps) and torch.equal(kc, pc)
+                and torch.equal(gs, ps) and torch.equal(gc, pc)):
             fail(f"qn_event differs from its plain version at the main "
                  f"path's widths B={Bm} S={S_main} H={H_main}")
+        if float(kc.min()) <= 0:
+            fail(f"qn_event at the main path's widths B={Bm} S={S_main} "
+                 f"E={E_cut} left a lane without jobs past the warm-up")
         qn_err = max(qn_err, float((ks - ps).abs().max()),
-                     float((kc - pc).abs().max()))
+                     float((kc - pc).abs().max()),
+                     float((gs - ps).abs().max()),
+                     float((gc - pc).abs().max()))
         cut_ms = cuda_ms(lambda: qn_ops.qn_event(*cut, **cut_kw), 3)
         checked[(Bm, E_main, S_main, H_main)] = (plain_ms, cut_ms)
         n_disp = (shape_count + pw_shape_count)[(Bm, E_main, S_main, H_main)]
         print(f"[check] qn_event at the main path's widths B={Bm} "
               f"S={S_main} H={H_main}, E={E_cut} ({n_disp} of the drives' "
-              f"dispatches): bit-identical=True; kernel {cut_ms:.3f} ms, "
-              f"plain {plain_ms:.1f} ms", flush=True)
+              f"dispatches): bit-identical=True (qn_event_general too), "
+              f"jobs a lane {int(kc.min())}-{int(kc.max())}; kernel "
+              f"{cut_ms:.3f} ms, plain {plain_ms:.1f} ms; event_streams at "
+              f"E={E_main}: bit-identical=True", flush=True)
 
     (Bm, E_main, S_main, H_main), n_shape = shape_count.most_common(1)[0]
     lane_args, make = main_lanes(Bm, E_main, S_main, H_main)
     tables = make()
-    streams_ms = cuda_ms(make, 2)
+    streams_ms = cuda_ms(make, 20)
+    streams_plain_ms = cuda_ms(make.plain, 2)
     run_qn = lambda: qn_ops.qn_event(*lane_args, *tables, max_slots=S_main,
                                      warmup_jobs=8, replay=True)
     qn_ms = cuda_ms(run_qn, 3)
+    # the kernel for any H and slot count, asked for at the same shape
+    qn_general_ms = cuda_ms(lambda: qn_ops.qn_event(
+        *lane_args, *tables, max_slots=S_main, warmup_jobs=8, replay=True,
+        general=True), 3)
     _, cnt = run_qn()
     if not bool((cnt > 0).all()):
         fail("qn_event at the main path's shape left a lane without jobs")
@@ -1234,13 +1384,41 @@ def main() -> None:
     qn_ops_n = active * (2 * log_s + 4 * H_main)
     qn_bound = 1e3 * max(qn_bytes / H100_BYTES_PER_S,
                          qn_ops_n / H100_INSTR_PER_S)
+    # the draw tables' bound: the tables written (and the per-lane inputs
+    # read) at the card's memory rate, or their threefry work on the
+    # integer pipe at the card's INT32 rate, whichever is larger
+    streams_bytes = 4 * (Bm * H_main + 3 * Bm * E_main) + 16 * Bm \
+        + 4 * sum(len(x) for x in make.samples)
+    streams_ops = THREEFRY_INT32_OPS * (THREEFRY_PER_EVENT[True] * Bm
+                                        * E_main + Bm * H_main + Bm)
+    streams_bound = 1e3 * max(streams_bytes / H100_BYTES_PER_S,
+                              streams_ops / H100_INT32_OPS_PER_S)
     print(f"[time] qn_event B={Bm} E={E_main} S={S_main} H={H_main} "
           f"({n_shape} of the run's dispatches had this shape): "
-          f"{qn_ms:.3f} ms/launch ({active / qn_ms * 1e3:.3e} "
-          f"lane-events/s); event_streams {streams_ms:.3f} ms; bound "
+          f"{qn_ms:.3f} ms/launch, {qn_ms * 1e6 / E_main:.1f} ns an event "
+          f"(before: {QN_BEFORE['qn_event_b32_ms']} ms; "
+          f"{active / qn_ms * 1e3:.3e} lane-events/s); qn_event_general "
+          f"at this shape {qn_general_ms:.3f} ms; bound "
           f"{qn_bound:.4f} ms ({qn_bytes} bytes, {qn_ops_n} operations); "
           f"at E={E_cut}: kernel {qn_cut_ms:.3f} ms, plain "
           f"{qn_plain_ms:.1f} ms", flush=True)
+    print(f"[time] event_streams B={Bm} E={E_main} H={H_main} (replay): "
+          f"kernel {streams_ms:.4f} ms (before, eager: "
+          f"{QN_BEFORE['event_streams_b32_ms']} ms), plain {streams_plain_ms:.3f}"
+          f" ms, bound {streams_bound:.4f} ms ({streams_bytes} bytes, "
+          f"{streams_ops} integer-pipe instructions)", flush=True)
+    # the kernel for any H and slot count where it alone runs: H = 2049
+    # (shared memory) and H = 12000 (global scratch), the checks' lanes
+    general_ms = {}
+    for H_g, E_g, lanes_g, tables_g in (
+            (H_big, E_big, lanes_big, tables_big),
+            (H_huge, E_huge, lanes_huge, tables_huge)):
+        general_ms[H_g] = cuda_ms(lambda: qn_ops.qn_event(
+            *lanes_g, *tables_g, max_slots=64, warmup_jobs=2,
+            replay=True), 3)
+        print(f"[time] qn_event_general B=2 E={E_g} S=64 H={H_g}: "
+              f"{general_ms[H_g]:.3f} ms/launch, "
+              f"{general_ms[H_g] * 1e6 / E_g:.1f} ns an event", flush=True)
 
     # amva at the frontier of run_fast: span 64 -> 97 points
     n_am = 97
@@ -1287,18 +1465,29 @@ def main() -> None:
         cls.name]["nu"] * vm.slots)
     lane_pw, make_pw = main_lanes(1, E_main, S_pw, H_main)
     tables_pw = make_pw()
-    streams_pw_ms = cuda_ms(make_pw, 3)
+    streams_pw_ms = cuda_ms(make_pw, 20)
+    streams_pw_plain_ms = cuda_ms(make_pw.plain, 3)
     qn_pw_ms = cuda_ms(lambda: qn_ops.qn_event(
         *lane_pw, *tables_pw, max_slots=S_pw, warmup_jobs=8, replay=True), 3)
+    qn_pw_general_ms = cuda_ms(lambda: qn_ops.qn_event(
+        *lane_pw, *tables_pw, max_slots=S_pw, warmup_jobs=8, replay=True,
+        general=True), 3)
     pw = plans["Q1-10u.run_pointwise"]
     pw.update(qn_event_ms_b1=qn_pw_ms, event_streams_ms_b1=streams_pw_ms)
+    print(f"[time] qn_event B=1 E={E_main} S={S_pw} H={H_main} (a point-wise "
+          f"dispatch): {qn_pw_ms:.3f} ms/launch, "
+          f"{qn_pw_ms * 1e6 / E_main:.1f} ns an event (before: "
+          f"{QN_BEFORE['qn_event_b1_ms']} ms; qn_event_general "
+          f"{qn_pw_general_ms:.3f} ms); event_streams kernel "
+          f"{streams_pw_ms:.4f} ms (before, eager: "
+          f"{QN_BEFORE['event_streams_b1_ms']} ms), plain "
+          f"{streams_pw_plain_ms:.3f} ms", flush=True)
     print(f"[time] point-wise plan Q1-10u: wall {pw['wall_s']:.3f} s for "
           f"{pw['qn_dispatches']} dispatches, {pw['ms_per_dispatch']:.2f} ms "
-          f"each; one dispatch's parts at B=1 E={E_main} S={S_pw} "
-          f"H={H_main}: qn_event {qn_pw_ms:.3f} ms, event_streams "
-          f"{streams_pw_ms:.3f} ms (batched run(): "
+          f"each (before: {QN_BEFORE['run_pointwise_s']} s); batched run(): "
           f"{plans['Q1-10u.run']['wall_s']:.3f} s for "
-          f"{plans['Q1-10u.run']['qn_dispatches']} dispatches)", flush=True)
+          f"{plans['Q1-10u.run']['qn_dispatches']} dispatches (before: "
+          f"{QN_BEFORE['run_s']} s)", flush=True)
 
     fa_time = time_flash(dev, fa_ops, fa_ref, 4, 1024, 32, 8, 64)
     fa_zamba2 = time_flash(dev, fa_ops, fa_ref, 4, 896, 32, 32, 112)
@@ -1318,7 +1507,32 @@ def main() -> None:
                       > qn_bytes / H100_BYTES_PER_S else "bytes"),
          "library_ms": None,
          "library_note": "no single PyTorch call simulates the network",
+         "ns_per_event": qn_ms * 1e6 / E_main,
+         "general_ms": qn_general_ms,
+         "at_b1": {"shape": f"B=1 E={E_main} S={S_pw} H={H_main}",
+                   "ms": qn_pw_ms, "ns_per_event": qn_pw_ms * 1e6 / E_main,
+                   "general_ms": qn_pw_general_ms},
+         "general_only": {f"B=2 E={E_g} S=64 H={H_g}": general_ms[H_g]
+                          for H_g, E_g in ((H_big, E_big),
+                                           (H_huge, E_huge))},
          "plans": plans},
+        {"name": "event_streams", "route": "cuda",
+         "source": "src/repro_torch/csrc/qn_streams.cu",
+         "replaces": "src/repro/kernels/qn_event/kernel.py:63",
+         "replaces_note": "the reference's draw tables (event_streams), "
+                          "computed by XLA: no Pallas kernel",
+         "launches": launches["event_streams"],
+         "max_abs_err": streams_err[0],
+         "checked": streams_checked,
+         "ms": streams_ms, "plain_ms": streams_plain_ms,
+         "shape": f"B={Bm} E={E_main} H={H_main} replay",
+         "bound_ms": streams_bound,
+         "bound_by": ("operations" if streams_ops / H100_INT32_OPS_PER_S
+                      > streams_bytes / H100_BYTES_PER_S else "bytes"),
+         "library_ms": None,
+         "library_note": "no PyTorch call draws jax.random's threefry "
+                         "streams",
+         "at_b1": {"ms": streams_pw_ms, "plain_ms": streams_pw_plain_ms}},
         {"name": "amva", "route": "cuda",
          "source": "src/repro_torch/csrc/amva.cu",
          "replaces": "src/repro/kernels/amva/kernel.py:94",

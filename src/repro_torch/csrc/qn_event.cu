@@ -10,201 +10,356 @@
 // earliest-ending task (a finished map stage forks the reduces, a finished
 // reduce stage ends the job and starts a think); or end the earliest think
 // (submit a job: fork its maps).  The random draws arrive as per-lane
-// tables (row i is read at step i), so the kernel itself is RNG-free.
+// tables (row i is read at step i), so the loop itself is RNG-free.
 //
 // What bounds it on the H100: not bytes (the draw tables are read once,
-// 12 bytes per event) and not operations (about 3*S + 8*H compares and
-// selects per event), but the chain of dependent steps inside each lane:
-// step i+1 needs the state step i wrote.  Lanes are independent, so the
-// design gives each lane one warp and keeps the steps short:
-//   * the lane's state lives in shared memory (slot clocks and owners,
-//     S = max_slots of each; six per-user arrays of H), or in a global
-//     scratch slice when it does not fit in 48 KB;
-//   * every step's selections (first free slot, earliest slot end,
-//     earliest think end, oldest reduce / map arrival) are one pass of the
-//     32 threads over the arrays, then warp-shuffle reductions on
-//     (value, index) pairs that break ties toward the smaller index, as
-//     jnp.argmin / argmax do;
-//   * thread 0 applies the step's scalar updates; __syncwarp() orders the
-//     phases;
-//   * the draw tables are loaded 32 events at a time (one per thread) and
-//     broadcast with __shfl_sync, so no step waits on device memory;
-//   * steps at or past the lane's logical budget are no-ops in the
-//     reference, so the loop simply ends there.
+// 12 bytes per event) and not operations (a few compares per event with
+// incremental minima), but the chain of dependent steps inside each lane:
+// step i+1 needs the state step i wrote, so a launch takes the latency of
+// one step times the number of events, and with one warp on an SM every
+// latency in that chain is exposed.  Lanes are independent (one warp each,
+// on idle SMs).  The design shortens the step:
+//   * the lane's slots_cap slots, and separately its H users, are cut into
+//     32 contiguous blocks, one per thread.  Only the owner of a block
+//     writes it, so no step needs __syncwarp or a serial phase.  Each
+//     thread keeps its block's minima in registers: the earliest slot end
+//     (with that slot's user), its free slots, and of its users the
+//     earliest think end and the oldest queued stage (one key: reduce
+//     stages below map stages, then by arrival, then by user);
+//   * a step changes at most one slot and one user, so only their owners'
+//     minima move: in O(1) when a key falls, by a rescan of the one block
+//     when the minimum leaves;
+//   * selections are __reduce_min_sync on 32-bit keys that order as the
+//     clocks do.  Blocks are contiguous and each thread keeps its block's
+//     first minimum, so the lowest lane holding the warp's minimum holds
+//     the first index, as jnp.argmin and ref.py break ties.
+//
+// Two kernels share that layout:
+//   * qn_event_fast, the main path (at most 512 slots, at most 32 users):
+//     each thread holds one user in registers and a block of at most 16
+//     slots in shared memory.  A queued user's key is unique (class, the
+//     rank of its arrival among the distinct clocks so far, the user: the
+//     clock only ever grows, so ranks order as arrivals do and tie where
+//     they tie), so the queue's redux names the dispatching user.  The
+//     earliest slot end and think end are one key (a slot end sorts before
+//     an equal think end, as the reference's t_slot <= t_think), and a
+//     second redux on (lane, user) over the lanes holding it names the
+//     winner's lane and the user it touches.  The lowest lane with a free
+//     slot holds the first free slot; each thread tells from the ballot
+//     whether that is itself.  Every thread runs the same straight-line
+//     step: the owners' updates are selects, and a thread that owns
+//     nothing writes to a padding word of its block, so no step diverges
+//     (a divergent branch, and the convergence barriers and checks the
+//     compiler then puts before each collective, cost more than the
+//     step's selections).  When a completion finds no slot free and leaves
+//     a task queued, the next step can only be a dispatch into the slot it
+//     freed, of the queue's head (the old one, or the user that has just
+//     forked its reduces): the completion takes it at once, with no
+//     selection of its own;
+//   * qn_event_general, any H and slot count: slot and user state in
+//     memory (dynamic shared memory, opt-in above 48 KB, or past the
+//     card's shared memory a global scratch slice per lane), runtime-length
+//     rescans, clock keys with a ballot and __ffs for the lowest lane.
+// Both: now, the response sums and the job count are replicated on every
+// thread; the draw tables are prefetched 32 events ahead (one per thread)
+// and broadcast with __shfl_sync; steps at or past the lane's logical
+// budget are no-ops in the reference, so the loop simply ends there; each
+// lane scans only its own slots_cap slots (the slots past it are never
+// free and never end, and a slot below cap wins every tie with them).
+//
+// Keys: every clock is non-negative (times from non-negative draws and
+// means), so clearing the sign bit of the float gives an unsigned key
+// that orders exactly as float < does, -0.0 folded into +0.0, the
+// sentinel QN_INF and +inf included.  0xffffffff (above every key) marks
+// an empty block or a user with nothing queued.
 //
 // Rounding matches the reference bit for bit: XLA contracts
 // now + e*mean and t_slot + e*think into FMAs, written here as __fmaf_rn;
-// everything else is adds, compares and selects; the file is built with
-// --fmad=false.  INF is the finite sentinel 1e30, as in the reference.
+// the response sum uses __fsub_rn / __fadd_rn; everything else is compares
+// and selects; the file is built with --fmad=false.
 #include <cuda_runtime.h>
-#include <climits>
 
 #define QN_INF 1e30f
 #define FULL_MASK 0xffffffffu
 
-__device__ __forceinline__ void argmin_merge(float& v, int& i, float v2,
-                                             int i2) {
-  if (v2 < v || (v2 == v && i2 < i)) {
-    v = v2;
-    i = i2;
+namespace {
+
+constexpr unsigned kNone = 0xffffffffu;
+constexpr unsigned kMapBit = 0x80000000u;  // queued maps sort after reduces
+constexpr int kFastSlots = 16;   // slots a thread of qn_event_fast holds
+constexpr int kFastStride = 20;  // its block's stride in words (16-byte
+                                 // aligned, spreads the banks)
+constexpr int kRankBits = 26;    // arrival ranks on the fast path
+constexpr int kLaneShift = 27;   // (lane, user) of the second redux
+
+__device__ __forceinline__ unsigned clock_key(float x) {
+  return __float_as_uint(x) & 0x7fffffffu;
+}
+
+__device__ __forceinline__ float key_clock(unsigned k) {
+  return __uint_as_float(k);
+}
+
+// (key, local index) -> keep the smaller key, the lower index on ties
+__device__ __forceinline__ void take_min(unsigned& m, int& loc, unsigned k,
+                                         int l) {
+  if (k < m || (k == m && l < loc)) {
+    m = k;
+    loc = l;
   }
 }
 
-__device__ __forceinline__ void warp_argmin(float& v, int& i) {
+// The earliest slot end and think end as one key: the clock key shifted
+// up, a think marked in the low bit, so that a slot end sorts before an
+// equal think end.
+__device__ __forceinline__ unsigned advance_key(unsigned slot_min,
+                                                unsigned think_min) {
+  const unsigned s = slot_min == kNone ? kNone : slot_min << 1;
+  const unsigned h = think_min == kNone ? kNone : (think_min << 1) | 1u;
+  return min(s, h);
+}
+
+// (key[0], loc[0]) = the first minimum of key[0..W): contiguous halves
+// merge pairwise, the right half winning only with a smaller key
+template <int W, int STRIDE = 1>
+__device__ __forceinline__ void tree_min(unsigned* key, int* loc) {
+  if constexpr (STRIDE < W) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    float v2 = __shfl_xor_sync(FULL_MASK, v, off);
-    int i2 = __shfl_xor_sync(FULL_MASK, i, off);
-    argmin_merge(v, i, v2, i2);
+    for (int k = 0; k < W; k += 2 * STRIDE) {
+      if (key[k + STRIDE] < key[k]) {
+        key[k] = key[k + STRIDE];
+        loc[k] = loc[k + STRIDE];
+      }
+    }
+    tree_min<W, 2 * STRIDE>(key, loc);
   }
 }
 
-__device__ __forceinline__ int warp_min(int x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = min(x, __shfl_xor_sync(FULL_MASK, x, off));
-  return x;
-}
+// The draw tables of one lane, read 32 events ahead: thread t holds event
+// 32*b + t of the current block b and of the next.
+struct Draws {
+  const float *m, *r, *d;
+  int n;
+  float c_m = 0.0f, c_r = 0.0f, c_t = 0.0f;
+  float n_m = 0.0f, n_r = 0.0f, n_t = 0.0f;
 
-__global__ void __launch_bounds__(32) qn_event_kernel(
+  __device__ void init(const float* st_m, const float* st_r,
+                       const float* td, int lane, int n_events, int t) {
+    m = st_m + (size_t)lane * n_events;
+    r = st_r + (size_t)lane * n_events;
+    d = td + (size_t)lane * n_events;
+    n = n_events;
+    if (n > 0) fetch(t);
+  }
+
+  __device__ __forceinline__ void fetch(int k) {
+    k = min(k, n - 1);
+    n_m = m[k];
+    n_r = r[k];
+    n_t = d[k];
+  }
+
+  // step i's draws, on every thread
+  __device__ __forceinline__ void at(int i, int t, float& stm, float& str,
+                                     float& tdv) {
+    const int j = i & 31;
+    if (j == 0) {
+      c_m = n_m;
+      c_r = n_r;
+      c_t = n_t;
+      fetch(i + 32 + t);
+    }
+    stm = __shfl_sync(FULL_MASK, c_m, j);
+    str = __shfl_sync(FULL_MASK, c_r, j);
+    tdv = __shfl_sync(FULL_MASK, c_t, j);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// qn_event_fast: at most 512 slots and 32 users
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(32, 1) qn_event_fast(
     const int* __restrict__ n_map, const int* __restrict__ n_reduce,
     const int* __restrict__ slots_cap, const int* __restrict__ n_active,
     const float* __restrict__ m_avg, const float* __restrict__ r_avg,
     const float* __restrict__ think_ms, const float* __restrict__ think0,
     const float* __restrict__ st_m, const float* __restrict__ st_r,
     const float* __restrict__ td, float* __restrict__ resp_sum_out,
-    float* __restrict__ resp_cnt_out, float* g_slot_end, int* g_slot_user,
-    int H, int S, int n_events, int warmup_jobs, int replay) {
-  extern __shared__ float smem[];
+    float* __restrict__ resp_cnt_out, int H, int S, int n_events,
+    int warmup_jobs, int replay) {
+  __shared__ __align__(16) unsigned s_key[32 * kFastStride];
+  __shared__ int s_user[32 * kFastStride];
   const int lane = blockIdx.x;
   const int t = threadIdx.x;
-  const float inf = __int_as_float(0x7f800000);
+  const unsigned below = (1u << t) - 1u;     // lanes under this one
+  const unsigned user_mask = (1u << kLaneShift) - 1u;
+  const unsigned k_inf = clock_key(QN_INF);
 
-  float* think_end = smem;
-  float* arrival = smem + H;
-  float* job_start = smem + 2 * H;
-  int* phase = (int*)(smem + 3 * H);
-  int* pending = phase + H;
-  int* inflight = phase + 2 * H;
-  float* slot_end;
-  int* slot_user;
-  if (g_slot_end == nullptr) {
-    slot_end = smem + 6 * H;
-    slot_user = (int*)(slot_end + S);
-  } else {
-    slot_end = g_slot_end + (size_t)lane * S;
-    slot_user = g_slot_user + (size_t)lane * S;
-  }
-
-  const int nm = n_map[lane], nr = n_reduce[lane], cap = slots_cap[lane];
+  const int nm = n_map[lane], nr = n_reduce[lane];
+  const int cap = min(max(slots_cap[lane], 0), S);
   const float ma = m_avg[lane], ra = r_avg[lane], tm = think_ms[lane];
-  const int steps = min(n_events, n_active[lane]);
-  for (int s = t; s < S; s += 32) {
-    slot_end[s] = QN_INF;
-    slot_user[s] = -1;
-  }
-  for (int h = t; h < H; h += 32) {
-    think_end[h] = think0[(size_t)lane * H + h];
-    arrival[h] = QN_INF;
-    job_start[h] = 0.0f;
-    phase[h] = 0;
-    pending[h] = 0;
-    inflight[h] = 0;
-  }
-  __syncwarp();
+  const int steps = max(0, min(n_events, n_active[lane]));
 
-  const float* row_m = st_m + (size_t)lane * n_events;
-  const float* row_r = st_r + (size_t)lane * n_events;
-  const float* row_t = td + (size_t)lane * n_events;
-  float c_m = 0.0f, c_r = 0.0f, c_t = 0.0f;
+  // this thread's slots [t*bs, t*bs + sn) and their minima
+  const int bs = (cap + 31) / 32;
+  const int sn = min(max(cap - t * bs, 0), bs);
+  const int blk = t * kFastStride;   // the block's offset in s_key, s_user
+#pragma unroll
+  for (int k = 0; k < kFastSlots; ++k) {
+    s_key[blk + k] = k < sn ? k_inf : kNone;
+    s_user[blk + k] = -1;
+  }
+  unsigned free_bits = (1u << sn) - 1u;
+  unsigned s_min = sn > 0 ? k_inf : kNone;
+  int s_loc = 0, s_usr = -1;
+
+  // this thread's user t (when t < H)
+  unsigned q_key = kNone;     // (map bit, arrival rank, t) while queued
+  unsigned h_key = t < H ? clock_key(think0[(size_t)lane * H + t]) : kNone;
+  int phase = 0, pending = 0, inflight = 0;
+  float job_start = 0.0f;
+
+  Draws draws;
+  draws.init(st_m, st_r, td, lane, n_events, t);
   float now = 0.0f, resp_sum = 0.0f, resp_cnt = 0.0f;
+  unsigned rank = 0;          // distinct clocks so far, less one
   int done_jobs = 0;
+  // a job finished by the previous step: its ballot and response, applied
+  // once this step's selections are issued
+  unsigned last_done = 0;
+  float last_resp = 0.0f;
 
+  const uint4* kv = reinterpret_cast<const uint4*>(s_key + blk);
   for (int i = 0; i < steps; ++i) {
-    const int j = i & 31;
-    if (j == 0) {
-      const int k = i + t;
-      if (k < n_events) {
-        c_m = row_m[k];
-        c_r = row_r[k];
-        c_t = row_t[k];
-      }
-    }
-    const float stm_i = __shfl_sync(FULL_MASK, c_m, j);
-    const float str_i = __shfl_sync(FULL_MASK, c_r, j);
-    const float td_i = __shfl_sync(FULL_MASK, c_t, j);
+    const unsigned adv = advance_key(s_min, h_key);
+    const unsigned g_queue = __reduce_min_sync(FULL_MASK, q_key);
+    const unsigned g_adv = __reduce_min_sync(FULL_MASK, adv);
+    const unsigned b_free = __ballot_sync(FULL_MASK, free_bits != 0);
+    float stm_i, str_i, td_i;
+    draws.at(i, t, stm_i, str_i, td_i);
+    const uint4 q0 = kv[0], q1 = kv[1], q2 = kv[2], q3 = kv[3];
 
-    // ---- selections: one pass over users and slots, then warp reductions
-    float red_v = inf, map_v = inf, thk_v = inf, end_v = inf;
-    int red_i = INT_MAX, map_i = INT_MAX, thk_i = INT_MAX, end_i = INT_MAX;
-    int first_free = INT_MAX, any_pending = 0;
-    for (int h = t; h < H; h += 32) {
-      const int p = pending[h], ph = phase[h];
-      const float arr = arrival[h];
-      argmin_merge(red_v, red_i, (p > 0 && ph == 2) ? arr : QN_INF, h);
-      argmin_merge(map_v, map_i, (p > 0 && ph == 1) ? arr : QN_INF, h);
-      argmin_merge(thk_v, thk_i, think_end[h], h);
-      any_pending |= (p > 0);
-    }
-    for (int s = t; s < S; s += 32) {
-      argmin_merge(end_v, end_i, slot_end[s], s);
-      if (s < cap && slot_user[s] < 0 && s < first_free) first_free = s;
-    }
-    warp_argmin(red_v, red_i);
-    warp_argmin(map_v, map_i);
-    warp_argmin(thk_v, thk_i);
-    warp_argmin(end_v, end_i);
-    first_free = warp_min(first_free);
-    any_pending = __any_sync(FULL_MASK, any_pending);
-    __syncwarp();
+    const bool counted = last_done != 0 && done_jobs >= warmup_jobs;
+    resp_sum = counted ? __fadd_rn(resp_sum, last_resp) : resp_sum;
+    resp_cnt = counted ? __fadd_rn(resp_cnt, 1.0f) : resp_cnt;
+    done_jobs += last_done != 0;
+    last_done = 0;
 
-    // ---- thread 0 applies the one event of this step
-    if (t == 0) {
-      const float t_slot = end_v, t_think = thk_v;
-      if (first_free != INT_MAX && any_pending) {            // dispatch
-        const int u = red_v < QN_INF ? red_i : map_i;
-        const bool is_map = phase[u] == 1;
-        slot_end[first_free] =
-            replay ? __fadd_rn(now, is_map ? stm_i : str_i)
-                   : __fmaf_rn(stm_i, is_map ? ma : ra, now);
-        slot_user[first_free] = u;
-        pending[u] -= 1;
-        inflight[u] += 1;
-      } else if (t_slot <= t_think && t_slot < QN_INF) {    // completion
-        const int cs = end_i;
-        const int cu = slot_user[cs];
-        const int infl = inflight[cu] - 1;
-        const bool stage_done = pending[cu] == 0 && infl == 0;
-        const bool was_map = phase[cu] == 1;
-        inflight[cu] = infl;
-        if (stage_done && was_map) {         // map stage done: fork reduces
-          phase[cu] = 2;
-          pending[cu] = nr;
-          arrival[cu] = t_slot;
-        } else if (stage_done) {             // reduce stage done: job done
-          phase[cu] = 0;
-          arrival[cu] = QN_INF;
-          think_end[cu] = __fmaf_rn(td_i, tm, t_slot);
-          if (done_jobs >= warmup_jobs) {
-            resp_sum = __fadd_rn(resp_sum, __fsub_rn(t_slot, job_start[cu]));
-            resp_cnt = __fadd_rn(resp_cnt, 1.0f);
-          }
-          done_jobs += 1;
-        }
-        slot_end[cs] = QN_INF;
-        slot_user[cs] = -1;
-        now = t_slot;
-      } else if (t_think < QN_INF) {                         // think end
-        const int tu = thk_i;
-        phase[tu] = 1;
-        pending[tu] = nm;
-        arrival[tu] = t_think;
-        job_start[tu] = t_think;
-        think_end[tu] = QN_INF;
-        now = t_think;
-      }
+    if (b_free != 0 && g_queue != kNone) {                 // dispatch
+      const int u = (int)(g_queue & 31u);
+      const bool is_map = (g_queue & kMapBit) != 0;
+      const float end = replay ? __fadd_rn(now, is_map ? stm_i : str_i)
+                               : __fmaf_rn(stm_i, is_map ? ma : ra, now);
+      // owners' updates as selects; a thread that owns nothing writes
+      // to its block's padding word
+      const bool mine_u = t == u;
+      pending -= mine_u;
+      inflight += mine_u;
+      q_key = mine_u && pending == 0 ? kNone : q_key;
+      const bool mine_s = free_bits != 0 && (b_free & below) == 0;
+      const int l = __ffs(free_bits) - 1;                  // first free
+      const unsigned k = clock_key(end);
+      const int at = mine_s ? l : kFastSlots;
+      s_key[blk + at] = k;
+      s_user[blk + at] = u;
+      free_bits = mine_s ? free_bits & (free_bits - 1u) : free_bits;
+      const bool lower = mine_s && (k < s_min || (k == s_min && l < s_loc));
+      s_min = lower ? k : s_min;
+      s_loc = lower ? l : s_loc;
+      s_usr = lower ? u : s_usr;
+      continue;
     }
-    __syncwarp();
+    const unsigned ka = g_adv >> 1;
+    if (ka >= k_inf) continue;                             // nothing left
+    const float clock = key_clock(ka);
+    const bool is_think = (g_adv & 1u) != 0;
+    // the lowest lane holding the earliest end, and its user
+    const unsigned g_who = __reduce_min_sync(
+        FULL_MASK, adv == g_adv ? ((unsigned)t << kLaneShift) |
+                                      ((is_think ? t : s_usr) & user_mask)
+                                : kNone);
+    const int w = (int)(g_who >> kLaneShift);
+    const int who = (int)(g_who & user_mask);
+    rank += clock != now;
+    now = clock;
+    if (!is_think) {                                       // completion
+      // every thread reruns its block's tree, the owner without the slot
+      // that completes; the others find their minimum unchanged
+      unsigned kk[kFastSlots] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y,
+                                 q1.z, q1.w, q2.x, q2.y, q2.z, q2.w,
+                                 q3.x, q3.y, q3.z, q3.w};
+      int ii[kFastSlots];
+      const int gone = t == w ? s_loc : -1;
+#pragma unroll
+      for (int k = 0; k < kFastSlots; ++k) {
+        kk[k] = k == gone ? k_inf : kk[k];
+        ii[k] = k;
+      }
+      tree_min<kFastSlots>(kk, ii);
+      const int at = t == w ? gone : kFastSlots;
+      s_key[blk + at] = k_inf;
+      s_user[blk + at] = -1;
+      free_bits |= t == w ? 1u << gone : 0u;
+      s_min = kk[0];
+      s_loc = ii[0];
+      s_usr = s_user[blk + s_loc];
+      // the task's user
+      const bool mine_u = t == who;
+      inflight -= mine_u;
+      const bool stage_done = mine_u && pending == 0 && inflight == 0;
+      const bool fork = stage_done && phase == 1;     // map stage done
+      const bool job_done = stage_done && phase != 1; // reduce stage done
+      phase = fork ? 2 : job_done ? 0 : phase;
+      pending = fork ? nr : pending;
+      q_key = fork ? (nr > 0 ? (rank << 5) | (unsigned)t : kNone) : q_key;
+      h_key = job_done ? clock_key(__fmaf_rn(td_i, tm, clock)) : h_key;
+      const float resp = job_done ? __fsub_rn(clock, job_start) : 0.0f;
+      last_done = __ballot_sync(FULL_MASK, job_done);
+      last_resp = __shfl_sync(FULL_MASK, resp, who);
+      // With no slot free before it, the completion leaves one free slot
+      // (the one it ended); when anything is queued, the next step is a
+      // dispatch into it, taken here (within the block of draws)
+      const unsigned head =
+          __any_sync(FULL_MASK, fork && nr > 0)
+              ? min(g_queue, (rank << 5) | (unsigned)who) : g_queue;
+      if (b_free == 0 && head != kNone && i + 1 < steps &&
+          ((i + 1) & 31) != 0) {
+        i += 1;
+        const int u = (int)(head & 31u);
+        const bool is_map = (head & kMapBit) != 0;
+        const float st = __shfl_sync(FULL_MASK, is_map ? draws.c_m
+                                                       : draws.c_r, i & 31);
+        const float end = replay ? __fadd_rn(now, st)
+                                 : __fmaf_rn(st, is_map ? ma : ra, now);
+        const bool mine_d = t == u;
+        pending -= mine_d;
+        inflight += mine_d;
+        q_key = mine_d && pending == 0 ? kNone : q_key;
+        const unsigned k = clock_key(end);
+        const bool mine_s = t == w;
+        s_key[blk + at] = mine_s ? k : k_inf;
+        s_user[blk + at] = mine_s ? u : -1;
+        free_bits = mine_s ? free_bits & ~(1u << gone) : free_bits;
+        const bool lower =
+            mine_s && (k < s_min || (k == s_min && gone < s_loc));
+        s_min = lower ? k : s_min;
+        s_loc = lower ? gone : s_loc;
+        s_usr = lower ? u : s_usr;
+      }
+    } else {                                               // think end
+      const bool mine_u = t == w;
+      phase = mine_u ? 1 : phase;
+      pending = mine_u ? nm : pending;
+      job_start = mine_u ? clock : job_start;
+      h_key = mine_u ? k_inf : h_key;
+      q_key = mine_u ? (nm > 0 ? kMapBit | (rank << 5) | (unsigned)t : kNone)
+                     : q_key;
+    }
+  }
+  if (last_done != 0 && done_jobs >= warmup_jobs) {
+    resp_sum = __fadd_rn(resp_sum, last_resp);
+    resp_cnt = __fadd_rn(resp_cnt, 1.0f);
   }
   if (t == 0) {
     resp_sum_out[lane] = resp_sum;
@@ -212,20 +367,353 @@ __global__ void __launch_bounds__(32) qn_event_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// qn_event_general: any H, any slot count, state in memory
+// ---------------------------------------------------------------------------
+
+// This thread's slots: global indices [base, base + n), keys and users at
+// stride sw, free-mask words beside them.
+struct Slots {
+  unsigned* key;       // clock_key of the slot's end, QN_INF when idle
+  int* user;           // the task's user, -1 when free
+  unsigned* mask;      // free bits
+  int base, n, nw;
+  unsigned min_key;    // the block's earliest end
+  int min_loc, min_user;
+  int free_loc;        // the block's first free slot, or -1
+
+  __device__ void init(unsigned* region, int t, int sw, int nwords,
+                       int cap) {
+    const int bs = (cap + 31) / 32;
+    base = t * bs;
+    n = min(max(cap - base, 0), bs);
+    key = region + (size_t)t * sw;
+    user = (int*)(region + 32 * (size_t)sw) + (size_t)t * sw;
+    nw = nwords;
+    mask = region + 64 * (size_t)sw + (size_t)t * nwords;
+    for (int k = 0; k < n; ++k) {
+      key[k] = clock_key(QN_INF);
+      user[k] = -1;
+    }
+    for (int w = 0; w < nw; ++w) {
+      const int left = n - 32 * w;
+      mask[w] = left >= 32 ? FULL_MASK : left > 0 ? (1u << left) - 1u : 0u;
+    }
+    free_loc = n > 0 ? 0 : -1;
+    min_key = n > 0 ? clock_key(QN_INF) : kNone;
+    min_loc = 0;
+    min_user = -1;
+  }
+
+  __device__ __forceinline__ unsigned free_key() const {
+    return free_loc < 0 ? kNone : (unsigned)(base + free_loc);
+  }
+
+  // the block's first earliest end, and its user (read here, so that a
+  // later completion has it in a register)
+  __device__ __forceinline__ void rescan() {
+    unsigned m = kNone;
+    int loc = 0;
+    for (int k = 0; k < n; ++k) {
+      const unsigned x = key[k];
+      if (x < m) {
+        m = x;
+        loc = k;
+      }
+    }
+    min_key = m;
+    min_loc = loc;
+    min_user = user[loc];
+  }
+
+  // a task of user u starts in the first free slot, ending at `end`
+  __device__ __forceinline__ void dispatch(float end, int u) {
+    const int l = free_loc;
+    const unsigned k = clock_key(end);
+    key[l] = k;
+    user[l] = u;
+    if (k < min_key || (k == min_key && l < min_loc)) {
+      min_key = k;
+      min_loc = l;
+      min_user = u;
+    }
+    int w = l >> 5;
+    mask[w] &= ~(1u << (l & 31));
+    free_loc = -1;
+    for (; w < nw; ++w) {
+      const unsigned m = mask[w];
+      if (m) {
+        free_loc = 32 * w + __ffs(m) - 1;
+        break;
+      }
+    }
+  }
+
+  // the earliest-ending task (its user is min_user) completes
+  __device__ __forceinline__ void complete() {
+    const int l = min_loc;
+    key[l] = clock_key(QN_INF);
+    user[l] = -1;
+    mask[l >> 5] |= 1u << (l & 31);
+    free_loc = (free_loc < 0 || l < free_loc) ? l : free_loc;
+    rescan();
+  }
+};
+
+// This thread's users, global indices [base, base + n), six arrays at
+// stride uw.  A user's queue key is its stage arrival while it has tasks
+// pending (kMapBit set in the map stage), kNone otherwise; its think key
+// is the think end.  Arrival and think end are read through their keys
+// only.
+struct Users {
+  unsigned *pkey, *tkey;
+  int *phase, *pending, *inflight;
+  float* job_start;
+  int base, n, bu;
+  unsigned p_min, t_min;
+  int p_loc, t_loc;
+
+  __device__ void init(unsigned* region, int t, int uw, int H,
+                       const float* think0) {
+    bu = max((H + 31) / 32, 1);
+    base = t * bu;
+    n = min(max(H - base, 0), bu);
+    const size_t stride = 32 * (size_t)uw, off = (size_t)t * uw;
+    pkey = region + off;
+    tkey = region + stride + off;
+    phase = (int*)(region + 2 * stride) + off;
+    pending = (int*)(region + 3 * stride) + off;
+    inflight = (int*)(region + 4 * stride) + off;
+    job_start = (float*)(region + 5 * stride) + off;
+    for (int l = 0; l < n; ++l) {
+      pkey[l] = kNone;
+      tkey[l] = clock_key(think0[base + l]);
+      phase[l] = pending[l] = inflight[l] = 0;
+      job_start[l] = 0.0f;
+    }
+    p_min = kNone;
+    p_loc = 0;
+    rescan(tkey, t_min, t_loc);
+  }
+
+  __device__ __forceinline__ void rescan(const unsigned* keys, unsigned& m,
+                                         int& loc) {
+    m = kNone;
+    loc = 0;
+    for (int l = 0; l < n; ++l) {
+      const unsigned x = keys[l];
+      if (x < m) {
+        m = x;
+        loc = l;
+      }
+    }
+  }
+
+  // the oldest queued stage's user sends one task to a slot
+  __device__ __forceinline__ void dispatch() {
+    const int l = p_loc;
+    const int p = pending[l] - 1;
+    pending[l] = p;
+    inflight[l] += 1;
+    if (p == 0) {
+      pkey[l] = kNone;
+      rescan(pkey, p_min, p_loc);
+    }
+  }
+
+  // a task of global user u completed at t_slot; returns true when its job
+  // ended (then *resp is its response time)
+  __device__ __forceinline__ bool complete(int u, float t_slot, float td,
+                                           float tm, int nr, float* resp) {
+    const int l = u - base;
+    const int infl = inflight[l] - 1;
+    inflight[l] = infl;
+    if (pending[l] != 0 || infl != 0) return false;
+    if (phase[l] == 1) {                  // map stage done: fork reduces
+      const unsigned k = nr > 0 ? clock_key(t_slot) : kNone;
+      phase[l] = 2;
+      pending[l] = nr;
+      pkey[l] = k;
+      take_min(p_min, p_loc, k, l);
+      return false;
+    }
+    // reduce stage done: the job ends and a think starts
+    const unsigned k = clock_key(__fmaf_rn(td, tm, t_slot));
+    phase[l] = 0;
+    tkey[l] = k;
+    take_min(t_min, t_loc, k, l);
+    *resp = __fsub_rn(t_slot, job_start[l]);
+    return true;
+  }
+
+  // the earliest think ends at t_think: the user submits a job of nm maps
+  __device__ __forceinline__ void think(float t_think, int nm) {
+    const unsigned k = nm > 0 ? (kMapBit | clock_key(t_think)) : kNone;
+    const int l = t_loc;
+    phase[l] = 1;
+    pending[l] = nm;
+    job_start[l] = t_think;
+    tkey[l] = clock_key(QN_INF);
+    rescan(tkey, t_min, t_loc);
+    pkey[l] = k;
+    take_min(p_min, p_loc, k, l);
+  }
+};
+
+__global__ void __launch_bounds__(32) qn_event_general(
+    const int* __restrict__ n_map, const int* __restrict__ n_reduce,
+    const int* __restrict__ slots_cap, const int* __restrict__ n_active,
+    const float* __restrict__ m_avg, const float* __restrict__ r_avg,
+    const float* __restrict__ think_ms, const float* __restrict__ think0,
+    const float* __restrict__ st_m, const float* __restrict__ st_r,
+    const float* __restrict__ td, float* __restrict__ resp_sum_out,
+    float* __restrict__ resp_cnt_out, unsigned* scratch,
+    size_t scratch_words, int H, int S, int sw, int nwords, int uw,
+    int n_events, int warmup_jobs, int replay) {
+  extern __shared__ __align__(16) unsigned smem[];
+  const int lane = blockIdx.x;
+  const int t = threadIdx.x;
+  unsigned* region =
+      scratch == nullptr ? smem : scratch + (size_t)lane * scratch_words;
+  const unsigned k_inf = clock_key(QN_INF);
+
+  const int nm = n_map[lane], nr = n_reduce[lane];
+  const int cap = min(max(slots_cap[lane], 0), S);
+  const float ma = m_avg[lane], ra = r_avg[lane], tm = think_ms[lane];
+  const int steps = max(0, min(n_events, n_active[lane]));
+
+  Slots slots;
+  slots.init(region, t, sw, nwords, cap);
+  Users users;
+  users.init(region + 64 * (size_t)sw + 32 * (size_t)nwords, t, uw, H,
+             think0 + (size_t)lane * H);
+  Draws draws;
+  draws.init(st_m, st_r, td, lane, n_events, t);
+  float now = 0.0f, resp_sum = 0.0f, resp_cnt = 0.0f;
+  int done_jobs = 0;
+
+  for (int i = 0; i < steps; ++i) {
+    float stm_i, str_i, td_i;
+    draws.at(i, t, stm_i, str_i, td_i);
+    const unsigned adv = advance_key(slots.min_key, users.t_min);
+    const unsigned g_free = __reduce_min_sync(FULL_MASK, slots.free_key());
+    const unsigned g_queue = __reduce_min_sync(FULL_MASK, users.p_min);
+    const unsigned g_adv = __reduce_min_sync(FULL_MASK, adv);
+
+    if (g_free != kNone && g_queue != kNone) {              // dispatch
+      const bool is_map = (g_queue & kMapBit) != 0;
+      const float end = replay ? __fadd_rn(now, is_map ? stm_i : str_i)
+                               : __fmaf_rn(stm_i, is_map ? ma : ra, now);
+      const int wu =
+          __ffs(__ballot_sync(FULL_MASK, users.p_min == g_queue)) - 1;
+      const int u = __shfl_sync(FULL_MASK, users.base + users.p_loc, wu);
+      if (t == wu) users.dispatch();
+      if (slots.free_key() == g_free) slots.dispatch(end, u);
+      continue;
+    }
+    const unsigned ka = g_adv >> 1;
+    if (ka >= k_inf) continue;                              // nothing left
+    const float clock = key_clock(ka);
+    const int w = __ffs(__ballot_sync(FULL_MASK, adv == g_adv)) - 1;
+    if ((g_adv & 1u) == 0) {                                // completion
+      const int cu = __shfl_sync(FULL_MASK, slots.min_user, w);
+      if (t == w) slots.complete();
+      const int wc = cu / users.bu;
+      float resp = 0.0f;
+      bool job_done = false;
+      if (t == wc) job_done = users.complete(cu, clock, td_i, tm, nr, &resp);
+      if (__ballot_sync(FULL_MASK, job_done)) {
+        resp = __shfl_sync(FULL_MASK, resp, wc);
+        if (done_jobs >= warmup_jobs) {
+          resp_sum = __fadd_rn(resp_sum, resp);
+          resp_cnt = __fadd_rn(resp_cnt, 1.0f);
+        }
+        done_jobs += 1;
+      }
+    } else if (t == w) {                                    // think end
+      users.think(clock, nm);
+    }
+    now = clock;
+  }
+  if (t == 0) {
+    resp_sum_out[lane] = resp_sum;
+    resp_cnt_out[lane] = resp_cnt;
+  }
+}
+
+// Which kernel (qn_event_general when asked for, or when the lane outgrows
+// qn_event_fast), and where qn_event_general keeps a lane's state, in 32-bit
+// words: slot keys and users (32 blocks of sw), free-mask words (32 x
+// nwords) and six per-user arrays (32 blocks of uw).  It lives in dynamic
+// shared memory when it fits the card's opt-in limit, else in a global
+// scratch slice per lane.
+struct Plan {
+  bool fast;
+  int sw, nwords, uw;
+  size_t words;
+  bool in_smem;
+};
+
+int plan(int h_users, int max_slots, int n_events, bool general, Plan* p) {
+  p->fast = !general && max_slots <= 32 * kFastSlots && h_users <= 32 &&
+            n_events < (1 << kRankBits);
+  p->sw = ((max_slots + 31) / 32 + 3) / 4 * 4;
+  p->nwords = (p->sw + 31) / 32;
+  p->uw = (h_users + 31) / 32;
+  p->words = 32 * (2 * (size_t)p->sw + p->nwords + 6 * (size_t)p->uw);
+  int dev = 0, limit = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess)
+    rc = cudaDeviceGetAttribute(&limit,
+                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  p->in_smem = 4 * p->words <= (size_t)limit;
+  return (int)rc;
+}
+
+}  // namespace
+
+// Bytes of global scratch each lane of qn_event_general needs (0 when its
+// state fits in shared memory, as it always does where qn_event_fast can
+// run), or -1 when the query fails or the size overflows an int.
+extern "C" int qn_event_scratch_bytes(int h_users, int max_slots,
+                                      int n_events) {
+  Plan p;
+  if (plan(h_users, max_slots, n_events, true, &p) != 0) return -1;
+  if (p.in_smem) return 0;
+  return 4 * p.words > (size_t)0x7fffffff ? -1 : (int)(4 * p.words);
+}
+
 extern "C" int qn_event_launch(
     const int* n_map, const int* n_reduce, const int* slots_cap,
     const int* n_active, const float* m_avg, const float* r_avg,
     const float* think_ms, const float* think0, const float* st_m,
     const float* st_r, const float* td, float* resp_sum, float* resp_cnt,
-    float* g_slot_end, int* g_slot_user, int lanes, int h_users,
-    int max_slots, int n_events, int warmup_jobs, int replay, void* stream) {
-  if (lanes > 0) {
-    size_t smem = 6 * sizeof(float) * (size_t)h_users;
-    if (g_slot_end == nullptr) smem += 2 * sizeof(float) * (size_t)max_slots;
-    qn_event_kernel<<<lanes, 32, smem, (cudaStream_t)stream>>>(
+    void* scratch, int lanes, int h_users, int max_slots, int n_events,
+    int warmup_jobs, int replay, int general, void* stream) {
+  if (lanes <= 0) return (int)cudaGetLastError();
+  Plan p;
+  int rc = plan(h_users, max_slots, n_events, general != 0, &p);
+  if (rc != 0) return rc;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (p.fast) {
+    qn_event_fast<<<lanes, 32, 0, s>>>(
         n_map, n_reduce, slots_cap, n_active, m_avg, r_avg, think_ms, think0,
-        st_m, st_r, td, resp_sum, resp_cnt, g_slot_end, g_slot_user, h_users,
-        max_slots, n_events, warmup_jobs, replay);
+        st_m, st_r, td, resp_sum, resp_cnt, h_users, max_slots, n_events,
+        warmup_jobs, replay);
+    return (int)cudaGetLastError();
   }
+  if (!p.in_smem && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t smem = p.in_smem ? 4 * p.words : 0;
+  if (smem > 48 * 1024) {
+    rc = (int)cudaFuncSetAttribute(
+        qn_event_general, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (rc != 0) return rc;
+  }
+  qn_event_general<<<lanes, 32, smem, s>>>(
+      n_map, n_reduce, slots_cap, n_active, m_avg, r_avg, think_ms, think0,
+      st_m, st_r, td, resp_sum, resp_cnt,
+      p.in_smem ? nullptr : (unsigned*)scratch, p.words, h_users, max_slots,
+      p.sw, p.nwords, p.uw, n_events, warmup_jobs, replay);
   return (int)cudaGetLastError();
 }

@@ -39,13 +39,21 @@ FLAGS = (ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
          "-Xptxas", "-v")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# C signatures: (name, argtypes); every entry point returns an int
-# (the cudaError_t of its launch)
+# C signatures: (name, argtypes); every entry point returns an int (the
+# cudaError_t of its launch, or for qn_event_scratch_bytes a size)
 SIGNATURES = {
     "amva_ps_launch": [_P, _P, _P, _P, _P, _I, _I, _P],
     # demand, think, r_out; n, h_users; stream
     "amva_mva_launch": [_P, _P, _P, _I, _I, _P],
-    "qn_event_launch": [_P] * 11 + [_P, _P, _P, _P] + [_I] * 6 + [_P],
+    # counts, means, think0, tables (11); resp_sum, resp_cnt, scratch;
+    # lanes, H, max_slots, E, warmup_jobs, replay, general; stream
+    "qn_event_launch": [_P] * 11 + [_P, _P, _P] + [_I] * 7 + [_P],
+    # H, max_slots, E -> per-lane bytes of global scratch (0: shared
+    # memory)
+    "qn_event_scratch_bytes": [_I, _I, _I],
+    # seed, budgets, think_ms, sample lists, think0, st_m, st_r, td; B, H,
+    # E, list lengths, replay; stream
+    "qn_streams_launch": [_P] * 9 + [_I] * 6 + [_P],
     # q, k, v, o; B, S, H, KV, Dh; (b, s, head) strides of q, k, v, o;
     # causal, window, dtype; stream
     "flash_attention_launch": [_P] * 4 + [_I] * 5 + [_L] * 12

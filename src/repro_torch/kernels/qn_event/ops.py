@@ -1,55 +1,77 @@
-"""Wrapper of the fused QN event loop, and its random draw tables.
+"""Wrappers of the fused QN event loop and of its random draw tables.
 
-``event_streams`` draws every lane's random tables with ``repro_torch.rng``
-on the device of its inputs: the counterpart of the reference's
-``kernels/qn_event/kernel.py:event_streams`` (and ``qn_sim._rng_tables``),
-with the same keys, fold offsets and draw order.  ``qn_event`` runs the
-event loop: a CUDA tensor launches ``csrc/qn_event.cu``, a CPU tensor
-takes the plain version in ``ref.py``; ``qn_event.launches`` counts kernel
-launches.  ``sim_batch`` composes the two into the reference's
-``_sim_batch_jit`` contract.
+``event_streams`` draws every lane's tables: a CUDA tensor launches
+``csrc/qn_streams.cu`` (bit-identical to the plain version), a CPU tensor
+takes the plain version in ``ref.py`` (eager ``repro_torch.rng``, the
+counterpart of the reference's ``kernels/qn_event/kernel.py:
+event_streams``).  ``qn_event`` runs the event loop: a CUDA tensor
+launches ``csrc/qn_event.cu``, a CPU tensor takes ``ref.qn_event``.  Each
+wrapper's ``launches`` counts its kernel launches.  A build or launch
+failure raises; a CUDA tensor never takes the plain version.
+``sim_batch`` composes the two into the reference's ``_sim_batch_jit``
+contract.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch import rng
 from repro_torch.kernels import build
 from repro_torch.kernels.qn_event import ref
-
-SMEM_LIMIT = 48 * 1024      # static shared memory a block gets unasked
 
 
 def event_streams(think_ms, seed, n_events_active, *, h_users: int,
                   n_events: int, m_samples=None, r_samples=None):
-    """Per-lane tables: initial think clocks ``(B, H)`` and per-event
-    service and think draws ``(B, E)``, on the device of ``seed``.
+    """Per-lane tables on the device of ``seed``: ``(think0, st_m, st_r,
+    td)``, float32 ``(B, H)`` and three ``(B, E)`` (in exponential mode
+    ``st_r`` is ``st_m``), drawn as ``ref.event_streams`` documents from
+    int64 seeds ``(B,)``, per-lane budgets ``n_events_active`` and think
+    times ``think_ms`` ``(B,)``, and in replay mode the shared float32
+    sample lists.  On the card the seeds are taken modulo 2**32 as the
+    plain version's keys take them; the plain version also raises on a
+    seed outside int32, which the kernel path does not check (it would
+    wait for the device)."""
+    dev = seed.device
+    if dev.type == "cpu":
+        return ref.event_streams(think_ms, seed, n_events_active,
+                                 h_users=h_users, n_events=n_events,
+                                 m_samples=m_samples, r_samples=r_samples)
+    if dev.type != "cuda":
+        raise ValueError(f"no event_streams kernel for device {dev}")
+    replay = m_samples is not None
+    lists = (m_samples, r_samples) if replay else ()
+    B = seed.shape[0] if seed.dim() == 1 else -1
+    for x in (think_ms, n_events_active, *lists):
+        if not isinstance(x, torch.Tensor) or x.device != dev:
+            raise ValueError("event_streams takes tensors on one device")
+    if B < 0 or think_ms.shape != (B,) or n_events_active.shape != (B,) \
+            or any(x.dim() != 1 for x in lists):
+        raise ValueError("seeds, budgets and think times must be (B,), "
+                         "sample lists 1-D")
+    H, E = int(h_users), int(n_events)
+    f32 = dict(dtype=torch.float32, device=dev)
+    seed = seed.to(torch.int64).contiguous()
+    nea = n_events_active.to(torch.int32).contiguous()
+    tm = think_ms.to(torch.float32).contiguous()
+    lists = tuple(x.to(torch.float32).contiguous() for x in lists)
+    think0 = torch.empty((B, H), **f32)
+    st_m = torch.empty((B, E), **f32)
+    st_r = torch.empty((B, E), **f32) if replay else st_m
+    td = torch.empty((B, E), **f32)
+    list_ptrs = [x.data_ptr() for x in lists] or [None, None]
+    list_lens = [x.shape[0] for x in lists] or [0, 0]
+    lib = build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.qn_streams_launch(
+            seed.data_ptr(), nea.data_ptr(), tm.data_ptr(), *list_ptrs,
+            think0.data_ptr(), st_m.data_ptr(), st_r.data_ptr(),
+            td.data_ptr(), B, H, E, *list_lens, int(replay), stream)
+    build.check(rc, "event_streams")
+    build.count(event_streams)
+    return think0, st_m, st_r, td
 
-      * init:    ``k0, _ = split(key)``; ``exponential(k0, (H,)) * think_ms``;
-      * event i: ``key_i = fold_in(key, i)`` gives one unit exponential
-        (returned unscaled: the multiply by the mean stays in the kernel,
-        next to the add it is fused with), or in replay mode two ``randint``
-        draws from ``key_i`` into the shared sample lists;
-      * think:   ``fold_in(key, i + n_events_active)``, one unit exponential
-        (the logical budget is the fold offset).
-    """
-    key = rng.key(seed)                                       # (B, 2)
-    k0 = rng.split(key)[:, 0]
-    think0 = rng.exponential(k0, (h_users,)) * think_ms[:, None]
-    idx = torch.arange(n_events, dtype=torch.int64, device=key.device)
-    key_i = rng.fold_in(key[:, None, :], idx[None, :])        # (B, E, 2)
-    if m_samples is not None:
-        words = rng.randint_words(key_i)
-        st_m = m_samples[rng.randint(key_i, (), 0, m_samples.shape[0],
-                                     words=words)]
-        st_r = r_samples[rng.randint(key_i, (), 0, r_samples.shape[0],
-                                     words=words)]
-    else:
-        st_m = st_r = rng.exponential(key_i)
-    del key_i
-    kq = rng.fold_in(key[:, None, :],
-                     idx[None, :] + n_events_active.to(torch.int64)[:, None])
-    return think0, st_m, st_r, rng.exponential(kq)
+
+event_streams.launches = 0
 
 
 def _check(ints, floats, tables, B, H, E):
@@ -72,11 +94,18 @@ def _check(ints, floats, tables, B, H, E):
 
 def qn_event(n_map, n_reduce, slots_cap, n_events_active, m_avg, r_avg,
              think_ms, think0, st_m, st_r, td, *, max_slots: int,
-             warmup_jobs: int, replay: bool):
+             warmup_jobs: int, replay: bool, general: bool = False):
     """Every lane's event loop; returns ``(resp_sum, resp_cnt)``, float32
     ``(B,)``.  Counts are int32 ``(B,)``, times float32 ``(B,)``, ``think0``
     ``(B, H)`` and the draw tables ``(B, E)``, all on one device.
-    ``slots_cap`` must not exceed ``max_slots``."""
+    ``slots_cap`` must not exceed ``max_slots``.  Times, means and draws
+    are durations, never negative: the card's kernel orders clocks by
+    their bits.  On the card up to 512 slots and 32 users take
+    ``qn_event_fast``, larger lanes (or any lane, with ``general=True``:
+    the two kernels give the same bits, and the flag lets them be timed
+    and checked against each other) ``qn_event_general``, whose state
+    needs ``qn_event_scratch_bytes`` of global scratch a lane once it
+    outgrows the card's shared memory."""
     ints = (n_map, n_reduce, slots_cap, n_events_active)
     floats = (m_avg, r_avg, think_ms)
     tables = (think0, st_m, st_r, td)
@@ -94,21 +123,23 @@ def qn_event(n_map, n_reduce, slots_cap, n_events_active, m_avg, r_avg,
     resp_cnt = torch.empty(B, dtype=torch.float32, device=dev)
     if B == 0:
         return resp_sum, resp_cnt
-    scratch = (None, None)
-    if 4 * (6 * H + 2 * max_slots) > SMEM_LIMIT:
-        scratch = (torch.empty((B, max_slots), dtype=torch.float32,
-                               device=dev),
-                   torch.empty((B, max_slots), dtype=torch.int32,
-                               device=dev))
     lib = build.library()
     with torch.cuda.device(dev):
+        # the lane's state lives in shared memory, or past the card's
+        # shared memory in a global slice per lane
+        nbytes = lib.qn_event_scratch_bytes(H, int(max_slots), E)
+        if nbytes < 0:
+            raise RuntimeError(f"qn_event cannot lay out H={H} users and "
+                               f"{max_slots} slots")
+        scratch = torch.empty((B, nbytes), dtype=torch.uint8, device=dev) \
+            if nbytes else None
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.qn_event_launch(
             *(x.data_ptr() for x in args), resp_sum.data_ptr(),
             resp_cnt.data_ptr(),
-            *(None if s is None else s.data_ptr() for s in scratch),
+            None if scratch is None else scratch.data_ptr(),
             B, H, int(max_slots), E, int(warmup_jobs), int(bool(replay)),
-            stream)
+            int(bool(general)), stream)
     build.check(rc, "qn_event")
     build.count(qn_event)
     return resp_sum, resp_cnt

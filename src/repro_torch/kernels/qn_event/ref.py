@@ -1,22 +1,61 @@
-"""Plain PyTorch version of the ``qn_event`` kernel.
+"""Plain PyTorch versions of the ``qn_event`` kernel and of its draw
+tables (``csrc/qn_streams.cu``).
 
-The same event loop as ``csrc/qn_event.cu`` (and the reference's
-``_event_kernel``), vectorized over lanes and written as one masked step
-per event: every state array takes a single guarded scatter per step
-(branch-selected index and value, unchanged when no branch fires).  Ties
-in every selection go to the smaller index (``argmin``/``argmax`` and
-``min(dim)`` return the first extremum).  The two multiply-adds that the
-reference's XLA program contracts are single-rounding here too
-(``kernels.fma.fma32``).  One Python iteration per event: this is the CPU
-path of the tests and the card's yardstick, not a fast path.
+``event_streams`` draws the tables with ``repro_torch.rng`` in eager torch
+ops, on the device of its inputs.  ``qn_event`` runs the same event loop
+as ``csrc/qn_event.cu`` (and the reference's ``_event_kernel``),
+vectorized over lanes and written as one masked step per event: every
+state array takes a single guarded scatter per step (branch-selected
+index and value, unchanged when no branch fires).  Ties in every
+selection go to the smaller index (``argmin``/``argmax`` and ``min(dim)``
+return the first extremum).  The two multiply-adds that the reference's
+XLA program contracts are single-rounding here too (``kernels.fma.fma32``).
+One Python iteration per event: this is the CPU path of the tests and the
+card's yardstick, not a fast path.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import rng
 from repro_torch.kernels.fma import fma32
 
 INF = 1e30
+
+
+def event_streams(think_ms, seed, n_events_active, *, h_users: int,
+                  n_events: int, m_samples=None, r_samples=None):
+    """Per-lane tables: initial think clocks ``(B, H)`` and per-event
+    service and think draws ``(B, E)``, on the device of ``seed``: the
+    counterpart of the reference's ``kernels/qn_event/kernel.py:
+    event_streams`` (and ``qn_sim._rng_tables``), with the same keys, fold
+    offsets and draw order.
+
+      * init:    ``k0, _ = split(key)``; ``exponential(k0, (H,)) * think_ms``;
+      * event i: ``key_i = fold_in(key, i)`` gives one unit exponential
+        (returned unscaled: the multiply by the mean stays in the kernel,
+        next to the add it is fused with), or in replay mode two ``randint``
+        draws from ``key_i`` into the shared sample lists;
+      * think:   ``fold_in(key, i + n_events_active)``, one unit exponential
+        (the logical budget is the fold offset).
+    """
+    key = rng.key(seed)                                       # (B, 2)
+    k0 = rng.split(key)[:, 0]
+    think0 = rng.exponential(k0, (h_users,)) * think_ms[:, None]
+    idx = torch.arange(n_events, dtype=torch.int64, device=key.device)
+    key_i = rng.fold_in(key[:, None, :], idx[None, :])        # (B, E, 2)
+    if m_samples is not None:
+        words = rng.randint_words(key_i)
+        st_m = m_samples[rng.randint(key_i, (), 0, m_samples.shape[0],
+                                     words=words)]
+        st_r = r_samples[rng.randint(key_i, (), 0, r_samples.shape[0],
+                                     words=words)]
+    else:
+        st_m = st_r = rng.exponential(key_i)
+    del key_i
+    kq = rng.fold_in(key[:, None, :],
+                     idx[None, :] + n_events_active.to(torch.int64)[:, None])
+    return think0, st_m, st_r, rng.exponential(kq)
 
 
 def qn_event(n_map, n_reduce, slots_cap, n_events_active, m_avg, r_avg,

@@ -14,6 +14,7 @@ from repro_torch.core.problem import (ApplicationClass, JobProfile, Problem,
                                       VMType)
 from repro_torch.configs.registry import get_smoke_config
 from repro_torch.distributed.sharding import init_params
+from repro_torch.kernels import build
 from repro_torch.kernels.amva import ops as amva_ops
 from repro_torch.kernels.amva import ref as amva_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -35,10 +36,21 @@ def dev():
     return torch.device("cuda", 0)
 
 
-# S = 8192 slots do not fit in shared memory: the kernel keeps them in a
-# global scratch slice instead
+# S = 64 takes the main path's kernel; S = 8192 slots take the kernel for
+# any slot count (its state in opt-in shared memory)
 @pytest.mark.parametrize("replay,S", [(False, 64), (True, 64), (True, 8192)])
 def test_qn_event_kernel_bit_identical_to_plain(dev, replay, S):
+    _check_qn_mix(dev, replay, S, general=False)
+
+
+# the kernel for any H and slot count, asked for where the main path's
+# kernel would run: the same bits
+@pytest.mark.parametrize("replay", [False, True])
+def test_qn_event_general_kernel_bit_identical_at_small_lanes(dev, replay):
+    _check_qn_mix(dev, replay, 64, general=True)
+
+
+def _check_qn_mix(dev, replay, S, general):
     g = np.random.default_rng(1)
     E, H = 1024, 6
     caps = [1, 3, S, 17, 1, 40, 8, S]
@@ -57,11 +69,97 @@ def test_qn_event_kernel_bit_identical_to_plain(dev, replay, S):
                                   r_samples=smp[1])
     kw = dict(max_slots=S, warmup_jobs=2, replay=replay)
     before = qn_ops.qn_event.launches
-    ks, kc = qn_ops.qn_event(*lanes, *tables, **kw)
+    ks, kc = qn_ops.qn_event(*lanes, *tables, general=general, **kw)
     assert qn_ops.qn_event.launches == before + 1
     ps, pc = qn_ref.qn_event(*lanes, *tables, **kw)
     assert torch.equal(ks, ps) and torch.equal(kc, pc)
     assert kc[4] == 0 and kc.sum() > 0
+
+
+def _cuda_f32_i32(dev):
+    return (lambda x: torch.tensor(x, dtype=torch.float32, device=dev),
+            lambda x: torch.tensor(x, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("replay", [False, True])
+@pytest.mark.parametrize("B", [1, 32])
+def test_event_streams_kernel_bit_identical_to_plain(dev, replay, B):
+    """The draw-table kernel against the plain version: every table equal
+    bit for bit, with per-lane budgets including 0, negative seeds, and
+    sample lists whose lengths are not powers of two."""
+    f32, i32 = _cuda_f32_i32(dev)
+    g = np.random.default_rng(5 + B)
+    E, H = 3000, 7
+    nea = g.integers(0, 2 * E, B)
+    nea[0] = 0
+    seeds = torch.tensor(g.integers(-2 ** 31, 2 ** 31, B), dtype=torch.int64,
+                         device=dev)
+    tm = f32(g.uniform(100, 5000, B))
+    smp = (f32(g.uniform(30, 90, 37)), f32(g.uniform(20, 50, 11))) \
+        if replay else (None, None)
+    kw = dict(h_users=H, n_events=E, m_samples=smp[0], r_samples=smp[1])
+    before = qn_ops.event_streams.launches
+    got = qn_ops.event_streams(tm, seeds, i32(nea), **kw)
+    assert qn_ops.event_streams.launches == before + 1
+    want = qn_ref.event_streams(tm, seeds, i32(nea), **kw)
+    torch.cuda.synchronize()
+    assert [tuple(x.shape) for x in got] == [(B, H)] + [(B, E)] * 3
+    for a, b in zip(got, want):
+        assert a.device == dev and torch.equal(a, b)
+
+
+def _qn_lanes(dev, g, caps, E, think):
+    f32, i32 = _cuda_f32_i32(dev)
+    B = len(caps)
+    return (i32(g.integers(1, 30, B)), i32(g.integers(1, 5, B)), i32(caps),
+            i32([E] * B), f32(g.uniform(50, 90, B)), f32(g.uniform(20, 60, B)),
+            f32(g.uniform(*think, B)))
+
+
+# more than 32 users or 512 slots take the kernel for any H and slot count;
+# H = 2049 needs more than 48 KB of shared memory a lane, H = 12000 more
+# than the card's 227 KB (its state then lives in a global scratch slice).
+# Long thinks let jobs finish within the budget
+@pytest.mark.parametrize("H,S", [(2049, 64), (2049, 8192), (40, 600),
+                                 (12000, 64)])
+def test_qn_event_kernel_any_users_and_slots(dev, H, S):
+    g = np.random.default_rng(H + S)
+    f32, _ = _cuda_f32_i32(dev)
+    E = 2048
+    lanes = _qn_lanes(dev, g, [S, 1, 17], E, (1e5, 2e5))
+    seeds = torch.tensor([3, 1003, 2003], dtype=torch.int64, device=dev)
+    smp = (f32(g.uniform(30, 90, 37)), f32(g.uniform(20, 50, 11)))
+    tables = qn_ops.event_streams(lanes[6], seeds, lanes[3], h_users=H,
+                                  n_events=E, m_samples=smp[0],
+                                  r_samples=smp[1])
+    kw = dict(max_slots=S, warmup_jobs=2, replay=True)
+    scratch = build.library().qn_event_scratch_bytes(H, S, E)
+    assert (scratch > 0) == (H == 12000)
+    ks, kc = qn_ops.qn_event(*lanes, *tables, **kw)
+    ps, pc = qn_ref.qn_event(*lanes, *tables, **kw)
+    assert torch.equal(ks, ps) and torch.equal(kc, pc)
+    assert bool((kc > 0).all())
+
+
+# a replay list of one repeated value: every task lasts the same, so slot
+# ends tie and the lower index must win, as in the plain version; caps of
+# 1 and of max_slots
+@pytest.mark.parametrize("H,S", [(5, 40), (32, 512), (40, 600)])
+def test_qn_event_kernel_exact_ties(dev, H, S):
+    g = np.random.default_rng(7 + S)
+    f32, _ = _cuda_f32_i32(dev)
+    E = 2048
+    lanes = _qn_lanes(dev, g, [1, S, 17, S - 3], E, (0.0, 1.0))
+    seeds = torch.arange(4, device=dev) * 1000
+    smp = (f32([40.0]), f32([40.0]))
+    tables = qn_ops.event_streams(lanes[6], seeds, lanes[3], h_users=H,
+                                  n_events=E, m_samples=smp[0],
+                                  r_samples=smp[1])
+    kw = dict(max_slots=S, warmup_jobs=2, replay=True)
+    ks, kc = qn_ops.qn_event(*lanes, *tables, **kw)
+    ps, pc = qn_ref.qn_event(*lanes, *tables, **kw)
+    assert torch.equal(ks, ps) and torch.equal(kc, pc)
+    assert bool((kc > 0).all())
 
 
 @pytest.mark.parametrize("n", [1, 97, 128, 4097])

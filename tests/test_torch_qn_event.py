@@ -8,9 +8,13 @@ reference (JAX on the CPU).
    exponential and replay mode, with padding lanes (zero budget),
    single-slot lanes, budgets below the scan length and a lane without
    reduce tasks.
+   The same at 2049 users, where the card's kernel keeps its per-user
+   state in more than 48 KB of shared memory.
 2. Tables: the port's ``event_streams`` equals the reference's bit for bit
    in everything drawn by ``randint``, and within one ulp in everything
-   drawn by ``exponential`` (torch's ``log1p`` is not XLA's).
+   drawn by ``exponential`` (torch's ``log1p`` is not XLA's); at 2049
+   users the initial think clocks, a unit draw times think_ms, within two.
+   On CPU tensors it takes the plain version and launches no kernel.
 3. End to end: ``qn_sim.response_time_batch`` of both packages on their own
    draws.  Measured on these cases (torch 2.13 CPU, JAX 0.9.0): five of
    the six are bit-identical, the sixth (seed 7, 3 replications) differs
@@ -110,6 +114,79 @@ def test_event_streams_match_reference(replay):
     if replay:                   # service draws are randint gathers: exact
         assert np.array_equal(want[1], got[1].numpy())
         assert np.array_equal(want[2], got[2].numpy())
+
+
+@pytest.mark.parametrize("replay", [False, True])
+def test_event_streams_match_reference_at_2049_users(replay):
+    """As above at 2049 users.  The unit draws agree within one ulp and
+    the randint gathers exactly; the initial think clocks are a unit draw
+    times think_ms, rounded once, so a draw one ulp off can land two ulps
+    off after the product: measured here (torch 2.13 CPU, JAX 0.9.0), 1190
+    of the 16392 think clocks differ, 35 of them by two ulps."""
+    lanes, smp, st = _lanes(2049, replay)
+    want = [np.asarray(x) for x in _ref_tables(lanes, smp, st)]
+    ms, rs = (None, None) if smp[0] is None else map(torch.tensor, smp)
+    got = qn_ops.event_streams(
+        torch.tensor(lanes["think_ms"]), torch.tensor(lanes["seed"]),
+        torch.tensor(lanes["n_events_active"]), h_users=st["h_users"],
+        n_events=st["n_events"], m_samples=ms, r_samples=rs)
+    for k, (w, g) in enumerate(zip(want, got)):
+        g = g.numpy()
+        assert w.shape == g.shape and w.dtype == g.dtype
+        ulps = np.abs(w.view(np.int32).astype(np.int64)
+                      - g.view(np.int32).astype(np.int64))
+        assert ulps.max() <= (2 if k == 0 else 1)
+    if replay:
+        assert np.array_equal(want[1], got[1].numpy())
+        assert np.array_equal(want[2], got[2].numpy())
+
+
+@pytest.mark.parametrize("replay", [False, True])
+def test_plain_loop_bit_exact_vs_pallas_at_2049_users(replay):
+    """More than 2048 users (the size at which the card's kernel once
+    raised): the plain loop on the reference's tables against the Pallas
+    kernel (interpret mode), bit for bit.  Thinks of 100 s against
+    services of ~50 ms let jobs finish within the small budget."""
+    H, E = 2049, 256
+    lanes, smp, st = _lanes(H, replay)
+    lanes["think_ms"] = np.full(len(lanes["think_ms"]), 1e5, np.float32)
+    lanes["n_events_active"] = np.minimum(lanes["n_events_active"], E)
+    st = {**st, "n_events": E}
+    jl = {k: jnp.asarray(v) for k, v in lanes.items()}
+    ms, rs = (None, None) if smp[0] is None else map(jnp.asarray, smp)
+    want_m, want_c = ref_kernel.qn_event_fwd(
+        jl["n_map"], jl["n_reduce"], jl["m_avg"], jl["r_avg"],
+        jl["think_ms"], jl["slots_cap"], jl["seed"],
+        jl["n_events_active"], ms, rs, **st)
+    tables = [torch.tensor(np.asarray(x)) for x in
+              _ref_tables(lanes, smp, st)]
+    t = {k: torch.tensor(v) for k, v in lanes.items()}
+    s, c = qn_ops.qn_event(
+        t["n_map"], t["n_reduce"], t["slots_cap"], t["n_events_active"],
+        t["m_avg"], t["r_avg"], t["think_ms"], *tables,
+        max_slots=st["max_slots"], warmup_jobs=st["warmup_jobs"],
+        replay=replay)
+    mean = s / torch.clamp(c, min=1.0)
+    assert np.array_equal(np.asarray(want_c), c.numpy())
+    assert np.array_equal(np.asarray(want_m), mean.numpy())
+    assert bool((c[[1, 3, 7]] > 0).all()) and c[0] == 0 and c[4] == 0
+
+
+def test_event_streams_on_cpu_launches_no_kernel():
+    lanes, smp, st = _lanes(3, True)
+    before = qn_ops.event_streams.launches
+    got = qn_ops.event_streams(
+        torch.tensor(lanes["think_ms"]), torch.tensor(lanes["seed"]),
+        torch.tensor(lanes["n_events_active"]), h_users=3,
+        n_events=st["n_events"], m_samples=torch.tensor(MS),
+        r_samples=torch.tensor(RS))
+    assert qn_ops.event_streams.launches == before
+    assert all(x.device.type == "cpu" for x in got)
+    meta = torch.tensor(lanes["seed"]).to("meta")
+    with pytest.raises(ValueError):
+        qn_ops.event_streams(torch.tensor(lanes["think_ms"]), meta,
+                             torch.tensor(lanes["n_events_active"]),
+                             h_users=3, n_events=8)
 
 
 def _accounting_delta(mod, fn):
