@@ -9,9 +9,10 @@ Phases, each printing one line or a few:
   2. build the CUDA kernels from src/repro_torch/csrc (one nvcc process per
      source, all at once); print the registers and spills (ptxas) of the
      two qn_event kernels, of the draw-table kernel and of each
-     flash_attention instance, and each flash instance's wgmma (HGMMA)
-     and TMA (UTMALDG) instruction counts (cuobjdump -sass), and fail if
-     the bf16 kernel has none of either;
+     flash_attention instance and of each ssd_scan kernel, and the flash
+     and ssd_scan instances' wgmma (HGMMA) and TMA (UTMALDG) instruction
+     counts (cuobjdump -sass), and fail if either bf16 kernel (flash's,
+     the SSD scan's) has none of either;
   3. hold each kernel against its plain PyTorch version on the card, on
      identical inputs: the draw tables (event_streams) bit-identical in
      both modes; qn_event in exponential and replay mode (padding,
@@ -30,7 +31,11 @@ Phases, each printing one line or a few:
      SSD cases in f32 and bf16, the mamba2 serving rounds' shapes (S = 896
      and 512, 48 heads, N = 128) and zamba2's (112 heads, N = 64), a
      sequence shorter than the chunk, strided inputs and mamba2's shape
-     in float32, within the reference's tolerances (5e-2 bf16, 1e-4 f32);
+     in float32, the bf16 route's edges (chunk 16, S = 40 under the chunk
+     of 128, P = 128, N = 16 and 64, S = 8192, dt in bf16) and an
+     unaligned view, within the reference's tolerances (5e-2 bf16, 1e-4
+     f32), each case on the route its dtypes and layout name (wgmma for
+     bf16 x/B/C that TMA can read, else float32);
   4. the planner's main path at real size: the paper's §4.3 scenario
      (TPC-DS Q1 on 250 GB, 10 users, 160 s deadline, m4.xlarge + CINECA,
      JMT-replayer mode) through DSpace4Cloud.run() and .run_fast() at the
@@ -54,7 +59,8 @@ Phases, each printing one line or a few:
      prompts of 128 x 2..8 tokens, since a Mamba2 prefill length must be a
      multiple of the SSD chunk; 96 ssd_scan launches and no other) and
      zamba2-7b (81 layers, 27 x (2 Mamba2 + 1 shared attention); the same
-     prompts; 108 ssd_scan and 54 flash launches); each is profiled
+     prompts; 108 ssd_scan and 54 flash launches; every ssd_scan launch on
+     its wgmma route); each is profiled
      (device busy share, launches per layer, the kernels' share of the
      prefill's device time) and then compared with the CPU at depth 2
      (granite, mamba2) or 3 (zamba2, one group) with the same weights and
@@ -72,7 +78,10 @@ Phases, each printing one line or a few:
      H = 5; for mva and flash_attention also the kernel's own device time
      from torch.profiler), its bound, its plain version's time and, for
      flash_attention, the time of torch's scaled_dot_product_attention on
-     the same tensors (a yardstick only: the port never calls it).
+     the same tensors (a yardstick only: the port never calls it);
+     ssd_scan's wgmma route at mamba2's and zamba2's prefill shapes (and
+     its device time alone) and its float32 route at mamba2's, each
+     beside its bound.
 Each drive of a main path sets the kernels' launch counts to 0 just before
 it and reads them just after.  The second-to-last line is the kernels'
 JSON record, the last line {"ok": true, "device": {...}}.  Any failure
@@ -153,9 +162,11 @@ THREEFRY_INT32_OPS = 42
 # halves of split(key_i), their bits, the think key and its bits); per
 # lane split(key); per user its bits
 THREEFRY_PER_EVENT = {False: 4, True: 7}
-# the device kernels' names, for their share of a profiled prefill
-DEVICE_KERNELS = {"flash_attention": "fa_wgmma_kernel",
-                  "ssd_scan": "ssd_fwd_kernel"}
+# the device kernels' names (every route's), for their share of a
+# profiled prefill; a kernel's share counts every launch whose name holds
+# one of them
+DEVICE_KERNELS = {"flash_attention": ("fa_wgmma_kernel", "fa_f32_kernel"),
+                  "ssd_scan": ("ssd_wgmma_kernel", "ssd_f32_kernel")}
 
 # Decisions of the JAX reference (src/repro) for the same calls, printed by
 #   PYTHONPATH=src JAX_PLATFORMS=cpu python -m benchmarks.port_reference_decisions
@@ -391,6 +402,16 @@ def flash_instance(mangled: str):
     return f"{m.group(1)}<{', '.join(re.findall(r'Li([0-9]+)E', m.group(2)))}>"
 
 
+def ssd_instance(mangled: str):
+    """'ssd_wgmma_kernel<64, 128>' (or 'ssd_f32_kernel') for a line naming
+    an ssd_scan kernel by its mangled name, else None."""
+    m = re.search(r"(ssd_wgmma_kernel)I((?:Li\d+E)+)", mangled)
+    if m:
+        return (f"{m.group(1)}<"
+                f"{', '.join(re.findall(r'Li([0-9]+)E', m.group(2)))}>")
+    return "ssd_f32_kernel" if "ssd_f32_kernel" in mangled else None
+
+
 def qn_instance(mangled: str):
     """'qn_event_fast' (or the general event loop, or the draw-table
     kernel) for a line naming it by its mangled name, else None."""
@@ -487,13 +508,15 @@ def to_device(tree, dev):
 def reset_launches(*wrappers):
     for w in wrappers:
         w.launches = 0
+        for r in getattr(w, "routes", {}):
+            w.routes[r] = 0
 
 
 def serve_full(dev, kernels, arch, expect):
     """``arch`` at full width and depth through BatchingEngine on the card:
     8 requests, 2 rounds.  ``expect`` names the launches each kernel must
     show over the drive (the others none).  Returns (the launches by
-    kernel, the engine, the prompts)."""
+    kernel, the ssd_scan launches by route, the engine, the prompts)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.distributed.sharding import init_params, param_count
     from repro_torch.models import api
@@ -525,6 +548,7 @@ def serve_full(dev, kernels, arch, expect):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = {name: w.launches for name, w in kernels.items()}
+    ssd_routes = dict(kernels["ssd_scan"].routes)
     peak = torch.cuda.max_memory_allocated()
     for r in done:
         print(f"[serve] {cfg.name} request {r.rid}: prompt {len(r.tokens)} "
@@ -540,10 +564,14 @@ def serve_full(dev, kernels, arch, expect):
     print(f"[serve] {cfg.name} summarize: "
           f"{json.dumps(BatchingEngine.summarize(done))}; wall {wall:.3f} s;"
           f" max_memory_allocated {peak} B ({peak / 1e9:.3f} GB); launches "
-          f"{got} (expected {want})", flush=True)
+          f"{got} (expected {want}); ssd_scan routes {ssd_routes}",
+          flush=True)
     if got != want:
         fail(f"{cfg.name}: kernel launches {got}, expected {want} (one per "
              "prefill layer of its kind per round)")
+    if ssd_routes["f32"]:
+        fail(f"{cfg.name}: a served prefill took the SSD scan's float32 "
+             f"route: {ssd_routes}")
     if len(done) != 8 or any(
             len(r.output) != 32 or not all(0 <= t < cfg.vocab_size
                                            for t in r.output)
@@ -560,7 +588,7 @@ def serve_full(dev, kernels, arch, expect):
             logits[:, 0].argmax(-1).tolist() != first:
         fail(f"{cfg.name}: round 0's prefill logits are not finite or "
              "disagree with the engine's first tokens")
-    return got, eng, prompts
+    return got, ssd_routes, eng, prompts
 
 
 def serve_card_vs_cpu(dev, kernels, arch, depth):
@@ -598,6 +626,9 @@ def serve_card_vs_cpu(dev, kernels, arch, depth):
         if got != want:
             fail(f"{cfg.name} depth {depth} engine on {d}: launches {got}, "
                  f"expected {want}")
+        if kernels["ssd_scan"].routes["f32"]:
+            fail(f"{cfg.name} depth {depth}: the SSD scan took its float32 "
+                 "route")
     card, cpu = outs
     # teacher-forced along the CPU's tokens: the logits of every step
     for d in devices:
@@ -677,7 +708,8 @@ def profile_serving(dev, eng, prompts):
         top = ", ".join(f"{k[:48]}={v:.3f}"
                         for k, v in by_kernel.most_common(6))
         per_layer = n_kernels / cfg.n_layers / steps
-        shares = {k: sum(v for kn, v in by_kernel.items() if dk in kn)
+        shares = {k: sum(v for kn, v in by_kernel.items()
+                         if any(d in kn for d in dk))
                   for k, dk in DEVICE_KERNELS.items()}
         share = "; ".join(f"{k} {v:.3f} ms ({100 * v / busy:.1f}% of device "
                           f"time)" for k, v in shares.items() if v)
@@ -739,7 +771,7 @@ def time_flash(dev, fa_ops, fa_ref, B, S, H, KV, Dh):
                     .abs().max())
     ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v), 20)
     dev_ms, launch = device_ms(lambda: fa_ops.flash_attention(q, k, v),
-                               DEVICE_KERNELS["flash_attention"])
+                               "fa_wgmma_kernel")
     plain_ms = cuda_ms(lambda: fa_ref.flash_attention(q, k, v), 5)
     lib_ms = cuda_ms(sdpa, 20)
     qf, kf, vf = q.float(), k.float(), v.float()
@@ -764,7 +796,8 @@ def time_flash(dev, fa_ops, fa_ref, B, S, H, KV, Dh):
             "float32_route_ms": f32_ms}
 
 
-# ssd_scan checks: (name, B, S, H, P, N, chunk, dtypes of x, dt and B/C)
+# ssd_scan checks: (name, B, S, H, P, N, chunk, dtypes of x, dt and B/C).
+# x, B and C in bfloat16 take the wgmma route, the rest the float32 route
 F32_3, BF16_3 = (torch.float32,) * 3, (torch.bfloat16,) * 3
 SERVING = (torch.bfloat16, torch.float32, torch.bfloat16)
 SSD_CHECKS = [(f"reference case {i} {str(t[0])[6:]}", *case, t)
@@ -778,6 +811,18 @@ SSD_CHECKS = [(f"reference case {i} {str(t[0])[6:]}", *case, t)
     ("zamba2 serving round 0", 4, 896, 112, 64, 64, 128, SERVING),
     ("S < chunk (clamped to 96)", 2, 96, 48, 64, 128, 128, SERVING),
     ("mamba2 shape, float32", 2, 512, 48, 64, 128, 128, F32_3),
+    # the wgmma route's edges: a chunk under wgmma's 64 rows (the smoke
+    # configs' 16, and S = 40 under the chunk of 128), P = 128, N = 16 and
+    # 64, a long sequence (64 chunks, the state's rounded copies feeding
+    # every one), dt in bfloat16
+    ("chunk 16", 2, 256, 8, 64, 128, 16, SERVING),
+    ("S = 40 < chunk (clamped to 40)", 3, 40, 4, 64, 128, 128, SERVING),
+    ("P = 128", 2, 512, 16, 128, 128, 128, SERVING),
+    ("P = 128, N = 64", 2, 512, 16, 128, 64, 128, SERVING),
+    ("N = 16", 2, 256, 8, 64, 16, 128, SERVING),
+    ("N = 64", 2, 512, 8, 64, 64, 128, SERVING),
+    ("S = 8192 (64 chunks)", 1, 8192, 8, 64, 128, 128, SERVING),
+    ("dt bfloat16", 2, 512, 8, 64, 128, 128, BF16_3),
 ]
 
 
@@ -794,13 +839,18 @@ def ssd_inputs(dev, B, S, H, P, N, types, seed):
 
 
 def check_ssd(dev, ssd_ops, ssd_ref) -> float:
-    """Kernel against plain at SSD_CHECKS and on strided views; the
-    largest abs error over y and the final state."""
+    """Kernel against plain at SSD_CHECKS, on strided views and on an
+    unaligned view; each case must take the route its dtypes and layout
+    name (wgmma for bfloat16 x/B/C that TMA can read).  The largest abs
+    error over y and the final state."""
     worst = 0.0
     cases = [(name, (B, S, H, P, N, types), chunk, None)
              for name, B, S, H, P, N, chunk, types in SSD_CHECKS]
     cases.append(("strided x, B and C views", (4, 512, 96, 64, 128, SERVING),
                   128, "strided"))
+    cases.append(("x one element past an aligned base", (2, 256, 8, 64, 128,
+                                                         SERVING), 128,
+                  "unaligned"))
     for i, (name, (B, S, H, P, N, types), chunk, how) in enumerate(cases):
         x, dt, A, Bm, Cm = ssd_inputs(dev, B, S, H, P, N, types, 100 + i)
         if how == "strided":           # every other head; B, C of one tensor
@@ -808,12 +858,23 @@ def check_ssd(dev, ssd_ops, ssd_ref) -> float:
             x, dt, A = x[:, :, ::2], dt[:, :, ::2], A[::2]
             Bm, Cm = bc[..., :N], bc[..., N:]
             H //= 2
+        if how == "unaligned":         # TMA cannot read it: float32 route
+            buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+            x = buf[1:].view(x.shape).copy_(x)
+        want_route = ("wgmma" if types[0] == types[2] == torch.bfloat16
+                      and how != "unaligned" else "f32")
+        before = dict(ssd_ops.ssd.routes)
         y, st = ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=chunk)
         torch.cuda.synchronize()
+        took = [r for r, n in ssd_ops.ssd.routes.items() if n != before[r]]
         want_y, want_st = ssd_ref.ssd(x, dt, A, Bm, Cm, chunk=chunk)
         tol = SSD_TOL[types[0]]
         err = max(float((y.float() - want_y.float()).abs().max()),
                   float((st - want_st).abs().max()))
+        # the largest error as a share of its tolerance, tol + tol |want|
+        share = max(float(((got.float() - want.float()).abs()
+                           / (tol + tol * want.float().abs())).max())
+                    for got, want in ((y, want_y), (st, want_st)))
         ok = y.dtype == x.dtype and st.dtype == torch.float32 and \
             bool(torch.isfinite(y).all()) and \
             torch.allclose(y.float(), want_y.float(), atol=tol, rtol=tol) \
@@ -821,43 +882,83 @@ def check_ssd(dev, ssd_ops, ssd_ref) -> float:
         worst = max(worst, err)
         print(f"[check] ssd_scan {name}: B={B} S={S} H={H} P={P} N={N} "
               f"chunk={chunk} x/dt/B {'/'.join(str(t)[6:] for t in types)}"
-              f": max_abs_err={err:.3e} (tol {tol:g} abs + rel) ok={ok}",
-              flush=True)
+              f", route {took}: max_abs_err={err:.3e} (tol {tol:g} abs + "
+              f"rel; {share:.3f} of it) ok={ok}", flush=True)
+        if took != [want_route]:
+            fail(f"ssd_scan took route {took} for {name}, not "
+                 f"{want_route}")
         if not ok:
             fail(f"ssd_scan differs from its plain version ({name})")
     return worst
 
 
-def time_ssd(dev, ssd_ops, ssd_ref):
-    """The SSD kernel at mamba2-780m's prefill shape (B=4, S=1024; x, B, C
-    bf16, dt f32): kernel, plain version, and the bound."""
-    B, S, H, P, N, Q = 4, 1024, 48, 64, 128, 128
-    args = ssd_inputs(dev, B, S, H, P, N, SERVING, 7)
-    ms = cuda_ms(lambda: ssd_ops.ssd(*args, chunk=Q), 20)
-    plain_ms = cuda_ms(lambda: ssd_ref.ssd(*args, chunk=Q), 3)
-    # bytes: every input read once, y and the final state written once;
-    # operations, per (b, h, chunk): (C B^T o L) xdt over the Q(Q+1)/2
-    # pairs s <= l, C state^T and the state update, 2 flops per
-    # multiply-add; and C B^T over the same pairs once per (b, chunk),
-    # since the heads share it
+def ssd_bound(args, Q):
+    """(bound ms, bound_by, bytes, flops) of the SSD scan on ``args``:
+    bytes, every input read once and y and the final state written once;
+    operations, per (b, h, chunk), (C B^T o L) xdt over the Q(Q+1)/2
+    pairs s <= l, C state^T and the state update, 2 flops per
+    multiply-add, and C B^T over the same pairs once per (b, chunk), since
+    the heads share it; at the bf16 tensor cores' rate."""
+    x, Bm = args[0], args[3]
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
     nbytes = sum(a.numel() * a.element_size() for a in args) \
-        + args[0].numel() * args[0].element_size() + 4 * B * H * P * N
+        + x.numel() * x.element_size() + 4 * B * H * P * N
     nc = S // Q
     flops = B * H * nc * (Q * (Q + 1) * P + 4 * Q * P * N) \
         + B * nc * Q * (Q + 1) * N
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_OPS_PER_S
-    bound = 1e3 * max(t_bytes, t_ops)
-    print(f"[time] ssd_scan B={B} S={S} H={H} P={P} N={N} chunk={Q} x/B/C "
-          f"bf16 dt f32: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} "
-          f"TFLOP/s), plain {plain_ms:.4f} ms, bound {bound:.5f} ms "
-          f"({nbytes} bytes, {flops} flops)", flush=True)
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": "operations" if t_ops > t_bytes else "bytes",
-            "library_ms": None,
+    return (1e3 * max(t_bytes, t_ops),
+            "operations" if t_ops > t_bytes else "bytes", nbytes, flops)
+
+
+def time_ssd(dev, ssd_ops, ssd_ref):
+    """The SSD kernel at mamba2-780m's prefill shape (B=4, S=1024; x, B, C
+    bf16, dt f32): the wgmma route (CUDA events around the call, and its
+    device time alone), the float32 route on the same inputs, the plain
+    version, and the bound; and the wgmma route at zamba2-7b's prefill
+    shape (B=4, S=896, H=112, N=64) with its bound."""
+    Q = 128
+    out = {}
+    for cell, (B, S, H, P, N) in (("mamba2", (4, 1024, 48, 64, 128)),
+                                  ("zamba2", (4, 896, 112, 64, 64))):
+        args = ssd_inputs(dev, B, S, H, P, N, SERVING, 7)
+        if ssd_ops.route(args[0], args[3], args[4]) != "wgmma":
+            fail(f"the SSD timing inputs at {cell}'s shape do not take the "
+                 "wgmma route")
+        ms = cuda_ms(lambda: ssd_ops.ssd(*args, chunk=Q), 20)
+        dev_ms, launch = device_ms(lambda: ssd_ops.ssd(*args, chunk=Q),
+                                   "ssd_wgmma_kernel")
+        bound, bound_by, nbytes, flops = ssd_bound(args, Q)
+        row = {"ms": ms, "device_ms": dev_ms, "bound_ms": bound,
+               "bound_by": bound_by,
+               "shape": f"B={B} S={S} H={H} P={P} N={N} chunk={Q}, x/B/C "
+                        "bf16, dt f32"}
+        if cell == "mamba2":
+            row["float32_route_ms"] = cuda_ms(
+                lambda: ssd_ops.launch(*args, Q, "f32"), 5)
+            row["plain_ms"] = cuda_ms(lambda: ssd_ref.ssd(*args, chunk=Q), 3)
+        dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+        extra = "" if cell != "mamba2" else (
+            f"; the float32 route {row['float32_route_ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms")
+        print(f"[time] ssd_scan {cell} prefill {row['shape']}: wgmma route "
+              f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s; on the device "
+              f"alone {dev_txt}; launch {launch}), bound {bound:.5f} ms "
+              f"({nbytes} bytes, {flops} flops; {bound_by}){extra}",
+              flush=True)
+        out[cell] = row
+    m = out["mamba2"]
+    return {"ms": m["ms"], "device_ms": m["device_ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": None,
             "library_note": "no single PyTorch call computes the chunked "
                             "SSD scan",
-            "shape": f"B={B} S={S} H={H} P={P} N={N} chunk={Q}, x/B/C bf16, "
-                     "dt f32"}
+            "shape": m["shape"],
+            "float32_route_ms": m["float32_route_ms"],
+            "at_zamba2_prefill": {k: out["zamba2"][k] for k in
+                                  ("shape", "ms", "device_ms", "bound_ms",
+                                   "bound_by")}}
 
 
 def main() -> None:
@@ -918,6 +1019,16 @@ def main() -> None:
     if any(not all(c.values()) for n, c in sass.items() if "wgmma" in n) \
             or not any("wgmma" in n for n in sass):
         fail("the bf16 flash kernel issues no wgmma (HGMMA) or no TMA load "
+             "(UTMALDG)")
+    ssd_usage = flash_ptxas(build.build_log, ssd_instance)
+    for name, props in ssd_usage.items():
+        print(f"[build] {name}: {props}", flush=True)
+    ssd_sass = sass_counts(lib_path, ssd_instance, ("HGMMA", "UTMALDG"))
+    print(f"[build] SASS of the ssd_scan kernels (cuobjdump -sass): "
+          f"{ssd_sass}", flush=True)
+    if any(not all(c.values()) for n, c in ssd_sass.items() if "wgmma" in n) \
+            or not any("wgmma" in n for n in ssd_sass):
+        fail("the bf16 SSD kernel has no wgmma (HGMMA) or no TMA load "
              "(UTMALDG)")
     streams_sass = sass_counts(
         lib_path, lambda ln: "qn_streams_kernel" if "qn_streams_kernel"
@@ -1275,10 +1386,13 @@ def main() -> None:
 
     # --------------------------------------------------------- LM serving
     by_path, card_cpu_diff = {}, {}
+    ssd_routes = dict.fromkeys(ssd_ops.ssd.routes, 0)
     for arch, expect, depth in SERVE_CASES:
-        got, eng, prompts = serve_full(dev, kernels, arch, expect)
+        got, routes, eng, prompts = serve_full(dev, kernels, arch, expect)
         for name, n in got.items():
             launches[name] += n
+        for r, n in routes.items():
+            ssd_routes[r] += n
         by_path[arch] = {k: n for k, n in got.items() if n}
         profile_serving(dev, eng, prompts)
         del eng
@@ -1566,8 +1680,11 @@ def main() -> None:
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/kernel.py:69",
+         "kernels": {"bfloat16": "ssd_wgmma_kernel",
+                     "float32 or a layout TMA cannot read": "ssd_f32_kernel"},
          "launches": launches["ssd_scan"], "max_abs_err": ssd_err,
          **ssd_time, "launches_by_path": path_launches("ssd_scan"),
+         "launches_by_route": ssd_routes,
          "card_vs_cpu_logits_max_abs_diff": card_cpu_diff},
     ]}
     print(json.dumps(record), flush=True)

@@ -1,8 +1,9 @@
 """Build and bind the port's CUDA kernels.
 
-Every ``src/repro_torch/csrc/*.cu`` file is compiled by its own ``nvcc``
-process, all started together, and the objects are linked into one shared
-library with a plain C interface, which ``ctypes`` loads:
+Every ``src/repro_torch/csrc/*.cu`` file (with the ``*.cuh`` headers it
+includes) is compiled by its own ``nvcc`` process, all started together,
+and the objects are linked into one shared library with a plain C
+interface, which ``ctypes`` loads:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
          -Xcompiler -fPIC -c -o <source>.o <source>.cu      (each source)
@@ -12,10 +13,10 @@ library with a plain C interface, which ``ctypes`` loads:
 ``--fmad=false`` keeps the compiler from contracting any multiply-add:
 the kernels write ``__fmaf_rn`` exactly where the reference's XLA
 programs contract, and nowhere else.  The library is named by a hash of
-the flags and the sources, so an edited source rebuilds and an unchanged
-one loads from ``build/repro_torch/`` without compiling
-(``obs.compile`` counts both).  The build runs at first use, never at
-import; a build that fails raises.  Each C entry point returns
+the flags, the sources and the headers, so an edited source or header
+rebuilds and an unchanged one loads from ``build/repro_torch/`` without
+compiling (``obs.compile`` counts both).  The build runs at first use,
+never at import; a build that fails raises.  Each C entry point returns
 ``cudaGetLastError()`` after its launch, and ``check`` raises on a
 nonzero code; ``count`` then adds the launch to the wrapper's count.
 """
@@ -60,8 +61,8 @@ SIGNATURES = {
                               + [_I] * 3 + [_P],
     # x, dt, A, B, C, y, state; B, S, H, P, N, chunk; (b, s, head) strides
     # of x and dt, A's stride, (b, s) strides of B and C; dtypes of x, dt,
-    # A, B/C; stream
-    "ssd_scan_launch": [_P] * 7 + [_I] * 6 + [_L] * 11 + [_I] * 4 + [_P],
+    # A, B/C; route; stream
+    "ssd_scan_launch": [_P] * 7 + [_I] * 6 + [_L] * 11 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()
@@ -75,8 +76,9 @@ def sources():
 
 
 def source_hash() -> str:
+    """A hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for p in sources():
+    for p in sorted(CSRC.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -149,11 +151,14 @@ def check(rc: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
 
 
-def count(wrapper) -> None:
-    """Add one to ``wrapper.launches``, under a lock: the point-wise
+def count(wrapper, route=None) -> None:
+    """Add one to ``wrapper.launches`` (and to ``wrapper.routes[route]``
+    for a wrapper with several kernels), under a lock: the point-wise
     planner launches kernels from worker threads."""
     with _count_lock:
         wrapper.launches += 1
+        if route is not None:
+            wrapper.routes[route] += 1
 
 
 if __name__ == "__main__":

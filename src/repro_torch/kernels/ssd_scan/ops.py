@@ -1,12 +1,28 @@
 """Wrapper of the Mamba2 SSD chunked scan.
 
 A CUDA tensor launches the hand-written kernel ``csrc/ssd_scan.cu`` (the
-counterpart of the reference's ``ssd_fwd``/``_ssd_kernel``); a CPU tensor
-takes the plain version in ``ref.py``.  The semantics are ``ssd_fwd``'s:
-the chunk is clamped to ``min(chunk, S)`` and S must be a multiple of the
-clamped chunk.  The inputs keep the reference's layouts and are read
-through their strides (the last axis of x, B_ and C_ must be contiguous),
-so no transposed copy is made.  ``ssd.launches`` counts kernel launches.
+counterpart of the reference's ``ssd_fwd``/``_ssd_kernel``) by one of two
+routes, which ``route`` chooses from the inputs' dtypes, strides and
+alignment alone:
+
+- ``"wgmma"`` (``ssd_wgmma_kernel``: TMA tiles, wgmma products) when x, B_
+  and C_ are bfloat16 and TMA can read them: each base 16-byte aligned and
+  each (b, s, head) stride of x and (b, s) stride of B_ and C_ a multiple
+  of 8 elements (16 bytes); and the head dim P is a multiple of 8, since
+  y, contiguous, is written by TMA too.  dt and A may be float32 or
+  bfloat16.  Every served model's prefill takes it.
+- ``"f32"`` (``ssd_f32_kernel``, f32 on the CUDA cores) for everything
+  else: float32 inputs, whose 1e-4 tolerance the tensor cores' bf16
+  operands cannot promise at chunk 128, mixed dtypes, and any layout TMA
+  cannot read.
+
+A route never falls back to the other: a failed launch raises.  A CPU
+tensor takes the plain version in ``ref.py``.  The semantics are
+``ssd_fwd``'s: the chunk is clamped to ``min(chunk, S)`` and S must be a
+multiple of the clamped chunk.  The inputs keep the reference's layouts
+and are read through their strides (the last axis of x, B_ and C_ must be
+contiguous), so no transposed copy is made.  ``ssd.launches`` counts
+kernel launches, ``ssd.routes`` the launches of each route.
 """
 from __future__ import annotations
 
@@ -21,6 +37,7 @@ MAX_CHUNK = 128          # the kernel's shared-memory plan: Q, P, N <= 128
 MAX_HEAD_DIM = 128
 MAX_STATE = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = {"f32": 0, "wgmma": 1}
 
 
 def _check(x, dt, A, B_, C_, chunk) -> int:
@@ -64,6 +81,61 @@ def _check(x, dt, A, B_, C_, chunk) -> int:
     return chunk
 
 
+def _strides(t, axes):
+    """The element strides of ``t``'s first ``axes`` axes; an axis of size
+    1 never multiplies a nonzero index, so it gets its contiguous stride,
+    whatever torch reports for it."""
+    natural = [1] * t.dim()
+    for i in range(t.dim() - 2, -1, -1):
+        natural[i] = natural[i + 1] * t.shape[i + 1]
+    return [st if size > 1 else nat for st, size, nat in
+            zip(t.stride()[:axes], t.shape[:axes], natural[:axes])]
+
+
+def route(x: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor) -> str:
+    """The kernel a CUDA launch of these inputs takes: ``"wgmma"`` when x,
+    B_ and C_ are bfloat16 with 16-byte-aligned bases and strides that are
+    multiples of 8 elements (what TMA can read) and the head dim is a
+    multiple of 8 (y, contiguous, is written by TMA too), else ``"f32"``.
+    A pure function of dtypes, shapes, strides and base addresses (dt and
+    A do not enter: the kernel reads them with plain loads)."""
+    tensors = ((x, 3), (B_, 2), (C_, 2))
+    if x.shape[-1] % 8 or any(t.dtype != torch.bfloat16
+                              for t, _ in tensors):
+        return "f32"
+    for t, axes in tensors:
+        if t.data_ptr() % 16 or any(st % 8 for st in _strides(t, axes)):
+            return "f32"
+    return "wgmma"
+
+
+def launch(x, dt, A, B_, C_, chunk: int, route_: str):
+    """Launch the kernel of ``route_`` on checked CUDA tensors (``chunk``
+    already clamped); the (y, state) it writes.  ``ssd`` calls it with
+    ``route(x, B_, C_)``; the card's checks call it directly to time the
+    float32 route on bfloat16 inputs.  A route the inputs do not allow
+    raises."""
+    Bb, S, H, P = x.shape
+    N = B_.shape[-1]
+    dev = x.device
+    y = torch.empty(x.shape, dtype=x.dtype, device=dev)
+    state = torch.empty((Bb, H, P, N), dtype=torch.float32, device=dev)
+    if y.numel() == 0:
+        return y, state.zero_()
+    strides = [*_strides(x, 3), *dt.stride(), A.stride(0),
+               *_strides(B_, 2), *_strides(C_, 2)]
+    dtypes = [_DTYPES[t.dtype] for t in (x, dt, A, B_)]
+    lib = build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.ssd_scan_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
+            C_.data_ptr(), y.data_ptr(), state.data_ptr(), Bb, S, H, P, N,
+            chunk, *strides, *dtypes, ROUTES[route_], stream)
+    build.check(rc, f"ssd_scan ({route_} route)")
+    return y, state
+
+
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         B_: torch.Tensor, C_: torch.Tensor, chunk: int = 128
         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -75,25 +147,12 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return ref.ssd(x, dt, A, B_, C_, chunk)
     if dev.type != "cuda":
         raise ValueError(f"no ssd kernel for device {dev}")
-    Bb, S, H, P = x.shape
-    N = B_.shape[-1]
-    y = torch.empty(x.shape, dtype=x.dtype, device=dev)
-    state = torch.empty((Bb, H, P, N), dtype=torch.float32, device=dev)
-    if y.numel() == 0:
-        return y, state.zero_()
-    strides = [*x.stride()[:3], *dt.stride(), A.stride(0),
-               *B_.stride()[:2], *C_.stride()[:2]]
-    dtypes = [_DTYPES[t.dtype] for t in (x, dt, A, B_)]
-    lib = build.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ssd_scan_launch(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
-            C_.data_ptr(), y.data_ptr(), state.data_ptr(), Bb, S, H, P, N,
-            chunk, *strides, *dtypes, stream)
-    build.check(rc, "ssd_scan")
-    build.count(ssd)
+    way = route(x, B_, C_)
+    y, state = launch(x, dt, A, B_, C_, chunk, way)
+    if y.numel():
+        build.count(ssd, way)
     return y, state
 
 
 ssd.launches = 0
+ssd.routes = dict.fromkeys(ROUTES, 0)

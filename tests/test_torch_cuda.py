@@ -457,20 +457,60 @@ def _ssd_inputs(dev, B, S, H, P, N, types, seed):
             rnd(B, S, N).to(tbc))
 
 
-@pytest.mark.parametrize("case", SSD_CARD_CASES)
-@pytest.mark.parametrize("types", list(SSD_DTYPES))
-def test_ssd_kernel_matches_plain(dev, case, types):
-    B, S, H, P, N, chunk = case
-    args = _ssd_inputs(dev, B, S, H, P, N, SSD_DTYPES[types], S + H + P)
-    before = ssd_ops.ssd.launches
+def _ssd_check(args, chunk, route):
+    """One launch, on ``route``, against the plain version at the
+    reference's tolerance (1e-4 when x is float32, else 5e-2)."""
+    before = ssd_ops.ssd.launches, dict(ssd_ops.ssd.routes)
     y, state = ssd_ops.ssd(*args, chunk=chunk)
     torch.cuda.synchronize()
-    assert ssd_ops.ssd.launches == before + 1
+    assert ssd_ops.ssd.launches == before[0] + 1
+    assert {r: n - before[1][r] for r, n in ssd_ops.ssd.routes.items()} == \
+        {r: int(r == route) for r in ssd_ops.ssd.routes}
     want_y, want_state = ssd_ref.ssd(*args, chunk=chunk)
-    tol = 1e-4 if types == "float32" else 5e-2      # the reference's
+    tol = 1e-4 if args[0].dtype == torch.float32 else 5e-2
     assert y.dtype == args[0].dtype and state.dtype == torch.float32
     torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(state, want_state, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("case", SSD_CARD_CASES)
+@pytest.mark.parametrize("types", list(SSD_DTYPES))
+def test_ssd_kernel_matches_plain(dev, case, types):
+    """x, B and C in bfloat16 take the wgmma route, float32 the SIMT one."""
+    B, S, H, P, N, chunk = case
+    args = _ssd_inputs(dev, B, S, H, P, N, SSD_DTYPES[types], S + H + P)
+    _ssd_check(args, chunk, "f32" if types == "float32" else "wgmma")
+
+
+# the wgmma route's edges (B, S, H, P, N, chunk, dtypes): chunks under
+# wgmma's 64 rows (the smoke configs' 16; S = 40 clamping the chunk of
+# 128), P = 128 with N = 128 and 64, N = 16 and 64, 64 chunks (the state's
+# rounded copies feed every one), dt in bfloat16
+SSD_EDGE_CASES = [
+    (2, 64, 4, 64, 128, 16, "serving"), (3, 40, 4, 64, 128, 128, "serving"),
+    (2, 256, 4, 128, 128, 128, "serving"),
+    (1, 256, 3, 128, 64, 128, "serving"), (2, 256, 4, 64, 16, 128, "serving"),
+    (2, 256, 8, 64, 64, 128, "serving"),
+    (1, 8192, 4, 64, 128, 128, "serving"),
+    (2, 256, 4, 64, 128, 128, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("case", SSD_EDGE_CASES)
+def test_ssd_wgmma_kernel_edge_shapes(dev, case):
+    B, S, H, P, N, chunk, types = case
+    args = _ssd_inputs(dev, B, S, H, P, N, SSD_DTYPES[types], S + N + P)
+    _ssd_check(args, chunk, "wgmma")
+
+
+def test_ssd_kernel_takes_the_float32_route_where_tma_cannot_read(dev):
+    """x one element past an aligned base: the float32 route, held to the
+    plain version at bfloat16's tolerance."""
+    x, dt, A, Bm, Cm = _ssd_inputs(dev, 2, 256, 4, 64, 128,
+                                   SSD_DTYPES["serving"], 5)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+    xu = buf[1:].view(x.shape).copy_(x)
+    _ssd_check((xu, dt, A, Bm, Cm), 128, "f32")
 
 
 def test_ssd_kernel_reads_strided_inputs(dev):
@@ -480,7 +520,11 @@ def test_ssd_kernel_reads_strided_inputs(dev):
                                  SSD_DTYPES["serving"], 3)
     bc = torch.randn((B, S, 2 * N), device=dev).to(torch.bfloat16)
     args = (x[:, :, ::2], dt[:, :, :H], A[:H], bc[..., :N], bc[..., N:])
+    assert ssd_ops.route(args[0], args[3], args[4]) == "wgmma"
+    before = ssd_ops.ssd.routes["wgmma"]
     y, state = ssd_ops.ssd(*args, chunk=128)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd.routes["wgmma"] == before + 1
     want_y, want_state = ssd_ref.ssd(*(a.contiguous() for a in args),
                                      chunk=128)
     torch.testing.assert_close(y.float(), want_y.float(), atol=5e-2,

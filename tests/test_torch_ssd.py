@@ -2,8 +2,10 @@
 tensor takes) against the reference: the Pallas kernel ``ssd_fwd`` in
 interpret mode and the model's ``ssd_chunked``, on the reference's own
 cases, in float32, bfloat16 and the serving path's mix; the chunk clamp,
-the ``S % chunk`` check and the wrapper's other input checks.  Inputs are
-made with numpy from a seed and handed to both.
+the ``S % chunk`` check and the wrapper's other input checks; and the
+CUDA wrapper's route rule (``ops.route``) on every shape and layout the
+card's checks use.  Inputs are made with numpy from a seed and handed to
+both.
 
 Tolerances are the reference's (tests/test_kernels.py), absolute and
 relative alike: 1e-4 in float32 (the two sides sum in other orders) and
@@ -20,11 +22,15 @@ held to the exact value at the reference's tolerance, and the two to each
 other at twice it in float32 (the sum of two errors each within it); in
 bfloat16 they are held to each other at 5e-2 directly.
 """
+import importlib.util
+import pathlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from test_kernels import SSD_CASES
+from test_torch_cuda import SSD_CARD_CASES, SSD_DTYPES, SSD_EDGE_CASES
 
 from repro.kernels.ssd_scan import kernel as ssd_kernel
 from repro.models import mamba2 as JM
@@ -175,3 +181,101 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         _, targs = _inputs(2, 1, 256, 2, 16, 8)
         with pytest.raises(ValueError, match="chunk"):
             ssd_ops.ssd(*targs, chunk=chunk)
+
+
+# --- the CUDA wrapper's route rule (ops.route), a function of dtypes,
+# shapes, strides and base addresses that needs no card: meta tensors
+# stand in for the card's shapes (their base address reads as 0)
+
+def _chip_smoke():
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _meta(B, S, H, P, N, types):
+    """x, B_, C_ of a case as meta tensors (no memory)."""
+    tx, _, tbc = types
+    return (torch.empty((B, S, H, P), dtype=tx, device="meta"),
+            torch.empty((B, S, N), dtype=tbc, device="meta"),
+            torch.empty((B, S, N), dtype=tbc, device="meta"))
+
+
+def _want(types):
+    """x, B and C in bfloat16 take the wgmma route, anything else the
+    float32 one."""
+    return "wgmma" if types[0] == types[2] == torch.bfloat16 else "f32"
+
+
+@pytest.mark.parametrize("case", SSD_CARD_CASES)
+@pytest.mark.parametrize("types", list(SSD_DTYPES))
+def test_route_of_the_card_cases(case, types):
+    B, S, H, P, N, _ = case
+    assert ssd_ops.route(*_meta(B, S, H, P, N, SSD_DTYPES[types])) == \
+        _want(SSD_DTYPES[types])
+
+
+@pytest.mark.parametrize("case", SSD_EDGE_CASES)
+def test_route_of_the_card_edge_cases(case):
+    B, S, H, P, N, _, types = case
+    assert ssd_ops.route(*_meta(B, S, H, P, N, SSD_DTYPES[types])) == "wgmma"
+
+
+SSD_CHECKS = _chip_smoke().SSD_CHECKS
+
+
+@pytest.mark.parametrize("check", SSD_CHECKS, ids=[c[0] for c in SSD_CHECKS])
+def test_route_of_the_chip_checks(check):
+    """Every case of chip_smoke.py's checks, its serving-typed ones (bf16
+    x/B/C, f32 dt) on the wgmma route."""
+    _, B, S, H, P, N, _, types = check
+    assert ssd_ops.route(*_meta(B, S, H, P, N, types)) == _want(types)
+
+
+def _views(name):
+    """(x, B_, C_) of a layout case, real CPU tensors (bfloat16)."""
+    bf = torch.bfloat16
+    x = torch.zeros((2, 16, 8, 64), dtype=bf)
+    bc = torch.zeros((2, 16, 2 * 128), dtype=bf)
+    B_, C_ = bc[..., :128], bc[..., 128:]
+    if name == "head-strided x, B and C of one projection":
+        return x[:, :, ::2], B_, C_
+    if name == "x one element past an aligned base":
+        buf = torch.zeros(x.numel() + 1, dtype=bf)
+        return buf[1:].view(x.shape), B_, C_
+    if name == "x's head stride 66 elements":
+        return torch.zeros((2, 16, 8, 66), dtype=bf)[..., :64], B_, C_
+    if name == "C 24 bytes past B (N = 12)":
+        bc12 = torch.zeros((2, 16, 24), dtype=bf)
+        return torch.zeros((2, 16, 8, 64), dtype=bf), bc12[..., :12], \
+            bc12[..., 12:]
+    if name == "head dim 12":
+        return torch.zeros((2, 16, 8, 12), dtype=bf), B_, C_
+    if name == "B and C float32":
+        return x, B_.float(), C_.float()
+    if name == "x float32":
+        return x.float(), B_, C_
+    if name == "batch of one with an odd batch stride":
+        return torch.zeros((1, 16, 8, 64), dtype=bf).as_strided(
+            (1, 16, 8, 64), (3, 512, 64, 1)), B_[:1], C_[:1]
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name,want", [
+    ("head-strided x, B and C of one projection", "wgmma"),
+    ("x one element past an aligned base", "f32"),
+    ("x's head stride 66 elements", "f32"),
+    ("C 24 bytes past B (N = 12)", "f32"),
+    ("head dim 12", "f32"),
+    ("B and C float32", "f32"),
+    ("x float32", "f32"),
+    ("batch of one with an odd batch stride", "wgmma"),
+])
+def test_route_of_views(name, want):
+    """Strided views TMA can read take the wgmma route; an unaligned base,
+    a stride or a head dim that is not a multiple of 8 elements, or a
+    float32 operand, the float32 route.  A batch of one reads no batch
+    stride, whatever torch reports for it."""
+    assert ssd_ops.route(*_views(name)) == want
