@@ -1,25 +1,54 @@
-"""Decisions of the JAX reference for the calls ``chip_smoke.py`` drives on
-the card, printed as the JSON that ``chip_smoke.REFERENCE`` holds.
+"""Decisions and numbers of the JAX reference for the calls ``chip_smoke.py``
+drives on the card, printed as the JSON that ``chip_smoke.REFERENCE`` holds.
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python -m benchmarks.port_reference_decisions
+    PYTHONPATH=src JAX_PLATFORMS=cpu python -m benchmarks.port_reference_decisions [part ...]
 
-The calls: the paper's §4.3 scenario (``scenario_problem("Q1", 10,
-160_000.0)`` with its replay lists) through ``DSpace4Cloud.run()`` and
-``.run_fast()`` at the defaults, and through the point-wise gait
-``DSpace4Cloud(batched=False).run()`` at the defaults, each on a fresh
-instance; and the quickstart problem through ``DSpace4Cloud(problem,
-min_jobs=20, replications=1).run()`` in both gaits (the point-wise one
-walks its two classes in two threads).  On a CPU host the real-size
-batched calls take about half a minute each, the point-wise one a minute
-or more.
+Parts (all by default; each prints its wall time on stderr):
+
+* ``plans``: the paper's §4.3 scenario (``scenario_problem("Q1", 10,
+  160_000.0)`` with its replay lists) through ``DSpace4Cloud.run()`` and
+  ``.run_fast()`` at the defaults, and through the point-wise gait
+  ``DSpace4Cloud(batched=False).run()`` at the defaults, each on a fresh
+  instance; and the quickstart problem through ``DSpace4Cloud(problem,
+  min_jobs=20, replications=1).run()`` in both gaits (the point-wise one
+  walks its two classes in two threads).
+* ``batched_qn``, ``cost_deadline``, ``hc_convergence``, ``vm_race``: the
+  repo's public-cloud planner benchmarks (``benchmarks/<name>.py``) at
+  their own budgets (``cost_deadline`` on its quick grids), with the
+  decisions, dispatch counts, pruned lanes and crossovers they report.
+* ``table3``: the paper's Table 3 (``benchmarks/table3_qn_validation.py``):
+  per row the cluster simulator's T, the QN's tau and theta.
+* ``serving_qn``: the serving analogue's tau
+  (``benchmarks/serving_qn_validation.py``) for fixed profiled round
+  times ``SOLO_MS``.
+
+Each scenario function takes the budgets as keywords, with the benchmark's
+own as defaults, and returns only numbers that do not depend on a clock;
+``benchmarks/torch_scenarios.py`` has the port's counterpart of each, with
+the same keywords, and its ``mismatches`` compares the two.
 """
 from __future__ import annotations
 
 import json
+import sys
+import time
 
+import numpy as np
+
+from benchmarks.cost_deadline import _crossover, sweep
+from benchmarks.vm_race import STEADY, _lane_parity, catalog_problem
+from repro.core import qn_sim, shapes
+from repro.core.cluster_sim import replayer_lists, simulate_cluster
 from repro.core.optimizer import DSpace4Cloud
 from repro.core.problem import ApplicationClass, JobProfile, Problem, VMType
-from repro.core.tpcds import scenario_problem
+from repro.core.tpcds import TABLE3, THINK_MS, calibrated_specs, \
+    scenario_problem
+
+# the serving analogue's profiled round times [ms] at which tau is printed
+SOLO_MS = (150.0, 2500.0)
+
+DECISION_KEYS = ("vm_type", "nu", "reserved", "spot", "cost_per_h",
+                 "predicted_ms", "feasible")
 
 
 def quickstart_problem() -> Problem:
@@ -42,7 +71,7 @@ def quickstart_problem() -> Problem:
     ], vm_types=[small, big])
 
 
-def main() -> None:
+def plans() -> dict:
     prob, samples, _ = scenario_problem("Q1", 10, 160_000.0)
     reports = {
         "Q1-10u.run": DSpace4Cloud(prob, samples=samples).run(),
@@ -55,10 +84,229 @@ def main() -> None:
             quickstart_problem(), min_jobs=20, replications=1,
             batched=False).run(parallel=True),
     }
-    print(json.dumps({name: {
+    return {name: {
         "qn_dispatches": r.qn_dispatches,
         "classes": {k: v.as_dict() for k, v in r.solutions.items()}}
-        for name, r in reports.items()}, indent=1))
+        for name, r in reports.items()}
+
+
+def _plan(rep) -> dict:
+    """A report's decisions, as ``benchmarks/batched_qn.py`` and
+    ``benchmarks/hc_convergence.py`` record them, with every class's
+    solution beside them."""
+    return {"evals": rep.evals, "dispatches": rep.qn_dispatches,
+            "cost": rep.total_cost_per_h,
+            "nu": {k: v.nu for k, v in rep.solutions.items()},
+            "classes": {k: {f: v.as_dict()[f] for f in DECISION_KEYS}
+                        for k, v in rep.solutions.items()}}
+
+
+def batched_qn(*, points: int = 8, min_jobs: int = 25,
+               replications: int = 1) -> dict:
+    """``benchmarks/batched_qn.py`` on Q1-10u: a ``points``-point nu
+    frontier scalar against batched, then the optimizer point-wise,
+    batched and ``run_fast``."""
+    prob, samples, _ = scenario_problem("Q1", 10, 160_000.0)
+    cls, vm = prob.classes[0], prob.vm_types[0]
+    prof = cls.profile_for(vm)
+    ms, rs = samples[(cls.name, vm.name)]
+    nus = np.arange(2, 2 + points)
+    kw = dict(n_map=prof.n_map, n_reduce=prof.n_reduce, m_avg=prof.m_avg,
+              r_avg=prof.r_avg, think_ms=cls.think_ms, h_users=cls.h_users,
+              min_jobs=min_jobs, warmup_jobs=4, seed=0,
+              replications=replications, m_samples=ms, r_samples=rs)
+    d0 = qn_sim.dispatch_count()
+    scalar = np.array([qn_sim.response_time(slots=int(s) * vm.slots, **kw)
+                       for s in nus])
+    d1 = qn_sim.dispatch_count()
+    batched = qn_sim.response_time_batch(slots=nus * vm.slots, **kw)
+    d2 = qn_sim.dispatch_count()
+    fin = np.isfinite(scalar)
+    frontier = {
+        "points": int(points), "scalar_ms": scalar.tolist(),
+        "batched_ms": np.asarray(batched, np.float64).tolist(),
+        "scalar_dispatches": int(d1 - d0),
+        "batched_dispatches": int(d2 - d1),
+        "parity_max_rel_err": float(np.max(
+            np.abs(scalar[fin] - batched[fin])
+            / np.maximum(scalar[fin], 1e-9))) if fin.any() else 0.0}
+    opt = {}
+    for mode, batched_gait in (("scalar", False), ("batched", True)):
+        opt[mode] = _plan(DSpace4Cloud(
+            prob, min_jobs=min_jobs, replications=replications,
+            samples=samples, batched=batched_gait).run())
+    opt["fast_batched"] = _plan(DSpace4Cloud(
+        prob, min_jobs=min_jobs, replications=replications,
+        samples=samples, batched=True).run_fast())
+    return {"frontier": frontier, "optimizer": opt,
+            "dispatch_ratio": opt["scalar"]["dispatches"]
+            / max(opt["batched"]["dispatches"], 1)}
+
+
+# the grids of ``benchmarks/cost_deadline.py``'s ``run()`` (a local there)
+COST_DEADLINE_GRIDS = {
+    "fig5": ("Q1", 10, [300, 240, 200, 160, 130, 110]),
+    "fig6": ("Q3", 10, [420, 330, 270, 220, 180, 150]),
+    "fig7": ("Q1", 20, [300, 240, 200, 160, 130, 110, 95, 85, 75, 68,
+                        62, 56, 50]),
+}
+
+
+def mono_cost(points) -> bool:
+    """Cost non-increasing as the deadline loosens, per VM type (inline in
+    ``benchmarks/cost_deadline.py``'s ``run()``)."""
+    mono = True
+    for vm in ("m4.xlarge", "CINECA"):
+        cs = [p["cost_per_h"] for p in sorted(
+            (x for x in points if x["vm"] == vm and x.get("feasible")),
+            key=lambda x: x["deadline_s"])]
+        mono &= all(cs[i] >= cs[i + 1] - 1e-9 for i in range(len(cs) - 1))
+    return bool(mono)
+
+
+def cost_deadline(*, quick: bool = True) -> dict:
+    """``benchmarks/cost_deadline.py``'s ``sweep`` per figure (Figures
+    5-7), with each figure's crossover, cost monotonicity and dispatches.
+    ``quick`` takes every second deadline and ``min_jobs=15``, as the
+    benchmark's own quick mode does."""
+    out, summary = {}, {}
+    for fig, (q, u, ds) in COST_DEADLINE_GRIDS.items():
+        d0 = qn_sim.dispatch_count()
+        pts = sweep(q, u, ds[::2] if quick else ds, quick=quick)
+        out[fig] = pts
+        summary[fig] = {"query": q, "users": u, "points": len(pts),
+                        "crossover_deadline_s": _crossover(pts),
+                        "mono_cost": mono_cost(pts),
+                        "dispatches": int(qn_sim.dispatch_count() - d0)}
+    out["summary"] = summary
+    return out
+
+
+def hc_convergence(*, min_jobs: int = 25) -> dict:
+    """``benchmarks/hc_convergence.py``: Q1-10u with ``race=False`` in the
+    classic point-wise, the batched and the ``run_fast`` gait."""
+    prob, samples, _ = scenario_problem("Q1", 10, 160_000.0)
+    kw = dict(min_jobs=min_jobs, replications=1, samples=samples,
+              race=False)
+    return {
+        "classic": _plan(DSpace4Cloud(prob, batched=False, **kw).run()),
+        "batched": _plan(DSpace4Cloud(prob, batched=True, **kw).run()),
+        "fast": _plan(DSpace4Cloud(prob, batched=True, **kw).run_fast())}
+
+
+def _race_solve(prob, race: bool, kw: dict, samples=None):
+    d0 = qn_sim.dispatch_count()
+    rep = DSpace4Cloud(prob, race=race, samples=samples, **kw).run()
+    sol = rep.solutions["etl"]
+    return rep, {"vm_type": sol.vm_type, "nu": sol.nu,
+                 "reserved": sol.reserved, "spot": sol.spot,
+                 "cost_per_h": sol.cost_per_h,
+                 "predicted_ms": sol.predicted_ms,
+                 "feasible": sol.feasible,
+                 "dispatches": int(qn_sim.dispatch_count() - d0),
+                 "evals": rep.evals}
+
+
+def vm_race(*, min_jobs: int = 20, replications: int = 2) -> dict:
+    """``benchmarks/vm_race.py``: the four-type catalog locked
+    (``race=False``) against raced, per-lane parity against solo sweeps,
+    and the single-type catalog's degenerate race."""
+
+    kw = dict(min_jobs=min_jobs, replications=replications, seed=3,
+              window=8)
+    prob, samples = catalog_problem()
+    _, locked = _race_solve(prob, False, kw, samples)
+    raced_rep, raced = _race_solve(prob, True, kw, samples)
+    lanes = {rid: {"bound": tr.lane_bound, "pruned": tr.pruned,
+                   "evals": tr.evals, "nus": [m[0] for m in tr.moves],
+                   "predicted_ms": [m[1] for m in tr.moves],
+                   "feasible": [m[2] for m in tr.moves]}
+             for rid, tr in raced_rep.traces.items()}
+    single = Problem(classes=prob.classes, vm_types=[STEADY])
+    _, single_locked = _race_solve(single, False, kw)
+    _, single_raced = _race_solve(single, True, kw)
+    keys = ("dispatches", "vm_type", "nu", "cost_per_h")
+    return {"catalog_size": len(prob.vm_types),
+            "locked": locked, "raced": raced, "lanes": lanes,
+            "single_type": {"locked": single_locked, "raced": single_raced},
+            "lanes_pruned": sum(1 for v in lanes.values() if v["pruned"]),
+            "parity_bit_exact": bool(_lane_parity(prob, raced_rep, kw,
+                                                  samples)),
+            "degenerate_single_type": all(
+                single_raced[k] == single_locked[k] for k in keys)}
+
+
+def table3(*, rows=None, max_jobs: int = 40, min_jobs: int = 40,
+           replications: int = 2) -> dict:
+    """``benchmarks/table3_qn_validation.py``: per row of ``TABLE3`` (all,
+    or the indices in ``rows``) T from the cluster simulator, the replay
+    lists from profiling runs and tau from the scalar QN."""
+    specs = calibrated_specs()
+    out = []
+    for i, s in enumerate(TABLE3):
+        if rows is not None and i not in rows:
+            continue
+        sp = specs[i]
+        T, _ = simulate_cluster(
+            sp, slots=s.containers, h_users=s.users, think_ms=THINK_MS,
+            max_jobs=max_jobs, warmup_jobs=5, seed=123)
+        ms, rs = replayer_lists(sp, runs=20, slots=s.containers, seed=55)
+        tau = qn_sim.response_time(
+            n_map=s.n_map, n_reduce=s.n_reduce, m_avg=sp.map_ms,
+            r_avg=sp.reduce_ms, think_ms=THINK_MS, h_users=s.users,
+            slots=s.containers, min_jobs=min_jobs, warmup_jobs=8, seed=3,
+            replications=replications, m_samples=ms, r_samples=rs)
+        out.append({"row": i, "query": s.query, "users": s.users,
+                    "cores": s.containers, "dataset_gb": s.dataset_gb,
+                    "n_map": s.n_map, "n_reduce": s.n_reduce,
+                    "events": qn_sim.padded_event_budget(
+                        s.n_map, s.n_reduce, min_jobs=min_jobs,
+                        warmup_jobs=8),
+                    "max_slots": shapes.bucket_slots(s.containers),
+                    "T_ms": T, "tau_ms": tau,
+                    "theta_pct": (tau - T) / T * 100.0})
+    a = np.abs([r["theta_pct"] for r in out])
+    return {"rows": out, "mean_abs_theta_pct": float(a.mean()),
+            "max_abs_theta_pct": float(a.max()),
+            "paper_mean_pct": 12.27, "paper_max_pct": 30.59}
+
+
+def serving_tau(solo_ms: float, *, n_requests: int = 12,
+                slots: int = 3) -> float:
+    """The serving analogue's QN prediction for a profiled round time
+    ``solo_ms`` (``benchmarks/serving_qn_validation.py``): replay mode on
+    ``solo_ms`` samples, a closed burst of ``n_requests`` on ``slots``."""
+    return qn_sim.response_time(
+        n_map=1, n_reduce=1, m_avg=solo_ms, r_avg=1e-3, think_ms=1.0,
+        h_users=n_requests, slots=slots, min_jobs=n_requests * 6,
+        warmup_jobs=n_requests * 2, seed=0, replications=2,
+        m_samples=np.full(64, solo_ms, np.float32),
+        r_samples=np.full(8, 1e-3, np.float32))
+
+
+def serving_qn() -> dict:
+    return {"n_requests": 12, "slots": 3, "solo_ms": list(SOLO_MS),
+            "tau_ms": [serving_tau(s) for s in SOLO_MS]}
+
+
+PARTS = {"plans": plans, "batched_qn": batched_qn,
+         "cost_deadline": cost_deadline, "hc_convergence": hc_convergence,
+         "vm_race": vm_race, "table3": table3, "serving_qn": serving_qn}
+
+
+def main() -> None:
+    names = sys.argv[1:] or list(PARTS)
+    out = {}
+    for name in names:
+        t0 = time.perf_counter()
+        res = PARTS[name]()
+        print(f"[reference] {name}: {time.perf_counter() - t0:.1f} s",
+              file=sys.stderr, flush=True)
+        if name == "plans":
+            out.update(res)
+        else:
+            out[name] = res
+    print(json.dumps(out, indent=1))
 
 
 if __name__ == "__main__":

@@ -1,0 +1,580 @@
+"""The repo's public-cloud planner benchmarks, the paper's Table 3 and its
+serving analogue, driven through the PyTorch port.
+
+One function per reference benchmark, each taking ``device`` (the CUDA
+card by default; ``"cpu"`` runs the kernels' plain versions) and the
+benchmark's budgets as keywords, with the benchmark's own as defaults:
+
+* ``batched_qn``     -- ``benchmarks/batched_qn.py``: a nu frontier on
+  Q1-10u, scalar ``response_time`` against one ``response_time_batch``,
+  then ``DSpace4Cloud`` point-wise, batched and ``run_fast``;
+* ``cost_deadline``  -- ``benchmarks/cost_deadline.py`` (Figures 5-7):
+  per deadline and VM type ``initial_class_solution``, ``amva_frontier``
+  over [nu-8, nu+8], then Algorithm 1 on the point-wise QN evaluator;
+* ``hc_convergence`` -- ``benchmarks/hc_convergence.py``: Q1-10u with
+  ``race=False`` in the classic, batched and ``run_fast`` gaits;
+* ``vm_race``        -- ``benchmarks/vm_race.py``: a four-type catalog
+  locked against raced, lower-bound pruning, per-lane parity, and the
+  single-type catalog's degenerate race;
+* ``table3``         -- ``benchmarks/table3_qn_validation.py``: per row T
+  from the cluster simulator and tau from the scalar QN;
+* ``serving_qn``     -- ``benchmarks/serving_qn_validation.py``: tau from
+  profiled ``BatchingEngine`` rounds against the engine's closed-loop T.
+
+Each returns the dict its reference benchmark's ``run()`` returns (or, for
+``serving_qn``, records), with the decisions and counts the reference
+prints beside it (``benchmarks/port_reference_decisions.py``, same
+keywords); ``mismatches`` lists where a port dict differs from the
+reference's.  ``torch_scenarios`` files nothing under ``results/``.
+
+    PYTHONPATH=src python -m benchmarks.torch_scenarios [name ...] [--device cpu]
+"""
+from __future__ import annotations
+
+import json
+import sys
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import qn_sim, shapes
+from repro_torch.core.cluster_sim import replayer_lists, simulate_cluster
+from repro_torch.core.evaluators import amva_frontier, make_qn_evaluator
+from repro_torch.core.hillclimb import HCTrace, optimize_class, \
+    request_id, sweep_class
+from repro_torch.core.milp import initial_class_solution, rank_vm_types
+from repro_torch.core.optimizer import DSpace4Cloud
+from repro_torch.core.problem import ApplicationClass, JobProfile, \
+    Problem, VMType
+from repro_torch.core.tpcds import TABLE3, THINK_MS, calibrated_specs, \
+    scenario_problem
+from repro_torch.kernels.qn_event import ops as qn_ops
+
+DECISION_KEYS = ("vm_type", "nu", "reserved", "spot", "cost_per_h",
+                 "predicted_ms", "feasible")
+
+
+def _dispatches() -> int:
+    return qn_sim.sim_stats()["dispatches"]
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _plan(rep, wall_s: float) -> dict:
+    """A report's numbers as the reference benchmarks record them, with
+    every class's solution beside them."""
+    return {"wall_s": wall_s, "evals": rep.evals,
+            "dispatches": rep.qn_dispatches,
+            "cost": rep.total_cost_per_h,
+            "nu": {k: v.nu for k, v in rep.solutions.items()},
+            "classes": {k: {f: v.as_dict()[f] for f in DECISION_KEYS}
+                        for k, v in rep.solutions.items()}}
+
+
+def _timed_plan(dev, solve) -> dict:
+    t0 = time.perf_counter()
+    rep = solve()
+    _sync(dev)
+    return _plan(rep, time.perf_counter() - t0)
+
+
+# ------------------------------------------------------------- batched_qn
+
+def batched_qn(device=None, *, points: int = 8, min_jobs: int = 25,
+               replications: int = 1) -> dict:
+    """Q1-10u: a ``points``-point nu frontier, one scalar ``response_time``
+    per point against one fused ``response_time_batch`` (the same seeds,
+    so the same numbers), then the optimizer point-wise, batched and
+    ``run_fast``."""
+    dev = resolve_device(device)
+    prob, samples, _ = scenario_problem("Q1", 10, 160_000.0)
+    cls, vm = prob.classes[0], prob.vm_types[0]
+    prof = cls.profile_for(vm)
+    ms, rs = samples[(cls.name, vm.name)]
+    nus = np.arange(2, 2 + points)
+    kw = dict(n_map=prof.n_map, n_reduce=prof.n_reduce, m_avg=prof.m_avg,
+              r_avg=prof.r_avg, think_ms=cls.think_ms, h_users=cls.h_users,
+              min_jobs=min_jobs, warmup_jobs=4, seed=0,
+              replications=replications, m_samples=ms, r_samples=rs,
+              device=dev)
+    d0 = _dispatches()
+    t0 = time.perf_counter()
+    scalar = np.array([qn_sim.response_time(slots=int(s) * vm.slots, **kw)
+                       for s in nus])
+    t1 = time.perf_counter()
+    d1 = _dispatches()
+    batched = qn_sim.response_time_batch(slots=nus * vm.slots, **kw)
+    t2 = time.perf_counter()
+    d2 = _dispatches()
+    fin = np.isfinite(scalar)
+    assert np.allclose(scalar[fin], batched[fin], rtol=1e-6), \
+        "batched/scalar parity violated"
+    frontier = {
+        "points": int(points), "scalar_s": t1 - t0, "batched_s": t2 - t1,
+        "scalar_evals_per_s": points / max(t1 - t0, 1e-9),
+        "batched_evals_per_s": points / max(t2 - t1, 1e-9),
+        "scalar_dispatches": d1 - d0, "batched_dispatches": d2 - d1,
+        "parity_max_rel_err": float(np.max(
+            np.abs(scalar[fin] - batched[fin])
+            / np.maximum(scalar[fin], 1e-9))) if fin.any() else 0.0,
+        "scalar_ms": scalar.tolist(),
+        "batched_ms": np.asarray(batched, np.float64).tolist()}
+    tool = lambda batched_gait: DSpace4Cloud(
+        prob, min_jobs=min_jobs, replications=replications, samples=samples,
+        batched=batched_gait, device=dev)
+    opt = {"scalar": _timed_plan(dev, lambda: tool(False).run()),
+           "batched": _timed_plan(dev, lambda: tool(True).run()),
+           "fast_batched": _timed_plan(dev, lambda: tool(True).run_fast())}
+    return {"frontier": frontier, "optimizer": opt,
+            "dispatch_ratio": opt["scalar"]["dispatches"]
+            / max(opt["batched"]["dispatches"], 1),
+            "nu_agree": all(abs(opt["scalar"]["nu"][k]
+                                - opt["batched"]["nu"][k]) <= 2
+                            for k in opt["scalar"]["nu"])}
+
+
+# ---------------------------------------------------------- cost_deadline
+
+COST_DEADLINE_GRIDS = {
+    "fig5": ("Q1", 10, [300, 240, 200, 160, 130, 110]),
+    "fig6": ("Q3", 10, [420, 330, 270, 220, 180, 150]),
+    # below m4's response-time floor only the faster CINECA cores remain
+    # feasible: the paper's crossover region
+    "fig7": ("Q1", 20, [300, 240, 200, 160, 130, 110, 95, 85, 75, 68,
+                        62, 56, 50]),
+}
+
+
+def crossover(points) -> Optional[float]:
+    """Largest deadline at which CINECA is strictly cheaper (while both
+    feasible): the Figure 7 region."""
+    by_d = {}
+    for p in points:
+        by_d.setdefault(p["deadline_s"], {})[p["vm"]] = p
+    best = None
+    for d, vms in sorted(by_d.items()):
+        m4, cin = vms.get("m4.xlarge"), vms.get("CINECA")
+        cin_ok = cin and cin.get("feasible")
+        m4_ok = m4 and m4.get("feasible")
+        if cin_ok and (not m4_ok or cin["cost_per_h"] < m4["cost_per_h"]):
+            best = d if best is None else max(best, d)
+    return best
+
+
+def mono_cost(points) -> bool:
+    """Cost non-increasing as the deadline loosens, per VM type."""
+    mono = True
+    for vm in ("m4.xlarge", "CINECA"):
+        cs = [p["cost_per_h"] for p in sorted(
+            (x for x in points if x["vm"] == vm and x.get("feasible")),
+            key=lambda x: x["deadline_s"])]
+        mono &= all(cs[i] >= cs[i + 1] - 1e-9 for i in range(len(cs) - 1))
+    return bool(mono)
+
+
+def cost_deadline(device=None, *, quick: bool = True) -> dict:
+    """Figures 5-7: per deadline and VM type the analytic initial solution,
+    the AMVA frontier over [nu-8, nu+8] (one ``amva`` launch), then
+    Algorithm 1 on the point-wise QN evaluator from the frontier's first
+    feasible nu.  ``quick`` takes every second deadline and ``min_jobs=15``
+    (the reference's quick grids).  Returns ``{fig: points}`` and under
+    ``"summary"`` each figure's crossover, cost monotonicity, dispatches
+    and wall."""
+    dev = resolve_device(device)
+    mj = 15 if quick else 25
+    out, summary = {}, {}
+    for fig, (q, u, ds) in COST_DEADLINE_GRIDS.items():
+        d0 = _dispatches()
+        t0 = time.perf_counter()
+        pts = []
+        for d_s in (ds[::2] if quick else ds):
+            prob, samples, _ = scenario_problem(q, u, d_s * 1000.0)
+            cls = prob.classes[0]
+            ev = make_qn_evaluator(min_jobs=mj, warmup_jobs=10,
+                                   replications=1, seed=11, samples=samples,
+                                   device=dev)
+            for vm in prob.vm_types:
+                init = initial_class_solution(cls, vm)
+                if init is None:
+                    pts.append({"deadline_s": d_s, "vm": vm.name,
+                                "feasible": False})
+                    continue
+                lo = max(1, init.nu - 8)
+                ts = amva_frontier(cls, vm, lo, init.nu + 8, device=dev)
+                feas = np.where(ts <= cls.deadline_ms)[0]
+                nu_star = lo + int(feas[0]) if len(feas) else init.nu
+                sol = optimize_class(cls, vm, nu_star, ev, max_nu=400)
+                pts.append({"deadline_s": d_s, "vm": vm.name,
+                            "feasible": sol.feasible, "nu": sol.nu,
+                            "cost_per_h": sol.cost_per_h,
+                            "reserved": sol.reserved, "spot": sol.spot,
+                            "T_s": sol.predicted_ms / 1000.0})
+        _sync(dev)
+        out[fig] = pts
+        summary[fig] = {"query": q, "users": u, "points": len(pts),
+                        "crossover_deadline_s": crossover(pts),
+                        "mono_cost": mono_cost(pts),
+                        "dispatches": _dispatches() - d0,
+                        "wall_s": time.perf_counter() - t0}
+    out["summary"] = summary
+    return out
+
+
+# --------------------------------------------------------- hc_convergence
+
+def hc_convergence(device=None, *, min_jobs: int = 25) -> dict:
+    """Q1-10u with ``race=False`` (the analytic-locked VM type) in three
+    gaits: classic point-wise Algorithm 1, batched window sweeps and
+    ``run_fast``.  The reference's XLA compile counters have no
+    counterpart here: they are ``None``."""
+    dev = resolve_device(device)
+    prob, samples, _ = scenario_problem("Q1", 10, 160_000.0)
+    kw = dict(min_jobs=min_jobs, replications=1, samples=samples,
+              race=False, device=dev)
+    out = {
+        "classic": _timed_plan(dev, lambda: DSpace4Cloud(
+            prob, batched=False, **kw).run()),
+        "batched": _timed_plan(dev, lambda: DSpace4Cloud(
+            prob, batched=True, **kw).run()),
+        "fast": _timed_plan(dev, lambda: DSpace4Cloud(
+            prob, batched=True, **kw).run_fast())}
+    for mode in out.values():
+        mode.update(compile_s=None, execute_s=None, compiles=None,
+                    compile_cache_hits=None)
+    agree = all(abs(out["classic"]["nu"][k] - out[m]["nu"][k]) <= 2
+                for m in ("batched", "fast") for k in out["classic"]["nu"])
+    assert agree, f"modes disagree beyond 2 VMs: {out}"
+    return out
+
+
+# ---------------------------------------------------------------- vm_race
+
+STEADY = VMType(name="steady", cores=2, sigma=0.05, pi=0.20)
+TURBO = VMType(name="turbo", cores=2, sigma=0.0425, pi=0.17)
+VALUE = VMType(name="value", cores=2, sigma=0.0475, pi=0.19)
+MICRO = VMType(name="micro", cores=1, sigma=0.15, pi=0.15)
+
+_BASE = dict(n_map=24, n_reduce=6, m_avg=2000, r_avg=900)
+
+
+def catalog_problem():
+    """``benchmarks/vm_race.py``'s catalog: the analytic ranking is steady
+    < value < turbo < micro (turbo pushed back by pessimistic profiled
+    maxima), while at the QN tier turbo is cheapest.  micro's lane replays
+    logged task durations about twice its profiled averages, so it climbs
+    until its cost floor passes the incumbent and is pruned; it also forms
+    a second fusion group (replay beside exponential lanes).  Returns
+    ``(problem, samples)``."""
+    profiles = {
+        "steady": JobProfile(m_max=4000, r_max=1800, **_BASE),
+        "value": JobProfile(m_max=5600, r_max=2520, **_BASE),
+        "turbo": JobProfile(m_max=6000, r_max=2700, **_BASE),
+        "micro": JobProfile(m_max=2000, r_max=900, **_BASE),
+    }
+    cls = ApplicationClass(name="etl", h_users=4, think_ms=6000.0,
+                           deadline_ms=11_000.0, eta=0.25,
+                           profiles=profiles)
+    m_logged = [3600.0 + 40.0 * i for i in range(24)]      # avg ~4060 ms
+    r_logged = [1620.0 + 60.0 * i for i in range(6)]       # avg ~1770 ms
+    samples = {("etl", "micro"): (m_logged, r_logged)}
+    return Problem(classes=[cls],
+                   vm_types=[STEADY, TURBO, VALUE, MICRO]), samples
+
+
+def _race_solve(dev, prob, race: bool, kw: dict, samples=None):
+    d0 = _dispatches()
+    t0 = time.perf_counter()
+    rep = DSpace4Cloud(prob, race=race, samples=samples, device=dev,
+                       **kw).run()
+    _sync(dev)
+    sol = rep.solutions["etl"]
+    return rep, {"vm_type": sol.vm_type, "nu": sol.nu,
+                 "reserved": sol.reserved, "spot": sol.spot,
+                 "cost_per_h": sol.cost_per_h,
+                 "predicted_ms": sol.predicted_ms,
+                 "feasible": sol.feasible,
+                 "dispatches": _dispatches() - d0,
+                 "evals": rep.evals, "wall_s": time.perf_counter() - t0}
+
+
+def _lane_parity(dev, prob, raced_rep, kw: dict, samples=None) -> bool:
+    """Every point the race probed equals a solo sweep of the same lane
+    (same seed, fresh evaluator): a pruned lane probed a prefix of it, an
+    unpruned lane all of it."""
+    cls = prob.classes[0]
+    ranking = {s.vm_type: s for s in rank_vm_types(prob)["etl"]}
+    for vm in prob.vm_types:
+        rid = request_id("etl", vm.name)
+        if rid not in raced_rep.traces:
+            continue                     # analytically infeasible: no lane
+        tr = HCTrace(cls="etl")
+        solo_kw = {k: kw[k] for k in ("min_jobs", "replications", "seed")}
+        ev = DSpace4Cloud(Problem(classes=[cls], vm_types=[vm]),
+                          window=kw["window"], samples=samples, device=dev,
+                          **solo_kw).evaluate
+        sweep_class(cls, vm, ranking[vm.name].nu, ev, window=kw["window"],
+                    trace=tr)
+        race_moves = raced_rep.traces[rid].moves
+        if tr.moves[:len(race_moves)] != race_moves:
+            return False
+        if not raced_rep.traces[rid].pruned and tr.moves != race_moves:
+            return False
+    return True
+
+
+def vm_race(device=None, *, min_jobs: int = 20,
+            replications: int = 2) -> dict:
+    """The four-type catalog locked (``race=False``) against raced; the
+    reference's quick budgets are ``min_jobs=8, replications=1``."""
+    dev = resolve_device(device)
+    kw = dict(min_jobs=min_jobs, replications=replications, seed=3,
+              window=8)
+    prob, samples = catalog_problem()
+    _, locked = _race_solve(dev, prob, False, kw, samples)
+    raced_rep, raced = _race_solve(dev, prob, True, kw, samples)
+    parity = _lane_parity(dev, prob, raced_rep, kw, samples)
+    lanes = {rid: {"bound": tr.lane_bound, "pruned": tr.pruned,
+                   "evals": tr.evals, "nus": [m[0] for m in tr.moves],
+                   "predicted_ms": [m[1] for m in tr.moves],
+                   "feasible": [m[2] for m in tr.moves]}
+             for rid, tr in raced_rep.traces.items()}
+    assert parity, "raced lane points diverged from solo sweeps"
+    assert raced["cost_per_h"] < locked["cost_per_h"], \
+        "racer failed to beat the analytic-locked choice"
+    assert raced["dispatches"] <= 2 * max(locked["dispatches"], 1), \
+        f"race cost {raced['dispatches']} dispatches > " \
+        f"2x locked {locked['dispatches']}"
+    single = Problem(classes=prob.classes, vm_types=[STEADY])
+    _, single_locked = _race_solve(dev, single, False, kw)
+    _, single_raced = _race_solve(dev, single, True, kw)
+    degenerate = all(single_raced[k] == single_locked[k]
+                     for k in ("dispatches", "vm_type", "nu", "cost_per_h"))
+    assert degenerate, "single-type catalog did not degenerate to locked"
+    return {"catalog_size": len(prob.vm_types),
+            "locked": locked, "raced": raced, "lanes": lanes,
+            "single_type": {"locked": single_locked, "raced": single_raced},
+            "saving_per_h": locked["cost_per_h"] - raced["cost_per_h"],
+            "dispatch_ratio": raced["dispatches"]
+            / max(locked["dispatches"], 1),
+            "lanes_pruned": sum(1 for v in lanes.values() if v["pruned"]),
+            "parity_bit_exact": parity,
+            "degenerate_single_type": degenerate}
+
+
+# ----------------------------------------------------------------- table3
+
+def table3(device=None, *, rows=None, max_jobs: int = 40,
+           min_jobs: int = 40, replications: int = 2) -> dict:
+    """The paper's Table 3: per row (all 12, or the indices in ``rows``)
+    T from the cluster simulator (``max_jobs``, 5 warm-up jobs, seed 123),
+    the replay lists from 20 profiling runs (seed 55) and tau from the
+    scalar QN (``min_jobs``, 8 warm-up jobs, seed 3, ``replications``
+    single-lane dispatches), theta = (tau - T) / T.  Each row also records
+    its event budget, the launches of each event-loop kernel that ran (as
+    ``qn_event.routes`` counts them; none on the CPU) and the host wall of
+    the two simulators apart."""
+    dev = resolve_device(device)
+    specs = calibrated_specs()
+    out = []
+    for i, s in enumerate(TABLE3):
+        if rows is not None and i not in rows:
+            continue
+        sp = specs[i]
+        t0 = time.perf_counter()
+        T, _ = simulate_cluster(
+            sp, slots=s.containers, h_users=s.users, think_ms=THINK_MS,
+            max_jobs=max_jobs, warmup_jobs=5, seed=123)
+        ms, rs = replayer_lists(sp, runs=20, slots=s.containers, seed=55)
+        t1 = time.perf_counter()
+        n0 = qn_ops.qn_event.launches
+        k0 = dict(qn_ops.qn_event.routes)
+        tau = qn_sim.response_time(
+            n_map=s.n_map, n_reduce=s.n_reduce, m_avg=sp.map_ms,
+            r_avg=sp.reduce_ms, think_ms=THINK_MS, h_users=s.users,
+            slots=s.containers, min_jobs=min_jobs, warmup_jobs=8, seed=3,
+            replications=replications, m_samples=ms, r_samples=rs,
+            device=dev)
+        _sync(dev)
+        t2 = time.perf_counter()
+        events = qn_sim.padded_event_budget(s.n_map, s.n_reduce,
+                                            min_jobs=min_jobs, warmup_jobs=8)
+        max_slots = shapes.bucket_slots(s.containers)
+        out.append({"row": i, "query": s.query, "users": s.users,
+                    "cores": s.containers, "dataset_gb": s.dataset_gb,
+                    "n_map": s.n_map, "n_reduce": s.n_reduce,
+                    "events": events, "max_slots": max_slots,
+                    "kernels": {k: n - k0[k] for k, n in
+                                qn_ops.qn_event.routes.items() if n > k0[k]},
+                    "launches": qn_ops.qn_event.launches - n0,
+                    "cluster_sim_s": t1 - t0, "qn_s": t2 - t1,
+                    "T_ms": T, "tau_ms": tau,
+                    "theta_pct": (tau - T) / T * 100.0})
+    a = np.abs([r["theta_pct"] for r in out])
+    return {"rows": out, "mean_abs_theta_pct": float(a.mean()),
+            "max_abs_theta_pct": float(a.max()),
+            "paper_mean_pct": 12.27, "paper_max_pct": 30.59}
+
+
+# ------------------------------------------------------------- serving_qn
+
+def serving_tau(solo_ms: float, *, n_requests: int = 12, slots: int = 3,
+                device=None) -> float:
+    """The QN's predicted latency of a closed burst of ``n_requests`` on
+    ``slots`` sequence slots, each request one task of a profiled round
+    time ``solo_ms`` (replay mode on ``solo_ms`` samples: decode rounds
+    are near-deterministic), think ~0."""
+    return qn_sim.response_time(
+        n_map=1, n_reduce=1, m_avg=solo_ms, r_avg=1e-3, think_ms=1.0,
+        h_users=n_requests, slots=slots, min_jobs=n_requests * 6,
+        warmup_jobs=n_requests * 2, seed=0, replications=2,
+        m_samples=np.full(64, solo_ms, np.float32),
+        r_samples=np.full(8, 1e-3, np.float32), device=device)
+
+
+def _round_ms(eng, dev, cfg, prompt_len, gen_len, slots, rng) -> float:
+    for _ in range(slots):
+        eng.submit(rng.integers(1, cfg.vocab_size, size=prompt_len).tolist(),
+                   gen_len=gen_len)
+    _sync(dev)
+    t0 = time.time()
+    eng.run()
+    _sync(dev)
+    return (time.time() - t0) * 1e3
+
+
+def serving_qn(device=None, *, arch: str = "granite-3-2b",
+               smoke: bool = True, n_requests: int = 12, slots: int = 3,
+               prompt_len: int = 32, gen_len: int = 24,
+               runs: int = 5) -> dict:
+    """Profiling rounds (``runs`` full rounds of ``slots`` identical
+    requests on a dedicated engine, after one warm-up) give ``solo_ms``,
+    the median round; the QN predicts tau from it (``serving_tau``); then
+    a closed loop of ``n_requests`` (each completion resubmits at once)
+    runs ``3 * (n_requests // slots)`` rounds on a fresh engine, and T is
+    the mean latency past the first third.  ``smoke`` takes the arch's
+    smoke config, else its full config; weights are seeded random
+    (``torch.Generator(...).manual_seed(0)``)."""
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    from repro_torch.distributed.sharding import init_params
+    from repro_torch.models import api
+    from repro_torch.serve.engine import BatchingEngine
+
+    dev = resolve_device(device)
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    params = init_params(api.param_specs(cfg),
+                         torch.Generator(device=dev).manual_seed(0))
+    eng = BatchingEngine(cfg, params, max_batch=slots, temperature=0.0)
+    rng = np.random.default_rng(1)
+    t0 = time.perf_counter()
+    _round_ms(eng, dev, cfg, prompt_len, gen_len, slots, rng)   # warm-up
+    solo_ms = float(np.median([
+        _round_ms(eng, dev, cfg, prompt_len, gen_len, slots, rng)
+        for _ in range(runs)]))
+    t1 = time.perf_counter()
+    tau = serving_tau(solo_ms, n_requests=n_requests, slots=slots,
+                      device=dev)
+    t2 = time.perf_counter()
+    prefills = len(eng.round_stats)
+    del eng
+    eng = BatchingEngine(cfg, params, max_batch=slots, temperature=0.0)
+    del params                        # the engine keeps its working copy
+    rng = np.random.default_rng(0)
+
+    def fresh():
+        return rng.integers(1, cfg.vocab_size, size=prompt_len).tolist()
+
+    for _ in range(slots):
+        eng.submit(fresh(), gen_len=gen_len)
+    eng.run()                                  # warm-up round (B = slots)
+    for _ in range(n_requests):
+        eng.submit(fresh(), gen_len=gen_len)
+    lats = []
+    rounds = 3 * (n_requests // slots)         # ~3 full cycles
+    for _ in range(rounds):
+        eng._run_round()
+        completed, eng._done = eng._done, []
+        for r in completed:
+            lats.append(r.latency_s * 1e3)
+            eng.submit(fresh(), gen_len=gen_len)   # closed loop
+    _sync(dev)
+    warm = len(lats) // 3
+    T = float(np.mean(lats[warm:]))
+    return {"solo_latency_ms": solo_ms, "qn_tau_ms": tau,
+            "engine_T_ms": T, "theta_pct": (tau - T) / T * 100.0,
+            "n_requests": n_requests, "slots": slots, "arch": cfg.name,
+            "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "prompt_len": prompt_len, "gen_len": gen_len,
+            "rounds": rounds, "prefills": prefills + len(eng.round_stats),
+            "profile_s": t1 - t0, "qn_s": t2 - t1,
+            "closed_loop_s": time.perf_counter() - t2}
+
+
+# ------------------------------------------------------------- comparison
+
+def mismatches(ref, got, *, rel: float = 0.0) -> list:
+    """Paths at which ``got`` differs from ``ref``: every key of a ``ref``
+    dict must be in ``got`` (``got`` may hold more), lists must have equal
+    lengths, and values must be equal, except numbers under a
+    ``predicted_ms`` key (response times), which may differ by ``rel``
+    relative to ``ref``'s."""
+    out = []
+
+    def walk(a, b, path, tol):
+        if isinstance(a, dict):
+            if not isinstance(b, dict):
+                out.append(path or ".")
+                return
+            for k, v in a.items():
+                p = f"{path}.{k}" if path else str(k)
+                if k in b:
+                    walk(v, b[k], p, tol or k == "predicted_ms")
+                else:
+                    out.append(p)
+        elif isinstance(a, (list, tuple)):
+            if not isinstance(b, (list, tuple)) or len(a) != len(b):
+                out.append(path)
+                return
+            for i, (x, y) in enumerate(zip(a, b)):
+                walk(x, y, f"{path}[{i}]", tol)
+        elif isinstance(a, (bool, str)) or a is None \
+                or isinstance(b, bool):
+            if not (a == b and type(a) is type(b)):
+                out.append(path)
+        elif tol and rel and isinstance(b, (int, float)) \
+                and np.isfinite(a):
+            if not abs(b - a) <= rel * abs(a):
+                out.append(path)
+        elif b != a:
+            out.append(path)
+
+    walk(ref, got, "", False)
+    return out
+
+
+SCENARIOS = {"batched_qn": batched_qn, "cost_deadline": cost_deadline,
+             "hc_convergence": hc_convergence, "vm_race": vm_race,
+             "table3": table3, "serving_qn": serving_qn}
+
+
+def main(argv=None) -> None:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    device = None
+    if "--device" in argv:
+        i = argv.index("--device")
+        device = argv[i + 1]
+        del argv[i:i + 2]
+    for name in argv or list(SCENARIOS):
+        t0 = time.perf_counter()
+        res = SCENARIOS[name](device)
+        print(json.dumps({name: res, "wall_s": time.perf_counter() - t0}),
+              flush=True)
+
+
+if __name__ == "__main__":
+    main()

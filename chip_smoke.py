@@ -1,5 +1,7 @@
 """Drive the PyTorch/CUDA port on one CUDA card: the planner in both
-gaits and the LM serving path (dense, Mamba2 and hybrid models).
+gaits, the repo's benchmarked planner scenarios, the paper's Table 3 and
+its serving analogue, and the LM serving path (dense, Mamba2 and hybrid
+models).
 
     python3 chip_smoke.py
 
@@ -81,12 +83,41 @@ Phases, each printing one line or a few:
      the same tensors (a yardstick only: the port never calls it);
      ssd_scan's wgmma route at mamba2's and zamba2's prefill shapes (and
      its device time alone) and its float32 route at mamba2's, each
-     beside its bound.
+     beside its bound; amva's device time alone and its share of a
+     run_fast plan's wall;
+  7. (after phase 4) [scenarios] the repo's public-cloud planner
+     benchmarks at their own budgets (benchmarks/torch_scenarios.py):
+     batched_qn (an 8-point frontier scalar against batched, the
+     optimizer point-wise, batched and run_fast), cost_deadline (Figures
+     5-7 on the reference's quick grids: initial solution, the amva
+     frontier, Algorithm 1 on the point-wise evaluator), hc_convergence
+     (race=False in three gaits) and vm_race (a four-type catalog locked
+     against raced, lower-bound pruning, mixed fusion groups, per-lane
+     parity, the one-type catalog's degenerate race); every decision,
+     dispatch count, pruned lane and crossover must equal the reference's,
+     every replay-mode response time exactly and an exponential-mode one
+     within a relative 1e-3; each scenario's wall is taken without the
+     profiler, then a second, profiled drive gives each kernel's device
+     time (not measured where the profiler saw fewer launches than the
+     wrapper counted);
+  8. (after phase 7) [table3] the paper's Table 3: per row T from the
+     host's cluster simulator and tau from the scalar QN on the card (up
+     to 524288 events a lane), each equal to the reference's; per row the
+     event budget, the event-loop kernel that ran (as qn_event counts the
+     library's report of it), launches, host ms and, from a second,
+     profiled drive, device ms; mean and max |theta| beside the paper's
+     12.27% / 30.59%; phase 3 holds one lane of its largest row against
+     the plain version with the budget cut;
+  9. (after phase 5) [serving-qn] the serving analogue: tau at the
+     reference's fixed round times, equal to its tau; then profiled
+     rounds, tau and the engine's closed-loop T at granite-3-2b's smoke
+     config and at its full width and depth (40 layers), theta beside the
+     paper's +-30% (recorded, not gated).
 Each drive of a main path sets the kernels' launch counts to 0 just before
 it and reads them just after.  The second-to-last line is the kernels'
 JSON record, the last line {"ok": true, "device": {...}}.  Any failure
 exits nonzero before it.  Needs one CUDA card, nvcc, and the repository's
-src/ beside this file.
+src/ and benchmarks/ beside this file.
 """
 from __future__ import annotations
 
@@ -143,6 +174,10 @@ MVA_HS = (0, 1, 4, 5, 25)
 DEGENERATE = dict(n_map=1, n_reduce=1, m_avg=1000.0, r_avg=1.0,
                   think_ms=10_000.0, h_users=5)
 DEGENERATE_TOL = 0.08
+# Table 3's row with the largest event budget (1560 maps, 1009 reduces:
+# 524288 events a lane) and the cut budget of its kernel-vs-plain check
+T3_ROW = 10
+E_T3 = 6144
 # the event loop's and the draw tables' times before this kernel design,
 # and the Q1-10u plan walls they gave (chip_smoke.py on an NVIDIA H100
 # 80GB HBM3 at 700 W; PERF.md), printed beside this run's in the [time]
@@ -168,99 +203,259 @@ THREEFRY_PER_EVENT = {False: 4, True: 7}
 DEVICE_KERNELS = {"flash_attention": ("fa_wgmma_kernel", "fa_f32_kernel"),
                   "ssd_scan": ("ssd_wgmma_kernel", "ssd_f32_kernel")}
 
-# Decisions of the JAX reference (src/repro) for the same calls, printed by
+# Decisions and numbers of the JAX reference (src/repro) for the same calls
+# and scenarios, printed by
 #   PYTHONPATH=src JAX_PLATFORMS=cpu python -m benchmarks.port_reference_decisions
 # on a CPU host (JAX 0.9.0).
-REFERENCE = {
- "Q1-10u.run": {
-  "qn_dispatches": 2,
-  "classes": {
-   "Q1-10u": {
-    "vm_type": "m4.xlarge",
-    "nu": 40,
-    "reserved": 28,
-    "spot": 12,
-    "cost_per_h": 7.0,
-    "predicted_ms": 158747.29693983402,
-    "feasible": True
-   }
-  }
- },
- "Q1-10u.run_fast": {
-  "qn_dispatches": 2,
-  "classes": {
-   "Q1-10u": {
-    "vm_type": "m4.xlarge",
-    "nu": 40,
-    "reserved": 28,
-    "spot": 12,
-    "cost_per_h": 7.0,
-    "predicted_ms": 158747.29693983402,
-    "feasible": True
-   }
-  }
- },
- "quickstart.run": {
-  "qn_dispatches": 2,
-  "classes": {
-   "bi-dashboards": {
-    "vm_type": "m4.xlarge",
-    "nu": 5,
-    "reserved": 4,
-    "spot": 1,
-    "cost_per_h": 0.95,
-    "predicted_ms": 49770.77734375,
-    "feasible": True
-   },
-   "nightly-etl": {
-    "vm_type": "m4.xlarge",
-    "nu": 2,
-    "reserved": 1,
-    "spot": 1,
-    "cost_per_h": 0.29000000000000004,
-    "predicted_ms": 409866.53125,
-    "feasible": True
-   }
-  }
- },
- "Q1-10u.run_pointwise": {
-  "qn_dispatches": 32,
-  "classes": {
-   "Q1-10u": {
-    "vm_type": "m4.xlarge",
-    "nu": 40,
-    "reserved": 28,
-    "spot": 12,
-    "cost_per_h": 7.0,
-    "predicted_ms": 158747.29693983402,
-    "feasible": True
-   }
-  }
- },
- "quickstart.run_pointwise": {
-  "qn_dispatches": 4,
-  "classes": {
-   "bi-dashboards": {
-    "vm_type": "m4.xlarge",
-    "nu": 5,
-    "reserved": 4,
-    "spot": 1,
-    "cost_per_h": 0.95,
-    "predicted_ms": 49770.77734375,
-    "feasible": True
-   },
-   "nightly-etl": {
-    "vm_type": "m4.xlarge",
-    "nu": 2,
-    "reserved": 1,
-    "spot": 1,
-    "cost_per_h": 0.29000000000000004,
-    "predicted_ms": 409866.53125,
-    "feasible": True
-   }
-  }
- }
-}
+REFERENCE = {'Q1-10u.run': {'qn_dispatches': 2,
+  'classes': {'Q1-10u': {'vm_type': 'm4.xlarge', 'nu': 40, 'reserved': 28, 'spot': 12,
+              'cost_per_h': 7.0, 'predicted_ms': 158747.29693983402,
+              'feasible': True}}},
+ 'Q1-10u.run_fast': {'qn_dispatches': 2,
+  'classes': {'Q1-10u': {'vm_type': 'm4.xlarge', 'nu': 40, 'reserved': 28, 'spot': 12,
+              'cost_per_h': 7.0, 'predicted_ms': 158747.29693983402,
+              'feasible': True}}},
+ 'quickstart.run': {'qn_dispatches': 2,
+  'classes': {'bi-dashboards': {'vm_type': 'm4.xlarge', 'nu': 5, 'reserved': 4, 'spot': 1,
+                     'cost_per_h': 0.95, 'predicted_ms': 49770.77734375,
+                     'feasible': True},
+   'nightly-etl': {'vm_type': 'm4.xlarge', 'nu': 2, 'reserved': 1, 'spot': 1,
+                   'cost_per_h': 0.29000000000000004,
+                   'predicted_ms': 409866.53125, 'feasible': True}}},
+ 'Q1-10u.run_pointwise': {'qn_dispatches': 32,
+  'classes': {'Q1-10u': {'vm_type': 'm4.xlarge', 'nu': 40, 'reserved': 28, 'spot': 12,
+              'cost_per_h': 7.0, 'predicted_ms': 158747.29693983402,
+              'feasible': True}}},
+ 'quickstart.run_pointwise': {'qn_dispatches': 4,
+  'classes': {'bi-dashboards': {'vm_type': 'm4.xlarge', 'nu': 5, 'reserved': 4, 'spot': 1,
+                     'cost_per_h': 0.95, 'predicted_ms': 49770.77734375,
+                     'feasible': True},
+   'nightly-etl': {'vm_type': 'm4.xlarge', 'nu': 2, 'reserved': 1, 'spot': 1,
+                   'cost_per_h': 0.29000000000000004,
+                   'predicted_ms': 409866.53125, 'feasible': True}}},
+ 'batched_qn': {'frontier': {'points': 8,
+   'scalar_ms': [3269627.5, 2177950.75, 1630223.125, 1301342.25, 1086250.25,
+                 928012.5625, 812556.875, 719421.0625],
+   'batched_ms': [3269627.5, 2177950.75, 1630223.125, 1301342.25, 1086250.25,
+                  928012.5625, 812556.875, 719421.0625],
+   'scalar_dispatches': 8,
+   'batched_dispatches': 1,
+   'parity_max_rel_err': 0.0},
+  'optimizer': {'scalar': {'evals': 16,
+    'dispatches': 16,
+    'cost': 7.0,
+    'nu': {'Q1-10u': 40},
+    'classes': {'Q1-10u': {'vm_type': 'm4.xlarge', 'nu': 40, 'reserved': 28, 'spot': 12,
+                'cost_per_h': 7.0, 'predicted_ms': 157892.640625,
+                'feasible': True}}},
+   'batched': {'evals': 31,
+    'dispatches': 2,
+    'cost': 7.0,
+    'nu': {'Q1-10u': 40},
+    'classes': {'Q1-10u': {'vm_type': 'm4.xlarge', 'nu': 40, 'reserved': 28, 'spot': 12,
+                'cost_per_h': 7.0, 'predicted_ms': 157892.640625,
+                'feasible': True}}},
+   'fast_batched': {'evals': 31,
+    'dispatches': 2,
+    'cost': 7.0,
+    'nu': {'Q1-10u': 40},
+    'classes': {'Q1-10u': {'vm_type': 'm4.xlarge', 'nu': 40, 'reserved': 28, 'spot': 12,
+                'cost_per_h': 7.0, 'predicted_ms': 157892.640625,
+                'feasible': True}}}},
+  'dispatch_ratio': 8.0},
+ 'cost_deadline': {'fig5': [{'deadline_s': 300, 'vm': 'm4.xlarge', 'feasible': True, 'nu': 22,
+    'cost_per_h': 3.94, 'reserved': 16, 'spot': 6, 'T_s': 293.001375},
+   {'deadline_s': 300, 'vm': 'CINECA', 'feasible': True, 'nu': 7,
+    'cost_per_h': 5.2, 'reserved': 5, 'spot': 2, 'T_s': 274.328125},
+   {'deadline_s': 200, 'vm': 'm4.xlarge', 'feasible': True, 'nu': 32,
+    'cost_per_h': 5.6899999999999995, 'reserved': 23, 'spot': 9,
+    'T_s': 197.4996875},
+   {'deadline_s': 200, 'vm': 'CINECA', 'feasible': True, 'nu': 10,
+    'cost_per_h': 7.35, 'reserved': 7, 'spot': 3, 'T_s': 189.62896875},
+   {'deadline_s': 130, 'vm': 'm4.xlarge', 'feasible': True, 'nu': 49,
+    'cost_per_h': 8.68, 'reserved': 35, 'spot': 14, 'T_s': 125.5866015625},
+   {'deadline_s': 130, 'vm': 'CINECA', 'feasible': True, 'nu': 15,
+    'cost_per_h': 11.3, 'reserved': 11, 'spot': 4, 'T_s': 121.1645625}],
+  'fig6': [{'deadline_s': 420, 'vm': 'm4.xlarge', 'feasible': True, 'nu': 27,
+    'cost_per_h': 4.74, 'reserved': 19, 'spot': 8, 'T_s': 417.74159375},
+   {'deadline_s': 420, 'vm': 'CINECA', 'feasible': True, 'nu': 8,
+    'cost_per_h': 6.1000000000000005, 'reserved': 6, 'spot': 2,
+    'T_s': 417.98990625},
+   {'deadline_s': 270, 'vm': 'm4.xlarge', 'feasible': True, 'nu': 42,
+    'cost_per_h': 7.4399999999999995, 'reserved': 30, 'spot': 12,
+    'T_s': 261.123109375},
+   {'deadline_s': 270, 'vm': 'CINECA', 'feasible': True, 'nu': 13,
+    'cost_per_h': 10.05, 'reserved': 10, 'spot': 3, 'T_s': 254.03603125},
+   {'deadline_s': 180, 'vm': 'm4.xlarge', 'feasible': True, 'nu': 63,
+    'cost_per_h': 11.16, 'reserved': 45, 'spot': 18, 'T_s': 174.83071875},
+   {'deadline_s': 180, 'vm': 'CINECA', 'feasible': True, 'nu': 18,
+    'cost_per_h': 13.450000000000001, 'reserved': 13, 'spot': 5,
+    'T_s': 177.694078125}],
+  'fig7': [{'deadline_s': 300, 'vm': 'm4.xlarge', 'feasible': True, 'nu': 43,
+    'cost_per_h': 7.66, 'reserved': 31, 'spot': 12, 'T_s': 294.5915625},
+   {'deadline_s': 300, 'vm': 'CINECA', 'feasible': True, 'nu': 13,
+    'cost_per_h': 10.05, 'reserved': 10, 'spot': 3, 'T_s': 287.3035},
+   {'deadline_s': 200, 'vm': 'm4.xlarge', 'feasible': True, 'nu': 64,
+    'cost_per_h': 11.23, 'reserved': 45, 'spot': 19, 'T_s': 197.588328125},
+   {'deadline_s': 200, 'vm': 'CINECA', 'feasible': True, 'nu': 19,
+    'cost_per_h': 14.35, 'reserved': 14, 'spot': 5, 'T_s': 195.767828125},
+   {'deadline_s': 130, 'vm': 'm4.xlarge', 'feasible': True, 'nu': 96,
+    'cost_per_h': 16.92, 'reserved': 68, 'spot': 28, 'T_s': 127.3591015625},
+   {'deadline_s': 130, 'vm': 'CINECA', 'feasible': True, 'nu': 28,
+    'cost_per_h': 20.8, 'reserved': 20, 'spot': 8, 'T_s': 126.5567265625},
+   {'deadline_s': 95, 'vm': 'm4.xlarge', 'feasible': True, 'nu': 132,
+    'cost_per_h': 23.19, 'reserved': 93, 'spot': 39, 'T_s': 93.36471875},
+   {'deadline_s': 95, 'vm': 'CINECA', 'feasible': True, 'nu': 39,
+    'cost_per_h': 29.049999999999997, 'reserved': 28, 'spot': 11,
+    'T_s': 92.258734375},
+   {'deadline_s': 75, 'vm': 'm4.xlarge', 'feasible': True, 'nu': 170,
+    'cost_per_h': 29.75, 'reserved': 119, 'spot': 51, 'T_s': 74.7521171875},
+   {'deadline_s': 75, 'vm': 'CINECA', 'feasible': True, 'nu': 49,
+    'cost_per_h': 36.4, 'reserved': 35, 'spot': 14, 'T_s': 71.8184375},
+   {'deadline_s': 62, 'vm': 'm4.xlarge', 'feasible': True, 'nu': 203,
+    'cost_per_h': 35.660000000000004, 'reserved': 143, 'spot': 60,
+    'T_s': 59.99526171875},
+   {'deadline_s': 62, 'vm': 'CINECA', 'feasible': True, 'nu': 57,
+    'cost_per_h': 41.95, 'reserved': 40, 'spot': 17, 'T_s': 61.94483984375},
+   {'deadline_s': 50, 'vm': 'm4.xlarge', 'feasible': True, 'nu': 728,
+    'cost_per_h': 127.46000000000001, 'reserved': 510, 'spot': 218,
+    'T_s': 48.29650390625},
+   {'deadline_s': 50, 'vm': 'CINECA', 'feasible': True, 'nu': 71,
+    'cost_per_h': 52.35, 'reserved': 50, 'spot': 21, 'T_s': 48.53174609375}],
+  'summary': {'fig5': {'query': 'Q1', 'users': 10, 'points': 6,
+            'crossover_deadline_s': None, 'mono_cost': True, 'dispatches': 53},
+   'fig6': {'query': 'Q3', 'users': 10, 'points': 6,
+            'crossover_deadline_s': None, 'mono_cost': True, 'dispatches': 52},
+   'fig7': {'query': 'Q1', 'users': 20, 'points': 14,
+            'crossover_deadline_s': 50, 'mono_cost': True, 'dispatches': 1152}}},
+ 'hc_convergence': {'classic': {'evals': 16,
+   'dispatches': 16,
+   'cost': 7.0,
+   'nu': {'Q1-10u': 40},
+   'classes': {'Q1-10u': {'vm_type': 'm4.xlarge', 'nu': 40, 'reserved': 28, 'spot': 12,
+               'cost_per_h': 7.0, 'predicted_ms': 157892.640625,
+               'feasible': True}}},
+  'batched': {'evals': 16,
+   'dispatches': 1,
+   'cost': 7.0,
+   'nu': {'Q1-10u': 40},
+   'classes': {'Q1-10u': {'vm_type': 'm4.xlarge', 'nu': 40, 'reserved': 28, 'spot': 12,
+               'cost_per_h': 7.0, 'predicted_ms': 157892.640625,
+               'feasible': True}}},
+  'fast': {'evals': 16,
+   'dispatches': 1,
+   'cost': 7.0,
+   'nu': {'Q1-10u': 40},
+   'classes': {'Q1-10u': {'vm_type': 'm4.xlarge', 'nu': 40, 'reserved': 28, 'spot': 12,
+               'cost_per_h': 7.0, 'predicted_ms': 157892.640625,
+               'feasible': True}}}},
+ 'vm_race': {'catalog_size': 4,
+  'locked': {'vm_type': 'steady', 'nu': 10, 'reserved': 8, 'spot': 2,
+             'cost_per_h': 1.7000000000000002,
+             'predicted_ms': 10872.7802734375, 'feasible': True,
+             'dispatches': 2, 'evals': 24},
+  'raced': {'vm_type': 'turbo', 'nu': 10, 'reserved': 8, 'spot': 2,
+            'cost_per_h': 1.445, 'predicted_ms': 10872.7802734375,
+            'feasible': True, 'dispatches': 2, 'evals': 32},
+  'lanes': {'etl@steady': {'bound': 1.7000000000000002,
+    'pruned': True,
+    'evals': 8,
+    'nus': [2, 3, 4, 5, 6, 7, 8, 9],
+    'predicted_ms': [45701.720703125, 29305.2548828125, 19142.828311820653,
+                     16683.0830078125, 14064.7939453125, 12356.126180366848,
+                     11322.096433423912, 11094.0],
+    'feasible': [False, False, False, False, False, False, False, False]},
+   'etl@turbo': {'bound': 1.445,
+    'pruned': False,
+    'evals': 8,
+    'nus': [4, 5, 6, 7, 8, 9, 10, 11],
+    'predicted_ms': [19142.828311820653, 16683.0830078125, 14064.7939453125,
+                     12356.126180366848, 11322.096433423912, 11094.0,
+                     10872.7802734375, 10301.147257133152],
+    'feasible': [False, False, False, False, False, False, True, True]},
+   'etl@value': {'bound': 1.615,
+    'pruned': False,
+    'evals': 8,
+    'nus': [3, 4, 5, 6, 7, 8, 9, 10],
+    'predicted_ms': [29305.2548828125, 19142.828311820653, 16683.0830078125,
+                     14064.7939453125, 12356.126180366848, 11322.096433423912,
+                     11094.0, 10872.7802734375],
+    'feasible': [False, False, False, False, False, False, False, True]},
+   'etl@micro': {'bound': 2.4,
+    'pruned': True,
+    'evals': 8,
+    'nus': [8, 9, 10, 11, 12, 13, 14, 15],
+    'predicted_ms': [48258.58984375, 43058.8125, 36881.40625, 32782.3818359375,
+                     29101.548828125, 26457.994140625, 25241.701171875,
+                     22299.076171875],
+    'feasible': [False, False, False, False, False, False, False, False]}},
+  'single_type': {'locked': {'vm_type': 'steady', 'nu': 10, 'reserved': 8, 'spot': 2,
+              'cost_per_h': 1.7000000000000002,
+              'predicted_ms': 10872.7802734375, 'feasible': True,
+              'dispatches': 2, 'evals': 24},
+   'raced': {'vm_type': 'steady', 'nu': 10, 'reserved': 8, 'spot': 2,
+             'cost_per_h': 1.7000000000000002,
+             'predicted_ms': 10872.7802734375, 'feasible': True,
+             'dispatches': 2, 'evals': 24}},
+  'lanes_pruned': 2,
+  'parity_bit_exact': True,
+  'degenerate_single_type': True},
+ 'table3': {'rows': [{'row': 0, 'query': 'Q1', 'users': 1, 'cores': 240, 'dataset_gb': 250,
+    'n_map': 500, 'n_reduce': 1, 'events': 131072, 'max_slots': 256,
+    'T_ms': 56565.6889959794, 'tau_ms': 55956.546875,
+    'theta_pct': -1.0768756321923274},
+   {'row': 1, 'query': 'Q1', 'users': 5, 'cores': 40, 'dataset_gb': 250,
+    'n_map': 144, 'n_reduce': 151, 'events': 65536, 'max_slots': 48,
+    'T_ms': 647001.1559847814, 'tau_ms': 653459.4375,
+    'theta_pct': 0.9981870133429036},
+   {'row': 2, 'query': 'Q2', 'users': 1, 'cores': 240, 'dataset_gb': 250,
+    'n_map': 65, 'n_reduce': 5, 'events': 16384, 'max_slots': 256,
+    'T_ms': 34720.35533252957, 'tau_ms': 34937.41015625,
+    'theta_pct': 0.6251515044751527},
+   {'row': 3, 'query': 'Q2', 'users': 3, 'cores': 20, 'dataset_gb': 250,
+    'n_map': 4, 'n_reduce': 4, 'events': 2048, 'max_slots': 24,
+    'T_ms': 106089.7655597094, 'tau_ms': 109668.78853699552,
+    'theta_pct': 3.37357987210536},
+   {'row': 4, 'query': 'Q3', 'users': 1, 'cores': 240, 'dataset_gb': 250,
+    'n_map': 750, 'n_reduce': 1, 'events': 131072, 'max_slots': 256,
+    'T_ms': 78279.08301385435, 'tau_ms': 74534.375,
+    'theta_pct': -4.783791365046509},
+   {'row': 5, 'query': 'Q4', 'users': 1, 'cores': 240, 'dataset_gb': 250,
+    'n_map': 524, 'n_reduce': 384, 'events': 131072, 'max_slots': 256,
+    'T_ms': 90715.23113269667, 'tau_ms': 93471.234375,
+    'theta_pct': 3.038082147717722},
+   {'row': 6, 'query': 'Q1', 'users': 1, 'cores': 60, 'dataset_gb': 500,
+    'n_map': 287, 'n_reduce': 300, 'events': 131072, 'max_slots': 64,
+    'T_ms': 383289.21291400865, 'tau_ms': 389564.0625,
+    'theta_pct': 1.6371057088421432},
+   {'row': 7, 'query': 'Q3', 'users': 1, 'cores': 100, 'dataset_gb': 500,
+    'n_map': 757, 'n_reduce': 793, 'events': 262144, 'max_slots': 128,
+    'T_ms': 388382.15897552815, 'tau_ms': 408958.03125,
+    'theta_pct': 5.2978417774767905},
+   {'row': 8, 'query': 'Q3', 'users': 1, 'cores': 120, 'dataset_gb': 750,
+    'n_map': 1148, 'n_reduce': 1009, 'events': 524288, 'max_slots': 128,
+    'T_ms': 671285.9701335928, 'tau_ms': 658587.375,
+    'theta_pct': -1.8916818909630553},
+   {'row': 9, 'query': 'Q4', 'users': 1, 'cores': 60, 'dataset_gb': 750,
+    'n_map': 868, 'n_reduce': 910, 'events': 262144, 'max_slots': 64,
+    'T_ms': 821368.9972806626, 'tau_ms': 814317.375,
+    'theta_pct': -0.8585206288536235},
+   {'row': 10, 'query': 'Q3', 'users': 1, 'cores': 80, 'dataset_gb': 1000,
+    'n_map': 1560, 'n_reduce': 1009, 'events': 524288, 'max_slots': 96,
+    'T_ms': 1015141.8560173161, 'tau_ms': 1016119.78125,
+    'theta_pct': 0.09633384998236239},
+   {'row': 11, 'query': 'Q5', 'users': 1, 'cores': 80, 'dataset_gb': 1000,
+    'n_map': 64, 'n_reduce': 68, 'events': 32768, 'max_slots': 96,
+    'T_ms': 38557.02898293836, 'tau_ms': 41583.919921875,
+    'theta_pct': 7.850425768738689}],
+  'mean_abs_theta_pct': 2.62729809664472,
+  'max_abs_theta_pct': 7.850425768738689,
+  'paper_mean_pct': 12.27,
+  'paper_max_pct': 30.59},
+ 'serving_qn': {'n_requests': 12,
+  'slots': 3,
+  'solo_ms': [150.0, 2500.0],
+  'tau_ms': [599.0405578613281, 9999.0283203125]}}
 
 
 def fail(msg: str) -> None:
@@ -332,6 +527,238 @@ def decisions(report) -> dict:
                    ("vm_type", "nu", "reserved", "spot", "cost_per_h",
                     "predicted_ms", "feasible")}
             for name, s in report.solutions.items()}
+
+
+# ------------------------------------------------- benchmarked scenarios
+# the repo's public-cloud planner benchmarks, in the order they run
+SCENARIOS = ("batched_qn", "cost_deadline", "hc_convergence", "vm_race")
+# the scenarios whose drives launch the amva kernel (run_fast's seeding,
+# cost_deadline's frontiers)
+AMVA_SCENARIOS = ("batched_qn", "cost_deadline", "hc_convergence")
+# the paper's Table 3 band and the serving analogue's (percent)
+PAPER_THETA = {"mean": 12.27, "max": 30.59, "serving_band": 30.0}
+
+
+def check_launches(name, got, n_disp, amva: bool):
+    """A planner drive's launches: one qn_event and one event_streams
+    launch a counted dispatch, amva where the drive seeds from the AMVA
+    frontier, nothing else."""
+    if got["qn_event"] != n_disp or n_disp <= 0:
+        fail(f"{name}: qn_event launches {got['qn_event']} != counted "
+             f"dispatches {n_disp}")
+    if got["event_streams"] != got["qn_event"]:
+        fail(f"{name}: event_streams launches {got['event_streams']} != "
+             f"qn_event launches {got['qn_event']}")
+    if (got["amva"] > 0) != amva:
+        fail(f"{name}: amva launches {got['amva']} (expected "
+             f"{'some' if amva else 'none'})")
+    if got["flash_attention"] or got["mva"] or got["ssd_scan"]:
+        fail(f"{name}: launches off its path: {got}")
+
+
+def check_scenario(scen, name, out, ref, got, n_disp, wall):
+    """Print a benchmarked scenario's decisions beside the reference's and
+    fail on any difference: exact, except vm_race's exponential-mode
+    response times (the three exponential lanes and the decisions they
+    give), within a relative 1e-3; its replay lane (micro) is exact."""
+    rel = 1e-3 if name == "vm_race" else 0.0
+    diff = scen.mismatches(ref, out, rel=rel)
+    if name == "vm_race":
+        diff += [f"lanes.etl@micro.{m}" for m in scen.mismatches(
+            ref["lanes"]["etl@micro"], out["lanes"]["etl@micro"])]
+    print(f"[scenarios] {name}: wall {wall:.3f} s, {n_disp} dispatches, "
+          f"launches {got}", flush=True)
+    if name == "batched_qn":
+        fr, op = out["frontier"], out["optimizer"]
+        print(f"[scenarios] batched_qn frontier ({fr['points']} points): "
+              f"dispatches {fr['scalar_dispatches']} -> "
+              f"{fr['batched_dispatches']}, parity_err "
+              f"{fr['parity_max_rel_err']:.2e}, scalar {fr['scalar_s']:.3f} "
+              f"s, batched {fr['batched_s']:.3f} s", flush=True)
+        for mode, r in op.items():
+            print(f"[scenarios] batched_qn {mode}: {r['dispatches']} "
+                  f"dispatches, {r['evals']} evals, wall {r['wall_s']:.3f} "
+                  f"s, decisions {json.dumps(r['classes'])}", flush=True)
+    elif name == "cost_deadline":
+        for fig, sm in out["summary"].items():
+            pts = [(p["deadline_s"], p["vm"], p.get("nu"),
+                    p.get("cost_per_h"), p["feasible"]) for p in out[fig]]
+            print(f"[scenarios] cost_deadline {fig} ({sm['query']}, "
+                  f"{sm['users']} users): crossover_deadline_s "
+                  f"{sm['crossover_deadline_s']} (reference "
+                  f"{ref['summary'][fig]['crossover_deadline_s']}), "
+                  f"mono_cost {sm['mono_cost']}, {sm['dispatches']} "
+                  f"dispatches, wall {sm['wall_s']:.3f} s; (deadline s, vm, "
+                  f"nu, cost, feasible): {pts}", flush=True)
+    elif name == "hc_convergence":
+        for mode, r in out.items():
+            print(f"[scenarios] hc_convergence {mode}: {r['dispatches']} "
+                  f"dispatches, {r['evals']} evals, wall {r['wall_s']:.3f} "
+                  f"s, decisions {json.dumps(r['classes'])}", flush=True)
+    else:
+        lo, ra = out["locked"], out["raced"]
+        print(f"[scenarios] vm_race: cost {lo['cost_per_h']:.3f} -> "
+              f"{ra['cost_per_h']:.3f} ({lo['vm_type']} -> "
+              f"{ra['vm_type']}), dispatches {lo['dispatches']} -> "
+              f"{ra['dispatches']}, pruned {out['lanes_pruned']}/"
+              f"{len(out['lanes'])} "
+              f"{ {k: (v['bound'], v['pruned']) for k, v in out['lanes'].items()} }"
+              f", parity {out['parity_bit_exact']}, single type degenerate "
+              f"{out['degenerate_single_type']}; predicted_ms locked "
+              f"{lo['predicted_ms']!r} (reference "
+              f"{ref['locked']['predicted_ms']!r}), raced "
+              f"{ra['predicted_ms']!r} (reference "
+              f"{ref['raced']['predicted_ms']!r})", flush=True)
+    print(f"[scenarios] {name} against the reference: "
+          f"{'equal' if not diff else diff}", flush=True)
+    if diff:
+        fail(f"{name} differs from the reference at {diff}")
+    check_launches(name, got, n_disp, name in AMVA_SCENARIOS)
+
+
+def planner_counts(kernels) -> dict:
+    """The planner kernels' launches since their counts were set to 0, by
+    the name the profiler gives each (qn_event's as the library reports
+    the kernel it ran)."""
+    return {**kernels["qn_event"].routes,
+            "qn_streams_kernel": kernels["event_streams"].launches,
+            "amva_ps_kernel": kernels["amva"].launches}
+
+
+def profiled_pass(kernels, fn, counted, label):
+    """Drive ``fn`` once more, under torch.profiler; it must count the
+    launches ``counted`` of the drive before it.  A kernel's device time
+    is the sum over its profiled launches, or None (not measured) where
+    the profiler saw another number of launches than the wrapper counted.
+    Returns ``(fn's result, {kernel: ms or None}, note)``, the note with
+    the pass's wall, its kernels' device events ``(start, kernel, ms)`` in
+    order and a printable summary."""
+    from torch.profiler import ProfilerActivity, profile
+
+    reset_launches(*kernels.values())
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    again = planner_counts(kernels)
+    if again != counted:
+        fail(f"{label}: the profiled pass counted {again}, the drive "
+             f"before it {counted}")
+    events = sorted(
+        (ev.time_range.start, k, ev.time_range.elapsed_us() / 1e3)
+        for ev in prof.events()
+        if ev.device_type == torch.autograd.DeviceType.CUDA
+        and (k := qn_instance(ev.name) or (
+            "amva_ps_kernel" if "amva_ps_kernel" in ev.name else None)))
+    seen = collections.Counter(e[1] for e in events)
+    dev_ms, parts = {}, []
+    for k, n in counted.items():
+        if not n and not seen[k]:
+            continue
+        ms = sum(e[2] for e in events if e[1] == k) \
+            if seen[k] == n else None
+        dev_ms[k] = ms
+        parts.append(f"{k} {n} launches, " + (
+            f"{ms:.3f} ms on the device" if ms is not None else
+            f"device time not measured (the profiler saw {seen[k]})"))
+    return out, dev_ms, {"wall_s": wall, "events": events,
+                         "text": ", ".join(parts)
+                         + f" (profiled wall {wall:.3f} s)"}
+
+
+def check_table3(scen, t3, ref, got, wall, note):
+    """Print Table 3 per row (event budget, the event-loop kernel that
+    ran as the wrapper counts it, launches, host ms, device ms from the
+    profiled pass ``note``, T, tau, theta) and fail on any T or tau that
+    differs from the reference's.  The profiled qn_event launches go to
+    the rows in order only when the profiler saw as many as the wrapper
+    counted, else no row's device ms is measured; a row whose profiled
+    kernels differ from those the wrapper counted fails."""
+    diff = scen.mismatches(ref, t3)
+    qn_events = [e for e in note["events"]
+                 if e[1] in ("qn_event_fast", "qn_event_general")]
+    measured = len(qn_events) == got["qn_event"]
+    names = iter(qn_events)
+    rows = []
+    for r in t3["rows"]:
+        dev_ms = None
+        if measured:
+            mine = [next(names) for _ in range(r["launches"])]
+            dev_ms = sum(m[2] for m in mine)
+            seen = dict(collections.Counter(m[1] for m in mine))
+            if seen != r["kernels"]:
+                fail(f"Table 3 row {r['row']}: the profiler saw {seen}, "
+                     f"the wrapper counted {r['kernels']}")
+        rows.append({k: r[k] for k in ("row", "events", "max_slots",
+                                       "kernels", "launches", "qn_s",
+                                       "cluster_sim_s", "T_ms", "tau_ms",
+                                       "theta_pct")}
+                    | {"device_ms": dev_ms})
+        print(f"[table3] row {r['row']} {r['query']} {r['users']}u "
+              f"{r['cores']} cores {r['n_map']}/{r['n_reduce']} tasks: "
+              f"E={r['events']} S={r['max_slots']} kernels {r['kernels']}, "
+              f"{r['launches']} launches, qn {r['qn_s'] * 1e3:.3f} ms "
+              f"(device {'not measured' if dev_ms is None else f'{dev_ms:.3f} ms'}"
+              f"), cluster_sim {r['cluster_sim_s'] * 1e3:.1f} ms (host); T "
+              f"{r['T_ms']!r} tau {r['tau_ms']!r} theta "
+              f"{r['theta_pct']:+.2f}%", flush=True)
+    host_s = sum(r["cluster_sim_s"] for r in t3["rows"])
+    qn_s = sum(r["qn_s"] for r in t3["rows"])
+    dev = (f"{sum(m[2] for m in qn_events) / 1e3:.3f} s" if measured else
+           f"not measured (the profiler saw {len(qn_events)} of "
+           f"{got['qn_event']} launches)")
+    print(f"[table3] mean |theta| {t3['mean_abs_theta_pct']:.2f}% max "
+          f"{t3['max_abs_theta_pct']:.2f}% (paper {PAPER_THETA['mean']}% / "
+          f"{PAPER_THETA['max']}%); wall {wall:.3f} s (without the "
+          f"profiler): cluster_sim (host) {host_s:.3f} s "
+          f"({100 * host_s / wall:.1f}%), the QN calls {qn_s:.3f} s "
+          f"({100 * qn_s / wall:.1f}%), of which qn_event on the device "
+          f"{dev} (profiled pass: {note['text']}); launches {got}",
+          flush=True)
+    print(f"[table3] against the reference: "
+          f"{'equal' if not diff else diff}", flush=True)
+    if diff:
+        fail(f"Table 3 differs from the reference at {diff}")
+    check_launches("table3", got, sum(r["launches"] for r in t3["rows"]),
+                   False)
+    if got["qn_event"] != 2 * len(t3["rows"]):
+        fail(f"Table 3: {got['qn_event']} qn_event launches for "
+             f"{len(t3['rows'])} rows of 2 replications")
+    return rows
+
+
+def check_serving_qn(scen, label, sq, got, wall):
+    """The serving analogue's numbers: tau from the engine's profiled
+    round time (two qn_event launches), the engine's closed-loop T, theta
+    (recorded beside the paper's band, not gated), and one flash launch a
+    layer a prefill."""
+    tau = scen.serving_tau(sq["solo_latency_ms"],
+                           n_requests=sq["n_requests"], slots=sq["slots"],
+                           device=torch.device("cuda", 0))
+    band = PAPER_THETA["serving_band"]
+    inside = abs(sq["theta_pct"]) <= band
+    print(f"[serving-qn] {label} {sq['arch']} ({sq['n_layers']} layers, "
+          f"d_model {sq['d_model']}; {sq['n_requests']} requests, "
+          f"{sq['slots']} slots, prompt {sq['prompt_len']}, gen "
+          f"{sq['gen_len']}): solo {sq['solo_latency_ms']:.3f} ms, tau "
+          f"{sq['qn_tau_ms']:.3f} ms, T {sq['engine_T_ms']:.3f} ms, theta "
+          f"{sq['theta_pct']:+.2f}% ({'inside' if inside else 'outside'} the "
+          f"paper's +-{band:g}%); wall {wall:.3f} s (profile "
+          f"{sq['profile_s']:.3f}, qn {sq['qn_s']:.3f}, closed loop "
+          f"{sq['closed_loop_s']:.3f}); {sq['prefills']} prefills; "
+          f"launches {got}", flush=True)
+    if tau != sq["qn_tau_ms"] or not all(
+            np.isfinite(sq[k]) and sq[k] > 0 for k in
+            ("solo_latency_ms", "qn_tau_ms", "engine_T_ms")):
+        fail(f"serving-qn {label}: malformed numbers {sq} (tau again: "
+             f"{tau})")
+    if got["qn_event"] != 2 or got["event_streams"] != 2 or got["amva"] \
+            or got["mva"] or got["ssd_scan"] or \
+            got["flash_attention"] != sq["n_layers"] * sq["prefills"]:
+        fail(f"serving-qn {label}: launches {got}, expected 2 qn_event and "
+             f"{sq['n_layers']} flash_attention a prefill")
 
 
 # ----------------------------------------------------------- LM serving
@@ -723,6 +1150,24 @@ def profile_serving(dev, eng, prompts):
               flush=True)
 
 
+def queued_ms(fn, reps: int = 20) -> float:
+    """Milliseconds per call of ``fn`` on the device with no host gap:
+    the calls are queued behind a spin of ~``reps`` ms on the stream, so
+    the events around them time the kernels back to back (a check on the
+    profiler's device times, and a device time where it records none)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e6) * reps)       # ~1 ms a call at ~2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def device_ms(fn, kernel: str, reps: int = 20):
     """The mean device time (ms) of the launches of ``kernel`` over
     ``reps`` calls of ``fn`` (torch.profiler), None if the profiler saw
@@ -732,7 +1177,8 @@ def device_ms(fn, kernel: str, reps: int = 20):
 
     from repro_torch.kernels import build
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -968,9 +1414,10 @@ def main() -> None:
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "src", "repro_torch")):
         fail("src/repro_torch not found beside chip_smoke.py")
-    sys.path.insert(0, os.path.join(root, "src"))
+    sys.path[:0] = [os.path.join(root, "src"), root]
 
-    from repro_torch.core import mva, optimizer, problem, qn_sim, tpcds
+    from repro_torch.core import cluster_sim, mva, optimizer, problem, \
+        qn_sim, tpcds
     from repro_torch.core.shapes import bucket_slots
     from repro_torch.kernels import build
     from repro_torch.kernels.amva import ops as amva_ops
@@ -1084,8 +1531,14 @@ def main() -> None:
               f"bit-identical=True", flush=True)
         args = (nm, nr, cap, nea, ma, ra, tm, *tables)
         kw = dict(max_slots=S, warmup_jobs=8, replay=replay)
+        k0 = dict(qn_ops.qn_event.routes)
         ks, kc = qn_ops.qn_event(*args, **kw)
         gs, gc = qn_ops.qn_event(*args, general=True, **kw)
+        if {k: n - k0[k] for k, n in qn_ops.qn_event.routes.items()} != \
+                {"qn_event_fast": 1, "qn_event_general": 1}:
+            fail(f"qn_event reported the kernels {qn_ops.qn_event.routes} "
+                 f"(from {k0}) for one launch without and one with "
+                 f"general=True")
         ps, pc = qn_ref.qn_event(*args, **kw)
         same = torch.equal(ks, ps) and torch.equal(kc, pc)
         same_general = torch.equal(gs, ps) and torch.equal(gc, pc)
@@ -1147,6 +1600,49 @@ def main() -> None:
         fail(f"qn_event differs from its plain version at H={H_huge}")
     if float(kc.min()) <= 0:
         fail(f"qn_event at H={H_huge} completed no job in a lane")
+    # one lane of Table 3's largest row (1560 maps, 1009 reduces, 80
+    # containers, one user, its replay lists): the draw tables at the row's
+    # full budget, the event loop with the budget cut to E_T3 events (the
+    # plain loop takes ~2 ms an event) and no warm-up, so that its first
+    # job (~5142 events) completes inside the cut
+    t3_row = tpcds.TABLE3[T3_ROW]
+    t3_spec = tpcds.calibrated_specs()[T3_ROW]
+    t3_full = qn_sim.padded_event_budget(t3_row.n_map, t3_row.n_reduce,
+                                         min_jobs=40, warmup_jobs=8)
+    t3_lists = tuple(f32(np.asarray(x, np.float32))
+                     for x in cluster_sim.replayer_lists(
+                         t3_spec, runs=20, slots=t3_row.containers, seed=55))
+    t3_lane = (i32([t3_row.n_map]), i32([t3_row.n_reduce]),
+               i32([t3_row.containers]), i32([t3_full]), f32([0.0]),
+               f32([0.0]), f32([tpcds.THINK_MS]))
+    t3_seed = torch.tensor([3], dtype=torch.int64, device=dev)
+    t3_tables = check_streams(t3_lane[6], t3_seed, t3_lane[3],
+                              t3_row.users, t3_full, t3_lists,
+                              f"Table 3 row {T3_ROW}: B=1 E={t3_full} "
+                              f"H={t3_row.users}")
+    t3_cut = (*t3_lane[:3], i32([E_T3]), *t3_lane[4:], t3_tables[0],
+              *(t[:, :E_T3].contiguous() for t in t3_tables[1:]))
+    t3_slots = bucket_slots(t3_row.containers)
+    t3_kw = dict(max_slots=t3_slots, warmup_jobs=0, replay=True)
+    k0 = dict(qn_ops.qn_event.routes)
+    ks, kc = qn_ops.qn_event(*t3_cut, **t3_kw)
+    t3_took = [k for k, n in qn_ops.qn_event.routes.items() if n > k0[k]]
+    ps, pc = qn_ref.qn_event(*t3_cut, **t3_kw)
+    same = torch.equal(ks, ps) and torch.equal(kc, pc)
+    qn_err = max(qn_err, float((ks - ps).abs().max()),
+                 float((kc - pc).abs().max()))
+    print(f"[check] Table 3 row {T3_ROW} lane ({t3_row.n_map} maps, "
+          f"{t3_row.n_reduce} reduces, {t3_row.containers} slots of "
+          f"{t3_slots}, H={t3_row.users}, replay): event_streams at its full "
+          f"E={t3_full} bit-identical=True; qn_event "
+          f"({', '.join(t3_took)}) at E={E_T3}, "
+          f"the budget cut {t3_full / E_T3:.0f}x: bit-identical={same} "
+          f"jobs={kc.tolist()}", flush=True)
+    if not same:
+        fail(f"qn_event differs from its plain version on Table 3 row "
+             f"{T3_ROW}'s lane")
+    if float(kc.min()) <= 0:
+        fail(f"qn_event on Table 3 row {T3_ROW}'s lane completed no job")
     amva_err = 0.0
     for n in (1, 7, 97, 128, 1000, 4097):
         a = f32(np.abs(gen.normal(size=n)) * 1e4)
@@ -1243,7 +1739,7 @@ def main() -> None:
         n_amva = got_launches["amva"]
         got = decisions(rep)
         plans[name] = {"wall_s": wall, "qn_dispatches": rep.qn_dispatches,
-                       "qn_event_launches": n_qn,
+                       "qn_event_launches": n_qn, "amva_launches": n_amva,
                        "ms_per_dispatch": 1e3 * wall / max(1,
                                                            rep.qn_dispatches)}
         print(f"[main] {name}: wall={wall:.3f} s qn_dispatches="
@@ -1384,6 +1880,62 @@ def main() -> None:
           f"predicted_ms card={[v['predicted_ms'] for v in on_card.values()]}"
           f" cpu={[v['predicted_ms'] for v in on_cpu.values()]}", flush=True)
 
+    # ------------------------------------------------ benchmarked scenarios
+    # the repo's public-cloud planner benchmarks at their own budgets
+    # (benchmarks/torch_scenarios.py), each a drive of its own: counts set
+    # to 0 just before it and read just after, its wall without the
+    # profiler; then once more under the profiler for each kernel's device
+    # time
+    from benchmarks import torch_scenarios as scen
+    added_wall = {}
+    scenario_runs = {}
+    for name in SCENARIOS:
+        reset_launches(*wrappers)
+        qn_sim.reset_sim_stats()
+        t0 = time.perf_counter()
+        out = scen.SCENARIOS[name](dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        added_wall[name] = wall
+        got_launches = {k: w.launches for k, w in kernels.items()}
+        for k, n in got_launches.items():
+            launches[k] += n
+        counted = planner_counts(kernels)
+        n_disp = qn_sim.sim_stats()["dispatches"]
+        check_scenario(scen, name, out, REFERENCE[name], got_launches,
+                       n_disp, wall)
+        _, dev_ms, note = profiled_pass(
+            kernels, lambda: scen.SCENARIOS[name](dev), counted, name)
+        added_wall[f"{name}.profiled"] = note["wall_s"]
+        scenario_runs[name] = {"wall_s": wall, "dispatches": n_disp,
+                               "launches": got_launches,
+                               "launches_by_kernel": counted,
+                               "profiled_device_ms": dev_ms,
+                               "profiled_wall_s": note["wall_s"]}
+        print(f"[scenarios] {name} profiled again: {note['text']}"
+              + (f"; host and the rest {wall - sum(dev_ms.values()) / 1e3:.3f}"
+                 f" s of the {wall:.3f} s wall (without the profiler)"
+                 if None not in dev_ms.values() else ""), flush=True)
+
+    # the paper's Table 3: T on the host's cluster simulator, tau from the
+    # scalar QN on the card (one qn_event launch a replication); then once
+    # more under the profiler for each row's device time
+    reset_launches(*wrappers)
+    qn_sim.reset_sim_stats()
+    t0 = time.perf_counter()
+    t3 = scen.table3(dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    added_wall["table3"] = wall
+    got_launches = {k: w.launches for k, w in kernels.items()}
+    for k, n in got_launches.items():
+        launches[k] += n
+    _, _, note = profiled_pass(kernels, lambda: scen.table3(dev),
+                               planner_counts(kernels), "table3")
+    added_wall["table3.profiled"] = note["wall_s"]
+    table3_rows = check_table3(scen, t3, REFERENCE["table3"], got_launches,
+                               wall, note)
+
     # --------------------------------------------------------- LM serving
     by_path, card_cpu_diff = {}, {}
     ssd_routes = dict.fromkeys(ssd_ops.ssd.routes, 0)
@@ -1398,6 +1950,43 @@ def main() -> None:
         del eng
         torch.cuda.empty_cache()
         card_cpu_diff[arch] = serve_card_vs_cpu(dev, kernels, arch, depth)
+
+    # the serving analogue of Table 3: tau from profiled BatchingEngine
+    # rounds against the engine's closed-loop T, at granite-3-2b's smoke
+    # config (the reference's) and at its full width and depth; tau from
+    # the reference's fixed round times first, which must equal its tau
+    ref_sq = REFERENCE["serving_qn"]
+    reset_launches(*wrappers)
+    taus = [scen.serving_tau(solo, n_requests=ref_sq["n_requests"],
+                             slots=ref_sq["slots"], device=dev)
+            for solo in ref_sq["solo_ms"]]
+    print(f"[serving-qn] tau at the fixed round times {ref_sq['solo_ms']} "
+          f"ms: port {taus}, reference {ref_sq['tau_ms']}", flush=True)
+    if taus != ref_sq["tau_ms"]:
+        fail(f"serving tau {taus} differs from the reference's "
+             f"{ref_sq['tau_ms']}")
+    for k, n in ((k, w.launches) for k, w in kernels.items()):
+        launches[k] += n
+    serving_qn = {}
+    for label, smoke in (("smoke", True), ("full", False)):
+        reset_launches(*wrappers)
+        t0 = time.perf_counter()
+        sq = scen.serving_qn(dev, smoke=smoke)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        added_wall[f"serving_qn.{label}"] = wall
+        got_launches = {k: w.launches for k, w in kernels.items()}
+        for k, n in got_launches.items():
+            launches[k] += n
+        by_path[f"serving_qn.{label}"] = {k: n for k, n in
+                                          got_launches.items() if n}
+        serving_qn[label] = {**sq, "wall_s": wall,
+                             "launches": got_launches}
+        check_serving_qn(scen, label, sq, got_launches, wall)
+        torch.cuda.empty_cache()
+    print(f"[scenarios] wall of the added phases: "
+          f"{json.dumps({k: round(v, 3) for k, v in added_wall.items()})}, "
+          f"{sum(added_wall.values()):.3f} s in all", flush=True)
 
     # ---------------------------------------------------------------- times
     # qn_event at every dispatch shape of the Q1 run() above: lanes of
@@ -1546,8 +2135,22 @@ def main() -> None:
     am_ops_n = n_am * 40 * 6       # mul, add, div, max, fma (2) per round
     am_bound = 1e3 * max(am_bytes / H100_BYTES_PER_S,
                          am_ops_n / H100_FP32_OPS_PER_S)
-    print(f"[time] amva N={n_am}: {am_ms:.4f} ms/launch, plain "
-          f"{am_plain_ms:.3f} ms, bound {am_bound:.6f} ms", flush=True)
+    # the kernel's own device time, apart from the wrapper's host time,
+    # and the two launches' share of a run_fast plan's wall
+    am_dev_ms, _ = device_ms(lambda: amva_ops.ps_fixed_point(*am_args),
+                             "amva_ps_kernel")
+    am_queued_ms = queued_ms(lambda: amva_ops.ps_fixed_point(*am_args))
+    fast_wall_ms = 1e3 * plans["Q1-10u.run_fast"]["wall_s"]
+    am_share = plans["Q1-10u.run_fast"]["amva_launches"] * am_ms \
+        / fast_wall_ms
+    print(f"[time] amva N={n_am}: {am_ms:.4f} ms/launch (the kernel alone "
+          f"on the device: "
+          f"{'not measured' if am_dev_ms is None else f'{am_dev_ms:.4f} ms'}"
+          f" by the profiler, {am_queued_ms:.4f} ms queued back to back), "
+          f"plain {am_plain_ms:.3f} ms, bound {am_bound:.6f} ms; "
+          f"{plans['Q1-10u.run_fast']['amva_launches']} launches are "
+          f"{100 * am_share:.2f}% of Q1-10u run_fast's {fast_wall_ms:.2f} "
+          f"ms wall", flush=True)
 
     # mva at the reference test's largest size and at the degenerate case
     def time_mva(n, h_users):
@@ -1629,7 +2232,13 @@ def main() -> None:
          "general_only": {f"B=2 E={E_g} S=64 H={H_g}": general_ms[H_g]
                           for H_g, E_g in ((H_big, E_big),
                                            (H_huge, E_huge))},
-         "plans": plans},
+         "plans": plans, "scenarios": scenario_runs,
+         "table3_rows": table3_rows,
+         "serving_qn": {k: {f: v[f] for f in
+                            ("arch", "n_layers", "solo_latency_ms",
+                             "qn_tau_ms", "engine_T_ms", "theta_pct",
+                             "wall_s", "launches")}
+                        for k, v in serving_qn.items()}},
         {"name": "event_streams", "route": "cuda",
          "source": "src/repro_torch/csrc/qn_streams.cu",
          "replaces": "src/repro/kernels/qn_event/kernel.py:63",
@@ -1651,7 +2260,9 @@ def main() -> None:
          "source": "src/repro_torch/csrc/amva.cu",
          "replaces": "src/repro/kernels/amva/kernel.py:94",
          "launches": launches["amva"], "max_abs_err": amva_err,
-         "ms": am_ms, "plain_ms": am_plain_ms,
+         "ms": am_ms, "device_ms": am_dev_ms,
+         "queued_ms": am_queued_ms, "plain_ms": am_plain_ms,
+         "share_of_run_fast_wall": am_share,
          "bound_ms": am_bound,
          "bound_by": ("operations" if am_ops_n / H100_FP32_OPS_PER_S
                       > am_bytes / H100_BYTES_PER_S else "bytes"),

@@ -116,14 +116,16 @@ class DSpace4Cloud:
     """The tool: optimization scenario of Figure 3 (public cloud).
     ``batched=True`` probes the QN tier through the batched evaluator
     (raced window sweeps), ``batched=False`` through the point-wise one
-    (Algorithm 1 per class in ``run()``).  ``device`` is where the kernels
+    (Algorithm 1 per class in ``run()``).  ``race=False`` locks each class
+    to its analytically cheapest VM type in every gait (the batched race
+    and ``run_fast`` then sweep one lane a class).  ``device`` is where the kernels
     run: the current CUDA device by default, ``"cpu"`` for their plain
     versions."""
 
     def __init__(self, problem: Problem, *, min_jobs: int = 40,
                  replications: int = 2, seed: int = 0, samples=None,
                  batched: bool = True, window: int = 16,
-                 deployment=None,
+                 race: bool = True, deployment=None,
                  cache: Optional[dict] = None, device=None):
         if deployment is not None or problem.deployment is not None:
             raise NotImplementedError(
@@ -131,6 +133,7 @@ class DSpace4Cloud:
         self.problem = problem
         self.window = window
         self.batched = batched
+        self.race = race
         self.device = resolve_device(device)
         self._qn_cache: dict = cache if cache is not None else {}
         self._rank_cache: Optional[Dict[str, List[ClassSolution]]] = None
@@ -140,12 +143,16 @@ class DSpace4Cloud:
             cache=self._qn_cache, samples=samples, device=self.device)
 
     def _ranking(self) -> Dict[str, List[ClassSolution]]:
-        """Per-class analytic candidate ranking (memoized); every ranked
-        VM type races."""
+        """Per-class analytic candidate ranking: every ranked VM type
+        races, or with ``race=False`` only the analytic argmin (one lane a
+        class).  The full ranking is memoized either way."""
         if self._rank_cache is None:
             with _obs_trace.span("tier:kkt", cat="tier",
                                  classes=len(self.problem.classes)):
                 self._rank_cache = rank_vm_types(self.problem)
+        if not self.race:
+            return {name: cands[:1]
+                    for name, cands in self._rank_cache.items()}
         return self._rank_cache
 
     # ----------------------------------------------------- resumable steps

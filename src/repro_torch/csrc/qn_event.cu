@@ -689,11 +689,12 @@ extern "C" int qn_event_launch(
     const float* think_ms, const float* think0, const float* st_m,
     const float* st_r, const float* td, float* resp_sum, float* resp_cnt,
     void* scratch, int lanes, int h_users, int max_slots, int n_events,
-    int warmup_jobs, int replay, int general, void* stream) {
+    int warmup_jobs, int replay, int general, int* fast, void* stream) {
   if (lanes <= 0) return (int)cudaGetLastError();
   Plan p;
   int rc = plan(h_users, max_slots, n_events, general != 0, &p);
   if (rc != 0) return rc;
+  *fast = p.fast;  // which kernel the wrapper counts
   const cudaStream_t s = (cudaStream_t)stream;
   if (p.fast) {
     qn_event_fast<<<lanes, 32, 0, s>>>(

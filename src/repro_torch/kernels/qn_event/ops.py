@@ -6,12 +6,16 @@ takes the plain version in ``ref.py`` (eager ``repro_torch.rng``, the
 counterpart of the reference's ``kernels/qn_event/kernel.py:
 event_streams``).  ``qn_event`` runs the event loop: a CUDA tensor
 launches ``csrc/qn_event.cu``, a CPU tensor takes ``ref.qn_event``.  Each
-wrapper's ``launches`` counts its kernel launches.  A build or launch
-failure raises; a CUDA tensor never takes the plain version.
+wrapper's ``launches`` counts its kernel launches, and ``qn_event.routes``
+the launches of each of its two kernels, as the library reports the one it
+ran.  A build or launch failure raises; a CUDA tensor never takes the
+plain version.
 ``sim_batch`` composes the two into the reference's ``_sim_batch_jit``
 contract.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -134,18 +138,22 @@ def qn_event(n_map, n_reduce, slots_cap, n_events_active, m_avg, r_avg,
         scratch = torch.empty((B, nbytes), dtype=torch.uint8, device=dev) \
             if nbytes else None
         stream = torch.cuda.current_stream(dev).cuda_stream
+        fast = ctypes.c_int(-1)
         rc = lib.qn_event_launch(
             *(x.data_ptr() for x in args), resp_sum.data_ptr(),
             resp_cnt.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
             B, H, int(max_slots), E, int(warmup_jobs), int(bool(replay)),
-            int(bool(general)), stream)
+            int(bool(general)), ctypes.byref(fast), stream)
     build.check(rc, "qn_event")
-    build.count(qn_event)
+    build.count(qn_event, ROUTES[fast.value])
     return resp_sum, resp_cnt
 
 
+# the library's report of the kernel it launched (1: the fast one)
+ROUTES = ("qn_event_general", "qn_event_fast")
 qn_event.launches = 0
+qn_event.routes = dict.fromkeys(ROUTES, 0)
 
 
 def sim_batch(n_map, n_reduce, m_avg, r_avg, think_ms, slots_cap, seed,

@@ -68,9 +68,13 @@ def _check_qn_mix(dev, replay, S, general):
                                   n_events=E, m_samples=smp[0],
                                   r_samples=smp[1])
     kw = dict(max_slots=S, warmup_jobs=2, replay=replay)
-    before = qn_ops.qn_event.launches
+    before = qn_ops.qn_event.launches, dict(qn_ops.qn_event.routes)
     ks, kc = qn_ops.qn_event(*lanes, *tables, general=general, **kw)
-    assert qn_ops.qn_event.launches == before + 1
+    assert qn_ops.qn_event.launches == before[0] + 1
+    # the library reports the kernel it ran: the fast one up to 512 slots
+    took = "qn_event_general" if general or S > 512 else "qn_event_fast"
+    assert {k: n - before[1][k] for k, n in qn_ops.qn_event.routes.items()} \
+        == {k: int(k == took) for k in qn_ops.ROUTES}
     ps, pc = qn_ref.qn_event(*lanes, *tables, **kw)
     assert torch.equal(ks, ps) and torch.equal(kc, pc)
     assert kc[4] == 0 and kc.sum() > 0

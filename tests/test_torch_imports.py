@@ -43,6 +43,21 @@ def test_importing_every_module_leaves_jax_and_repro_out():
     assert out.stdout.strip() == "[]", out.stdout
 
 
+def test_importing_torch_scenarios_leaves_jax_and_repro_out():
+    """``benchmarks/torch_scenarios.py`` drives the port alone."""
+    code = ("import sys\n"
+            "import benchmarks.torch_scenarios\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')"
+            " or m == 'benchmarks.common')\n"
+            "print(bad)\n")
+    env = {**os.environ, "PYTHONPATH": f"{ROOT / 'src'}{os.pathsep}{ROOT}"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120, check=True,
+                         cwd=str(ROOT))
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 def _imported_names(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -53,7 +68,8 @@ def _imported_names(path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py"],
+                         + [ROOT / "chip_smoke.py",
+                            ROOT / "benchmarks" / "torch_scenarios.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_file_imports_jax_or_repro(path):
     for name in _imported_names(path):
