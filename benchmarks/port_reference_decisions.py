@@ -21,11 +21,18 @@ Parts (all by default; each prints its wall time on stderr):
 * ``serving_qn``: the serving analogue's tau
   (``benchmarks/serving_qn_validation.py``) for fixed profiled round
   times ``SOLO_MS``.
+* ``dag_sweep``: ``benchmarks/dag_sweep.py`` at its own budgets (the
+  frontier scalar against batched, the optimizer point-wise and batched).
+* ``spark_dag_plan``: the solo part of ``examples/spark_dag_plan.py`` (a
+  MapReduce class and a 4-stage Spark chain in one problem) through
+  ``run()`` in both gaits and ``run_fast()``.
 
 Each scenario function takes the budgets as keywords, with the benchmark's
-own as defaults, and returns only numbers that do not depend on a clock;
-``benchmarks/torch_scenarios.py`` has the port's counterpart of each, with
-the same keywords, and its ``mismatches`` compares the two.
+own as defaults (the two DAG parts take theirs from the constants of
+``benchmarks/torch_scenarios.py``), and returns only numbers that do not
+depend on a clock; ``benchmarks/torch_scenarios.py`` has the port's
+counterpart of each, with the same budgets, and its ``mismatches``
+compares the two.
 """
 from __future__ import annotations
 
@@ -289,9 +296,88 @@ def serving_qn() -> dict:
             "tau_ms": [serving_tau(s) for s in SOLO_MS]}
 
 
+def dag_sweep() -> dict:
+    """``benchmarks/dag_sweep.py`` on its 4-stage Spark class: a 16-point
+    nu frontier, scalar ``dag_response_time`` against one
+    ``response_time_batch``, then ``DSpace4Cloud`` point-wise and batched
+    (``window=8``) at the 13 s deadline."""
+    from benchmarks.dag_sweep import H_USERS, SPARK, THINK_MS, VM, \
+        dag_problem
+    from benchmarks.torch_scenarios import DAG_SWEEP_DEADLINE_MS, \
+        DAG_SWEEP_MIN_JOBS, DAG_SWEEP_POINTS
+    from repro.core.dag import dag_response_time, response_time_batch
+    points = DAG_SWEEP_POINTS
+    nus = np.arange(1, 1 + points)
+    kw = dict(think_ms=THINK_MS, h_users=H_USERS,
+              min_jobs=DAG_SWEEP_MIN_JOBS, warmup_jobs=4, seed=0,
+              replications=1)
+    d0 = qn_sim.dispatch_count()
+    scalar = np.array([dag_response_time(SPARK, slots=int(s) * VM.slots,
+                                         **kw) for s in nus])
+    d1 = qn_sim.dispatch_count()
+    batched = response_time_batch([SPARK] * points, slots=nus * VM.slots,
+                                  **kw)
+    d2 = qn_sim.dispatch_count()
+    frontier = {"points": int(points),
+                "predicted_ms": np.asarray(batched, np.float64).tolist(),
+                "scalar_dispatches": int(d1 - d0),
+                "batched_dispatches": int(d2 - d1),
+                "parity_bit_exact": bool(np.array_equal(scalar, batched))}
+    opt = {mode: _plan(DSpace4Cloud(
+        dag_problem(deadline_ms=DAG_SWEEP_DEADLINE_MS), batched=gait,
+        window=8, min_jobs=DAG_SWEEP_MIN_JOBS, replications=1,
+        seed=0).run())
+        for mode, gait in (("pointwise", False), ("batched", True))}
+    return {"frontier": frontier, "optimizer": opt,
+            "dispatch_ratio": opt["pointwise"]["dispatches"]
+            / max(opt["batched"]["dispatches"], 1),
+            "nu_agree": all(abs(opt["pointwise"]["nu"][k]
+                                - opt["batched"]["nu"][k]) <= 2
+                            for k in opt["pointwise"]["nu"])}
+
+
+def spark_dag_problem() -> Problem:
+    """The mixed problem of ``examples/spark_dag_plan.py``: a MapReduce BI
+    class and a 4-stage Spark ETL chain on m4.xlarge and c20.node."""
+    from repro.core.workload import DagJob, Stage
+    small = VMType(name="m4.xlarge", cores=4, sigma=0.07, pi=0.22,
+                   containers_per_core=2)
+    big = VMType(name="c20.node", cores=20, sigma=0.35, pi=0.90, speed=1.35)
+    bi = JobProfile(n_map=64, n_reduce=16, m_avg=4000, m_max=9000,
+                    r_avg=2000, r_max=4500)
+    etl = DagJob("spark-etl", stages=(
+        Stage(n_tasks=48, t_avg=900, t_max=2200),
+        Stage(n_tasks=24, t_avg=700, t_max=1700),
+        Stage(n_tasks=12, t_avg=1100, t_max=2600),
+        Stage(n_tasks=4, t_avg=1500, t_max=3200)))
+    return Problem(classes=[
+        ApplicationClass(name="bi-dashboards", h_users=5, think_ms=10_000,
+                         deadline_ms=60_000, eta=0.3,
+                         profiles={"m4.xlarge": bi,
+                                   "c20.node": bi.scaled(1.35)}),
+        ApplicationClass(name="spark-etl", h_users=3, think_ms=9_000,
+                         deadline_ms=14_000, eta=0.3,
+                         profiles={"m4.xlarge": etl,
+                                   "c20.node": etl.scaled(1.35)}),
+    ], vm_types=[small, big])
+
+
+def spark_dag_plan() -> dict:
+    """The solo part of ``examples/spark_dag_plan.py``: the mixed problem
+    through ``DSpace4Cloud.run()`` (batched, the example's own call), the
+    point-wise ``run()`` and ``run_fast()``."""
+    from benchmarks.torch_scenarios import SPARK_PLAN_KW as kw
+    prob = spark_dag_problem()
+    return {"run": _plan(DSpace4Cloud(prob, **kw).run()),
+            "run_pointwise": _plan(DSpace4Cloud(prob, batched=False,
+                                                **kw).run()),
+            "run_fast": _plan(DSpace4Cloud(prob, **kw).run_fast())}
+
+
 PARTS = {"plans": plans, "batched_qn": batched_qn,
          "cost_deadline": cost_deadline, "hc_convergence": hc_convergence,
-         "vm_race": vm_race, "table3": table3, "serving_qn": serving_qn}
+         "vm_race": vm_race, "table3": table3, "serving_qn": serving_qn,
+         "dag_sweep": dag_sweep, "spark_dag_plan": spark_dag_plan}
 
 
 def main() -> None:

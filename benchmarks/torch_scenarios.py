@@ -3,7 +3,9 @@ serving analogue, driven through the PyTorch port.
 
 One function per reference benchmark, each taking ``device`` (the CUDA
 card by default; ``"cpu"`` runs the kernels' plain versions) and the
-benchmark's budgets as keywords, with the benchmark's own as defaults:
+benchmark's budgets as keywords, with the benchmark's own as defaults (the
+two DAG drivers run at their benchmark's budgets, the module's
+``DAG_SWEEP_*`` and ``SPARK_PLAN_KW``):
 
 * ``batched_qn``     -- ``benchmarks/batched_qn.py``: a nu frontier on
   Q1-10u, scalar ``response_time`` against one ``response_time_batch``,
@@ -20,11 +22,17 @@ benchmark's budgets as keywords, with the benchmark's own as defaults:
   from the cluster simulator and tau from the scalar QN;
 * ``serving_qn``     -- ``benchmarks/serving_qn_validation.py``: tau from
   profiled ``BatchingEngine`` rounds against the engine's closed-loop T.
+* ``dag_sweep``      -- ``benchmarks/dag_sweep.py``: a Spark chain's nu
+  frontier scalar against batched, then the optimizer point-wise and
+  batched;
+* ``spark_dag_plan`` -- the solo part of ``examples/spark_dag_plan.py``: a
+  MapReduce class and a Spark chain in one problem through ``run()`` in
+  both gaits and ``run_fast()``.
 
 Each returns the dict its reference benchmark's ``run()`` returns (or, for
 ``serving_qn``, records), with the decisions and counts the reference
 prints beside it (``benchmarks/port_reference_decisions.py``, same
-keywords); ``mismatches`` lists where a port dict differs from the
+budgets); ``mismatches`` lists where a port dict differs from the
 reference's.  ``torch_scenarios`` files nothing under ``results/``.
 
     PYTHONPATH=src python -m benchmarks.torch_scenarios [name ...] [--device cpu]
@@ -40,7 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import qn_sim, shapes
+from repro_torch.core import dag, qn_sim, shapes
 from repro_torch.core.cluster_sim import replayer_lists, simulate_cluster
 from repro_torch.core.evaluators import amva_frontier, make_qn_evaluator
 from repro_torch.core.hillclimb import HCTrace, optimize_class, \
@@ -51,6 +59,7 @@ from repro_torch.core.problem import ApplicationClass, JobProfile, \
     Problem, VMType
 from repro_torch.core.tpcds import TABLE3, THINK_MS, calibrated_specs, \
     scenario_problem
+from repro_torch.core.workload import DagJob, Stage
 from repro_torch.kernels.qn_event import ops as qn_ops
 
 DECISION_KEYS = ("vm_type", "nu", "reserved", "spot", "cost_per_h",
@@ -515,6 +524,114 @@ def serving_qn(device=None, *, arch: str = "granite-3-2b",
             "closed_loop_s": time.perf_counter() - t2}
 
 
+# -------------------------------------------------------------- DAG plans
+
+SMALL_VM = VMType(name="m4.xlarge", cores=4, sigma=0.07, pi=0.22,
+                  containers_per_core=2)
+BIG_VM = VMType(name="c20.node", cores=20, sigma=0.35, pi=0.90, speed=1.35)
+# the 4-stage Spark ETL chain of benchmarks/dag_sweep.py and
+# examples/spark_dag_plan.py: read -> shuffle-heavy join -> aggregate ->
+# write
+SPARK = DagJob("spark-etl", stages=(
+    Stage(n_tasks=48, t_avg=900, t_max=2200),
+    Stage(n_tasks=24, t_avg=700, t_max=1700),
+    Stage(n_tasks=12, t_avg=1100, t_max=2600),
+    Stage(n_tasks=4, t_avg=1500, t_max=3200)))
+DAG_SWEEP_THINK_MS = 9000.0
+DAG_SWEEP_USERS = 3
+# the budgets of benchmarks/dag_sweep.py (its frontier's points, min_jobs
+# and the optimizer's deadline) and of examples/spark_dag_plan.py's
+# DSpace4Cloud call; port_reference_decisions.py drives the reference at
+# the same
+DAG_SWEEP_POINTS = 16
+DAG_SWEEP_MIN_JOBS = 16
+DAG_SWEEP_DEADLINE_MS = 13_000.0
+SPARK_PLAN_KW = dict(min_jobs=15, replications=1)
+
+
+def dag_sweep_problem() -> Problem:
+    """``benchmarks/dag_sweep.py``'s one-class problem: the Spark chain,
+    3 users thinking 9 s, on m4.xlarge, at the 13 s deadline."""
+    cls = ApplicationClass(name="spark-etl", h_users=DAG_SWEEP_USERS,
+                           think_ms=DAG_SWEEP_THINK_MS,
+                           deadline_ms=DAG_SWEEP_DEADLINE_MS, eta=0.3,
+                           profiles={SMALL_VM.name: SPARK})
+    return Problem(classes=[cls], vm_types=[SMALL_VM])
+
+
+def dag_sweep(device=None) -> dict:
+    """``benchmarks/dag_sweep.py``: a 16-point nu frontier of the
+    Spark chain, one scalar ``dag_response_time`` per point against one
+    fused ``response_time_batch`` (bit for bit, asserted), then
+    ``DSpace4Cloud`` point-wise and batched (``window=8``) at the 13 s
+    deadline."""
+    dev = resolve_device(device)
+    vm = SMALL_VM
+    points = DAG_SWEEP_POINTS
+    nus = np.arange(1, 1 + points)
+    kw = dict(think_ms=DAG_SWEEP_THINK_MS, h_users=DAG_SWEEP_USERS,
+              min_jobs=DAG_SWEEP_MIN_JOBS, warmup_jobs=4, seed=0,
+              replications=1, device=dev)
+    d0 = _dispatches()
+    t0 = time.perf_counter()
+    scalar = np.array([dag.dag_response_time(SPARK, slots=int(s) * vm.slots,
+                                             **kw) for s in nus])
+    t1 = time.perf_counter()
+    d1 = _dispatches()
+    batched = dag.response_time_batch([SPARK] * points,
+                                      slots=nus * vm.slots, **kw)
+    t2 = time.perf_counter()
+    d2 = _dispatches()
+    parity = bool(np.array_equal(scalar, batched))
+    assert parity, "DAG batched/scalar parity violated"
+    frontier = {"points": int(points), "scalar_s": t1 - t0,
+                "batched_s": t2 - t1,
+                "predicted_ms": np.asarray(batched, np.float64).tolist(),
+                "scalar_dispatches": d1 - d0, "batched_dispatches": d2 - d1,
+                "parity_bit_exact": parity}
+    opt = {mode: _timed_plan(dev, lambda: DSpace4Cloud(
+        dag_sweep_problem(), batched=gait, window=8,
+        min_jobs=DAG_SWEEP_MIN_JOBS, replications=1, seed=0,
+        device=dev).run())
+        for mode, gait in (("pointwise", False), ("batched", True))}
+    return {"frontier": frontier, "optimizer": opt,
+            "dispatch_ratio": opt["pointwise"]["dispatches"]
+            / max(opt["batched"]["dispatches"], 1),
+            "nu_agree": all(abs(opt["pointwise"]["nu"][k]
+                                - opt["batched"]["nu"][k]) <= 2
+                            for k in opt["pointwise"]["nu"])}
+
+
+def spark_dag_problem() -> Problem:
+    """``examples/spark_dag_plan.py``'s problem: a MapReduce BI class (the
+    paper's Table-1 shape) and the Spark chain, on m4.xlarge and
+    c20.node."""
+    bi = JobProfile(n_map=64, n_reduce=16, m_avg=4000, m_max=9000,
+                    r_avg=2000, r_max=4500)
+    return Problem(classes=[
+        ApplicationClass(name="bi-dashboards", h_users=5, think_ms=10_000,
+                         deadline_ms=60_000, eta=0.3,
+                         profiles={SMALL_VM.name: bi,
+                                   BIG_VM.name: bi.scaled(1.35)}),
+        ApplicationClass(name="spark-etl", h_users=3, think_ms=9_000,
+                         deadline_ms=14_000, eta=0.3,
+                         profiles={SMALL_VM.name: SPARK,
+                                   BIG_VM.name: SPARK.scaled(1.35)}),
+    ], vm_types=[SMALL_VM, BIG_VM])
+
+
+def spark_dag_plan(device=None) -> dict:
+    """The solo part of ``examples/spark_dag_plan.py``: the mixed problem
+    through ``run()`` (batched: each workload kind fused into its own
+    dispatches), the point-wise ``run()`` and ``run_fast()``."""
+    dev = resolve_device(device)
+    tool = lambda batched: DSpace4Cloud(
+        spark_dag_problem(), batched=batched, device=dev, **SPARK_PLAN_KW)
+    return {"run": _timed_plan(dev, lambda: tool(True).run()),
+            "run_pointwise": _timed_plan(dev, lambda: tool(False).run()),
+            "run_fast": _timed_plan(dev, lambda: tool(True).run_fast())}
+
+
 # ------------------------------------------------------------- comparison
 
 def mismatches(ref, got, *, rel: float = 0.0) -> list:
@@ -559,7 +676,8 @@ def mismatches(ref, got, *, rel: float = 0.0) -> list:
 
 SCENARIOS = {"batched_qn": batched_qn, "cost_deadline": cost_deadline,
              "hc_convergence": hc_convergence, "vm_race": vm_race,
-             "table3": table3, "serving_qn": serving_qn}
+             "table3": table3, "serving_qn": serving_qn,
+             "dag_sweep": dag_sweep, "spark_dag_plan": spark_dag_plan}
 
 
 def main(argv=None) -> None:

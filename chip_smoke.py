@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port on one CUDA card: the planner in both
-gaits, the repo's benchmarked planner scenarios, the paper's Table 3 and
-its serving analogue, and the LM serving path (dense, Mamba2 and hybrid
-models).
+gaits, the repo's benchmarked planner scenarios, Spark/Tez DAG classes,
+the paper's Table 3 and its serving analogue, and the LM serving path
+(dense, Mamba2 and hybrid models).
 
     python3 chip_smoke.py
 
@@ -10,7 +10,8 @@ Phases, each printing one line or a few:
      matmul settings (TF32 and reduced-precision bf16 reductions off);
   2. build the CUDA kernels from src/repro_torch/csrc (one nvcc process per
      source, all at once); print the registers and spills (ptxas) of the
-     two qn_event kernels, of the draw-table kernel and of each
+     two qn_event kernels, of the DAG's event loop, of both draw-table
+     kernels and of each
      flash_attention instance and of each ssd_scan kernel, and the flash
      and ssd_scan instances' wgmma (HGMMA) and TMA (UTMALDG) instruction
      counts (cuobjdump -sass), and fail if either bf16 kernel (flash's,
@@ -113,6 +114,23 @@ Phases, each printing one line or a few:
      rounds, tau and the engine's closed-loop T at granite-3-2b's smoke
      config and at its full width and depth (40 layers), theta beside the
      paper's +-30% (recorded, not gated).
+ 10. [dag] (phase 3) dag_streams held torch.equal to its plain version
+     and dag_event bit-identical to its own, in both modes, at E = 4096:
+     chains of 1..4 stages in one batch padded to the stage bucket,
+     padding, single-slot and short-budget lanes, H = 1, 3 and 2049, and
+     32768 slots (the lane's state in a global scratch slice), every lane
+     with a budget finishing jobs past its warm-up; (after phase 8)
+     benchmarks/dag_sweep.py at its own budgets (the 16-point frontier
+     scalar against batched, 16 -> 1 dispatches, bit for bit; the
+     optimizer point-wise and batched) and the solo part of
+     examples/spark_dag_plan.py (run() in both gaits, run_fast()), each
+     decision, dispatch count and flag equal to the reference's and each
+     response time within a relative 1e-3 (exponential mode), timed
+     without the profiler and then profiled; (phase 6) both kernels timed
+     at dag_sweep's frontier shape (B = 16, E = 8192, K = 4, H = 3, 128
+     slots; the kernel against its plain version once more) and at
+     E = 16384, with bounds, and amva's and mva's dependent-chain bounds
+     from one thread's long launch against a short one.
 Each drive of a main path sets the kernels' launch counts to 0 just before
 it and reads them just after.  The second-to-last line is the kernels'
 JSON record, the last line {"ok": true, "device": {...}}.  Any failure
@@ -455,7 +473,55 @@ REFERENCE = {'Q1-10u.run': {'qn_dispatches': 2,
  'serving_qn': {'n_requests': 12,
   'slots': 3,
   'solo_ms': [150.0, 2500.0],
-  'tau_ms': [599.0405578613281, 9999.0283203125]}}
+  'tau_ms': [599.0405578613281, 9999.0283203125]},
+ 'dag_sweep': {
+  'frontier': {'points': 16, 'scalar_dispatches': 16,
+               'batched_dispatches': 1, 'parity_bit_exact': True,
+               'predicted_ms': [23929.9140625, 15290.25, 13779.095703125,
+                 14001.2529296875, 13338.9052734375, 13555.033203125,
+                 13237.091796875, 13689.8388671875, 13681.91796875,
+                 13777.8583984375, 13962.0224609375, 13962.0224609375,
+                 13962.0224609375, 13962.0224609375, 13962.0224609375,
+                 13962.0224609375]},
+  'optimizer': {
+   'pointwise': {'evals': 11, 'dispatches': 11, 'cost': 2.41,
+     'nu': {'spark-etl': 13},
+     'classes': {
+      'spark-etl': {'vm_type': 'm4.xlarge', 'nu': 13, 'reserved': 10,
+        'spot': 3, 'cost_per_h': 2.41, 'predicted_ms': 13997.10546875,
+        'feasible': False}}},
+   'batched': {'evals': 27, 'dispatches': 4, 'cost': 4.74,
+     'nu': {'spark-etl': 27},
+     'classes': {
+      'spark-etl': {'vm_type': 'm4.xlarge', 'nu': 27, 'reserved': 19,
+        'spot': 8, 'cost_per_h': 4.74, 'predicted_ms': 13997.10546875,
+        'feasible': False}}}},
+  'dispatch_ratio': 2.75, 'nu_agree': False},
+ 'spark_dag_plan': {
+  'run': {'evals': 23, 'dispatches': 3, 'cost': 1.56,
+    'nu': {'bi-dashboards': 3, 'spark-etl': 1},
+    'classes': {
+     'bi-dashboards': {'vm_type': 'm4.xlarge', 'nu': 3, 'reserved': 3,
+       'spot': 0, 'cost_per_h': 0.66, 'predicted_ms': 51276.21484375,
+       'feasible': True},
+     'spark-etl': {'vm_type': 'c20.node', 'nu': 1, 'reserved': 1, 'spot': 0,
+       'cost_per_h': 0.9, 'predicted_ms': 11387.7890625, 'feasible': True}}},
+  'run_pointwise': {'evals': 4, 'dispatches': 4, 'cost': 1.32,
+    'nu': {'bi-dashboards': 3, 'spark-etl': 3},
+    'classes': {
+     'bi-dashboards': {'vm_type': 'm4.xlarge', 'nu': 3, 'reserved': 3,
+       'spot': 0, 'cost_per_h': 0.66, 'predicted_ms': 51276.21484375,
+       'feasible': True},
+     'spark-etl': {'vm_type': 'm4.xlarge', 'nu': 3, 'reserved': 3, 'spot': 0,
+       'cost_per_h': 0.66, 'predicted_ms': 13835.5166015625, 'feasible': True}}},
+  'run_fast': {'evals': 23, 'dispatches': 3, 'cost': 1.56,
+    'nu': {'bi-dashboards': 3, 'spark-etl': 1},
+    'classes': {
+     'bi-dashboards': {'vm_type': 'm4.xlarge', 'nu': 3, 'reserved': 3,
+       'spot': 0, 'cost_per_h': 0.66, 'predicted_ms': 51276.21484375,
+       'feasible': True},
+     'spark-etl': {'vm_type': 'c20.node', 'nu': 1, 'reserved': 1, 'spot': 0,
+       'cost_per_h': 0.9, 'predicted_ms': 11387.7890625, 'feasible': True}}}}}
 
 
 def fail(msg: str) -> None:
@@ -539,19 +605,27 @@ AMVA_SCENARIOS = ("batched_qn", "cost_deadline", "hc_convergence")
 PAPER_THETA = {"mean": 12.27, "max": 30.59, "serving_band": 30.0}
 
 
-def check_launches(name, got, n_disp, amva: bool):
-    """A planner drive's launches: one qn_event and one event_streams
-    launch a counted dispatch, amva where the drive seeds from the AMVA
-    frontier, nothing else."""
-    if got["qn_event"] != n_disp or n_disp <= 0:
-        fail(f"{name}: qn_event launches {got['qn_event']} != counted "
-             f"dispatches {n_disp}")
+def check_launches(name, got, n_disp, amva: bool, dag: bool = False):
+    """A planner drive's launches: one event-loop launch a counted
+    dispatch (qn_event for a MapReduce group, dag_event for a DAG group),
+    each beside one launch of its draw-table kernel (event_streams,
+    dag_streams), amva where the drive seeds from the AMVA frontier,
+    dag_event where it plans a DAG class, nothing else."""
+    if got["qn_event"] + got["dag_event"] != n_disp or n_disp <= 0:
+        fail(f"{name}: qn_event {got['qn_event']} and dag_event "
+             f"{got['dag_event']} launches != counted dispatches {n_disp}")
     if got["event_streams"] != got["qn_event"]:
         fail(f"{name}: event_streams launches {got['event_streams']} != "
              f"qn_event launches {got['qn_event']}")
+    if got["dag_streams"] != got["dag_event"]:
+        fail(f"{name}: dag_streams launches {got['dag_streams']} != "
+             f"dag_event launches {got['dag_event']}")
     if (got["amva"] > 0) != amva:
         fail(f"{name}: amva launches {got['amva']} (expected "
              f"{'some' if amva else 'none'})")
+    if (got["dag_event"] > 0) != dag:
+        fail(f"{name}: dag_event launches {got['dag_event']} (expected "
+             f"{'some' if dag else 'none'})")
     if got["flash_attention"] or got["mva"] or got["ssd_scan"]:
         fail(f"{name}: launches off its path: {got}")
 
@@ -622,6 +696,8 @@ def planner_counts(kernels) -> dict:
     the kernel it ran)."""
     return {**kernels["qn_event"].routes,
             "qn_streams_kernel": kernels["event_streams"].launches,
+            "dag_event_kernel": kernels["dag_event"].launches,
+            "dag_streams_kernel": kernels["dag_streams"].launches,
             "amva_ps_kernel": kernels["amva"].launches}
 
 
@@ -755,10 +831,168 @@ def check_serving_qn(scen, label, sq, got, wall):
         fail(f"serving-qn {label}: malformed numbers {sq} (tau again: "
              f"{tau})")
     if got["qn_event"] != 2 or got["event_streams"] != 2 or got["amva"] \
-            or got["mva"] or got["ssd_scan"] or \
+            or got["mva"] or got["ssd_scan"] or got["dag_event"] or \
+            got["dag_streams"] or \
             got["flash_attention"] != sq["n_layers"] * sq["prefills"]:
         fail(f"serving-qn {label}: launches {got}, expected 2 qn_event and "
              f"{sq['n_layers']} flash_attention a prefill")
+
+
+# ------------------------------------------------------------------ DAG
+# the DAG event loop's checks against its plain version: chains of 1..4
+# stages in one exponential-mode batch (padded to the stage bucket, 4),
+# 4-stage chains of several sizes in replay mode (a replay batch shares
+# its stage count); lane 3 pads (zero budget), lane 1 has one slot, lane 4
+# a third of the budget
+DAG_E = 4096
+DAG_CHAINS = {False: [(6,), (8, 4), (10, 4, 2), (6, 5, 3, 2), (12, 6, 3, 1),
+                      (5, 5), (7,), (9, 3, 3)],
+              True: [(6, 5, 3, 2), (12, 6, 3, 1), (4, 4, 4, 4), (8, 2, 2, 2),
+                     (6, 5, 3, 2), (3, 3, 3, 3), (9, 4, 2, 1), (5, 5, 5, 5)]}
+DAG_CAPS = [64, 1, 17, 40, 3, 64, 8, 2]
+DAG_NEA = [DAG_E, DAG_E, DAG_E, 0, DAG_E // 3, DAG_E, DAG_E, DAG_E]
+# past the card's 227 KB of shared memory a lane: 32768 slots (two blocks
+# of 1024 slot words a thread and the free masks), the scratch route
+DAG_SCRATCH_SLOTS = 32768
+DAG_SCENARIOS = ("dag_sweep", "spark_dag_plan")
+# the draw tables' threefry calls at least (csrc/dag_streams.cu): per
+# event 4 (exponential mode: key_i, its bits, the think key, its bits) or 7
+# (replay mode: key_i, split(key_i)'s two halves and their bits, the think
+# key, its bits); per lane the two halves of split(key); per user its bits
+DAG_THREEFRY_PER_EVENT = {False: 4, True: 7}
+
+
+def dag_lanes(dev, gen, chains, caps, nea, think):
+    """The DAG event loop's per-lane inputs: ``(n_tasks, t_avg, n_stages,
+    slots_cap, n_events_active, think_ms)``, the chains padded to their
+    stage bucket, task means drawn from ``gen``."""
+    from repro_torch.core.shapes import bucket_stages
+    B, K = len(chains), bucket_stages(max(map(len, chains)))
+    nt = np.zeros((B, K), np.int32)
+    ta = np.zeros((B, K), np.float32)
+    for b, c in enumerate(chains):
+        nt[b, :len(c)] = c
+        ta[b, :len(c)] = gen.uniform(20, 90, len(c))
+    t = lambda x, dt: torch.tensor(np.asarray(x), dtype=dt, device=dev)
+    return (t(nt, torch.int32), t(ta, torch.float32),
+            t([len(c) for c in chains], torch.int32),
+            t(caps, torch.int32), t(nea, torch.int32),
+            t(gen.uniform(*think, B), torch.float32))
+
+
+def check_dag(dev, dag_ops, dag_ref, build, gen):
+    """[dag] both kernels against their plain versions on the card:
+    dag_streams torch.equal in both modes, dag_event bit-identical at E =
+    DAG_E on the mixed lanes (H = 1 and 3, both modes; replay lists with
+    fewer rows than the chains' stages, whose row clamps), at H = 2049
+    (opt-in shared memory) and past the card's shared memory (the scratch
+    route);
+    every lane with a budget finishes jobs past its warm-up, a padding lane
+    none.  Returns ``(max abs err of dag_event, of dag_streams, the
+    shapes checked)``."""
+    err = {"dag_event": 0.0, "dag_streams": 0.0}
+    checked = []
+
+    def one(tag, lanes, H, S, smp, seeds):
+        ns = None if smp is None else smp.shape[1]
+        kw = dict(h_users=H, n_events=DAG_E, n_samples=ns)
+        tables = dag_ops.dag_streams(lanes[5], seeds, lanes[4], **kw)
+        want = dag_ref.dag_streams(lanes[5], seeds, lanes[4], **kw)
+        if not all(torch.equal(a, b) for a, b in zip(tables, want)):
+            fail(f"dag_streams differs from its plain version ({tag})")
+        err["dag_streams"] = max([err["dag_streams"]] + [
+            float((a.double() - b.double()).abs().max()) for a, b in
+            zip(tables, want) if a.numel()])
+        ek = dict(max_slots=S, warmup_jobs=2)
+        ks, kc = dag_ops.dag_event(*lanes, *tables, smp, **ek)
+        ps, pc = dag_ref.dag_event(*lanes, *tables, smp, **ek)
+        same = torch.equal(ks, ps) and torch.equal(kc, pc)
+        err["dag_event"] = max(err["dag_event"],
+                               float((ks - ps).abs().max()),
+                               float((kc - pc).abs().max()))
+        checked.append(tag)
+        print(f"[dag] check {tag}: dag_streams bit-identical=True, "
+              f"dag_event bit-identical={same}, jobs past the warm-up "
+              f"{kc.tolist()}", flush=True)
+        if not same:
+            fail(f"dag_event differs from its plain version ({tag})")
+        live = lanes[4] > 0
+        if bool((kc[live] <= 0).any()) or bool((kc[~live] != 0).any()):
+            fail(f"dag_event ({tag}): a lane with a budget finished no job "
+                 f"past its warm-up, or a padding lane reported one")
+
+    seeds = torch.arange(len(DAG_CAPS), device=dev) * 1000 + 1
+    for replay in (False, True):
+        smp = torch.tensor(gen.lognormal(np.log(50.0), 0.4, (4, 97)),
+                           dtype=torch.float32, device=dev) \
+            if replay else None
+        for H in (1, 3):
+            lanes = dag_lanes(dev, gen, DAG_CHAINS[replay], DAG_CAPS,
+                              DAG_NEA, (500.0, 4000.0))
+            one(f"B=8 E={DAG_E} S=64 H={H} K={int(lanes[2].max())} mixed "
+                f"lanes replay={replay}", lanes, H, 64, smp, seeds)
+        if replay:          # fewer sample rows than stages: the gather clamps
+            one(f"B=8 E={DAG_E} S=64 H=3 K=4 replay=True from 2 sample "
+                f"rows (the row clamps)", lanes, 3, 64, smp[:2], seeds)
+        # H = 2049 users: the state in opt-in shared memory; long thinks
+        lanes = dag_lanes(dev, gen, DAG_CHAINS[replay][2:4], [64, 7],
+                          [DAG_E, DAG_E], (1.0e5, 2.0e5))
+        one(f"B=2 E={DAG_E} S=64 H=2049 replay={replay}", lanes, 2049, 64,
+            smp, seeds[:2])
+    scratch = build.library().dag_event_scratch_bytes(3, DAG_SCRATCH_SLOTS)
+    if scratch <= 0:
+        fail(f"dag_event at {DAG_SCRATCH_SLOTS} slots does not take the "
+             f"global scratch")
+    lanes = dag_lanes(dev, gen, DAG_CHAINS[True][:2], [DAG_SCRATCH_SLOTS, 5],
+                      [DAG_E, DAG_E], (500.0, 4000.0))
+    one(f"B=2 E={DAG_E} S={DAG_SCRATCH_SLOTS} H=3 replay=True (global "
+        f"scratch, {scratch} bytes a lane)", lanes, 3, DAG_SCRATCH_SLOTS,
+        smp, seeds[:2])
+    return err["dag_event"], err["dag_streams"], checked
+
+
+def check_dag_scenario(scen, name, out, ref, got, n_disp, wall):
+    """Print a DAG scenario's decisions beside the reference's and fail on
+    any difference (exponential mode: response times within a relative
+    1e-3; decisions, dispatch counts and flags exact)."""
+    diff = scen.mismatches(ref, out, rel=1e-3)
+    print(f"[dag] {name}: wall {wall:.3f} s, {n_disp} dispatches, "
+          f"launches {got}", flush=True)
+    plans = out.get("optimizer", out)
+    if name == "dag_sweep":
+        fr = out["frontier"]
+        print(f"[dag] dag_sweep frontier ({fr['points']} points): "
+              f"dispatches {fr['scalar_dispatches']} -> "
+              f"{fr['batched_dispatches']}, scalar = batched bit for bit: "
+              f"{fr['parity_bit_exact']}, scalar {fr['scalar_s']:.3f} s, "
+              f"batched {fr['batched_s']:.3f} s; predicted_ms "
+              f"{fr['predicted_ms']}", flush=True)
+        print(f"[dag] dag_sweep dispatch_ratio {out['dispatch_ratio']:.2f}"
+              f" (reference {ref['dispatch_ratio']:.2f}), nu_agree "
+              f"{out['nu_agree']} (reference {ref['nu_agree']})", flush=True)
+    for mode, r in plans.items():
+        print(f"[dag] {name} {mode}: {r['dispatches']} dispatches, "
+              f"{r['evals']} evals, cost {r['cost']}, wall "
+              f"{r['wall_s']:.3f} s, decisions {json.dumps(r['classes'])}; "
+              f"reference {ref.get('optimizer', ref)[mode]['dispatches']} "
+              f"dispatches, {json.dumps(ref.get('optimizer', ref)[mode]['classes'])}",
+              flush=True)
+    print(f"[dag] {name} against the reference: "
+          f"{'equal' if not diff else diff}", flush=True)
+    if diff:
+        fail(f"{name} differs from the reference at {diff}")
+    check_launches(name, got, n_disp, name == "spark_dag_plan", dag=True)
+    if name == "spark_dag_plan" and got["qn_event"] <= 0:
+        fail("spark_dag_plan: its MapReduce class launched no qn_event")
+
+
+def chain_ns(fn, short: int, long: int) -> float:
+    """ns a step of a single thread's dependent chain: ``fn(n)`` launches a
+    one-element kernel of ``n`` dependent steps; the difference of a long
+    and a short launch over the steps between them, so that the launch's
+    own time drops out."""
+    return (cuda_ms(lambda: fn(long), 20) - cuda_ms(lambda: fn(short), 20)) \
+        * 1e6 / (long - short)
 
 
 # ----------------------------------------------------------- LM serving
@@ -840,10 +1074,11 @@ def ssd_instance(mangled: str):
 
 
 def qn_instance(mangled: str):
-    """'qn_event_fast' (or the general event loop, or the draw-table
-    kernel) for a line naming it by its mangled name, else None."""
-    m = re.search(r"(qn_event_fast|qn_event_general|qn_streams_kernel)",
-                  mangled)
+    """'qn_event_fast' (or the general event loop, or a draw-table kernel,
+    or the DAG's event loop) for a line naming it by its mangled name,
+    else None."""
+    m = re.search(r"(qn_event_fast|qn_event_general|qn_streams_kernel|"
+                  r"dag_event_kernel|dag_streams_kernel)", mangled)
     return m.group(1) if m else None
 
 
@@ -1422,6 +1657,8 @@ def main() -> None:
     from repro_torch.kernels import build
     from repro_torch.kernels.amva import ops as amva_ops
     from repro_torch.kernels.amva import ref as amva_ref
+    from repro_torch.kernels.dag_event import ops as dag_ops
+    from repro_torch.kernels.dag_event import ref as dag_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.qn_event import ops as qn_ops
@@ -1672,10 +1909,14 @@ def main() -> None:
     print(f"[check] mva N={','.join(map(str, MVA_NS))} x H="
           f"{','.join(map(str, MVA_HS))}: "
           f"bit-identical=True (H=0 returns the demand)", flush=True)
+    dag_err, dag_streams_err, dag_checked = check_dag(dev, dag_ops, dag_ref,
+                                                      build, gen)
     fa_err = check_flash(dev, fa_ops, fa_ref)
     ssd_err = check_ssd(dev, ssd_ops, ssd_ref)
     kernels = {"qn_event": qn_ops.qn_event,
                "event_streams": qn_ops.event_streams,
+               "dag_event": dag_ops.dag_event,
+               "dag_streams": dag_ops.dag_streams,
                "amva": amva_ops.ps_fixed_point,
                "mva": amva_ops.mva_response,
                "flash_attention": fa_ops.flash_attention,
@@ -1784,7 +2025,8 @@ def main() -> None:
         if name.endswith("run_fast") and n_amva <= 0:
             fail(f"{name}: the amva kernel was not launched")
         if any(got_launches[k] for k in ("mva", "flash_attention",
-                                         "ssd_scan")):
+                                         "ssd_scan", "dag_event",
+                                         "dag_streams")):
             fail(f"{name}: the planner launched a kernel off its path: "
                  f"{got_launches}")
         for cls, sol in got.items():
@@ -1935,6 +2177,40 @@ def main() -> None:
     added_wall["table3.profiled"] = note["wall_s"]
     table3_rows = check_table3(scen, t3, REFERENCE["table3"], got_launches,
                                wall, note)
+
+    # [dag] the Spark/Tez chains at their own budgets: dag_sweep (the
+    # frontier scalar against batched, the optimizer in both gaits) and the
+    # solo part of examples/spark_dag_plan.py (a MapReduce class and a
+    # 4-stage chain in one problem: run() in both gaits, run_fast()), each
+    # a drive of its own, then once more under the profiler
+    dag_runs = {}
+    for name in DAG_SCENARIOS:
+        reset_launches(*wrappers)
+        qn_sim.reset_sim_stats()
+        t0 = time.perf_counter()
+        out = scen.SCENARIOS[name](dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        added_wall[name] = wall
+        got_launches = {k: w.launches for k, w in kernels.items()}
+        for k, n in got_launches.items():
+            launches[k] += n
+        counted = planner_counts(kernels)
+        n_disp = qn_sim.sim_stats()["dispatches"]
+        check_dag_scenario(scen, name, out, REFERENCE[name], got_launches,
+                           n_disp, wall)
+        _, dev_ms, note = profiled_pass(
+            kernels, lambda: scen.SCENARIOS[name](dev), counted, name)
+        added_wall[f"{name}.profiled"] = note["wall_s"]
+        dag_runs[name] = {"wall_s": wall, "dispatches": n_disp,
+                          "launches": got_launches,
+                          "launches_by_kernel": counted,
+                          "profiled_device_ms": dev_ms,
+                          "profiled_wall_s": note["wall_s"]}
+        print(f"[dag] {name} profiled again: {note['text']}"
+              + (f"; host and the rest {wall - sum(dev_ms.values()) / 1e3:.3f}"
+                 f" s of the {wall:.3f} s wall (without the profiler)"
+                 if None not in dev_ms.values() else ""), flush=True)
 
     # --------------------------------------------------------- LM serving
     by_path, card_cpu_diff = {}, {}
@@ -2206,6 +2482,117 @@ def main() -> None:
           f"{plans['Q1-10u.run']['qn_dispatches']} dispatches (before: "
           f"{QN_BEFORE['run_s']} s)", flush=True)
 
+    # amva's and mva's dependent chains on one thread (N = 1): a long
+    # launch against a short one, so the launch's own time drops out; the
+    # chain bound of a call is its steps times a step's latency (amva: 40
+    # rounds of fmul, fadd, __fdiv_rn and fma; mva: H steps)
+    one_am = (f32([2.0e6 / 160]), f32([9000.0]), f32([10000.0]), f32([10.0]))
+    am_round_ns = chain_ns(
+        lambda n: amva_ops.ps_fixed_point(*one_am, iters=n), 40, 40040)
+    am_chain_ms = 40 * am_round_ns * 1e-6
+    mva_step_ns = chain_ns(lambda n: amva_ops.mva_response(
+        f32([10.0]), f32([1e4]), n), 25, 25025)
+    mva_chain_ms = 25 * mva_step_ns * 1e-6
+    print(f"[time] amva dependent chain: {am_round_ns:.2f} ns a round on one "
+          f"thread; 40 rounds: chain bound {am_chain_ms:.6f} ms (byte bound "
+          f"{am_bound:.2e} ms); the kernel alone on the device "
+          f"{'not measured' if am_dev_ms is None else f'{am_dev_ms:.4f} ms'}"
+          f", queued {am_queued_ms:.4f} ms: its chain bound is "
+          f"{am_chain_ms / am_queued_ms:.2f} of that", flush=True)
+    mva_dev = mva_time["device_ms"]
+    print(f"[time] mva dependent chain: {mva_step_ns:.2f} ns a step on one "
+          f"thread; H=25: chain bound {mva_chain_ms:.6f} ms (byte bound "
+          f"{mva_time['bound_ms']:.2e} ms); the kernel alone on the device "
+          f"{'not measured' if mva_dev is None else f'{mva_dev:.4f} ms'}",
+          flush=True)
+
+    # [dag] both kernels at dag_sweep's frontier shape (the Spark chain at
+    # nu = 1..16 on m4.xlarge: B = 16, E = 8192, K = 4, H = 3, slots up to
+    # 128, seed 0, exponential mode; held against the plain version once
+    # more) and at the default budget (min_jobs 40, warmup 8: E = 16384)
+    spark = scen.SPARK
+    nus_f = np.arange(1, 17)
+    B_f, K_f, H_f = len(nus_f), len(spark.stages), scen.DAG_SWEEP_USERS
+    S_f = bucket_slots(int(nus_f.max()) * 8)
+    dag_time = {}
+    for E_f, warm in ((8192, 4), (16384, 8)):
+        lanes_f = (i32([[st.n_tasks for st in spark.stages]] * B_f),
+                   f32([[st.t_avg for st in spark.stages]] * B_f),
+                   i32([K_f] * B_f), i32(nus_f * 8), i32([E_f] * B_f),
+                   f32([scen.DAG_SWEEP_THINK_MS] * B_f))
+        seeds_f = torch.zeros(B_f, dtype=torch.int64, device=dev)
+        skw = dict(h_users=H_f, n_events=E_f)
+        make_f = lambda: dag_ops.dag_streams(lanes_f[5], seeds_f, lanes_f[4],
+                                             **skw)
+        tables_f = make_f()
+        run_f = lambda: dag_ops.dag_event(*lanes_f, *tables_f, None,
+                                          max_slots=S_f, warmup_jobs=warm)
+        ks, kc = run_f()
+        if float(kc.min()) <= 0:
+            fail(f"dag_event at the frontier shape E={E_f} left a lane "
+                 f"without jobs past the warm-up")
+        # the tables' call is mostly the wrapper's host work: queued back
+        # to back behind a spin, the launches give the kernel's own time
+        row = {"shape": f"B={B_f} E={E_f} K={K_f} S={S_f} H={H_f} "
+                        f"exponential", "ms": cuda_ms(run_f, 3),
+               "streams_ms": cuda_ms(make_f, 20),
+               "streams_queued_ms": queued_ms(make_f)}
+        if E_f == 8192:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ps, pc = dag_ref.dag_event(*lanes_f, *tables_f, None,
+                                       max_slots=S_f, warmup_jobs=warm)
+            torch.cuda.synchronize()
+            row["plain_ms"] = (time.perf_counter() - t0) * 1e3
+            want_f = dag_ref.dag_streams(lanes_f[5], seeds_f, lanes_f[4],
+                                         **skw)
+            if not (torch.equal(ks, ps) and torch.equal(kc, pc) and all(
+                    torch.equal(a, b) for a, b in zip(tables_f, want_f))):
+                fail("dag_event or dag_streams differs from its plain "
+                     "version at dag_sweep's frontier shape")
+            dag_checked.append(row["shape"])
+            row["streams_plain_ms"] = cuda_ms(
+                lambda: dag_ref.dag_streams(lanes_f[5], seeds_f, lanes_f[4],
+                                            **skw), 2)
+        # bound: each table, stage array and parameter read once, each
+        # output written once; per event the least work the function needs:
+        # a log2(S) selection among the slots for each of the two slot
+        # choices (first free, earliest end) and 4*H user compares (the
+        # queue key's stage and arrival, the think end, pending), one
+        # instruction each
+        active = B_f * E_f
+        nbytes = 4 * (2 * B_f * E_f + B_f * H_f + 2 * B_f * K_f + 4 * B_f
+                      + 2 * B_f)
+        n_ops = active * (2 * max(1, (S_f - 1).bit_length()) + 4 * H_f)
+        t_b, t_o = nbytes / H100_BYTES_PER_S, n_ops / H100_INSTR_PER_S
+        row.update(bound_ms=1e3 * max(t_b, t_o),
+                   bound_by="operations" if t_o > t_b else "bytes",
+                   ns_per_event=row["ms"] * 1e6 / E_f)
+        # the tables' bound: written once at the memory rate, or their
+        # threefry work on the integer pipe
+        s_bytes = 4 * (B_f * H_f + 2 * B_f * E_f) + 16 * B_f
+        s_ops = THREEFRY_INT32_OPS * (DAG_THREEFRY_PER_EVENT[False] * B_f
+                                      * E_f + 2 * B_f + B_f * H_f)
+        t_b, t_o = s_bytes / H100_BYTES_PER_S, s_ops / H100_INT32_OPS_PER_S
+        row.update(streams_bound_ms=1e3 * max(t_b, t_o),
+                   streams_bound_by="operations" if t_o > t_b else "bytes")
+        dag_time[E_f] = row
+        print(f"[time] dag_event {row['shape']}: {row['ms']:.3f} ms/launch, "
+              f"{row['ns_per_event']:.1f} ns an event, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {nbytes} bytes, "
+              f"{n_ops} operations)"
+              + (f", plain {row['plain_ms']:.1f} ms" if "plain_ms" in row
+                 else "") + f"; dag_streams {row['streams_ms']:.4f} ms a "
+              f"call, {row['streams_queued_ms']:.4f} ms queued back to "
+              f"back, bound {row['streams_bound_ms']:.4f} ms ({s_ops} "
+              f"integer-pipe instructions)"
+              + (f", plain {row['streams_plain_ms']:.3f} ms"
+                 if "streams_plain_ms" in row else ""), flush=True)
+    dag_per_drive = {k: v["launches"]["dag_event"] for k, v in
+                     dag_runs.items()}
+    print(f"[time] dag_event launches per drive: {dag_per_drive} (one "
+          f"dag_streams launch each)", flush=True)
+
     fa_time = time_flash(dev, fa_ops, fa_ref, 4, 1024, 32, 8, 64)
     fa_zamba2 = time_flash(dev, fa_ops, fa_ref, 4, 896, 32, 32, 112)
     ssd_time = time_ssd(dev, ssd_ops, ssd_ref)
@@ -2256,6 +2643,44 @@ def main() -> None:
          "library_note": "no PyTorch call draws jax.random's threefry "
                          "streams",
          "at_b1": {"ms": streams_pw_ms, "plain_ms": streams_pw_plain_ms}},
+        {"name": "dag_event", "route": "cuda",
+         "source": "src/repro_torch/csrc/dag_event.cu",
+         "replaces": "src/repro/core/dag.py:74",
+         "replaces_note": "the reference's _dag_sim, a lax.scan that XLA "
+                          "compiles into a device loop: no Pallas kernel",
+         "launches": launches["dag_event"], "max_abs_err": dag_err,
+         "checked": dag_checked,
+         "ms": dag_time[8192]["ms"], "plain_ms": dag_time[8192]["plain_ms"],
+         "shape": dag_time[8192]["shape"],
+         "ns_per_event": dag_time[8192]["ns_per_event"],
+         "bound_ms": dag_time[8192]["bound_ms"],
+         "bound_by": dag_time[8192]["bound_by"],
+         "library_ms": None,
+         "library_note": "no PyTorch call simulates the network",
+         "at_default_budget": {k: dag_time[16384][k] for k in
+                               ("shape", "ms", "ns_per_event", "bound_ms",
+                                "bound_by")},
+         "launches_per_drive": dag_per_drive, "drives": dag_runs},
+        {"name": "dag_streams", "route": "cuda",
+         "source": "src/repro_torch/csrc/dag_streams.cu",
+         "replaces": "src/repro/core/dag.py:91",
+         "replaces_note": "the draw tables _dag_sim computes before its "
+                          "scan, by XLA: no Pallas kernel",
+         "launches": launches["dag_streams"],
+         "max_abs_err": dag_streams_err,
+         "ms": dag_time[8192]["streams_ms"],
+         "queued_ms": dag_time[8192]["streams_queued_ms"],
+         "plain_ms": dag_time[8192]["streams_plain_ms"],
+         "shape": dag_time[8192]["shape"],
+         "bound_ms": dag_time[8192]["streams_bound_ms"],
+         "bound_by": dag_time[8192]["streams_bound_by"],
+         "library_ms": None,
+         "library_note": "no PyTorch call draws jax.random's threefry "
+                         "streams",
+         "at_default_budget": {
+             "ms": dag_time[16384]["streams_ms"],
+             "queued_ms": dag_time[16384]["streams_queued_ms"],
+             "bound_ms": dag_time[16384]["streams_bound_ms"]}},
         {"name": "amva", "route": "cuda",
          "source": "src/repro_torch/csrc/amva.cu",
          "replaces": "src/repro/kernels/amva/kernel.py:94",
@@ -2263,6 +2688,7 @@ def main() -> None:
          "ms": am_ms, "device_ms": am_dev_ms,
          "queued_ms": am_queued_ms, "plain_ms": am_plain_ms,
          "share_of_run_fast_wall": am_share,
+         "chain_ns_per_round": am_round_ns, "chain_bound_ms": am_chain_ms,
          "bound_ms": am_bound,
          "bound_by": ("operations" if am_ops_n / H100_FP32_OPS_PER_S
                       > am_bytes / H100_BYTES_PER_S else "bytes"),
@@ -2273,6 +2699,7 @@ def main() -> None:
          "replaces": "src/repro/kernels/amva/kernel.py:103",
          "launches": launches["mva"], "max_abs_err": mva_err,
          **mva_time, "shape": "N=4097 H=25",
+         "chain_ns_per_step": mva_step_ns, "chain_bound_ms_h25": mva_chain_ms,
          "library_ms": None,
          "library_note": "no PyTorch call runs the MVA recursion",
          "at_degenerate_case": {"shape": "N=1 H=5", **mva_degenerate}},

@@ -2,16 +2,17 @@
 
   * ``amva_frontier`` — the batched AMVA frontier on ``kernels/amva``;
   * ``make_qn_evaluator`` — the paper's point-wise QN tier, one scalar
-    simulation (``qn_sim.response_time``) per probe;
+    simulation per probe (``qn_sim.response_time``, or for a DAG profile
+    ``dag.dag_response_time``);
   * ``BatchedQNEvaluator`` — the batched QN tier, whole candidate sweeps
-    per fused dispatch of ``kernels/qn_event``.
+    per fused dispatch, routed by workload kind (``fused_eval_call``):
+    MapReduce groups to ``kernels/qn_event``, DAG groups to
+    ``kernels/dag_event``.
 
 Caches are content-addressed exactly as in the reference: keys are
 ``(profile_hash, vm_name, nu, seed)`` with the same ``profile_hash``, for
 both QN evaluators, so one cache serves both gaits and a cache filled by
-the reference can feed the port (``core.interop``).  The MapReduce route
-is ported; a DAG profile raises ``NotImplementedError`` (its K-stage
-event kernel is later work).
+the reference can feed the port (``core.interop``).
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import dag as dag_mod
 from repro_torch.core import partition as _partition
 from repro_torch.core import qn_sim
 from repro_torch.core.mva import workload_demand
@@ -74,8 +76,10 @@ def make_qn_evaluator(min_jobs: int = 40, warmup_jobs: int = 8,
     scalar simulation (one ``qn_event`` dispatch per replication) on
     ``device``, which is resolved here, once, so that calls from worker
     threads use it too.  ``samples`` maps ``(class_name, vm_name)`` to
-    replay lists ``(m_list, r_list)`` (JMT replayer mode).  The cache key
-    is the batched evaluator's, so the two gaits share one cache."""
+    replay lists (JMT replayer mode): ``(m_list, r_list)`` for a
+    MapReduce class, a per-stage ``(K, NS)`` array for a DAG class.  The
+    cache key is the batched evaluator's, so the two gaits share one
+    cache."""
     dev = resolve_device(device)
     cache = cache if cache is not None else {}
     ctx = _ContextDigests(samples, min_jobs=min_jobs,
@@ -86,18 +90,23 @@ def make_qn_evaluator(min_jobs: int = 40, warmup_jobs: int = 8,
         key = (ctx.digest(prof, cls, vm), vm.name, int(nu), seed)
         if key in cache:
             return cache[key]
-        if workload_kind(prof) == DAG:
-            raise NotImplementedError("DAG workloads are not ported yet")
         smp = ctx.replay_for(cls, vm)
-        ms, rs = smp if smp is not None else (None, None)
-        t = qn_sim.response_time(
-            n_map=prof.n_map, n_reduce=prof.n_reduce,
-            m_avg=prof.m_avg, r_avg=prof.r_avg,
-            think_ms=cls.think_ms, h_users=cls.h_users,
-            slots=nu * vm.slots, min_jobs=min_jobs,
-            warmup_jobs=warmup_jobs, seed=seed,
-            replications=replications, m_samples=ms, r_samples=rs,
-            device=dev)
+        if workload_kind(prof) == DAG:
+            t = dag_mod.dag_response_time(
+                prof, slots=nu * vm.slots, think_ms=cls.think_ms,
+                h_users=cls.h_users, min_jobs=min_jobs,
+                warmup_jobs=warmup_jobs, seed=seed,
+                replications=replications, samples=smp, device=dev)
+        else:
+            ms, rs = smp if smp is not None else (None, None)
+            t = qn_sim.response_time(
+                n_map=prof.n_map, n_reduce=prof.n_reduce,
+                m_avg=prof.m_avg, r_avg=prof.r_avg,
+                think_ms=cls.think_ms, h_users=cls.h_users,
+                slots=nu * vm.slots, min_jobs=min_jobs,
+                warmup_jobs=warmup_jobs, seed=seed,
+                replications=replications, m_samples=ms, r_samples=rs,
+                device=dev)
         cache[key] = t
         return t
     return evaluate
@@ -127,6 +136,23 @@ def fused_qn_call(profs: Sequence["object"], think_ms: Sequence[float],
         defer=defer)
 
 
+def fused_dag_call(jobs: Sequence["object"], think_ms: Sequence[float],
+                   h_users: int, slots: Sequence[int], *,
+                   min_jobs: int = 40, warmup_jobs: int = 8,
+                   replications: int = 2, seed: int = 0,
+                   samples=None, device=None, defer: bool = False):
+    """DAG counterpart of ``fused_qn_call``: one fused dispatch of
+    ``dag.response_time_batch`` over the chain configurations of a fusion
+    group (chains of different length pad to the batch-maximum stage
+    count).  Each lane equals a scalar ``dag_response_time`` call."""
+    return dag_mod.response_time_batch(
+        jobs, think_ms=np.asarray(think_ms, np.float32),
+        slots=np.asarray(slots, np.int64), h_users=int(h_users),
+        min_jobs=min_jobs, warmup_jobs=warmup_jobs, seed=seed,
+        replications=replications, samples=samples, defer=defer,
+        device=device)
+
+
 def fused_eval_call(kind: str, profs: Sequence["object"],
                     think_ms: Sequence[float], h_users: int,
                     slots: Sequence[int], *, min_jobs: int = 40,
@@ -134,19 +160,22 @@ def fused_eval_call(kind: str, profs: Sequence["object"],
                     seed: int = 0, samples=None, device=None,
                     defer: bool = False):
     """Workload dispatch of a fusion group: MapReduce windows go to
-    ``fused_qn_call``; DAG windows are not ported yet."""
-    if kind == DAG:
-        raise NotImplementedError("DAG workloads are not ported yet")
+    ``fused_qn_call``, DAG windows to ``fused_dag_call``.  ``samples`` is
+    the group's replay payload in the kind's own form (an ``(m_list,
+    r_list)`` pair, or a ``(K, NS)`` array)."""
+    kw = dict(min_jobs=min_jobs, warmup_jobs=warmup_jobs,
+              replications=replications, seed=seed, device=device,
+              defer=defer)
     with _obs_trace.span("fused_dispatch", cat="fusion", kind=kind,
                          points=len(profs), h_users=int(h_users),
                          replay=samples is not None,
                          devices=_partition.shard_count(len(profs))):
+        if kind == DAG:
+            return fused_dag_call(profs, think_ms, h_users, slots,
+                                  samples=samples, **kw)
         ms, rs = samples if samples is not None else (None, None)
         return fused_qn_call(profs, think_ms, h_users, slots,
-                             min_jobs=min_jobs, warmup_jobs=warmup_jobs,
-                             replications=replications, seed=seed,
-                             m_samples=ms, r_samples=rs, device=device,
-                             defer=defer)
+                             m_samples=ms, r_samples=rs, **kw)
 
 
 class BatchedQNEvaluator:
@@ -206,11 +235,17 @@ class BatchedQNEvaluator:
             seen.add(key)
             replay = (cls.name, vm.name) if (cls.name, vm.name) \
                 in self.samples else None
-            todo.setdefault((workload_kind(prof), cls.h_users, replay),
-                            []).append(idx)
+            kind = workload_kind(prof)
+            group_key = (kind, cls.h_users, replay)
+            if kind == DAG and replay is not None:
+                # replay lanes share one (K, NS) sample array, so a replay
+                # group must agree on the stage count
+                group_key += (len(prof.stages),)
+            todo.setdefault(group_key, []).append(idx)
         # dispatch every group first, then read all results in one sync
         inflight: List[Tuple[list, "qn_sim.PendingBatch"]] = []
-        for (kind, h_users, replay), idxs in todo.items():
+        for group_key, idxs in todo.items():
+            kind, h_users, replay = group_key[:3]
             smp = self.samples[replay] if replay is not None else None
             pending = fused_eval_call(
                 kind, [profs[i] for i in idxs],
@@ -243,6 +278,20 @@ def make_batched_qn_evaluator(min_jobs: int = 40, warmup_jobs: int = 8,
     return BatchedQNEvaluator(min_jobs=min_jobs, warmup_jobs=warmup_jobs,
                               replications=replications, seed=seed,
                               cache=cache, samples=samples, device=device)
+
+
+def workload_event_budget(prof, *, min_jobs: int,
+                          warmup_jobs: int) -> int:
+    """Pow2-bucketed logical event budget of one (candidate, replication)
+    simulator lane for any workload kind (the unit admission control
+    prices jobs in).  Budgets depend only on the task counts and job
+    quota, never on the candidate nu."""
+    if workload_kind(prof) == DAG:
+        return dag_mod.padded_event_budget(prof, min_jobs=min_jobs,
+                                           warmup_jobs=warmup_jobs)
+    return qn_sim.padded_event_budget(prof.n_map, prof.n_reduce,
+                                      min_jobs=min_jobs,
+                                      warmup_jobs=warmup_jobs)
 
 
 def amva_frontier(cls: ApplicationClass, vm: VMType, nu_lo: int, nu_hi: int,

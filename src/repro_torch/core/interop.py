@@ -29,13 +29,22 @@ def problem_from_reference(doc: str) -> Problem:
 
 
 def samples_from_reference(samples: Dict) -> Dict[Tuple[str, str], tuple]:
-    """Replay lists keyed ``(class_name, vm_name)`` -> ``(m_list, r_list)``,
-    checked (1-D, non-empty, finite) and converted to float32 arrays."""
+    """Replay lists keyed ``(class_name, vm_name)`` -> ``(m_list, r_list)``
+    (a MapReduce class), checked (1-D, non-empty, finite) and converted to
+    float32 arrays; a DAG class's per-stage ``(K, NS)`` array (a numpy
+    array, as the reference keys it) stays one float32 array."""
     out = {}
     for key, pair in samples.items():
         if not (isinstance(key, tuple) and len(key) == 2
                 and all(isinstance(k, str) for k in key)):
             raise ValueError(f"sample key must be (class, vm): {key!r}")
+        if isinstance(pair, np.ndarray):
+            arr = np.asarray(pair, np.float32)
+            if arr.ndim != 2 or arr.size == 0 or not np.isfinite(arr).all():
+                raise ValueError(f"replay lists of {key} must be a finite, "
+                                 "non-empty (stages, samples) array")
+            out[key] = arr
+            continue
         ms, rs = (np.asarray(x, np.float32) for x in pair)
         for x in (ms, rs):
             if x.ndim != 1 or x.size == 0 or not np.isfinite(x).all():

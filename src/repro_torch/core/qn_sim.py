@@ -235,29 +235,6 @@ def response_time_batch(n_map, n_reduce, m_avg, r_avg, think_ms,
     tk = _b(think_ms, np.float32)
     sl = _b(slots, np.int64)
 
-    # per-candidate logical budget: the RNG fold offset of its think stream
-    n_ev = np.asarray([padded_event_budget(int(nm[c]), int(nr[c]),
-                                           min_jobs=min_jobs,
-                                           warmup_jobs=warmup_jobs)
-                       for c in range(C)], np.int64)
-    scan_len = int(n_ev.max())
-    max_slots = _shapes.bucket_slots(int(sl.max()))
-
-    # pad the candidate axis to the lane grid by replicating the last
-    # candidate (lanes are independent; the copies are dropped on resolve)
-    shards = _partition.shard_count(C)
-    C_single = _shapes.bucket_lanes(C)
-    C_pad = _partition.bucket_lanes(C, shards)
-    if C_pad > C:
-        pad = lambda x: np.concatenate(
-            [x, np.repeat(x[-1:], C_pad - C, axis=0)])
-        nm, nr, ma, ra, tk, sl, n_ev = map(
-            pad, (nm, nr, ma, ra, tk, sl, n_ev))
-
-    R = replications
-    seeds = seed + 1000 * np.tile(np.arange(R, dtype=np.int64), C_pad)
-    rep = lambda x: np.repeat(x, R)
-
     if m_samples is not None:
         ms = torch.as_tensor(np.asarray(m_samples, np.float32), device=dev)
         rs = torch.as_tensor(np.asarray(r_samples, np.float32), device=dev)
@@ -266,36 +243,69 @@ def response_time_batch(n_map, n_reduce, m_avg, r_avg, think_ms,
     else:
         ms = rs = None
 
-    impl = "cuda" if dev.type == "cuda" else "plain"
-    shard_pad = max(C_pad - C_single, 0)
-    bucket_pad = (C_pad - C) - shard_pad
-    _count_dispatch(
-        lanes=C_pad * R, padded_lanes=(C_pad - C) * R,
-        events_total=scan_len * C_pad * R,
-        events_useful=int(n_ev[:C].sum()) * R,
-        bucket_padded_lanes=bucket_pad * R,
-        bucket_padded_events=scan_len * bucket_pad * R,
-        shard_padded_lanes=shard_pad * R,
-        shard_padded_events=scan_len * shard_pad * R,
-        devices=shards)
+    # per-candidate logical budget: the RNG fold offset of its think stream
+    n_ev = np.asarray([padded_event_budget(int(nm[c]), int(nr[c]),
+                                           min_jobs=min_jobs,
+                                           warmup_jobs=warmup_jobs)
+                       for c in range(C)], np.int64)
+    scan_len = int(n_ev.max())
+    max_slots = _shapes.bucket_slots(int(sl.max()))
+    (nm, nr, ma, ra, tk, sl, n_ev), seeds, shards = fused_lanes(
+        (nm, nr, ma, ra, tk, sl, n_ev), n_ev, replications=replications,
+        seed=seed)
 
     def t(x, dt):
         return torch.as_tensor(np.asarray(x), dtype=dt).to(dev)
 
     i32, f32 = torch.int32, torch.float32
+    impl = "cuda" if dev.type == "cuda" else "plain"
     with _obs_trace.span(f"kernel:{impl}", cat="kernel",
-                         lanes=C_pad * R, candidates=C,
+                         lanes=len(seeds), candidates=C,
                          scan_len=scan_len, max_slots=max_slots,
                          h_users=int(h_users), replay=ms is not None,
-                         devices=shards, shard_lanes=C_pad * R // shards):
+                         devices=shards, shard_lanes=len(seeds) // shards):
         mean, cnt = qn_event_ops.sim_batch(
-            t(rep(nm), i32), t(rep(nr), i32), t(rep(ma), f32),
-            t(rep(ra), f32), t(rep(tk), f32), t(rep(sl), i32),
-            t(seeds, torch.int64), t(rep(n_ev), i32), ms, rs,
+            t(nm, i32), t(nr, i32), t(ma, f32), t(ra, f32), t(tk, f32),
+            t(sl, i32), t(seeds, torch.int64), t(n_ev, i32), ms, rs,
             h_users=int(h_users), max_slots=max_slots, n_events=scan_len,
             warmup_jobs=warmup_jobs)
-    pending = PendingBatch(mean, cnt, C, R)
+    pending = PendingBatch(mean, cnt, C, replications)
     return pending if defer else pending.resolve()
+
+
+def fused_lanes(arrays, n_ev, *, replications: int, seed: int):
+    """The flat lane layout of one fused dispatch over C candidates, as the
+    reference lays it out, and its count in the simulator counters (the
+    reference's formulas).  The candidate axis of every array in
+    ``arrays`` (leading dimension C) is padded to the lane grid by
+    replicating the last candidate (lanes are independent; the copies are
+    dropped on resolve), then each candidate is repeated for its
+    ``replications`` lanes, seeded ``seed + 1000*r``.  ``n_ev`` holds the
+    candidates' logical budgets.  Returns ``(lane arrays, seeds,
+    shards)``."""
+    C = len(n_ev)
+    scan_len = int(np.max(n_ev))
+    shards = _partition.shard_count(C)
+    C_single = _shapes.bucket_lanes(C)
+    C_pad = _partition.bucket_lanes(C, shards)
+    if C_pad > C:
+        pad = lambda x: np.concatenate(
+            [x, np.repeat(x[-1:], C_pad - C, axis=0)])
+        arrays = [pad(x) for x in arrays]
+    R = replications
+    shard_pad = max(C_pad - C_single, 0)
+    bucket_pad = (C_pad - C) - shard_pad
+    _count_dispatch(
+        lanes=C_pad * R, padded_lanes=(C_pad - C) * R,
+        events_total=scan_len * C_pad * R,
+        events_useful=int(np.sum(n_ev)) * R,
+        bucket_padded_lanes=bucket_pad * R,
+        bucket_padded_events=scan_len * bucket_pad * R,
+        shard_padded_lanes=shard_pad * R,
+        shard_padded_events=scan_len * shard_pad * R,
+        devices=shards)
+    seeds = seed + 1000 * np.tile(np.arange(R, dtype=np.int64), C_pad)
+    return [np.repeat(x, R, axis=0) for x in arrays], seeds, shards
 
 
 def _simulate(p: QNParams, replications: int, m_samples, r_samples,

@@ -49,3 +49,10 @@ def bucket_events(n: int) -> int:
     RNG fold offset of the think-redraw stream and so part of the
     simulated values."""
     return pow2(n)
+
+
+def bucket_stages(n: int) -> int:
+    """Bucket a DAG stage-array length.  Each lane carries its true stage
+    count and clips every stage index to it, so padded stages are
+    unreachable — values are unchanged."""
+    return bucket(n)

@@ -41,7 +41,7 @@ FLAGS = (ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures: (name, argtypes); every entry point returns an int (the
-# cudaError_t of its launch, or for qn_event_scratch_bytes a size)
+# cudaError_t of its launch, or for the *_scratch_bytes queries a size)
 SIGNATURES = {
     "amva_ps_launch": [_P, _P, _P, _P, _P, _I, _I, _P],
     # demand, think, r_out; n, h_users; stream
@@ -56,6 +56,15 @@ SIGNATURES = {
     # seed, budgets, think_ms, sample lists, think0, st_m, st_r, td; B, H,
     # E, list lengths, replay; stream
     "qn_streams_launch": [_P] * 9 + [_I] * 6 + [_P],
+    # stage arrays, lane counts, think_ms, think0, st, td, samples (10);
+    # resp_sum, resp_cnt, scratch; lanes, K, H, max_slots, E, n_samples,
+    # sample rows, warmup_jobs, replay; stream
+    "dag_event_launch": [_P] * 10 + [_P, _P, _P] + [_I] * 9 + [_P],
+    # H, max_slots -> per-lane bytes of global scratch (0: shared memory)
+    "dag_event_scratch_bytes": [_I, _I],
+    # seed, budgets, think_ms, think0, st, td; B, H, E, n_samples, replay;
+    # stream
+    "dag_streams_launch": [_P] * 6 + [_I] * 5 + [_P],
     # q, k, v, o; B, S, H, KV, Dh; (b, s, head) strides of q, k, v, o;
     # causal, window, dtype; stream
     "flash_attention_launch": [_P] * 4 + [_I] * 5 + [_L] * 12

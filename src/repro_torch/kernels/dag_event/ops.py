@@ -1,0 +1,179 @@
+"""Wrappers of the K-stage DAG event loop and of its random draw tables.
+
+``dag_streams`` draws every lane's tables: a CUDA tensor launches
+``csrc/dag_streams.cu`` (bit-identical to the plain version), a CPU tensor
+takes the plain version in ``ref.py``.  ``dag_event`` runs the event loop:
+a CUDA tensor launches ``csrc/dag_event.cu``, a CPU tensor takes
+``ref.dag_event``.  Each wrapper's ``launches`` counts its kernel
+launches.  A build or launch failure raises; a CUDA tensor never takes
+the plain version.  ``sim_batch`` composes the two into the reference's
+``_dag_sim_batch_jit`` contract.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.dag_event import ref
+
+
+def dag_streams(think_ms, seed, n_events_active, *, h_users: int,
+                n_events: int, n_samples: int = None):
+    """Per-lane tables on the device of ``seed``: ``(think0, st, td)``,
+    float32 ``(B, H)``, ``(B, E)`` int32 sample indices (replay mode,
+    ``n_samples`` given) or float32 unit draws, and float32 ``(B, E)``,
+    drawn as ``ref.dag_streams`` documents from int64 seeds ``(B,)``,
+    per-lane budgets and think times ``(B,)``.  On the card the seeds are
+    taken modulo 2**32 as the plain version's keys take them; the plain
+    version also raises on a seed outside int32, which the kernel path
+    does not check (it would wait for the device)."""
+    dev = seed.device
+    if dev.type == "cpu":
+        return ref.dag_streams(think_ms, seed, n_events_active,
+                               h_users=h_users, n_events=n_events,
+                               n_samples=n_samples)
+    if dev.type != "cuda":
+        raise ValueError(f"no dag_streams kernel for device {dev}")
+    B = seed.shape[0] if seed.dim() == 1 else -1
+    for x in (think_ms, n_events_active):
+        if not isinstance(x, torch.Tensor) or x.device != dev:
+            raise ValueError("dag_streams takes tensors on one device")
+    if B < 0 or think_ms.shape != (B,) or n_events_active.shape != (B,):
+        raise ValueError("seeds, budgets and think times must be (B,)")
+    replay = n_samples is not None
+    if replay and int(n_samples) <= 0:
+        raise ValueError("replay mode needs at least one sample")
+    H, E = int(h_users), int(n_events)
+    seed = seed.to(torch.int64).contiguous()
+    nea = n_events_active.to(torch.int32).contiguous()
+    tm = think_ms.to(torch.float32).contiguous()
+    think0 = torch.empty((B, H), dtype=torch.float32, device=dev)
+    st = torch.empty((B, E), dtype=torch.int32 if replay else torch.float32,
+                     device=dev)
+    td = torch.empty((B, E), dtype=torch.float32, device=dev)
+    lib = build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.dag_streams_launch(
+            seed.data_ptr(), nea.data_ptr(), tm.data_ptr(), think0.data_ptr(),
+            st.data_ptr(), td.data_ptr(), B, H, E,
+            int(n_samples) if replay else 0, int(replay), stream)
+    build.check(rc, "dag_streams")
+    build.count(dag_streams)
+    return think0, st, td
+
+
+dag_streams.launches = 0
+
+
+def _check(ints, floats, stages, tables, samples, B, H, E):
+    dev = tables[0].device
+    for x in ints + floats + stages + tables + \
+            ((samples,) if samples is not None else ()):
+        if not isinstance(x, torch.Tensor) or x.device != dev:
+            raise ValueError("dag_event takes tensors on one device")
+    for x in ints:
+        if x.shape != (B,) or x.dtype != torch.int32:
+            raise ValueError("lane counts must be int32 (B,)")
+    for x in floats:
+        if x.shape != (B,) or x.dtype != torch.float32:
+            raise ValueError("lane parameters must be float32 (B,)")
+    n_tasks, t_avg = stages
+    if n_tasks.dim() != 2 or n_tasks.shape[0] != B or \
+            n_tasks.shape[1] == 0 or n_tasks.dtype != torch.int32 or \
+            t_avg.shape != n_tasks.shape or t_avg.dtype != torch.float32:
+        raise ValueError("stage arrays must be int32 and float32 (B, K), "
+                         "K > 0")
+    think0, st, td = tables
+    if think0.shape != (B, H) or think0.dtype != torch.float32:
+        raise ValueError("think0 must be float32 (B, H)")
+    want = torch.int32 if samples is not None else torch.float32
+    if st.shape != (B, E) or st.dtype != want:
+        raise ValueError(f"the service table must be {want} (B, E)")
+    if td.shape != (B, E) or td.dtype != torch.float32:
+        raise ValueError("the think table must be float32 (B, E)")
+    if samples is not None and (samples.dim() != 2
+                                or samples.dtype != torch.float32
+                                or 0 in samples.shape):
+        raise ValueError("samples must be float32 (K_s, NS), K_s, NS > 0")
+
+
+def dag_event(n_tasks, t_avg, n_stages, slots_cap, n_events_active,
+              think_ms, think0, st, td, samples=None, *, max_slots: int,
+              warmup_jobs: int):
+    """Every lane's K-stage event loop; returns ``(resp_sum, resp_cnt)``,
+    float32 ``(B,)``.  Stage arrays are ``(B, K)`` (int32 task counts,
+    float32 means) padded past each lane's ``n_stages``, the lane counts
+    int32 ``(B,)``, ``think_ms`` float32 ``(B,)``, ``think0`` ``(B, H)``
+    and the draw tables ``(B, E)``; with ``samples`` (float32 ``(K_s,
+    NS)``) the batch replays them and ``st`` holds int32 indices below NS.
+    A stage past the stage arrays' or the samples' rows reads their last
+    row, as the reference's gathers clamp.  All on one device.
+    ``slots_cap`` must not exceed ``max_slots``.  Times, means and draws
+    are durations, never negative: the card's kernel orders clocks by
+    their bits.  The lane's state needs ``dag_event_scratch_bytes`` of
+    global scratch once it outgrows the card's shared memory."""
+    ints = (n_stages, slots_cap, n_events_active)
+    floats = (think_ms,)
+    stages = (n_tasks, t_avg)
+    tables = (think0, st, td)
+    B, H = think0.shape
+    E = st.shape[1]
+    _check(ints, floats, stages, tables, samples, B, H, E)
+    dev = think0.device
+    kw = dict(max_slots=max_slots, warmup_jobs=warmup_jobs)
+    if dev.type == "cpu":
+        return ref.dag_event(n_tasks, t_avg, n_stages, slots_cap,
+                             n_events_active, think_ms, think0, st, td,
+                             samples, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"no dag_event kernel for device {dev}")
+    args = tuple(x.contiguous() for x in stages + ints + floats + tables)
+    smp = samples.contiguous() if samples is not None else None
+    resp_sum = torch.empty(B, dtype=torch.float32, device=dev)
+    resp_cnt = torch.empty(B, dtype=torch.float32, device=dev)
+    if B == 0:
+        return resp_sum, resp_cnt
+    lib = build.library()
+    with torch.cuda.device(dev):
+        # the lane's state lives in shared memory, or past the card's
+        # shared memory in a global slice per lane
+        nbytes = lib.dag_event_scratch_bytes(H, int(max_slots))
+        if nbytes < 0:
+            raise RuntimeError(f"dag_event cannot lay out H={H} users and "
+                               f"{max_slots} slots")
+        scratch = torch.empty((B, nbytes), dtype=torch.uint8, device=dev) \
+            if nbytes else None
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.dag_event_launch(
+            *(x.data_ptr() for x in args),
+            None if smp is None else smp.data_ptr(),
+            resp_sum.data_ptr(), resp_cnt.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            B, n_tasks.shape[1], H, int(max_slots), E,
+            0 if smp is None else smp.shape[1],
+            0 if smp is None else smp.shape[0], int(warmup_jobs),
+            int(smp is not None), stream)
+    build.check(rc, "dag_event")
+    build.count(dag_event)
+    return resp_sum, resp_cnt
+
+
+dag_event.launches = 0
+
+
+def sim_batch(n_tasks, t_avg, n_stages, think_ms, slots_cap, seed,
+              n_events_active, samples, *, h_users: int, max_slots: int,
+              n_events: int, warmup_jobs: int):
+    """One fused simulation over a flat lane batch, on the device of its
+    tensors: ``(B, K)`` stage arrays, per-lane ``(B,)`` parameters, the
+    shared replay lists ``(K_s, NS)`` (or None).  Returns ``(mean_resp,
+    resp_cnt)`` per lane."""
+    think0, st, td = dag_streams(
+        think_ms, seed, n_events_active, h_users=h_users, n_events=n_events,
+        n_samples=None if samples is None else samples.shape[1])
+    resp_sum, resp_cnt = dag_event(
+        n_tasks, t_avg, n_stages, slots_cap, n_events_active, think_ms,
+        think0, st, td, samples, max_slots=max_slots,
+        warmup_jobs=warmup_jobs)
+    return resp_sum / torch.clamp(resp_cnt, min=1.0), resp_cnt

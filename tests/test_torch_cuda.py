@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import qn_sim
+from repro_torch.core import dag, qn_sim, shapes
 from repro_torch.core.optimizer import DSpace4Cloud
 from repro_torch.core.problem import (ApplicationClass, JobProfile, Problem,
                                       VMType)
@@ -17,6 +17,8 @@ from repro_torch.distributed.sharding import init_params
 from repro_torch.kernels import build
 from repro_torch.kernels.amva import ops as amva_ops
 from repro_torch.kernels.amva import ref as amva_ref
+from repro_torch.kernels.dag_event import ops as dag_ops
+from repro_torch.kernels.dag_event import ref as dag_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.qn_event import ops as qn_ops
@@ -164,6 +166,126 @@ def test_qn_event_kernel_exact_ties(dev, H, S):
     ps, pc = qn_ref.qn_event(*lanes, *tables, **kw)
     assert torch.equal(ks, ps) and torch.equal(kc, pc)
     assert bool((kc > 0).all())
+
+
+def _dag_lanes(dev, g, chains, caps, nea, think):
+    """Lanes of the DAG event loop: chains of task counts padded to the
+    stage bucket, each lane's caps, budgets and think times."""
+    f32, i32 = _cuda_f32_i32(dev)
+    B, K = len(chains), shapes.bucket_stages(max(map(len, chains)))
+    nt = np.zeros((B, K), np.int32)
+    ta = np.zeros((B, K), np.float32)
+    for b, c in enumerate(chains):
+        nt[b, :len(c)] = c
+        ta[b, :len(c)] = g.uniform(20, 90, len(c))
+    return (i32(nt), f32(ta), i32([len(c) for c in chains]), i32(caps),
+            i32(nea), f32(g.uniform(*think, B)))
+
+
+@pytest.mark.parametrize("replay", [False, True])
+@pytest.mark.parametrize("B", [1, 16])
+def test_dag_streams_kernel_bit_identical_to_plain(dev, replay, B):
+    """The DAG's draw-table kernel against the plain version: every table
+    equal bit for bit, with per-lane budgets including 0, negative seeds
+    and a sample count that is not a power of two."""
+    f32, i32 = _cuda_f32_i32(dev)
+    g = np.random.default_rng(9 + B)
+    E, H = 3000, 5
+    nea = g.integers(0, 2 * E, B)
+    nea[0] = 0
+    seeds = torch.tensor(g.integers(-2 ** 31, 2 ** 31, B), dtype=torch.int64,
+                         device=dev)
+    tm = f32(g.uniform(100, 5000, B))
+    kw = dict(h_users=H, n_events=E, n_samples=97 if replay else None)
+    before = dag_ops.dag_streams.launches
+    got = dag_ops.dag_streams(tm, seeds, i32(nea), **kw)
+    assert dag_ops.dag_streams.launches == before + 1
+    want = dag_ref.dag_streams(tm, seeds, i32(nea), **kw)
+    torch.cuda.synchronize()
+    assert got[1].dtype == (torch.int32 if replay else torch.float32)
+    for a, b in zip(got, want):
+        assert a.device == dev and torch.equal(a, b)
+
+
+# chains of 1..4 stages in one batch (padded to the stage bucket), a
+# padding lane (zero budget), a single-slot lane, a short budget; H = 1, 3
+# and 40 (more than one user a thread); S = 8192 slots (opt-in shared
+# memory) and H = 12000 (a global scratch slice)
+DAG_CARD_CASES = [(1, 64), (3, 64), (40, 600), (3, 8192), (12000, 64)]
+
+
+@pytest.mark.parametrize("replay", [False, True])
+@pytest.mark.parametrize("H,S", DAG_CARD_CASES)
+def test_dag_event_kernel_bit_identical_to_plain(dev, replay, H, S):
+    f32, _ = _cuda_f32_i32(dev)
+    g = np.random.default_rng(H + S + replay)
+    E = 2048
+    chains = [(6, 3)] * 6 if replay else \
+        [(6,), (8, 4), (10, 4, 2), (6, 5, 3, 2), (5, 5), (7,)]
+    lanes = _dag_lanes(dev, g, chains, [S, 1, 17, S, 3, 40],
+                       [E, E, E, 0, E // 3, E], (1e3, 4e3) if H < 100
+                       else (5e4, 1e5))
+    seeds = torch.arange(6, device=dev) * 1000 + 3
+    smp = f32(g.lognormal(np.log(60.0), 0.4, (2, 97))) if replay else None
+    tables = dag_ops.dag_streams(lanes[5], seeds, lanes[4], h_users=H,
+                                 n_events=E,
+                                 n_samples=97 if replay else None)
+    scratch = build.library().dag_event_scratch_bytes(H, S)
+    assert (scratch > 0) == (H == 12000)
+    kw = dict(max_slots=S, warmup_jobs=2)
+    before = dag_ops.dag_event.launches
+    ks, kc = dag_ops.dag_event(*lanes, *tables, smp, **kw)
+    assert dag_ops.dag_event.launches == before + 1
+    ps, pc = dag_ref.dag_event(*lanes, *tables, smp, **kw)
+    assert torch.equal(ks, ps) and torch.equal(kc, pc)
+    assert kc[3] == 0 and bool((kc[[0, 1, 2, 5]] > 0).all())
+
+
+def test_dag_event_kernel_clamps_short_sample_lists(dev):
+    """Replay lists with fewer rows than the lanes' stages: the kernel reads
+    the last row for a deeper stage, as the plain version and the
+    reference's gather do."""
+    f32, _ = _cuda_f32_i32(dev)
+    g = np.random.default_rng(31)
+    E = 2048
+    lanes = _dag_lanes(dev, g, [(6, 3, 2)] * 4, [64, 1, 17, 5],
+                       [E, E, E // 3, E], (1e3, 4e3))
+    smp = f32(g.lognormal(np.log(60.0), 0.4, (1, 97)))
+    tables = dag_ops.dag_streams(lanes[5], torch.arange(4, device=dev) + 7,
+                                 lanes[4], h_users=3, n_events=E,
+                                 n_samples=97)
+    kw = dict(max_slots=64, warmup_jobs=2)
+    ks, kc = dag_ops.dag_event(*lanes, *tables, smp, **kw)
+    ps, pc = dag_ref.dag_event(*lanes, *tables, smp, **kw)
+    assert torch.equal(ks, ps) and torch.equal(kc, pc)
+    assert bool((kc > 0).all())
+
+
+@pytest.mark.parametrize("replay", [False, True])
+def test_dag_scalar_equals_batched_and_the_cpu_on_the_card(dev, replay):
+    """``dag_response_time`` (one launch of each kernel a replication) and
+    ``response_time_batch`` (one of each) on the card: scalar equals
+    batched, and both equal the CPU's plain path bit for bit in replay
+    mode, within a relative 1e-3 otherwise."""
+    job = dag.DagJob("d", (dag.Stage(8, 900.0), dag.Stage(4, 500.0),
+                           dag.Stage(2, 1200.0)))
+    smp = dag.dag_replayer_lists(job, seed=3) if replay else None
+    kw = dict(think_ms=6000.0, h_users=3, min_jobs=6, warmup_jobs=3,
+              seed=5, replications=2, samples=smp)
+    slots = [2, 5, 9]
+    before = dag_ops.dag_event.launches, dag_ops.dag_streams.launches
+    scalar = [dag.dag_response_time(job, slots=s, device=dev, **kw)
+              for s in slots]
+    batched = dag.response_time_batch([job] * 3, slots=slots, device=dev,
+                                      **kw)
+    assert (dag_ops.dag_event.launches - before[0],
+            dag_ops.dag_streams.launches - before[1]) == (7, 7)
+    assert np.array_equal(np.asarray(scalar), batched)
+    cpu = dag.response_time_batch([job] * 3, slots=slots, device="cpu", **kw)
+    if replay:
+        assert np.array_equal(batched, cpu)
+    else:
+        assert np.allclose(batched, cpu, rtol=1e-3, atol=0)
 
 
 @pytest.mark.parametrize("n", [1, 97, 128, 4097])

@@ -30,7 +30,9 @@ def test_importing_every_module_leaves_jax_and_repro_out():
     for m in ("repro_torch.configs.registry", "repro_torch.models.api",
               "repro_torch.kernels.flash_attention.ops",
               "repro_torch.kernels.ssd_scan.ops", "repro_torch.models.mamba2",
-              "repro_torch.serve.engine", "repro_torch.launch.serve"):
+              "repro_torch.serve.engine", "repro_torch.launch.serve",
+              "repro_torch.core.dag", "repro_torch.kernels.dag_event.ops",
+              "repro_torch.kernels.dag_event.ref"):
         assert m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -112,6 +114,12 @@ def test_entry_points_without_a_device_raise_on_a_cpu_host():
         qn_sim.response_time_batch(4, 1, 100.0, 50.0, 1000.0, 2, [2])
     with pytest.raises(RuntimeError, match="CUDA"):
         evaluators.amva_frontier(cls, vm, 1, 4)
+    from repro_torch.core import dag
+    chain = dag.DagJob("d", (dag.Stage(4, 100.0), dag.Stage(2, 50.0)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dag.dag_response_time(chain, 2, 1000.0, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dag.response_time_batch([chain], 1000.0, [2], 2)
     assert resolve_device("cpu") == torch.device("cpu")
     t = DSpace4Cloud(prob, device="cpu", min_jobs=4).run_fast()
     assert np.isfinite(t.solutions["c"].predicted_ms)

@@ -23,6 +23,8 @@ from repro.core.hillclimb import optimize_class as ref_optimize_class
 from repro.core.optimizer import DSpace4Cloud as RefD
 from repro.core.problem import ApplicationClass, ClassSolution, JobProfile, \
     Problem, VMType
+from repro.core.workload import DagJob as RefDagJob
+from repro.core.workload import Stage as RefStage
 from repro_torch.core import evaluators, hillclimb, qn_sim
 from repro_torch.core.optimizer import DSpace4Cloud
 from repro_torch.core.problem import ClassSolution as PortSolution
@@ -127,7 +129,11 @@ def test_response_time_events_follow_the_reference_budget():
 
 # ---------------------------------------------------------- evaluators
 
-def test_qn_evaluator_caches_and_refuses_dag_profiles():
+def test_qn_evaluator_caches_and_evaluates_dag_profiles():
+    """The point-wise evaluator caches under the reference's key and
+    refuses no DAG profile: a chain's evaluation (replay mode, one
+    ``dag_event`` dispatch) equals the reference's ``make_qn_evaluator``
+    bit for bit and lands in the cache under the reference's key."""
     prob, _ = PROBLEMS["exp"]()
     pprob, _ = _port_args(prob, None)
     cls, vm = pprob.classes[0], pprob.vm_types[0]
@@ -140,11 +146,27 @@ def test_qn_evaluator_caches_and_refuses_dag_profiles():
     assert qn_sim.sim_stats()["dispatches"] - s0 == 1     # the second hit
     (key,) = cache
     assert key[1:] == (vm.name, 3, 0)
-    dag = DagJob("d", (Stage(4, 100.0), Stage(2, 50.0)))
+    stages = ((4, 100.0), (2, 50.0))
+    smp = {("dag", vm.name): np.random.default_rng(3).lognormal(
+        np.log(80.0), 0.4, (2, 64)).astype(np.float32)}
     dag_cls = ApplicationClass(name="dag", h_users=2, think_ms=1000.0,
-                               deadline_ms=5000.0, profiles={vm.name: dag})
-    with pytest.raises(NotImplementedError):
-        ev(dag_cls, vm, 2)
+                               deadline_ms=5000.0, profiles={
+                                   vm.name: DagJob("d", tuple(
+                                       Stage(*s) for s in stages))})
+    ref_job = RefDagJob("d", tuple(RefStage(*s) for s in stages))
+    ref_cls = ApplicationClass(name="dag", h_users=2, think_ms=1000.0,
+                               deadline_ms=5000.0,
+                               profiles={vm.name: ref_job})
+    ref_cache, dag_cache = {}, {}
+    want = ref_make_qn(min_jobs=2, replications=1, cache=ref_cache,
+                       samples=smp)(ref_cls, vm, 2)
+    ev = evaluators.make_qn_evaluator(min_jobs=2, replications=1,
+                                      cache=dag_cache, samples=smp,
+                                      device="cpu")
+    s0 = qn_sim.sim_stats()["dispatches"]
+    assert ev(dag_cls, vm, 2) == want and np.isfinite(want)
+    assert qn_sim.sim_stats()["dispatches"] - s0 == 1
+    assert dag_cache == ref_cache
 
 
 # ------------------------------------------------- Algorithm 1 end to end
