@@ -10,8 +10,9 @@ Phases, each printing one line or a few:
      matmul settings (TF32 and reduced-precision bf16 reductions off);
   2. build the CUDA kernels from src/repro_torch/csrc (one nvcc process per
      source, all at once); print the registers and spills (ptxas) of the
-     two qn_event kernels, of the DAG's event loop, of both draw-table
-     kernels and of each
+     two qn_event kernels, of the DAG's two event loops (dag_event_fast's
+     six instances, dag_event_kernel), of both draw-table kernels and of
+     each
      flash_attention instance and of each ssd_scan kernel, and the flash
      and ssd_scan instances' wgmma (HGMMA) and TMA (UTMALDG) instruction
      counts (cuobjdump -sass), and fail if either bf16 kernel (flash's,
@@ -115,22 +116,29 @@ Phases, each printing one line or a few:
      config and at its full width and depth (40 layers), theta beside the
      paper's +-30% (recorded, not gated).
  10. [dag] (phase 3) dag_streams held torch.equal to its plain version
-     and dag_event bit-identical to its own, in both modes, at E = 4096:
-     chains of 1..4 stages in one batch padded to the stage bucket,
-     padding, single-slot and short-budget lanes, H = 1, 3 and 2049, and
-     32768 slots (the lane's state in a global scratch slice), every lane
-     with a budget finishing jobs past its warm-up; (after phase 8)
+     and dag_event bit-identical to its own on both routes (dag_event_fast,
+     and dag_event_kernel asked for; past the fast route's limits
+     dag_event_kernel alone) against one plain run of each check, in both
+     modes, at E = 4096: chains of 1..4 stages in one batch padded to the
+     stage bucket, padding, single-slot and short-budget lanes, H = 1, 3,
+     32 (S = 512; in replay mode tie-heavy, one repeated sample) and 2049,
+     and 32768 slots (the lane's state in a global scratch slice), every
+     lane with a budget finishing jobs past its warm-up; (after phase 8)
      benchmarks/dag_sweep.py at its own budgets (the 16-point frontier
      scalar against batched, 16 -> 1 dispatches, bit for bit; the
      optimizer point-wise and batched) and the solo part of
      examples/spark_dag_plan.py (run() in both gaits, run_fast()), each
      decision, dispatch count and flag equal to the reference's and each
-     response time within a relative 1e-3 (exponential mode), timed
-     without the profiler and then profiled; (phase 6) both kernels timed
-     at dag_sweep's frontier shape (B = 16, E = 8192, K = 4, H = 3, 128
-     slots; the kernel against its plain version once more) and at
-     E = 16384, with bounds, and amva's and mva's dependent-chain bounds
-     from one thread's long launch against a short one.
+     response time within a relative 1e-3 (exponential mode), every
+     dag_event launch on the route ops.route names for its shape
+     (dag_event_fast), timed without the profiler and then profiled;
+     (phase 6) the step's collectives alone (a redux, a ballot with
+     __ffs, a shuffle) and from them dag_event_fast's step floor; both
+     routes timed in turns at dag_sweep's frontier shape (B = 16,
+     E = 8192, K = 4, H = 3, 128 slots; against the plain version once
+     more) and at E = 16384, with bounds, and amva's and mva's
+     dependent-chain bounds from one thread's long launch against a
+     short one.
 Each drive of a main path sets the kernels' launch counts to 0 just before
 it and reads them just after.  The second-to-last line is the kernels'
 JSON record, the last line {"ok": true, "device": {...}}.  Any failure
@@ -694,9 +702,11 @@ def planner_counts(kernels) -> dict:
     """The planner kernels' launches since their counts were set to 0, by
     the name the profiler gives each (qn_event's as the library reports
     the kernel it ran)."""
+    dag_routes = kernels["dag_event"].routes
     return {**kernels["qn_event"].routes,
             "qn_streams_kernel": kernels["event_streams"].launches,
-            "dag_event_kernel": kernels["dag_event"].launches,
+            "dag_event_fast": dag_routes["dag_event_fast"],
+            "dag_event_kernel": dag_routes["dag_event_general"],
             "dag_streams_kernel": kernels["dag_streams"].launches,
             "amva_ps_kernel": kernels["amva"].launches}
 
@@ -736,9 +746,11 @@ def profiled_pass(kernels, fn, counted, label):
         ms = sum(e[2] for e in events if e[1] == k) \
             if seen[k] == n else None
         dev_ms[k] = ms
+        seen_ms = sum(e[2] for e in events if e[1] == k)
         parts.append(f"{k} {n} launches, " + (
             f"{ms:.3f} ms on the device" if ms is not None else
-            f"device time not measured (the profiler saw {seen[k]})"))
+            f"device time not measured (the profiler saw {seen[k]}, "
+            f"{seen_ms:.3f} ms on the device)"))
     return out, dev_ms, {"wall_s": wall, "events": events,
                          "text": ", ".join(parts)
                          + f" (profiled wall {wall:.3f} s)"}
@@ -850,11 +862,15 @@ DAG_CHAINS = {False: [(6,), (8, 4), (10, 4, 2), (6, 5, 3, 2), (12, 6, 3, 1),
               True: [(6, 5, 3, 2), (12, 6, 3, 1), (4, 4, 4, 4), (8, 2, 2, 2),
                      (6, 5, 3, 2), (3, 3, 3, 3), (9, 4, 2, 1), (5, 5, 5, 5)]}
 DAG_CAPS = [64, 1, 17, 40, 3, 64, 8, 2]
+DAG_WIDE_CAPS = [512, 1, 300, 512, 3, 256, 33, 2]
 DAG_NEA = [DAG_E, DAG_E, DAG_E, 0, DAG_E // 3, DAG_E, DAG_E, DAG_E]
 # past the card's 227 KB of shared memory a lane: 32768 slots (two blocks
 # of 1024 slot words a thread and the free masks), the scratch route
 DAG_SCRATCH_SLOTS = 32768
 DAG_SCENARIOS = ("dag_sweep", "spark_dag_plan")
+# dag_event_fast's instances, by the slots a thread holds and the mode
+DAG_FAST_INSTANCES = tuple(f"dag_event_fast<{w}, {r}>" for w in (4, 8, 16)
+                           for r in ("false", "true"))
 # the draw tables' threefry calls at least (csrc/dag_streams.cu): per
 # event 4 (exponential mode: key_i, its bits, the think key, its bits) or 7
 # (replay mode: key_i, split(key_i)'s two halves and their bits, the think
@@ -884,16 +900,19 @@ def check_dag(dev, dag_ops, dag_ref, build, gen):
     """[dag] both kernels against their plain versions on the card:
     dag_streams torch.equal in both modes, dag_event bit-identical at E =
     DAG_E on the mixed lanes (H = 1 and 3, both modes; replay lists with
-    fewer rows than the chains' stages, whose row clamps), at H = 2049
-    (opt-in shared memory) and past the card's shared memory (the scratch
-    route);
-    every lane with a budget finishes jobs past its warm-up, a padding lane
-    none.  Returns ``(max abs err of dag_event, of dag_streams, the
-    shapes checked)``."""
+    fewer rows than the chains' stages, whose row clamps), at H = 32 and
+    S = 512 (the fast route's widest lanes, exponential mode, and
+    tie-heavy: one repeated sample, whole-second think clocks), at H =
+    2049 (opt-in shared memory) and past the card's shared memory (the
+    scratch route).  Each check holds every route the batch can take (the
+    one ``route`` names and, where that is dag_event_fast, the general
+    one asked for) against one plain run; every lane with a budget
+    finishes jobs past its warm-up, a padding lane none.  Returns ``(max
+    abs err of dag_event, of dag_streams, the shapes checked)``."""
     err = {"dag_event": 0.0, "dag_streams": 0.0}
     checked = []
 
-    def one(tag, lanes, H, S, smp, seeds):
+    def one(tag, lanes, H, S, smp, seeds, tie=False):
         ns = None if smp is None else smp.shape[1]
         kw = dict(h_users=H, n_events=DAG_E, n_samples=ns)
         tables = dag_ops.dag_streams(lanes[5], seeds, lanes[4], **kw)
@@ -903,21 +922,36 @@ def check_dag(dev, dag_ops, dag_ref, build, gen):
         err["dag_streams"] = max([err["dag_streams"]] + [
             float((a.double() - b.double()).abs().max()) for a, b in
             zip(tables, want) if a.numel()])
+        if tie:             # whole-second think clocks: thinks tie too
+            tables = (torch.round(tables[0] / 1e3) * 1e3, *tables[1:])
         ek = dict(max_slots=S, warmup_jobs=2)
-        ks, kc = dag_ops.dag_event(*lanes, *tables, smp, **ek)
         ps, pc = dag_ref.dag_event(*lanes, *tables, smp, **ek)
-        same = torch.equal(ks, ps) and torch.equal(kc, pc)
-        err["dag_event"] = max(err["dag_event"],
-                               float((ks - ps).abs().max()),
-                               float((kc - pc).abs().max()))
+        K = lanes[0].shape[1]
+        took = []
+        for general in (False, True):
+            r = dag_ops.route(H, S, K, DAG_E, general)
+            if r in took:
+                continue
+            before = dict(dag_ops.dag_event.routes)
+            ks, kc = dag_ops.dag_event(*lanes, *tables, smp, general=general,
+                                       **ek)
+            moved = {k: v - before[k] for k, v in
+                     dag_ops.dag_event.routes.items()}
+            if moved != {k: int(k == r) for k in moved}:
+                fail(f"dag_event ({tag}) took {moved}, not {r}")
+            same = torch.equal(ks, ps) and torch.equal(kc, pc)
+            err["dag_event"] = max(err["dag_event"],
+                                   float((ks - ps).abs().max()),
+                                   float((kc - pc).abs().max()))
+            if not same:
+                fail(f"dag_event differs from its plain version ({tag}, {r})")
+            took.append(r)
         checked.append(tag)
         print(f"[dag] check {tag}: dag_streams bit-identical=True, "
-              f"dag_event bit-identical={same}, jobs past the warm-up "
-              f"{kc.tolist()}", flush=True)
-        if not same:
-            fail(f"dag_event differs from its plain version ({tag})")
+              f"dag_event bit-identical=True on {' and '.join(took)}, jobs "
+              f"past the warm-up {pc.tolist()}", flush=True)
         live = lanes[4] > 0
-        if bool((kc[live] <= 0).any()) or bool((kc[~live] != 0).any()):
+        if bool((pc[live] <= 0).any()) or bool((pc[~live] != 0).any()):
             fail(f"dag_event ({tag}): a lane with a budget finished no job "
                  f"past its warm-up, or a padding lane reported one")
 
@@ -934,6 +968,17 @@ def check_dag(dev, dag_ops, dag_ref, build, gen):
         if replay:          # fewer sample rows than stages: the gather clamps
             one(f"B=8 E={DAG_E} S=64 H=3 K=4 replay=True from 2 sample "
                 f"rows (the row clamps)", lanes, 3, 64, smp[:2], seeds)
+        # the fast route's widest lanes: 32 users, 512 slots; in replay
+        # mode tie-heavy (every sample 50 ms, whole-second think clocks),
+        # so that arrivals and completions tie and the queue key's rank
+        # and user fields decide
+        lanes = dag_lanes(dev, gen, DAG_CHAINS[replay], DAG_WIDE_CAPS,
+                          DAG_NEA, (500.0, 4000.0))
+        one(f"B=8 E={DAG_E} S=512 H=32 K={int(lanes[2].max())} "
+            + ("tie-heavy replay (one repeated sample)" if replay else
+               "mixed lanes replay=False"), lanes, 32, 512,
+            torch.full((4, 97), 50.0, device=dev) if replay else None,
+            seeds, tie=replay)
         # H = 2049 users: the state in opt-in shared memory; long thinks
         lanes = dag_lanes(dev, gen, DAG_CHAINS[replay][2:4], [64, 7],
                           [DAG_E, DAG_E], (1.0e5, 2.0e5))
@@ -1075,11 +1120,21 @@ def ssd_instance(mangled: str):
 
 def qn_instance(mangled: str):
     """'qn_event_fast' (or the general event loop, or a draw-table kernel,
-    or the DAG's event loop) for a line naming it by its mangled name,
-    else None."""
+    or one of the DAG's two event loops) for a line naming it by its
+    mangled name, else None."""
     m = re.search(r"(qn_event_fast|qn_event_general|qn_streams_kernel|"
-                  r"dag_event_kernel|dag_streams_kernel)", mangled)
+                  r"dag_event_fast|dag_event_kernel|dag_streams_kernel)",
+                  mangled)
     return m.group(1) if m else None
+
+
+def fast_instance(mangled: str):
+    """'dag_event_fast<4, false>' for a line naming an instance of the
+    DAG's fast event loop (its block of 4, 8 or 16 slots a thread; replay
+    mode or not) by its mangled name, else None."""
+    m = re.search(r"dag_event_fastILi([0-9]+)ELb([01])E", mangled)
+    return (f"dag_event_fast<{m.group(1)}, "
+            f"{'true' if m.group(2) == '1' else 'false'}>") if m else None
 
 
 def flash_ptxas(log: str, namer=flash_instance) -> dict:
@@ -1692,8 +1747,12 @@ def main() -> None:
     print(f"[build] {time.perf_counter() - t0:.2f} s "
           f"(libqn_{build.source_hash()}.so); ptxas: {' | '.join(usage)}",
           flush=True)
-    for name, props in flash_ptxas(build.build_log, qn_instance).items():
+    qn_usage = flash_ptxas(build.build_log,
+                           lambda ln: fast_instance(ln) or qn_instance(ln))
+    for name, props in qn_usage.items():
         print(f"[build] {name}: {props}", flush=True)
+    if not {*DAG_FAST_INSTANCES, "dag_event_kernel"} <= set(qn_usage):
+        fail("ptxas reported no registers for a dag_event kernel")
     for name, props in flash_ptxas(build.build_log).items():
         print(f"[build] {name}: {props}", flush=True)
     lib_path = build.BUILD_DIR / f"libqn_{build.source_hash()}.so"
@@ -1941,6 +2000,8 @@ def main() -> None:
                    quick, min_jobs=20, replications=1,
                    batched=False).run(parallel=True))]
     launches = dict.fromkeys(kernels, 0)
+    # the DAG drives' dag_event launches, by route
+    dag_route_launches = dict.fromkeys(dag_ops.ROUTES, 0)
     mismatches = []
     shape_count = collections.Counter()
     pw_shape_count = collections.Counter()   # the point-wise walk's B=1
@@ -2183,9 +2244,26 @@ def main() -> None:
     # solo part of examples/spark_dag_plan.py (a MapReduce class and a
     # 4-stage chain in one problem: run() in both gaits, run_fast()), each
     # a drive of its own, then once more under the profiler
+    # Every dag_event launch must take the route ops.route names for its
+    # shape: sim_batch (the one caller of dag_event on these paths) is
+    # wrapped to tally the route named for each launch's (H, max_slots, K,
+    # E), against the routes the wrapper counted and, in the profiled
+    # pass, the kernels the profiler saw
+    named = collections.Counter()
+    sim_batch = dag_ops.sim_batch
+
+    def naming_sim_batch(n_tasks, *args, h_users, max_slots, n_events,
+                         **kw):
+        named[dag_ops.route(h_users, max_slots, n_tasks.shape[1],
+                            n_events)] += 1
+        return sim_batch(n_tasks, *args, h_users=h_users,
+                         max_slots=max_slots, n_events=n_events, **kw)
+
     dag_runs = {}
+    dag_ops.sim_batch = naming_sim_batch
     for name in DAG_SCENARIOS:
         reset_launches(*wrappers)
+        named.clear()
         qn_sim.reset_sim_stats()
         t0 = time.perf_counter()
         out = scen.SCENARIOS[name](dev)
@@ -2195,22 +2273,34 @@ def main() -> None:
         got_launches = {k: w.launches for k, w in kernels.items()}
         for k, n in got_launches.items():
             launches[k] += n
+        by_route = dict(dag_ops.dag_event.routes)
+        for r, n in by_route.items():
+            dag_route_launches[r] += n
         counted = planner_counts(kernels)
         n_disp = qn_sim.sim_stats()["dispatches"]
         check_dag_scenario(scen, name, out, REFERENCE[name], got_launches,
                            n_disp, wall)
+        print(f"[dag] {name}: dag_event launches by route {by_route}, "
+              f"ops.route named {dict(named)}", flush=True)
+        if by_route != {r: named[r] for r in by_route} or \
+                by_route["dag_event_general"]:
+            fail(f"{name}: dag_event launches by route {by_route}, but "
+                 f"ops.route named {dict(named)} (every DAG drive fits "
+                 f"dag_event_fast)")
         _, dev_ms, note = profiled_pass(
             kernels, lambda: scen.SCENARIOS[name](dev), counted, name)
         added_wall[f"{name}.profiled"] = note["wall_s"]
         dag_runs[name] = {"wall_s": wall, "dispatches": n_disp,
                           "launches": got_launches,
                           "launches_by_kernel": counted,
+                          "launches_by_route": by_route,
                           "profiled_device_ms": dev_ms,
                           "profiled_wall_s": note["wall_s"]}
         print(f"[dag] {name} profiled again: {note['text']}"
               + (f"; host and the rest {wall - sum(dev_ms.values()) / 1e3:.3f}"
                  f" s of the {wall:.3f} s wall (without the profiler)"
                  if None not in dev_ms.values() else ""), flush=True)
+    dag_ops.sim_batch = sim_batch
 
     # --------------------------------------------------------- LM serving
     by_path, card_cpu_diff = {}, {}
@@ -2506,7 +2596,38 @@ def main() -> None:
           f"{'not measured' if mva_dev is None else f'{mva_dev:.4f} ms'}",
           flush=True)
 
-    # [dag] both kernels at dag_sweep's frontier shape (the Spark chain at
+    # [dag] the step's collectives alone, each round with the one integer
+    # op that feeds the next (csrc/dag_event.cu dag_collective_chain): a
+    # 32-bit redux, a ballot with __ffs, a shuffle; from them the least
+    # time a step made of dag_event_fast's collectives could take.  A
+    # dispatch waits on one redux (the queue's, the advance's and the
+    # free ballot go out together) and then the shuffle of its mean;
+    # a completion on two reductions (the earliest end, then its lane and
+    # user); one that takes the dispatch after it adds two shuffles (the
+    # forked user's key, the mean) for that second event.  So an event
+    # costs at least a redux and a shuffle.
+    lib = build.library()
+    chain_out = torch.empty(32, dtype=torch.int32, device=dev)
+
+    def collective(op):
+        def launch(n):
+            build.check(lib.dag_collective_chain_launch(
+                chain_out.data_ptr(), n, op,
+                torch.cuda.current_stream(dev).cuda_stream),
+                "dag_collective_chain")
+        return chain_ns(launch, 1000, 201000)
+
+    redux_ns, ballot_ns, shfl_ns = (collective(op) for op in range(3))
+    floor_ns = redux_ns + shfl_ns
+    print(f"[time] dag_event step's collectives (one warp, a dependent "
+          f"chain, each round with its feeding integer op): "
+          f"__reduce_min_sync {redux_ns:.2f} ns, __ballot_sync + __ffs "
+          f"{ballot_ns:.2f} ns, __shfl_sync {shfl_ns:.2f} ns a round; "
+          f"dag_event_fast's step floor {floor_ns:.2f} ns an event (a "
+          f"redux and a shuffle; {1.5 * redux_ns + 0.5 * shfl_ns:.2f} ns "
+          f"where no completion takes the dispatch after it)", flush=True)
+
+    # [dag] both routes at dag_sweep's frontier shape (the Spark chain at
     # nu = 1..16 on m4.xlarge: B = 16, E = 8192, K = 4, H = 3, slots up to
     # 128, seed 0, exponential mode; held against the plain version once
     # more) and at the default budget (min_jobs 40, warmup 8: E = 16384)
@@ -2514,6 +2635,8 @@ def main() -> None:
     nus_f = np.arange(1, 17)
     B_f, K_f, H_f = len(nus_f), len(spark.stages), scen.DAG_SWEEP_USERS
     S_f = bucket_slots(int(nus_f.max()) * 8)
+    if dag_ops.route(H_f, S_f, K_f, 16384) != "dag_event_fast":
+        fail("dag_sweep's frontier shape does not fit dag_event_fast")
     dag_time = {}
     for E_f, warm in ((8192, 4), (16384, 8)):
         lanes_f = (i32([[st.n_tasks for st in spark.stages]] * B_f),
@@ -2527,14 +2650,25 @@ def main() -> None:
         tables_f = make_f()
         run_f = lambda: dag_ops.dag_event(*lanes_f, *tables_f, None,
                                           max_slots=S_f, warmup_jobs=warm)
+        run_g = lambda: dag_ops.dag_event(*lanes_f, *tables_f, None,
+                                          max_slots=S_f, warmup_jobs=warm,
+                                          general=True)
         ks, kc = run_f()
+        gs, gc = run_g()
         if float(kc.min()) <= 0:
             fail(f"dag_event at the frontier shape E={E_f} left a lane "
                  f"without jobs past the warm-up")
-        # the tables' call is mostly the wrapper's host work: queued back
-        # to back behind a spin, the launches give the kernel's own time
+        if not (torch.equal(ks, gs) and torch.equal(kc, gc)):
+            fail(f"dag_event's two routes differ at the frontier shape "
+                 f"E={E_f}")
+        # the routes in turns (fast, general, general, fast); the tables'
+        # call is mostly the wrapper's host work: queued back to back
+        # behind a spin, the launches give the kernel's own time
+        turns = [cuda_ms(fn, 3) for fn in (run_f, run_g, run_g, run_f)]
         row = {"shape": f"B={B_f} E={E_f} K={K_f} S={S_f} H={H_f} "
-                        f"exponential", "ms": cuda_ms(run_f, 3),
+                        f"exponential",
+               "ms": (turns[0] + turns[3]) / 2,
+               "general_ms": (turns[1] + turns[2]) / 2, "turns_ms": turns,
                "streams_ms": cuda_ms(make_f, 20),
                "streams_queued_ms": queued_ms(make_f)}
         if E_f == 8192:
@@ -2550,7 +2684,7 @@ def main() -> None:
                     torch.equal(a, b) for a, b in zip(tables_f, want_f))):
                 fail("dag_event or dag_streams differs from its plain "
                      "version at dag_sweep's frontier shape")
-            dag_checked.append(row["shape"])
+            dag_checked.append(row["shape"] + " (both routes)")
             row["streams_plain_ms"] = cuda_ms(
                 lambda: dag_ref.dag_streams(lanes_f[5], seeds_f, lanes_f[4],
                                             **skw), 2)
@@ -2567,7 +2701,9 @@ def main() -> None:
         t_b, t_o = nbytes / H100_BYTES_PER_S, n_ops / H100_INSTR_PER_S
         row.update(bound_ms=1e3 * max(t_b, t_o),
                    bound_by="operations" if t_o > t_b else "bytes",
-                   ns_per_event=row["ms"] * 1e6 / E_f)
+                   ns_per_event=row["ms"] * 1e6 / E_f,
+                   general_ns_per_event=row["general_ms"] * 1e6 / E_f,
+                   step_floor_ms=floor_ns * E_f * 1e-6)
         # the tables' bound: written once at the memory rate, or their
         # threefry work on the integer pipe
         s_bytes = 4 * (B_f * H_f + 2 * B_f * E_f) + 16 * B_f
@@ -2577,10 +2713,14 @@ def main() -> None:
         row.update(streams_bound_ms=1e3 * max(t_b, t_o),
                    streams_bound_by="operations" if t_o > t_b else "bytes")
         dag_time[E_f] = row
-        print(f"[time] dag_event {row['shape']}: {row['ms']:.3f} ms/launch, "
-              f"{row['ns_per_event']:.1f} ns an event, bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {nbytes} bytes, "
-              f"{n_ops} operations)"
+        print(f"[time] dag_event {row['shape']}: dag_event_fast "
+              f"{row['ms']:.3f} ms/launch, {row['ns_per_event']:.1f} ns an "
+              f"event; dag_event_kernel (the general route, asked for) "
+              f"{row['general_ms']:.3f} ms, {row['general_ns_per_event']:.1f}"
+              f" ns an event (in turns: {', '.join(f'{t:.3f}' for t in turns)}"
+              f" ms); step floor {row['step_floor_ms']:.4f} ms "
+              f"({floor_ns:.2f} ns an event); bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}: {nbytes} bytes, {n_ops} operations)"
               + (f", plain {row['plain_ms']:.1f} ms" if "plain_ms" in row
                  else "") + f"; dag_streams {row['streams_ms']:.4f} ms a "
               f"call, {row['streams_queued_ms']:.4f} ms queued back to "
@@ -2588,10 +2728,9 @@ def main() -> None:
               f"integer-pipe instructions)"
               + (f", plain {row['streams_plain_ms']:.3f} ms"
                  if "streams_plain_ms" in row else ""), flush=True)
-    dag_per_drive = {k: v["launches"]["dag_event"] for k, v in
-                     dag_runs.items()}
-    print(f"[time] dag_event launches per drive: {dag_per_drive} (one "
-          f"dag_streams launch each)", flush=True)
+    dag_per_drive = {k: v["launches_by_route"] for k, v in dag_runs.items()}
+    print(f"[time] dag_event launches per drive, by route: {dag_per_drive} "
+          f"(one dag_streams launch each)", flush=True)
 
     fa_time = time_flash(dev, fa_ops, fa_ref, 4, 1024, 32, 8, 64)
     fa_zamba2 = time_flash(dev, fa_ops, fa_ref, 4, 896, 32, 32, 112)
@@ -2648,18 +2787,33 @@ def main() -> None:
          "replaces": "src/repro/core/dag.py:74",
          "replaces_note": "the reference's _dag_sim, a lax.scan that XLA "
                           "compiles into a device loop: no Pallas kernel",
-         "launches": launches["dag_event"], "max_abs_err": dag_err,
-         "checked": dag_checked,
+         "kernels": {"dag_event_fast": "at most 32 users, 512 slots, 31 "
+                                       "stages, 2**22 - 1 events",
+                     "dag_event_general": "dag_event_kernel, any lane"},
+         "launches": launches["dag_event"],
+         "launches_by_route": dag_route_launches,
+         "max_abs_err": dag_err, "checked": dag_checked,
          "ms": dag_time[8192]["ms"], "plain_ms": dag_time[8192]["plain_ms"],
          "shape": dag_time[8192]["shape"],
          "ns_per_event": dag_time[8192]["ns_per_event"],
          "bound_ms": dag_time[8192]["bound_ms"],
          "bound_by": dag_time[8192]["bound_by"],
+         "step_floor_ms": dag_time[8192]["step_floor_ms"],
+         "step_collectives_ns": {"reduce_min": redux_ns,
+                                 "ballot_ffs": ballot_ns, "shfl": shfl_ns,
+                                 "floor_per_event": floor_ns},
          "library_ms": None,
          "library_note": "no PyTorch call simulates the network",
+         "routes": {r: {f"E={E}": {"ms": row[f"{key}ms"],
+                                   "ns_per_event":
+                                       row[f"{key}ns_per_event"]}
+                        for E, row in dag_time.items()}
+                    for r, key in (("dag_event_fast", ""),
+                                   ("dag_event_general", "general_"))},
          "at_default_budget": {k: dag_time[16384][k] for k in
-                               ("shape", "ms", "ns_per_event", "bound_ms",
-                                "bound_by")},
+                               ("shape", "ms", "ns_per_event", "general_ms",
+                                "general_ns_per_event", "bound_ms",
+                                "bound_by", "step_floor_ms")},
          "launches_per_drive": dag_per_drive, "drives": dag_runs},
         {"name": "dag_streams", "route": "cuda",
          "source": "src/repro_torch/csrc/dag_streams.cu",

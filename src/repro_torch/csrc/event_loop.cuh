@@ -1,7 +1,10 @@
-// What the fused event loops of csrc/qn_event.cu (qn_event_general) and
-// csrc/dag_event.cu share: the clock keys, the earliest-end key, and a
-// thread's block of slots in memory (one warp a lane, the lane's slots cut
-// into 32 contiguous blocks, one a thread; only the owner writes a block).
+// What the fused event loops of csrc/qn_event.cu and csrc/dag_event.cu
+// share (one warp a lane, the lane's slots cut into 32 contiguous blocks,
+// one a thread; only the owner writes a block): the clock keys, the
+// earliest-end key, the draw tables read 32 events ahead, a thread's block
+// of at most kFastSlots slots in registers' reach (the fast kernels:
+// tree_min) and a thread's block of slots in memory (the general kernels:
+// Slots).
 //
 // Keys: every clock is non-negative (times from non-negative draws and
 // means), so clearing the sign bit of the float gives an unsigned key
@@ -18,6 +21,9 @@
 namespace {
 
 constexpr unsigned kNone = 0xffffffffu;
+constexpr int kFastSlots = 16;   // slots a thread of a fast kernel holds
+constexpr int kFastStride = 20;  // its block's stride in words (16-byte
+                                 // aligned, spreads the banks)
 
 __device__ __forceinline__ unsigned clock_key(float x) {
   return __float_as_uint(x) & 0x7fffffffu;
@@ -45,6 +51,71 @@ __device__ __forceinline__ unsigned advance_key(unsigned slot_min,
   const unsigned h = think_min == kNone ? kNone : (think_min << 1) | 1u;
   return min(s, h);
 }
+
+// (key[0], loc[0]) = the first minimum of key[0..W): contiguous halves
+// merge pairwise, the right half winning only with a smaller key
+template <int W, int STRIDE = 1>
+__device__ __forceinline__ void tree_min(unsigned* key, int* loc) {
+  if constexpr (STRIDE < W) {
+#pragma unroll
+    for (int k = 0; k < W; k += 2 * STRIDE) {
+      if (key[k + STRIDE] < key[k]) {
+        key[k] = key[k + STRIDE];
+        loc[k] = loc[k + STRIDE];
+      }
+    }
+    tree_min<W, 2 * STRIDE>(key, loc);
+  }
+}
+
+// N draw tables of one lane, 32-bit words, read 32 events ahead: thread t
+// holds event 32*b + t of the current block b (cur) and of the next (nxt);
+// word(k, i) broadcasts step i's word of table k with __shfl_sync.  A loop
+// over blocks of 32 steps switches blocks once a block (block()); at(i)
+// switches where i % 32 == 0, inside a loop over steps.
+template <int N>
+struct Draws {
+  const unsigned* tab[N];
+  int n;
+  unsigned cur[N], nxt[N];
+
+  __device__ void init(const unsigned* const (&tables)[N], int lane,
+                       int n_events, int t) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      tab[k] = tables[k] + (size_t)lane * n_events;
+      cur[k] = nxt[k] = 0u;
+    }
+    n = n_events;
+    if (n > 0) fetch(t);
+  }
+
+  __device__ __forceinline__ void fetch(int e) {
+    e = min(e, n - 1);
+#pragma unroll
+    for (int k = 0; k < N; ++k) nxt[k] = tab[k][e];
+  }
+
+  // the block of events from b (a multiple of 32) becomes the current one,
+  // and this thread's word of the next block is fetched
+  __device__ __forceinline__ void block(int b, int t) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) cur[k] = nxt[k];
+    fetch(b + 32 + t);
+  }
+
+  // table k's word of step i (in the current block), on every thread
+  __device__ __forceinline__ unsigned word(int k, int i) const {
+    return __shfl_sync(FULL_MASK, cur[k], i & 31);
+  }
+
+  // step i's words, on every thread, a block switched at i % 32 == 0
+  __device__ __forceinline__ void at(int i, int t, unsigned (&out)[N]) {
+    if ((i & 31) == 0) block(i, t);
+#pragma unroll
+    for (int k = 0; k < N; ++k) out[k] = word(k, i);
+  }
+};
 
 // This thread's slots: global indices [base, base + n), keys and users at
 // stride sw, free-mask words beside them.

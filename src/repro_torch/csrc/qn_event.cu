@@ -67,8 +67,9 @@
 // lane scans only its own slots_cap slots (the slots past it are never
 // free and never end, and a slot below cap wins every tie with them).
 //
-// Keys, and qn_event_general's slots in memory (Slots): event_loop.cuh,
-// shared with csrc/dag_event.cu.
+// Keys, the draw prefetch, the fast kernel's block tree (tree_min) and
+// qn_event_general's slots in memory (Slots): event_loop.cuh, shared with
+// csrc/dag_event.cu.
 //
 // Rounding matches the reference bit for bit: XLA contracts
 // now + e*mean and t_slot + e*think into FMAs, written here as __fmaf_rn;
@@ -79,67 +80,21 @@
 namespace {
 
 constexpr unsigned kMapBit = 0x80000000u;  // queued maps sort after reduces
-constexpr int kFastSlots = 16;   // slots a thread of qn_event_fast holds
-constexpr int kFastStride = 20;  // its block's stride in words (16-byte
-                                 // aligned, spreads the banks)
 constexpr int kRankBits = 26;    // arrival ranks on the fast path
 constexpr int kLaneShift = 27;   // (lane, user) of the second redux
 
-// (key[0], loc[0]) = the first minimum of key[0..W): contiguous halves
-// merge pairwise, the right half winning only with a smaller key
-template <int W, int STRIDE = 1>
-__device__ __forceinline__ void tree_min(unsigned* key, int* loc) {
-  if constexpr (STRIDE < W) {
-#pragma unroll
-    for (int k = 0; k < W; k += 2 * STRIDE) {
-      if (key[k + STRIDE] < key[k]) {
-        key[k] = key[k + STRIDE];
-        loc[k] = loc[k + STRIDE];
-      }
-    }
-    tree_min<W, 2 * STRIDE>(key, loc);
-  }
+// The three draw tables (st_m, st_r, td) of one lane, as 32-bit words
+using QnDraws = Draws<3>;
+
+__device__ __forceinline__ void init_draws(QnDraws& d, const float* st_m,
+                                           const float* st_r,
+                                           const float* td, int lane,
+                                           int n_events, int t) {
+  const unsigned* const tabs[3] = {reinterpret_cast<const unsigned*>(st_m),
+                                   reinterpret_cast<const unsigned*>(st_r),
+                                   reinterpret_cast<const unsigned*>(td)};
+  d.init(tabs, lane, n_events, t);
 }
-
-// The draw tables of one lane, read 32 events ahead: thread t holds event
-// 32*b + t of the current block b and of the next.
-struct Draws {
-  const float *m, *r, *d;
-  int n;
-  float c_m = 0.0f, c_r = 0.0f, c_t = 0.0f;
-  float n_m = 0.0f, n_r = 0.0f, n_t = 0.0f;
-
-  __device__ void init(const float* st_m, const float* st_r,
-                       const float* td, int lane, int n_events, int t) {
-    m = st_m + (size_t)lane * n_events;
-    r = st_r + (size_t)lane * n_events;
-    d = td + (size_t)lane * n_events;
-    n = n_events;
-    if (n > 0) fetch(t);
-  }
-
-  __device__ __forceinline__ void fetch(int k) {
-    k = min(k, n - 1);
-    n_m = m[k];
-    n_r = r[k];
-    n_t = d[k];
-  }
-
-  // step i's draws, on every thread
-  __device__ __forceinline__ void at(int i, int t, float& stm, float& str,
-                                     float& tdv) {
-    const int j = i & 31;
-    if (j == 0) {
-      c_m = n_m;
-      c_r = n_r;
-      c_t = n_t;
-      fetch(i + 32 + t);
-    }
-    stm = __shfl_sync(FULL_MASK, c_m, j);
-    str = __shfl_sync(FULL_MASK, c_r, j);
-    tdv = __shfl_sync(FULL_MASK, c_t, j);
-  }
-};
 
 // ---------------------------------------------------------------------------
 // qn_event_fast: at most 512 slots and 32 users
@@ -186,8 +141,8 @@ __global__ void __launch_bounds__(32, 1) qn_event_fast(
   int phase = 0, pending = 0, inflight = 0;
   float job_start = 0.0f;
 
-  Draws draws;
-  draws.init(st_m, st_r, td, lane, n_events, t);
+  QnDraws draws;
+  init_draws(draws, st_m, st_r, td, lane, n_events, t);
   float now = 0.0f, resp_sum = 0.0f, resp_cnt = 0.0f;
   unsigned rank = 0;          // distinct clocks so far, less one
   int done_jobs = 0;
@@ -202,8 +157,10 @@ __global__ void __launch_bounds__(32, 1) qn_event_fast(
     const unsigned g_queue = __reduce_min_sync(FULL_MASK, q_key);
     const unsigned g_adv = __reduce_min_sync(FULL_MASK, adv);
     const unsigned b_free = __ballot_sync(FULL_MASK, free_bits != 0);
-    float stm_i, str_i, td_i;
-    draws.at(i, t, stm_i, str_i, td_i);
+    unsigned dw[3];
+    draws.at(i, t, dw);
+    const float stm_i = __uint_as_float(dw[0]), str_i = __uint_as_float(dw[1]),
+                td_i = __uint_as_float(dw[2]);
     const uint4 q0 = kv[0], q1 = kv[1], q2 = kv[2], q3 = kv[3];
 
     const bool counted = last_done != 0 && done_jobs >= warmup_jobs;
@@ -294,8 +251,8 @@ __global__ void __launch_bounds__(32, 1) qn_event_fast(
         i += 1;
         const int u = (int)(head & 31u);
         const bool is_map = (head & kMapBit) != 0;
-        const float st = __shfl_sync(FULL_MASK, is_map ? draws.c_m
-                                                       : draws.c_r, i & 31);
+        const float st = __uint_as_float(__shfl_sync(
+            FULL_MASK, is_map ? draws.cur[0] : draws.cur[1], i & 31));
         const float end = replay ? __fadd_rn(now, st)
                                  : __fmaf_rn(st, is_map ? ma : ra, now);
         const bool mine_d = t == u;
@@ -464,14 +421,16 @@ __global__ void __launch_bounds__(32) qn_event_general(
   Users users;
   users.init(region + 64 * (size_t)sw + 32 * (size_t)nwords, t, uw, H,
              think0 + (size_t)lane * H);
-  Draws draws;
-  draws.init(st_m, st_r, td, lane, n_events, t);
+  QnDraws draws;
+  init_draws(draws, st_m, st_r, td, lane, n_events, t);
   float now = 0.0f, resp_sum = 0.0f, resp_cnt = 0.0f;
   int done_jobs = 0;
 
   for (int i = 0; i < steps; ++i) {
-    float stm_i, str_i, td_i;
-    draws.at(i, t, stm_i, str_i, td_i);
+    unsigned dw[3];
+    draws.at(i, t, dw);
+    const float stm_i = __uint_as_float(dw[0]), str_i = __uint_as_float(dw[1]),
+                td_i = __uint_as_float(dw[2]);
     const unsigned adv = advance_key(slots.min_key, users.t_min);
     const unsigned g_free = __reduce_min_sync(FULL_MASK, slots.free_key());
     const unsigned g_queue = __reduce_min_sync(FULL_MASK, users.p_min);

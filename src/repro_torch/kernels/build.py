@@ -58,13 +58,16 @@ SIGNATURES = {
     "qn_streams_launch": [_P] * 9 + [_I] * 6 + [_P],
     # stage arrays, lane counts, think_ms, think0, st, td, samples (10);
     # resp_sum, resp_cnt, scratch; lanes, K, H, max_slots, E, n_samples,
-    # sample rows, warmup_jobs, replay; stream
-    "dag_event_launch": [_P] * 10 + [_P, _P, _P] + [_I] * 9 + [_P],
+    # sample rows, warmup_jobs, replay, fast (1: dag_event_fast); stream
+    "dag_event_launch": [_P] * 10 + [_P, _P, _P] + [_I] * 10 + [_P],
     # H, max_slots -> per-lane bytes of global scratch (0: shared memory)
     "dag_event_scratch_bytes": [_I, _I],
     # seed, budgets, think_ms, think0, st, td; B, H, E, n_samples, replay;
     # stream
     "dag_streams_launch": [_P] * 6 + [_I] * 5 + [_P],
+    # out (32 words), rounds, collective (0 redux, 1 ballot + ffs, 2
+    # shfl); stream: a probe of the fast step's collectives
+    "dag_collective_chain_launch": [_P, _I, _I, _P],
     # q, k, v, o; B, S, H, KV, Dh; (b, s, head) strides of q, k, v, o;
     # causal, window, dtype; stream
     "flash_attention_launch": [_P] * 4 + [_I] * 5 + [_L] * 12

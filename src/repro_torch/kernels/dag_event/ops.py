@@ -3,11 +3,15 @@
 ``dag_streams`` draws every lane's tables: a CUDA tensor launches
 ``csrc/dag_streams.cu`` (bit-identical to the plain version), a CPU tensor
 takes the plain version in ``ref.py``.  ``dag_event`` runs the event loop:
-a CUDA tensor launches ``csrc/dag_event.cu``, a CPU tensor takes
-``ref.dag_event``.  Each wrapper's ``launches`` counts its kernel
-launches.  A build or launch failure raises; a CUDA tensor never takes
-the plain version.  ``sim_batch`` composes the two into the reference's
-``_dag_sim_batch_jit`` contract.
+a CUDA tensor launches one of the two kernels of ``csrc/dag_event.cu``,
+the one ``route`` names (``dag_event_fast`` for lanes of at most 32 users,
+512 slots, 31 stages and 2**22 - 1 events; ``dag_event_kernel``, the
+general route, for any other), a CPU tensor takes ``ref.dag_event``.
+Each wrapper's ``launches`` counts its kernel launches, and
+``dag_event.routes`` the launches of each route.  A build or launch
+failure raises; a CUDA tensor never takes the plain version, and a lane
+batch never takes a route ``route`` did not name.  ``sim_batch`` composes
+the two into the reference's ``_dag_sim_batch_jit`` contract.
 """
 from __future__ import annotations
 
@@ -66,6 +70,27 @@ def dag_streams(think_ms, seed, n_events_active, *, h_users: int,
 dag_streams.launches = 0
 
 
+# dag_event_fast's limits, as csrc/dag_event.cu fits_fast() checks them:
+# a user a thread of one warp, 16 slots a thread, the stage depth in the
+# queue key's 5-bit field (31 - depth), the arrival rank in its 22 bits
+FAST_USERS, FAST_SLOTS, FAST_STAGES, FAST_EVENTS = 32, 512, 31, 1 << 22
+ROUTES = ("dag_event_fast", "dag_event_general")
+
+
+def route(h_users: int, max_slots: int, n_stages: int, n_events: int,
+          general: bool = False) -> str:
+    """The kernel a lane batch of ``h_users`` users, ``max_slots`` slots,
+    stage arrays ``n_stages`` wide and ``n_events`` events takes on the
+    card: ``"dag_event_fast"`` when all fit its limits (at most 32 users,
+    512 slots, 31 stages, fewer than 2**22 events) and ``general`` is
+    False, else ``"dag_event_general"`` (``dag_event_kernel``).  The two
+    give the same bits; ``general=True`` lets them be held and timed
+    against each other.  The only place the route is decided."""
+    fits = (h_users <= FAST_USERS and max_slots <= FAST_SLOTS
+            and n_stages <= FAST_STAGES and n_events < FAST_EVENTS)
+    return ROUTES[0] if fits and not general else ROUTES[1]
+
+
 def _check(ints, floats, stages, tables, samples, B, H, E):
     dev = tables[0].device
     for x in ints + floats + stages + tables + \
@@ -100,7 +125,7 @@ def _check(ints, floats, stages, tables, samples, B, H, E):
 
 def dag_event(n_tasks, t_avg, n_stages, slots_cap, n_events_active,
               think_ms, think0, st, td, samples=None, *, max_slots: int,
-              warmup_jobs: int):
+              warmup_jobs: int, general: bool = False):
     """Every lane's K-stage event loop; returns ``(resp_sum, resp_cnt)``,
     float32 ``(B,)``.  Stage arrays are ``(B, K)`` (int32 task counts,
     float32 means) padded past each lane's ``n_stages``, the lane counts
@@ -109,9 +134,13 @@ def dag_event(n_tasks, t_avg, n_stages, slots_cap, n_events_active,
     NS)``) the batch replays them and ``st`` holds int32 indices below NS.
     A stage past the stage arrays' or the samples' rows reads their last
     row, as the reference's gathers clamp.  All on one device.
-    ``slots_cap`` must not exceed ``max_slots``.  Times, means and draws
-    are durations, never negative: the card's kernel orders clocks by
-    their bits.  The lane's state needs ``dag_event_scratch_bytes`` of
+    ``slots_cap`` must not exceed ``max_slots``, nor a lane's
+    ``n_stages`` the stage arrays' width K (as the reference's batches
+    pad them; on ``dag_event_fast`` a lane of more than 31 stages returns
+    NaN).  Times, means and draws are durations, never negative: the
+    card's kernels order clocks by their bits.  On the card the batch
+    takes the kernel ``route(H, max_slots, K, E, general)`` names; on the
+    general route the lane's state needs ``dag_event_scratch_bytes`` of
     global scratch once it outgrows the card's shared memory."""
     ints = (n_stages, slots_cap, n_events_active)
     floats = (think_ms,)
@@ -134,11 +163,14 @@ def dag_event(n_tasks, t_avg, n_stages, slots_cap, n_events_active,
     resp_cnt = torch.empty(B, dtype=torch.float32, device=dev)
     if B == 0:
         return resp_sum, resp_cnt
+    K = n_tasks.shape[1]
+    took = route(H, int(max_slots), K, E, general)
     lib = build.library()
     with torch.cuda.device(dev):
-        # the lane's state lives in shared memory, or past the card's
-        # shared memory in a global slice per lane
-        nbytes = lib.dag_event_scratch_bytes(H, int(max_slots))
+        # on the general route the lane's state lives in shared memory, or
+        # past the card's shared memory in a global slice per lane
+        nbytes = 0 if took == ROUTES[0] else \
+            lib.dag_event_scratch_bytes(H, int(max_slots))
         if nbytes < 0:
             raise RuntimeError(f"dag_event cannot lay out H={H} users and "
                                f"{max_slots} slots")
@@ -150,16 +182,17 @@ def dag_event(n_tasks, t_avg, n_stages, slots_cap, n_events_active,
             None if smp is None else smp.data_ptr(),
             resp_sum.data_ptr(), resp_cnt.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
-            B, n_tasks.shape[1], H, int(max_slots), E,
+            B, K, H, int(max_slots), E,
             0 if smp is None else smp.shape[1],
             0 if smp is None else smp.shape[0], int(warmup_jobs),
-            int(smp is not None), stream)
-    build.check(rc, "dag_event")
-    build.count(dag_event)
+            int(smp is not None), int(took == ROUTES[0]), stream)
+    build.check(rc, took)
+    build.count(dag_event, took)
     return resp_sum, resp_cnt
 
 
 dag_event.launches = 0
+dag_event.routes = dict.fromkeys(ROUTES, 0)
 
 
 def sim_batch(n_tasks, t_avg, n_stages, think_ms, slots_cap, seed,

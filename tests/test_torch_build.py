@@ -6,7 +6,9 @@ where it passes ``c_longlong``.  A mismatch would pass garbage to a launch
 on the card, where no test here reaches; this holds the two on the CPU.
 The DAG kernels' wrappers are held to their launch rule here too: the
 plain version on a CPU tensor (no launch counted), a raise on any other
-device that is not CUDA, and on inputs the kernel would misread."""
+device that is not CUDA, and on inputs the kernel would misread; and the
+DAG event loop's route rule (``kernels/dag_event/ops.py`` ``route``) at its
+edges and against the limits the C launcher refuses past."""
 import ctypes
 import re
 from pathlib import Path
@@ -58,15 +60,19 @@ def test_dag_wrappers_launch_only_on_cuda_and_take_the_plain_version_on_cpu():
 
     i32 = lambda x, d="cpu": torch.tensor(x, dtype=torch.int32, device=d)
     f32 = lambda x, d="cpu": torch.tensor(x, dtype=torch.float32, device=d)
-    before = ops.dag_streams.launches, ops.dag_event.launches
+    before = (ops.dag_streams.launches, ops.dag_event.launches,
+              dict(ops.dag_event.routes))
     tables = ops.dag_streams(f32([500.0]), torch.tensor([3]), i32([64]),
                              h_users=2, n_events=64, n_samples=5)
     lane = (i32([[3, 2]]), f32([[40.0, 60.0]]), i32([2]), i32([2]),
             i32([64]), f32([500.0]))
     smp = f32(np.full((2, 5), 50.0, np.float32))
     s, c = ops.dag_event(*lane, *tables, smp, max_slots=2, warmup_jobs=0)
-    assert c[0] > 0 and (ops.dag_streams.launches,
-                         ops.dag_event.launches) == before
+    g = ops.dag_event(*lane, *tables, smp, max_slots=2, warmup_jobs=0,
+                      general=True)
+    assert c[0] > 0 and torch.equal(g[0], s) and torch.equal(g[1], c)
+    assert (ops.dag_streams.launches, ops.dag_event.launches,
+            ops.dag_event.routes) == before
     with pytest.raises(ValueError, match="int32"):        # replay: indices
         ops.dag_event(*lane, tables[0], tables[1].float(), tables[2], smp,
                       max_slots=2, warmup_jobs=0)
@@ -79,3 +85,50 @@ def test_dag_wrappers_launch_only_on_cuda_and_take_the_plain_version_on_cpu():
     with pytest.raises(ValueError, match="no dag_streams kernel"):
         ops.dag_streams(meta[5], torch.tensor([3], device="meta"), meta[4],
                         h_users=2, n_events=64)
+
+
+# (h_users, max_slots, K, E, general) -> the route; dag_sweep's frontier
+# shape first, then each limit, met and passed by one
+DAG_ROUTE_EDGES = [
+    ((3, 128, 4, 8192, False), "dag_event_fast"),
+    ((32, 512, 31, (1 << 22) - 1, False), "dag_event_fast"),
+    ((33, 512, 31, (1 << 22) - 1, False), "dag_event_general"),
+    ((32, 513, 31, (1 << 22) - 1, False), "dag_event_general"),
+    ((32, 512, 32, (1 << 22) - 1, False), "dag_event_general"),
+    ((32, 512, 31, 1 << 22, False), "dag_event_general"),
+    ((1, 1, 1, 1, True), "dag_event_general"),
+    ((3, 128, 4, 8192, True), "dag_event_general"),
+]
+
+
+@pytest.mark.parametrize("shape,want", DAG_ROUTE_EDGES)
+def test_dag_event_route_at_its_edges(shape, want):
+    from repro_torch.kernels.dag_event import ops
+
+    *dims, general = shape
+    assert ops.route(*dims, general=general) == want
+    assert want in ops.dag_event.routes
+
+
+def test_dag_event_route_limits_match_the_c_launcher():
+    """``route``'s limits are the ones ``dag_event_launch`` refuses a fast
+    launch past (``fits_fast`` in ``csrc/dag_event.cu``): users, slots (16
+    a thread of one warp), stages (the queue key's stage field) and events
+    (its rank field)."""
+    from repro_torch.kernels.dag_event import ops
+
+    src = (CSRC / "dag_event.cu").read_text() + \
+        (CSRC / "event_loop.cuh").read_text()
+    const = {k: int(v) for k, v in
+             re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    body = re.search(r"bool fits_fast\([^)]*\) \{(.*?)\n\}", src, re.S)[1]
+    assert "h_users <= kFastUsers" in body and \
+        "max_slots <= 32 * kFastSlots" in body and \
+        "K <= kMaxDepth" in body and "n_events < (1 << kRankBits)" in body
+    assert (ops.FAST_USERS, ops.FAST_SLOTS, ops.FAST_STAGES,
+            ops.FAST_EVENTS) == (const["kFastUsers"],
+                                 32 * const["kFastSlots"],
+                                 const["kMaxDepth"], 1 << const["kRankBits"])
+    # the queue key's fields fill 32 bits: stage depth, rank, user
+    assert const["kDepthShift"] == const["kRankBits"] + 5 and \
+        (const["kMaxDepth"] + 1) << const["kDepthShift"] == 1 << 32

@@ -209,9 +209,31 @@ def test_dag_streams_kernel_bit_identical_to_plain(dev, replay, B):
 
 # chains of 1..4 stages in one batch (padded to the stage bucket), a
 # padding lane (zero budget), a single-slot lane, a short budget; H = 1, 3
-# and 40 (more than one user a thread); S = 8192 slots (opt-in shared
-# memory) and H = 12000 (a global scratch slice)
-DAG_CARD_CASES = [(1, 64), (3, 64), (40, 600), (3, 8192), (12000, 64)]
+# and 32 at S = 64 and 512 (dag_event_fast's route, and the general one
+# asked for), H = 40 (more than one user a thread); S = 8192 slots (opt-in
+# shared memory) and H = 12000 (a global scratch slice)
+DAG_CARD_CASES = [(1, 64), (3, 64), (32, 512), (40, 600), (3, 8192),
+                  (12000, 64)]
+
+
+def _dag_routes(dev, lanes, tables, smp, H, S, **kw):
+    """Both routes where the batch fits the fast one (the general one asked
+    for), else the general route alone, each launch counted on the route
+    ``ops.route`` names: ``[(route, resp_sum, resp_cnt)]``."""
+    K, E = lanes[0].shape[1], tables[1].shape[1]
+    out = []
+    for general in (False, True):
+        took = dag_ops.route(H, S, K, E, general)
+        if out and took == out[0][0]:
+            break
+        before = dict(dag_ops.dag_event.routes)
+        s, c = dag_ops.dag_event(*lanes, *tables, smp, max_slots=S,
+                                 general=general, **kw)
+        after = dag_ops.dag_event.routes
+        assert {r: after[r] - before[r] for r in after} == \
+            {r: int(r == took) for r in after}
+        out.append((took, s, c))
+    return out
 
 
 @pytest.mark.parametrize("replay", [False, True])
@@ -232,13 +254,86 @@ def test_dag_event_kernel_bit_identical_to_plain(dev, replay, H, S):
                                  n_samples=97 if replay else None)
     scratch = build.library().dag_event_scratch_bytes(H, S)
     assert (scratch > 0) == (H == 12000)
-    kw = dict(max_slots=S, warmup_jobs=2)
+    kw = dict(warmup_jobs=2)
     before = dag_ops.dag_event.launches
-    ks, kc = dag_ops.dag_event(*lanes, *tables, smp, **kw)
-    assert dag_ops.dag_event.launches == before + 1
-    ps, pc = dag_ref.dag_event(*lanes, *tables, smp, **kw)
-    assert torch.equal(ks, ps) and torch.equal(kc, pc)
-    assert kc[3] == 0 and bool((kc[[0, 1, 2, 5]] > 0).all())
+    got = _dag_routes(dev, lanes, tables, smp, H, S, **kw)
+    assert [r for r, _, _ in got] == (
+        ["dag_event_fast", "dag_event_general"] if H <= 32 and S <= 512
+        else ["dag_event_general"])
+    assert dag_ops.dag_event.launches == before + len(got)
+    ps, pc = dag_ref.dag_event(*lanes, *tables, smp, max_slots=S, **kw)
+    for took, ks, kc in got:
+        assert torch.equal(ks, ps) and torch.equal(kc, pc), took
+    assert pc[3] == 0 and bool((pc[[0, 1, 2, 5]] > 0).all())
+
+
+@pytest.mark.parametrize("H,S", [(3, 6), (32, 64), (32, 512)])
+def test_dag_event_routes_break_exact_ties_as_the_plain_version(dev, H, S):
+    """Tie-heavy lanes: every sample one repeated value and every think
+    clock a whole second, so that arrivals and completions tie and the
+    queue key's rank and user fields decide; both routes equal the plain
+    version bit for bit."""
+    f32, _ = _cuda_f32_i32(dev)
+    g = np.random.default_rng(H + S)
+    E = 2048
+    lanes = _dag_lanes(dev, g, [(6, 3, 2), (4, 4, 4), (9, 1, 5), (2, 8, 3)],
+                       [S, 1, 5, S // 2], [E, E, E // 2, E], (1e3, 3e3))
+    smp = f32(np.full((3, 7), 40.0, np.float32))
+    think0, st, td = dag_ops.dag_streams(
+        lanes[5], torch.arange(4, device=dev) + 5, lanes[4], h_users=H,
+        n_events=E, n_samples=7)
+    tables = (torch.round(think0 / 1e3) * 1e3, st, td)
+    kw = dict(warmup_jobs=2)
+    got = _dag_routes(dev, lanes, tables, smp, H, S, **kw)
+    ps, pc = dag_ref.dag_event(*lanes, *tables, smp, max_slots=S, **kw)
+    assert len(got) == 2
+    for took, ks, kc in got:
+        assert torch.equal(ks, ps) and torch.equal(kc, pc), took
+    assert bool((pc > 0).all())
+
+
+def test_dag_event_fast_route_at_its_limits(dev):
+    """dag_event_fast at its limits: 31 stages (K = 31, chains of 1 to 31
+    stages) and E = 2**22 - 1 table columns, both routes bit-identical to
+    the plain version over a 4096-event budget; then one lane run through
+    all 2**22 - 1 events (some 2**21 distinct clocks: its arrival ranks
+    fill the top bits of their field) on both routes, equal to each other;
+    and the C launcher refuses a fast launch one past each limit."""
+    f32, i32 = _cuda_f32_i32(dev)
+    g = np.random.default_rng(5)
+    K, E, H, S = 31, (1 << 22) - 1, 32, 512
+    chains = [tuple(g.integers(1, 3, n)) for n in (31, 1, 17, 30)]
+    nt = np.zeros((4, K), np.int32)
+    ta = np.zeros((4, K), np.float32)
+    for b, c in enumerate(chains):
+        nt[b, :len(c)] = c
+        ta[b, :len(c)] = g.uniform(20, 90, len(c))
+    lanes = (i32(nt), f32(ta), i32([len(c) for c in chains]),
+             i32([S, 7, 64, 1]), i32([4096] * 4), f32([500.0] * 4))
+    seeds = torch.arange(4, device=dev) + 11
+    tables = dag_ops.dag_streams(lanes[5], seeds, lanes[4], h_users=H,
+                                 n_events=E)
+    kw = dict(warmup_jobs=2)
+    got = _dag_routes(dev, lanes, tables, None, H, S, **kw)
+    assert [r for r, _, _ in got] == ["dag_event_fast", "dag_event_general"]
+    ps, pc = dag_ref.dag_event(*lanes, *tables, None, max_slots=S, **kw)
+    for took, ks, kc in got:
+        assert torch.equal(ks, ps) and torch.equal(kc, pc), took
+    assert bool((pc > 0).all())
+    # one lane through every event: the two routes agree
+    one = tuple(x[:1] for x in lanes[:4]) + (i32([E]), lanes[5][:1])
+    t1 = tuple(x[:1] for x in tables)
+    (_, fs, fc), (_, gs, gc) = _dag_routes(dev, one, t1, None, H, S, **kw)
+    assert torch.equal(fs, gs) and torch.equal(fc, gc) and fc[0] > 1000
+    # the launcher refuses a fast launch past any limit
+    lib = build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for h, s_, k, e in ((33, S, K, 64), (H, S + 1, K, 64), (H, S, K + 1, 64),
+                        (H, S, K, 1 << 22)):
+        assert dag_ops.route(h, s_, k, e) == "dag_event_general"
+        rc = lib.dag_event_launch(*([None] * 13), 1, k, h, s_, e, 0, 0, 0,
+                                  0, 1, stream)
+        assert rc != 0, (h, s_, k, e)
 
 
 def test_dag_event_kernel_clamps_short_sample_lists(dev):
@@ -254,11 +349,13 @@ def test_dag_event_kernel_clamps_short_sample_lists(dev):
     tables = dag_ops.dag_streams(lanes[5], torch.arange(4, device=dev) + 7,
                                  lanes[4], h_users=3, n_events=E,
                                  n_samples=97)
-    kw = dict(max_slots=64, warmup_jobs=2)
-    ks, kc = dag_ops.dag_event(*lanes, *tables, smp, **kw)
-    ps, pc = dag_ref.dag_event(*lanes, *tables, smp, **kw)
-    assert torch.equal(ks, ps) and torch.equal(kc, pc)
-    assert bool((kc > 0).all())
+    kw = dict(warmup_jobs=2)
+    got = _dag_routes(dev, lanes, tables, smp, 3, 64, **kw)
+    ps, pc = dag_ref.dag_event(*lanes, *tables, smp, max_slots=64, **kw)
+    assert len(got) == 2
+    for took, ks, kc in got:
+        assert torch.equal(ks, ps) and torch.equal(kc, pc), took
+    assert bool((pc > 0).all())
 
 
 @pytest.mark.parametrize("replay", [False, True])
