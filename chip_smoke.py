@@ -10,20 +10,25 @@ Phases, each printing one line or a few:
      matmul settings (TF32 and reduced-precision bf16 reductions off);
   2. build the CUDA kernels from src/repro_torch/csrc (one nvcc process per
      source, all at once); print the registers and spills (ptxas) of the
-     two qn_event kernels, of the DAG's two event loops (dag_event_fast's
-     six instances, dag_event_kernel), of both draw-table kernels and of
-     each
-     flash_attention instance and of each ssd_scan kernel, and the flash
-     and ssd_scan instances' wgmma (HGMMA) and TMA (UTMALDG) instruction
-     counts (cuobjdump -sass), and fail if either bf16 kernel (flash's,
-     the SSD scan's) has none of either;
+     qn_event kernels (qn_event_fast's two instances, qn_event_wide's
+     eight, qn_event_general; it fails without any of them), of the DAG's
+     two event loops (dag_event_fast's six instances, dag_event_kernel),
+     of both draw-table kernels, of each flash_attention instance and of
+     each ssd_scan kernel, and the flash and ssd_scan instances' wgmma
+     (HGMMA) and TMA (UTMALDG) instruction counts (cuobjdump -sass), and
+     fail if either bf16 kernel (flash's, the SSD scan's) has none of
+     either;
   3. hold each kernel against its plain PyTorch version on the card, on
      identical inputs: the draw tables (event_streams) bit-identical in
      both modes; qn_event in exponential and replay mode (padding,
      single-slot and short-budget lanes) at a reduced event budget, both
      kernels (qn_event_fast and, asked for, qn_event_general), and at
      H = 2049 users (qn_event_general in shared memory) and H = 12000
-     (its state in a global scratch slice), amva
+     (its state in a global scratch slice); qn_event_wide at S = 600 and
+     8192 (H = 20) and 16384 (H = 32), both modes, caps from 1 to 16384,
+     queues backed up by maps of 500, replay lists of a few distinct
+     values (tied slot ends), against one plain run each (both timed)
+     and against qn_event_general asked for at the same inputs; amva
      at several sizes, both bit-identical; mva (exact MVA) at N = 1 ..
      4097 and H = 0, 1, 4, 5, 25, bit-identical; flash_attention at granite's
      prefill (S = 1024, a ragged 777, and the two serving rounds' prompt
@@ -77,7 +82,11 @@ Phases, each printing one line or a few:
      path's shapes (CUDA events, after a warm-up; qn_event (and
      qn_event_general asked for at the same shapes, and alone at H = 2049
      and 12000) and the draw tables at B = 32 and B = 1, beside the
-     figures of the kernel they replaced; mva at N = 4097, H = 25 and
+     figures of the kernel they replaced; qn_event_wide against
+     qn_event_general in turns at cost_deadline's probe shape past 512
+     slots (Q1, cap 8000 of 8192 slots, 37725 active events, H = 10 and
+     20), with its bound and its step's collective floor; mva at N = 4097,
+     H = 25 and
      at the degenerate case's N = 1,
      H = 5; for mva and flash_attention also the kernel's own device time
      from torch.profiler), its bound, its plain version's time and, for
@@ -92,7 +101,9 @@ Phases, each printing one line or a few:
      batched_qn (an 8-point frontier scalar against batched, the
      optimizer point-wise, batched and run_fast), cost_deadline (Figures
      5-7 on the reference's quick grids: initial solution, the amva
-     frontier, Algorithm 1 on the point-wise evaluator), hc_convergence
+     frontier, Algorithm 1 on the point-wise evaluator; every qn_event
+     launch past 512 slots on qn_event_wide, none on qn_event_general),
+     hc_convergence
      (race=False in three gaits) and vm_race (a four-type catalog locked
      against raced, lower-bound pruning, mixed fusion groups, per-lane
      parity, the one-type catalog's degenerate race); every decision,
@@ -211,6 +222,54 @@ E_T3 = 6144
 QN_BEFORE = {"qn_event_b32_ms": 115.261, "qn_event_b1_ms": 103.359,
              "event_streams_b32_ms": 41.252, "event_streams_b1_ms": 19.160,
              "run_s": 0.305, "run_pointwise_s": 4.004}
+# qn_event_wide's checks against the plain version (and against
+# qn_event_general asked for at the same inputs): (H, max_slots, E, modes,
+# caps, n_map, n_reduce).  H = 20 as cost_deadline's fig7 at S = 600 and
+# 8192, H = 32 at the route's limit of 16384 slots; maps of 500 on the
+# small caps back the queue up (each completion then takes the dispatch
+# after it), and on the large caps the busy slots span many threads'
+# blocks (a cap of 600 or 2000 spreads its slots over all 32 threads, a
+# cap of 16384 fills thread 0's 32 groups first).  Every lane must finish
+# jobs past the warm-up within the cut budget E
+WIDE_CHECKS = [
+    (20, 600, 8192, (False, True), [1, 17, 300, 600, 599],
+     [500, 500, 500, 64, 120], [1, 1, 8, 1, 4]),
+    (20, 8192, 16384, (False, True), [1, 17, 600, 8000, 4000, 8192],
+     [500, 500, 500, 64, 120, 32], [1, 1, 8, 1, 16, 4]),
+    (32, 16384, 8192, (False, True), [1, 16384, 9000, 600, 2000],
+     [500, 32, 64, 200, 64], [1, 1, 2, 1, 8]),
+]
+WIDE_WARMUP = 1
+# qn_event_fast's instances (one a mode) and qn_event_wide's (its groups
+# of 16 slots a thread, as the batch's slots need, and the mode)
+QN_INSTANCES = [f"qn_event_fast<{m}>" for m in ("false", "true")] + [
+    f"qn_event_wide<{g}, {m}>" for g in (4, 8, 16, 32)
+    for m in ("false", "true")]
+# cost_deadline's probe shape past 512 slots (Q1: 500 maps, 1 reduce, 10 s
+# think; cap 8000 in a batch of 8192 slots, 65536 events of which 37725
+# active, Q1's events_needed), timed for qn_event_wide against
+# qn_event_general at H = 10 (figures 5-6) and 20 (figure 7)
+WIDE_TIME = dict(cap=8000, max_slots=8192, n_events=65536, active=37725)
+
+
+def wide_lanes(dev, caps, n_map, n_reduce, E, H, replay):
+    """The lanes, seeds and draw tables of one qn_event_wide check, drawn
+    from their own generator (exponential-mode means, think times; in
+    replay mode lists of a few distinct values, so that slot ends tie)."""
+    gen = np.random.default_rng(len(caps) + H + E)
+    B = len(caps)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    lanes = (i32(n_map), i32(n_reduce), i32(caps), i32([E] * B),
+             f32(gen.uniform(20, 60, B)), f32(gen.uniform(10, 30, B)),
+             f32(gen.uniform(100, 1000, B)))
+    seeds = torch.tensor(1000 * np.arange(B) + 1, dtype=torch.int64,
+                         device=dev)
+    smp = (f32(20.0 * gen.integers(1, 4, 29)),
+           f32(10.0 * gen.integers(1, 3, 7))) if replay else (None, None)
+    return lanes, seeds, smp
+
+
 # the integer-pipe instructions a threefry2x32 needs: its 20 rounds'
 # rotates (funnel shifts, SHF) and xors (LOP3), the key schedule's xor
 # (one three-input LOP3) and the output xor: 20 + 20 + 1 + 1.  Its adds
@@ -766,7 +825,8 @@ def check_table3(scen, t3, ref, got, wall, note):
     kernels differ from those the wrapper counted fails."""
     diff = scen.mismatches(ref, t3)
     qn_events = [e for e in note["events"]
-                 if e[1] in ("qn_event_fast", "qn_event_general")]
+                 if e[1] in ("qn_event_fast", "qn_event_wide",
+                             "qn_event_general")]
     measured = len(qn_events) == got["qn_event"]
     names = iter(qn_events)
     rows = []
@@ -1119,13 +1179,26 @@ def ssd_instance(mangled: str):
 
 
 def qn_instance(mangled: str):
-    """'qn_event_fast' (or the general event loop, or a draw-table kernel,
-    or one of the DAG's two event loops) for a line naming it by its
-    mangled name, else None."""
-    m = re.search(r"(qn_event_fast|qn_event_general|qn_streams_kernel|"
-                  r"dag_event_fast|dag_event_kernel|dag_streams_kernel)",
-                  mangled)
+    """'qn_event_fast' (or another of the QN event loop's three kernels, or
+    a draw-table kernel, or one of the DAG's two event loops) for a line
+    naming it by its mangled name, else None."""
+    m = re.search(r"(qn_event_fast|qn_event_wide|qn_event_general|"
+                  r"qn_streams_kernel|dag_event_fast|dag_event_kernel|"
+                  r"dag_streams_kernel)", mangled)
     return m.group(1) if m else None
+
+
+def qn_template_instance(mangled: str):
+    """'qn_event_wide<16, true>' (or 'qn_event_fast<false>') for a line
+    naming an instance of the QN event loop's fast or wide kernel (its
+    groups of 16 slots a thread; replay mode or not) by its mangled name,
+    else None."""
+    m = re.search(r"(qn_event_(?:fast|wide))I((?:L[ib]\d+E)+)E", mangled)
+    if m is None:
+        return None
+    args = [("true" if v == "1" else "false") if k == "b" else v
+            for k, v in re.findall(r"L([ib])(\d+)E", m.group(2))]
+    return f"{m.group(1)}<{', '.join(args)}>"
 
 
 def fast_instance(mangled: str):
@@ -1748,11 +1821,15 @@ def main() -> None:
           f"(libqn_{build.source_hash()}.so); ptxas: {' | '.join(usage)}",
           flush=True)
     qn_usage = flash_ptxas(build.build_log,
-                           lambda ln: fast_instance(ln) or qn_instance(ln))
+                           lambda ln: fast_instance(ln)
+                           or qn_template_instance(ln) or qn_instance(ln))
     for name, props in qn_usage.items():
         print(f"[build] {name}: {props}", flush=True)
     if not {*DAG_FAST_INSTANCES, "dag_event_kernel"} <= set(qn_usage):
         fail("ptxas reported no registers for a dag_event kernel")
+    if not {*QN_INSTANCES, "qn_event_general"} <= set(qn_usage):
+        fail(f"ptxas reported no registers for a qn_event kernel: "
+             f"{sorted(set(QN_INSTANCES) - set(qn_usage))}")
     for name, props in flash_ptxas(build.build_log).items():
         print(f"[build] {name}: {props}", flush=True)
     lib_path = build.BUILD_DIR / f"libqn_{build.source_hash()}.so"
@@ -1831,7 +1908,8 @@ def main() -> None:
         ks, kc = qn_ops.qn_event(*args, **kw)
         gs, gc = qn_ops.qn_event(*args, general=True, **kw)
         if {k: n - k0[k] for k, n in qn_ops.qn_event.routes.items()} != \
-                {"qn_event_fast": 1, "qn_event_general": 1}:
+                {"qn_event_fast": 1, "qn_event_general": 1,
+                 "qn_event_wide": 0}:
             fail(f"qn_event reported the kernels {qn_ops.qn_event.routes} "
                  f"(from {k0}) for one launch without and one with "
                  f"general=True")
@@ -1896,6 +1974,52 @@ def main() -> None:
         fail(f"qn_event differs from its plain version at H={H_huge}")
     if float(kc.min()) <= 0:
         fail(f"qn_event at H={H_huge} completed no job in a lane")
+    # qn_event_wide (at most 32 users past 512 slots, up to 16384:
+    # cost_deadline's probes) against one plain run of each check, and
+    # qn_event_general asked for at the same inputs: every lane bit for
+    # bit, each lane finishing jobs past the warm-up
+    wide_checked = {}    # each check's kernel and plain ms, by shape
+    for H_w, S_w, E_w, modes, caps_w, nm_w, nr_w in WIDE_CHECKS:
+        for replay in modes:
+            lanes_w, seeds_w, smp_w = wide_lanes(dev, caps_w, nm_w, nr_w,
+                                                 E_w, H_w, replay)
+            tag = (f"B={len(caps_w)} E={E_w} S={S_w} H={H_w} "
+                   f"replay={replay}")
+            tables_w = check_streams(lanes_w[6], seeds_w, lanes_w[3], H_w,
+                                     E_w, smp_w, tag)
+            kw = dict(max_slots=S_w, warmup_jobs=WIDE_WARMUP, replay=replay)
+            k0 = dict(qn_ops.qn_event.routes)
+            ks, kc = qn_ops.qn_event(*lanes_w, *tables_w, **kw)
+            took = [k for k, n in qn_ops.qn_event.routes.items()
+                    if n > k0[k]]
+            gs, gc = qn_ops.qn_event(*lanes_w, *tables_w, general=True,
+                                     **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ps, pc = qn_ref.qn_event(*lanes_w, *tables_w, **kw)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            kernel_ms = cuda_ms(
+                lambda: qn_ops.qn_event(*lanes_w, *tables_w, **kw), 3)
+            same = torch.equal(ks, ps) and torch.equal(kc, pc)
+            same_general = torch.equal(gs, ps) and torch.equal(gc, pc)
+            qn_err = max(qn_err, float((ks - ps).abs().max()),
+                         float((kc - pc).abs().max()),
+                         float((gs - ps).abs().max()),
+                         float((gc - pc).abs().max()))
+            print(f"[check] qn_event {tag} caps {caps_w} maps {nm_w} "
+                  f"({', '.join(took)}): bit-identical={same} "
+                  f"(qn_event_general: {same_general}) jobs={kc.tolist()}; "
+                  f"kernel {kernel_ms:.3f} ms, plain {plain_ms:.1f} ms",
+                  flush=True)
+            if took != ["qn_event_wide"]:
+                fail(f"qn_event at {tag} took {took}, not qn_event_wide")
+            if not (same and same_general):
+                fail(f"qn_event differs from its plain version at {tag}")
+            if float(kc.min()) <= 0:
+                fail(f"qn_event at {tag} left a lane without jobs past the "
+                     f"warm-up")
+            wide_checked[tag] = {"ms": kernel_ms, "plain_ms": plain_ms}
     # one lane of Table 3's largest row (1560 maps, 1009 reduces, 80
     # containers, one user, its replay lists): the draw tables at the row's
     # full budget, the event loop with the budget cut to E_T3 events (the
@@ -2000,6 +2124,8 @@ def main() -> None:
                    quick, min_jobs=20, replications=1,
                    batched=False).run(parallel=True))]
     launches = dict.fromkeys(kernels, 0)
+    # every drive's qn_event launches, by route
+    qn_route_launches = dict.fromkeys(qn_ops.ROUTES, 0)
     # the DAG drives' dag_event launches, by route
     dag_route_launches = dict.fromkeys(dag_ops.ROUTES, 0)
     mismatches = []
@@ -2037,6 +2163,8 @@ def main() -> None:
         got_launches = {k: w.launches for k, w in kernels.items()}
         for k, n in got_launches.items():
             launches[k] += n
+        for r, n in qn_ops.qn_event.routes.items():
+            qn_route_launches[r] += n
         n_qn = got_launches["qn_event"]
         n_amva = got_launches["amva"]
         got = decisions(rep)
@@ -2149,6 +2277,8 @@ def main() -> None:
     want_launches.update(qn_event=4, event_streams=4, mva=1)
     for k, n in got_launches.items():
         launches[k] += n
+    for r, n in qn_ops.qn_event.routes.items():
+        qn_route_launches[r] += n
     rel = {"simulate": abs(m_scalar - exact) / exact,
            "response_time_batch": abs(t_batch - exact) / exact}
     host_exact = mva.mva_response(demand, DEGENERATE["think_ms"],
@@ -2192,9 +2322,20 @@ def main() -> None:
     from benchmarks import torch_scenarios as scen
     added_wall = {}
     scenario_runs = {}
+    # the qn_event launches past 512 slots, tallied by wrapping sim_batch
+    # (the one caller of qn_event on these paths)
+    wide_calls = [0]
+    qn_sim_batch = qn_ops.sim_batch
+
+    def tallying_sim_batch(*args, max_slots, **kw):
+        wide_calls[0] += max_slots > 512
+        return qn_sim_batch(*args, max_slots=max_slots, **kw)
+
+    qn_ops.sim_batch = tallying_sim_batch
     for name in SCENARIOS:
         reset_launches(*wrappers)
         qn_sim.reset_sim_stats()
+        wide_calls[0] = 0
         t0 = time.perf_counter()
         out = scen.SCENARIOS[name](dev)
         torch.cuda.synchronize()
@@ -2203,22 +2344,39 @@ def main() -> None:
         got_launches = {k: w.launches for k, w in kernels.items()}
         for k, n in got_launches.items():
             launches[k] += n
+        for r, n in qn_ops.qn_event.routes.items():
+            qn_route_launches[r] += n
         counted = planner_counts(kernels)
+        by_route = dict(qn_ops.qn_event.routes)
+        past_512 = wide_calls[0]
         n_disp = qn_sim.sim_stats()["dispatches"]
         check_scenario(scen, name, out, REFERENCE[name], got_launches,
                        n_disp, wall)
+        print(f"[scenarios] {name}: qn_event launches by route {by_route}, "
+              f"{past_512} of them past 512 slots", flush=True)
+        # cost_deadline's probes past 512 slots (at most 20 users) must
+        # take qn_event_wide, and none qn_event_general
+        if name == "cost_deadline" and (
+                by_route["qn_event_general"] or
+                by_route["qn_event_wide"] != past_512 or past_512 <= 0):
+            fail(f"cost_deadline: qn_event launches by route {by_route}, "
+                 f"{past_512} of them past 512 slots (each must take "
+                 f"qn_event_wide)")
         _, dev_ms, note = profiled_pass(
             kernels, lambda: scen.SCENARIOS[name](dev), counted, name)
         added_wall[f"{name}.profiled"] = note["wall_s"]
         scenario_runs[name] = {"wall_s": wall, "dispatches": n_disp,
                                "launches": got_launches,
                                "launches_by_kernel": counted,
+                               "qn_event_past_512_slots": past_512,
                                "profiled_device_ms": dev_ms,
                                "profiled_wall_s": note["wall_s"]}
         print(f"[scenarios] {name} profiled again: {note['text']}"
               + (f"; host and the rest {wall - sum(dev_ms.values()) / 1e3:.3f}"
                  f" s of the {wall:.3f} s wall (without the profiler)"
                  if None not in dev_ms.values() else ""), flush=True)
+
+    qn_ops.sim_batch = qn_sim_batch
 
     # the paper's Table 3: T on the host's cluster simulator, tau from the
     # scalar QN on the card (one qn_event launch a replication); then once
@@ -2233,6 +2391,8 @@ def main() -> None:
     got_launches = {k: w.launches for k, w in kernels.items()}
     for k, n in got_launches.items():
         launches[k] += n
+    for r, n in qn_ops.qn_event.routes.items():
+        qn_route_launches[r] += n
     _, _, note = profiled_pass(kernels, lambda: scen.table3(dev),
                                planner_counts(kernels), "table3")
     added_wall["table3.profiled"] = note["wall_s"]
@@ -2273,6 +2433,8 @@ def main() -> None:
         got_launches = {k: w.launches for k, w in kernels.items()}
         for k, n in got_launches.items():
             launches[k] += n
+        for r, n in qn_ops.qn_event.routes.items():
+            qn_route_launches[r] += n
         by_route = dict(dag_ops.dag_event.routes)
         for r, n in by_route.items():
             dag_route_launches[r] += n
@@ -2333,6 +2495,8 @@ def main() -> None:
              f"{ref_sq['tau_ms']}")
     for k, n in ((k, w.launches) for k, w in kernels.items()):
         launches[k] += n
+    for r, n in qn_ops.qn_event.routes.items():
+        qn_route_launches[r] += n
     serving_qn = {}
     for label, smoke in (("smoke", True), ("full", False)):
         reset_launches(*wrappers)
@@ -2344,6 +2508,8 @@ def main() -> None:
         got_launches = {k: w.launches for k, w in kernels.items()}
         for k, n in got_launches.items():
             launches[k] += n
+        for r, n in qn_ops.qn_event.routes.items():
+            qn_route_launches[r] += n
         by_path[f"serving_qn.{label}"] = {k: n for k, n in
                                           got_launches.items() if n}
         serving_qn[label] = {**sq, "wall_s": wall,
@@ -2627,6 +2793,71 @@ def main() -> None:
           f"redux and a shuffle; {1.5 * redux_ns + 0.5 * shfl_ns:.2f} ns "
           f"where no completion takes the dispatch after it)", flush=True)
 
+    # qn_event_wide against qn_event_general at cost_deadline's probe
+    # shape past 512 slots (Q1, cap 8000 of 8192 slots, 37725 active
+    # events of 65536, replay mode), H = 10 and 20, in turns (wide,
+    # general, general, wide).  Bound: the draw tables read once (12 bytes
+    # an active step), think0 and the lane's parameters, or per active step
+    # the selection work of the B=32 bound above, whichever is larger.
+    # Its step's collective floor: a dispatch waits on the queue's redux
+    # and the free ballot (issued together, so the longer of the two); a
+    # completion (or a think end) on two reductions, the earliest end and
+    # then g_who, which needs it; a completion that takes the dispatch
+    # after it adds a vote and a shuffle for that second event.  A task is
+    # a dispatch and a completion, so a step costs at least half of
+    # max(redux, ballot) + 2 redux
+    wide_floor_ns = (max(redux_ns, ballot_ns) + 2 * redux_ns) / 2
+    wide_time = {}
+    cap_w, S_wt, E_wt, act_w = (WIDE_TIME[k] for k in (
+        "cap", "max_slots", "n_events", "active"))
+    for H_wt in (10, 20):
+        lane_wt = (i32([prof.n_map]), i32([prof.n_reduce]), i32([cap_w]),
+                   i32([act_w]), f32([0.0]), f32([0.0]), f32([cls.think_ms]))
+        tables_wt = qn_ops.event_streams(
+            lane_wt[6], torch.tensor([1], dtype=torch.int64, device=dev),
+            lane_wt[3], h_users=H_wt, n_events=E_wt, m_samples=f32(m_s),
+            r_samples=f32(r_s))
+        run_w = lambda g: qn_ops.qn_event(
+            *lane_wt, *tables_wt, max_slots=S_wt, warmup_jobs=8,
+            replay=True, general=g)
+        k0 = dict(qn_ops.qn_event.routes)
+        ws, wc = run_w(False)
+        took_w = [k for k, n in qn_ops.qn_event.routes.items() if n > k0[k]]
+        gs, gc = run_w(True)
+        if took_w != ["qn_event_wide"] or not (
+                torch.equal(ws, gs) and torch.equal(wc, gc)) \
+                or float(wc[0]) <= 0:
+            fail(f"qn_event at cost_deadline's shape H={H_wt}: took "
+                 f"{took_w}, jobs {wc.tolist()}, the general kernel's bits "
+                 f"{'equal' if torch.equal(ws, gs) else 'differ'}")
+        turns = [cuda_ms(lambda g=g: run_w(g), 3)
+                 for g in (False, True, True, False)]
+        w_bytes = 12 * act_w + 4 * H_wt + 4 * 9
+        w_ops = act_w * (2 * max(1, (S_wt - 1).bit_length()) + 4 * H_wt)
+        t_b, t_o = w_bytes / H100_BYTES_PER_S, w_ops / H100_INSTR_PER_S
+        row = {"shape": f"B=1 E={E_wt} ({act_w} active) S={S_wt} "
+                        f"cap={cap_w} H={H_wt} replay",
+               "ms": (turns[0] + turns[3]) / 2,
+               "general_ms": (turns[1] + turns[2]) / 2, "turns_ms": turns,
+               "bound_ms": 1e3 * max(t_b, t_o),
+               "bound_by": "operations" if t_o > t_b else "bytes",
+               "step_floor_ms": wide_floor_ns * act_w * 1e-6,
+               "jobs": float(wc[0])}
+        row.update(ns_per_step=row["ms"] * 1e6 / act_w,
+                   general_ns_per_step=row["general_ms"] * 1e6 / act_w)
+        wide_time[H_wt] = row
+        print(f"[time] qn_event {row['shape']} (a cost_deadline probe past "
+              f"512 slots): qn_event_wide {row['ms']:.3f} ms/launch, "
+              f"{row['ns_per_step']:.1f} ns an active step; "
+              f"qn_event_general (asked for) {row['general_ms']:.3f} ms, "
+              f"{row['general_ns_per_step']:.1f} ns (in turns: "
+              f"{', '.join(f'{t:.3f}' for t in turns)} ms); step floor "
+              f"{row['step_floor_ms']:.4f} ms ({wide_floor_ns:.2f} ns a "
+              f"step: max(redux, ballot) and two reductions a task); bound "
+              f"{row['bound_ms']:.6f} ms ({row['bound_by']}: {w_bytes} "
+              f"bytes, {w_ops} operations); {int(wc[0])} jobs past the "
+              f"warm-up", flush=True)
+
     # [dag] both routes at dag_sweep's frontier shape (the Spark chain at
     # nu = 1..16 on m4.xlarge: B = 16, E = 8192, K = 4, H = 3, slots up to
     # 128, seed 0, exponential mode; held against the plain version once
@@ -2752,6 +2983,13 @@ def main() -> None:
          "library_note": "no single PyTorch call simulates the network",
          "ns_per_event": qn_ms * 1e6 / E_main,
          "general_ms": qn_general_ms,
+         "kernels": {"qn_event_fast": "at most 32 users, 512 slots",
+                     "qn_event_wide": "at most 32 users, 513-16384 slots",
+                     "qn_event_general": "any lane"},
+         "launches_by_route": qn_route_launches,
+         "wide_checked": wide_checked,
+         "wide_at_cost_deadline_shape": {f"H={H}": row for H, row in
+                                         wide_time.items()},
          "at_b1": {"shape": f"B=1 E={E_main} S={S_pw} H={H_main}",
                    "ms": qn_pw_ms, "ns_per_event": qn_pw_ms * 1e6 / E_main,
                    "general_ms": qn_pw_general_ms},

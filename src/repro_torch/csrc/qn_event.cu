@@ -34,7 +34,7 @@
 //     first minimum, so the lowest lane holding the warp's minimum holds
 //     the first index, as jnp.argmin and ref.py break ties.
 //
-// Two kernels share that layout:
+// Three kernels share that layout:
 //   * qn_event_fast, the main path (at most 512 slots, at most 32 users):
 //     each thread holds one user in registers and a block of at most 16
 //     slots in shared memory.  A queued user's key is unique (class, the
@@ -55,21 +55,35 @@
 //     a task queued, the next step can only be a dispatch into the slot it
 //     freed, of the queue's head (the old one, or the user that has just
 //     forked its reduces): the completion takes it at once, with no
-//     selection of its own;
+//     selection of its own.  The steps run in blocks of 32, the draw
+//     tables switched between blocks (not predicated into every step), and
+//     the mode is a template parameter;
+//   * qn_event_wide, the same step for lanes of at most 32 users past 512
+//     slots, up to 16384 (cost_deadline's point-wise probes): a thread's
+//     block of up to 512 slots is cut into groups of 16 (kFastSlots) in
+//     dynamic shared memory, each group's first minimum (key, slot) and
+//     free mask kept beside it, and the thread keeps in registers its
+//     block's first minimum and a mask of its groups with a free slot.  A
+//     dispatch only lowers keys (O(1)); the first free slot is two __ffs
+//     (the group mask, then that group's free mask); a completion
+//     refreshes the one group (tree_min over its 16 keys), stores its new
+//     minimum and refreshes the block over its group minima (tree_min over
+//     at most 32), so no step runs a loop of runtime length.  An instance per block size (4, 8, 16
+//     or 32 groups a thread, as the batch's slots need) and mode;
 //   * qn_event_general, any H and slot count: slot and user state in
 //     memory (dynamic shared memory, opt-in above 48 KB, or past the
 //     card's shared memory a global scratch slice per lane), runtime-length
 //     rescans, clock keys with a ballot and __ffs for the lowest lane.
-// Both: now, the response sums and the job count are replicated on every
+// All: now, the response sums and the job count are replicated on every
 // thread; the draw tables are prefetched 32 events ahead (one per thread)
 // and broadcast with __shfl_sync; steps at or past the lane's logical
 // budget are no-ops in the reference, so the loop simply ends there; each
 // lane scans only its own slots_cap slots (the slots past it are never
 // free and never end, and a slot below cap wins every tie with them).
+// The route is plan()'s, the one place it is decided.
 //
-// Keys, the draw prefetch, the fast kernel's block tree (tree_min) and
-// qn_event_general's slots in memory (Slots): event_loop.cuh, shared with
-// csrc/dag_event.cu.
+// Keys, the draw prefetch, the block tree (tree_min) and qn_event_general's
+// slots in memory (Slots): event_loop.cuh, shared with csrc/dag_event.cu.
 //
 // Rounding matches the reference bit for bit: XLA contracts
 // now + e*mean and t_slot + e*think into FMAs, written here as __fmaf_rn;
@@ -80,8 +94,14 @@
 namespace {
 
 constexpr unsigned kMapBit = 0x80000000u;  // queued maps sort after reduces
-constexpr int kRankBits = 26;    // arrival ranks on the fast path
+constexpr int kFastUsers = 32;   // users of the fast and wide routes
+constexpr int kRankBits = 26;    // their arrival ranks
 constexpr int kLaneShift = 27;   // (lane, user) of the second redux
+constexpr int kWideGroups = 32;  // groups of kFastSlots a wide thread holds
+
+// The route qn_event_launch reports; kernels/qn_event/ops.py ROUTES names
+// them in this order
+enum Route { kGeneral = 0, kFast = 1, kWide = 2 };
 
 // The three draw tables (st_m, st_r, td) of one lane, as 32-bit words
 using QnDraws = Draws<3>;
@@ -96,21 +116,282 @@ __device__ __forceinline__ void init_draws(QnDraws& d, const float* st_m,
   d.init(tabs, lane, n_events, t);
 }
 
+// (k, l) before (m, loc): the smaller key, the lower slot on ties.  Bitwise,
+// not short-circuit: with a per-thread operand a short-circuit compare can
+// compile to a divergent branch, and its convergence barrier costs the
+// step more than the compares
+__device__ __forceinline__ bool before(unsigned k, int l, unsigned m,
+                                       int loc) {
+  return (k < m) | ((k == m) & (l < loc));
+}
+
+// (key, slot, user) of a block's first minimum lowered by a dispatch of
+// user u into slot l with key k, where mine
+__device__ __forceinline__ void lower_min(unsigned& m, int& loc, int& usr,
+                                          bool mine, unsigned k, int l,
+                                          int u) {
+  const bool lo = mine & before(k, l, m, loc);
+  m = lo ? k : m;
+  loc = lo ? l : loc;
+  usr = lo ? u : usr;
+}
+
 // ---------------------------------------------------------------------------
-// qn_event_fast: at most 512 slots and 32 users
+// The slot blocks of the fast and wide routes.  Thread t owns the lane's
+// slots [t*bs, t*bs + sn), bs = ceil(cap / 32); a slot's key is its end's
+// clock key (QN_INF free, kNone past the block), its user the task's.
+// Both keep (lo_key, loc, usr), the block's first earliest end, in registers
+// and take the same calls: prefetch() at the top of a step, any_free(),
+// dispatch() into the block's first free slot, prepare() once a step is
+// neither a dispatch nor idle, free_slot() for the completion of the
+// block's minimum by its owner (every thread reruns it, the others to
+// padding words, finding their minimum unchanged), refill() for the
+// dispatch that a completion takes into the slot it freed.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(32, 1) qn_event_fast(
-    const int* __restrict__ n_map, const int* __restrict__ n_reduce,
-    const int* __restrict__ slots_cap, const int* __restrict__ n_active,
+// qn_event_fast's: at most kFastSlots slots, free bits in a register
+struct FlatBlock {
+  static constexpr int kPad = kFastSlots;  // the padding word
+  unsigned* key;
+  int* user;
+  unsigned free_bits, lo_key;
+  int loc, usr, gone;
+  uint4 q[kFastSlots / 4];  // the block's keys, read at the step's top
+
+  __device__ __forceinline__ void init(unsigned* s_key, int* s_user, int t,
+                                       int cap) {
+    const unsigned k_inf = clock_key(QN_INF);
+    const int bs = (cap + 31) / 32;
+    const int sn = min(max(cap - t * bs, 0), bs);
+    key = s_key + t * kFastStride;
+    user = s_user + t * kFastStride;
+#pragma unroll
+    for (int k = 0; k < kFastSlots; ++k) {
+      key[k] = k < sn ? k_inf : kNone;
+      user[k] = -1;
+    }
+    free_bits = (1u << sn) - 1u;
+    lo_key = sn > 0 ? k_inf : kNone;
+    loc = 0;
+    usr = -1;
+  }
+
+  __device__ __forceinline__ void prefetch() {
+    const uint4* kv = reinterpret_cast<const uint4*>(key);
+#pragma unroll
+    for (int j = 0; j < kFastSlots / 4; ++j) q[j] = kv[j];
+  }
+
+  __device__ __forceinline__ bool any_free() const { return free_bits != 0; }
+
+  __device__ __forceinline__ void dispatch(bool mine, unsigned k, int u) {
+    const int l = __ffs(free_bits) - 1;                  // first free
+    const int at = mine ? l : kPad;
+    key[at] = k;
+    user[at] = u;
+    free_bits = mine ? free_bits & (free_bits - 1u) : free_bits;
+    lower_min(lo_key, loc, usr, mine, k, l, u);
+  }
+
+  __device__ __forceinline__ void prepare() {}
+
+  __device__ __forceinline__ void free_slot(bool owner) {
+    const unsigned k_inf = clock_key(QN_INF);
+    unsigned kk[kFastSlots];
+    int ii[kFastSlots];
+    gone = owner ? loc : -1;
+#pragma unroll
+    for (int j = 0; j < kFastSlots / 4; ++j) {
+      kk[4 * j] = q[j].x;
+      kk[4 * j + 1] = q[j].y;
+      kk[4 * j + 2] = q[j].z;
+      kk[4 * j + 3] = q[j].w;
+    }
+#pragma unroll
+    for (int k = 0; k < kFastSlots; ++k) {
+      kk[k] = k == gone ? k_inf : kk[k];
+      ii[k] = k;
+    }
+    tree_min<kFastSlots>(kk, ii);
+    gone = owner ? gone : kPad;
+    key[gone] = k_inf;
+    user[gone] = -1;
+    free_bits |= owner ? 1u << gone : 0u;
+    lo_key = kk[0];
+    loc = ii[0];
+    usr = user[loc];
+  }
+
+  __device__ __forceinline__ void refill(bool owner, unsigned k, int u) {
+    key[gone] = k;
+    user[gone] = u;
+    free_bits = owner ? free_bits & ~(1u << gone) : free_bits;
+    lower_min(lo_key, loc, usr, owner, k, gone, u);
+  }
+};
+
+// qn_event_wide's: G groups of kFastSlots slots in dynamic shared memory
+// (keys and users at stride kStride, the group minima at kGStride, the
+// groups' free masks at the odd kFStride), the groups with a free slot in
+// a register
+template <int G>
+struct GroupBlock {
+  static constexpr int kSlots = G * kFastSlots;  // slots a thread, and pad
+  static constexpr int kStride = kSlots + 4;     // 16-byte aligned groups
+  static constexpr int kGStride = G + 4;         // pad at G
+  static constexpr int kFStride = G + 1;         // pad at G
+  static constexpr int kWords = 64 * kStride + 64 * kGStride + 32 * kFStride;
+  unsigned *key, *gkey, *gfree;
+  int *user, *gloc;
+  unsigned gmask, lo_key;
+  int loc, usr, gone, g;
+  // the first free slot (group f_g, slot f_l; the group's free mask and
+  // minimum), read at the step's top
+  int f_g, f_l, f_gl;
+  unsigned f_m, f_gk;
+  unsigned g_k;                    // group g's fresh minimum after free_slot
+  int g_l;
+  uint4 q[kFastSlots / 4];         // the keys of the minimum's group
+
+  __device__ __forceinline__ void init(unsigned* smem, int t, int cap) {
+    const unsigned k_inf = clock_key(QN_INF);
+    const int bs = (cap + 31) / 32;
+    const int sn = min(max(cap - t * bs, 0), bs);
+    key = smem + t * kStride;
+    user = (int*)(smem + 32 * kStride) + t * kStride;
+    gkey = smem + 64 * kStride + t * kGStride;
+    gloc = (int*)(smem + 64 * kStride + 32 * kGStride) + t * kGStride;
+    gfree = smem + 64 * kStride + 64 * kGStride + t * kFStride;
+    for (int k = 0; k < kSlots; ++k) {
+      key[k] = k < sn ? k_inf : kNone;
+      user[k] = -1;
+    }
+    gmask = 0u;
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const int n = min(max(sn - kFastSlots * j, 0), kFastSlots);
+      gfree[j] = (1u << n) - 1u;
+      gkey[j] = n > 0 ? k_inf : kNone;
+      gloc[j] = kFastSlots * j;
+      gmask |= n > 0 ? 1u << j : 0u;
+    }
+    lo_key = sn > 0 ? k_inf : kNone;
+    loc = 0;
+    usr = -1;
+  }
+
+  __device__ __forceinline__ void prefetch() {
+    f_g = gmask != 0 ? __ffs(gmask) - 1 : G;
+    f_m = gfree[f_g];
+    f_gk = gkey[f_g];
+    f_gl = gloc[f_g];
+    f_l = kFastSlots * f_g + __ffs(f_m) - 1;
+  }
+
+  __device__ __forceinline__ bool any_free() const { return gmask != 0; }
+
+  __device__ __forceinline__ void dispatch(bool mine, unsigned k, int u) {
+    const int l = mine ? f_l : kSlots;
+    const int ga = mine ? f_g : G;
+    key[l] = k;
+    user[l] = u;
+    const unsigned m = f_m & (f_m - 1u);
+    gfree[ga] = m;
+    gmask = mine && m == 0 ? gmask & ~(1u << (f_g & 31)) : gmask;
+    const bool glo = before(k, f_l, f_gk, f_gl);
+    gkey[ga] = glo ? k : f_gk;
+    gloc[ga] = glo ? f_l : f_gl;
+    lower_min(lo_key, loc, usr, mine, k, f_l, u);
+  }
+
+  __device__ __forceinline__ void prepare() {
+    g = loc / kFastSlots;
+    const uint4* kv = reinterpret_cast<const uint4*>(key + kFastSlots * g);
+#pragma unroll
+    for (int j = 0; j < kFastSlots / 4; ++j) q[j] = kv[j];
+  }
+
+  __device__ __forceinline__ void free_slot(bool owner) {
+    const unsigned k_inf = clock_key(QN_INF);
+    // group g without the slot that completes
+    unsigned kk[kFastSlots];
+    int ii[kFastSlots];
+    const int out = owner ? loc - kFastSlots * g : -1;
+#pragma unroll
+    for (int j = 0; j < kFastSlots / 4; ++j) {
+      kk[4 * j] = q[j].x;
+      kk[4 * j + 1] = q[j].y;
+      kk[4 * j + 2] = q[j].z;
+      kk[4 * j + 3] = q[j].w;
+    }
+#pragma unroll
+    for (int k = 0; k < kFastSlots; ++k) {
+      kk[k] = k == out ? k_inf : kk[k];
+      ii[k] = kFastSlots * g + k;
+    }
+    tree_min<kFastSlots>(kk, ii);
+    g_k = kk[0];
+    g_l = ii[0];
+    // the block over its groups' minima, group g's fresh one stored first
+    // and read back with the rest (cheaper than selecting it in)
+    const int ga = owner ? g : G;
+    gkey[ga] = g_k;
+    gloc[ga] = g_l;
+    const uint4* gk = reinterpret_cast<const uint4*>(gkey);
+    const uint4* gl = reinterpret_cast<const uint4*>(gloc);
+    unsigned bk[G];
+    int bl[G];
+#pragma unroll
+    for (int j = 0; j < G / 4; ++j) {
+      const uint4 a = gk[j], b = gl[j];
+      bk[4 * j] = a.x;
+      bk[4 * j + 1] = a.y;
+      bk[4 * j + 2] = a.z;
+      bk[4 * j + 3] = a.w;
+      bl[4 * j] = (int)b.x;
+      bl[4 * j + 1] = (int)b.y;
+      bl[4 * j + 2] = (int)b.z;
+      bl[4 * j + 3] = (int)b.w;
+    }
+    tree_min<G>(bk, bl);
+    gone = owner ? loc : kSlots;
+    key[gone] = k_inf;
+    user[gone] = -1;
+    gfree[ga] = gfree[ga] | 1u << (loc & (kFastSlots - 1));
+    gmask |= owner ? 1u << g : 0u;
+    lo_key = bk[0];
+    loc = bl[0];
+    usr = user[loc];
+  }
+
+  // no slot was free before the completion, so none is after the refill
+  __device__ __forceinline__ void refill(bool owner, unsigned k, int u) {
+    const int ga = owner ? g : G;
+    key[gone] = k;
+    user[gone] = u;
+    gfree[ga] = 0u;
+    gmask = owner ? 0u : gmask;
+    const bool glo = before(k, gone, g_k, g_l);
+    gkey[ga] = glo ? k : g_k;
+    gloc[ga] = glo ? gone : g_l;
+    lower_min(lo_key, loc, usr, owner, k, gone, u);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// qn_event_fast and qn_event_wide: at most 32 users, fewer than 2^26 events
+// ---------------------------------------------------------------------------
+
+template <bool REPLAY, class Block>
+__device__ __forceinline__ void lane_loop(
+    Block& blk, const int* __restrict__ n_map,
+    const int* __restrict__ n_reduce, const int* __restrict__ n_active,
     const float* __restrict__ m_avg, const float* __restrict__ r_avg,
     const float* __restrict__ think_ms, const float* __restrict__ think0,
     const float* __restrict__ st_m, const float* __restrict__ st_r,
     const float* __restrict__ td, float* __restrict__ resp_sum_out,
-    float* __restrict__ resp_cnt_out, int H, int S, int n_events,
-    int warmup_jobs, int replay) {
-  __shared__ __align__(16) unsigned s_key[32 * kFastStride];
-  __shared__ int s_user[32 * kFastStride];
+    float* __restrict__ resp_cnt_out, int H, int n_events,
+    int warmup_jobs) {
   const int lane = blockIdx.x;
   const int t = threadIdx.x;
   const unsigned below = (1u << t) - 1u;     // lanes under this one
@@ -118,22 +399,8 @@ __global__ void __launch_bounds__(32, 1) qn_event_fast(
   const unsigned k_inf = clock_key(QN_INF);
 
   const int nm = n_map[lane], nr = n_reduce[lane];
-  const int cap = min(max(slots_cap[lane], 0), S);
   const float ma = m_avg[lane], ra = r_avg[lane], tm = think_ms[lane];
   const int steps = max(0, min(n_events, n_active[lane]));
-
-  // this thread's slots [t*bs, t*bs + sn) and their minima
-  const int bs = (cap + 31) / 32;
-  const int sn = min(max(cap - t * bs, 0), bs);
-  const int blk = t * kFastStride;   // the block's offset in s_key, s_user
-#pragma unroll
-  for (int k = 0; k < kFastSlots; ++k) {
-    s_key[blk + k] = k < sn ? k_inf : kNone;
-    s_user[blk + k] = -1;
-  }
-  unsigned free_bits = (1u << sn) - 1u;
-  unsigned s_min = sn > 0 ? k_inf : kNone;
-  int s_loc = 0, s_usr = -1;
 
   // this thread's user t (when t < H)
   unsigned q_key = kNone;     // (map bit, arrival rank, t) while queued
@@ -151,133 +418,103 @@ __global__ void __launch_bounds__(32, 1) qn_event_fast(
   unsigned last_done = 0;
   float last_resp = 0.0f;
 
-  const uint4* kv = reinterpret_cast<const uint4*>(s_key + blk);
-  for (int i = 0; i < steps; ++i) {
-    const unsigned adv = advance_key(s_min, h_key);
-    const unsigned g_queue = __reduce_min_sync(FULL_MASK, q_key);
-    const unsigned g_adv = __reduce_min_sync(FULL_MASK, adv);
-    const unsigned b_free = __ballot_sync(FULL_MASK, free_bits != 0);
-    unsigned dw[3];
-    draws.at(i, t, dw);
-    const float stm_i = __uint_as_float(dw[0]), str_i = __uint_as_float(dw[1]),
-                td_i = __uint_as_float(dw[2]);
-    const uint4 q0 = kv[0], q1 = kv[1], q2 = kv[2], q3 = kv[3];
+  // steps in blocks of 32, one block of draws each (switched here, not in
+  // the step)
+  for (int b = 0; b < steps; b += 32) {
+    draws.block(b, t);
+    const int b_end = min(b + 32, steps);
+    for (int i = b; i < b_end; ++i) {
+      blk.prefetch();
+      const unsigned adv = advance_key(blk.lo_key, h_key);
+      const unsigned g_queue = __reduce_min_sync(FULL_MASK, q_key);
+      const unsigned g_adv = __reduce_min_sync(FULL_MASK, adv);
+      const unsigned b_free = __ballot_sync(FULL_MASK, blk.any_free());
+      const float stm_i = __uint_as_float(draws.word(0, i));
+      const float str_i =
+          REPLAY ? __uint_as_float(draws.word(1, i)) : stm_i;
+      const float td_i = __uint_as_float(draws.word(2, i));
 
-    const bool counted = last_done != 0 && done_jobs >= warmup_jobs;
-    resp_sum = counted ? __fadd_rn(resp_sum, last_resp) : resp_sum;
-    resp_cnt = counted ? __fadd_rn(resp_cnt, 1.0f) : resp_cnt;
-    done_jobs += last_done != 0;
-    last_done = 0;
+      const bool counted = last_done != 0 && done_jobs >= warmup_jobs;
+      resp_sum = counted ? __fadd_rn(resp_sum, last_resp) : resp_sum;
+      resp_cnt = counted ? __fadd_rn(resp_cnt, 1.0f) : resp_cnt;
+      done_jobs += last_done != 0;
+      last_done = 0;
 
-    if (b_free != 0 && g_queue != kNone) {                 // dispatch
-      const int u = (int)(g_queue & 31u);
-      const bool is_map = (g_queue & kMapBit) != 0;
-      const float end = replay ? __fadd_rn(now, is_map ? stm_i : str_i)
-                               : __fmaf_rn(stm_i, is_map ? ma : ra, now);
-      // owners' updates as selects; a thread that owns nothing writes
-      // to its block's padding word
-      const bool mine_u = t == u;
-      pending -= mine_u;
-      inflight += mine_u;
-      q_key = mine_u && pending == 0 ? kNone : q_key;
-      const bool mine_s = free_bits != 0 && (b_free & below) == 0;
-      const int l = __ffs(free_bits) - 1;                  // first free
-      const unsigned k = clock_key(end);
-      const int at = mine_s ? l : kFastSlots;
-      s_key[blk + at] = k;
-      s_user[blk + at] = u;
-      free_bits = mine_s ? free_bits & (free_bits - 1u) : free_bits;
-      const bool lower = mine_s && (k < s_min || (k == s_min && l < s_loc));
-      s_min = lower ? k : s_min;
-      s_loc = lower ? l : s_loc;
-      s_usr = lower ? u : s_usr;
-      continue;
-    }
-    const unsigned ka = g_adv >> 1;
-    if (ka >= k_inf) continue;                             // nothing left
-    const float clock = key_clock(ka);
-    const bool is_think = (g_adv & 1u) != 0;
-    // the lowest lane holding the earliest end, and its user
-    const unsigned g_who = __reduce_min_sync(
-        FULL_MASK, adv == g_adv ? ((unsigned)t << kLaneShift) |
-                                      ((is_think ? t : s_usr) & user_mask)
-                                : kNone);
-    const int w = (int)(g_who >> kLaneShift);
-    const int who = (int)(g_who & user_mask);
-    rank += clock != now;
-    now = clock;
-    if (!is_think) {                                       // completion
-      // every thread reruns its block's tree, the owner without the slot
-      // that completes; the others find their minimum unchanged
-      unsigned kk[kFastSlots] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y,
-                                 q1.z, q1.w, q2.x, q2.y, q2.z, q2.w,
-                                 q3.x, q3.y, q3.z, q3.w};
-      int ii[kFastSlots];
-      const int gone = t == w ? s_loc : -1;
-#pragma unroll
-      for (int k = 0; k < kFastSlots; ++k) {
-        kk[k] = k == gone ? k_inf : kk[k];
-        ii[k] = k;
+      if (b_free != 0 && g_queue != kNone) {                 // dispatch
+        const int u = (int)(g_queue & 31u);
+        const bool is_map = (g_queue & kMapBit) != 0;
+        const float end = REPLAY ? __fadd_rn(now, is_map ? stm_i : str_i)
+                                 : __fmaf_rn(stm_i, is_map ? ma : ra, now);
+        // owners' updates as selects; a thread that owns nothing writes
+        // to its block's padding word
+        const bool mine_u = t == u;
+        pending -= mine_u;
+        inflight += mine_u;
+        q_key = mine_u && pending == 0 ? kNone : q_key;
+        blk.dispatch(blk.any_free() && (b_free & below) == 0,
+                     clock_key(end), u);
+        continue;
       }
-      tree_min<kFastSlots>(kk, ii);
-      const int at = t == w ? gone : kFastSlots;
-      s_key[blk + at] = k_inf;
-      s_user[blk + at] = -1;
-      free_bits |= t == w ? 1u << gone : 0u;
-      s_min = kk[0];
-      s_loc = ii[0];
-      s_usr = s_user[blk + s_loc];
-      // the task's user
-      const bool mine_u = t == who;
-      inflight -= mine_u;
-      const bool stage_done = mine_u && pending == 0 && inflight == 0;
-      const bool fork = stage_done && phase == 1;     // map stage done
-      const bool job_done = stage_done && phase != 1; // reduce stage done
-      phase = fork ? 2 : job_done ? 0 : phase;
-      pending = fork ? nr : pending;
-      q_key = fork ? (nr > 0 ? (rank << 5) | (unsigned)t : kNone) : q_key;
-      h_key = job_done ? clock_key(__fmaf_rn(td_i, tm, clock)) : h_key;
-      const float resp = job_done ? __fsub_rn(clock, job_start) : 0.0f;
-      last_done = __ballot_sync(FULL_MASK, job_done);
-      last_resp = __shfl_sync(FULL_MASK, resp, who);
-      // With no slot free before it, the completion leaves one free slot
-      // (the one it ended); when anything is queued, the next step is a
-      // dispatch into it, taken here (within the block of draws)
-      const unsigned head =
-          __any_sync(FULL_MASK, fork && nr > 0)
-              ? min(g_queue, (rank << 5) | (unsigned)who) : g_queue;
-      if (b_free == 0 && head != kNone && i + 1 < steps &&
-          ((i + 1) & 31) != 0) {
-        i += 1;
-        const int u = (int)(head & 31u);
-        const bool is_map = (head & kMapBit) != 0;
-        const float st = __uint_as_float(__shfl_sync(
-            FULL_MASK, is_map ? draws.cur[0] : draws.cur[1], i & 31));
-        const float end = replay ? __fadd_rn(now, st)
-                                 : __fmaf_rn(st, is_map ? ma : ra, now);
-        const bool mine_d = t == u;
-        pending -= mine_d;
-        inflight += mine_d;
-        q_key = mine_d && pending == 0 ? kNone : q_key;
-        const unsigned k = clock_key(end);
-        const bool mine_s = t == w;
-        s_key[blk + at] = mine_s ? k : k_inf;
-        s_user[blk + at] = mine_s ? u : -1;
-        free_bits = mine_s ? free_bits & ~(1u << gone) : free_bits;
-        const bool lower =
-            mine_s && (k < s_min || (k == s_min && gone < s_loc));
-        s_min = lower ? k : s_min;
-        s_loc = lower ? gone : s_loc;
-        s_usr = lower ? u : s_usr;
+      const unsigned ka = g_adv >> 1;
+      if (ka >= k_inf) continue;                             // nothing left
+      blk.prepare();
+      const float clock = key_clock(ka);
+      const bool is_think = (g_adv & 1u) != 0;
+      // the lowest lane holding the earliest end, and its user
+      const unsigned g_who = __reduce_min_sync(
+          FULL_MASK, adv == g_adv ? ((unsigned)t << kLaneShift) |
+                                        ((is_think ? t : blk.usr) & user_mask)
+                                  : kNone);
+      const int w = (int)(g_who >> kLaneShift);
+      const int who = (int)(g_who & user_mask);
+      rank += clock != now;
+      now = clock;
+      if (!is_think) {                                       // completion
+        blk.free_slot(t == w);
+        // the task's user
+        const bool mine_u = t == who;
+        inflight -= mine_u;
+        const bool stage_done = mine_u && pending == 0 && inflight == 0;
+        const bool fork = stage_done && phase == 1;     // map stage done
+        const bool job_done = stage_done && phase != 1; // reduce stage done
+        phase = fork ? 2 : job_done ? 0 : phase;
+        pending = fork ? nr : pending;
+        q_key = fork ? (nr > 0 ? (rank << 5) | (unsigned)t : kNone) : q_key;
+        h_key = job_done ? clock_key(__fmaf_rn(td_i, tm, clock)) : h_key;
+        const float resp = job_done ? __fsub_rn(clock, job_start) : 0.0f;
+        last_done = __ballot_sync(FULL_MASK, job_done);
+        last_resp = __shfl_sync(FULL_MASK, resp, who);
+        // With no slot free before it, the completion leaves one free slot
+        // (the one it ended); when anything is queued, the next step is a
+        // dispatch into it, taken here (within the block of draws)
+        const unsigned head =
+            __any_sync(FULL_MASK, fork && nr > 0)
+                ? min(g_queue, (rank << 5) | (unsigned)who) : g_queue;
+        if (b_free == 0 && head != kNone && i + 1 < b_end) {
+          i += 1;
+          const int u = (int)(head & 31u);
+          const bool is_map = (head & kMapBit) != 0;
+          const float st = __uint_as_float(__shfl_sync(
+              FULL_MASK, REPLAY && !is_map ? draws.cur[1] : draws.cur[0],
+              i & 31));
+          const float end = REPLAY ? __fadd_rn(now, st)
+                                   : __fmaf_rn(st, is_map ? ma : ra, now);
+          const bool mine_d = t == u;
+          pending -= mine_d;
+          inflight += mine_d;
+          q_key = mine_d && pending == 0 ? kNone : q_key;
+          blk.refill(t == w, clock_key(end), u);
+        }
+      } else {                                               // think end
+        const bool mine_u = t == w;
+        phase = mine_u ? 1 : phase;
+        pending = mine_u ? nm : pending;
+        job_start = mine_u ? clock : job_start;
+        h_key = mine_u ? k_inf : h_key;
+        q_key = mine_u ? (nm > 0 ? kMapBit | (rank << 5) | (unsigned)t
+                                 : kNone)
+                       : q_key;
       }
-    } else {                                               // think end
-      const bool mine_u = t == w;
-      phase = mine_u ? 1 : phase;
-      pending = mine_u ? nm : pending;
-      job_start = mine_u ? clock : job_start;
-      h_key = mine_u ? k_inf : h_key;
-      q_key = mine_u ? (nm > 0 ? kMapBit | (rank << 5) | (unsigned)t : kNone)
-                     : q_key;
     }
   }
   if (last_done != 0 && done_jobs >= warmup_jobs) {
@@ -289,6 +526,44 @@ __global__ void __launch_bounds__(32, 1) qn_event_fast(
     resp_cnt_out[lane] = resp_cnt;
   }
 }
+
+#define QN_LANE_PARAMS                                                       \
+  const int *__restrict__ n_map, const int *__restrict__ n_reduce,          \
+      const int *__restrict__ slots_cap, const int *__restrict__ n_active,  \
+      const float *__restrict__ m_avg, const float *__restrict__ r_avg,     \
+      const float *__restrict__ think_ms, const float *__restrict__ think0, \
+      const float *__restrict__ st_m, const float *__restrict__ st_r,       \
+      const float *__restrict__ td, float *__restrict__ resp_sum_out,       \
+      float *__restrict__ resp_cnt_out, int H, int S, int n_events,         \
+      int warmup_jobs
+#define QN_LANE_ARGS                                                        \
+  n_map, n_reduce, n_active, m_avg, r_avg, think_ms, think0, st_m, st_r,   \
+      td, resp_sum_out, resp_cnt_out, H, n_events, warmup_jobs
+
+// at most 512 slots: a block of at most 16 slots a thread, in static
+// shared memory
+template <bool REPLAY>
+__global__ void __launch_bounds__(32, 1) qn_event_fast(QN_LANE_PARAMS) {
+  __shared__ __align__(16) unsigned s_key[32 * kFastStride];
+  __shared__ int s_user[32 * kFastStride];
+  FlatBlock blk;
+  blk.init(s_key, s_user, threadIdx.x,
+           min(max(slots_cap[blockIdx.x], 0), S));
+  lane_loop<REPLAY>(blk, QN_LANE_ARGS);
+}
+
+// 513 to 16384 slots: G groups of 16 a thread, in dynamic shared memory
+// (GroupBlock<G>::kWords words)
+template <int G, bool REPLAY>
+__global__ void __launch_bounds__(32, 1) qn_event_wide(QN_LANE_PARAMS) {
+  extern __shared__ __align__(16) unsigned smem[];
+  GroupBlock<G> blk;
+  blk.init(smem, threadIdx.x, min(max(slots_cap[blockIdx.x], 0), S));
+  lane_loop<REPLAY>(blk, QN_LANE_ARGS);
+}
+
+#undef QN_LANE_PARAMS
+#undef QN_LANE_ARGS
 
 // ---------------------------------------------------------------------------
 // qn_event_general: any H, any slot count, state in memory
@@ -477,23 +752,33 @@ __global__ void __launch_bounds__(32) qn_event_general(
   }
 }
 
-// Which kernel (qn_event_general when asked for, or when the lane outgrows
-// qn_event_fast), and where qn_event_general keeps a lane's state, in 32-bit
-// words: slot keys and users (32 blocks of sw), free-mask words (32 x
-// nwords) and six per-user arrays (32 blocks of uw).  It lives in dynamic
-// shared memory when it fits the card's opt-in limit, else in a global
-// scratch slice per lane.
+// Which kernel runs a batch, and where qn_event_general keeps a lane's
+// state, in 32-bit words: slot keys and users (32 blocks of sw), free-mask
+// words (32 x nwords) and six per-user arrays (32 blocks of uw).  It lives
+// in dynamic shared memory when it fits the card's opt-in limit, else in a
+// global scratch slice per lane.  Lanes of at most 32 users and fewer than
+// 2^26 events take qn_event_fast up to 512 slots and qn_event_wide up to
+// 16384 (its instance of `groups` groups of 16 slots a thread, in
+// wide_words of shared memory); qn_event_general takes the rest, and every
+// batch asked for with general.
 struct Plan {
-  bool fast;
+  Route route;
+  int groups;
+  size_t wide_words;
   int sw, nwords, uw;
   size_t words;
   bool in_smem;
 };
 
 int plan(int h_users, int max_slots, int n_events, bool general, Plan* p) {
-  p->fast = !general && max_slots <= 32 * kFastSlots && h_users <= 32 &&
-            n_events < (1 << kRankBits);
-  p->sw = ((max_slots + 31) / 32 + 3) / 4 * 4;
+  const int bs = (max_slots + 31) / 32;
+  p->groups = bs <= 4 * kFastSlots ? 4 : bs <= 8 * kFastSlots ? 8
+              : bs <= 16 * kFastSlots ? 16 : kWideGroups;
+  p->wide_words = p->groups == 4 ? GroupBlock<4>::kWords
+                  : p->groups == 8 ? GroupBlock<8>::kWords
+                  : p->groups == 16 ? GroupBlock<16>::kWords
+                                    : GroupBlock<kWideGroups>::kWords;
+  p->sw = (bs + 3) / 4 * 4;
   p->nwords = (p->sw + 31) / 32;
   p->uw = (h_users + 31) / 32;
   p->words = 32 * (2 * (size_t)p->sw + p->nwords + 6 * (size_t)p->uw);
@@ -503,14 +788,38 @@ int plan(int h_users, int max_slots, int n_events, bool general, Plan* p) {
     rc = cudaDeviceGetAttribute(&limit,
                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   p->in_smem = 4 * p->words <= (size_t)limit;
+  const bool narrow = !general && h_users <= kFastUsers &&
+                      n_events < (1 << kRankBits);
+  p->route = !narrow ? kGeneral
+             : max_slots <= 32 * kFastSlots ? kFast
+             : max_slots <= 32 * kWideGroups * kFastSlots &&
+                       4 * p->wide_words <= (size_t)limit
+                 ? kWide
+                 : kGeneral;
   return (int)rc;
+}
+
+using LaneKernel = void (*)(const int*, const int*, const int*, const int*,
+                            const float*, const float*, const float*,
+                            const float*, const float*, const float*,
+                            const float*, float*, float*, int, int, int,
+                            int);
+
+// the instance of qn_event_wide with `groups` groups a thread
+template <bool REPLAY>
+LaneKernel wide_kernel(int groups) {
+  return groups == 4    ? qn_event_wide<4, REPLAY>
+         : groups == 8  ? qn_event_wide<8, REPLAY>
+         : groups == 16 ? qn_event_wide<16, REPLAY>
+                        : qn_event_wide<kWideGroups, REPLAY>;
 }
 
 }  // namespace
 
 // Bytes of global scratch each lane of qn_event_general needs (0 when its
-// state fits in shared memory, as it always does where qn_event_fast can
-// run), or -1 when the query fails or the size overflows an int.
+// state fits in shared memory, as it always does where qn_event_fast or
+// qn_event_wide can run), or -1 when the query fails or the size
+// overflows an int.
 extern "C" int qn_event_scratch_bytes(int h_users, int max_slots,
                                       int n_events) {
   Plan p;
@@ -519,24 +828,40 @@ extern "C" int qn_event_scratch_bytes(int h_users, int max_slots,
   return 4 * p.words > (size_t)0x7fffffff ? -1 : (int)(4 * p.words);
 }
 
+// *route: the kernel that ran (Route: 0 qn_event_general, 1 qn_event_fast,
+// 2 qn_event_wide), for the wrapper's count.
 extern "C" int qn_event_launch(
     const int* n_map, const int* n_reduce, const int* slots_cap,
     const int* n_active, const float* m_avg, const float* r_avg,
     const float* think_ms, const float* think0, const float* st_m,
     const float* st_r, const float* td, float* resp_sum, float* resp_cnt,
     void* scratch, int lanes, int h_users, int max_slots, int n_events,
-    int warmup_jobs, int replay, int general, int* fast, void* stream) {
+    int warmup_jobs, int replay, int general, int* route, void* stream) {
   if (lanes <= 0) return (int)cudaGetLastError();
   Plan p;
   int rc = plan(h_users, max_slots, n_events, general != 0, &p);
   if (rc != 0) return rc;
-  *fast = p.fast;  // which kernel the wrapper counts
+  *route = p.route;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (p.fast) {
-    qn_event_fast<<<lanes, 32, 0, s>>>(
+  if (p.route != kGeneral) {
+    LaneKernel kernel;
+    size_t smem = 0;
+    if (p.route == kFast) {
+      kernel = replay ? qn_event_fast<true> : qn_event_fast<false>;
+    } else {
+      kernel = replay ? wide_kernel<true>(p.groups)
+                      : wide_kernel<false>(p.groups);
+      smem = 4 * p.wide_words;
+      if (smem > 48 * 1024) {
+        rc = (int)cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (rc != 0) return rc;
+      }
+    }
+    kernel<<<lanes, 32, smem, s>>>(
         n_map, n_reduce, slots_cap, n_active, m_avg, r_avg, think_ms, think0,
         st_m, st_r, td, resp_sum, resp_cnt, h_users, max_slots, n_events,
-        warmup_jobs, replay);
+        warmup_jobs);
     return (int)cudaGetLastError();
   }
   if (!p.in_smem && scratch == nullptr) return (int)cudaErrorInvalidValue;

@@ -47,8 +47,9 @@ SIGNATURES = {
     # demand, think, r_out; n, h_users; stream
     "amva_mva_launch": [_P, _P, _P, _I, _I, _P],
     # counts, means, think0, tables (11); resp_sum, resp_cnt, scratch;
-    # lanes, H, max_slots, E, warmup_jobs, replay, general; out: 1 when
-    # qn_event_fast ran, 0 for qn_event_general; stream
+    # lanes, H, max_slots, E, warmup_jobs, replay, general; out: the route
+    # that ran (0 qn_event_general, 1 qn_event_fast, 2 qn_event_wide:
+    # qn_event/ops.py ROUTES); stream
     "qn_event_launch": [_P] * 11 + [_P, _P, _P] + [_I] * 7 + [_P, _P],
     # H, max_slots, E -> per-lane bytes of global scratch (0: shared
     # memory)

@@ -7,8 +7,8 @@ counterpart of the reference's ``kernels/qn_event/kernel.py:
 event_streams``).  ``qn_event`` runs the event loop: a CUDA tensor
 launches ``csrc/qn_event.cu``, a CPU tensor takes ``ref.qn_event``.  Each
 wrapper's ``launches`` counts its kernel launches, and ``qn_event.routes``
-the launches of each of its two kernels, as the library reports the one it
-ran.  A build or launch failure raises; a CUDA tensor never takes the
+the launches of each of its three kernels, as the library reports the one
+it ran.  A build or launch failure raises; a CUDA tensor never takes the
 plain version.
 ``sim_batch`` composes the two into the reference's ``_sim_batch_jit``
 contract.
@@ -104,12 +104,14 @@ def qn_event(n_map, n_reduce, slots_cap, n_events_active, m_avg, r_avg,
     ``(B, H)`` and the draw tables ``(B, E)``, all on one device.
     ``slots_cap`` must not exceed ``max_slots``.  Times, means and draws
     are durations, never negative: the card's kernel orders clocks by
-    their bits.  On the card up to 512 slots and 32 users take
-    ``qn_event_fast``, larger lanes (or any lane, with ``general=True``:
-    the two kernels give the same bits, and the flag lets them be timed
-    and checked against each other) ``qn_event_general``, whose state
-    needs ``qn_event_scratch_bytes`` of global scratch a lane once it
-    outgrows the card's shared memory."""
+    their bits.  On the card lanes of at most 32 users take
+    ``qn_event_fast`` up to 512 slots and ``qn_event_wide`` up to 16384;
+    more users or slots (or any lane, with ``general=True``: the kernels
+    give the same bits, and the flag lets them be timed and checked
+    against each other) take ``qn_event_general``, whose state needs
+    ``qn_event_scratch_bytes`` of global scratch a lane once it outgrows
+    the card's shared memory.  The library decides (``plan()`` in
+    ``csrc/qn_event.cu``) and reports the kernel it ran."""
     ints = (n_map, n_reduce, slots_cap, n_events_active)
     floats = (m_avg, r_avg, think_ms)
     tables = (think0, st_m, st_r, td)
@@ -138,20 +140,21 @@ def qn_event(n_map, n_reduce, slots_cap, n_events_active, m_avg, r_avg,
         scratch = torch.empty((B, nbytes), dtype=torch.uint8, device=dev) \
             if nbytes else None
         stream = torch.cuda.current_stream(dev).cuda_stream
-        fast = ctypes.c_int(-1)
+        route = ctypes.c_int(-1)
         rc = lib.qn_event_launch(
             *(x.data_ptr() for x in args), resp_sum.data_ptr(),
             resp_cnt.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
             B, H, int(max_slots), E, int(warmup_jobs), int(bool(replay)),
-            int(bool(general)), ctypes.byref(fast), stream)
+            int(bool(general)), ctypes.byref(route), stream)
     build.check(rc, "qn_event")
-    build.count(qn_event, ROUTES[fast.value])
+    build.count(qn_event, ROUTES[route.value])
     return resp_sum, resp_cnt
 
 
-# the library's report of the kernel it launched (1: the fast one)
-ROUTES = ("qn_event_general", "qn_event_fast")
+# the kernels by the route index the library reports (enum Route in
+# csrc/qn_event.cu)
+ROUTES = ("qn_event_general", "qn_event_fast", "qn_event_wide")
 qn_event.launches = 0
 qn_event.routes = dict.fromkeys(ROUTES, 0)
 

@@ -6,9 +6,11 @@ where it passes ``c_longlong``.  A mismatch would pass garbage to a launch
 on the card, where no test here reaches; this holds the two on the CPU.
 The DAG kernels' wrappers are held to their launch rule here too: the
 plain version on a CPU tensor (no launch counted), a raise on any other
-device that is not CUDA, and on inputs the kernel would misread; and the
+device that is not CUDA, and on inputs the kernel would misread; the
 DAG event loop's route rule (``kernels/dag_event/ops.py`` ``route``) at its
-edges and against the limits the C launcher refuses past."""
+edges and against the limits the C launcher refuses past; and the QN event
+loop's route names (``kernels/qn_event/ops.py`` ``ROUTES``) against the
+route indices its launcher reports."""
 import ctypes
 import re
 from pathlib import Path
@@ -132,3 +134,37 @@ def test_dag_event_route_limits_match_the_c_launcher():
     # the queue key's fields fill 32 bits: stage depth, rank, user
     assert const["kDepthShift"] == const["kRankBits"] + 5 and \
         (const["kMaxDepth"] + 1) << const["kDepthShift"] == 1 << 32
+
+
+def test_qn_event_routes_match_the_launchers_route_indices():
+    """``ops.ROUTES[i]`` names the kernel that ``qn_event_launch`` runs when
+    it reports route ``i`` (``enum Route`` in ``csrc/qn_event.cu``): each
+    index names a ``__global__`` kernel of that name, the launcher reports
+    ``plan()``'s route, and ``plan()`` sends the fast route up to 32 users
+    and 512 slots, the wide one up to 16384 slots."""
+    from repro_torch.kernels.qn_event import ops
+
+    src = (CSRC / "qn_event.cu").read_text()
+    body = re.search(r"enum Route \{([^}]*)\};", src)[1]
+    index = {int(v): k for k, v in re.findall(r"k(\w+) = (\d+)", body)}
+    assert sorted(index) == list(range(len(ops.ROUTES)))
+    assert [f"qn_event_{index[i].lower()}" for i in sorted(index)] == \
+        list(ops.ROUTES)
+    for name in ops.ROUTES:
+        assert re.search(rf"__global__ void __launch_bounds__\([^)]*\) "
+                         rf"{name}\(", src), name
+    assert "*route = p.route;" in src
+    launch = re.search(r'extern "C" int qn_event_launch\(.*', src, re.S)[0]
+    assert "kernel = replay ? qn_event_fast<true>" in launch and \
+        "wide_kernel<true>(p.groups)" in launch and \
+        "qn_event_general<<<" in launch
+    plan = re.search(r"int plan\([^)]*\) \{(.*?)\n\}", src, re.S)[1]
+    assert "h_users <= kFastUsers" in plan and \
+        "max_slots <= 32 * kFastSlots ? kFast" in plan and \
+        "max_slots <= 32 * kWideGroups * kFastSlots" in plan
+    const = {k: int(v) for k, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);",
+        src + (CSRC / "event_loop.cuh").read_text())}
+    assert (const["kFastUsers"], 32 * const["kFastSlots"],
+            32 * const["kWideGroups"] * const["kFastSlots"]) == \
+        (32, 512, 16384)

@@ -38,8 +38,8 @@ def dev():
     return torch.device("cuda", 0)
 
 
-# S = 64 takes the main path's kernel; S = 8192 slots take the kernel for
-# any slot count (its state in opt-in shared memory)
+# S = 64 takes the main path's kernel; S = 8192 slots take qn_event_wide
+# (its groups of slots in opt-in shared memory)
 @pytest.mark.parametrize("replay,S", [(False, 64), (True, 64), (True, 8192)])
 def test_qn_event_kernel_bit_identical_to_plain(dev, replay, S):
     _check_qn_mix(dev, replay, S, general=False)
@@ -73,13 +73,21 @@ def _check_qn_mix(dev, replay, S, general):
     before = qn_ops.qn_event.launches, dict(qn_ops.qn_event.routes)
     ks, kc = qn_ops.qn_event(*lanes, *tables, general=general, **kw)
     assert qn_ops.qn_event.launches == before[0] + 1
-    # the library reports the kernel it ran: the fast one up to 512 slots
-    took = "qn_event_general" if general or S > 512 else "qn_event_fast"
-    assert {k: n - before[1][k] for k, n in qn_ops.qn_event.routes.items()} \
-        == {k: int(k == took) for k in qn_ops.ROUTES}
+    # the library reports the kernel it ran: the fast one up to 512 slots,
+    # the wide one past them
+    took = "qn_event_general" if general else \
+        "qn_event_fast" if S <= 512 else "qn_event_wide"
+    _assert_took(before[1], took)
     ps, pc = qn_ref.qn_event(*lanes, *tables, **kw)
     assert torch.equal(ks, ps) and torch.equal(kc, pc)
     assert kc[4] == 0 and kc.sum() > 0
+
+
+def _assert_took(before, took):
+    """One qn_event launch since ``before`` (a copy of the routes' counts),
+    on the route ``took``."""
+    assert {k: n - before[k] for k, n in qn_ops.qn_event.routes.items()} \
+        == {k: int(k == took) for k in qn_ops.ROUTES}
 
 
 def _cuda_f32_i32(dev):
@@ -122,13 +130,22 @@ def _qn_lanes(dev, g, caps, E, think):
             f32(g.uniform(*think, B)))
 
 
-# more than 32 users or 512 slots take the kernel for any H and slot count;
-# H = 2049 needs more than 48 KB of shared memory a lane, H = 12000 more
-# than the card's 227 KB (its state then lives in a global scratch slice).
-# Long thinks let jobs finish within the budget
-@pytest.mark.parametrize("H,S", [(2049, 64), (2049, 8192), (40, 600),
-                                 (12000, 64)])
-def test_qn_event_kernel_any_users_and_slots(dev, H, S):
+# more than 32 users (or 16384 slots) take the kernel for any H and slot
+# count; H = 2049 needs more than 48 KB of shared memory a lane, H = 12000
+# more than the card's 227 KB (its state then lives in a global scratch
+# slice); at most 32 users past 512 slots take qn_event_wide, up to its
+# 16384, and the general kernel asked for gives the same bits.  Long
+# thinks let jobs finish within the budget
+QN_ANY_CASES = [(2049, 64, "qn_event_general"),
+                (2049, 8192, "qn_event_general"),
+                (40, 600, "qn_event_general"),
+                (12000, 64, "qn_event_general"),
+                (20, 8192, "qn_event_wide"), (10, 600, "qn_event_wide"),
+                (32, 16384, "qn_event_wide")]
+
+
+@pytest.mark.parametrize("H,S,took", QN_ANY_CASES)
+def test_qn_event_kernel_any_users_and_slots(dev, H, S, took):
     g = np.random.default_rng(H + S)
     f32, _ = _cuda_f32_i32(dev)
     E = 2048
@@ -141,17 +158,26 @@ def test_qn_event_kernel_any_users_and_slots(dev, H, S):
     kw = dict(max_slots=S, warmup_jobs=2, replay=True)
     scratch = build.library().qn_event_scratch_bytes(H, S, E)
     assert (scratch > 0) == (H == 12000)
+    before = dict(qn_ops.qn_event.routes)
     ks, kc = qn_ops.qn_event(*lanes, *tables, **kw)
+    _assert_took(before, took)
     ps, pc = qn_ref.qn_event(*lanes, *tables, **kw)
     assert torch.equal(ks, ps) and torch.equal(kc, pc)
     assert bool((kc > 0).all())
+    if took == "qn_event_wide":
+        gs, gc = qn_ops.qn_event(*lanes, *tables, general=True, **kw)
+        assert torch.equal(gs, ps) and torch.equal(gc, pc)
 
 
 # a replay list of one repeated value: every task lasts the same, so slot
 # ends tie and the lower index must win, as in the plain version; caps of
 # 1 and of max_slots
-@pytest.mark.parametrize("H,S", [(5, 40), (32, 512), (40, 600)])
-def test_qn_event_kernel_exact_ties(dev, H, S):
+@pytest.mark.parametrize("H,S,took", [(5, 40, "qn_event_fast"),
+                                      (32, 512, "qn_event_fast"),
+                                      (40, 600, "qn_event_general"),
+                                      (20, 8192, "qn_event_wide"),
+                                      (32, 600, "qn_event_wide")])
+def test_qn_event_kernel_exact_ties(dev, H, S, took):
     g = np.random.default_rng(7 + S)
     f32, _ = _cuda_f32_i32(dev)
     E = 2048
@@ -162,9 +188,76 @@ def test_qn_event_kernel_exact_ties(dev, H, S):
                                   n_events=E, m_samples=smp[0],
                                   r_samples=smp[1])
     kw = dict(max_slots=S, warmup_jobs=2, replay=True)
+    before = dict(qn_ops.qn_event.routes)
     ks, kc = qn_ops.qn_event(*lanes, *tables, **kw)
+    _assert_took(before, took)
     ps, pc = qn_ref.qn_event(*lanes, *tables, **kw)
     assert torch.equal(ks, ps) and torch.equal(kc, pc)
+    assert bool((kc > 0).all())
+
+
+# the routes' edges: (H, S, general) -> the kernel the library reports;
+# each equal to the plain version bit for bit
+QN_ROUTE_EDGES = [((32, 512, False), "qn_event_fast"),
+                  ((32, 513, False), "qn_event_wide"),
+                  ((32, 16384, False), "qn_event_wide"),
+                  ((32, 16385, False), "qn_event_general"),
+                  ((33, 600, False), "qn_event_general"),
+                  ((20, 8192, True), "qn_event_general")]
+
+
+@pytest.mark.parametrize("shape,took", QN_ROUTE_EDGES)
+def test_qn_event_route_edges(dev, shape, took):
+    H, S, general = shape
+    g = np.random.default_rng(H + S)
+    f32, _ = _cuda_f32_i32(dev)
+    E = 1024
+    lanes = _qn_lanes(dev, g, [S, 1, S - 1], E, (300.0, 900.0))
+    seeds = torch.tensor([5, 1005, 2005], dtype=torch.int64, device=dev)
+    smp = (f32(g.uniform(30, 90, 37)), f32(g.uniform(20, 50, 11)))
+    tables = qn_ops.event_streams(lanes[6], seeds, lanes[3], h_users=H,
+                                  n_events=E, m_samples=smp[0],
+                                  r_samples=smp[1])
+    kw = dict(max_slots=S, warmup_jobs=2, replay=True)
+    before = dict(qn_ops.qn_event.routes)
+    ks, kc = qn_ops.qn_event(*lanes, *tables, general=general, **kw)
+    _assert_took(before, took)
+    ps, pc = qn_ref.qn_event(*lanes, *tables, **kw)
+    assert torch.equal(ks, ps) and torch.equal(kc, pc)
+    assert bool((kc > 0).all())
+
+
+# qn_event_wide on cost_deadline's kind of lane: 20 users and caps from 1
+# to 16384 (maps of 500 back the queue up past the small caps; on the large
+# ones the busy slots span several threads' blocks), in both modes (replay
+# with few distinct samples, so that slot ends tie); the general kernel
+# asked for gives the same bits
+@pytest.mark.parametrize("replay", [False, True])
+@pytest.mark.parametrize("S", [600, 8192, 16384])
+def test_qn_event_wide_kernel_bit_identical_to_plain(dev, replay, S):
+    g = np.random.default_rng(S + replay)
+    f32, i32 = _cuda_f32_i32(dev)
+    E, H = 4096, 20
+    caps = [1, 17, 600, S, S // 2, 40]
+    B = len(caps)
+    lanes = (i32([500, 500, 64, 64, 64, 8]), i32([1, 1, 8, 1, 16, 2]),
+             i32(caps), i32([E, E, E, E, E, E // 3]),
+             f32(g.uniform(20, 60, B)), f32(g.uniform(10, 30, B)),
+             f32(g.uniform(100, 1000, B)))
+    seeds = torch.arange(B, device=dev) * 1000 + 1
+    smp = (f32(g.integers(1, 4, 29) * 20.0), f32(g.integers(1, 3, 7) * 10.0)) \
+        if replay else (None, None)
+    tables = qn_ops.event_streams(lanes[6], seeds, lanes[3], h_users=H,
+                                  n_events=E, m_samples=smp[0],
+                                  r_samples=smp[1])
+    kw = dict(max_slots=S, warmup_jobs=1, replay=replay)
+    before = dict(qn_ops.qn_event.routes)
+    ks, kc = qn_ops.qn_event(*lanes, *tables, **kw)
+    _assert_took(before, "qn_event_wide")
+    gs, gc = qn_ops.qn_event(*lanes, *tables, general=True, **kw)
+    ps, pc = qn_ref.qn_event(*lanes, *tables, **kw)
+    assert torch.equal(ks, ps) and torch.equal(kc, pc)
+    assert torch.equal(gs, ps) and torch.equal(gc, pc)
     assert bool((kc > 0).all())
 
 

@@ -72,7 +72,8 @@ def _imported_names(path):
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
                          + [ROOT / "chip_smoke.py",
                             ROOT / "benchmarks" / "torch_scenarios.py",
-                            ROOT / "benchmarks" / "torch_dag_event_ab.py"],
+                            ROOT / "benchmarks" / "torch_dag_event_ab.py",
+                            ROOT / "benchmarks" / "torch_qn_event_ab.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_file_imports_jax_or_repro(path):
     for name in _imported_names(path):

@@ -9,7 +9,8 @@ reference (JAX on the CPU).
    single-slot lanes, budgets below the scan length and a lane without
    reduce tasks.
    The same at 2049 users, where the card's kernel keeps its per-user
-   state in more than 48 KB of shared memory.
+   state in more than 48 KB of shared memory, and at the lanes the card's
+   ``qn_event_wide`` takes (20 users, 8192 slots, caps from 1 to 8192).
 2. Tables: the port's ``event_streams`` equals the reference's bit for bit
    in everything drawn by ``randint``, and within one ulp in everything
    drawn by ``exponential`` (torch's ``log1p`` is not XLA's); at 2049
@@ -170,6 +171,52 @@ def test_plain_loop_bit_exact_vs_pallas_at_2049_users(replay):
     assert np.array_equal(np.asarray(want_c), c.numpy())
     assert np.array_equal(np.asarray(want_m), mean.numpy())
     assert bool((c[[1, 3, 7]] > 0).all()) and c[0] == 0 and c[4] == 0
+
+
+@pytest.mark.parametrize("replay", [False, True])
+def test_plain_loop_bit_exact_vs_pallas_at_wide_lanes(replay):
+    """The lanes the card's ``qn_event_wide`` takes (at most 32 users past
+    512 slots, here cost_deadline's 20 users in a batch of 8192 slots): the
+    plain loop on the reference's tables against the Pallas kernel
+    (interpret mode), bit for bit.  Caps from 1 to 8192; maps of 200 and
+    500 with short thinks back the queue up on the small caps, long thinks
+    let the large caps' jobs finish within the budget; the last lane
+    pads."""
+    E, H = 2048, 20
+    caps = np.array([8000, 600, 1, 17, 8192, 2000, 300, 5000], np.int32)
+    B = len(caps)
+    g = np.random.default_rng(21)
+    lanes = dict(
+        n_map=np.array([500, 500, 500, 200, 64, 120, 500, 16], np.int32),
+        n_reduce=np.array([1, 8, 1, 1, 16, 4, 2, 1], np.int32),
+        m_avg=g.uniform(20, 60, B).astype(np.float32),
+        r_avg=g.uniform(10, 30, B).astype(np.float32),
+        think_ms=np.array([1e5, 1e5, 500, 500, 300, 1e4, 1e5, 200],
+                          np.float32),
+        slots_cap=caps, seed=(1000 * np.arange(B) + 1).astype(np.int32),
+        n_events_active=np.array([E] * 5 + [E // 2, E, 0], np.int32))
+    smp = ((20.0 * g.integers(1, 4, 29)).astype(np.float32),
+           (10.0 * g.integers(1, 3, 7)).astype(np.float32)) if replay \
+        else (None, None)
+    st = dict(h_users=H, max_slots=8192, n_events=E, warmup_jobs=1)
+    jl = {k: jnp.asarray(v) for k, v in lanes.items()}
+    ms, rs = (None, None) if smp[0] is None else map(jnp.asarray, smp)
+    want_m, want_c = ref_kernel.qn_event_fwd(
+        jl["n_map"], jl["n_reduce"], jl["m_avg"], jl["r_avg"],
+        jl["think_ms"], jl["slots_cap"], jl["seed"],
+        jl["n_events_active"], ms, rs, **st)
+    tables = [torch.tensor(np.asarray(x)) for x in
+              _ref_tables(lanes, smp, st)]
+    t = {k: torch.tensor(v) for k, v in lanes.items()}
+    s, c = qn_ops.qn_event(
+        t["n_map"], t["n_reduce"], t["slots_cap"], t["n_events_active"],
+        t["m_avg"], t["r_avg"], t["think_ms"], *tables,
+        max_slots=st["max_slots"], warmup_jobs=st["warmup_jobs"],
+        replay=replay)
+    mean = s / torch.clamp(c, min=1.0)
+    assert np.array_equal(np.asarray(want_c), c.numpy())
+    assert np.array_equal(np.asarray(want_m), mean.numpy())
+    assert bool((c[:7] > 0).all()) and c[7] == 0
 
 
 def test_event_streams_on_cpu_launches_no_kernel():
