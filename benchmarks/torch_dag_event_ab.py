@@ -15,6 +15,7 @@ over 10 launches after a warm-up one (CUDA events), and the launches by
 route.  Needs a CUDA card; imports only torch and the tree's
 ``repro_torch``.
 """
+import inspect
 import sys
 
 sys.path.insert(0, sys.argv[1])
@@ -29,6 +30,10 @@ f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
 B, K, H = 16, 4, 3
 nus = list(range(1, 17))
 out = {}
+# the stage depth given where the tree takes it, as core/dag.py gives it
+# (else the wrapper reads it from the card before each launch)
+depth = dict(depth=K) if "depth" in inspect.signature(
+    ops.dag_event).parameters else {}
 for E, warm in ((8192, 4), (16384, 8)):
     lanes = (i32([[48, 24, 12, 4]] * B),
              f32([[1200.0, 900.0, 1500.0, 2500.0]] * B),
@@ -40,7 +45,7 @@ for E, warm in ((8192, 4), (16384, 8)):
 
     def run():
         return ops.dag_event(*lanes, *tab, None, max_slots=128,
-                             warmup_jobs=warm)
+                             warmup_jobs=warm, **depth)
 
     s, c = run()
     torch.cuda.synchronize()

@@ -693,7 +693,8 @@ def check_launches(name, got, n_disp, amva: bool, dag: bool = False):
     if (got["dag_event"] > 0) != dag:
         fail(f"{name}: dag_event launches {got['dag_event']} (expected "
              f"{'some' if dag else 'none'})")
-    if got["flash_attention"] or got["mva"] or got["ssd_scan"]:
+    if got["flash_attention"] or got["mva"] or got["ssd_scan"] or \
+            got["amva_tensors"]:
         fail(f"{name}: launches off its path: {got}")
 
 
@@ -767,7 +768,7 @@ def planner_counts(kernels) -> dict:
             "dag_event_fast": dag_routes["dag_event_fast"],
             "dag_event_kernel": dag_routes["dag_event_general"],
             "dag_streams_kernel": kernels["dag_streams"].launches,
-            "amva_ps_kernel": kernels["amva"].launches}
+            "amva_ps_frontier_kernel": kernels["amva"].launches}
 
 
 def profiled_pass(kernels, fn, counted, label):
@@ -796,7 +797,8 @@ def profiled_pass(kernels, fn, counted, label):
         for ev in prof.events()
         if ev.device_type == torch.autograd.DeviceType.CUDA
         and (k := qn_instance(ev.name) or (
-            "amva_ps_kernel" if "amva_ps_kernel" in ev.name else None)))
+            "amva_ps_frontier_kernel" if "amva_ps_frontier_kernel"
+            in ev.name else None)))
     seen = collections.Counter(e[1] for e in events)
     dev_ms, parts = {}, []
     for k, n in counted.items():
@@ -903,7 +905,8 @@ def check_serving_qn(scen, label, sq, got, wall):
         fail(f"serving-qn {label}: malformed numbers {sq} (tau again: "
              f"{tau})")
     if got["qn_event"] != 2 or got["event_streams"] != 2 or got["amva"] \
-            or got["mva"] or got["ssd_scan"] or got["dag_event"] or \
+            or got["amva_tensors"] or got["mva"] or got["ssd_scan"] or \
+            got["dag_event"] or \
             got["dag_streams"] or \
             got["flash_attention"] != sq["n_layers"] * sq["prefills"]:
         fail(f"serving-qn {label}: launches {got}, expected 2 qn_event and "
@@ -936,6 +939,27 @@ DAG_FAST_INSTANCES = tuple(f"dag_event_fast<{w}, {r}>" for w in (4, 8, 16)
 # (replay mode: key_i, split(key_i)'s two halves and their bits, the think
 # key, its bits); per lane the two halves of split(key); per user its bits
 DAG_THREEFRY_PER_EVENT = {False: 4, True: 7}
+# the draw-table kernel's edges, each against one plain run in both modes:
+# (B, E, H, n_samples) -- E ragged against its runs of 4 events, one event,
+# H = 2049, more lanes than a block's tile of runs, one replay sample
+DAG_STREAMS_EDGES = [(3, 4097, 5, 97), (1, 1, 1, 1), (2, 3, 2049, 5),
+                     (300, 2, 1, 3)]
+# the AMVA frontier entry's checks: (VM slots, points) from nu = 20
+AMVA_FRONTIERS = [(8, 1), (8, 97), (20, 97), (20, 8192)]
+
+
+def dag_threefries(root) -> dict:
+    """The draw-table kernel's threefry calls per event, by mode, counted
+    in its source: the calls in ``exponential_event`` and
+    ``replay_event`` (csrc/dag_streams.cu)."""
+    src = open(os.path.join(root, "src", "repro_torch", "csrc",
+                            "dag_streams.cu")).read()
+    out = {}
+    for replay, fn in ((False, "exponential_event"), (True, "replay_event")):
+        body = re.search(rf"void {fn}\([^)]*\) \{{(.*?)\n\}}", src, re.S)
+        out[replay] = len(re.findall(r"\b(?:derive|bits_at|threefry2x32)\(",
+                                     body[1])) if body else None
+    return out
 
 
 def dag_lanes(dev, gen, chains, caps, nea, think):
@@ -1053,6 +1077,89 @@ def check_dag(dev, dag_ops, dag_ref, build, gen):
     one(f"B=2 E={DAG_E} S={DAG_SCRATCH_SLOTS} H=3 replay=True (global "
         f"scratch, {scratch} bytes a lane)", lanes, 3, DAG_SCRATCH_SLOTS,
         smp, seeds[:2])
+
+    # the draw-table kernel at its edges, both modes; seeds outside int32
+    # (the kernel takes them modulo 2**32: the plain version gets the same
+    # words as int32 seeds)
+    for B, E, H, NS in DAG_STREAMS_EDGES:
+        sd = gen.integers(-2 ** 40, 2 ** 40, B)
+        words = (sd % 2 ** 32 + 2 ** 31) % 2 ** 32 - 2 ** 31
+        nea = torch.tensor(gen.integers(0, 2 * E + 1, B), dtype=torch.int32,
+                           device=dev)
+        nea[0] = 0
+        tm = torch.tensor(gen.uniform(100, 5000, B), dtype=torch.float32,
+                          device=dev)
+        for replay in (False, True):
+            kw = dict(h_users=H, n_events=E, n_samples=NS if replay else None)
+            got = dag_ops.dag_streams(tm, torch.tensor(sd, device=dev), nea,
+                                      **kw)
+            want = dag_ref.dag_streams(tm, torch.tensor(words, device=dev),
+                                       nea, **kw)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                fail(f"dag_streams differs from its plain version at B={B} "
+                     f"E={E} H={H} replay={replay}")
+    checked.append(f"dag_streams edges (B, E, H, n_samples) "
+                   f"{DAG_STREAMS_EDGES}, both modes, seeds outside int32")
+    print(f"[dag] check dag_streams at its edges (B, E, H, n_samples) "
+          f"{DAG_STREAMS_EDGES}, both modes, seeds outside int32: "
+          f"bit-identical=True", flush=True)
+
+    # the combined entry (sim_batch: both kernels from one C entry point)
+    # against the two wrappers and the plain versions, on the mixed lanes
+    # and on lanes deeper than their stage arrays (40 and 5 stages over K
+    # = 4; replay lists of 6 rows, so a deep stage's row passes K: the
+    # general route, from the depth the caller reads on the host or from
+    # the lanes)
+    def combined(tag, lanes, smp, want_route, depth):
+        ns = None if smp is None else smp.shape[1]
+        sk = dict(h_users=3, n_events=DAG_E, n_samples=ns)
+        seeds_c = seeds[:lanes[0].shape[0]]
+        ek = dict(max_slots=64, warmup_jobs=2)
+        ps, pc = dag_ref.dag_event(*lanes, *dag_ref.dag_streams(
+            lanes[5], seeds_c, lanes[4], **sk), smp, **ek)
+        before = (dag_ops.dag_streams.launches,
+                  dict(dag_ops.dag_event.routes))
+        mean, cnt = dag_ops.sim_batch(
+            lanes[0], lanes[1], lanes[2], lanes[5], lanes[3], seeds_c,
+            lanes[4], smp, h_users=3, n_events=DAG_E, depth=depth, **ek)
+        s2, c2 = dag_ops.dag_event(*lanes, *dag_ops.dag_streams(
+            lanes[5], seeds_c, lanes[4], **sk), smp, depth=depth, **ek)
+        moved = {k: v - before[1][k] for k, v in
+                 dag_ops.dag_event.routes.items()}
+        if dag_ops.dag_streams.launches - before[0] != 2 or moved != {
+                k: 2 * int(k == want_route) for k in moved}:
+            fail(f"sim_batch ({tag}) launched {moved}, not {want_route}")
+        if not (torch.equal(cnt, pc) and torch.equal(c2, pc)
+                and torch.equal(s2, ps) and torch.equal(
+                    mean, ps / torch.clamp(pc, min=1.0))
+                and bool(torch.isfinite(ps).all())):
+            fail(f"sim_batch or dag_event differs from the plain version "
+                 f"({tag})")
+        checked.append(f"sim_batch {tag}")
+        print(f"[dag] check sim_batch {tag}: one entry point, bit-identical "
+              f"to dag_streams then dag_event and the plain version=True on "
+              f"{want_route}; jobs {pc.tolist()}", flush=True)
+
+    for replay in (False, True):
+        smp = torch.tensor(gen.lognormal(np.log(50.0), 0.4, (4, 97)),
+                           dtype=torch.float32, device=dev) \
+            if replay else None
+        lanes = dag_lanes(dev, gen, DAG_CHAINS[replay], DAG_CAPS, DAG_NEA,
+                          (500.0, 4000.0))
+        combined(f"B=8 E={DAG_E} S=64 H=3 mixed lanes replay={replay}",
+                 lanes, smp, "dag_event_fast", int(lanes[2].max()))
+        deep = dag_lanes(dev, gen, [(6, 3, 2, 2)] * 4, [64, 7, 17, 3],
+                         [DAG_E] * 4, (500.0, 4000.0))
+        deep = deep[:2] + (torch.tensor([40, 4, 5, 2], dtype=torch.int32,
+                                        device=dev),) + deep[3:]
+        for depth in (40, None):
+            combined(f"B=4 E={DAG_E} S=64 H=3 lanes of 40 and 5 stages over "
+                     f"K=4 replay={replay}"
+                     + (" from 6 sample rows" if replay else "")
+                     + ", depth "
+                     f"{'from the host' if depth else 'read on the card'}",
+                     deep, None if smp is None else torch.cat([smp, smp[:2]]),
+                     "dag_event_general", depth)
     return err["dag_event"], err["dag_streams"], checked
 
 
@@ -1208,6 +1315,14 @@ def fast_instance(mangled: str):
     m = re.search(r"dag_event_fastILi([0-9]+)ELb([01])E", mangled)
     return (f"dag_event_fast<{m.group(1)}, "
             f"{'true' if m.group(2) == '1' else 'false'}>") if m else None
+
+
+def streams_instance(mangled: str):
+    """'dag_streams_kernel<true>' (replay mode) or '<false>' for a line
+    naming an instance of the DAG's draw-table kernel, else None."""
+    m = re.search(r"dag_streams_kernelILb([01])E", mangled)
+    return (f"dag_streams_kernel<{'true' if m.group(1) == '1' else 'false'}>"
+            if m else None)
 
 
 def flash_ptxas(log: str, namer=flash_instance) -> dict:
@@ -1529,6 +1644,21 @@ def queued_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def enqueue_ms(fn, reps: int = 50) -> float:
+    """Milliseconds of the host per call of ``fn``: the calls issued back to
+    back on the host clock, with no wait for the device between them but
+    the call's own (a read-back): the call's cost where the device is
+    busier than the host."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
 
 
 def device_ms(fn, kernel: str, reps: int = 20):
@@ -1856,6 +1986,25 @@ def main() -> None:
     print(f"[build] SASS of the draw-table kernel (its threefry2x32 "
           f"instances: rotates SHF and xors LOP3 on the integer pipe, adds "
           f"mostly IMAD on the FMA pipe): {streams_sass}", flush=True)
+    per_event = dag_threefries(root)
+    print(f"[build] dag_streams_kernel's threefry calls per event in its "
+          f"source (exponential, replay): {per_event[False]}, "
+          f"{per_event[True]}; the bound counts "
+          f"{DAG_THREEFRY_PER_EVENT[False]}, {DAG_THREEFRY_PER_EVENT[True]}",
+          flush=True)
+    if per_event != DAG_THREEFRY_PER_EVENT:
+        fail(f"dag_streams_kernel draws {per_event} threefries an event, "
+             f"the bound counts {DAG_THREEFRY_PER_EVENT}")
+    print(f"[build] ptxas of the DAG draw tables: "
+          f"{flash_ptxas(build.build_log, streams_instance)}", flush=True)
+    # the AMVA round's division: no range check (FCHK), convergence
+    # barrier (BSSY) or slow-path call on the fast rounds; the rounds
+    # again with __fdiv_rn (its FCHK and call) only after them
+    amva_sass = sass_counts(
+        lib_path, lambda ln: next((k for k in (
+            "amva_ps_frontier_kernel", "amva_ps_kernel", "amva_mva_kernel")
+            if k in ln), None), ("MUFU", "FCHK", "BSSY", "CALL", "BRA"))
+    print(f"[build] SASS of the amva kernels: {amva_sass}", flush=True)
 
     # ----------------------------------------------- kernels vs plain (card)
     gen = np.random.default_rng(11)
@@ -2076,6 +2225,51 @@ def main() -> None:
             fail(f"amva differs from its plain version at N={n}")
     print(f"[check] amva N=1,7,97,128,1000,4097: bit-identical=True",
           flush=True)
+    # the frontier entry (the scalars by value, a_over_c divided in float64
+    # on the card) against ps_fixed_point on host-built tensors and the
+    # plain version; Q1-10u's m4.xlarge demand, think time and users
+    a_q, b_q, z_q, h_q = 5488087.17967804, 38792.787047447186, 1e4, 10.0
+    for slots_q, n_q in AMVA_FRONTIERS:
+        nus_q = np.arange(20, 20 + n_q)
+        host = (f32(a_q / (nus_q * slots_q)), f32(np.full(n_q, b_q)),
+                f32(np.full(n_q, z_q)), f32(np.full(n_q, h_q)))
+        k = amva_ops.ps_frontier(a_q, slots_q, 20, n_q, b_q, z_q, h_q,
+                                 device=dev)
+        p = amva_ref.ps_frontier(a_q, slots_q, 20, n_q, b_q, z_q, h_q,
+                                 device=dev)
+        amva_err = max(amva_err, float((k - p).abs().max()))
+        if not (torch.equal(k, amva_ops.ps_fixed_point(*host))
+                and torch.equal(k, p)):
+            fail(f"the amva frontier entry differs from ps_fixed_point or "
+                 f"its plain version at {slots_q} slots, N={n_q}")
+    # the round's quotient without its range check: one round at a = 1,
+    # b = 0 returns max(1, h / (1 + z)), over 2**22 random pairs inside
+    # the fast path's range and a few thousand outside it (which run the
+    # rounds again with __fdiv_rn), against the plain version on the CPU
+    n_q = 1 << 22
+    y_q = np.ldexp(gen.uniform(1, 2, n_q), gen.integers(-20, 58, n_q))
+    x_q = (y_q * np.ldexp(gen.uniform(1, 2, n_q), gen.integers(0, 40, n_q))
+           ).astype(np.float32)
+    z_q = (y_q - 1.0).astype(np.float32)
+    odd = gen.choice(n_q, 4096, replace=False)
+    x_q[odd[:1024]] = np.float32(1e-40)
+    z_q[odd[1024:2048]] = np.float32(3e38)
+    x_q[odd[2048:]] = gen.choice(np.array([0.0, np.inf, np.nan, 3e38],
+                                          np.float32), 2048)
+    one_q = [torch.tensor(v) for v in (np.ones(n_q, np.float32),
+                                       np.zeros(n_q, np.float32), z_q, x_q)]
+    for iters in (1, 40):
+        k = amva_ops.ps_fixed_point(*(v.to(dev) for v in one_q),
+                                    iters=iters).cpu()
+        p = amva_ref.ps_fixed_point(*one_q, iters=iters)
+        if not bool(((k == p) | (k.isnan() & p.isnan())).all()):
+            fail(f"amva's round quotient differs from the IEEE division "
+                 f"({iters} rounds, random operands)")
+    print(f"[check] amva frontier entry (slots, N) "
+          f"{AMVA_FRONTIERS}: bit-identical to ps_fixed_point and the plain "
+          f"version=True; the round's quotient over {n_q} random operand "
+          f"pairs (4096 outside the fast range): IEEE bits=True (NaN where "
+          f"the plain version gives NaN)", flush=True)
     # exact MVA at the reference's kernel-test sizes (tests/test_kernels.py)
     mva_err = 0.0
     for n in MVA_NS:
@@ -2100,7 +2294,8 @@ def main() -> None:
                "event_streams": qn_ops.event_streams,
                "dag_event": dag_ops.dag_event,
                "dag_streams": dag_ops.dag_streams,
-               "amva": amva_ops.ps_fixed_point,
+               "amva": amva_ops.ps_frontier,
+               "amva_tensors": amva_ops.ps_fixed_point,
                "mva": amva_ops.mva_response,
                "flash_attention": fa_ops.flash_attention,
                "ssd_scan": ssd_ops.ssd}
@@ -2407,7 +2602,7 @@ def main() -> None:
     # Every dag_event launch must take the route ops.route names for its
     # shape: sim_batch (the one caller of dag_event on these paths) is
     # wrapped to tally the route named for each launch's (H, max_slots, K,
-    # E), against the routes the wrapper counted and, in the profiled
+    # E, depth), against the routes the wrapper counted and, in the profiled
     # pass, the kernels the profiler saw
     named = collections.Counter()
     sim_batch = dag_ops.sim_batch
@@ -2415,7 +2610,7 @@ def main() -> None:
     def naming_sim_batch(n_tasks, *args, h_users, max_slots, n_events,
                          **kw):
         named[dag_ops.route(h_users, max_slots, n_tasks.shape[1],
-                            n_events)] += 1
+                            n_events, depth=kw.get("depth") or 0)] += 1
         return sim_batch(n_tasks, *args, h_users=h_users,
                          max_slots=max_slots, n_events=n_events, **kw)
 
@@ -2655,34 +2850,88 @@ def main() -> None:
               f"{general_ms[H_g]:.3f} ms/launch, "
               f"{general_ms[H_g] * 1e6 / E_g:.1f} ns an event", flush=True)
 
-    # amva at the frontier of run_fast: span 64 -> 97 points
+    # the launch floor: an empty kernel queued back to back (its device
+    # time a launch), and its call from Python (build.launch and ctypes)
+    lib = build.library()
+    run_floor = lambda: build.check(build.launch(dev, lib.launch_floor_launch),
+                                    "launch_floor")
+    floor_ms = queued_ms(run_floor, 50)
+    floor_call_ms = enqueue_ms(run_floor, 200)
+    print(f"[time] launch floor (an empty kernel, one warp): {floor_ms:.5f} "
+          f"ms queued back to back, {floor_call_ms:.5f} ms a call on the "
+          f"host", flush=True)
+
+    # amva at the frontier of run_fast: span 64 -> 97 points, through the
+    # frontier entry (the main path's: the scalars by value) and through
+    # ps_fixed_point on the same points (tensors)
     n_am = 97
     nus_am = np.arange(20, 20 + n_am)
     a_am = f32(2.0e6 / (nus_am * 8))
     am_args = (a_am, f32([9000.0] * n_am), f32([10000.0] * n_am),
                f32([10.0] * n_am))
-    am_ms = cuda_ms(lambda: amva_ops.ps_fixed_point(*am_args), 50)
+    run_am = lambda: amva_ops.ps_frontier(2.0e6, 8, 20, n_am, 9000.0,
+                                          10000.0, 10.0, device=dev)
+    run_am_t = lambda: amva_ops.ps_fixed_point(*am_args)
+    if not torch.equal(run_am(), run_am_t()):
+        fail("the amva frontier entry differs from ps_fixed_point at N=97")
+    am_ms = cuda_ms(run_am, 50)
+    am_tensors_ms = cuda_ms(run_am_t, 50)
+    am_call_ms = enqueue_ms(run_am, 200)
+    am_tensors_call_ms = enqueue_ms(run_am_t, 200)
     am_plain_ms = cuda_ms(lambda: amva_ref.ps_fixed_point(*am_args), 5)
-    am_bytes = 4 * 5 * n_am
+    am_bytes = 4 * n_am               # the frontier reads no tensor
     am_ops_n = n_am * 40 * 6       # mul, add, div, max, fma (2) per round
     am_bound = 1e3 * max(am_bytes / H100_BYTES_PER_S,
                          am_ops_n / H100_FP32_OPS_PER_S)
-    # the kernel's own device time, apart from the wrapper's host time,
+    # the kernels' own device times, apart from the wrappers' host time,
     # and the two launches' share of a run_fast plan's wall
-    am_dev_ms, _ = device_ms(lambda: amva_ops.ps_fixed_point(*am_args),
-                             "amva_ps_kernel")
-    am_queued_ms = queued_ms(lambda: amva_ops.ps_fixed_point(*am_args))
+    am_dev_ms, _ = device_ms(run_am, "amva_ps_frontier_kernel", 100)
+    am_tensors_dev_ms, _ = device_ms(run_am_t, "amva_ps_kernel", 100)
+    am_queued_ms = queued_ms(run_am)
+    am_tensors_queued_ms = queued_ms(run_am_t)
+    # amva_frontier as the planner calls it (the entry and its read-back;
+    # host clock), and the same frontier built as before the frontier
+    # entry: four float32 tensors on the host, four copies, ps_fixed_point
+    # and the read-back; in turns
+    a_fr, b_fr = mva.workload_demand(cls.profile_for(vm))
+
+    def frontier_by_copies():
+        nus = np.arange(20, 20 + n_am)
+        full = lambda v: torch.full((n_am,), v, dtype=torch.float32)
+        args = [x.to(dev) for x in (
+            torch.as_tensor(a_fr / (nus * vm.slots), dtype=torch.float32),
+            full(b_fr), full(cls.think_ms), full(float(cls.h_users)))]
+        return amva_ops.ps_fixed_point(*args).cpu().numpy()
+
+    from repro_torch.core import evaluators
+    frontier = lambda: evaluators.amva_frontier(cls, vm, 20, 19 + n_am,
+                                                device=dev)
+    if not np.array_equal(frontier(), frontier_by_copies()):
+        fail("amva_frontier differs from the same frontier built by copies")
+    fr_turns = [enqueue_ms(fn, 200) for fn in (frontier, frontier_by_copies,
+                                               frontier_by_copies, frontier)]
     fast_wall_ms = 1e3 * plans["Q1-10u.run_fast"]["wall_s"]
     am_share = plans["Q1-10u.run_fast"]["amva_launches"] * am_ms \
         / fast_wall_ms
-    print(f"[time] amva N={n_am}: {am_ms:.4f} ms/launch (the kernel alone "
-          f"on the device: "
-          f"{'not measured' if am_dev_ms is None else f'{am_dev_ms:.4f} ms'}"
-          f" by the profiler, {am_queued_ms:.4f} ms queued back to back), "
-          f"plain {am_plain_ms:.3f} ms, bound {am_bound:.6f} ms; "
-          f"{plans['Q1-10u.run_fast']['amva_launches']} launches are "
-          f"{100 * am_share:.2f}% of Q1-10u run_fast's {fast_wall_ms:.2f} "
-          f"ms wall", flush=True)
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
+    print(f"[time] amva N={n_am} frontier entry (amva_ps_frontier_kernel): "
+          f"{am_ms:.4f} ms/call (CUDA events), {am_call_ms:.4f} ms on the "
+          f"host; the kernel alone {fmt(am_dev_ms)} by the profiler, "
+          f"{am_queued_ms:.4f} ms queued back to back; ps_fixed_point "
+          f"(amva_ps_kernel, four tensors) {am_tensors_ms:.4f} ms/call, "
+          f"{am_tensors_call_ms:.4f} ms on the host, "
+          f"{fmt(am_tensors_dev_ms)} by the profiler, "
+          f"{am_tensors_queued_ms:.4f} ms queued; plain {am_plain_ms:.3f} "
+          f"ms; bound {am_bound:.6f} ms; launch floor {floor_ms:.5f} ms "
+          f"queued; {plans['Q1-10u.run_fast']['amva_launches']} launches "
+          f"are {100 * am_share:.2f}% of Q1-10u run_fast's "
+          f"{fast_wall_ms:.2f} ms wall", flush=True)
+    print(f"[time] amva_frontier (Q1-10u, {vm.name}, {n_am} points, with "
+          f"its read-back; host clock): the frontier entry "
+          f"{(fr_turns[0] + fr_turns[3]) / 2:.4f} ms a call, built by four "
+          f"copies and ps_fixed_point {(fr_turns[1] + fr_turns[2]) / 2:.4f}"
+          f" ms (in turns: {', '.join(f'{t:.4f}' for t in fr_turns)})",
+          flush=True)
 
     # mva at the reference test's largest size and at the degenerate case
     def time_mva(n, h_users):
@@ -2746,15 +2995,21 @@ def main() -> None:
     am_round_ns = chain_ns(
         lambda n: amva_ops.ps_fixed_point(*one_am, iters=n), 40, 40040)
     am_chain_ms = 40 * am_round_ns * 1e-6
+    am_fr_round_ns = chain_ns(lambda n: amva_ops.ps_frontier(
+        2.0e6, 8, 20, 1, 9000.0, 10000.0, 10.0, device=dev, iters=n),
+        40, 40040)
     mva_step_ns = chain_ns(lambda n: amva_ops.mva_response(
         f32([10.0]), f32([1e4]), n), 25, 25025)
     mva_chain_ms = 25 * mva_step_ns * 1e-6
     print(f"[time] amva dependent chain: {am_round_ns:.2f} ns a round on one "
-          f"thread; 40 rounds: chain bound {am_chain_ms:.6f} ms (byte bound "
-          f"{am_bound:.2e} ms); the kernel alone on the device "
-          f"{'not measured' if am_dev_ms is None else f'{am_dev_ms:.4f} ms'}"
-          f", queued {am_queued_ms:.4f} ms: its chain bound is "
-          f"{am_chain_ms / am_queued_ms:.2f} of that", flush=True)
+          f"thread ({am_fr_round_ns:.2f} through the frontier entry); 40 "
+          f"rounds: chain bound {am_chain_ms:.6f} ms (byte bound "
+          f"{am_bound:.2e} ms; launch floor {floor_ms:.5f} ms); the "
+          f"frontier kernel alone on the device {fmt(am_dev_ms)}, queued "
+          f"{am_queued_ms:.4f} ms: its chain bound is "
+          f"{am_chain_ms / am_queued_ms:.2f} of that, and the larger of the "
+          f"chain bound and the launch floor "
+          f"{max(am_chain_ms, floor_ms) / am_queued_ms:.2f}", flush=True)
     mva_dev = mva_time["device_ms"]
     print(f"[time] mva dependent chain: {mva_step_ns:.2f} ns a step on one "
           f"thread; H=25: chain bound {mva_chain_ms:.6f} ms (byte bound "
@@ -2772,7 +3027,6 @@ def main() -> None:
     # user); one that takes the dispatch after it adds two shuffles (the
     # forked user's key, the mean) for that second event.  So an event
     # costs at least a redux and a shuffle.
-    lib = build.library()
     chain_out = torch.empty(32, dtype=torch.int32, device=dev)
 
     def collective(op):
@@ -2879,11 +3133,13 @@ def main() -> None:
         make_f = lambda: dag_ops.dag_streams(lanes_f[5], seeds_f, lanes_f[4],
                                              **skw)
         tables_f = make_f()
+        # the depth given, as core/dag.py gives it: no read on the card
         run_f = lambda: dag_ops.dag_event(*lanes_f, *tables_f, None,
-                                          max_slots=S_f, warmup_jobs=warm)
+                                          max_slots=S_f, warmup_jobs=warm,
+                                          depth=K_f)
         run_g = lambda: dag_ops.dag_event(*lanes_f, *tables_f, None,
                                           max_slots=S_f, warmup_jobs=warm,
-                                          general=True)
+                                          general=True, depth=K_f)
         ks, kc = run_f()
         gs, gc = run_g()
         if float(kc.min()) <= 0:
@@ -2901,7 +3157,32 @@ def main() -> None:
                "ms": (turns[0] + turns[3]) / 2,
                "general_ms": (turns[1] + turns[2]) / 2, "turns_ms": turns,
                "streams_ms": cuda_ms(make_f, 20),
-               "streams_queued_ms": queued_ms(make_f)}
+               "streams_call_ms": enqueue_ms(make_f, 200),
+               "streams_queued_ms": queued_ms(make_f),
+               "streams_device_ms": device_ms(make_f, "dag_streams_kernel",
+                                              100)[0],
+               "launch_floor_ms": floor_ms}
+        # the fused simulation as core/dag.py calls it: one entry point
+        # for both kernels (sim_batch), against the two wrappers called in
+        # turn, in turns; the host's cost of a call (enqueue) beside the
+        # time to its end (CUDA events, bound by the event loop)
+        run_sim = lambda: dag_ops.sim_batch(
+            lanes_f[0], lanes_f[1], lanes_f[2], lanes_f[5], lanes_f[3],
+            seeds_f, lanes_f[4], None, h_users=H_f, max_slots=S_f,
+            n_events=E_f, warmup_jobs=warm, depth=K_f)
+        run_two = lambda: dag_ops.dag_event(*lanes_f, *make_f(), None,
+                                            max_slots=S_f, warmup_jobs=warm,
+                                            depth=K_f)
+        mean_s, cnt_s = run_sim()
+        if not (torch.equal(cnt_s, kc)
+                and torch.equal(mean_s, ks / torch.clamp(kc, min=1.0))):
+            fail(f"sim_batch differs from dag_streams then dag_event at "
+                 f"the frontier shape E={E_f}")
+        sim_turns = [enqueue_ms(fn, 20) for fn in (run_sim, run_two,
+                                                   run_two, run_sim)]
+        row.update(sim_call_ms=(sim_turns[0] + sim_turns[3]) / 2,
+                   two_calls_ms=(sim_turns[1] + sim_turns[2]) / 2,
+                   sim_turns_ms=sim_turns, sim_ms=cuda_ms(run_sim, 3))
         if E_f == 8192:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2954,11 +3235,19 @@ def main() -> None:
               f"({row['bound_by']}: {nbytes} bytes, {n_ops} operations)"
               + (f", plain {row['plain_ms']:.1f} ms" if "plain_ms" in row
                  else "") + f"; dag_streams {row['streams_ms']:.4f} ms a "
-              f"call, {row['streams_queued_ms']:.4f} ms queued back to "
-              f"back, bound {row['streams_bound_ms']:.4f} ms ({s_ops} "
-              f"integer-pipe instructions)"
+              f"call (CUDA events), {row['streams_call_ms']:.4f} ms on the "
+              f"host, {row['streams_queued_ms']:.4f} ms queued back to "
+              f"back, {fmt(row['streams_device_ms'])} by the profiler, "
+              f"bound {row['streams_bound_ms']:.4f} ms ({s_ops} "
+              f"integer-pipe instructions), launch floor {floor_ms:.5f} ms "
+              f"queued"
               + (f", plain {row['streams_plain_ms']:.3f} ms"
-                 if "streams_plain_ms" in row else ""), flush=True)
+                 if "streams_plain_ms" in row else "")
+              + f"; sim_batch (one entry point) {row['sim_call_ms']:.4f} ms "
+              f"a call on the host, dag_streams then dag_event "
+              f"{row['two_calls_ms']:.4f} ms (in turns: "
+              f"{', '.join(f'{t:.4f}' for t in row['sim_turns_ms'])} ms), "
+              f"sim_batch to its end {row['sim_ms']:.3f} ms", flush=True)
     dag_per_drive = {k: v["launches_by_route"] for k, v in dag_runs.items()}
     print(f"[time] dag_event launches per drive, by route: {dag_per_drive} "
           f"(one dag_streams launch each)", flush=True)
@@ -3061,7 +3350,14 @@ def main() -> None:
          "launches": launches["dag_streams"],
          "max_abs_err": dag_streams_err,
          "ms": dag_time[8192]["streams_ms"],
+         "call_ms": dag_time[8192]["streams_call_ms"],
          "queued_ms": dag_time[8192]["streams_queued_ms"],
+         "device_ms": dag_time[8192]["streams_device_ms"],
+         "launch_floor_ms": floor_ms,
+         "threefries_per_event": {"exponential": DAG_THREEFRY_PER_EVENT[False],
+                                  "replay": DAG_THREEFRY_PER_EVENT[True]},
+         "sim_batch": {k: dag_time[8192][k] for k in (
+             "sim_call_ms", "two_calls_ms", "sim_turns_ms", "sim_ms")},
          "plain_ms": dag_time[8192]["streams_plain_ms"],
          "shape": dag_time[8192]["shape"],
          "bound_ms": dag_time[8192]["streams_bound_ms"],
@@ -3071,16 +3367,36 @@ def main() -> None:
                          "streams",
          "at_default_budget": {
              "ms": dag_time[16384]["streams_ms"],
+             "call_ms": dag_time[16384]["streams_call_ms"],
              "queued_ms": dag_time[16384]["streams_queued_ms"],
+             "device_ms": dag_time[16384]["streams_device_ms"],
              "bound_ms": dag_time[16384]["streams_bound_ms"]}},
         {"name": "amva", "route": "cuda",
          "source": "src/repro_torch/csrc/amva.cu",
          "replaces": "src/repro/kernels/amva/kernel.py:94",
-         "launches": launches["amva"], "max_abs_err": amva_err,
-         "ms": am_ms, "device_ms": am_dev_ms,
+         "kernels": {"amva_ps_frontier_kernel": "ps_frontier, the main "
+                                                "path's: the scalars by value",
+                     "amva_ps_kernel": "ps_fixed_point: four (N,) tensors"},
+         "launches": launches["amva"],
+         "launches_by_entry": {"ps_frontier": launches["amva"],
+                               "ps_fixed_point": launches["amva_tensors"]},
+         "max_abs_err": amva_err, "shape": f"N={n_am}",
+         "ms": am_ms, "call_ms": am_call_ms, "device_ms": am_dev_ms,
          "queued_ms": am_queued_ms, "plain_ms": am_plain_ms,
+         "launch_floor_ms": floor_ms,
+         "ps_fixed_point": {"ms": am_tensors_ms,
+                            "call_ms": am_tensors_call_ms,
+                            "device_ms": am_tensors_dev_ms,
+                            "queued_ms": am_tensors_queued_ms},
+         "amva_frontier_host_ms": {"frontier_entry": (fr_turns[0]
+                                                      + fr_turns[3]) / 2,
+                                   "four_copies": (fr_turns[1]
+                                                   + fr_turns[2]) / 2,
+                                   "turns": fr_turns},
          "share_of_run_fast_wall": am_share,
-         "chain_ns_per_round": am_round_ns, "chain_bound_ms": am_chain_ms,
+         "chain_ns_per_round": am_round_ns,
+         "chain_ns_per_round_frontier": am_fr_round_ns,
+         "chain_bound_ms": am_chain_ms,
          "bound_ms": am_bound,
          "bound_by": ("operations" if am_ops_n / H100_FP32_OPS_PER_S
                       > am_bytes / H100_BYTES_PER_S else "bytes"),

@@ -141,7 +141,7 @@ def dag_response_time(job: DagJob, slots: int, think_ms: float,
             *lane, t([seed + 1000 * r], torch.int64), t([n_events], i32),
             smp, h_users=int(h_users),
             max_slots=_shapes.bucket_slots(slots), n_events=n_events,
-            warmup_jobs=warmup_jobs)))
+            warmup_jobs=warmup_jobs, depth=K)))
     if not outs:
         return qn_sim._combine([], [])[0]
     res = torch.stack(outs).cpu().numpy()      # one read for all of them
@@ -208,7 +208,7 @@ def response_time_batch(jobs: Sequence[DagJob], think_ms, slots,
             t(nt, i32), t(ta, f32), t(ns, i32), t(tk, f32), t(sl, i32),
             t(seeds, torch.int64), t(n_ev, i32), smp, h_users=int(h_users),
             max_slots=max_slots, n_events=scan_len,
-            warmup_jobs=warmup_jobs)
+            warmup_jobs=warmup_jobs, depth=int(ns.max()))
     pending = qn_sim.PendingBatch(mean, cnt, C, replications)
     return pending if defer else pending.resolve()
 

@@ -21,7 +21,6 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence, \
     Tuple
 
 import numpy as np
-import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import dag as dag_mod
@@ -297,18 +296,15 @@ def workload_event_budget(prof, *, min_jobs: int,
 def amva_frontier(cls: ApplicationClass, vm: VMType, nu_lo: int, nu_hi: int,
                   device=None) -> np.ndarray:
     """Analytic T for every nu in [nu_lo, nu_hi] in ONE ``amva`` kernel
-    launch (the plain version on the CPU)."""
+    launch from the frontier's scalars (``amva_ops.ps_frontier``: no copy
+    to the card, one read-back; the plain version on the CPU)."""
     dev = resolve_device(device)
-    prof = cls.profile_for(vm)
-    nus = np.arange(nu_lo, nu_hi + 1)
-    a, b = workload_demand(prof)
-    n = len(nus)
-    a_over_c = torch.as_tensor(a / (nus * vm.slots), dtype=torch.float32)
-    full = lambda v: torch.full((n,), v, dtype=torch.float32)
-    args = [x.to(dev) for x in (a_over_c, full(b), full(cls.think_ms),
-                                full(float(cls.h_users)))]
+    a, b = workload_demand(cls.profile_for(vm))
+    n = max(0, nu_hi - nu_lo + 1)
     with _obs_trace.span("kernel:amva", cat="kernel", points=n):
-        return amva_ops.ps_fixed_point(*args).cpu().numpy()
+        return amva_ops.ps_frontier(
+            a, vm.slots, nu_lo, n, b, cls.think_ms, float(cls.h_users),
+            device=dev).cpu().numpy()
 
 
 def amva_nu_seed(cls: ApplicationClass, vm: VMType, nu0: int,

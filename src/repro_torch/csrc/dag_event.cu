@@ -581,11 +581,8 @@ __global__ void __launch_bounds__(32, 1) dag_event_fast(
     resp_cnt = __fadd_rn(resp_cnt, 1.0f);
   }
   if (t == 0) {
-    // a lane deeper than the key's stage field (n_stages past the stage
-    // arrays' K, which the caller must not pass) reports NaN
-    const float nan = __int_as_float(0x7fc00000);
-    resp_sum_out[lane] = ns > kMaxDepth ? nan : resp_sum;
-    resp_cnt_out[lane] = ns > kMaxDepth ? nan : resp_cnt;
+    resp_sum_out[lane] = resp_sum;
+    resp_cnt_out[lane] = resp_cnt;
   }
 }
 
@@ -724,6 +721,44 @@ extern "C" int dag_event_launch(
       max_slots, p.sw, p.nwords, p.uw, n_events, n_samples, sample_rows,
       warmup_jobs, replay);
   return (int)cudaGetLastError();
+}
+
+// The draw tables' entry point (csrc/dag_streams.cu), which dag_sim_launch
+// runs first.
+extern "C" int dag_streams_launch(const long long* seed, const int* n_active,
+                                  const float* think_ms, unsigned* tables,
+                                  int B, int H, int E, int n_samples,
+                                  int replay, void* stream);
+
+// One fused simulation on one stream: the draw tables (dag_streams_launch,
+// into `tables`, B * (2E + H) words laid out [st | td | think0]), then the
+// event loop on them (dag_event_launch), writing resp_sum then resp_cnt
+// into `resp` (2 * lanes floats).  The other arguments are
+// dag_event_launch's; depth is the deepest lane's n_stages, read on the
+// host.  A fast launch past dag_event_fast's limits, or over a lane deeper
+// than the stage arrays (K, at most its queue key's stage field), is
+// refused (cudaErrorInvalidValue) before anything runs.
+extern "C" int dag_sim_launch(
+    const long long* seed, const int* n_tasks, const float* t_avg,
+    const int* n_stages, const int* slots_cap, const int* n_active,
+    const float* think_ms, const float* samples, unsigned* tables,
+    float* resp, void* scratch, int lanes, int K, int h_users, int max_slots,
+    int n_events, int n_samples, int sample_rows, int warmup_jobs, int replay,
+    int fast, int depth, void* stream) {
+  if (lanes <= 0) return (int)cudaGetLastError();
+  if (fast && (!fits_fast(h_users, max_slots, K, n_events) || depth > K))
+    return (int)cudaErrorInvalidValue;
+  const int rc = dag_streams_launch(seed, n_active, think_ms, tables, lanes,
+                                    h_users, n_events, n_samples, replay,
+                                    stream);
+  if (rc != 0) return rc;
+  const size_t n = (size_t)lanes * n_events;
+  return dag_event_launch(
+      n_tasks, t_avg, n_stages, slots_cap, n_active, think_ms,
+      reinterpret_cast<const float*>(tables + 2 * n), tables,
+      reinterpret_cast<const float*>(tables + n), samples, resp,
+      resp + lanes, scratch, lanes, K, h_users, max_slots, n_events,
+      n_samples, sample_rows, warmup_jobs, replay, fast, stream);
 }
 
 // n dependent rounds of collective op (dag_collective_chain) on one warp,

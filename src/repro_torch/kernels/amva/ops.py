@@ -4,8 +4,11 @@ fixed point and exact single-station MVA.
 A CUDA tensor launches the hand-written kernels of ``csrc/amva.cu`` (the
 counterparts of the reference's ``amva_fwd``/``_ps_kernel`` and
 ``mva_fwd``/``_mva_kernel``); a CPU tensor takes the plain versions in
-``ref.py``.  ``ps_fixed_point.launches`` and ``mva_response.launches``
-count kernel launches.
+``ref.py``.  ``ps_frontier`` is the fixed point's second entry, a whole
+frontier from its scalars (``amva_ps_frontier_kernel``: no input tensors,
+so no copies to the card), on the device it is given.
+``ps_fixed_point.launches``, ``ps_frontier.launches`` and
+``mva_response.launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -45,17 +48,47 @@ def ps_fixed_point(a_over_c: torch.Tensor, b: torch.Tensor,
     n = out.numel()
     if n == 0:
         return out
-    lib = build.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.amva_ps_launch(*(x.data_ptr() for x in args),
-                                out.data_ptr(), n, int(iters), stream)
+    rc = build.launch(dev, build.library().amva_ps_launch,
+                      *(x.data_ptr() for x in args), out.data_ptr(), n,
+                      int(iters))
     build.check(rc, "amva")
     build.count(ps_fixed_point)
     return out
 
 
 ps_fixed_point.launches = 0
+
+
+def ps_frontier(a: float, slots: int, nu_lo: int, n: int, b: float,
+                think: float, h_users: float, *, device,
+                iters: int = PS_ITERS) -> torch.Tensor:
+    """The fixed point of ``ps_fixed_point`` over a frontier, float32
+    ``(n,)`` on ``device``: element i is nu = ``nu_lo`` + i, at ``a_over_c
+    = a / (nu * slots)`` divided in float64 and rounded to float32 (as the
+    reference's ``amva_frontier``), with ``b``, ``think`` and ``h_users``
+    as float32.  On the card one launch takes the scalars by value."""
+    dev = torch.device(device)
+    if isinstance(n, bool) or int(n) != n or n < 0:
+        raise ValueError(f"n must be an int >= 0, got {n!r}")
+    n = int(n)
+    if dev.type == "cpu":
+        return ref.ps_frontier(a, slots, nu_lo, n, b, think, h_users,
+                               iters=iters, device=dev)
+    if dev.type != "cuda":
+        raise ValueError(f"no amva kernel for device {dev}")
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    rc = build.launch(dev, build.library().amva_ps_frontier_launch,
+                      float(a), int(slots), int(nu_lo), n, float(b),
+                      float(think), float(h_users), out.data_ptr(),
+                      int(iters))
+    build.check(rc, "amva")
+    build.count(ps_frontier)
+    return out
+
+
+ps_frontier.launches = 0
 
 
 def mva_response(demand: torch.Tensor, think: torch.Tensor,
@@ -78,11 +111,9 @@ def mva_response(demand: torch.Tensor, think: torch.Tensor,
         n = out.numel()
         if n == 0:
             return out
-        lib = build.library()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.amva_mva_launch(*(x.data_ptr() for x in args),
-                                     out.data_ptr(), n, h_users, stream)
+        rc = build.launch(dev, build.library().amva_mva_launch,
+                          *(x.data_ptr() for x in args), out.data_ptr(), n,
+                          h_users)
         build.check(rc, "amva_mva")
         build.count(mva_response)
         return out

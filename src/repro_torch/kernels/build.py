@@ -31,6 +31,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 from repro_torch.obs import compile as _obs_compile
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -40,10 +42,14 @@ FLAGS = (ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
          "-Xptxas", "-v")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_D, _F = ctypes.c_double, ctypes.c_float
 # C signatures: (name, argtypes); every entry point returns an int (the
 # cudaError_t of its launch, or for the *_scratch_bytes queries a size)
 SIGNATURES = {
     "amva_ps_launch": [_P, _P, _P, _P, _P, _I, _I, _P],
+    # a (float64), slots, nu_lo, n; b, think, h (float32); t_out; iters;
+    # stream: one AMVA frontier from its scalars
+    "amva_ps_frontier_launch": [_D, _I, _I, _I, _F, _F, _F, _P, _I, _P],
     # demand, think, r_out; n, h_users; stream
     "amva_mva_launch": [_P, _P, _P, _I, _I, _P],
     # counts, means, think0, tables (11); resp_sum, resp_cnt, scratch;
@@ -63,9 +69,16 @@ SIGNATURES = {
     "dag_event_launch": [_P] * 10 + [_P, _P, _P] + [_I] * 10 + [_P],
     # H, max_slots -> per-lane bytes of global scratch (0: shared memory)
     "dag_event_scratch_bytes": [_I, _I],
-    # seed, budgets, think_ms, think0, st, td; B, H, E, n_samples, replay;
-    # stream
-    "dag_streams_launch": [_P] * 6 + [_I] * 5 + [_P],
+    # seed, budgets, think_ms, the tables (one buffer: st, td, think0); B,
+    # H, E, n_samples, replay; stream
+    "dag_streams_launch": [_P] * 4 + [_I] * 5 + [_P],
+    # seed, stage arrays, lane counts, think_ms, samples, the tables'
+    # buffer, resp (sum then count), scratch (11); lanes, K, H, max_slots,
+    # E, n_samples, sample rows, warmup_jobs, replay, fast, depth; stream:
+    # the tables then the event loop on one stream
+    "dag_sim_launch": [_P] * 11 + [_I] * 11 + [_P],
+    # stream: one launch of an empty kernel (the launch floor)
+    "launch_floor_launch": [_P],
     # out (32 words), rounds, collective (0 redux, 1 ballot + ffs, 2
     # shfl); stream: a probe of the fast step's collectives
     "dag_collective_chain_launch": [_P, _I, _I, _P],
@@ -157,6 +170,19 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
+
+
+def launch(dev, entry, *args) -> int:
+    """``entry(*args, stream)``: a C entry point called on the current
+    stream of the CUDA device ``dev``, switching the current device only
+    where ``dev`` is not it already; returns the entry point's code."""
+    cur = torch.cuda.current_device()
+    idx = cur if dev.index is None else dev.index
+    # torch's own lookup of the stream pointer, without a Stream object
+    if idx == cur:
+        return entry(*args, torch._C._cuda_getCurrentRawStream(cur))
+    with torch.cuda.device(idx):
+        return entry(*args, torch._C._cuda_getCurrentRawStream(idx))
 
 
 def check(rc: int, kernel: str) -> None:

@@ -93,13 +93,13 @@ def dag_event(n_tasks, t_avg, n_stages, slots_cap, n_events_active,
     def at(x, idx):
         return x[rows, idx]
 
-    # clip(ph - 1, 0, n_stages - 1); a stage past the rows there are reads
-    # the last, as the reference's gathers clamp
+    # the reference's stage index clip(ph - 1, 0, n_stages - 1); each
+    # gather clamps it to the rows its array has (the stage arrays' K, the
+    # replay lists' K_s), as the reference's gathers clamp
     K = nt.shape[1]
 
     def stage_of(ph):
-        stage = torch.minimum((ph - 1).clamp(min=0), ns - 1).clamp(min=0)
-        return stage.clamp(max=K - 1)
+        return torch.minimum((ph - 1).clamp(min=0), ns - 1).clamp(min=0)
 
     steps = min(E, int(nea.max())) if B else 0   # later steps are no-ops
     for i in range(steps):
@@ -118,7 +118,7 @@ def dag_event(n_tasks, t_avg, n_stages, slots_cap, n_events_active,
             row = stage.clamp(max=samples.shape[0] - 1)
             se_new = now + samples[row, st_i.to(i64)]
         else:
-            se_new = fma32(st_i, at(t_avg, stage), now)
+            se_new = fma32(st_i, at(t_avg, stage.clamp(max=K - 1)), now)
         t_slot, cslot = slot_end.min(1)
         t_think, tu = think_end.min(1)
         active = i < nea
@@ -156,7 +156,9 @@ def dag_event(n_tasks, t_avg, n_stages, slots_cap, n_events_active,
         pending[rows, uidx] = torch.where(do_any, torch.where(
             b_dispatch, at(pending, u) - 1,
             torch.where(b_complete,
-                        torch.where(advance, at(nt, stage_of(nxt)), pend_cu),
+                        torch.where(advance,
+                                    at(nt, stage_of(nxt).clamp(max=K - 1)),
+                                    pend_cu),
                         nt[:, 0])),
             at(pending, uidx))
         inflight[rows, uidx] = torch.where(

@@ -168,3 +168,76 @@ def test_scalar_analytic_tier_exact(k):
         for deadline in (30_000.0, 200_000.0, 1e7):
             assert mva.min_slots_for_deadline(p, 10_000.0, 10, deadline) == \
                 ref_mva.min_slots_for_deadline(rp, 10_000.0, 10, deadline)
+
+
+# ------------------------------------------------- the frontier from scalars
+
+def _frontier_cases():
+    """(class, VM type) pairs of the reference: Q1-10u on its two VM types
+    (m4.xlarge, 8 slots; CINECA, 20) and a 3-stage DAG class."""
+    from repro.core import dag as ref_dag
+    from repro.core import tpcds
+    from repro.core.problem import ApplicationClass, VMType
+
+    prob = tpcds.scenario_problem("Q1", 10, 160_000.0)[0]
+    cls = prob.classes[0]
+    job = ref_dag.DagJob("tez-3stage", (ref_dag.Stage(40, 1000.0, 2500.0),
+                                        ref_dag.Stage(16, 800.0, 2000.0),
+                                        ref_dag.Stage(4, 1500.0, 3000.0)))
+    vm = VMType("m4.xlarge", cores=4, sigma=0.1, pi=0.2)
+    dag_cls = ApplicationClass("spark", h_users=3, think_ms=9000.0,
+                               deadline_ms=13_000.0, profiles={vm.name: job})
+    return {f"Q1-10u {v.name}": (cls, v) for v in prob.vm_types} | {
+        "dag m4.xlarge": (dag_cls, vm)}
+
+
+@pytest.mark.parametrize("case", ["Q1-10u m4.xlarge", "Q1-10u CINECA",
+                                  "dag m4.xlarge"])
+def test_frontier_from_scalars_bit_exact_vs_reference_amva_frontier(case):
+    """``ps_frontier``'s plain version, fed the frontier's scalars (the
+    demand (a, b), the VM's slots, nu_lo, the class's think time and
+    users), gives the reference's ``amva_frontier`` (its Pallas kernel in
+    interpret mode) bit for bit over nu 1..8192: the float32 a_over_c,
+    divided in float64 on the host, and T."""
+    from repro.core import evaluators as ref_ev
+    from repro.core.mva import workload_demand
+
+    cls, vm = _frontier_cases()[case]
+    lo, hi = 1, 8192
+    a, b = workload_demand(cls.profile_for(vm))
+    want_aoc = np.asarray(jnp.asarray(a / (np.arange(lo, hi + 1) * vm.slots),
+                                      jnp.float32))
+    got_aoc = amva_ref.frontier_a_over_c(a, vm.slots, lo, hi - lo + 1)
+    assert np.array_equal(got_aoc.numpy(), want_aoc)
+    want = ref_ev.amva_frontier(cls, vm, lo, hi)
+    before = amva_ops.ps_frontier.launches
+    got = amva_ops.ps_frontier(a, vm.slots, lo, hi - lo + 1, b, cls.think_ms,
+                               float(cls.h_users), device="cpu")
+    assert amva_ops.ps_frontier.launches == before      # plain, on the CPU
+    assert got.dtype == torch.float32 and np.array_equal(got.numpy(), want)
+
+
+def test_port_amva_frontier_equals_the_reference_on_a_window():
+    """``evaluators.amva_frontier`` (one ``ps_frontier`` call) on the port's
+    own copy of Q1-10u equals the reference's on a run_fast-sized window
+    (97 points) of each VM type."""
+    from repro.core import evaluators as ref_ev
+    from repro.core import tpcds as ref_tpcds
+    from repro_torch.core import evaluators, tpcds
+
+    ref_prob = ref_tpcds.scenario_problem("Q1", 10, 160_000.0)[0]
+    prob = tpcds.scenario_problem("Q1", 10, 160_000.0)[0]
+    for v_ref, v in zip(ref_prob.vm_types, prob.vm_types):
+        want = ref_ev.amva_frontier(ref_prob.classes[0], v_ref, 20, 116)
+        got = evaluators.amva_frontier(prob.classes[0], v, 20, 116,
+                                       device="cpu")
+        assert np.array_equal(got, want), v.name
+    assert evaluators.amva_frontier(prob.classes[0], prob.vm_types[0], 5, 4,
+                                    device="cpu").shape == (0,)
+
+
+def test_frontier_wrapper_rejects_bad_inputs():
+    with pytest.raises(ValueError, match="no amva kernel"):
+        amva_ops.ps_frontier(1e6, 8, 1, 4, 10.0, 1e4, 10.0, device="meta")
+    with pytest.raises(ValueError, match="n must be"):
+        amva_ops.ps_frontier(1e6, 8, 1, -1, 10.0, 1e4, 10.0, device="cpu")

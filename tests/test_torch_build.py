@@ -2,7 +2,8 @@
 (``repro_torch.kernels.build.SIGNATURES``) against the C prototypes in
 ``src/repro_torch/csrc/*.cu``: one parameter each, a pointer where ctypes
 passes ``c_void_p``, an ``int`` where it passes ``c_int``, a ``long long``
-where it passes ``c_longlong``.  A mismatch would pass garbage to a launch
+where it passes ``c_longlong``, a ``double`` or ``float`` where it passes
+``c_double`` or ``c_float``.  A mismatch would pass garbage to a launch
 on the card, where no test here reaches; this holds the two on the CPU.
 The DAG kernels' wrappers are held to their launch rule here too: the
 plain version on a CPU tensor (no launch counted), a raise on any other
@@ -36,7 +37,8 @@ def _ctype(param: str):
     if "*" in param:
         return ctypes.c_void_p
     kind = param.rsplit(" ", 1)[0]
-    return {"int": ctypes.c_int, "long long": ctypes.c_longlong}[kind]
+    return {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+            "double": ctypes.c_double, "float": ctypes.c_float}[kind]
 
 
 @pytest.mark.parametrize("name", sorted(build.SIGNATURES))
@@ -168,3 +170,132 @@ def test_qn_event_routes_match_the_launchers_route_indices():
     assert (const["kFastUsers"], 32 * const["kFastSlots"],
             32 * const["kWideGroups"] * const["kFastSlots"]) == \
         (32, 512, 16384)
+
+
+# (h_users, max_slots, K, E, depth) -> the route: a lane deeper than its
+# stage arrays takes the general route (past 31 stages the fast route's
+# queue key could not hold it), one within them the fast one
+DAG_DEPTH_EDGES = [
+    ((3, 128, 4, 8192, 0), "dag_event_fast"),
+    ((3, 128, 4, 8192, 4), "dag_event_fast"),
+    ((3, 128, 4, 8192, 5), "dag_event_general"),
+    ((3, 128, 4, 8192, 32), "dag_event_general"),
+    ((3, 128, 4, 8192, 40), "dag_event_general"),
+    ((32, 512, 31, (1 << 22) - 1, 31), "dag_event_fast"),
+    ((32, 512, 31, (1 << 22) - 1, 32), "dag_event_general"),
+]
+
+
+@pytest.mark.parametrize("shape,want", DAG_DEPTH_EDGES)
+def test_dag_event_route_by_the_deepest_lane(shape, want):
+    from repro_torch.kernels.dag_event import ops
+
+    *dims, depth = shape
+    assert ops.route(*dims, depth=depth) == want
+
+
+def test_dag_sim_launch_refuses_deep_lanes_on_the_fast_route():
+    """The combined entry point refuses a fast launch over a lane deeper
+    than the stage arrays (and past ``fits_fast``'s limits), as ``route``
+    sends such a batch to the general route, before it launches
+    anything."""
+    src = (CSRC / "dag_event.cu").read_text()
+    body = re.search(r'extern "C" int dag_sim_launch\([^)]*\) \{(.*?)\n\}',
+                     src, re.S)[1]
+    refuse, launch = body.index("fits_fast("), body.index("dag_streams_launch(")
+    assert "depth > K" in body[refuse:launch]
+    assert "cudaErrorInvalidValue" in body[refuse:launch]
+
+
+def test_dag_tables_are_one_allocation_laid_out_as_the_kernel_writes_them():
+    """``_table_views`` cuts (think0, st, td) from one buffer of 32-bit
+    words at the offsets the C entry points use: st at 0, td at B*E words,
+    think0 at 2*B*E, in both modes; ``dag_sim_launch`` hands the event
+    loop the same offsets and its outputs follow the tables."""
+    import torch
+
+    from repro_torch.kernels.dag_event import ops
+
+    B, H, E = 3, 5, 7
+    buf = torch.arange(B * (2 * E + H), dtype=torch.float32)
+    for replay in (False, True):
+        think0, st, td = ops._table_views(buf, B, H, E, replay)
+        assert (think0.shape, st.shape, td.shape) == ((B, H), (B, E), (B, E))
+        assert st.dtype == (torch.int32 if replay else torch.float32)
+        assert think0.dtype == td.dtype == torch.float32
+        for x, at in ((st, 0), (td, B * E), (think0, 2 * B * E)):
+            assert x.untyped_storage().data_ptr() == buf.data_ptr()
+            assert x.storage_offset() == at and x.is_contiguous()
+        assert torch.equal(st.view(torch.int32).flatten(),
+                           buf[:B * E].view(torch.int32))
+    streams = (CSRC / "dag_streams.cu").read_text()
+    assert "unsigned* const td = tables + (size_t)B * E;" in streams
+    assert "unsigned* const think0 = tables + 2 * (size_t)B * E;" in streams
+    sim = (CSRC / "dag_event.cu").read_text()
+    assert re.search(r"reinterpret_cast<const float\*>\(tables \+ 2 \* n\), "
+                     r"tables,\s+reinterpret_cast<const float\*>\(tables \+ "
+                     r"n\), samples, resp,\s+resp \+ lanes,", sim)
+
+
+def _threefries(src: str, fn: str) -> int:
+    body = re.search(rf"void {fn}\([^)]*\) \{{(.*?)\n\}}", src, re.S)[1]
+    return len(re.findall(r"\b(?:derive|bits_at|threefry2x32)\(", body))
+
+
+def test_dag_streams_threefries_per_event_match_the_bound():
+    """The draw-table kernel's threefry calls per event, counted in its
+    source (``exponential_event``, ``replay_event``), are the counts
+    ``chip_smoke.py``'s bound charges (``DAG_THREEFRY_PER_EVENT``): 4 in
+    exponential mode, 7 in replay mode; the lane keys come from shared
+    memory, not from the per-event functions."""
+    src = (CSRC / "dag_streams.cu").read_text()
+    smoke = (CSRC.parents[2] / "chip_smoke.py").read_text()
+    want = re.search(r"DAG_THREEFRY_PER_EVENT = \{False: (\d+), True: (\d+)\}",
+                     smoke)
+    got = (_threefries(src, "exponential_event"),
+           _threefries(src, "replay_event"))
+    assert got == (int(want[1]), int(want[2])) == (4, 7)
+    kernel = re.search(r"dag_streams_kernel\((.*?)\n\}", src, re.S)[1]
+    assert len(re.findall(r"\bderive\(0u, s, [01]u,", kernel)) == 2
+
+
+def test_amva_frontier_entry_takes_the_scalars_by_value():
+    """The AMVA frontier's C entry point takes a as a double and b, think
+    and h as floats, and the frontier kernel divides a by nu * slots in
+    float64 and rounds to float32, as the reference's host code does."""
+    src = (CSRC / "amva.cu").read_text()
+    proto = _prototypes()["amva_ps_frontier_launch"]
+    assert proto[:7] == ["double a", "int slots", "int nu_lo", "int n",
+                         "float b", "float z", "float h"]
+    assert "__double2float_rn(__ddiv_rn(a, c))" in src
+    assert "__dmul_rn((double)(nu_lo + i), (double)slots)" in src
+
+
+def test_frontier_and_combined_wrappers_on_the_cpu():
+    """``ps_frontier`` on the CPU takes the plain version and counts no
+    launch; ``sim_batch`` on the CPU counts none either."""
+    import torch
+
+    from repro_torch.kernels.amva import ops as amva_ops
+    from repro_torch.kernels.dag_event import ops
+
+    before = amva_ops.ps_frontier.launches
+    t = amva_ops.ps_frontier(2.0e6, 8, 20, 5, 9000.0, 1e4, 10.0,
+                             device="cpu")
+    assert t.shape == (5,) and amva_ops.ps_frontier.launches == before
+    assert amva_ops.ps_frontier(2.0e6, 8, 20, 0, 9000.0, 1e4, 10.0,
+                                device="cpu").shape == (0,)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32)
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)
+    counts = (ops.dag_streams.launches, ops.dag_event.launches)
+    mean, cnt = ops.sim_batch(i32([[3, 2]]), f32([[40.0, 60.0]]), i32([2]),
+                              f32([500.0]), i32([2]), torch.tensor([3]),
+                              i32([64]), None, h_users=2, max_slots=2,
+                              n_events=64, warmup_jobs=0)
+    assert cnt[0] > 0 and bool(torch.isfinite(mean).all())
+    assert (ops.dag_streams.launches, ops.dag_event.launches) == counts
+    with pytest.raises(ValueError, match="no dag_streams kernel"):
+        ops.sim_batch(*(x.to("meta") for x in (
+            i32([[3, 2]]), f32([[40.0, 60.0]]), i32([2]), f32([500.0]),
+            i32([2]), torch.tensor([3]), i32([64]))), None, h_users=2,
+            max_slots=2, n_events=64, warmup_jobs=0)

@@ -505,6 +505,187 @@ def test_mva_kernel_bit_identical_to_plain(dev, n, h_users):
         assert torch.equal(out, d)
 
 
+# (B, E, H, n_samples in replay mode): E ragged against the 4-event runs
+# and B*E + B*H odd; one event; H = 2049 users; more lanes than a block's
+# tile of runs holds; one sample
+DAG_STREAMS_EDGES = [(3, 4097, 5, 97), (1, 1, 1, 1), (2, 3, 2049, 5),
+                     (300, 2, 1, 3), (16, 8192, 3, 1)]
+
+
+@pytest.mark.parametrize("replay", [False, True])
+@pytest.mark.parametrize("B,E,H,NS", DAG_STREAMS_EDGES)
+def test_dag_streams_kernel_edge_shapes(dev, replay, B, E, H, NS):
+    """The draw-table kernel at its edges, torch.equal to the plain
+    version: ragged runs, budgets of 0, H = 2049, a tile of many lanes,
+    replay lists of one sample, and seeds outside int32 (taken modulo
+    2**32; the plain version gets the same words as int32 seeds).  The
+    three tables are views of one allocation."""
+    f32, i32 = _cuda_f32_i32(dev)
+    g = np.random.default_rng(B + E + H)
+    nea = g.integers(0, 2 * E + 1, B)
+    nea[0] = 0
+    seeds = g.integers(-2 ** 40, 2 ** 40, B)
+    seeds[-1] = 2 ** 33 + 7
+    words = (seeds % 2 ** 32 + 2 ** 31) % 2 ** 32 - 2 ** 31   # as int32
+    tm = f32(g.uniform(100, 5000, B))
+    kw = dict(h_users=H, n_events=E, n_samples=NS if replay else None)
+    before = dag_ops.dag_streams.launches
+    got = dag_ops.dag_streams(tm, torch.tensor(seeds, device=dev), i32(nea),
+                              **kw)
+    assert dag_ops.dag_streams.launches == before + 1
+    want = dag_ref.dag_streams(tm, torch.tensor(words, device=dev), i32(nea),
+                               **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    ptr = got[1].untyped_storage().data_ptr()
+    assert all(x.untyped_storage().data_ptr() == ptr for x in got)
+
+
+def _deep_lanes(dev, g, n_stages):
+    """Four 4-stage lanes over K = 4 stage arrays, their n_stages set to
+    ``n_stages`` (past 4, deeper than the arrays: each gather clamps the
+    stage index to its array's rows)."""
+    lanes = _dag_lanes(dev, g, [(6, 3, 2, 2)] * 4, [64, 7, 17, 3],
+                       [2048, 2048, 2048, 1000], (1e3, 4e3))
+    _, i32 = _cuda_f32_i32(dev)
+    return lanes[:2] + (i32(n_stages),) + lanes[3:]
+
+
+@pytest.mark.parametrize("replay", [False, True])
+def test_sim_batch_one_entry_equals_the_two_wrappers(dev, replay):
+    """``sim_batch`` on the card (one C entry point for the tables and the
+    event loop, one stream, one allocation) gives the bits of
+    ``dag_streams`` then ``dag_event`` and of the plain versions, and
+    counts one launch of each kernel on the route ``route`` names."""
+    f32, _ = _cuda_f32_i32(dev)
+    g = np.random.default_rng(41 + replay)
+    lanes = _deep_lanes(dev, g, [3, 3, 2, 1])
+    seeds = torch.arange(4, device=dev, dtype=torch.int64) * 77 - 100
+    smp = f32(g.lognormal(np.log(60.0), 0.4, (3, 97))) if replay else None
+    kw = dict(h_users=3, max_slots=64, n_events=2048, warmup_jobs=2)
+    n_ev, tm = lanes[4], lanes[5]
+    before = (dag_ops.dag_streams.launches, dag_ops.dag_event.launches,
+              dict(dag_ops.dag_event.routes))
+    mean, cnt = dag_ops.sim_batch(lanes[0], lanes[1], lanes[2], tm,
+                                  lanes[3], seeds, n_ev, smp, depth=3, **kw)
+    assert (dag_ops.dag_streams.launches - before[0],
+            dag_ops.dag_event.launches - before[1]) == (1, 1)
+    assert dag_ops.dag_event.routes["dag_event_fast"] == \
+        before[2]["dag_event_fast"] + 1
+    ns = None if smp is None else 97
+    tables = dag_ops.dag_streams(tm, seeds, n_ev, h_users=3, n_events=2048,
+                                 n_samples=ns)
+    s, c = dag_ops.dag_event(*lanes, *tables, smp, max_slots=64,
+                             warmup_jobs=2)
+    ps, pc = dag_ref.dag_event(*lanes, *dag_ref.dag_streams(
+        tm, seeds, n_ev, h_users=3, n_events=2048, n_samples=ns), smp,
+        max_slots=64, warmup_jobs=2)
+    assert torch.equal(cnt, c) and torch.equal(c, pc)
+    assert torch.equal(mean, s / torch.clamp(c, min=1.0))
+    assert torch.equal(s, ps) and bool((pc > 0).all())
+
+
+@pytest.mark.parametrize("replay", [False, True])
+def test_dag_lane_deeper_than_the_fast_route_gives_the_plain_bits(dev,
+                                                                  replay):
+    """A lane of n_stages 40 and one of 5 over K = 4 stage arrays (replay
+    lists of 6 rows: a deep stage's row passes the arrays' width): the
+    route is the general one, whether the depth comes from the host or is
+    read from the lanes, and dag_event and sim_batch give the plain
+    version's finite result; the combined C entry point refuses the fast
+    route for such a batch."""
+    f32, _ = _cuda_f32_i32(dev)
+    g = np.random.default_rng(43 + replay)
+    lanes = _deep_lanes(dev, g, [40, 4, 5, 2])
+    seeds = torch.arange(4, device=dev, dtype=torch.int64) + 5
+    smp = f32(g.lognormal(np.log(60.0), 0.4, (6, 97))) if replay else None
+    ns = None if smp is None else 97
+    tables = dag_ops.dag_streams(lanes[5], seeds, lanes[4], h_users=3,
+                                 n_events=2048, n_samples=ns)
+    ps, pc = dag_ref.dag_event(*lanes, *tables, smp, max_slots=64,
+                               warmup_jobs=2)
+    assert bool(torch.isfinite(ps).all()) and bool((pc[1:] > 0).all())
+    assert dag_ops.route(3, 64, 4, 2048, depth=5) == "dag_event_general"
+    for depth in (40, None):
+        before = dict(dag_ops.dag_event.routes)
+        s, c = dag_ops.dag_event(*lanes, *tables, smp, max_slots=64,
+                                 warmup_jobs=2, depth=depth)
+        assert dag_ops.dag_event.routes["dag_event_general"] == \
+            before["dag_event_general"] + 1
+        assert torch.equal(s, ps) and torch.equal(c, pc)
+        mean, cnt = dag_ops.sim_batch(
+            lanes[0], lanes[1], lanes[2], lanes[5], lanes[3], seeds,
+            lanes[4], smp, h_users=3, max_slots=64, n_events=2048,
+            warmup_jobs=2, depth=depth)
+        assert torch.equal(cnt, pc)
+        assert torch.equal(mean, ps / torch.clamp(pc, min=1.0))
+    lib = build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for depth in (5, 40):
+        rc = lib.dag_sim_launch(*([None] * 11), 4, 4, 3, 64, 2048, 0, 0, 2,
+                                0, 1, depth, stream)
+        assert rc != 0
+
+
+@pytest.mark.parametrize("n,slots", [(1, 8), (97, 8), (97, 20), (8192, 20)])
+def test_amva_frontier_entry_equals_ps_fixed_point(dev, n, slots):
+    """The frontier entry (the scalars by value, a_over_c divided in
+    float64 on the card) against ``ps_fixed_point`` on tensors built on
+    the host as ``amva_frontier`` built them before, and against the
+    plain version: bit for bit."""
+    a, b, think, h = 5488087.17967804, 38792.787047447186, 10000.0, 10.0
+    nus = np.arange(20, 20 + n)
+    args = [torch.tensor(x, dtype=torch.float32, device=dev) for x in (
+        a / (nus * slots), np.full(n, b), np.full(n, think), np.full(n, h))]
+    before = amva_ops.ps_frontier.launches
+    got = amva_ops.ps_frontier(a, slots, 20, n, b, think, h, device=dev)
+    assert amva_ops.ps_frontier.launches == before + 1
+    assert torch.equal(got, amva_ops.ps_fixed_point(*args))
+    assert torch.equal(got.cpu(), amva_ref.ps_frontier(a, slots, 20, n, b,
+                                                       think, h))
+
+
+def test_amva_division_without_its_range_check_keeps_ieee_bits(dev):
+    """One round at a = 1, b = 0 returns max(1, h / (1 + z)): the round's
+    quotient itself, over 2**22 random pairs across the fast path's range
+    (random mantissas, divisors 1 + z from about 2^-20 to 2^58, dividends
+    up to 2^40 times larger, some past 2^60) and outside it
+    (denormals, zero, huge, infinite and NaN operands, which take the
+    rounds again with __fdiv_rn): the kernel equals the plain version on
+    the CPU bit for bit, NaN where it gives NaN."""
+    g = np.random.default_rng(17)
+    n = 1 << 22
+    y = np.ldexp(g.uniform(1, 2, n), g.integers(-20, 58, n)) \
+        .astype(np.float32)
+    x = (y * np.ldexp(g.uniform(1, 2, n), g.integers(0, 40, n))
+         ).astype(np.float32)
+    z = (y.astype(np.float64) - 1.0).astype(np.float32)
+    odd = g.choice(n, 4096, replace=False)
+    x[odd[:1024]] = np.float32(1e-40)
+    z[odd[1024:2048]] = np.float32(3e38)
+    x[odd[2048:3072]] = g.choice(np.array([0.0, np.inf, np.nan, 3e38],
+                                          np.float32), 1024)
+    x[odd[3072:]] = np.float32(1e-39) * g.uniform(1, 2, 1024) \
+        .astype(np.float32)
+    cpu = [torch.tensor(v) for v in (np.ones(n, np.float32),
+                                     np.zeros(n, np.float32), z, x)]
+    exact = dict(rtol=0, atol=0, equal_nan=True)
+    got = amva_ops.ps_fixed_point(*(v.to(dev) for v in cpu), iters=1)
+    want = amva_ref.ps_fixed_point(*cpu, iters=1)
+    torch.testing.assert_close(got.cpu(), want, **exact)
+    assert int(want.isnan().sum()) > 0 and int((want > 1).sum()) > n // 2
+    full = amva_ops.ps_fixed_point(*(v.to(dev) for v in cpu))
+    torch.testing.assert_close(full.cpu(), amva_ref.ps_fixed_point(*cpu),
+                               **exact)
+
+
+def test_launch_floor_kernel_launches(dev):
+    lib = build.library()
+    assert build.launch(dev, lib.launch_floor_launch) == 0
+    torch.cuda.synchronize()
+
+
 def _two_class_problem():
     """Two classes (so the point-wise walk runs them in two threads) on
     two VM types, task counts small enough for the plain versions."""

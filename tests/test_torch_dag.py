@@ -175,6 +175,88 @@ def test_plain_loop_bit_exact_vs_reference_on_its_tables(replay, H):
     assert bool((c[[0, 1, 4, 7]] > 0).all())          # full budgets finish
 
 
+@pytest.mark.parametrize("replay", [False, True])
+def test_sim_batch_equals_dag_streams_then_dag_event_on_the_cpu(replay):
+    """The combined path (``sim_batch``, on the card one C entry point for
+    both kernels) on CPU tensors: the same bits as ``dag_streams`` then
+    ``dag_event`` called in turn, with ``depth`` given or read from the
+    lanes, and no launch counted."""
+    lanes, samples, st = _lanes(replay, 3)
+    t = {k: torch.tensor(v) for k, v in lanes.items()}
+    seeds = t["seed"].to(torch.int64)
+    smp = None if samples is None else torch.tensor(samples)
+    before = (dag_ops.dag_streams.launches, dag_ops.dag_event.launches)
+    tables = dag_ops.dag_streams(
+        t["think_ms"], seeds, t["n_events_active"], h_users=3,
+        n_events=st["n_events"],
+        n_samples=None if samples is None else samples.shape[1])
+    s, c = dag_ops.dag_event(
+        t["n_tasks"], t["t_avg"], t["n_stages"], t["slots_cap"],
+        t["n_events_active"], t["think_ms"], *tables, smp,
+        max_slots=st["max_slots"], warmup_jobs=st["warmup_jobs"])
+    for depth in (None, int(lanes["n_stages"].max())):
+        mean, cnt = dag_ops.sim_batch(
+            t["n_tasks"], t["t_avg"], t["n_stages"], t["think_ms"],
+            t["slots_cap"], seeds, t["n_events_active"], smp, h_users=3,
+            max_slots=st["max_slots"], n_events=st["n_events"],
+            warmup_jobs=st["warmup_jobs"], depth=depth)
+        assert torch.equal(cnt, c)
+        assert torch.equal(mean, s / torch.clamp(c, min=1.0))
+    assert (dag_ops.dag_streams.launches,
+            dag_ops.dag_event.launches) == before
+    assert bool((c[[0, 1, 4, 7]] > 0).all())
+
+
+@pytest.mark.parametrize("replay,extra_rows", [(False, 0), (True, 0),
+                                               (True, 2)])
+def test_lanes_deeper_than_their_stage_arrays_match_reference(replay,
+                                                              extra_rows):
+    """Lanes of 40 and 5 stages over stage arrays of K = 2 to 4 stages,
+    deeper than the arrays (the first also deeper than
+    ``dag_event_fast``'s queue key holds, 31; the second finishes jobs):
+    the reference's ``_dag_sim`` clips their stage index to their
+    own count and each gather clamps it to its array's rows (the stage
+    arrays' K, the replay lists' rows, here also more rows than K), for a
+    finite answer; the plain loop on its tables equals it bit for bit, and
+    ``route`` sends such a batch to the general route (which gathers as
+    the reference does) from the depth read on the host."""
+    lanes, samples, st = _lanes(replay, 3)
+    if extra_rows:
+        samples = np.concatenate([samples, samples[:extra_rows] * 1.5])
+    lanes["n_stages"] = lanes["n_stages"].copy()
+    lanes["n_stages"][[0, 3]] = (40, 5)
+    lanes["n_events_active"] = lanes["n_events_active"].copy()
+    lanes["n_events_active"][3] = st["n_events"]
+    jl = {k: jnp.asarray(v) for k, v in lanes.items()}
+    want_m, want_c = ref_dag._dag_sim_batch_jit(
+        jl["n_tasks"], jl["t_avg"], jl["think_ms"], jl["slots_cap"],
+        jl["seed"], jl["n_events_active"], jl["n_stages"],
+        None if samples is None else jnp.asarray(samples),
+        has_samples=samples is not None, **st)
+    NS = None if samples is None else samples.shape[1]
+    tables = [torch.tensor(x) for x in _ref_tables(
+        lanes["think_ms"], lanes["seed"], lanes["n_events_active"], H=3,
+        E=st["n_events"], NS=NS)]
+    if replay:
+        tables[1] = tables[1].to(torch.int32)
+    t = {k: torch.tensor(v) for k, v in lanes.items()}
+    s, c = dag_ops.dag_event(
+        t["n_tasks"], t["t_avg"], t["n_stages"], t["slots_cap"],
+        t["n_events_active"], t["think_ms"], *tables,
+        None if samples is None else torch.tensor(samples),
+        max_slots=st["max_slots"], warmup_jobs=st["warmup_jobs"], depth=40)
+    mean = s / torch.clamp(c, min=1.0)
+    assert bool(torch.isfinite(s).all()) and bool(torch.isfinite(c).all())
+    assert c[3] > 0
+    assert np.array_equal(np.asarray(want_c), c.numpy())
+    assert np.array_equal(np.asarray(want_m), mean.numpy())
+    K, E = lanes["n_tasks"].shape[1], st["n_events"]
+    assert dag_ops.route(3, st["max_slots"], K, E) == "dag_event_fast"
+    assert dag_ops.route(3, st["max_slots"], K, E,
+                         depth=int(lanes["n_stages"].max())) == \
+        "dag_event_general"
+
+
 # --------------------------------------------------------------- end to end
 
 def _both(fn_ref, fn_port):
