@@ -26,6 +26,18 @@ Parts (all by default; each prints its wall time on stderr):
 * ``spark_dag_plan``: the solo part of ``examples/spark_dag_plan.py`` (a
   MapReduce class and a 4-stage Spark chain in one problem) through
   ``run()`` in both gaits and ``run_fast()``.
+* ``service``: the multi-tenant ``SolverService`` on four drives:
+  ``benchmarks/service_throughput.py`` at its full size (eight tenants
+  solo, then in one service, then a warm resubmission on the spill),
+  ``examples/serve_many.py``'s five tenants (one a JSON submission), the
+  service half of ``examples/spark_dag_plan.py`` (the mixed problem
+  submitted twice, once as JSON) and four tenants planning the §4.3
+  scenario ``scenario_problem("Q1", 10, D)`` at D = 300, 200, 160 and
+  130 s with its replay lists (``window=16``, the defaults).  Per drive:
+  each job's state and decisions, the rounds, the scheduler's counts,
+  the points cached and deduplicated summed over the rounds (the
+  ``fusion.*`` counters' deltas), the cache and admission stats and the
+  per-tenant split.
 
 Each scenario function takes the budgets as keywords, with the benchmark's
 own as defaults (the two DAG parts take theirs from the constants of
@@ -374,10 +386,134 @@ def spark_dag_plan() -> dict:
             "run_fast": _plan(DSpace4Cloud(prob, **kw).run_fast())}
 
 
+def _service_run(svc) -> tuple:
+    """Run ``svc`` to completion; the ``fusion.*`` counters' deltas give
+    the points cached and deduplicated summed over its rounds."""
+    from repro.obs import registry
+    before = registry().snapshot("fusion.")
+    jobs = svc.run_until_complete()
+    after = registry().snapshot("fusion.")
+    return jobs, {k: after[f"fusion.{k}"] - before.get(f"fusion.{k}", 0)
+                  for k in ("points_cached", "points_deduped")}
+
+
+def service_throughput(n_jobs: int = None, **budgets) -> dict:
+    """``benchmarks/service_throughput.py`` (at its full size by default):
+    eight tenants solo, then in one service, then a fresh service on the
+    spill."""
+    import os
+    import tempfile
+
+    from benchmarks.service_throughput import N_JOBS, _job_equal, \
+        tenant_problem
+    from benchmarks.torch_scenarios import SERVICE_THROUGHPUT_KW, \
+        SERVICE_THROUGHPUT_WINDOW as window, service_summary
+    from repro.service import SolverService
+    kw = {**SERVICE_THROUGHPUT_KW, **budgets}
+    problems = [tenant_problem(i) for i in range(n_jobs or N_JOBS)]
+    solo, solo_disp = [], []
+    for prob in problems:
+        d0 = qn_sim.dispatch_count()
+        solo.append(DSpace4Cloud(prob, batched=True, window=window,
+                                 **kw).run())
+        solo_disp.append(qn_sim.dispatch_count() - d0)
+    with tempfile.TemporaryDirectory() as tmp:
+        spill = os.path.join(tmp, "service_eval_cache.json")
+        svc = SolverService(window=window, cache_path=spill)
+        jids = [svc.submit(p, tag=f"tenant-{i}", **kw)
+                for i, p in enumerate(problems)]
+        d0 = qn_sim.dispatch_count()
+        jobs, fusion = _service_run(svc)
+        service_disp = qn_sim.dispatch_count() - d0
+        warm = SolverService(window=window, cache_path=spill)
+        jids2 = [warm.submit(p, **kw) for p in problems]
+        d0 = qn_sim.dispatch_count()
+        jobs2 = warm.run_until_complete()
+        warm_disp = qn_sim.dispatch_count() - d0
+    return {"solo_dispatches": solo_disp,
+            "service_dispatches": service_disp,
+            "warm_dispatches": warm_disp,
+            "warm_hit_rate": warm.cache.hit_rate,
+            "parity": all(_job_equal(jobs[j].report, r)
+                          for j, r in zip(jids, solo)),
+            "warm_parity": all(_job_equal(jobs2[j].report, r)
+                               for j, r in zip(jids2, solo)),
+            "service": service_summary(svc, jobs, jids, fusion)}
+
+
+def serve_many_problem(i: int) -> Problem:
+    """Tenant ``i`` of ``examples/serve_many.py``."""
+    vm = VMType(name="m4.xlarge", cores=4, sigma=0.07, pi=0.22,
+                containers_per_core=2)
+    prof = JobProfile(n_map=24 + 8 * i, n_reduce=6, m_avg=1400 + 150 * i,
+                      m_max=2 * (1400 + 150 * i), r_avg=650, r_max=1300)
+    cls = ApplicationClass(name=f"tenant-{i}", h_users=3, think_ms=9000.0,
+                           deadline_ms=10_000.0, eta=0.3,
+                           profiles={vm.name: prof})
+    return Problem(classes=[cls], vm_types=[vm])
+
+
+def serve_many(**budgets) -> dict:
+    """``examples/serve_many.py``: four direct submissions and one JSON
+    submission with its own solver section, in one service."""
+    from benchmarks.torch_scenarios import SERVE_MANY_KW, \
+        SERVE_MANY_WINDOW, service_summary
+    from repro.service import SolverService
+    kw = {**SERVE_MANY_KW, **budgets}
+    svc = SolverService(window=SERVE_MANY_WINDOW)
+    jids = [svc.submit(serve_many_problem(i), **kw) for i in range(4)]
+    jids.append(svc.submit(json.dumps({
+        "problem": json.loads(serve_many_problem(4).to_json()),
+        "solver": {**kw, "seed": 0, "tag": "json-tenant"}})))
+    jobs, fusion = _service_run(svc)
+    return service_summary(svc, jobs, jids, fusion)
+
+
+def spark_dag_service(problem=None, **budgets) -> dict:
+    """The service half of ``examples/spark_dag_plan.py``: the mixed
+    problem (``problem``, by default ``spark_dag_problem()``) submitted
+    twice (the second time as JSON) to one service."""
+    from benchmarks.torch_scenarios import SPARK_PLAN_KW, \
+        SPARK_SERVICE_WINDOW, service_summary
+    from repro.service import SolverService
+    kw = {**SPARK_PLAN_KW, **budgets}
+    prob = problem if problem is not None else spark_dag_problem()
+    svc = SolverService(window=SPARK_SERVICE_WINDOW)
+    jids = [svc.submit(prob, **kw), svc.submit(prob.to_json(), **kw)]
+    jobs, fusion = _service_run(svc)
+    return service_summary(svc, jobs, jids, fusion)
+
+
+def q1_tenants(**budgets) -> dict:
+    """Four tenants plan the §4.3 scenario, TPC-DS Q1 on 250 GB with 10
+    users, at four deadlines, each with its replay lists, in one service
+    (``window=16``; ``min_jobs=40``, ``replications=2`` unless
+    ``budgets`` say otherwise)."""
+    from benchmarks.torch_scenarios import Q1_TENANT_DEADLINES_S, \
+        Q1_TENANT_WINDOW, service_summary
+    from repro.service import SolverService
+    svc = SolverService(window=Q1_TENANT_WINDOW)
+    jids = []
+    for d in Q1_TENANT_DEADLINES_S:
+        prob, samples, _ = scenario_problem("Q1", 10, d * 1000.0)
+        jids.append(svc.submit(prob, samples=samples, tag=f"Q1-{d}s",
+                               **budgets))
+    jobs, fusion = _service_run(svc)
+    return service_summary(svc, jobs, jids, fusion)
+
+
+def service() -> dict:
+    return {"service_throughput": service_throughput(),
+            "serve_many": serve_many(),
+            "spark_dag_service": spark_dag_service(),
+            "q1_tenants": q1_tenants()}
+
+
 PARTS = {"plans": plans, "batched_qn": batched_qn,
          "cost_deadline": cost_deadline, "hc_convergence": hc_convergence,
          "vm_race": vm_race, "table3": table3, "serving_qn": serving_qn,
-         "dag_sweep": dag_sweep, "spark_dag_plan": spark_dag_plan}
+         "dag_sweep": dag_sweep, "spark_dag_plan": spark_dag_plan,
+         "service": service}
 
 
 def main() -> None:

@@ -27,7 +27,20 @@ two DAG drivers run at their benchmark's budgets, the module's
   batched;
 * ``spark_dag_plan`` -- the solo part of ``examples/spark_dag_plan.py``: a
   MapReduce class and a Spark chain in one problem through ``run()`` in
-  both gaits and ``run_fast()``.
+  both gaits and ``run_fast()``;
+* ``service_throughput`` -- ``benchmarks/service_throughput.py``: eight
+  tenants solo, then in one ``SolverService`` (every job bit-identical to
+  its solo run), then a fresh service on the cache spill (no dispatch),
+  optionally scraped over HTTP and traced;
+* ``serve_many``     -- ``examples/serve_many.py``: five tenants, one a
+  JSON submission, in one service;
+* ``spark_dag_service`` -- the service half of
+  ``examples/spark_dag_plan.py``: the mixed problem submitted twice (once
+  as JSON), each job against the solo run;
+* ``q1_tenants``     -- four tenants planning the paper's §4.3 scenario
+  (TPC-DS Q1 on 250 GB, 10 users, replay lists) at deadlines 300, 200,
+  160 and 130 s in one service (``window=16``), each job against its
+  solo run.
 
 Each returns the dict its reference benchmark's ``run()`` returns (or, for
 ``serving_qn``, records), with the decisions and counts the reference
@@ -61,6 +74,10 @@ from repro_torch.core.tpcds import TABLE3, THINK_MS, calibrated_specs, \
     scenario_problem
 from repro_torch.core.workload import DagJob, Stage
 from repro_torch.kernels.qn_event import ops as qn_ops
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.export import parse_openmetrics
+from repro_torch.service import SolverService
 
 DECISION_KEYS = ("vm_type", "nu", "reserved", "spot", "cost_per_h",
                  "predicted_ms", "feasible")
@@ -632,6 +649,306 @@ def spark_dag_plan(device=None) -> dict:
             "run_fast": _timed_plan(dev, lambda: tool(True).run_fast())}
 
 
+# ---------------------------------------------------------------- service
+
+# the budgets of benchmarks/service_throughput.py (its full size), of
+# examples/serve_many.py and of examples/spark_dag_plan.py's service half,
+# and the Q1 tenants' deadlines [s] (Figure 5's three and the paper's own
+# 160 s) and window; port_reference_decisions.py drives the reference at
+# the same
+SERVICE_TENANTS = 8
+SERVICE_THROUGHPUT_KW = dict(min_jobs=25, replications=2, seed=0)
+SERVICE_THROUGHPUT_WINDOW = 8
+SERVE_MANY_KW = dict(min_jobs=15, replications=1)
+SERVE_MANY_WINDOW = 8
+SPARK_SERVICE_WINDOW = 8
+Q1_TENANT_DEADLINES_S = (300, 200, 160, 130)
+Q1_TENANT_WINDOW = 16
+
+
+def throughput_problem(i: int) -> Problem:
+    """Tenant ``i`` of ``benchmarks/service_throughput.py``: one workload
+    family (3 users, fusable), its own profile scale and deadline."""
+    prof = JobProfile(n_map=32, n_reduce=8,
+                      m_avg=1200.0 + 100.0 * i, m_max=2 * (1200 + 100 * i),
+                      r_avg=600.0 + 40.0 * i, r_max=2 * (600 + 40 * i))
+    cls = ApplicationClass(name=f"tenant-{i}", h_users=3, think_ms=8000.0,
+                           deadline_ms=35_000.0 + 5_000.0 * i, eta=0.3,
+                           profiles={SMALL_VM.name: prof})
+    return Problem(classes=[cls], vm_types=[SMALL_VM])
+
+
+def serve_many_problem(i: int) -> Problem:
+    """Tenant ``i`` of ``examples/serve_many.py``."""
+    prof = JobProfile(n_map=24 + 8 * i, n_reduce=6, m_avg=1400 + 150 * i,
+                      m_max=2 * (1400 + 150 * i), r_avg=650, r_max=1300)
+    cls = ApplicationClass(name=f"tenant-{i}", h_users=3, think_ms=9000.0,
+                           deadline_ms=10_000.0, eta=0.3,
+                           profiles={SMALL_VM.name: prof})
+    return Problem(classes=[cls], vm_types=[SMALL_VM])
+
+
+def job_equal(rep_a, rep_b) -> bool:
+    """Same final deployment AND the same per-point estimates (every
+    trace move), bit for bit."""
+    if rep_a.solutions != rep_b.solutions:
+        return False
+    return all(rep_a.traces[k].moves == rep_b.traces[k].moves
+               for k in rep_a.traces)
+
+
+def _delta(counts, before) -> Optional[dict]:
+    if counts is None:
+        return None
+    now = counts()
+    return {k: n - before.get(k, 0) for k, n in now.items()}
+
+
+def service_run(svc, dev) -> tuple:
+    """Run ``svc`` to completion; returns its jobs, the points cached and
+    deduplicated summed over its rounds (the ``fusion.*`` counters'
+    deltas), and its timing: simulator dispatches, wall (ending in a
+    sync), and its rounds' ``service.round_ms`` (the histogram's mean over
+    this run, the largest round from the flight recorder)."""
+    reg = obs_metrics.registry()
+    before = reg.snapshot("fusion.")
+    h0 = reg.histogram("service.round_ms").snapshot()
+    d0 = _dispatches()
+    t0 = time.perf_counter()
+    jobs = svc.run_until_complete()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    after = reg.snapshot("fusion.")
+    h1 = reg.histogram("service.round_ms").snapshot()
+    fusion = {k: after[f"fusion.{k}"] - before.get(f"fusion.{k}", 0)
+              for k in ("points_cached", "points_deduped")}
+    n = h1["count"] - h0["count"]
+    rounds = [e["wall_ms"] for e in svc.recorder.events("round")]
+    timing = {"dispatches": _dispatches() - d0, "wall_s": wall,
+              "round_ms": {"count": n,
+                           "mean": (h1["sum"] - h0["sum"]) / n if n else 0.0,
+                           "max": max(rounds, default=0.0)}}
+    return jobs, fusion, timing
+
+
+def service_summary(svc, jobs, job_ids, fusion) -> dict:
+    """A service's clock-free numbers: rounds, the scheduler's counts, the
+    points cached and deduplicated over the rounds, cache and admission
+    stats, the per-tenant split and each job's state and decisions.  It
+    reads only what both packages' services share, so
+    ``port_reference_decisions.py`` summarises the reference's with it
+    too."""
+    stats = svc.stats()
+    return {
+        "rounds": svc.rounds, "scheduler": stats["scheduler"],
+        "points_cached": fusion["points_cached"],
+        "points_deduped": fusion["points_deduped"],
+        "cache": stats["cache"], "admission": stats["admission"],
+        "tenants": {t: {k: v for k, v in ts.items() if k != "wall_ms"}
+                    for t, ts in stats["tenants"].items()},
+        "jobs": {jid: {"tenant": jobs[jid].tenant, "state": jobs[jid].state,
+                       "classes": ({k: {f: v.as_dict()[f]
+                                        for f in DECISION_KEYS}
+                                    for k, v in
+                                    jobs[jid].report.solutions.items()}
+                                   if jobs[jid].report is not None
+                                   else None)}
+                 for jid in job_ids}}
+
+
+def scrape(svc) -> dict:
+    """Scrape the live service over HTTP (on localhost): ``/statz``'s
+    per-tenant split must sum to the scheduler's totals, ``/healthz`` must
+    report an empty queue and ``/metrics`` must parse as OpenMetrics."""
+    import urllib.request
+
+    handle = svc.serve_http()
+    try:
+        def get(path):
+            with urllib.request.urlopen(handle.url + path, timeout=30) as r:
+                return r.read().decode()
+        statz = json.loads(get("/statz"))
+        health = json.loads(get("/healthz"))
+        families = parse_openmetrics(get("/metrics"))
+    finally:
+        svc.stop_http()
+    tenants = statz["tenants"]
+    split = {k: sum(t[k] for t in tenants.values())
+             for k in ("points_dispatched", "points_cached", "points")}
+    sched = svc.scheduler.stats()
+    assert split["points_dispatched"] == sched["points_dispatched"], \
+        f"dispatch attribution leaked: {split} vs {sched}"
+    assert split["points"] == sched["points_requested"], \
+        f"point attribution leaked: {split} vs {sched}"
+    assert health["ok"] and health["queue_depth"] == 0, health
+    slo = statz["slo"]
+    return {"tenants": len(tenants), "split": split, "scheduler": sched,
+            "dispatch_split": {t: tenants[t]["points_dispatched"]
+                               for t in sorted(tenants)},
+            "worst_margin_ms": {t: slo[t]["worst_margin_ms"]
+                                for t in sorted(tenants)},
+            "metric_families": len(families)}
+
+
+def check_service_trace(tracer) -> dict:
+    """The traced service phase: its Chrome export passes
+    ``validate_chrome_trace`` and a ``kernel:*`` span sits under
+    ``service.run`` through ``fused_dispatch``."""
+    chrome = tracer.to_chrome()
+    n_events = obs_trace.validate_chrome_trace(chrome)
+    kernels = [sp for sp in tracer.spans if sp.name.startswith("kernel:")]
+    chains = [tracer.chain(sp) for sp in kernels]
+    under = [c for c in chains if "service.run" in c]
+    assert under, f"no kernel span under service.run ({chains[:4]})"
+    deepest = max(under, key=len)
+    assert "fused_dispatch" in deepest, deepest
+    return {"chrome_events": n_events, "n_spans": len(tracer.spans),
+            "kernel_spans": len(under), "deepest_kernel_chain": deepest}
+
+
+def service_throughput(device=None, *, trace: bool = False,
+                       http: bool = False, counts=None,
+                       n_jobs: int = SERVICE_TENANTS, **budgets) -> dict:
+    """``benchmarks/service_throughput.py``: each tenant's solo ``run()``,
+    then all of them in one ``SolverService`` (with ``trace``, under an
+    installed tracer whose Chrome export and span chain are checked; with
+    ``http``, scraped over HTTP after it settles), then a fresh service on
+    the cache spill.  ``counts`` (a callable returning launch counts)
+    gives each phase's launches under ``"launches"``."""
+    import os
+    import tempfile
+
+    dev = resolve_device(device)
+    kw = {**SERVICE_THROUGHPUT_KW, **budgets}
+    window = SERVICE_THROUGHPUT_WINDOW
+    problems = [throughput_problem(i) for i in range(n_jobs)]
+    launches = {}
+    c0 = counts() if counts else None
+    solo, solo_disp = [], []
+    t0 = time.perf_counter()
+    for prob in problems:
+        d0 = _dispatches()
+        solo.append(DSpace4Cloud(prob, batched=True, window=window,
+                                 device=dev, **kw).run())
+        solo_disp.append(_dispatches() - d0)
+    _sync(dev)
+    solo_wall = time.perf_counter() - t0
+    launches["solo"] = _delta(counts, c0)
+    with tempfile.TemporaryDirectory() as tmp:
+        spill = os.path.join(tmp, "service_eval_cache.json")
+        svc = SolverService(window=window, cache_path=spill, device=dev)
+        jids = [svc.submit(p, tag=f"tenant-{i}", **kw)
+                for i, p in enumerate(problems)]
+        c0 = counts() if counts else None
+        if trace:
+            with obs_trace.tracing() as tracer:
+                jobs, fusion, timing = service_run(svc, dev)
+        else:
+            jobs, fusion, timing = service_run(svc, dev)
+        launches["service"] = _delta(counts, c0)
+        warm = SolverService(window=window, cache_path=spill, device=dev)
+        jids2 = [warm.submit(p, **kw) for p in problems]
+        c0 = counts() if counts else None
+        jobs2, _, warm_timing = service_run(warm, dev)
+        launches["warm"] = _delta(counts, c0)
+    out = {"solo_dispatches": solo_disp,
+           "service_dispatches": timing["dispatches"],
+           "warm_dispatches": warm_timing["dispatches"],
+           "warm_hit_rate": warm.cache.hit_rate,
+           "parity": all(job_equal(jobs[j].report, r)
+                         for j, r in zip(jids, solo)),
+           "warm_parity": all(job_equal(jobs2[j].report, r)
+                              for j, r in zip(jids2, solo)),
+           "service": service_summary(svc, jobs, jids, fusion),
+           "solo_wall_s": solo_wall, "timing": timing,
+           "warm_timing": warm_timing}
+    if counts is not None:
+        out["launches"] = launches
+    if trace:
+        out["trace"] = check_service_trace(tracer)
+    if http:
+        out["scrape"] = scrape(svc)
+    return out
+
+
+def serve_many(device=None, **budgets) -> dict:
+    """``examples/serve_many.py``: four direct submissions and one JSON
+    submission with its own solver section, in one service."""
+    dev = resolve_device(device)
+    kw = {**SERVE_MANY_KW, **budgets}
+    svc = SolverService(window=SERVE_MANY_WINDOW, device=dev)
+    jids = [svc.submit(serve_many_problem(i), **kw) for i in range(4)]
+    jids.append(svc.submit(json.dumps({
+        "problem": json.loads(serve_many_problem(4).to_json()),
+        "solver": {**kw, "seed": 0, "tag": "json-tenant"}})))
+    jobs, fusion, timing = service_run(svc, dev)
+    return {**service_summary(svc, jobs, jids, fusion), "timing": timing}
+
+
+def spark_dag_service(device=None, problem=None, *, counts=None,
+                      **budgets) -> dict:
+    """The service half of ``examples/spark_dag_plan.py``: the mixed
+    problem (``problem``, by default ``spark_dag_problem()``) solo at the
+    default window, then submitted twice to one service at ``window=8``
+    (the second time as JSON); each job's decisions against the solo
+    run's, as the example asserts (the windows differ, so the walks
+    do).  ``counts`` gives each phase's launches."""
+    dev = resolve_device(device)
+    kw = {**SPARK_PLAN_KW, **budgets}
+    prob = problem if problem is not None else spark_dag_problem()
+    c0 = counts() if counts else None
+    solo = DSpace4Cloud(prob, device=dev, **kw).run()
+    launches = {"solo": _delta(counts, c0)}
+    svc = SolverService(window=SPARK_SERVICE_WINDOW, device=dev)
+    jids = [svc.submit(prob, **kw), svc.submit(prob.to_json(), **kw)]
+    c0 = counts() if counts else None
+    jobs, fusion, timing = service_run(svc, dev)
+    launches["service"] = _delta(counts, c0)
+    out = {**service_summary(svc, jobs, jids, fusion),
+           "solo_equal": [jobs[j].report.solutions == solo.solutions
+                          for j in jids],
+           "timing": timing}
+    if counts is not None:
+        out["launches"] = launches
+    return out
+
+
+def q1_tenants(device=None, *, solo: bool = True, counts=None,
+               **budgets) -> dict:
+    """Four tenants plan the §4.3 scenario (``scenario_problem("Q1", 10,
+    D)`` with its replay lists) at the deadlines ``Q1_TENANT_DEADLINES_S``
+    in one service (``window=16``, the defaults ``min_jobs=40``,
+    ``replications=2``); with ``solo``, each job also solo and held
+    against it bit for bit.  ``counts`` gives each phase's launches."""
+    dev = resolve_device(device)
+    tenants = [(d, *scenario_problem("Q1", 10, d * 1000.0)[:2])
+               for d in Q1_TENANT_DEADLINES_S]
+    out, launches = {}, {}
+    if solo:
+        c0 = counts() if counts else None
+        t0 = time.perf_counter()
+        solos = [DSpace4Cloud(prob, samples=smp, window=Q1_TENANT_WINDOW,
+                              device=dev, **budgets).run()
+                 for _, prob, smp in tenants]
+        _sync(dev)
+        out["solo_wall_s"] = time.perf_counter() - t0
+        out["solo_dispatches"] = [r.qn_dispatches for r in solos]
+        launches["solo"] = _delta(counts, c0)
+    svc = SolverService(window=Q1_TENANT_WINDOW, device=dev)
+    jids = [svc.submit(prob, samples=smp, tag=f"Q1-{d}s", **budgets)
+            for d, prob, smp in tenants]
+    c0 = counts() if counts else None
+    jobs, fusion, timing = service_run(svc, dev)
+    launches["service"] = _delta(counts, c0)
+    out.update(service_summary(svc, jobs, jids, fusion), timing=timing)
+    if solo:
+        out["solo_equal"] = [job_equal(jobs[j].report, r)
+                             for j, r in zip(jids, solos)]
+    if counts is not None:
+        out["launches"] = launches
+    return out
+
+
 # ------------------------------------------------------------- comparison
 
 def mismatches(ref, got, *, rel: float = 0.0) -> list:
@@ -677,7 +994,11 @@ def mismatches(ref, got, *, rel: float = 0.0) -> list:
 SCENARIOS = {"batched_qn": batched_qn, "cost_deadline": cost_deadline,
              "hc_convergence": hc_convergence, "vm_race": vm_race,
              "table3": table3, "serving_qn": serving_qn,
-             "dag_sweep": dag_sweep, "spark_dag_plan": spark_dag_plan}
+             "dag_sweep": dag_sweep, "spark_dag_plan": spark_dag_plan,
+             "service_throughput": service_throughput,
+             "serve_many": serve_many,
+             "spark_dag_service": spark_dag_service,
+             "q1_tenants": q1_tenants}
 
 
 def main(argv=None) -> None:

@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port on one CUDA card: the planner in both
 gaits, the repo's benchmarked planner scenarios, Spark/Tez DAG classes,
-the paper's Table 3 and its serving analogue, and the LM serving path
-(dense, Mamba2 and hybrid models).
+the multi-tenant solver service, the paper's Table 3 and its serving
+analogue, and the LM serving path (dense, Mamba2 and hybrid models).
 
     python3 chip_smoke.py
 
@@ -150,6 +150,29 @@ Phases, each printing one line or a few:
      more) and at E = 16384, with bounds, and amva's and mva's
      dependent-chain bounds from one thread's long launch against a
      short one.
+ 11. [service] (after the DAG drives) the multi-tenant SolverService on
+     the card, each drive through benchmarks/torch_scenarios.py with the
+     launch counts set to 0 before it: service_throughput at its full
+     size (eight tenants solo, then in one service: 8 -> 1 dispatches,
+     every job bit-identical to its solo run; a fresh service on the
+     cache spill: 0 dispatches and 0 launches, hit rate 1.0; the live
+     service scraped over HTTP on localhost, /statz's per-tenant split
+     equal to the scheduler's totals, /metrics parsed; traced, its span
+     chain reaching kernel:cuda under service.run through
+     fused_dispatch), examples/serve_many.py's five tenants (one a JSON
+     submission), examples/spark_dag_plan.py's service half (one
+     qn_event and one dag_event launch a round of each kind, the repeat
+     job folded into the same lanes, decisions equal to the solo run's)
+     and four tenants planning the §4.3 scenario (TPC-DS Q1 on 250 GB,
+     10 users, 131072-event replay lanes) at deadlines 300, 200, 160 and
+     130 s in one service (window 16), each job bit-identical to its solo
+     run; every decision, state, round, dispatch and point count, cache
+     and admission stat and per-tenant split equal to REFERENCE["service"]
+     (exact in replay mode, response times within a relative 1e-3 in
+     exponential mode); the launches by phase and route, each drive's
+     wall, service.round_ms's mean and largest round; serve_many and the
+     Q1 service once more under the profiler (each kernel's device ms
+     against the service's wall).
 Each drive of a main path sets the kernels' launch counts to 0 just before
 it and reads them just after.  The second-to-last line is the kernels'
 JSON record, the last line {"ok": true, "device": {...}}.  Any failure
@@ -589,6 +612,173 @@ REFERENCE = {'Q1-10u.run': {'qn_dispatches': 2,
        'feasible': True},
      'spark-etl': {'vm_type': 'c20.node', 'nu': 1, 'reserved': 1, 'spot': 0,
        'cost_per_h': 0.9, 'predicted_ms': 11387.7890625, 'feasible': True}}}}}
+
+# the live reference's service drives (benchmarks/port_reference_decisions.py
+# service)
+REFERENCE["service"] = {
+ 'service_throughput': {'solo_dispatches': [1, 1, 1, 1, 1, 1, 1, 1], 'service_dispatches': 1,
+  'warm_dispatches': 0, 'warm_hit_rate': 1.0, 'parity': True,
+  'warm_parity': True,
+  'service': {'rounds': 1,
+   'scheduler': {'fused_dispatches': 1, 'points_requested': 8, 'points_dispatched': 8},
+   'points_cached': 0, 'points_deduped': 0,
+   'cache': {'entries': 8, 'hits': 0, 'misses': 8, 'hit_rate': 0.0},
+   'admission': {'admitted': 8, 'deferred': 0, 'shed': 0, 'released': 8,
+    'oversize_admitted': 0, 'inflight_events': 0,
+    'peak_inflight_events': 1048576, 'inflight_cores': 0,
+    'peak_inflight_cores': 0},
+   'tenants': {
+    'tenant-0': {'jobs': 1, 'states': {'done': 1}, 'rounds': 1, 'points': 1,
+     'points_cached': 0, 'points_dispatched': 1},
+    'tenant-1': {'jobs': 1, 'states': {'done': 1}, 'rounds': 1, 'points': 1,
+     'points_cached': 0, 'points_dispatched': 1},
+    'tenant-2': {'jobs': 1, 'states': {'done': 1}, 'rounds': 1, 'points': 1,
+     'points_cached': 0, 'points_dispatched': 1},
+    'tenant-3': {'jobs': 1, 'states': {'done': 1}, 'rounds': 1, 'points': 1,
+     'points_cached': 0, 'points_dispatched': 1},
+    'tenant-4': {'jobs': 1, 'states': {'done': 1}, 'rounds': 1, 'points': 1,
+     'points_cached': 0, 'points_dispatched': 1},
+    'tenant-5': {'jobs': 1, 'states': {'done': 1}, 'rounds': 1, 'points': 1,
+     'points_cached': 0, 'points_dispatched': 1},
+    'tenant-6': {'jobs': 1, 'states': {'done': 1}, 'rounds': 1, 'points': 1,
+     'points_cached': 0, 'points_dispatched': 1},
+    'tenant-7': {'jobs': 1, 'states': {'done': 1}, 'rounds': 1, 'points': 1,
+     'points_cached': 0, 'points_dispatched': 1}},
+   'jobs': {
+    'job-0000': {'tenant': 'tenant-0', 'state': 'done',
+     'classes': {
+      'tenant-0': {'vm_type': 'm4.xlarge', 'nu': 1, 'reserved': 1, 'spot': 0,
+       'cost_per_h': 0.22, 'predicted_ms': 11151.067641469595,
+       'feasible': True}}},
+    'job-0001': {'tenant': 'tenant-1', 'state': 'done',
+     'classes': {
+      'tenant-1': {'vm_type': 'm4.xlarge', 'nu': 1, 'reserved': 1, 'spot': 0,
+       'cost_per_h': 0.22, 'predicted_ms': 12450.30419921875, 'feasible': True}}},
+    'job-0002': {'tenant': 'tenant-2', 'state': 'done',
+     'classes': {
+      'tenant-2': {'vm_type': 'm4.xlarge', 'nu': 1, 'reserved': 1, 'spot': 0,
+       'cost_per_h': 0.22, 'predicted_ms': 13221.380859375, 'feasible': True}}},
+    'job-0003': {'tenant': 'tenant-3', 'state': 'done',
+     'classes': {
+      'tenant-3': {'vm_type': 'm4.xlarge', 'nu': 1, 'reserved': 1, 'spot': 0,
+       'cost_per_h': 0.22, 'predicted_ms': 14893.716796875, 'feasible': True}}},
+    'job-0004': {'tenant': 'tenant-4', 'state': 'done',
+     'classes': {
+      'tenant-4': {'vm_type': 'm4.xlarge', 'nu': 1, 'reserved': 1, 'spot': 0,
+       'cost_per_h': 0.22, 'predicted_ms': 15790.10986328125, 'feasible': True}}},
+    'job-0005': {'tenant': 'tenant-5', 'state': 'done',
+     'classes': {
+      'tenant-5': {'vm_type': 'm4.xlarge', 'nu': 1, 'reserved': 1, 'spot': 0,
+       'cost_per_h': 0.22, 'predicted_ms': 17455.1572265625, 'feasible': True}}},
+    'job-0006': {'tenant': 'tenant-6', 'state': 'done',
+     'classes': {
+      'tenant-6': {'vm_type': 'm4.xlarge', 'nu': 1, 'reserved': 1, 'spot': 0,
+       'cost_per_h': 0.22, 'predicted_ms': 17987.7666015625, 'feasible': True}}},
+    'job-0007': {'tenant': 'tenant-7', 'state': 'done',
+     'classes': {
+      'tenant-7': {'vm_type': 'm4.xlarge', 'nu': 1, 'reserved': 1, 'spot': 0,
+       'cost_per_h': 0.22, 'predicted_ms': 19063.15625, 'feasible': True}}}}}},
+ 'serve_many': {'rounds': 4,
+  'scheduler': {'fused_dispatches': 4, 'points_requested': 63, 'points_dispatched': 60},
+  'points_cached': 3, 'points_deduped': 0,
+  'cache': {'entries': 60, 'hits': 3, 'misses': 60, 'hit_rate': 0.047619047619047616},
+  'admission': {'admitted': 5, 'deferred': 0, 'shed': 0, 'released': 5,
+   'oversize_admitted': 0, 'inflight_events': 0,
+   'peak_inflight_events': 196608, 'inflight_cores': 0,
+   'peak_inflight_cores': 0},
+  'tenants': {
+   'job-0000': {'jobs': 1, 'states': {'done': 1}, 'rounds': 3, 'points': 10,
+    'points_cached': 1, 'points_dispatched': 9},
+   'job-0001': {'jobs': 1, 'states': {'done': 1}, 'rounds': 1, 'points': 2,
+    'points_cached': 0, 'points_dispatched': 2},
+   'job-0002': {'jobs': 1, 'states': {'done': 1}, 'rounds': 3, 'points': 12,
+    'points_cached': 2, 'points_dispatched': 10},
+   'job-0003': {'jobs': 1, 'states': {'done': 1}, 'rounds': 2, 'points': 11,
+    'points_cached': 0, 'points_dispatched': 11},
+   'json-tenant': {'jobs': 1, 'states': {'infeasible': 1}, 'rounds': 4, 'points': 28,
+    'points_cached': 0, 'points_dispatched': 28}},
+  'jobs': {
+   'job-0000': {'tenant': 'job-0000', 'state': 'done',
+    'classes': {
+     'tenant-0': {'vm_type': 'm4.xlarge', 'nu': 2, 'reserved': 2, 'spot': 0,
+      'cost_per_h': 0.44, 'predicted_ms': 7287.31787109375, 'feasible': True}}},
+   'job-0001': {'tenant': 'job-0001', 'state': 'done',
+    'classes': {
+     'tenant-1': {'vm_type': 'm4.xlarge', 'nu': 2, 'reserved': 2, 'spot': 0,
+      'cost_per_h': 0.44, 'predicted_ms': 8799.810546875, 'feasible': True}}},
+   'job-0002': {'tenant': 'job-0002', 'state': 'done',
+    'classes': {
+     'tenant-2': {'vm_type': 'm4.xlarge', 'nu': 3, 'reserved': 3, 'spot': 0,
+      'cost_per_h': 0.66, 'predicted_ms': 8987.1826171875, 'feasible': True}}},
+   'job-0003': {'tenant': 'job-0003', 'state': 'done',
+    'classes': {
+     'tenant-3': {'vm_type': 'm4.xlarge', 'nu': 5, 'reserved': 4, 'spot': 1,
+      'cost_per_h': 0.95, 'predicted_ms': 9777.02734375, 'feasible': True}}},
+   'job-0004': {'tenant': 'json-tenant', 'state': 'infeasible',
+    'classes': {
+     'tenant-4': {'vm_type': 'm4.xlarge', 'nu': 28, 'reserved': 20, 'spot': 8,
+      'cost_per_h': 4.960000000000001, 'predicted_ms': 10818.5224609375,
+      'feasible': False}}}}},
+ 'spark_dag_service': {'rounds': 2,
+  'scheduler': {'fused_dispatches': 3, 'points_requested': 30, 'points_dispatched': 15},
+  'points_cached': 0, 'points_deduped': 15,
+  'cache': {'entries': 15, 'hits': 0, 'misses': 30, 'hit_rate': 0.0},
+  'admission': {'admitted': 2, 'deferred': 0, 'shed': 0, 'released': 2,
+   'oversize_admitted': 0, 'inflight_events': 0,
+   'peak_inflight_events': 524288, 'inflight_cores': 0,
+   'peak_inflight_cores': 0},
+  'tenants': {
+   'job-0000': {'jobs': 1, 'states': {'done': 1}, 'rounds': 2, 'points': 15,
+    'points_cached': 0, 'points_dispatched': 15},
+   'job-0001': {'jobs': 1, 'states': {'done': 1}, 'rounds': 2, 'points': 15,
+    'points_cached': 0, 'points_dispatched': 0}},
+  'jobs': {
+   'job-0000': {'tenant': 'job-0000', 'state': 'done',
+    'classes': {
+     'bi-dashboards': {'vm_type': 'm4.xlarge', 'nu': 3, 'reserved': 3, 'spot': 0,
+      'cost_per_h': 0.66, 'predicted_ms': 51276.21484375, 'feasible': True},
+     'spark-etl': {'vm_type': 'c20.node', 'nu': 1, 'reserved': 1, 'spot': 0,
+      'cost_per_h': 0.9, 'predicted_ms': 11387.7890625, 'feasible': True}}},
+   'job-0001': {'tenant': 'job-0001', 'state': 'done',
+    'classes': {
+     'bi-dashboards': {'vm_type': 'm4.xlarge', 'nu': 3, 'reserved': 3, 'spot': 0,
+      'cost_per_h': 0.66, 'predicted_ms': 51276.21484375, 'feasible': True},
+     'spark-etl': {'vm_type': 'c20.node', 'nu': 1, 'reserved': 1, 'spot': 0,
+      'cost_per_h': 0.9, 'predicted_ms': 11387.7890625, 'feasible': True}}}}},
+ 'q1_tenants': {'rounds': 5,
+  'scheduler': {'fused_dispatches': 8, 'points_requested': 131, 'points_dispatched': 79},
+  'points_cached': 52, 'points_deduped': 0,
+  'cache': {'entries': 79, 'hits': 52, 'misses': 79, 'hit_rate': 0.3969465648854962},
+  'admission': {'admitted': 4, 'deferred': 3, 'shed': 0, 'released': 4,
+   'oversize_admitted': 0, 'inflight_events': 0,
+   'peak_inflight_events': 8388608, 'inflight_cores': 0,
+   'peak_inflight_cores': 0},
+  'tenants': {
+   'Q1-300s': {'jobs': 1, 'states': {'done': 1}, 'rounds': 1, 'points': 24,
+    'points_cached': 0, 'points_dispatched': 24},
+   'Q1-200s': {'jobs': 1, 'states': {'done': 1}, 'rounds': 1, 'points': 28,
+    'points_cached': 9, 'points_dispatched': 19},
+   'Q1-160s': {'jobs': 1, 'states': {'done': 1}, 'rounds': 1, 'points': 31,
+    'points_cached': 15, 'points_dispatched': 16},
+   'Q1-130s': {'jobs': 1, 'states': {'done': 1}, 'rounds': 2, 'points': 48,
+    'points_cached': 28, 'points_dispatched': 20}},
+  'jobs': {
+   'job-0000': {'tenant': 'Q1-300s', 'state': 'done',
+    'classes': {
+     'Q1-10u': {'vm_type': 'm4.xlarge', 'nu': 22, 'reserved': 16, 'spot': 6,
+      'cost_per_h': 3.94, 'predicted_ms': 296486.640625, 'feasible': True}}},
+   'job-0001': {'tenant': 'Q1-200s', 'state': 'done',
+    'classes': {
+     'Q1-10u': {'vm_type': 'm4.xlarge', 'nu': 33, 'reserved': 24, 'spot': 9,
+      'cost_per_h': 5.91, 'predicted_ms': 194410.5734569502, 'feasible': True}}},
+   'job-0002': {'tenant': 'Q1-160s', 'state': 'done',
+    'classes': {
+     'Q1-10u': {'vm_type': 'm4.xlarge', 'nu': 40, 'reserved': 28, 'spot': 12,
+      'cost_per_h': 7.0, 'predicted_ms': 158747.29693983402, 'feasible': True}}},
+   'job-0003': {'tenant': 'Q1-130s', 'state': 'done',
+    'classes': {
+     'Q1-10u': {'vm_type': 'm4.xlarge', 'nu': 49, 'reserved': 35, 'spot': 14,
+      'cost_per_h': 8.68, 'predicted_ms': 127836.6484375, 'feasible': True}}}}}}
 
 
 def fail(msg: str) -> None:
@@ -1196,6 +1386,158 @@ def check_dag_scenario(scen, name, out, ref, got, n_disp, wall):
     check_launches(name, got, n_disp, name == "spark_dag_plan", dag=True)
     if name == "spark_dag_plan" and got["qn_event"] <= 0:
         fail("spark_dag_plan: its MapReduce class launched no qn_event")
+
+
+# ----------------------------------------------------- the solver service
+# the service's drives (benchmarks/torch_scenarios.py), in the order they
+# run; the Q1 tenants replay their lists (exact), the rest draw
+# exponentials (response times within a relative 1e-3)
+SERVICE_DRIVES = ("service_throughput", "serve_many", "spark_dag_service",
+                  "q1_tenants")
+
+
+def event_loops(counted) -> tuple:
+    """(qn_event, dag_event) launches of a planner_counts dict."""
+    return (sum(counted[k] for k in ("qn_event_fast", "qn_event_wide",
+                                     "qn_event_general")),
+            counted["dag_event_fast"] + counted["dag_event_kernel"])
+
+
+def check_service(dev, scen, kernels, launches, qn_routes, dag_routes):
+    """[service] the multi-tenant solver service on the card: each drive
+    with the launch counts set to 0 before it, its numbers against the
+    reference's, its launches by route, and the service phase's event-loop
+    launches one a fused dispatch; then the Q1 tenants once more under the
+    profiler.  Adds the launches to the three totals; returns the drives'
+    record."""
+    from repro_torch.core import qn_sim
+    from repro_torch.kernels.dag_event import ops as dag_ops
+    from repro_torch.kernels.qn_event import ops as qn_ops
+
+    wrappers = tuple(kernels.values())
+    counts = lambda: planner_counts(kernels)
+    runs = {}
+    for name in SERVICE_DRIVES:
+        kw = {} if name == "serve_many" else {"counts": counts}
+        if name == "service_throughput":
+            kw.update(trace=True, http=True)
+        reset_launches(*wrappers)
+        qn_sim.reset_sim_stats()
+        t0 = time.perf_counter()
+        out = scen.SCENARIOS[name](dev, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: w.launches for k, w in kernels.items()}
+        for k, n in got.items():
+            launches[k] += n
+        for r, n in qn_ops.qn_event.routes.items():
+            qn_routes[r] += n
+        for r, n in dag_ops.dag_event.routes.items():
+            dag_routes[r] += n
+        n_disp = qn_sim.sim_stats()["dispatches"]
+        ref = REFERENCE["service"][name]
+        diff = scen.mismatches(ref, out,
+                               rel=0.0 if name == "q1_tenants" else 1e-3)
+        svc = out.get("service", out)
+        timing = out.get("timing")
+        sched = svc["scheduler"]
+        phases = out.get("launches", {"service": counts()})
+        by_route = {ph: {k: n for k, n in c.items() if n}
+                    for ph, c in phases.items()}
+        print(f"[service] {name}: wall {wall:.3f} s (host clock, ending in "
+              f"torch.cuda.synchronize()), {n_disp} dispatches; service "
+              f"{svc['rounds']} rounds, {sched['fused_dispatches']} fused "
+              f"dispatches, points requested {sched['points_requested']}, "
+              f"dispatched {sched['points_dispatched']}, cached "
+              f"{svc['points_cached']}, deduplicated "
+              f"{svc['points_deduped']}; cache {svc['cache']['entries']} "
+              f"entries, hit rate {svc['cache']['hit_rate']:.4f}; "
+              f"peak_inflight_events "
+              f"{svc['admission']['peak_inflight_events']}; launches by "
+              f"phase and route {by_route}", flush=True)
+        if timing is not None:
+            rm = timing["round_ms"]
+            print(f"[service] {name}: service.run wall "
+                  f"{timing['wall_s']:.4f} s, service.round_ms mean "
+                  f"{rm['mean']:.3f} max {rm['max']:.3f} over {rm['count']} "
+                  f"rounds", flush=True)
+        for jid, job in svc["jobs"].items():
+            print(f"[service] {name} {jid} ({job['tenant']}): "
+                  f"{job['state']} {json.dumps(job['classes'])}",
+                  flush=True)
+        print(f"[service] {name} against the reference: "
+              f"{'equal' if not diff else diff}", flush=True)
+        if diff:
+            fail(f"{name} differs from the reference at {diff}")
+        check_launches(name, got, n_disp, False,
+                       dag=name == "spark_dag_service")
+        qn_n, dag_n = event_loops(phases["service"])
+        if qn_n + dag_n != sched["fused_dispatches"]:
+            fail(f"{name}: the service launched {qn_n} qn_event and {dag_n} "
+                 f"dag_event kernels for {sched['fused_dispatches']} fused "
+                 f"dispatches")
+        if dag_routes["dag_event_general"]:
+            fail(f"{name}: a DAG lane took dag_event_kernel")
+        if name == "service_throughput":
+            tr, sc = out["trace"], out["scrape"]
+            print(f"[service] service_throughput: solo dispatches "
+                  f"{out['solo_dispatches']} (the 8 solo runs' wall "
+                  f"{out['solo_wall_s']:.4f} s) -> service "
+                  f"{out['service_dispatches']} ({timing['wall_s']:.4f} s), "
+                  f"warm "
+                  f"{out['warm_dispatches']} dispatches and launches "
+                  f"{by_route['warm']}, hit rate {out['warm_hit_rate']}; "
+                  f"parity with solo (bit for bit) {out['parity']}, warm "
+                  f"{out['warm_parity']}; /statz split {sc['split']} against "
+                  f"the scheduler's {sc['scheduler']}; /metrics "
+                  f"{sc['metric_families']} families parsed; trace "
+                  f"{tr['chrome_events']} Chrome events, chain "
+                  f"{' -> '.join(tr['deepest_kernel_chain'])}", flush=True)
+            if not (out["parity"] and out["warm_parity"]) or \
+                    any(phases["warm"].values()) or \
+                    tr["deepest_kernel_chain"][-1] != "kernel:cuda":
+                fail("service_throughput: parity, the warm resubmission's "
+                     "launches or the trace chain")
+        if name == "spark_dag_service":
+            if not (qn_n and dag_n) or out["solo_equal"] != [True, True]:
+                fail(f"spark_dag_service: qn_event {qn_n}, dag_event "
+                     f"{dag_n}, decisions equal to the solo run's "
+                     f"{out['solo_equal']}")
+        if name == "q1_tenants":
+            print(f"[service] q1_tenants: solo walls "
+                  f"{out['solo_wall_s']:.3f} s for dispatches "
+                  f"{out['solo_dispatches']}; every job equal to its solo "
+                  f"run bit for bit: {out['solo_equal']}", flush=True)
+            if out["solo_equal"] != [True] * len(out["solo_equal"]):
+                fail("q1_tenants: a job differs from its solo run")
+        runs[name] = {"wall_s": wall, "dispatches": n_disp,
+                      "solo_wall_s": out.get("solo_wall_s"),
+                      "timing": timing, "launches": got,
+                      "launches_by_phase_and_route": by_route}
+
+    # serve_many and the Q1 tenants' service (no solo runs) once more under
+    # the profiler: each kernel's device time, against the service's wall
+    # without the profiler (the rest is the host's marshaling, the rounds'
+    # bookkeeping and the one read-back a round)
+    for name, fn in (("serve_many", lambda: scen.serve_many(dev)),
+                     ("q1_tenants", lambda: scen.q1_tenants(dev,
+                                                            solo=False))):
+        counted = runs[name]["launches_by_phase_and_route"]["service"]
+        counted = {k: counted.get(k, 0) for k in counts()}
+        _, dev_ms, note = profiled_pass(kernels, fn, counted, name)
+        wall = runs[name]["timing"]["wall_s"]
+        busy = sum(e[2] for e in note["events"]) / 1e3
+        print(f"[service] {name} profiled again: {note['text']}; the "
+              f"kernels' device time {1e3 * busy:.3f} ms is "
+              f"{100 * busy / wall:.2f}% of the {wall:.4f} s service wall "
+              f"without the profiler; host and the rest "
+              f"{wall - busy:.4f} s", flush=True)
+        runs[name].update(profiled_device_ms=dev_ms,
+                          profiled_wall_s=note["wall_s"],
+                          kernels_device_s=busy,
+                          kernels_share_of_service_wall=busy / wall,
+                          host_s=wall - busy)
+    return runs
 
 
 def chain_ns(fn, short: int, long: int) -> float:
@@ -2659,6 +3001,14 @@ def main() -> None:
                  if None not in dev_ms.values() else ""), flush=True)
     dag_ops.sim_batch = sim_batch
 
+    # [service] the multi-tenant solver service: service_throughput at its
+    # full size (solo, service, warm; traced and scraped), serve_many,
+    # spark_dag_plan's service half and four Q1 tenants at real size
+    t0 = time.perf_counter()
+    service_runs = check_service(dev, scen, kernels, launches,
+                                 qn_route_launches, dag_route_launches)
+    added_wall["service"] = time.perf_counter() - t0
+
     # --------------------------------------------------------- LM serving
     by_path, card_cpu_diff = {}, {}
     ssd_routes = dict.fromkeys(ssd_ops.ssd.routes, 0)
@@ -3286,6 +3636,7 @@ def main() -> None:
                           for H_g, E_g in ((H_big, E_big),
                                            (H_huge, E_huge))},
          "plans": plans, "scenarios": scenario_runs,
+         "service": service_runs,
          "table3_rows": table3_rows,
          "serving_qn": {k: {f: v[f] for f in
                             ("arch", "n_layers", "solo_latency_ms",

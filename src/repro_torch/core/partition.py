@@ -6,6 +6,7 @@ device, so the shard count is always 1 and the device-aware lane bucket
 degenerates to ``shapes.bucket_lanes``.  The functions keep the
 reference's names and signatures so that the dispatch accounting
 (``qn_sim.padding_stats``) is computed by the same formulas.
+``shard_info`` stamps the service's stats and the provenance record.
 """
 from __future__ import annotations
 
@@ -23,3 +24,16 @@ def bucket_lanes(n: int, shards: int = 1) -> int:
         raise NotImplementedError("lane sharding across devices is not "
                                   "ported yet")
     return _shapes.bucket_lanes(n)
+
+
+def shard_info() -> dict:
+    """Stamp of the sharding plane, with the reference's keys: the spec
+    (always ``"off"``: one device), the CUDA devices this process sees
+    (``None`` where torch cannot tell), the shard count and the mesh."""
+    try:
+        import torch
+        n = torch.cuda.device_count()
+    except Exception:                      # pragma: no cover - no torch
+        n = None
+    return {"spec": "off", "devices": n, "shards": shard_count(),
+            "mesh": [shard_count()]}

@@ -124,6 +124,11 @@ def padding_stats() -> dict:
                 "events_total": total, "events_useful": useful}
 
 
+def dispatch_count() -> int:
+    """Total simulator device dispatches issued by this process so far."""
+    return _QN_COUNTERS["dispatches"].value
+
+
 def sim_stats() -> dict:
     """Process-wide simulator counters: ``dispatches``, ``lanes`` (incl.
     padding), ``padded_lanes``, ``events_total`` and ``events_useful``."""

@@ -33,12 +33,12 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.moe is not None:
         raise NotImplementedError(
             f"{cfg.name}: MoE layers are not ported yet; they are the next "
-            "model family (ROADMAP Queue 1 item 1)")
+            "model family (ROADMAP Queue 1, MoE)")
     if cfg.is_encoder_decoder or cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models and the patches/frames "
             "front ends are not ported yet; they come after MoE (ROADMAP "
-            "Queue 1 item 1)")
+            "Queue 1, Encoder-decoder)")
 
 
 def _scale_embeddings(cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:

@@ -4,9 +4,13 @@ A :class:`Tracer` records a tree of timed spans per process:
 ``solve → tier (kkt/amva/qn) → race_round → fused_dispatch →
 kernel:{cuda,plain}``, each span carrying its arguments (a kernel span
 holds the dispatch's lanes, scan length, ``max_slots`` and ``h_users``).
-``summary()`` aggregates them per name for ``RunReport.telemetry``.
-The reference's Chrome-trace export and its JAX profiler bridge are not
-ported.
+Service runs add ``service.run → service_round → flush`` above the
+dispatch.  ``summary()`` aggregates the spans per name for
+``RunReport.telemetry``; export is Chrome trace-event JSON
+(``to_chrome()``/``save()``) loadable in Perfetto or
+``chrome://tracing``, and ``validate_chrome_trace`` checks its schema.
+The reference's JAX profiler bridge has no counterpart: on the card,
+``torch.profiler`` sees the kernels themselves.
 
 Design rules, learned from the propose/receive architecture:
 
@@ -22,12 +26,12 @@ Design rules, learned from the propose/receive architecture:
 from __future__ import annotations
 
 import itertools
+import json
 import threading
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterator, List, Optional
-
 
 
 @dataclass
@@ -93,6 +97,21 @@ class Tracer:
         with self._lock:
             return [s for s in self.spans if s.name == name]
 
+    def find(self, **kw: Any) -> List[Span]:
+        with self._lock:
+            return [s for s in self.spans
+                    if all(getattr(s, k, None) == v for k, v in kw.items())]
+
+    def chain(self, span: Span) -> List[str]:
+        """Ancestor names root→span (inclusive), for span-tree assertions."""
+        with self._lock:
+            by_sid = {s.sid: s for s in self.spans}
+        names, cur = [], span
+        while cur is not None:
+            names.append(cur.name)
+            cur = by_sid.get(cur.parent) if cur.parent is not None else None
+        return names[::-1]
+
     def summary(self) -> Dict[str, Any]:
         """Aggregate per-name stats — this is what
         ``RunReport.telemetry["spans"]`` carries."""
@@ -112,6 +131,69 @@ class Tracer:
         return {"spans": dict(sorted(agg.items())),
                 "n_spans": len(spans), "dropped": dropped,
                 "max_depth": max((s.depth for s in spans), default=-1) + 1}
+
+    # ------------------------------------------------------------ export
+    def to_chrome(self) -> Dict[str, Any]:
+        """Chrome trace-event JSON object: "X" complete events (+ one "M"
+        process_name metadata event).  Perfetto reconstructs nesting from
+        time containment per (pid, tid)."""
+        with self._lock:
+            spans = list(self.spans)
+        events: List[Dict[str, Any]] = [{
+            "name": "process_name", "ph": "M", "pid": 1, "tid": 0,
+            "args": {"name": "repro_torch"},
+        }]
+        for s in spans:
+            args = {k: v for k, v in s.args.items()
+                    if isinstance(v, (str, int, float, bool, type(None)))}
+            args["sid"] = s.sid
+            if s.parent is not None:
+                args["parent"] = s.parent
+            events.append({"name": s.name, "cat": s.cat, "ph": "X",
+                           "ts": round(s.ts_us, 3),
+                           "dur": round(s.dur_us, 3),
+                           "pid": 1, "tid": s.tid, "args": args})
+        return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+    def save(self, path) -> Dict[str, Any]:
+        obj = self.to_chrome()
+        with open(path, "w") as f:
+            json.dump(obj, f)
+        return obj
+
+
+def validate_chrome_trace(obj: Any) -> int:
+    """Validate a Chrome trace-event JSON object; returns the number of
+    duration ("X") events.  Raises ``ValueError`` on any schema problem —
+    ``chip_smoke.py``'s service drive runs its trace through this."""
+    if not isinstance(obj, dict) or "traceEvents" not in obj:
+        raise ValueError("trace must be an object with 'traceEvents'")
+    events = obj["traceEvents"]
+    if not isinstance(events, list):
+        raise ValueError("'traceEvents' must be a list")
+    n_x = 0
+    for i, ev in enumerate(events):
+        if not isinstance(ev, dict):
+            raise ValueError(f"event {i} is not an object")
+        ph = ev.get("ph")
+        if ph not in ("X", "M", "B", "E", "i", "C"):
+            raise ValueError(f"event {i}: unsupported phase {ph!r}")
+        if not isinstance(ev.get("name"), str) or not ev["name"]:
+            raise ValueError(f"event {i}: missing name")
+        for k in ("pid", "tid"):
+            if not isinstance(ev.get(k), int):
+                raise ValueError(f"event {i}: {k} must be an int")
+        if ph == "X":
+            n_x += 1
+            for k in ("ts", "dur"):
+                v = ev.get(k)
+                if not isinstance(v, (int, float)) or v < 0:
+                    raise ValueError(f"event {i}: bad {k}: {v!r}")
+            if "args" in ev and not isinstance(ev["args"], dict):
+                raise ValueError(f"event {i}: args must be an object")
+    if n_x == 0:
+        raise ValueError("trace has no duration events")
+    return n_x
 
 
 # ---------------------------------------------------------------- active

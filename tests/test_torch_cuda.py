@@ -1072,3 +1072,49 @@ def _to(tree, d):
     if isinstance(tree, dict):
         return {k: _to(v, d) for k, v in tree.items()}
     return tree.to(d)
+
+
+def _service_mixed_problem():
+    from repro_torch.core.workload import DagJob, Stage
+    small = VMType(name="m4.xlarge", cores=4, sigma=0.07, pi=0.22,
+                   containers_per_core=2)
+    big = VMType(name="c20.node", cores=20, sigma=0.35, pi=0.90, speed=1.35)
+    bi = JobProfile(n_map=16, n_reduce=4, m_avg=4000, m_max=9000,
+                    r_avg=2000, r_max=4500)
+    chain = DagJob("etl", stages=(Stage(12, 900, 2200), Stage(6, 700, 1700),
+                                  Stage(2, 1500, 3200)))
+    return Problem(classes=[
+        ApplicationClass(name="bi", h_users=3, think_ms=10_000,
+                         deadline_ms=30_000, eta=0.3,
+                         profiles={"m4.xlarge": bi,
+                                   "c20.node": bi.scaled(1.35)}),
+        ApplicationClass(name="etl", h_users=2, think_ms=9_000,
+                         deadline_ms=9_000, eta=0.3,
+                         profiles={"m4.xlarge": chain,
+                                   "c20.node": chain.scaled(1.35)}),
+    ], vm_types=[small, big])
+
+
+def test_service_on_the_card_equals_the_service_on_the_cpu(dev):
+    """The mixed MapReduce + DAG problem submitted twice to a service on
+    the card and to one on the CPU (plain versions): the same decisions,
+    rounds, dispatches, points and cache stats, response times within a
+    relative 1e-3 (exponential draws: the card's and the CPU's libm may
+    differ by an ulp); on the card one event-loop launch a fused
+    dispatch, qn_event and dag_event both, and each job's decisions equal
+    to the card's solo run's."""
+    from benchmarks import torch_scenarios as scen
+    kw = dict(min_jobs=4, replications=1)
+    cpu = scen.spark_dag_service("cpu", problem=_service_mixed_problem(),
+                                 **kw)
+    counts = lambda: {"qn_event": qn_ops.qn_event.launches,
+                      "dag_event": dag_ops.dag_event.launches}
+    card = scen.spark_dag_service(dev, problem=_service_mixed_problem(),
+                                  counts=counts, **kw)
+    assert [m for m in scen.mismatches(cpu, card, rel=1e-3)
+            if not m.startswith("timing")] == []
+    assert card["solo_equal"] == [True, True]
+    service = card["launches"]["service"]
+    assert service["qn_event"] > 0 and service["dag_event"] > 0
+    assert service["qn_event"] + service["dag_event"] == \
+        card["scheduler"]["fused_dispatches"]

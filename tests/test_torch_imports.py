@@ -32,7 +32,14 @@ def test_importing_every_module_leaves_jax_and_repro_out():
               "repro_torch.kernels.ssd_scan.ops", "repro_torch.models.mamba2",
               "repro_torch.serve.engine", "repro_torch.launch.serve",
               "repro_torch.core.dag", "repro_torch.kernels.dag_event.ops",
-              "repro_torch.kernels.dag_event.ref"):
+              "repro_torch.kernels.dag_event.ref", "repro_torch.service",
+              "repro_torch.service.cache", "repro_torch.service.scheduler",
+              "repro_torch.service.jobs", "repro_torch.service.admission",
+              "repro_torch.service.engine", "repro_torch.service.http",
+              "repro_torch.obs", "repro_torch.obs.metrics",
+              "repro_torch.obs.slo", "repro_torch.obs.trace",
+              "repro_torch.obs.provenance", "repro_torch.obs.recorder",
+              "repro_torch.obs.export"):
         assert m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -122,6 +129,11 @@ def test_entry_points_without_a_device_raise_on_a_cpu_host():
         dag.dag_response_time(chain, 2, 1000.0, 2)
     with pytest.raises(RuntimeError, match="CUDA"):
         dag.response_time_batch([chain], 1000.0, [2], 2)
+    from repro_torch.service import FusionScheduler, SolverService
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SolverService()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FusionScheduler()
     assert resolve_device("cpu") == torch.device("cpu")
     t = DSpace4Cloud(prob, device="cpu", min_jobs=4).run_fast()
     assert np.isfinite(t.solutions["c"].predicted_ms)
