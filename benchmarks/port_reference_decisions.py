@@ -38,6 +38,18 @@ Parts (all by default; each prints its wall time on stderr):
   the points cached and deduplicated summed over the rounds (the
   ``fusion.*`` counters' deltas), the cache and admission stats and the
   per-tenant split.
+* ``private_cloud``: the private-cloud plane in two drives.  ``bench``:
+  ``benchmarks/private_cloud.py`` at its full size (the over-committed
+  cluster coordinated by ``run()``, the unbounded cluster's ``run_fast()``
+  bit-exact with the public one, the 24-window day), plus the same day on
+  the over-committed cluster.  ``real``: the §4.3 classes Q1 (160 s) and
+  Q3 (220 s) in one problem on 20-core hosts holding about half the
+  public plan's cores, through ``run()``, ``run_fast()`` and the
+  point-wise ``run()``, then as a private job in a ``SolverService``
+  beside a public Q1 tenant, admitted against the cluster's cores.  Per
+  plan: decisions, dispatches, the deployment summary and the placement's
+  assignment; per day: dispatches, rounds, contracts, costs and
+  ``windows_feasible``.
 
 Each scenario function takes the budgets as keywords, with the benchmark's
 own as defaults (the two DAG parts take theirs from the constants of
@@ -502,6 +514,98 @@ def q1_tenants(**budgets) -> dict:
     return service_summary(svc, jobs, jids, fusion)
 
 
+def private_cloud_bench(**budgets) -> dict:
+    """``benchmarks/private_cloud.py`` at its full size (or ``budgets``),
+    plus its 24-window day on the over-committed cluster."""
+    from benchmarks.private_cloud import make_problem
+    from benchmarks.torch_scenarios import DAY_LEVELS, PRIVATE_CLOUD_KW, \
+        cloud_plan, day_summary
+    from repro.cloud import PrivateCloud, homogeneous_hosts
+    from repro.cloud.placement import demand_cores, pack
+    from repro.cloud.windows import plan_day
+    kw = {**PRIVATE_CLOUD_KW, **budgets}
+    prob = make_problem(3)
+    pub = DSpace4Cloud(prob, **kw).run()
+    demand = demand_cores(prob, pub.solutions)
+    cloud = PrivateCloud(hosts=homogeneous_hosts(
+        max(1, demand // 8), 4, energy_cost_per_h=0.3))
+    priv = DSpace4Cloud(prob, deployment=cloud, **kw).run()
+    big = PrivateCloud(hosts=homogeneous_hosts(64, 8, energy_cost_per_h=0.4))
+    fast_pub = DSpace4Cloud(prob, **kw).run_fast()
+    fast_priv = DSpace4Cloud(prob, deployment=big, **kw).run_fast()
+    d0 = qn_sim.dispatch_count()
+    DSpace4Cloud(prob, **kw).run()
+    d_single = max(1, qn_sim.dispatch_count() - d0)
+    day = {c.name: DAY_LEVELS for c in prob.classes}
+    return {"demand_cores": demand, "capacity_cores": cloud.total_cores,
+            "public": cloud_plan(pub, []),
+            "private": cloud_plan(priv, pack(prob, priv.solutions,
+                                             cloud).assignment),
+            "unbounded": {
+                "bit_exact": fast_priv.solutions == fast_pub.solutions,
+                "coordinated": fast_priv.deployment["coordinated"],
+                "classes": cloud_plan(fast_priv, [])["classes"]},
+            "single_window_dispatches": d_single,
+            "day": day_summary(plan_day(prob, day, **kw)),
+            "day_private": day_summary(plan_day(prob, day,
+                                                deployment=cloud, **kw))}
+
+
+def private_cloud_real(**budgets) -> dict:
+    """The §4.3 classes Q1 (160 s) and Q3 (220 s) in one problem, on
+    ``homogeneous_hosts(max(1, demand // 40), 20)``: ``run()``,
+    ``run_fast()``, point-wise ``run()``, then the private job in a service
+    beside a public Q1 tenant (the defaults unless ``budgets`` say
+    otherwise)."""
+    from benchmarks.torch_scenarios import REAL_CLASSES, \
+        REAL_ENERGY_PER_H, REAL_HOST_CORES, REAL_INFLIGHT_EVENTS, \
+        REAL_PUBLIC_TENANT, cloud_plan, service_summary
+    from repro.cloud import PrivateCloud, homogeneous_hosts
+    from repro.cloud.placement import demand_cores, pack
+    from repro.service import AdmissionController, SolverService
+    classes, samples, vms = [], {}, None
+    for query, deadline_ms in REAL_CLASSES:
+        p, smp, _ = scenario_problem(query, 10, deadline_ms)
+        classes += p.classes
+        samples.update(smp)
+        vms = p.vm_types
+    prob = Problem(classes=classes, vm_types=vms)
+    pub = DSpace4Cloud(prob, samples=samples, **budgets).run()
+    demand = demand_cores(prob, pub.solutions)
+    cloud = PrivateCloud(hosts=homogeneous_hosts(
+        max(1, demand // 40), REAL_HOST_CORES,
+        energy_cost_per_h=REAL_ENERGY_PER_H))
+    out = {"demand_cores": demand, "capacity_cores": cloud.total_cores,
+           "public": cloud_plan(pub, [])}
+    for name, batched, solve in (
+            ("run", True, lambda t: t.run()),
+            ("run_fast", True, lambda t: t.run_fast()),
+            ("run_pointwise", False, lambda t: t.run())):
+        rep = solve(DSpace4Cloud(prob, samples=samples, deployment=cloud,
+                                 batched=batched, **budgets))
+        out[name] = cloud_plan(rep, pack(prob, rep.solutions,
+                                         cloud).assignment)
+    query, deadline_ms = REAL_PUBLIC_TENANT
+    q1, q1_samples, _ = scenario_problem(query, 10, deadline_ms)
+    svc = SolverService(admission=AdmissionController(
+        max_inflight_events=REAL_INFLIGHT_EVENTS,
+        max_physical_cores=cloud.total_cores))
+    jids = [svc.submit(prob, samples=samples, deployment=cloud,
+                       tag="private", **budgets),
+            svc.submit(q1, samples=q1_samples, tag=f"{query}-public",
+                       **budgets)]
+    jobs, fusion = _service_run(svc)
+    private = jobs[jids[0]].report
+    out.update(service=service_summary(svc, jobs, jids, fusion),
+               service_private=cloud_plan(private, pack(
+                   prob, private.solutions, cloud).assignment))
+    return out
+
+
+def private_cloud() -> dict:
+    return {"bench": private_cloud_bench(), "real": private_cloud_real()}
+
+
 def service() -> dict:
     return {"service_throughput": service_throughput(),
             "serve_many": serve_many(),
@@ -513,7 +617,7 @@ PARTS = {"plans": plans, "batched_qn": batched_qn,
          "cost_deadline": cost_deadline, "hc_convergence": hc_convergence,
          "vm_race": vm_race, "table3": table3, "serving_qn": serving_qn,
          "dag_sweep": dag_sweep, "spark_dag_plan": spark_dag_plan,
-         "service": service}
+         "service": service, "private_cloud": private_cloud}
 
 
 def main() -> None:

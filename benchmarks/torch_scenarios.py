@@ -40,7 +40,17 @@ two DAG drivers run at their benchmark's budgets, the module's
 * ``q1_tenants``     -- four tenants planning the paper's §4.3 scenario
   (TPC-DS Q1 on 250 GB, 10 users, replay lists) at deadlines 300, 200,
   160 and 130 s in one service (``window=16``), each job against its
-  solo run.
+  solo run;
+* ``private_cloud``  -- the private-cloud plane in two drives:
+  ``private_cloud_bench``, ``benchmarks/private_cloud.py`` at its full
+  size (an over-committed cluster coordinated under the dual price, an
+  unbounded one bit-exact with the public ``run_fast``, the 24-window
+  day plan) plus the same day on the over-committed cluster; and
+  ``private_cloud_real``, the paper's §4.3 classes Q1 (160 s) and Q3
+  (220 s) in one problem on a cluster of 20-core hosts with about half
+  the public plan's cores, through ``run()``, ``run_fast()`` and the
+  point-wise ``run()``, then as a private job in a ``SolverService``
+  beside a public Q1 tenant, admitted against the cluster's cores.
 
 Each returns the dict its reference benchmark's ``run()`` returns (or, for
 ``serving_qn``, records), with the decisions and counts the reference
@@ -61,6 +71,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.cloud import PrivateCloud, homogeneous_hosts, plan_day
+from repro_torch.cloud.placement import demand_cores, pack
 from repro_torch.core import dag, qn_sim, shapes
 from repro_torch.core.cluster_sim import replayer_lists, simulate_cluster
 from repro_torch.core.evaluators import amva_frontier, make_qn_evaluator
@@ -77,7 +89,7 @@ from repro_torch.kernels.qn_event import ops as qn_ops
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.export import parse_openmetrics
-from repro_torch.service import SolverService
+from repro_torch.service import AdmissionController, SolverService
 
 DECISION_KEYS = ("vm_type", "nu", "reserved", "spot", "cost_per_h",
                  "predicted_ms", "feasible")
@@ -949,6 +961,200 @@ def q1_tenants(device=None, *, solo: bool = True, counts=None,
     return out
 
 
+# ---------------------------------------------------------- private cloud
+# benchmarks/private_cloud.py: "roomy" is cheapest per slot-hour but burns
+# 4 physical cores a VM; "dense" packs 2 containers a core (the same 4
+# slots on half the metal), a little dearer.  Its full-size budgets and
+# its day of 4 distinct concurrency levels
+ROOMY = VMType(name="roomy", cores=4, sigma=0.05, pi=0.20)
+DENSE = VMType(name="dense", cores=2, sigma=0.055, pi=0.22,
+               containers_per_core=2)
+CLOUD_PROF = JobProfile(n_map=24, n_reduce=6, m_avg=2000, r_avg=900,
+                        m_max=4000, r_max=1800)
+PRIVATE_CLOUD_KW = dict(min_jobs=20, replications=2, seed=3, window=8)
+DAY_LEVELS = [1] * 6 + [2] * 6 + [4] * 8 + [6] * 4
+# the real-size drive: the paper's §4.3 classes (query, deadline [ms]; 220
+# s is a point of Figure 6's grid) in one problem, on hosts of 20 cores
+# (a CINECA node's width) holding about half the public plan's cores; the
+# public tenant beside it in the service; its admission's event budget
+# holds both jobs at once
+REAL_CLASSES = (("Q1", 160_000.0), ("Q3", 220_000.0))
+REAL_HOST_CORES = 20
+REAL_ENERGY_PER_H = 0.3
+REAL_PUBLIC_TENANT = ("Q1", 160_000.0)
+REAL_INFLIGHT_EVENTS = 64_000_000
+
+
+def private_cloud_problem(n_classes: int = 3) -> Problem:
+    """``benchmarks/private_cloud.py``'s problem: ``n_classes`` identical
+    classes (4 users, 11 s deadline) on roomy and dense."""
+    return Problem(classes=[
+        ApplicationClass(name=f"c{i}", h_users=4, think_ms=6000.0,
+                         deadline_ms=11_000.0, eta=0.25,
+                         profiles={"roomy": CLOUD_PROF,
+                                   "dense": CLOUD_PROF})
+        for i in range(n_classes)], vm_types=[ROOMY, DENSE])
+
+
+def real_cloud_problem() -> tuple:
+    """The classes of ``REAL_CLASSES`` (``scenario_problem`` each, with
+    their replay lists) merged into one problem on the shared catalog."""
+    classes, samples, vms = [], {}, None
+    for query, deadline_ms in REAL_CLASSES:
+        prob, smp, _ = scenario_problem(query, 10, deadline_ms)
+        classes += prob.classes
+        samples.update(smp)
+        vms = prob.vm_types
+    return Problem(classes=classes, vm_types=vms), samples
+
+
+def cloud_plan(rep, assignment) -> dict:
+    """A private plan's numbers: decisions, dispatches, the deployment
+    summary and the final placement's VM-to-host assignment (``pack`` of
+    the final solutions, which is the plan's own placement)."""
+    return {"qn_dispatches": rep.qn_dispatches,
+            "classes": {k: {f: v.as_dict()[f] for f in DECISION_KEYS}
+                        for k, v in rep.solutions.items()},
+            "deployment": rep.deployment,
+            "assignment": [int(h) for h in assignment]}
+
+
+def day_summary(plan) -> dict:
+    """A ``DayPlan``'s clock-free numbers (no SLO margins: they are
+    response times)."""
+    return {"windows": len(plan.reports),
+            "vm_day_cost": plan.vm_day_cost,
+            "energy_day_cost": plan.energy_day_cost,
+            "naive_hourly_cost": plan.naive_hourly_cost,
+            "qn_dispatches": plan.qn_dispatches, "rounds": plan.rounds,
+            "windows_feasible": plan.windows_feasible,
+            "coordinated": [bool((r.deployment or {}).get("coordinated"))
+                            for r in plan.reports],
+            "contracts": [c.as_dict() for c in plan.contracts]}
+
+
+def _cloud_run(dev, prob, cloud, solve, walls, name, **kw) -> tuple:
+    """``solve`` a private plan; its report and its ``cloud_plan``."""
+    t0 = time.perf_counter()
+    rep = solve(DSpace4Cloud(prob, deployment=cloud, device=dev, **kw))
+    _sync(dev)
+    walls[name] = time.perf_counter() - t0
+    return rep, cloud_plan(rep, pack(prob, rep.solutions, cloud,
+                                     device=dev).assignment)
+
+
+def private_cloud_bench(device=None, **budgets) -> dict:
+    """``benchmarks/private_cloud.py`` (at its full size by default): the
+    over-committed cluster (about half the public plan's cores, in
+    4-core hosts) coordinated by ``run()``; an unbounded cluster (64 x 8
+    cores) whose ``run_fast()`` must equal the public one bit for bit;
+    the 24-window day plan against one window's dispatches; and the same
+    day on the over-committed cluster."""
+    dev = resolve_device(device)
+    kw = {**PRIVATE_CLOUD_KW, **budgets}
+    prob = private_cloud_problem(3)
+    walls = {}
+    t0 = time.perf_counter()
+    pub = DSpace4Cloud(prob, device=dev, **kw).run()
+    _sync(dev)
+    walls["public"] = time.perf_counter() - t0
+    demand = demand_cores(prob, pub.solutions)
+    cloud = PrivateCloud(hosts=homogeneous_hosts(
+        max(1, demand // 8), 4, energy_cost_per_h=0.3))
+    _, private = _cloud_run(dev, prob, cloud, lambda t: t.run(), walls,
+                            "private", **kw)
+    big = PrivateCloud(hosts=homogeneous_hosts(64, 8, energy_cost_per_h=0.4))
+    fast_pub = DSpace4Cloud(prob, device=dev, **kw).run_fast()
+    t0 = time.perf_counter()
+    fast_priv = DSpace4Cloud(prob, deployment=big, device=dev,
+                             **kw).run_fast()
+    _sync(dev)
+    walls["unbounded_run_fast"] = time.perf_counter() - t0
+    d0 = _dispatches()
+    DSpace4Cloud(prob, device=dev, **kw).run()
+    d_single = max(1, _dispatches() - d0)
+    day = {c.name: DAY_LEVELS for c in prob.classes}
+    days = {}
+    for name, dep in (("day", None), ("day_private", cloud)):
+        t0 = time.perf_counter()
+        plan = plan_day(prob, day, deployment=dep, device=dev, **kw)
+        _sync(dev)
+        walls[name] = time.perf_counter() - t0
+        days[name] = day_summary(plan)
+    return {"demand_cores": demand, "capacity_cores": cloud.total_cores,
+            "public": cloud_plan(pub, []), "private": private,
+            "unbounded": {
+                "bit_exact": fast_priv.solutions == fast_pub.solutions,
+                "coordinated": fast_priv.deployment["coordinated"],
+                "classes": cloud_plan(fast_priv, [])["classes"]},
+            "single_window_dispatches": d_single, **days,
+            "walls": walls}
+
+
+def private_cloud_real(device=None, *, counts=None, **budgets) -> dict:
+    """The §4.3 classes of ``REAL_CLASSES`` in one problem (the defaults
+    ``min_jobs=40``, ``replications=2``, ``window=16`` unless ``budgets``
+    say otherwise): the public ``run()`` sizes the cluster
+    (``homogeneous_hosts(max(1, demand // 40), 20)``); the private plan
+    through ``run()``, ``run_fast()`` and the point-wise ``run()``; then
+    the private job in a ``SolverService`` beside a public Q1 tenant,
+    admitted against the cluster's cores, and held against the solo
+    ``run()`` bit for bit.  ``counts`` gives each phase's launches."""
+    dev = resolve_device(device)
+    prob, samples = real_cloud_problem()
+    walls, launches, out = {}, {}, {}
+    c0 = counts() if counts else None
+    t0 = time.perf_counter()
+    pub = DSpace4Cloud(prob, samples=samples, device=dev, **budgets).run()
+    _sync(dev)
+    walls["public"] = time.perf_counter() - t0
+    launches["public"] = _delta(counts, c0)
+    demand = demand_cores(prob, pub.solutions)
+    cloud = PrivateCloud(hosts=homogeneous_hosts(
+        max(1, demand // 40), REAL_HOST_CORES,
+        energy_cost_per_h=REAL_ENERGY_PER_H))
+    out.update(demand_cores=demand, capacity_cores=cloud.total_cores,
+               public=cloud_plan(pub, []))
+    reports = {}
+    for name, batched, solve in (
+            ("run", True, lambda t: t.run()),
+            ("run_fast", True, lambda t: t.run_fast()),
+            ("run_pointwise", False, lambda t: t.run())):
+        c0 = counts() if counts else None
+        reports[name], out[name] = _cloud_run(
+            dev, prob, cloud, solve, walls, name, samples=samples,
+            batched=batched, **budgets)
+        launches[name] = _delta(counts, c0)
+    query, deadline_ms = REAL_PUBLIC_TENANT
+    q1, q1_samples, _ = scenario_problem(query, 10, deadline_ms)
+    svc = SolverService(admission=AdmissionController(
+        max_inflight_events=REAL_INFLIGHT_EVENTS,
+        max_physical_cores=cloud.total_cores), device=dev)
+    jids = [svc.submit(prob, samples=samples, deployment=cloud,
+                       tag="private", **budgets),
+            svc.submit(q1, samples=q1_samples, tag=f"{query}-public",
+                       **budgets)]
+    c0 = counts() if counts else None
+    jobs, fusion, timing = service_run(svc, dev)
+    launches["service"] = _delta(counts, c0)
+    private = jobs[jids[0]].report
+    out.update(service=service_summary(svc, jobs, jids, fusion),
+               service_private=cloud_plan(private, pack(
+                   prob, private.solutions, cloud, device=dev).assignment),
+               timing=timing, walls=walls,
+               # every trace move and decision, bit for bit
+               service_equal_solo=job_equal(private, reports["run"]))
+    if counts is not None:
+        out["launches"] = launches
+    return out
+
+
+def private_cloud(device=None) -> dict:
+    """Both private-cloud drives at their full sizes."""
+    return {"bench": private_cloud_bench(device),
+            "real": private_cloud_real(device)}
+
+
 # ------------------------------------------------------------- comparison
 
 def mismatches(ref, got, *, rel: float = 0.0) -> list:
@@ -998,7 +1204,7 @@ SCENARIOS = {"batched_qn": batched_qn, "cost_deadline": cost_deadline,
              "service_throughput": service_throughput,
              "serve_many": serve_many,
              "spark_dag_service": spark_dag_service,
-             "q1_tenants": q1_tenants}
+             "q1_tenants": q1_tenants, "private_cloud": private_cloud}
 
 
 def main(argv=None) -> None:

@@ -1,7 +1,8 @@
 """Drive the PyTorch/CUDA port on one CUDA card: the planner in both
 gaits, the repo's benchmarked planner scenarios, Spark/Tez DAG classes,
-the multi-tenant solver service, the paper's Table 3 and its serving
-analogue, and the LM serving path (dense, Mamba2 and hybrid models).
+the multi-tenant solver service, the private-cloud deployment plane, the
+paper's Table 3 and its serving analogue, and the LM serving path (dense,
+Mamba2 and hybrid models).
 
     python3 chip_smoke.py
 
@@ -173,6 +174,28 @@ Phases, each printing one line or a few:
      wall, service.round_ms's mean and largest round; serve_many and the
      Q1 service once more under the profiler (each kernel's device ms
      against the service's wall).
+ 12. [cloud] (after [service]) the private-cloud plane on the card
+     through benchmarks/torch_scenarios.py, each drive with the launch
+     counts set to 0 before it: benchmarks/private_cloud.py at its full
+     size (three classes on roomy and dense; the over-committed cluster
+     of about half the public plan's cores coordinated by run(); an
+     unbounded cluster whose run_fast() must equal the public one bit
+     for bit; the 24-window day, and the same day on the over-committed
+     cluster, windows_feasible from the card), then the paper's §4.3
+     classes Q1 (160 s) and Q3 (220 s) in one problem (TPC-DS 250 GB,
+     131072-event replay lanes, m4.xlarge + CINECA) on 20-core hosts
+     holding about half the public plan's cores, through run(),
+     run_fast() and the point-wise run(), and as a private job in a
+     SolverService beside a public Q1 tenant, admitted against the
+     cluster's cores (the job equal to its solo run bit for bit); every
+     decision, deployment summary, assignment, dispatch and round count
+     equal to REFERENCE["cloud"] (exact in replay mode, response times
+     within a relative 1e-3 in exponential mode); every packing the
+     drives checked on the card (each feasibility_batch call recorded)
+     equal to the check's CPU version; the launches by kernel and route,
+     each plan's wall, and for the over-committed day and the real-size
+     private run() the host's packers and checks against the kernels'
+     device time (a profiled pass).
 Each drive of a main path sets the kernels' launch counts to 0 just before
 it and reads them just after.  The second-to-last line is the kernels'
 JSON record, the last line {"ok": true, "device": {...}}.  Any failure
@@ -780,6 +803,142 @@ REFERENCE["service"] = {
      'Q1-10u': {'vm_type': 'm4.xlarge', 'nu': 49, 'reserved': 35, 'spot': 14,
       'cost_per_h': 8.68, 'predicted_ms': 127836.6484375, 'feasible': True}}}}}}
 
+# the live reference's numbers for the [cloud] drives (JSON from
+# benchmarks/port_reference_decisions.py private_cloud, JAX 0.9.0)
+REFERENCE["cloud"] = json.loads("""
+{"bench": {"demand_cores": 60, "capacity_cores": 28, "public": {"qn_dispatches": 1,
+"classes": {"c0": {"vm_type": "roomy", "nu": 5, "reserved": 4, "spot": 1,
+"cost_per_h": 0.8500000000000001, "predicted_ms": 10872.7802734375, "feasible": true},
+"c1": {"vm_type": "roomy", "nu": 5, "reserved": 4, "spot": 1, "cost_per_h": 0.8500000000000001,
+"predicted_ms": 10872.7802734375, "feasible": true}, "c2": {"vm_type": "roomy",
+"nu": 5, "reserved": 4, "spot": 1, "cost_per_h": 0.8500000000000001, "predicted_ms": 10872.7802734375,
+"feasible": true}}, "deployment": null, "assignment": []}, "private": {"qn_dispatches": 1,
+"classes": {"c0": {"vm_type": "dense", "nu": 4, "reserved": 3, "spot": 1,
+"cost_per_h": 0.7150000000000001, "predicted_ms": 11412.185982716377, "feasible": false},
+"c1": {"vm_type": "dense", "nu": 5, "reserved": 4, "spot": 1, "cost_per_h": 0.935,
+"predicted_ms": 10872.7802734375, "feasible": true}, "c2": {"vm_type": "dense",
+"nu": 5, "reserved": 4, "spot": 1, "cost_per_h": 0.935, "predicted_ms": 10872.7802734375,
+"feasible": true}}, "deployment": {"cost_per_h": 2.585, "violations": 1,
+"objective": 6.17, "baseline_cost_per_h": 1.4000000000000001, "baseline_violations": 3,
+"baseline_objective": 12.155, "dual_price": 10.88, "price_rounds": 10,
+"probe_rounds": 1, "lanes_verified": 3, "coordinated": true, "used_fallback": true,
+"placement": {"feasible": true, "hosts_used": 7, "energy_cost_per_h": 2.1,
+"cores_used": 28, "cores_total": 28, "unplaced": 0, "strategy": "ffd-energy"}},
+"assignment": [0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6, 6]}, "unbounded": {"bit_exact": true,
+"coordinated": false, "classes": {"c0": {"vm_type": "roomy", "nu": 5, "reserved": 4,
+"spot": 1, "cost_per_h": 0.8500000000000001, "predicted_ms": 10872.7802734375,
+"feasible": true}, "c1": {"vm_type": "roomy", "nu": 5, "reserved": 4, "spot": 1,
+"cost_per_h": 0.8500000000000001, "predicted_ms": 10872.7802734375, "feasible": true},
+"c2": {"vm_type": "roomy", "nu": 5, "reserved": 4, "spot": 1, "cost_per_h": 0.8500000000000001,
+"predicted_ms": 10872.7802734375, "feasible": true}}}, "single_window_dispatches": 1,
+"day": {"windows": 24, "vm_day_cost": 72.6, "energy_day_cost": 0.0, "naive_hourly_cost": 54.60000000000001,
+"qn_dispatches": 5, "rounds": 3, "windows_feasible": [true, true, true,
+true, true, true, true, true, true, true, true, true, true, true, true,
+true, true, true, true, true, true, true, true, true], "coordinated": [false,
+false, false, false, false, false, false, false, false, false, false, false,
+false, false, false, false, false, false, false, false, false, false, false,
+false], "contracts": [{"cls": "c0", "vm_type": "roomy", "reserved": 5,
+"spots": [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1,
+1, 1, 1], "nus": [3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 5, 5, 5, 5, 5, 5,
+5, 5, 6, 6, 6, 6], "day_cost": 24.2}, {"cls": "c1", "vm_type": "roomy",
+"reserved": 5, "spots": [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+0, 0, 0, 0, 1, 1, 1, 1], "nus": [3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 5,
+5, 5, 5, 5, 5, 5, 5, 6, 6, 6, 6], "day_cost": 24.2}, {"cls": "c2", "vm_type": "roomy",
+"reserved": 5, "spots": [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+0, 0, 0, 0, 1, 1, 1, 1], "nus": [3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 5,
+5, 5, 5, 5, 5, 5, 5, 6, 6, 6, 6], "day_cost": 24.2}]}, "day_private": {"windows": 24,
+"vm_day_cost": 93.00000000000001, "energy_day_cost": 43.2, "naive_hourly_cost": 50.04,
+"qn_dispatches": 5, "rounds": 6, "windows_feasible": [true, true, true,
+true, true, true, true, true, true, true, true, true, true, true, true,
+true, true, true, true, true, true, true, true, true], "coordinated": [true,
+true, true, true, true, true, true, true, true, true, true, true, true,
+true, true, true, true, true, true, true, true, true, true, true], "contracts": [{"cls": "c0",
+"vm_type": "dense", "reserved": 3, "spots": [0, 0, 0, 0, 0, 0, 0, 0, 0,
+0, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0], "nus": [3, 3, 3, 3, 3, 3,
+3, 3, 3, 3, 3, 3, 4, 4, 4, 4, 4, 4, 4, 4, 0, 0, 0, 0], "day_cost": 16.28},
+{"cls": "c0", "vm_type": "roomy", "reserved": 2, "spots": [0, 0, 0, 0,
+0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0], "nus": [0,
+0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 2, 2, 2, 2], "day_cost": 9.600000000000001},
+{"cls": "c1", "vm_type": "dense", "reserved": 4, "spots": [0, 0, 0, 0,
+0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0], "nus": [3,
+3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 5, 5, 5, 5, 5, 5, 5, 5, 0, 0, 0, 0], "day_cost": 21.560000000000002},
+{"cls": "c1", "vm_type": "roomy", "reserved": 2, "spots": [0, 0, 0, 0,
+0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0], "nus": [0,
+0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 2, 2, 2, 2], "day_cost": 9.600000000000001},
+{"cls": "c2", "vm_type": "dense", "reserved": 4, "spots": [0, 0, 0, 0,
+0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0], "nus": [3,
+3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 5, 5, 5, 5, 5, 5, 5, 5, 0, 0, 0, 0], "day_cost": 21.560000000000002},
+{"cls": "c2", "vm_type": "roomy", "reserved": 3, "spots": [0, 0, 0, 0,
+0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0], "nus": [0,
+0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 3, 3, 3, 3], "day_cost": 14.400000000000002}]}},
+"real": {"demand_cores": 360, "capacity_cores": 180, "public": {"qn_dispatches": 4,
+"classes": {"Q1-10u": {"vm_type": "m4.xlarge", "nu": 40, "reserved": 28,
+"spot": 12, "cost_per_h": 7.0, "predicted_ms": 158747.29693983402, "feasible": true},
+"Q3-10u": {"vm_type": "m4.xlarge", "nu": 50, "reserved": 35, "spot": 15,
+"cost_per_h": 8.75, "predicted_ms": 220000.0, "feasible": true}}, "deployment": null,
+"assignment": []}, "run": {"qn_dispatches": 4, "classes": {"Q1-10u": {"vm_type": "m4.xlarge",
+"nu": 22, "reserved": 16, "spot": 6, "cost_per_h": 3.94, "predicted_ms": 341751.0405864507,
+"feasible": false}, "Q3-10u": {"vm_type": "m4.xlarge", "nu": 22, "reserved": 16,
+"spot": 6, "cost_per_h": 3.94, "predicted_ms": 563172.2423400783, "feasible": false}},
+"deployment": {"cost_per_h": 7.88, "violations": 2, "objective": 25.639999999999997,
+"baseline_cost_per_h": 7.88, "baseline_violations": 2, "baseline_objective": 25.639999999999997,
+"dual_price": 11.2, "price_rounds": 10, "probe_rounds": 0, "lanes_verified": 0,
+"coordinated": true, "used_fallback": true, "placement": {"feasible": true,
+"hosts_used": 9, "energy_cost_per_h": 2.6999999999999997, "cores_used": 176,
+"cores_total": 180, "unplaced": 0, "strategy": "ffd-energy"}}, "assignment": [0,
+0, 0, 0, 0, 1, 1, 1, 1, 1, 2, 2, 2, 2, 2, 3, 3, 3, 3, 3, 4, 4, 4, 4, 4,
+5, 5, 5, 5, 5, 6, 6, 6, 6, 6, 7, 7, 7, 7, 7, 8, 8, 8, 8]}, "run_fast": {"qn_dispatches": 4,
+"classes": {"Q1-10u": {"vm_type": "m4.xlarge", "nu": 22, "reserved": 16,
+"spot": 6, "cost_per_h": 3.94, "predicted_ms": 341751.0405864507, "feasible": false},
+"Q3-10u": {"vm_type": "m4.xlarge", "nu": 22, "reserved": 16, "spot": 6,
+"cost_per_h": 3.94, "predicted_ms": 563172.2423400783, "feasible": false}},
+"deployment": {"cost_per_h": 7.88, "violations": 2, "objective": 25.639999999999997,
+"baseline_cost_per_h": 7.88, "baseline_violations": 2, "baseline_objective": 25.639999999999997,
+"dual_price": 11.2, "price_rounds": 10, "probe_rounds": 0, "lanes_verified": 0,
+"coordinated": true, "used_fallback": true, "placement": {"feasible": true,
+"hosts_used": 9, "energy_cost_per_h": 2.6999999999999997, "cores_used": 176,
+"cores_total": 180, "unplaced": 0, "strategy": "ffd-energy"}}, "assignment": [0,
+0, 0, 0, 0, 1, 1, 1, 1, 1, 2, 2, 2, 2, 2, 3, 3, 3, 3, 3, 4, 4, 4, 4, 4,
+5, 5, 5, 5, 5, 6, 6, 6, 6, 6, 7, 7, 7, 7, 7, 8, 8, 8, 8]}, "run_pointwise": {"qn_dispatches": 64,
+"classes": {"Q1-10u": {"vm_type": "m4.xlarge", "nu": 22, "reserved": 16,
+"spot": 6, "cost_per_h": 3.94, "predicted_ms": 341751.0405864507, "feasible": false},
+"Q3-10u": {"vm_type": "m4.xlarge", "nu": 22, "reserved": 16, "spot": 6,
+"cost_per_h": 3.94, "predicted_ms": 563172.2423400783, "feasible": false}},
+"deployment": {"cost_per_h": 7.88, "violations": 2, "objective": 25.639999999999997,
+"baseline_cost_per_h": 7.88, "baseline_violations": 2, "baseline_objective": 25.639999999999997,
+"dual_price": 11.2, "price_rounds": 10, "probe_rounds": 0, "lanes_verified": 0,
+"coordinated": true, "used_fallback": true, "placement": {"feasible": true,
+"hosts_used": 9, "energy_cost_per_h": 2.6999999999999997, "cores_used": 176,
+"cores_total": 180, "unplaced": 0, "strategy": "ffd-energy"}}, "assignment": [0,
+0, 0, 0, 0, 1, 1, 1, 1, 1, 2, 2, 2, 2, 2, 3, 3, 3, 3, 3, 4, 4, 4, 4, 4,
+5, 5, 5, 5, 5, 6, 6, 6, 6, 6, 7, 7, 7, 7, 7, 8, 8, 8, 8]}, "service": {"rounds": 1,
+"scheduler": {"fused_dispatches": 4, "points_requested": 94, "points_dispatched": 63},
+"points_cached": 0, "points_deduped": 31, "cache": {"entries": 63, "hits": 0,
+"misses": 94, "hit_rate": 0.0}, "admission": {"admitted": 2, "deferred": 0,
+"shed": 0, "released": 2, "oversize_admitted": 0, "inflight_events": 0,
+"peak_inflight_events": 25165824, "inflight_cores": 0, "peak_inflight_cores": 180},
+"tenants": {"private": {"jobs": 1, "states": {"infeasible": 1}, "rounds": 1,
+"points": 63, "points_cached": 0, "points_dispatched": 63}, "Q1-public": {"jobs": 1,
+"states": {"done": 1}, "rounds": 1, "points": 31, "points_cached": 0, "points_dispatched": 0}},
+"jobs": {"job-0000": {"tenant": "private", "state": "infeasible", "classes": {"Q1-10u": {"vm_type": "m4.xlarge",
+"nu": 22, "reserved": 16, "spot": 6, "cost_per_h": 3.94, "predicted_ms": 341751.0405864507,
+"feasible": false}, "Q3-10u": {"vm_type": "m4.xlarge", "nu": 22, "reserved": 16,
+"spot": 6, "cost_per_h": 3.94, "predicted_ms": 563172.2423400783, "feasible": false}}},
+"job-0001": {"tenant": "Q1-public", "state": "done", "classes": {"Q1-10u": {"vm_type": "m4.xlarge",
+"nu": 40, "reserved": 28, "spot": 12, "cost_per_h": 7.0, "predicted_ms": 158747.29693983402,
+"feasible": true}}}}}, "service_private": {"qn_dispatches": 4, "classes": {"Q1-10u": {"vm_type": "m4.xlarge",
+"nu": 22, "reserved": 16, "spot": 6, "cost_per_h": 3.94, "predicted_ms": 341751.0405864507,
+"feasible": false}, "Q3-10u": {"vm_type": "m4.xlarge", "nu": 22, "reserved": 16,
+"spot": 6, "cost_per_h": 3.94, "predicted_ms": 563172.2423400783, "feasible": false}},
+"deployment": {"cost_per_h": 7.88, "violations": 2, "objective": 25.639999999999997,
+"baseline_cost_per_h": 7.88, "baseline_violations": 2, "baseline_objective": 25.639999999999997,
+"dual_price": 11.2, "price_rounds": 10, "probe_rounds": 0, "lanes_verified": 0,
+"coordinated": true, "used_fallback": true, "placement": {"feasible": true,
+"hosts_used": 9, "energy_cost_per_h": 2.6999999999999997, "cores_used": 176,
+"cores_total": 180, "unplaced": 0, "strategy": "ffd-energy"}}, "assignment": [0,
+0, 0, 0, 0, 1, 1, 1, 1, 1, 2, 2, 2, 2, 2, 3, 3, 3, 3, 3, 4, 4, 4, 4, 4,
+5, 5, 5, 5, 5, 6, 6, 6, 6, 6, 7, 7, 7, 7, 7, 8, 8, 8, 8]}}}
+""")
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
@@ -1537,6 +1696,222 @@ def check_service(dev, scen, kernels, launches, qn_routes, dag_routes):
                           kernels_device_s=busy,
                           kernels_share_of_service_wall=busy / wall,
                           host_s=wall - busy)
+    return runs
+
+
+# --------------------------------------------------------- private cloud
+# the private-cloud drives (benchmarks/torch_scenarios.py), in the order
+# they run: benchmarks/private_cloud.py at its full size with its day on
+# the over-committed cluster (exponential mode: response times within a
+# relative 1e-3), then the §4.3 classes Q1 and Q3 in one problem (replay
+# mode: exact)
+CLOUD_DRIVES = {"bench": 1e-3, "real": 0.0}
+
+
+def check_cloud(dev, scen, kernels, launches, qn_routes, dag_routes):
+    """[cloud] the private-cloud plane on the card: each drive with the
+    launch counts set to 0 before it, its numbers against
+    REFERENCE["cloud"], its launches by route; every packing the drives
+    checked on the card (each ``feasibility_batch`` call is recorded) held
+    against the CPU version of the check; then the over-committed day and
+    the real-size private ``run()`` once more, timed by layer (the host's
+    packers and checks against the kernels' device time from a profiled
+    pass).  Adds the launches to the three totals; returns the record."""
+    from repro_torch.cloud import PrivateCloud, homogeneous_hosts, joint, \
+        placement, windows
+    from repro_torch.core import qn_sim
+    from repro_torch.core.optimizer import DSpace4Cloud
+    from repro_torch.kernels.dag_event import ops as dag_ops
+    from repro_torch.kernels.qn_event import ops as qn_ops
+
+    wrappers = tuple(kernels.values())
+    counts = lambda: planner_counts(kernels)
+    checked = []                 # (inputs, the card's mask) of every check
+    host = {}
+    feasibility, pack = placement.feasibility_batch, placement.pack
+
+    def recorded_feasibility(*args, device=None):
+        t0 = time.perf_counter()
+        mask = feasibility(*args, device=device)
+        host["check_s"] += time.perf_counter() - t0
+        host["checks"] += 1
+        if torch.device(device).type != "cuda":
+            fail(f"a packing was checked on {device}, not on the card")
+        checked.append(([np.array(a, copy=True) for a in args], mask))
+        return mask
+
+    def timed_pack(*args, **kw):
+        t0 = time.perf_counter()
+        out = pack(*args, **kw)
+        host["pack_s"] += time.perf_counter() - t0
+        host["packs"] += 1
+        return out
+
+    def reset_host():
+        host.update(pack_s=0.0, packs=0, check_s=0.0, checks=0)
+
+    hooks = [(placement, "feasibility_batch", recorded_feasibility),
+             (windows, "feasibility_batch", recorded_feasibility),
+             (joint, "pack", timed_pack), (windows, "pack", timed_pack)]
+    saved = [(m, a, getattr(m, a)) for m, a, _ in hooks]
+    for m, a, f in hooks:
+        setattr(m, a, f)
+    runs = {}
+    try:
+        for name, rel in CLOUD_DRIVES.items():
+            reset_launches(*wrappers)
+            qn_sim.reset_sim_stats()
+            reset_host()
+            n_checked = len(checked)
+            t0 = time.perf_counter()
+            out = scen.private_cloud_bench(dev) if name == "bench" else \
+                scen.private_cloud_real(dev, counts=counts)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {k: w.launches for k, w in kernels.items()}
+            for k, n in got.items():
+                launches[k] += n
+            for r, n in qn_ops.qn_event.routes.items():
+                qn_routes[r] += n
+            for r, n in dag_ops.dag_event.routes.items():
+                dag_routes[r] += n
+            by_route = {k: n for k, n in counts().items() if n}
+            n_disp = qn_sim.sim_stats()["dispatches"]
+            diff = scen.mismatches(REFERENCE["cloud"][name], out, rel=rel)
+            print(f"[cloud] {name}: wall {wall:.3f} s (host clock, ending "
+                  f"in torch.cuda.synchronize()), {n_disp} dispatches, "
+                  f"launches by kernel and route {by_route}; walls "
+                  f"{json.dumps({k: round(v, 4) for k, v in out['walls'].items()})}"
+                  f"; the host's packers {host['pack_s']:.4f} s over "
+                  f"{host['packs']} packs, feasibility checks "
+                  f"{host['check_s']:.4f} s over {host['checks']} calls "
+                  f"(each one read-back)", flush=True)
+            for plan in ("private", "run", "run_fast", "run_pointwise",
+                         "service_private"):
+                if plan in out:
+                    dep = out[plan]["deployment"]
+                    print(f"[cloud] {name} {plan}: {out[plan]['qn_dispatches']}"
+                          f" dispatches, decisions "
+                          f"{json.dumps(out[plan]['classes'])}; deployment "
+                          f"{json.dumps(dep)}", flush=True)
+            print(f"[cloud] {name} against the reference: "
+                  f"{'equal' if not diff else diff}", flush=True)
+            if diff:
+                fail(f"cloud {name} differs from the reference at {diff}")
+            check_launches(f"cloud {name}", got, n_disp, True)
+            if name == "bench":
+                un = out["unbounded"]
+                ratios = {d: out[d]["qn_dispatches"]
+                          / out["single_window_dispatches"]
+                          for d in ("day", "day_private")}
+                print(f"[cloud] bench: unbounded run_fast bit-exact with the "
+                      f"public one {un['bit_exact']} (coordinated "
+                      f"{un['coordinated']}); the 24-window day "
+                      f"{out['day']['qn_dispatches']} dispatches in "
+                      f"{out['day']['rounds']} rounds, on the over-committed "
+                      f"cluster {out['day_private']['qn_dispatches']} in "
+                      f"{out['day_private']['rounds']}, against one window's "
+                      f"{out['single_window_dispatches']} (ratios {ratios}; "
+                      f"the reference's own); windows_feasible from the card "
+                      f"{out['day_private']['windows_feasible']}", flush=True)
+                if not un["bit_exact"] or un["coordinated"]:
+                    fail("the unbounded cluster's run_fast differs from the "
+                         "public one")
+            else:
+                svc = out["service"]
+                phases = {ph: {k: n for k, n in c.items() if n}
+                          for ph, c in out["launches"].items()}
+                print(f"[cloud] real: demand {out['demand_cores']} cores, "
+                      f"cluster {out['capacity_cores']} cores; the service "
+                      f"{svc['rounds']} rounds, {svc['scheduler']} , "
+                      f"admission {svc['admission']}; the private job equal "
+                      f"to its solo run() bit for bit "
+                      f"{out['service_equal_solo']}; service.run wall "
+                      f"{out['timing']['wall_s']:.4f} s; launches by phase "
+                      f"and route {phases}", flush=True)
+                if not out["service_equal_solo"]:
+                    fail("the service's private job differs from its solo "
+                         "run")
+                qn_n, dag_n = event_loops(out["launches"]["service"])
+                if qn_n + dag_n != svc["scheduler"]["fused_dispatches"]:
+                    fail(f"cloud real: the service launched {qn_n + dag_n} "
+                         f"event loops for "
+                         f"{svc['scheduler']['fused_dispatches']} fused "
+                         f"dispatches")
+            runs[name] = {"wall_s": wall, "dispatches": n_disp,
+                          "launches": got, "launches_by_route": by_route,
+                          "walls": out["walls"],
+                          "host_packers_s": host["pack_s"],
+                          "packs": host["packs"],
+                          "feasibility_s": host["check_s"],
+                          "feasibility_calls": host["checks"],
+                          "packings_checked": len(checked) - n_checked}
+
+        # every packing the drives checked on the card, against the CPU
+        rows = 0
+        for args, mask in checked:
+            cpu = feasibility(*args, device="cpu")
+            rows += len(mask)
+            if mask.dtype != np.bool_ or mask.tolist() != cpu.tolist():
+                fail(f"feasibility_batch on the card {mask.tolist()} != "
+                     f"its CPU version {cpu.tolist()} (shapes "
+                     f"{[a.shape for a in args]})")
+        shapes = collections.Counter(tuple(args[0].shape)
+                                     for args, _ in checked)
+        print(f"[cloud] feasibility_batch: {len(checked)} calls, {rows} "
+              f"packings, every mask on the card equal to its CPU version "
+              f"(shapes (B, V) by count: {dict(shapes.most_common(8))})",
+              flush=True)
+
+        # where the time goes: the over-committed day and the real-size
+        # private run(), each driven once, then once more under the
+        # profiler for the kernels' device time
+        bench, real = REFERENCE["cloud"]["bench"], REFERENCE["cloud"]["real"]
+        day_cloud = PrivateCloud(hosts=homogeneous_hosts(
+            bench["capacity_cores"] // 4, 4, energy_cost_per_h=0.3))
+        day_prob = scen.private_cloud_problem(3)
+        day = {c.name: scen.DAY_LEVELS for c in day_prob.classes}
+        real_prob, real_samples = scen.real_cloud_problem()
+        real_cloud = PrivateCloud(hosts=homogeneous_hosts(
+            real["capacity_cores"] // scen.REAL_HOST_CORES,
+            scen.REAL_HOST_CORES, energy_cost_per_h=scen.REAL_ENERGY_PER_H))
+        layered = {
+            "day_private": lambda: windows.plan_day(
+                day_prob, day, deployment=day_cloud, device=dev,
+                **scen.PRIVATE_CLOUD_KW),
+            "real_run": lambda: DSpace4Cloud(
+                real_prob, samples=real_samples, deployment=real_cloud,
+                device=dev).run()}
+        for name, fn in layered.items():
+            reset_launches(*wrappers)
+            reset_host()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            packers = dict(host)
+            _, dev_ms, note = profiled_pass(kernels, fn, counts(), name)
+            busy = sum(e[2] for e in note["events"]) / 1e3
+            print(f"[cloud] {name}: wall {wall:.4f} s; the kernels "
+                  f"{1e3 * busy:.3f} ms on the device "
+                  f"({100 * busy / wall:.2f}% of the wall: {note['text']}); "
+                  f"the host's packers {packers['pack_s']:.4f} s "
+                  f"({100 * packers['pack_s'] / wall:.2f}%: {packers['packs']}"
+                  f" packs, their feasibility checks {packers['check_s']:.4f}"
+                  f" s over {packers['checks']} calls); the rest "
+                  f"{wall - busy - packers['pack_s']:.4f} s", flush=True)
+            runs[name] = {"wall_s": wall, "kernels_device_s": busy,
+                          "profiled_device_ms": dev_ms,
+                          "profiled_wall_s": note["wall_s"],
+                          "host_packers_s": packers["pack_s"],
+                          "packs": packers["packs"],
+                          "feasibility_s": packers["check_s"],
+                          "feasibility_calls": packers["checks"],
+                          "rest_s": wall - busy - packers["pack_s"]}
+    finally:
+        for m, a, f in saved:
+            setattr(m, a, f)
+    runs["feasibility_calls_checked"] = len(checked)
     return runs
 
 
@@ -3009,6 +3384,15 @@ def main() -> None:
                                  qn_route_launches, dag_route_launches)
     added_wall["service"] = time.perf_counter() - t0
 
+    # [cloud] the private-cloud plane: benchmarks/private_cloud.py at its
+    # full size with its day on the over-committed cluster, then the §4.3
+    # classes Q1 and Q3 on a cluster of half their public cores in three
+    # gaits and in the service
+    t0 = time.perf_counter()
+    cloud_runs = check_cloud(dev, scen, kernels, launches,
+                             qn_route_launches, dag_route_launches)
+    added_wall["cloud"] = time.perf_counter() - t0
+
     # --------------------------------------------------------- LM serving
     by_path, card_cpu_diff = {}, {}
     ssd_routes = dict.fromkeys(ssd_ops.ssd.routes, 0)
@@ -3636,7 +4020,7 @@ def main() -> None:
                           for H_g, E_g in ((H_big, E_big),
                                            (H_huge, E_huge))},
          "plans": plans, "scenarios": scenario_runs,
-         "service": service_runs,
+         "service": service_runs, "cloud": cloud_runs,
          "table3_rows": table3_rows,
          "serving_qn": {k: {f: v[f] for f in
                             ("arch", "n_layers", "solo_latency_ms",

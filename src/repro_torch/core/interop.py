@@ -3,7 +3,8 @@ reference package, through JSON and numpy only (nothing of the reference
 is imported).
 
   * ``problem_from_reference`` — a reference ``Problem.to_json()`` document
-    becomes a port ``Problem`` (the schema is shared);
+    becomes a port ``Problem`` (the schema is shared; a private
+    ``deployment`` section becomes the port's ``PrivateCloud``);
   * ``samples_from_reference`` — replay lists ``{(class, vm): (m, r)}``
     as float32 numpy arrays, the form both packages digest;
   * ``cache_from_reference`` — a reference evaluation cache, keyed
@@ -24,7 +25,9 @@ from repro_torch.core.problem import Problem
 
 
 def problem_from_reference(doc: str) -> Problem:
-    """Port ``Problem`` from a reference ``Problem.to_json()`` document."""
+    """Port ``Problem`` from a reference ``Problem.to_json()`` document,
+    its private ``deployment`` (hosts, per-type VM memory, name) carried
+    across as a ``repro_torch.cloud.hosts.PrivateCloud``."""
     return Problem.from_json(doc)
 
 

@@ -13,9 +13,17 @@ runs one scalar simulation per probe (``make_qn_evaluator``, one
 single-lane ``qn_event`` dispatch per replication), and ``run()`` walks
 each class on its analytically-ranked VM type with Algorithm 1
 (``hillclimb.hill_climb``, the classes in worker threads).  Both gaits
-share the cache keys and the per-point numbers.  The port plans the
-paper's public cloud: ``deployment=`` (the private-cloud plane) raises
-``NotImplementedError`` until it is ported.
+share the cache keys and the per-point numbers.
+
+Deployment-generic: passing a ``PrivateCloud`` (``deployment=`` keyword,
+or the problem's own ``deployment`` field) turns every gait into a
+private-cloud planner: after the unconstrained search, the fleet is
+bin-packed onto the physical hosts and — if it over-commits them — the
+dual-price coordinator (``repro_torch.cloud.joint``) re-races classes
+under a shared price on cores until the packed plan is feasible, every
+coordination probe flowing through the same fused QN plane and every
+packing checked on the plan's device.  ``deployment=None`` is the paper's
+public cloud: unbounded capacity, the public plan unchanged.
 """
 from __future__ import annotations
 
@@ -27,6 +35,8 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from repro_torch import resolve_device
+from repro_torch.cloud import joint as joint_mod
+from repro_torch.cloud.hosts import PrivateCloud
 from repro_torch.core import qn_sim
 from repro_torch.core.evaluators import amva_nu_seed, \
     make_batched_qn_evaluator, make_qn_evaluator
@@ -63,6 +73,7 @@ class RunReport:
     traces: Dict[str, HCTrace] = field(default_factory=dict)
     initial: Optional[Dict[str, ClassSolution]] = None
     qn_dispatches: int = 0        # simulator device dispatches this run
+    deployment: Optional[dict] = None  # JointPlan.summary() (private cloud)
     telemetry: Optional[dict] = None   # {"qn": sim-stat deltas, ...}
     slo: Optional[dict] = None         # obs.slo.solve_slo_summary(...)
 
@@ -75,7 +86,7 @@ class RunReport:
             "classes": {k: v.as_dict() for k, v in self.solutions.items()},
             "initial": ({k: v.as_dict() for k, v in self.initial.items()}
                         if self.initial else None),
-            "deployment": None,
+            "deployment": self.deployment,
             "telemetry": self.telemetry,
             "slo": self.slo,
         }, indent=1)
@@ -113,27 +124,30 @@ def _report(sols: Dict[str, ClassSolution], traces: Dict[str, HCTrace],
 
 
 class DSpace4Cloud:
-    """The tool: optimization scenario of Figure 3 (public cloud).
+    """The tool: optimization scenario of Figure 3.
     ``batched=True`` probes the QN tier through the batched evaluator
     (raced window sweeps), ``batched=False`` through the point-wise one
     (Algorithm 1 per class in ``run()``).  ``race=False`` locks each class
     to its analytically cheapest VM type in every gait (the batched race
-    and ``run_fast`` then sweep one lane a class).  ``device`` is where the kernels
-    run: the current CUDA device by default, ``"cpu"`` for their plain
-    versions."""
+    and ``run_fast`` then sweep one lane a class).  ``deployment`` (or the
+    problem's own field) plans against a private cluster.  ``device`` is
+    where the kernels and the packings' checks run: the current CUDA
+    device by default, ``"cpu"`` for their plain versions."""
 
     def __init__(self, problem: Problem, *, min_jobs: int = 40,
                  replications: int = 2, seed: int = 0, samples=None,
                  batched: bool = True, window: int = 16,
-                 race: bool = True, deployment=None,
+                 race: bool = True,
+                 deployment: Optional[PrivateCloud] = None,
                  cache: Optional[dict] = None, device=None):
-        if deployment is not None or problem.deployment is not None:
-            raise NotImplementedError(
-                "private-cloud deployments are not ported yet")
         self.problem = problem
         self.window = window
         self.batched = batched
         self.race = race
+        # the deployment target: an explicit keyword wins, else whatever
+        # the problem document carries; None = public cloud (unbounded)
+        self.deployment = deployment if deployment is not None \
+            else getattr(problem, "deployment", None)
         self.device = resolve_device(device)
         self._qn_cache: dict = cache if cache is not None else {}
         self._rank_cache: Optional[Dict[str, List[ClassSolution]]] = None
@@ -142,25 +156,42 @@ class DSpace4Cloud:
             min_jobs=min_jobs, replications=replications, seed=seed,
             cache=self._qn_cache, samples=samples, device=self.device)
 
-    def _ranking(self) -> Dict[str, List[ClassSolution]]:
-        """Per-class analytic candidate ranking: every ranked VM type
-        races, or with ``race=False`` only the analytic argmin (one lane a
-        class).  The full ranking is memoized either way."""
+    def _full_ranking(self) -> Dict[str, List[ClassSolution]]:
+        """``milp.rank_vm_types`` memoized per instance — both the race
+        and the private-cloud coordinator read it."""
         if self._rank_cache is None:
             with _obs_trace.span("tier:kkt", cat="tier",
                                  classes=len(self.problem.classes)):
                 self._rank_cache = rank_vm_types(self.problem)
-        if not self.race:
-            return {name: cands[:1]
-                    for name, cands in self._rank_cache.items()}
         return self._rank_cache
+
+    def _coordination_lanes(self) -> Dict[str, List]:
+        """Per-class ``(vm, nu0)`` candidate lanes the dual-price
+        coordinator may steer within — always the FULL analytic ranking,
+        even under ``race=False``: a capacity-coupled plan must be free
+        to shift classes across VM types, or pricing cores could never
+        change anything."""
+        return {name: [(self.problem.vm_by_name(c.vm_type), c.nu)
+                       for c in cands]
+                for name, cands in self._full_ranking().items()}
+
+    def _ranking(self) -> Dict[str, List[ClassSolution]]:
+        """Per-class analytic candidate ranking: every ranked VM type
+        races, or with ``race=False`` only the analytic argmin (one lane a
+        class)."""
+        ranking = self._full_ranking()
+        if not self.race:
+            ranking = {name: cands[:1] for name, cands in ranking.items()}
+        return ranking
 
     # ----------------------------------------------------- resumable steps
     def run_steps(self):
         """Resumable propose/receive form of ``run()``: each round yields
         the pending ``EvalRequest`` windows of every still-racing (class,
         VM type) lane and expects ``send()`` of a ``{rid: times}`` dict.
-        Returns the ``RunReport`` as the ``StopIteration`` value."""
+        Returns the ``RunReport`` as the ``StopIteration`` value.  On a
+        private cloud the coordinator's probe rounds follow the race's,
+        yielded the same way."""
         t0 = time.time()
         snap0 = _snapshot()
         ranking = self._ranking()
@@ -189,7 +220,32 @@ class DSpace4Cloud:
                 except StopIteration as stop:
                     sols[name] = stop.value
             proposed = nxt
-        return _report(sols, traces, init, t0, snap0, self.problem)
+        if self.deployment is None:
+            return _report(sols, traces, init, t0, snap0, self.problem)
+
+        # ---- private cloud: pack the raced fleet; coordinate if it
+        # over-commits.  The coordinator speaks the same propose/receive
+        # protocol, so its probe rounds keep flowing through whoever
+        # drives this generator (run()'s evaluate_many, or the service's
+        # FusionScheduler — fused across tenants either way).
+        coord = joint_mod.coordinate_requests(
+            self.problem, self.deployment, sols,
+            self._coordination_lanes(), window=self.window, traces=traces,
+            device=self.device)
+        results = None
+        while True:
+            try:
+                props = coord.send(results) if results is not None \
+                    else next(coord)
+            except StopIteration as stop:
+                plan = stop.value
+                break
+            results = yield [EvalRequest(cls=cls, vm=vm, nus=list(nus))
+                             for cls, vm, nus in props]
+        report = _report(plan.solutions, traces, init, t0, snap0,
+                         self.problem)
+        report.deployment = plan.summary()
+        return report
 
     def run(self, parallel: bool = True) -> RunReport:
         """Analytic ranking + QN-verified search.  Batched: raced sweeps,
@@ -197,7 +253,8 @@ class DSpace4Cloud:
         lanes, one ``evaluate_many`` call (one fused dispatch per fusion
         group).  Point-wise: Algorithm 1 per class on its analytically
         cheapest VM type, the classes in worker threads when
-        ``parallel``."""
+        ``parallel``; on a private cloud the coordinator's probes are
+        then point-wise too."""
         if not self.batched:
             with _obs_trace.span("solve", cat="solve", mode="pointwise",
                                  classes=len(self.problem.classes)):
@@ -210,7 +267,19 @@ class DSpace4Cloud:
                                              parallel=parallel)
                 traces = {request_id(name, init[name].vm_type): tr
                           for name, tr in hc_traces.items()}
-                return _report(sols, traces, init, t0, snap0, self.problem)
+                plan = None
+                if self.deployment is not None:
+                    plan = joint_mod.coordinate(
+                        self.problem, self.deployment, sols,
+                        self._coordination_lanes(), self.evaluate,
+                        window=self.window, traces=traces,
+                        device=self.device)
+                    sols = plan.solutions
+                report = _report(sols, traces, init, t0, snap0,
+                                 self.problem)
+                if plan is not None:
+                    report.deployment = plan.summary()
+                return report
 
         gen = self.run_steps()
         with _obs_trace.span("solve", cat="solve", mode="batched",
@@ -252,6 +321,7 @@ class DSpace4Cloud:
             init = {name: cands[0] for name, cands in ranking.items()}
             sols: Dict[str, ClassSolution] = {}
             traces: Dict[str, HCTrace] = {}
+            lanes_by_class: Dict[str, List] = {}
             for cls in self.problem.classes:
                 lanes = []
                 with _obs_trace.span("tier:amva", cat="tier", cls=cls.name,
@@ -261,11 +331,30 @@ class DSpace4Cloud:
                         lanes.append((vm, amva_nu_seed(
                             cls, vm, cand.nu, frontier_span,
                             device=self.device)))
+                lanes_by_class[cls.name] = lanes
                 with _obs_trace.span("tier:qn", cat="tier", cls=cls.name):
                     sols[cls.name] = race_class(cls, lanes, self.evaluate,
                                                 window=self.window,
                                                 traces=traces)
-            return _report(sols, traces, init, t0, snap0, self.problem)
+            plan = None
+            if self.deployment is not None:
+                # coordination lanes keep the AMVA-frontier seeds where the
+                # race already computed them (race=True covers the full
+                # ranking; under race=False the analytic ranking fills in)
+                lanes = self._coordination_lanes()
+                for name, raced in lanes_by_class.items():
+                    seeded = {vm.name: nu for vm, nu in raced}
+                    lanes[name] = [(vm, seeded.get(vm.name, nu))
+                                   for vm, nu in lanes[name]]
+                plan = joint_mod.coordinate(
+                    self.problem, self.deployment, sols, lanes,
+                    self.evaluate, window=self.window, traces=traces,
+                    device=self.device)
+                sols = plan.solutions
+            report = _report(sols, traces, init, t0, snap0, self.problem)
+            if plan is not None:
+                report.deployment = plan.summary()
+            return report
 
     @staticmethod
     def from_json_file(path: str, **kw) -> "DSpace4Cloud":

@@ -117,9 +117,13 @@ class ClassSolution:
 
 @dataclass
 class Problem:
-    """One planning instance.  ``deployment`` is the reference's optional
-    private deployment target; the port plans the paper's public cloud
-    only, so it stays ``None`` (the field keeps the JSON schema equal)."""
+    """One planning instance.  ``deployment`` is the optional private
+    deployment target (a ``repro_torch.cloud.hosts.PrivateCloud``):
+    ``None`` means the paper's public-cloud scenario — capacity
+    unbounded, classes planned independently.  With a deployment
+    attached, every optimizer gait packs the chosen fleet onto the
+    physical hosts and coordinates classes under a shared core price when
+    they over-commit it (``repro_torch.cloud.joint``)."""
     classes: List[ApplicationClass]
     vm_types: List[VMType]
     deployment: Optional[object] = None      # PrivateCloud | None
@@ -140,11 +144,12 @@ class Problem:
             profs = {k: workload_from_dict(p)
                      for k, p in c.pop("profiles").items()}
             classes.append(ApplicationClass(profiles=profs, **c))
+        deployment = None
         if raw.get("deployment") is not None:
-            raise NotImplementedError(
-                "private-cloud deployments are not ported yet; the port "
-                "plans the public cloud only")
-        return Problem(classes=classes, vm_types=vms)
+            # lazy: the cloud package depends on this module
+            from repro_torch.cloud.hosts import deployment_from_dict
+            deployment = deployment_from_dict(raw["deployment"])
+        return Problem(classes=classes, vm_types=vms, deployment=deployment)
 
     def to_json(self) -> str:
         return json.dumps({

@@ -25,9 +25,6 @@ a service fronting one finite cluster (``max_physical_cores``) keeps the
 sum of active private jobs' core demands (``estimate_job_cores``) under
 the metal actually available, so two tenants cannot both be promised the
 same hosts — public-cloud jobs rent elastically and are charged 0 cores.
-The port plans the public cloud only (``SolverService.submit`` refuses a
-deployment), so its jobs are charged 0 cores; the gate stays for the
-private-cloud plane when it is ported.
 
 All decisions are counted (``AdmissionStats``) for the service dashboard.
 """

@@ -27,8 +27,9 @@ current CUDA device by default (it raises without one, like every entry
 point of the port), ``"cpu"`` for the kernels' plain versions.  On the
 card a round's MapReduce groups launch ``qn_event`` with its draw tables
 (``event_streams``) and its DAG groups ``dag_event`` with theirs
-(``dag_streams``); nothing falls back.  The port plans the public cloud:
-a private ``deployment`` raises ``NotImplementedError`` at ``submit()``.
+(``dag_streams``); nothing falls back.  A private job (``deployment=``)
+moves through the same rounds: each probe round of its coordinator is
+part of one flush, and its packings are checked on the same device.
 
 Telemetry: every round appends one structured
 event to the flight recorder (a bounded ring buffer, dumped as JSON when
@@ -123,10 +124,11 @@ class SolverService:
         may be a ``Problem`` or a JSON submission (whose ``solver`` section
         overrides the keyword defaults).  ``race=False`` locks each class
         to its analytic-argmin VM type instead of racing the catalog.
-        A ``deployment`` (this keyword, a JSON submission's
-        ``solver.deployment`` or the problem's own field) raises
-        ``NotImplementedError`` here: the port plans the public cloud
-        only."""
+        ``deployment`` (a ``PrivateCloud``, or its dict form inside a JSON
+        submission's solver section) plans the job against a finite
+        private cluster — overriding the problem document's own
+        ``deployment`` field; such jobs are also admitted against the
+        controller's physical-core budget."""
         kw = dict(min_jobs=min_jobs, warmup_jobs=warmup_jobs,
                   replications=replications, seed=seed)
         if isinstance(problem, str):
@@ -144,10 +146,6 @@ class SolverService:
             kw.update(overrides)
         if deployment is None:
             deployment = getattr(problem, "deployment", None)
-        if deployment is not None:
-            raise NotImplementedError(
-                "private-cloud deployments are not ported yet; the port "
-                "plans the public cloud only")
         spec = SimSpec(**kw)
         job = Job(id=f"job-{next(self._seq):04d}", problem=problem,
                   spec=spec, window=window or self.window,
@@ -212,7 +210,8 @@ class SolverService:
                             replications=job.spec.replications,
                             seed=job.spec.seed, samples=job.samples,
                             batched=True, window=job.window,
-                            race=job.race, device=self.device)
+                            race=job.race, deployment=job.deployment,
+                            device=self.device)
         job._gen = tool.run_steps()
         try:
             job._pending = next(job._gen)

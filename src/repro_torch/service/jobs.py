@@ -10,10 +10,6 @@ its tenant asked for.  Lifecycle::
 ``INFEASIBLE`` still carries a full report — it means the optimizer
 converged but at least one class cannot meet its deadline at any admitted
 cluster size (the paper's "negative answer is an answer" case).
-
-The port plans the paper's public cloud: a private ``deployment`` (a
-keyword or a JSON submission's ``solver.deployment``) raises
-``NotImplementedError`` at submission.
 """
 from __future__ import annotations
 
@@ -48,9 +44,7 @@ class Job:
     # MapReduce classes, a (n_stages, n_samples) array for DAG classes
     samples: Optional[Dict[Tuple[str, str], object]] = None
     tag: Optional[str] = None
-    # private deployment target; the port plans the public cloud only, so
-    # it stays None (SolverService.submit raises for any other)
-    deployment: Optional[object] = None
+    deployment: Optional[object] = None   # PrivateCloud | None (public)
     state: str = JobState.QUEUED
     submitted_s: float = field(default_factory=time.time)
     started_s: Optional[float] = None
@@ -58,7 +52,7 @@ class Job:
     report: Optional[RunReport] = None
     error: Optional[str] = None
     events_estimate: int = 0
-    cores_estimate: int = 0       # physical cores (0: public cloud only)
+    cores_estimate: int = 0       # physical cores (private-cloud jobs only)
     # per-tenant usage tallies, filled by the engine as rounds execute
     rounds: int = 0               # scheduling rounds this job took part in
     points: int = 0               # QN points requested across all rounds
@@ -102,7 +96,7 @@ class Job:
             out["total_cost_per_h"] = self.report.total_cost_per_h
             out["solutions"] = {k: v.as_dict()
                                 for k, v in self.report.solutions.items()}
-            out["deployment"] = None         # public cloud
+            out["deployment"] = self.report.deployment
             out["slo"] = self.report.slo
         return out
 
@@ -111,8 +105,7 @@ def parse_submission(text: str) -> Tuple[Problem, dict]:
     """Decode one JSON submission: ``{"problem": {...}, "solver": {...}}``
     (or a bare problem document).  Returns the problem and the solver
     keyword overrides (min_jobs, warmup_jobs, replications, seed, window,
-    race, tag).  A ``deployment`` in either section raises
-    ``NotImplementedError``: private clouds are not ported yet."""
+    race, tag, deployment — the latter decoded to a ``PrivateCloud``)."""
     raw = json.loads(text)
     if "problem" in raw:
         solver = dict(raw.get("solver") or {})
@@ -121,7 +114,6 @@ def parse_submission(text: str) -> Tuple[Problem, dict]:
         solver = {}
         problem = Problem.from_json(text)
     if solver.get("deployment") is not None:
-        raise NotImplementedError(
-            "private-cloud deployments are not ported yet; the port plans "
-            "the public cloud only")
+        from repro_torch.cloud.hosts import deployment_from_dict
+        solver["deployment"] = deployment_from_dict(solver["deployment"])
     return problem, solver

@@ -1118,3 +1118,66 @@ def test_service_on_the_card_equals_the_service_on_the_cpu(dev):
     assert service["qn_event"] > 0 and service["dag_event"] > 0
     assert service["qn_event"] + service["dag_event"] == \
         card["scheduler"]["fused_dispatches"]
+
+
+# ----------------------------------------------------------- private cloud
+
+def _packings(seed, b, v, h, *, non_integer):
+    g = np.random.default_rng(seed)
+    asg = g.integers(-1, h + 1, size=(b, v))        # h: past the catalog
+    vc = g.choice([0.0, 1.0, 2.0, 4.0, 20.0], size=(b, v)).astype(np.float32)
+    vmem = (g.choice([0.1, 0.3, 1.7, 2.35, 3.9], size=(b, v)) if non_integer
+            else vc * 4.0).astype(np.float32)
+    hc = g.choice([4.0, 8.0, 20.0, 64.0], size=h).astype(np.float32)
+    hm = (hc * 4.0 if not non_integer else
+          g.uniform(2.0, 40.0, size=h)).astype(np.float32)
+    return asg, vc, vmem, hc, hm
+
+
+@pytest.mark.parametrize("b,v,h", [(1, 1, 1), (5, 12, 6), (24, 90, 9),
+                                   (512, 300, 40)])
+@pytest.mark.parametrize("non_integer", [False, True])
+def test_feasibility_batch_on_the_card_equals_its_cpu_version(
+        dev, b, v, h, non_integer):
+    """The card's mask equals the CPU's on packings with pad slots,
+    unplaced VMs and host indices past the catalog; with non-integer
+    memory each host is also set to its float64 load, where the order of
+    a float32 sum could decide."""
+    from repro_torch.cloud import placement
+    args = _packings(b * v + h, b, v, h, non_integer=non_integer)
+    want = placement.feasibility_batch(*args, device="cpu")
+    got = placement.feasibility_batch(*args, device=dev)
+    assert got.dtype == np.bool_ and got.tolist() == want.tolist()
+    if non_integer:
+        asg, vc, vmem, hc, _ = args
+        load = np.zeros(h)
+        for i in range(b):
+            on = (asg[i] >= 0) & (asg[i] < h)
+            row = np.zeros(h)
+            np.add.at(row, asg[i][on], vmem[i][on].astype(np.float64))
+            load = np.maximum(load, row)
+        hm = load.astype(np.float32)
+        assert placement.feasibility_batch(asg, vc, vmem, hc, hm,
+                                           device=dev).tolist() == \
+            placement.feasibility_batch(asg, vc, vmem, hc, hm,
+                                        device="cpu").tolist()
+
+
+def test_private_plan_on_the_card_equals_the_cpu(dev):
+    """benchmarks/private_cloud.py's over-committed cluster, cut to
+    ``min_jobs=4``, 1 replication: the card's plan (kernels, packings
+    checked on the card) against the CPU's, decisions and deployment
+    summary exact, response times within a relative 1e-3."""
+    from benchmarks import torch_scenarios as scen
+    from repro_torch.cloud import PrivateCloud, homogeneous_hosts
+    prob = scen.private_cloud_problem(3)
+    cloud = PrivateCloud(hosts=homogeneous_hosts(6, 4,
+                                                 energy_cost_per_h=0.3))
+    kw = dict(min_jobs=4, replications=1, seed=3, window=8)
+    cpu = DSpace4Cloud(prob, deployment=cloud, device="cpu", **kw).run()
+    card = DSpace4Cloud(prob, deployment=cloud, device=dev, **kw).run()
+    assert card.deployment == cpu.deployment
+    assert card.deployment["coordinated"]
+    want = {k: v.as_dict() for k, v in cpu.solutions.items()}
+    got = {k: v.as_dict() for k, v in card.solutions.items()}
+    assert scen.mismatches(want, got, rel=1e-3) == []

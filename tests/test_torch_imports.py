@@ -39,7 +39,9 @@ def test_importing_every_module_leaves_jax_and_repro_out():
               "repro_torch.obs", "repro_torch.obs.metrics",
               "repro_torch.obs.slo", "repro_torch.obs.trace",
               "repro_torch.obs.provenance", "repro_torch.obs.recorder",
-              "repro_torch.obs.export"):
+              "repro_torch.obs.export", "repro_torch.cloud",
+              "repro_torch.cloud.hosts", "repro_torch.cloud.placement",
+              "repro_torch.cloud.joint", "repro_torch.cloud.windows"):
         assert m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -134,6 +136,18 @@ def test_entry_points_without_a_device_raise_on_a_cpu_host():
         SolverService()
     with pytest.raises(RuntimeError, match="CUDA"):
         FusionScheduler()
+    from repro_torch.cloud import PrivateCloud, feasibility_batch, \
+        homogeneous_hosts, pack, plan_day
+    cloud = PrivateCloud(hosts=homogeneous_hosts(2, 4))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DSpace4Cloud(prob, deployment=cloud)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        plan_day(prob, {"c": [1, 2]})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pack(prob, {}, cloud)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        feasibility_batch(np.zeros((1, 1), np.int64), np.ones((1, 1)),
+                          np.ones((1, 1)), np.ones(1), np.ones(1))
     assert resolve_device("cpu") == torch.device("cpu")
     t = DSpace4Cloud(prob, device="cpu", min_jobs=4).run_fast()
     assert np.isfinite(t.solutions["c"].predicted_ms)

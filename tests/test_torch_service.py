@@ -353,20 +353,52 @@ def test_submission_json_roundtrip():
 # ------------------------------------------------- deployment and device
 
 def test_a_deployment_raises_at_submit():
-    prob = _one_class(Problem, ApplicationClass, JobProfile, VMType,
-                      45_000.0)
-    svc = SolverService(device="cpu")
-    with pytest.raises(NotImplementedError, match="private-cloud"):
-        svc.submit(prob, deployment=object(), **KW)
-    doc = json.dumps({"problem": json.loads(prob.to_json()),
-                      "solver": {"deployment": {"hosts": []}}})
-    with pytest.raises(NotImplementedError, match="private-cloud"):
-        svc.submit(doc)
-    raw = json.loads(prob.to_json())
-    raw["deployment"] = {"hosts": []}
-    with pytest.raises(NotImplementedError, match="private-cloud"):
-        svc.submit(json.dumps(raw))
-    assert svc.stats()["jobs"] == {} and svc.queue_depth == 0
+    """A private ``deployment`` (the keyword, a JSON submission's
+    ``solver.deployment`` or the problem's own field) no longer raises: the
+    three jobs plan on the cluster as the reference's service plans them
+    (decisions, deployment summaries, rounds, dispatches and admission
+    stats equal), each equal to its solo run bit for bit, and are charged
+    the cluster's cores."""
+    from repro.cloud import PrivateCloud as RefCloud
+    from repro.cloud import homogeneous_hosts as ref_hosts
+    from repro_torch.cloud import PrivateCloud, homogeneous_hosts
+
+    def run(P, AC, Profile, VM, Cloud, hosts, Service, dev):
+        # 2 VMs meet 7 s publicly; one 2-core host holds one: truncated
+        prob = _one_class(P, AC, Profile, VM, 7_000.0)
+        cloud = Cloud(hosts=hosts(1, 2, energy_cost_per_h=0.1))
+        svc = Service(**dev)
+        own = _one_class(P, AC, Profile, VM, 7_000.0)
+        own.deployment = cloud
+        jids = [svc.submit(prob, deployment=cloud, **KW),
+                svc.submit(json.dumps({
+                    "problem": json.loads(prob.to_json()),
+                    "solver": {"deployment": cloud.to_dict(), **KW}})),
+                svc.submit(own.to_json(), **KW)]
+        jobs = svc.run_until_complete()
+        return prob, cloud, [jobs[j] for j in jids], svc.stats()
+
+    _, _, want, wstats = run(RefProblem, RefClass, RefProfile, RefVM,
+                             RefCloud, ref_hosts, RefService, {})
+    prob, cloud, got, stats = run(Problem, ApplicationClass, JobProfile,
+                                  VMType, PrivateCloud, homogeneous_hosts,
+                                  SolverService, {"device": "cpu"})
+    solo = DSpace4Cloud(prob, deployment=cloud, device="cpu", **KW).run()
+    assert solo.deployment["coordinated"] and solo.deployment["used_fallback"]
+    for w, g in zip(want, got):
+        assert g.state == "infeasible"
+        assert g.state == w.state and g.cores_estimate == w.cores_estimate
+        assert g.cores_estimate == cloud.total_cores
+        assert port.mismatches(
+            {k: v.as_dict() for k, v in w.report.solutions.items()},
+            {k: v.as_dict() for k, v in g.report.solutions.items()},
+            rel=1e-3) == []
+        assert g.report.deployment == w.report.deployment
+        assert g.summary()["deployment"] == solo.deployment
+        assert port.job_equal(g.report, solo)
+    assert stats["rounds"] == wstats["rounds"]
+    assert stats["scheduler"] == wstats["scheduler"]
+    assert stats["admission"] == wstats["admission"]
 
 
 def test_service_without_a_device_raises_on_a_cpu_host():

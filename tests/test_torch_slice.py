@@ -185,15 +185,41 @@ def test_real_size_scenario_builds_identically():
          for k, v in ref_milp.rank_vm_types(rprob).items()}
 
 
-def test_unported_options_raise():
-    prob, _ = _exp_problem()
-    pprob, _ = _port_args(prob, None)
-    with pytest.raises(NotImplementedError):
-        DSpace4Cloud(pprob, deployment=object(), device="cpu")
-    doc = prob.to_json().replace('"deployment": null',
-                                 '"deployment": {"hosts": []}')
-    with pytest.raises(NotImplementedError):
-        interop.problem_from_reference(doc)
+def test_unported_options_raise(reports):
+    """The private-cloud options the port once refused now plan as the
+    reference's: a reference problem document with a ``deployment``
+    carries across through ``interop`` (hosts, memory, name), and the
+    replay problem on a cluster of half its public plan's cores gives the
+    reference's decisions, deployment summary and dispatches (replay mode:
+    exact), whether the deployment comes in the document or as the
+    keyword."""
+    from repro.cloud import PrivateCloud as RefCloud
+    from repro.cloud import homogeneous_hosts as ref_hosts
+    from repro_torch.cloud import PrivateCloud, homogeneous_hosts
+    pub, _, _ = reports["replay", "run"]
+    sol = pub.solutions["rep"]
+    n_hosts = max(1, sol.nu * {"m4.xlarge": 4, "c20.node": 20}[
+        sol.vm_type] // 8)
+    prob, samples = _replay_problem()
+    prob.deployment = RefCloud(hosts=ref_hosts(n_hosts, 4,
+                                               energy_cost_per_h=0.2),
+                               vm_memory_gb={"c20.node": 64.0}, name="lab")
+    pprob, psamples = _port_args(prob, samples)
+    assert pprob.deployment == PrivateCloud(
+        hosts=homogeneous_hosts(n_hosts, 4, energy_cost_per_h=0.2),
+        vm_memory_gb={"c20.node": 64.0}, name="lab")
+    assert pprob.to_json() == prob.to_json()
+    want = RefD(prob, samples=samples, **KW).run()
+    got = DSpace4Cloud(pprob, samples=psamples, device="cpu", **KW).run()
+    keyword = DSpace4Cloud(
+        _port_args(_replay_problem()[0], None)[0], samples=psamples,
+        deployment=pprob.deployment, device="cpu", **KW).run()
+    assert want.deployment["coordinated"]
+    for rep in (got, keyword):
+        assert {k: s.as_dict() for k, s in rep.solutions.items()} == \
+            {k: s.as_dict() for k, s in want.solutions.items()}
+        assert rep.deployment == want.deployment
+        assert rep.qn_dispatches == want.qn_dispatches
 
 
 def test_interop_rejects_malformed_state():
