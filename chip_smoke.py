@@ -2,7 +2,7 @@
 gaits, the repo's benchmarked planner scenarios, Spark/Tez DAG classes,
 the multi-tenant solver service, the private-cloud deployment plane, the
 paper's Table 3 and its serving analogue, and the LM serving path (dense,
-Mamba2 and hybrid models).
+Mamba2, hybrid, MoE, vision and encoder-decoder models).
 
     python3 chip_smoke.py
 
@@ -36,7 +36,11 @@ Phases, each printing one line or a few:
      lengths), gemma3's local window, stablelm's head dim 80, zamba2's
      shared attention (H = KV = 32, head dim 112), a non-causal case, the
      wgmma kernel's edges (head dims 8 and 256, S = 1 and 65, GQA group
-     8), and float32 cases at head dims 64 and 128, within the reference's
+     8), and float32 cases at head dims 64 and 128, and the prefill
+     shapes of both rounds of every serving drive below (qwen2-moe's head
+     dim 128, llama4-scout's GQA group 5, phi-3-vision's head dim 96 over
+     576 patches and its prompts, whisper's decoder and its encoder's
+     non-causal 1500 frames, a ragged last block), within the reference's
      tolerances (2e-2 bf16, 2e-5 f32); ssd_scan at the reference's four
      SSD cases in f32 and bf16, the mamba2 serving rounds' shapes (S = 896
      and 512, 48 heads, N = 128) and zamba2's (112 heads, N = 64), a
@@ -70,11 +74,24 @@ Phases, each printing one line or a few:
      multiple of the SSD chunk; 96 ssd_scan launches and no other) and
      zamba2-7b (81 layers, 27 x (2 Mamba2 + 1 shared attention); the same
      prompts; 108 ssd_scan and 54 flash launches; every ssd_scan launch on
-     its wgmma route); each is profiled
-     (device busy share, launches per layer, the kernels' share of the
-     prefill's device time) and then compared with the CPU at depth 2
-     (granite, mamba2) or 3 (zamba2, one group) with the same weights and
-     prompts, whose logits must agree;
+     its wgmma route), qwen2-moe-a2.7b (24 MoE layers of 60 experts
+     top-4 and a shared expert, 14.0 B parameters; 48 flash launches),
+     llama4-scout-17b-a16e (full width, its depth cut to 8 of 48 layers:
+     213.5 GB in bf16 whole; 16 flash launches), whisper-tiny (4 encoder
+     + 4 decoder layers over 1500 zero frames; prompts of 4..32 tokens,
+     128 generated; 16 flash launches) and phi-3-vision-4.2b (32 layers,
+     576 zero patches before granite's prompts; 64 flash launches); each
+     model's weights are drawn on the card straight into its working
+     dtypes (bf16, norms and the MoE router f32), with the drive's peak
+     memory printed; each is profiled (device busy share, launches per
+     layer, the kernels' share of the prefill's device time, and for an
+     MoE model its router, dispatch, experts and combine) and then
+     compared with the CPU at depth 2 (granite, mamba2, qwen2-moe,
+     phi-3-vision), 3 (zamba2, one group), 1 (llama4-scout) or 2 + 2
+     (whisper) with the same weights and prompts, whose logits must agree
+     (a model with a front end also on random frames or patches; a step
+     whose MoE routing differs at a near tie of the CPU's gates is printed
+     and not compared);
   6. qn_event held bit-identical to its plain version at every dispatch
      shape of the Q1-10u drives (the batched run's B = 32 lanes and the
      point-wise walk's single lanes), both kernels, the depth cut to 16384
@@ -92,7 +109,9 @@ Phases, each printing one line or a few:
      H = 5; for mva and flash_attention also the kernel's own device time
      from torch.profiler), its bound, its plain version's time and, for
      flash_attention, the time of torch's scaled_dot_product_attention on
-     the same tensors (a yardstick only: the port never calls it);
+     the same tensors (a yardstick only: the port never calls it), at
+     granite's and zamba2's prefill shapes and at qwen2-moe's, llama4-
+     scout's, whisper's encoder's and phi-3-vision's (FLASH_TIMES);
      ssd_scan's wgmma route at mamba2's and zamba2's prefill shapes (and
      its device time alone) and its float32 route at mamba2's, each
      beside its bound; amva's device time alone and its share of a
@@ -205,6 +224,7 @@ src/ and benchmarks/ beside this file.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import re
@@ -238,12 +258,22 @@ SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 # measured 7.8e-3 (one bf16 ulp at the logits' magnitude) on an H100, the
 # tolerance is four times that (mamba2 measured 5.9e-3, zamba2 1.2e-2)
 CARD_CPU_TOL = 0.03125
-# (arch, launches each kernel must show over the 8-request drive, depth of
-# the card-vs-CPU comparison); a kernel not named must show none
+# (arch, launches each kernel must show over the 8-request drive, the
+# drive's cut of the config ({}: full width and depth), the card-vs-CPU
+# comparison's cut); a kernel not named must show none.  llama4-scout's
+# 48 layers hold 213.5 GB in bf16, so its drive keeps 8 (37.4 GB), and
+# the CPU side of its comparison one
 SERVE_CASES = [
-    ("granite-3-2b", {"flash_attention": 80}, 2),
-    ("mamba2-780m", {"ssd_scan": 96}, 2),
-    ("zamba2-7b", {"ssd_scan": 108, "flash_attention": 54}, 3),
+    ("granite-3-2b", {"flash_attention": 80}, {}, {"n_layers": 2}),
+    ("mamba2-780m", {"ssd_scan": 96}, {}, {"n_layers": 2}),
+    ("zamba2-7b", {"ssd_scan": 108, "flash_attention": 54}, {},
+     {"n_layers": 3}),
+    ("qwen2-moe-a2.7b", {"flash_attention": 48}, {}, {"n_layers": 2}),
+    ("llama4-scout-17b-a16e", {"flash_attention": 16}, {"n_layers": 8},
+     {"n_layers": 1}),
+    ("whisper-tiny", {"flash_attention": 16}, {},
+     {"n_layers": 2, "n_enc_layers": 2}),
+    ("phi-3-vision-4.2b", {"flash_attention": 64}, {}, {"n_layers": 2}),
 ]
 # sizes of the mva check: the reference's kernel test (tests/test_kernels.py)
 # and the degenerate case's H = 5 below; H = 0 returns the demand
@@ -1946,30 +1976,58 @@ FA_CHECKS = [
 ]
 
 
+# flash_attention timed at the prefill shapes the MoE, encoder-decoder
+# and vision drives bring: (B, S, H, KV, Dh, causal), S the drives' longest
+# prompt (and a vision model's 576 patches on top; whisper's encoder over
+# its 1500 frames)
+FLASH_TIMES = {
+    "qwen2_moe_prefill": (4, 1024, 16, 16, 128, True),
+    "llama4_scout_prefill_gqa_group_5": (4, 1024, 40, 8, 128, True),
+    "whisper_encoder": (4, 1500, 6, 6, 64, False),
+    "phi3_vision_prefill": (4, 1600, 32, 32, 96, True),
+}
+
+
 def serve_prompts(cfg):
     """The 8 requests of a serving drive, from numpy seed 0: lengths in
-    [256, 1024] for a dense model; for a Mamba2 or hybrid model 128 x
-    [2, 8] (896, 768, 640, 384, 512, 256, 256, 256), since the reference's
-    engine left-pads each round to its longest prompt and a Mamba2 prefill
-    length must be a multiple of the SSD chunk (128)."""
+    [256, 1024] for a decoder-only model (a vision model's 576 patches come
+    on top); for a Mamba2 or hybrid model 128 x [2, 8] (896, 768, 640,
+    384, 512, 256, 256, 256), since the reference's engine left-pads each
+    round to its longest prompt and a Mamba2 prefill length must be a
+    multiple of the SSD chunk (128); for the encoder-decoder (whisper) a
+    transcript's prompt of [4, 32] tokens."""
     rng = np.random.default_rng(0)
-    lens = (128 * rng.integers(2, 9, size=8) if cfg.ssm
-            else rng.integers(256, 1025, size=8))
+    if cfg.ssm:
+        lens = 128 * rng.integers(2, 9, size=8)
+    elif cfg.is_encoder_decoder:
+        lens = rng.integers(4, 33, size=8)
+    else:
+        lens = rng.integers(256, 1025, size=8)
     return lens, [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
                   for n in lens]
 
 
+def gen_len(cfg) -> int:
+    """Tokens generated a request: 32, or 128 for whisper (a 30 s clip's
+    transcript)."""
+    return 128 if cfg.is_encoder_decoder else 32
+
+
 def layer_counts(cfg):
     """(Mamba2 layers, attention layers) of a config: one ssd_scan or one
-    flash launch each per prefill."""
+    flash launch each per prefill (an encoder-decoder's encoder layers
+    and decoder self-attention layers each take one)."""
     n_ssd = cfg.all_layer_kinds().count("mamba")
-    return n_ssd, cfg.n_layers - n_ssd
+    return n_ssd, cfg.n_layers + cfg.n_enc_layers - n_ssd
 
 
 def describe(cfg) -> str:
     """A config's widths, without reading attention fields an SSM lacks."""
     D = cfg.d_model
     parts = [f"{cfg.n_layers} layers", f"d_model {D}"]
+    if cfg.is_encoder_decoder:
+        parts[0] = (f"{cfg.n_enc_layers} encoder + {cfg.n_layers} decoder "
+                    "layers")
     if cfg.ssm:
         ssm = cfg.ssm
         parts.append(f"Mamba2 d_inner {ssm.d_inner(D)}, {ssm.n_heads(D)} SSD "
@@ -1979,6 +2037,14 @@ def describe(cfg) -> str:
         parts.append(f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
                      f"{cfg.head_dim}, d_ff {cfg.d_ff}"
                      + (" (one shared block)" if cfg.shared_attn else ""))
+    if cfg.moe:
+        m = cfg.moe
+        parts.append(f"{m.n_experts} routed experts of {m.d_ff_expert} "
+                     f"top-{m.top_k} (capacity factor {m.capacity_factor})"
+                     + (f" + shared {m.d_ff_shared}" if m.n_shared_experts
+                        else ""))
+    if cfg.frontend != "none":
+        parts.append(f"{cfg.frontend_len} zero {cfg.frontend} (stub)")
     parts.append(f"vocab {cfg.vocab_size} (padded {cfg.padded_vocab})")
     return ", ".join(parts)
 
@@ -2084,17 +2150,39 @@ def fa_inputs(dev, B, S, H, KV, Dh, dtype, seed):
                              ).to(dtype) for n in (H, KV, KV))
 
 
-def check_flash(dev, fa_ops, fa_ref) -> float:
-    """Kernel against plain at FA_CHECKS and at the prefill shapes of
-    serve_full's two rounds; the largest abs error."""
+def served_flash_shapes():
+    """The flash shapes of serve_full's two rounds for each SERVE_CASES
+    config with attention: (name, B, S, H, KV, Dh, dtype, causal, window);
+    S counts a vision model's patches; an encoder-decoder adds its
+    encoder's non-causal prefill over the frames."""
     from repro_torch.configs.registry import get_config
 
-    lens, _ = serve_prompts(get_config("granite-3-2b"))
-    rounds = [(f"granite serving round {r}", 4, int(lens[4 * r:4 * r + 4]
-               .max()), 32, 8, 64, torch.bfloat16, True, 0) for r in (0, 1)]
+    shapes = []
+    for arch, expect, cut, _ in SERVE_CASES:
+        cfg = get_config(arch).replace(**cut)
+        if "flash_attention" not in expect:
+            continue
+        lens, _ = serve_prompts(cfg)
+        extra = cfg.frontend_len if cfg.frontend == "patches" else 0
+        heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                 torch.bfloat16)
+        for r in (0, 1):
+            S = int(lens[4 * r:4 * r + 4].max()) + extra
+            shapes.append((f"{arch} serving round {r}", 4, S, *heads, True,
+                           0))
+        if cfg.is_encoder_decoder:
+            shapes.append((f"{arch} encoder", 4, cfg.frontend_len, *heads,
+                           False, 0))
+    return shapes
+
+
+def check_flash(dev, fa_ops, fa_ref) -> float:
+    """Kernel against plain at FA_CHECKS and at the prefill shapes of
+    serve_full's two rounds for every served config; the largest abs
+    error."""
     worst = 0.0
     for i, (name, B, S, H, KV, Dh, dtype, causal, window) in \
-            enumerate(FA_CHECKS + rounds):
+            enumerate(FA_CHECKS + served_flash_shapes()):
         q, k, v = fa_inputs(dev, B, S, H, KV, Dh, dtype, i)
         out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
@@ -2134,35 +2222,45 @@ def reset_launches(*wrappers):
             w.routes[r] = 0
 
 
-def serve_full(dev, kernels, arch, expect):
-    """``arch`` at full width and depth through BatchingEngine on the card:
-    8 requests, 2 rounds.  ``expect`` names the launches each kernel must
-    show over the drive (the others none).  Returns (the launches by
-    kernel, the ssd_scan launches by route, the engine, the prompts)."""
+def serve_full(dev, kernels, arch, expect, cut):
+    """``arch`` at full width (and depth, unless ``cut`` names fewer
+    layers) through BatchingEngine on the card: 8 requests, 2 rounds.
+    The weights are drawn on the card straight into their working dtypes
+    (``init_working_params``: no float32 copy of a stacked leaf).
+    ``expect`` names the launches each kernel must show over the drive
+    (the others none).  Returns (the launches by kernel, the ssd_scan
+    launches by route, the engine, the prompts, the drive's figures)."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.distributed.sharding import init_params, param_count
+    from repro_torch.distributed.sharding import param_count
     from repro_torch.models import api
     from repro_torch.serve import step
     from repro_torch.serve.engine import BatchingEngine
 
-    cfg = get_config(arch)
+    cfg = get_config(arch).replace(**cut)
     specs = api.param_specs(cfg)
+    n_gen = gen_len(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = init_params(specs, torch.Generator(device=dev).manual_seed(0))
+    params = step.init_working_params(
+        cfg, torch.Generator(device=dev).manual_seed(0))
     eng = BatchingEngine(cfg, params, max_batch=4, temperature=0.0)
-    del params                        # the engine keeps its bf16 copy
+    del params
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     init_peak = torch.cuda.max_memory_allocated()
+    tree_bytes = sum(t.numel() * t.element_size()
+                     for t in leaves(eng.params))
     torch.cuda.empty_cache()
     lens, prompts = serve_prompts(cfg)
-    print(f"[serve] {cfg.name}: {describe(cfg)}; {param_count(specs)} "
-          f"parameters, f32 init + bf16 working copy in {init_s:.2f} s, "
-          f"peak {init_peak / 1e9:.3f} GB; prompt lengths {lens.tolist()}, "
-          f"gen_len 32, max_batch 4", flush=True)
+    cut_txt = (f" (depth cut to {cfg.n_layers} of "
+               f"{get_config(arch).n_layers})" if cut else "")
+    print(f"[serve] {cfg.name}: {describe(cfg)}{cut_txt}; "
+          f"{param_count(specs)} parameters, drawn into the working dtypes "
+          f"in {init_s:.2f} s: tree {tree_bytes / 1e9:.3f} GB, peak "
+          f"{init_peak / 1e9:.3f} GB; prompt lengths {lens.tolist()}, "
+          f"gen_len {n_gen}, max_batch 4", flush=True)
     for p in prompts:
-        eng.submit(p, gen_len=32)
+        eng.submit(p, gen_len=n_gen)
     torch.cuda.reset_peak_memory_stats()
     reset_launches(*kernels.values())
     t0 = time.perf_counter()
@@ -2183,11 +2281,11 @@ def serve_full(dev, kernels, arch, expect):
               f"{st['decode_s_per_step'] * 1e3:.3f} ms/step over "
               f"{st['decode_steps']} steps", flush=True)
     want = {name: expect.get(name, 0) for name in kernels}
-    print(f"[serve] {cfg.name} summarize: "
-          f"{json.dumps(BatchingEngine.summarize(done))}; wall {wall:.3f} s;"
-          f" max_memory_allocated {peak} B ({peak / 1e9:.3f} GB); launches "
-          f"{got} (expected {want}); ssd_scan routes {ssd_routes}",
-          flush=True)
+    summary = BatchingEngine.summarize(done)
+    print(f"[serve] {cfg.name} summarize: {json.dumps(summary)}; wall "
+          f"{wall:.3f} s; max_memory_allocated {peak} B "
+          f"({peak / 1e9:.3f} GB); launches {got} (expected {want}); "
+          f"ssd_scan routes {ssd_routes}", flush=True)
     if got != want:
         fail(f"{cfg.name}: kernel launches {got}, expected {want} (one per "
              "prefill layer of its kind per round)")
@@ -2195,82 +2293,188 @@ def serve_full(dev, kernels, arch, expect):
         fail(f"{cfg.name}: a served prefill took the SSD scan's float32 "
              f"route: {ssd_routes}")
     if len(done) != 8 or any(
-            len(r.output) != 32 or not all(0 <= t < cfg.vocab_size
-                                           for t in r.output)
+            len(r.output) != n_gen or not all(0 <= t < cfg.vocab_size
+                                              for t in r.output)
             for r in done):
         fail(f"{cfg.name}: serving returned malformed outputs")
     # round 0's first-step logits: finite, and their argmax is the first
     # token the engine chose for each request
     toks = left_pad(prompts[:4]).to(dev)
-    logits, _ = step.make_prefill_step(cfg, cache_len=toks.shape[1] + 32)(
-        eng.params, {"tokens": toks})
+    logits, _ = step.make_prefill_step(cfg, cache_len=toks.shape[1] + n_gen)(
+        eng.params, step.model_inputs(cfg, toks))
     first = [r.output[0] for r in done[:4]]
     if tuple(logits.shape) != (4, 1, cfg.padded_vocab) or \
             not bool(torch.isfinite(logits).all()) or \
             logits[:, 0].argmax(-1).tolist() != first:
         fail(f"{cfg.name}: round 0's prefill logits are not finite or "
              "disagree with the engine's first tokens")
-    return got, ssd_routes, eng, prompts
+    figures = {**summary, "wall_s": wall, "peak_bytes": peak,
+               "init_peak_bytes": init_peak, "tree_bytes": tree_bytes,
+               "n_layers": cfg.n_layers, "gen_len": n_gen,
+               "prefill_ms": [st["prefill_s"] * 1e3 for st in eng.round_stats],
+               "decode_ms_per_step": [st["decode_s_per_step"] * 1e3
+                                      for st in eng.round_stats]}
+    return got, ssd_routes, eng, prompts, figures
 
 
-def serve_card_vs_cpu(dev, kernels, arch, depth):
-    """The same engine at full width, cut to ``depth`` layers, on the card
-    and on the CPU with the same weights and prompts; logits compared
-    along the CPU's greedy tokens."""
+def leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    else:
+        yield tree
+
+
+def serve_drives(dev, kernels, cases):
+    """Each case of ``cases`` (SERVE_CASES' form): its drive at full width
+    (serve_full), profiled, then against the CPU.  Returns the launches by
+    kernel and by path, the ssd_scan routes, the card-vs-CPU differences,
+    each drive's figures and the wall of them all."""
+    t0 = time.perf_counter()
+    launches = collections.Counter()
+    out = {"by_path": {}, "card_vs_cpu": {}, "figures": {},
+           "ssd_routes": dict.fromkeys(kernels["ssd_scan"].routes, 0)}
+    for arch, expect, cut, cpu_cut in cases:
+        walls = [time.perf_counter()]
+        got, routes, eng, prompts, figures = serve_full(dev, kernels, arch,
+                                                        expect, cut)
+        launches.update(got)
+        for r, n in routes.items():
+            out["ssd_routes"][r] += n
+        out["by_path"][arch] = {k: n for k, n in got.items() if n}
+        walls.append(time.perf_counter())
+        figures["profile"] = profile_serving(dev, eng, prompts)
+        out["figures"][arch] = figures
+        del eng
+        torch.cuda.empty_cache()
+        walls.append(time.perf_counter())
+        out["card_vs_cpu"][arch] = serve_card_vs_cpu(dev, kernels, arch,
+                                                     cpu_cut)
+        torch.cuda.empty_cache()
+        walls.append(time.perf_counter())
+        figures["phase_s"] = dict(zip(("drive", "profile", "card_vs_cpu"),
+                                      np.diff(walls).tolist()))
+        print(f"[serve] {arch} walls (s): {figures['phase_s']}", flush=True)
+    out["launches"] = dict(launches)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def serve_card_vs_cpu(dev, kernels, arch, cut):
+    """The same engine at full width, cut to ``cut``'s layers, on the
+    card and on the CPU with the same weights (drawn on the card in their
+    working dtypes and copied to the CPU) and prompts; the CPU engine's
+    logits at every step against the card's along the CPU's greedy tokens
+    (teacher-forced).  A model with a front end is also compared on
+    random frames or patches at its token embeddings' scale (the engine
+    feeds zeros, through which an encoder computes zeros)."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.distributed.sharding import init_params
     from repro_torch.models import api
     from repro_torch.serve import step
     from repro_torch.serve.engine import BatchingEngine
 
-    cfg = get_config(arch).replace(n_layers=depth)
+    cfg = get_config(arch).replace(**cut)
     n_ssd, n_attn = layer_counts(cfg)
-    params = init_params(api.param_specs(cfg),
-                         torch.Generator().manual_seed(1))
+    t0 = time.perf_counter()
+    params = to_device(step.init_working_params(
+        cfg, torch.Generator(device=dev).manual_seed(1)), "cpu")
+    init_s = time.perf_counter() - t0
     rng = np.random.default_rng(1)
     prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
-               for n in (256, 201)]
-    gen_len = 8
+               for n in ((32, 17) if cfg.is_encoder_decoder else (256, 201))]
+    n_gen = 8
     devices = (dev, torch.device("cpu"))
-    outs, secs, steps = [], [], []
+    outs, secs = [], []
+    # the CPU engine's logits and each MoE layer's routing at the compared
+    # positions (the prompt's last, then each decoded token), step by step
+    cpu_steps, cpu_routes = [], []
     for d in devices:
         eng = BatchingEngine(cfg, to_device(params, d), max_batch=2)
         for p in prompts:
-            eng.submit(p, gen_len=gen_len)
+            eng.submit(p, gen_len=n_gen)
         reset_launches(*kernels.values())
-        t0 = time.perf_counter()
-        outs.append([r.output for r in eng.run()])
-        secs.append(time.perf_counter() - t0)
+        with routing_log() if d.type == "cpu" else \
+                contextlib.nullcontext([]) as log:
+            if d.type == "cpu":
+                eng._sample = recording(eng._sample, log, cpu_steps,
+                                        cpu_routes)
+            t0 = time.perf_counter()
+            outs.append([r.output for r in eng.run()])
+            secs.append(time.perf_counter() - t0)
         got = {name: w.launches for name, w in kernels.items()}
         want = {name: 0 for name in kernels}
         if d.type == "cuda":
             want.update(flash_attention=n_attn, ssd_scan=n_ssd)
         if got != want:
-            fail(f"{cfg.name} depth {depth} engine on {d}: launches {got}, "
+            fail(f"{cfg.name} cut {cut} engine on {d}: launches {got}, "
                  f"expected {want}")
         if kernels["ssd_scan"].routes["f32"]:
-            fail(f"{cfg.name} depth {depth}: the SSD scan took its float32 "
+            fail(f"{cfg.name} cut {cut}: the SSD scan took its float32 "
                  "route")
     card, cpu = outs
-    # teacher-forced along the CPU's tokens: the logits of every step
-    for d in devices:
-        w = step.working_params(cfg, to_device(params, d))
-        toks = left_pad(prompts).to(d)
+    # the card teacher-forced along the CPU's tokens
+    t0 = time.perf_counter()
+    w = to_device(params, dev)
+    toks = left_pad(prompts).to(dev)
+    card_steps, card_routes = [], []
+    with routing_log() as log:
         logits, caches = step.make_prefill_step(
-            cfg, cache_len=toks.shape[1] + gen_len)(w, {"tokens": toks})
-        got = [logits[:, 0].float().cpu()]
+            cfg, cache_len=toks.shape[1] + n_gen)(
+                w, step.model_inputs(cfg, toks))
         decode = step.make_decode_step(cfg)
-        for t in range(1, gen_len):
-            tok = torch.tensor([[o[t - 1]] for o in cpu], device=d)
-            logits, caches = decode(w, tok, caches, toks.shape[1] + t - 1)
-            got.append(logits[:, 0].float().cpu())
-        steps.append(got)
-    diffs = [float((a - b).abs().max()) for a, b in zip(*steps)]
-    print(f"[serve] card vs cpu, {cfg.name} depth {cfg.n_layers}, prompts "
-          f"{[len(p) for p in prompts]}, {gen_len} tokens: engine "
-          f"{secs[0]:.2f} s on the card, {secs[1]:.2f} s on the cpu; "
-          f"first-step logits max abs diff {diffs[0]:.4e}, over all "
-          f"{gen_len} steps {max(diffs):.4e} (tol {CARD_CPU_TOL}); greedy "
+        for t in range(n_gen):
+            if t:
+                tok = torch.tensor([[o[t - 1]] for o in cpu], device=dev)
+                logits, caches = decode(w, tok, caches,
+                                        toks.shape[1] + t - 1)
+            card_steps.append(logits[:, 0].float().cpu())
+            card_routes.append(log[:])
+            del log[:]
+    forced_s = time.perf_counter() - t0
+    # a request whose expert choice at a compared position differs between
+    # the devices, at a near tie of the CPU's gates, routes to the other
+    # expert on a rounding (as two XLA builds could): that step's logits
+    # are not compared; a choice that differs away from a tie fails
+    flips = set()
+    for t, (card_t, cpu_t) in enumerate(zip(card_routes, cpu_routes)):
+        for (e_card, _), (e_cpu, gap) in zip(card_t, cpu_t):
+            for b in torch.nonzero((e_card[:, -1] != e_cpu[:, -1]).any(-1)
+                                   ).flatten().tolist():
+                print(f"[serve] {cfg.name} request {b} step {t}: an MoE "
+                      f"layer routes to {e_card[b, -1].tolist()} on the "
+                      f"card, {e_cpu[b, -1].tolist()} on the cpu (the "
+                      f"cpu's gate gap {float(gap[b, -1]):.3e}, near tie "
+                      f"below {ROUTE_TIE})", flush=True)
+                if float(gap[b, -1]) >= ROUTE_TIE:
+                    fail(f"{cfg.name}: card and cpu route a token to other "
+                         "experts away from a near tie")
+                flips.add((b, t))
+    steps = (card_steps, cpu_steps)
+    diffs = [max([float((a[b] - c[b]).abs().max()) for b in range(len(a))
+                  if (b, t) not in flips], default=0.0)
+             for t, (a, c) in enumerate(zip(*steps))]
+    front = ""
+    if cfg.frontend != "none":
+        g = torch.Generator().manual_seed(2)
+        batch = step.model_inputs(cfg, left_pad(prompts))
+        scale = float(params["embed"].float().std())
+        batch[cfg.frontend] = (torch.randn(batch[cfg.frontend].shape,
+                                           generator=g) * scale
+                               ).to(torch.bfloat16)
+        fwd = [api.forward_logits(cfg, to_device(params, d),
+                                  to_device(batch, d))[0].float().cpu()
+               for d in devices]
+        diffs.append(float((fwd[0] - fwd[1]).abs().max()))
+        front = (f"; on random {cfg.frontend} ({cfg.frontend_len}) the "
+                 f"forward's logits max abs diff {diffs[-1]:.4e}")
+    print(f"[serve] card vs cpu, {cfg.name} cut {cut}, prompts "
+          f"{[len(p) for p in prompts]}, {n_gen} tokens: engine "
+          f"{secs[0]:.2f} s on the card, {secs[1]:.2f} s on the cpu "
+          f"(weights drawn on the card and copied in {init_s:.2f} s, the "
+          f"card's teacher-forced pass {forced_s:.2f} s); first-step logits "
+          f"max abs diff "
+          f"{diffs[0]:.4e}, over all {n_gen} steps "
+          f"{max(diffs[:n_gen]):.4e}{front} (tol {CARD_CPU_TOL}); greedy "
           f"tokens equal: {card == cpu}", flush=True)
     if max(diffs) > CARD_CPU_TOL:
         fail(f"{cfg.name}: card and cpu logits differ beyond the tolerance")
@@ -2282,67 +2486,161 @@ def serve_card_vs_cpu(dev, kernels, arch, depth):
         margin = float(lg[b[at]] - lg[a[at]])
         print(f"[serve] {cfg.name} request {i} diverges at token {at}: cpu "
               f"{b[at]}, card {a[at]}, cpu margin {margin:.4e}", flush=True)
-        if margin > CARD_CPU_TOL:
+        if margin > CARD_CPU_TOL and (i, at) not in flips:
             fail(f"{cfg.name}: card and cpu greedy tokens differ beyond a "
                  "near tie")
     return max(diffs)
 
 
+def recording(sample, log, steps, routes):
+    """``sample`` (an engine's ``_sample``) that first records the step's
+    logits (B, V) and the MoE routing ``log`` holds since the last step."""
+    def record(logits):
+        steps.append(logits[:, 0].float().cpu())
+        routes.append(log[:])
+        del log[:]
+        return sample(logits)
+    return record
+
+
+# a near tie of an MoE router's float32 gates: a kept expert's gate within
+# this of the next expert's (tests/test_torch_serving.py's ROUTE_TIE)
+ROUTE_TIE = 1e-3
+
+
+@contextlib.contextmanager
+def routing_log():
+    """Record, on the CPU, each MoE layer's routing as the forward runs:
+    (the chosen experts (B', c, k) in expert order, the smallest gap
+    between a kept choice's gate and the next expert's (B', c))."""
+    from repro_torch.models import moe
+
+    log, dispatch = [], moe._top_k_dispatch
+
+    def spy(gates, top_k, capacity):
+        out = dispatch(gates, top_k, capacity)
+        g = torch.sort(gates, dim=-1, descending=True).values
+        gap = (g[..., :top_k] - g[..., 1:top_k + 1]).min(dim=-1).values
+        log.append((out[0].cpu(), gap.cpu()))
+        return out
+    moe._top_k_dispatch = spy
+    try:
+        yield log
+    finally:
+        moe._top_k_dispatch = dispatch
+
+
+MOE_PHASES = {"router": "_route", "dispatch": "_dispatch",
+              "experts": "_experts", "combine": "_combine"}
+
+
+@contextlib.contextmanager
+def moe_ranges():
+    """Each MoE phase function (``models/moe.py``: the router with its
+    top-k, the dispatch gather, the experts' bmm, the combine) inside a
+    profiler range ``moe.<phase>`` while the context lasts."""
+    from repro_torch.models import moe
+
+    saved = {name: getattr(moe, fn) for name, fn in MOE_PHASES.items()}
+
+    def ranged(name, fn):
+        def call(*args):
+            with torch.profiler.record_function(f"moe.{name}"):
+                return fn(*args)
+        return call
+    for name, fn in saved.items():
+        setattr(moe, MOE_PHASES[name], ranged(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(moe, MOE_PHASES[name], fn)
+
+
 def profile_serving(dev, eng, prompts):
     """Device busy share and top kernels of one prefill (round 0's
-    prompts) and of 8 decode steps after it, torch.profiler."""
+    prompts) and of 4 decode steps after it, torch.profiler; for an MoE
+    model each phase's device time (the kernels launched inside its
+    range).  Returns {phase: {device busy ms, wall ms, moe ms}}."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import step
 
     cfg = eng.cfg
     toks = left_pad(prompts[:4]).to(dev)
+    batch = step.model_inputs(cfg, toks)
     prefill = step.make_prefill_step(cfg, cache_len=toks.shape[1] + 32)
     decode = step.make_decode_step(cfg)
-    logits, caches = prefill(eng.params, {"tokens": toks})
+    logits, caches = prefill(eng.params, batch)
     torch.cuda.synchronize()
 
-    def decode_8():
+    def decode_4():
         nonlocal logits, caches
         token = step.greedy_sample(logits[:, 0])[:, None]
-        for t in range(8):
+        for t in range(4):
             logits, caches = decode(eng.params, token, caches,
                                     toks.shape[1] + t)
             token = step.greedy_sample(logits[:, 0])[:, None]
             token.tolist()
 
-    phases = [("prefill", lambda: prefill(eng.params, {"tokens": toks}), 1),
-              ("decode x8", decode_8, 8)]
+    n_layers = cfg.n_layers + cfg.n_enc_layers
+    ranges = [f"moe.{k}" for k in MOE_PHASES]
+    phases = [("prefill", lambda: prefill(eng.params, batch), 1),
+              ("decode x4", decode_4, 4)]
+    out = {}
     for name, fn, steps in phases:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with moe_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA]
+                                   ) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         by_kernel = collections.Counter()
+        by_range = collections.Counter()
         n_kernels = 0
         for ev in prof.events():
-            if ev.device_type == torch.autograd.DeviceType.CUDA:
+            if ev.name in ranges:       # a range, not a kernel
+                if ev.device_type == torch.autograd.DeviceType.CPU:
+                    us = getattr(ev, "device_time_total", None)
+                    by_range[ev.name] += (ev.cuda_time_total if us is None
+                                          else us) / 1e3
+            elif ev.device_type == torch.autograd.DeviceType.CUDA:
                 by_kernel[ev.name] += ev.time_range.elapsed_us() / 1e3
                 n_kernels += 1
         busy = sum(by_kernel.values())
         top = ", ".join(f"{k[:48]}={v:.3f}"
                         for k, v in by_kernel.most_common(6))
-        per_layer = n_kernels / cfg.n_layers / steps
+        per_layer = n_kernels / n_layers / steps
         shares = {k: sum(v for kn, v in by_kernel.items()
                          if any(d in kn for d in dk))
                   for k, dk in DEVICE_KERNELS.items()}
         share = "; ".join(f"{k} {v:.3f} ms ({100 * v / busy:.1f}% of device "
                           f"time)" for k, v in shares.items() if v)
-        print(f"[profile] {cfg.name} serve {name} (B=4, S={toks.shape[1]}): "
+        moe_txt = ""
+        if cfg.moe and busy > 0:
+            experts = by_range["moe.experts"]
+            moe_txt = "; MoE " + ", ".join(
+                f"{r[4:]} {v:.3f} ms ({100 * v / busy:.1f}%)"
+                for r, v in by_range.items()) + (
+                f"; router + dispatch + combine against the experts' bmm: "
+                f"{(sum(by_range.values()) - experts) / max(experts, 1e-9):.3f}x")
+        front = (f" after {cfg.frontend_len} {cfg.frontend}"
+                 if cfg.frontend == "patches" else "")
+        print(f"[profile] {cfg.name} serve {name} (B=4, S={toks.shape[1]}"
+              f"{front}): "
               f"wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
               f"({100 * busy / wall_ms:.1f}%), {n_kernels} kernels "
               f"({per_layer:.1f} per layer{' per step' if steps > 1 else ''}"
-              f"); {share or 'no port kernel'}; top ms: {top}" if busy > 0
-              else f"[profile] {cfg.name} serve {name}: wall {wall_ms:.2f} "
-              f"ms, device time not measured (no device activity recorded)",
-              flush=True)
+              f"); {share or 'no port kernel'}{moe_txt}; top ms: {top}"
+              if busy > 0 else f"[profile] {cfg.name} serve {name}: wall "
+              f"{wall_ms:.2f} ms, device time not measured (no device "
+              f"activity recorded)", flush=True)
+        out[name] = {"wall_ms": wall_ms, "device_busy_ms": busy,
+                     "kernels_per_layer": per_layer,
+                     **{f"{k}_ms": v for k, v in shares.items()},
+                     **{f"{r}_ms": v for r, v in by_range.items()}}
+    return out
 
 
 def queued_ms(fn, reps: int = 20) -> float:
@@ -2411,37 +2709,40 @@ def device_ms(fn, kernel: str, reps: int = 20):
     return (sum(us) / len(us) / 1e3 if us else None), launch
 
 
-def time_flash(dev, fa_ops, fa_ref, B, S, H, KV, Dh):
-    """The flash kernel at a prefill shape (bf16, causal): kernel (CUDA
-    events around the call, and its device time alone), plain version,
-    torch's SDPA (yardstick), the bound, and the float32 route's kernel
-    on the same inputs in float32."""
+def time_flash(dev, fa_ops, fa_ref, B, S, H, KV, Dh, causal=True):
+    """The flash kernel at a prefill shape (bf16): kernel (CUDA events
+    around the call, and its device time alone), plain version, torch's
+    SDPA (yardstick), the bound, and the float32 route's kernel on the
+    same inputs in float32."""
     import torch.nn.functional as F
 
     q, k, v = fa_inputs(dev, B, S, H, KV, Dh, torch.bfloat16, 99)
-    out = fa_ops.flash_attention(q, k, v)
+    kw = dict(causal=causal)
+    out = fa_ops.flash_attention(q, k, v, **kw)
     sdpa = lambda: F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=True, enable_gqa=True)
+        is_causal=causal, enable_gqa=True)
     lib_err = float((sdpa().transpose(1, 2).float() - out.float())
                     .abs().max())
-    ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v), 20)
-    dev_ms, launch = device_ms(lambda: fa_ops.flash_attention(q, k, v),
+    ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v, **kw), 20)
+    dev_ms, launch = device_ms(lambda: fa_ops.flash_attention(q, k, v, **kw),
                                "fa_wgmma_kernel")
-    plain_ms = cuda_ms(lambda: fa_ref.flash_attention(q, k, v), 5)
+    plain_ms = cuda_ms(lambda: fa_ref.flash_attention(q, k, v, **kw), 5)
     lib_ms = cuda_ms(sdpa, 20)
     qf, kf, vf = q.float(), k.float(), v.float()
-    f32_ms = cuda_ms(lambda: fa_ops.flash_attention(qf, kf, vf), 5)
+    f32_ms = cuda_ms(lambda: fa_ops.flash_attention(qf, kf, vf, **kw), 5)
     # bytes: q, k, v read once, o written once; operations: the live
-    # (causal) query-key pairs, 2 flops each for q.k and for p.v per Dh
+    # query-key pairs (causal: the lower triangle), 2 flops each for q.k
+    # and for p.v per Dh
     nbytes = 2 * (2 * B * S * H * Dh + 2 * B * S * KV * Dh)
-    flops = 4 * B * H * Dh * (S * (S + 1) // 2)
+    flops = 4 * B * H * Dh * (S * (S + 1) // 2 if causal else S * S)
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_OPS_PER_S
     bound = 1e3 * max(t_bytes, t_ops)
     dev_txt = "not measured" if dev_ms is None else \
         f"{dev_ms:.4f} ms ({flops / dev_ms / 1e9:.2f} TFLOP/s)"
     print(f"[time] flash_attention B={B} S={S} H={H} KV={KV} Dh={Dh} bf16 "
-          f"causal: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s; on "
+          f"{'causal' if causal else 'non-causal'}: kernel {ms:.4f} ms "
+          f"({flops / ms / 1e9:.2f} TFLOP/s; on "
           f"the device alone {dev_txt}; launch {launch}), plain "
           f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (max abs diff to the "
           f"kernel {lib_err:.3e}), bound {bound:.5f} ms ({nbytes} bytes, "
@@ -3394,19 +3695,12 @@ def main() -> None:
     added_wall["cloud"] = time.perf_counter() - t0
 
     # --------------------------------------------------------- LM serving
-    by_path, card_cpu_diff = {}, {}
-    ssd_routes = dict.fromkeys(ssd_ops.ssd.routes, 0)
-    for arch, expect, depth in SERVE_CASES:
-        got, routes, eng, prompts = serve_full(dev, kernels, arch, expect)
-        for name, n in got.items():
-            launches[name] += n
-        for r, n in routes.items():
-            ssd_routes[r] += n
-        by_path[arch] = {k: n for k, n in got.items() if n}
-        profile_serving(dev, eng, prompts)
-        del eng
-        torch.cuda.empty_cache()
-        card_cpu_diff[arch] = serve_card_vs_cpu(dev, kernels, arch, depth)
+    serving = serve_drives(dev, kernels, SERVE_CASES)
+    by_path, card_cpu_diff = serving["by_path"], serving["card_vs_cpu"]
+    ssd_routes = serving["ssd_routes"]
+    for name, n in serving["launches"].items():
+        launches[name] += n
+    added_wall["serving"] = serving["wall_s"]
 
     # the serving analogue of Table 3: tau from profiled BatchingEngine
     # rounds against the engine's closed-loop T, at granite-3-2b's smoke
@@ -3988,6 +4282,11 @@ def main() -> None:
 
     fa_time = time_flash(dev, fa_ops, fa_ref, 4, 1024, 32, 8, 64)
     fa_zamba2 = time_flash(dev, fa_ops, fa_ref, 4, 896, 32, 32, 112)
+    fa_more = {f"at_{name}": {"shape": f"B={a[0]} S={a[1]} H={a[2]} "
+                                       f"KV={a[3]} Dh={a[4]} bf16 "
+                                       f"{'causal' if a[5] else 'non-causal'}",
+                              **time_flash(dev, fa_ops, fa_ref, *a)}
+               for name, a in FLASH_TIMES.items()}
     ssd_time = time_ssd(dev, ssd_ops, ssd_ref)
     path_launches = lambda k: {a: n[k] for a, n in by_path.items() if k in n}
 
@@ -4157,7 +4456,8 @@ def main() -> None:
          "launches_by_path": path_launches("flash_attention"),
          "card_vs_cpu_logits_max_abs_diff": card_cpu_diff,
          "at_zamba2_prefill": {"shape": "B=4 S=896 H=32 KV=32 Dh=112 bf16 "
-                                        "causal", **fa_zamba2}},
+                                        "causal", **fa_zamba2},
+         **fa_more, "serving_drives": serving["figures"]},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/kernel.py:69",

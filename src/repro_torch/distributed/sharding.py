@@ -50,23 +50,44 @@ def param_count(specs) -> int:
     return total
 
 
-def init_params(specs, generator: torch.Generator) -> Dict[str, Any]:
+def init_params(specs, generator: torch.Generator,
+                hold: Optional[Callable[[str, ParamSpec], torch.dtype]] = None
+                ) -> Dict[str, Any]:
     """Materialize parameters on the generator's device: zeros, ones, or
     ``normal * scale / sqrt(fan_in)`` drawn in float32 from ``generator``
-    and cast to the spec's dtype, leaves in sorted-key order.  The draws
-    are torch's, not ``jax.random``'s: tests carry the reference's weights
-    across with ``core.interop.params_from_reference`` instead."""
+    and cast to the spec's dtype, leaves in sorted-key order.  A leaf
+    stacked over layers (its first axis ``"layers"``) is drawn one layer
+    at a time.  The draws are torch's, not ``jax.random``'s: tests carry
+    the reference's weights across with
+    ``core.interop.params_from_reference`` instead.
+
+    ``hold(name, spec)``, where given, names the dtype each leaf is kept
+    in (``name`` is its key): each layer's draw is cast to the spec's
+    dtype and then at once into a preallocated tensor of that dtype, so
+    the tree equals the default tree cast leaf by leaf, and no float32
+    copy of a stacked leaf exists beside it.  This is how a model whose
+    float32 tree does not fit on one device is built in bfloat16
+    (``serve.step.init_working_params``)."""
     device = generator.device
 
-    def one(s: ParamSpec) -> torch.Tensor:
+    def one(name: str, s: ParamSpec) -> torch.Tensor:
         dtype = DTYPES[s.dtype]
+        out = torch.empty(s.shape, device=device,
+                          dtype=hold(name, s) if hold else dtype)
         if s.init == "zeros":
-            return torch.zeros(s.shape, dtype=dtype, device=device)
+            return out.zero_()
         if s.init == "ones":
-            return torch.ones(s.shape, dtype=dtype, device=device)
+            return out.fill_(1)
         fan_in = s.shape[-2] if len(s.shape) >= 2 else max(s.shape[-1], 1)
         std = s.scale / math.sqrt(max(fan_in, 1))
-        v = torch.randn(s.shape, generator=generator, dtype=torch.float32,
-                        device=device)
-        return v.mul_(std).to(dtype)
-    return map_tree(one, specs)
+        for part in (out if s.axes[:1] == ("layers",) else out[None]):
+            v = torch.randn(part.shape, generator=generator,
+                            dtype=torch.float32, device=device)
+            part.copy_(v.mul_(std).to(dtype))
+        return out
+
+    def walk(tree, name=""):
+        if isinstance(tree, dict):
+            return {k: walk(tree[k], k) for k in sorted(tree)}
+        return one(name, tree)
+    return walk(specs)

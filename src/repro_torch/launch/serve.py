@@ -1,9 +1,12 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id>``.
-Random-inits a reduced config from a seeded generator on the device,
-serves a synthetic request stream through the batching engine and prints
-latency/throughput.  ``--device`` defaults to the CUDA card and fails
-without one; ``--device cpu`` runs the plain PyTorch versions of the
-kernels.
+Random-inits a reduced (smoke) config of any registry arch from a seeded
+generator on the device, in its working dtypes
+(``serve.step.init_working_params``), serves a synthetic request stream
+through the batching engine and prints latency/throughput.  The audio
+(``whisper-tiny``) and vision (``phi-3-vision-4.2b``) archs get the
+engine's front-end stub: zero frame or patch embeddings.  ``--device``
+defaults to the CUDA card and fails without one; ``--device cpu`` runs
+the plain PyTorch versions of the kernels.
 
 As in the reference, every request of a round is left-padded to the
 round's longest prompt, and a Mamba2 (``mamba2-780m``) or hybrid
@@ -19,9 +22,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.registry import ARCH_IDS, get_smoke_config
-from repro_torch.distributed.sharding import init_params
-from repro_torch.models import api
 from repro_torch.serve.engine import BatchingEngine
+from repro_torch.serve.step import init_working_params
 
 
 def main(argv=None):
@@ -38,7 +40,7 @@ def main(argv=None):
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch)
     gen = torch.Generator(device=dev).manual_seed(0)
-    params = init_params(api.param_specs(cfg), gen)
+    params = init_working_params(cfg, gen)
     eng = BatchingEngine(cfg, params, max_batch=args.batch)
     rng = np.random.default_rng(0)
     for _ in range(args.requests):

@@ -160,6 +160,11 @@ def attn_specs(cfg: ModelConfig, prefix: Tuple[int, ...] = ()) -> Params:
     }
 
 
+def cross_attn_specs(cfg: ModelConfig,
+                     prefix: Tuple[int, ...] = ()) -> Params:
+    return attn_specs(cfg, prefix)
+
+
 def make_cache(cfg: ModelConfig, batch: int, length: int) -> Params:
     """Decode KV cache: one bf16 ring of ``length`` slots (pos -1 =
     unwritten), on torch's default device."""
@@ -172,8 +177,9 @@ def make_cache(cfg: ModelConfig, batch: int, length: int) -> Params:
 def attn_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                positions: torch.Tensor, window: int = 0, causal: bool = True,
                cache: Optional[Params] = None, cur_pos: Optional[int] = None,
+               kv_source: Optional[torch.Tensor] = None,
                attn_impl: str = "auto", return_kv: bool = False):
-    """Self-attention block with pre-norm and residual.
+    """Self- or cross-attention block with pre-norm and residual.
 
     Modes:
       * full (train / prefill): ``cache is None``; optionally
@@ -182,10 +188,21 @@ def attn_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
         at slot ``cur_pos % length``.  The port updates the cache tensors
         in place (the reference returns new arrays): no copy of the cache
         per token.  Returns the same dict.
+      * cross: ``kv_source`` given (encoder states) -- K/V from it without
+        rope, exact non-causal attention (the reference's einsum oracle,
+        no kernel); returns ``(x + out, None)``.
     """
     B = x.shape[0]
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     q = (h @ p["wq"].to(h.dtype)).reshape(B, -1, cfg.n_heads, cfg.head_dim)
+    if kv_source is not None:                        # cross attention
+        src = kv_source.to(h.dtype)
+        k = (src @ p["wk"].to(h.dtype)).reshape(B, -1, cfg.n_kv_heads,
+                                                cfg.head_dim)
+        v = (src @ p["wv"].to(h.dtype)).reshape(B, -1, cfg.n_kv_heads,
+                                                cfg.head_dim)
+        out = attention_exact(q, k, v, causal=False)
+        return x + out.reshape(B, -1, cfg.q_dim) @ p["wo"].to(h.dtype), None
     q = apply_rope(q, positions, cfg.rope_theta)
     k = (h @ p["wk"].to(h.dtype)).reshape(B, -1, cfg.n_kv_heads,
                                           cfg.head_dim)

@@ -1,5 +1,6 @@
-"""Decoder-LM assembly for the ``dense``, ``ssm`` (Mamba2) and ``hybrid``
-(Zamba2: Mamba2 blocks and one shared attention block) families, on torch
+"""Decoder-LM assembly for the ``dense``, ``moe``, ``ssm`` (Mamba2),
+``hybrid`` (Zamba2: Mamba2 blocks and one shared attention block) and
+``vlm`` (patch embeddings prepended to the tokens) families, on torch
 tensors.
 
 Layers are organized in repeating groups (``cfg.layer_kinds()``), with the
@@ -10,8 +11,7 @@ group's ``attn`` position has no parameters of its own: every application
 uses the top-level ``shared_attn`` tree, and each application keeps its own
 KV ring.  The reference's ``lax.scan`` over the stacked groups is a Python
 loop over the leading axis here; remat has no forward effect and is
-dropped.  MoE models, encoder-decoder models and the modality front ends
-raise ``NotImplementedError``.
+dropped.
 """
 from __future__ import annotations
 
@@ -24,21 +24,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import ParamSpec
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
+from repro_torch.models import moe as MOE
 
 Params = Dict[str, Any]
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the model families later slices of the port bring."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet; they are the next "
-            "model family (ROADMAP Queue 1, MoE)")
-    if cfg.is_encoder_decoder or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models and the patches/frames "
-            "front ends are not ported yet; they come after MoE (ROADMAP "
-            "Queue 1, Encoder-decoder)")
 
 
 def _scale_embeddings(cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
@@ -75,12 +63,22 @@ def _block_specs(cfg: ModelConfig, kind: str, prefix) -> Params:
         return M.mamba_specs(cfg, prefix)
     if kind == "attn" and cfg.shared_attn:
         return {}       # parameters live in the top-level shared_attn entry
-    return {"attn": L.attn_specs(cfg, prefix),
-            "mlp": L.mlp_specs(cfg, prefix=prefix)}
+    block: Params = {"attn": L.attn_specs(cfg, prefix)}
+    if cfg.moe is not None:
+        block["moe"] = MOE.moe_specs(cfg, prefix)
+    else:
+        block["mlp"] = L.mlp_specs(cfg, prefix=prefix)
+    return block
+
+
+def _ffn(cfg: ModelConfig, bp: Params, h: torch.Tensor):
+    """The block's feed-forward half: (h, aux loss or None)."""
+    if "moe" in bp:
+        return MOE.moe_apply(cfg, bp["moe"], h)
+    return L.mlp_apply(cfg, bp["mlp"], h), None
 
 
 def param_specs(cfg: ModelConfig) -> Params:
-    check_supported(cfg)
     D = cfg.d_model
     kinds = cfg.layer_kinds()
     ng = cfg.n_groups
@@ -160,50 +158,68 @@ def _attn_params(cfg: ModelConfig, kind: str, bp: Params,
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
+            extra_embeds: Optional[torch.Tensor] = None,
             attn_impl: str = "auto", want_caches: bool = False,
             cache_len: int = 0):
-    """Full forward.  Returns (logits, aux_loss, caches|None); the ported
-    families have no auxiliary loss (a zero).  ``want_caches``
-    additionally returns decode caches: Mamba2 states and conv histories,
-    and KV rings of length ``cache_len`` (defaults to the sequence
-    length)."""
-    check_supported(cfg)
+    """Full forward.  Returns (logits, aux_loss, caches|None): the aux
+    loss sums the MoE layers' (a zero without them).  ``extra_embeds``
+    (B, P, D): modality-stub embeddings prepended to the token embeddings
+    (vlm patches); positions run over the whole sequence and the logits
+    are the tokens' only.  ``want_caches`` additionally returns decode
+    caches: Mamba2 states and conv histories, and KV rings of length
+    ``cache_len`` (defaults to the sequence length, patches included)."""
     kinds = cfg.layer_kinds()
     emb = params["embed"]
     h = _embed(cfg, emb, tokens)
+    n_extra = 0
+    if extra_embeds is not None:
+        h = torch.cat([extra_embeds.to(h.dtype), h], dim=1)
+        n_extra = extra_embeds.shape[1]
     B, S, _ = h.shape
     positions = torch.arange(S, device=h.device).expand(B, S)
     cache_len = cache_len or S
     shared = params.get("shared_attn")
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
 
     def layer(h, kind, bp):
+        """(h, aux or None, cache or None)."""
         if kind == "mamba":
-            return M.mamba_apply(cfg, bp, h, return_state=want_caches)
+            h, state = M.mamba_apply(cfg, bp, h, return_state=want_caches)
+            return h, None, state
         ap = _attn_params(cfg, kind, bp, shared)
         h, kv = L.attn_apply(cfg, ap["attn"], h, positions=positions,
                              window=_layer_window(cfg, kind),
                              attn_impl=attn_impl, return_kv=want_caches)
-        h = L.mlp_apply(cfg, ap["mlp"], h)
-        return h, (_kv_to_ring(cfg, kind, kv, cache_len)
-                   if want_caches else None)
+        h, aux = _ffn(cfg, ap, h)
+        return h, aux, (_kv_to_ring(cfg, kind, kv, cache_len)
+                        if want_caches else None)
 
-    group_caches = []
+    group_caches, group_aux = [], []
     for gp in _groups(cfg, params["groups"]):
-        caches = {}
+        caches, aux_g = {}, zero
         for i, kind in enumerate(kinds):
-            h, caches[f"l{i}"] = layer(h, kind, gp[f"l{i}"])
+            h, aux, caches[f"l{i}"] = layer(h, kind, gp[f"l{i}"])
+            if aux is not None:
+                aux_g = aux_g + aux
         group_caches.append(caches)
+        group_aux.append(aux_g)
+    aux_total = (torch.stack(group_aux).sum() if cfg.n_groups > 1
+                 else group_aux[0])
     tail_caches = {}
     for i, kind in enumerate(kinds[: cfg.n_tail_layers]):
-        h, tail_caches[f"l{i}"] = layer(h, kind, params["tail"][f"l{i}"])
+        h, aux, tail_caches[f"l{i}"] = layer(h, kind,
+                                             params["tail"][f"l{i}"])
+        if aux is not None:
+            aux_total = aux_total + aux
 
     h = L.rms_norm(h, params["final_ln"], cfg.norm_eps)
+    if n_extra:
+        h = h[:, n_extra:]
     logits = _logits_from_hidden(cfg, h, emb)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if not want_caches:
-        return logits, aux, None
+        return logits, aux_total, None
     groups = _stack(group_caches) if cfg.n_groups > 1 else group_caches[0]
-    return logits, aux, {"groups": groups, "tail": tail_caches}
+    return logits, aux_total, {"groups": groups, "tail": tail_caches}
 
 
 # --------------------------------------------------------------------------
@@ -213,7 +229,6 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int) -> Params:
     """Zero-initialized decode caches (pos = -1 -> masked), on torch's
     default device."""
-    check_supported(cfg)
     kinds = cfg.layer_kinds()
 
     def one(kind: str) -> Params:
@@ -236,7 +251,6 @@ def decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor,
     """One decode step.  token: (B,1) int; cur_pos: the position being
     written.  Returns (logits (B,1,V), caches): the caches are updated in
     place and returned."""
-    check_supported(cfg)
     kinds = cfg.layer_kinds()
     emb = params["embed"]
     h = _embed(cfg, emb, token)
@@ -252,7 +266,7 @@ def decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor,
         h, _ = L.attn_apply(cfg, ap["attn"], h, positions=positions,
                             window=_layer_window(cfg, kind), cache=cache,
                             cur_pos=cur_pos)
-        return L.mlp_apply(cfg, ap["mlp"], h)
+        return _ffn(cfg, ap, h)[0]
 
     for gp, gc in zip(_groups(cfg, params["groups"]),
                       _groups(cfg, caches["groups"])):

@@ -6,12 +6,23 @@ generation budget.  The engine records per-request latency, and per round
 the prefill time and the decode time per step (``round_stats``).
 
 As in the reference: prompts are left-padded with token 0 and the pads are
-attended to (positions start at the pad); the prefill builds caches of
-``max_prompt + max_gen`` slots; ``max_gen - 1`` decode steps follow at
-``cur = max_prompt + step - 1``; outputs are cut per request at its
-``gen_len``; the sampling key is split once per sampled token (on the host:
-a split is a few words of threefry).  Each step's tokens are read back once
+attended to (positions start at the pad); an audio (``frames``) or vision
+(``patches``) model gets its front-end stub, zeros of (B, frontend_len,
+d_model) in bfloat16; the prefill builds caches of ``max_prompt +
+max_gen`` slots; ``max_gen - 1`` decode steps follow at ``cur =
+max_prompt + step - 1``; outputs are cut per request at its ``gen_len``;
+the sampling key is split once per sampled token (on the host: a split is
+a few words of threefry).  Each step's tokens are read back once
 (``tolist``), and the time stamps follow that synchronizing read.
+
+The reference's ring size and decode positions do not count the patches
+a vision model prepends, and the port keeps them so.  When the patches
+make the prefill longer than the ring, the ring keeps the prefill's last
+positions, and those past a decode step's position are masked from it.
+At phi-3-vision's full size (576 patches, 32 generated tokens) the ring
+keeps positions 544 and up, and a decode step at position ``cur`` sees
+those up to ``cur``: no prompt token while ``cur < 576``, which holds at
+every step for a prompt of up to 545 tokens.
 """
 from __future__ import annotations
 
@@ -25,7 +36,8 @@ import torch
 from repro_torch import rng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.serve.step import (make_decode_step, make_prefill_step,
-                                    sample_token, working_params)
+                                    model_inputs, sample_token,
+                                    working_params)
 
 
 @dataclass
@@ -81,7 +93,8 @@ class BatchingEngine:
         toks = np.zeros((B, max_prompt), np.int64)
         for i, r in enumerate(batch):                 # left-pad to align ends
             toks[i, max_prompt - len(r.tokens):] = r.tokens
-        inputs = {"tokens": torch.from_numpy(toks).to(self.device)}
+        inputs = model_inputs(self.cfg,
+                              torch.from_numpy(toks).to(self.device))
 
         # prefill must leave room for generated tokens in the ring caches
         prefill = make_prefill_step(self.cfg, cache_len=max_prompt + max_gen)

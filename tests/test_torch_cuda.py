@@ -1042,7 +1042,9 @@ def test_ssd_kernel_raises_on_bad_input(dev):
 
 
 @pytest.mark.parametrize("arch", ["granite-3-2b", "gemma3-27b",
-                                  "mamba2-780m", "zamba2-7b"])
+                                  "mamba2-780m", "zamba2-7b",
+                                  "qwen2-moe-a2.7b", "llama4-scout-17b-a16e",
+                                  "whisper-tiny", "phi-3-vision-4.2b"])
 def test_serving_steps_on_the_card_match_the_cpu(dev, arch):
     cfg = get_smoke_config(arch)
     params = init_params(api.param_specs(cfg), torch.Generator().manual_seed(1))
@@ -1056,10 +1058,11 @@ def test_serving_steps_on_the_card_match_the_cpu(dev, arch):
         p = _to(step.working_params(cfg, params), d)
         before = (fa_ops.flash_attention.launches, ssd_ops.ssd.launches)
         logits, caches = step.make_prefill_step(cfg, cache_len=S + 8)(
-            p, {"tokens": toks.to(d)})
+            p, step.model_inputs(cfg, toks.to(d)))
         launched = (fa_ops.flash_attention.launches - before[0],
                     ssd_ops.ssd.launches - before[1])
-        want = (cfg.n_layers - n_ssd, n_ssd) if d == dev else (0, 0)
+        n_attn = cfg.n_layers + cfg.n_enc_layers - n_ssd
+        want = (n_attn, n_ssd) if d == dev else (0, 0)
         assert launched == want
         dec, _ = step.make_decode_step(cfg)(p, token.to(d), caches, S)
         out[str(d)] = (logits.float().cpu(), dec.float().cpu())

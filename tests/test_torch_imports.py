@@ -41,7 +41,8 @@ def test_importing_every_module_leaves_jax_and_repro_out():
               "repro_torch.obs.provenance", "repro_torch.obs.recorder",
               "repro_torch.obs.export", "repro_torch.cloud",
               "repro_torch.cloud.hosts", "repro_torch.cloud.placement",
-              "repro_torch.cloud.joint", "repro_torch.cloud.windows"):
+              "repro_torch.cloud.joint", "repro_torch.cloud.windows",
+              "repro_torch.models.moe", "repro_torch.models.encdec"):
         assert m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -1,7 +1,10 @@
 """The port's serving path against the JAX reference on the CPU: configs,
 model layers, the full forward with its caches, the decode step, sampling
 and the batching engine, on the granite-3-2b and gemma3-27b smoke configs
-(gemma3 brings local windows, ring rolls and gelu).  Weights are the
+(gemma3 brings local windows, ring rolls and gelu), the MoE ones
+(qwen2-moe-a2.7b, llama4-scout-17b-a16e) and phi-3-vision-4.2b; the
+engine also on whisper-tiny (encoder-decoder) with its frame stub, and
+phi-3-vision with its patch stub.  Weights are the
 reference's ``init_params`` draws carried across with
 ``params_from_reference``; other inputs are made with numpy from a seed.
 
@@ -16,12 +19,20 @@ Tolerances, with their reasons:
     config): XLA fuses chains of bfloat16 elementwise ops and rounds once
     where torch rounds after each op, and the differences grow over the
     layers.
+  * MoE routing (qwen2-moe, llama4-scout): in bfloat16 a token whose
+    router sits at a near tie (a kept expert's gate within ROUTE_TIE =
+    1e-3 of the next one's) may go to the other expert, since the
+    activations feeding the router differ by bfloat16 roundings; its
+    logits then differ by far more than BF16 (0.61 measured, at a gap of
+    6.3e-5 on the qwen2-moe smoke config, exact attention route).  Such
+    positions, and only they, are exempt (``_close_but_at_ties``).
   * Greedy tokens: equal to the reference's in float32.  In bfloat16 the
     smoke models' top two logits are often one or two bfloat16 ulps apart
     (0.004-0.008), inside the noise above, so a token may differ there: the
     test requires every divergence to be such a near tie of the reference's
     own logits (its pick within BF16 of the port's pick).
 """
+import contextlib
 import dataclasses
 
 import jax
@@ -34,6 +45,7 @@ from repro.configs import registry as jreg
 from repro.distributed.sharding import init_params as ref_init_params
 from repro.models import api as japi
 from repro.models import layers as JL
+from repro.models import moe as JMOE
 from repro.serve import engine as jengine
 from repro.serve import step as jstep
 from repro_torch import rng
@@ -43,14 +55,23 @@ from repro_torch.distributed.sharding import init_params, param_count
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import api as tapi
 from repro_torch.models import layers as TL
+from repro_torch.models import moe as TMOE
 from repro_torch.serve import engine as tengine
 from repro_torch.serve import step as tstep
 
 torch.set_num_threads(1)
 
 F32, BF16, BF16_CACHE = 1e-4, 0.08, 0.16
+# a near tie of an MoE router's float32 gates (see _routing_ties)
+ROUTE_TIE = 1e-3
 BF16_ULP = 2.0 ** -7
-ARCHS = ["granite-3-2b", "gemma3-27b"]
+# the decoder-only configs held here (MoE: qwen2-moe top-2 with a shared
+# expert, llama4-scout top-1; phi-3-vision, served from tokens alone
+# here and with its patches in tests/test_torch_encdec.py); the engine
+# tests add the encoder-decoder whisper-tiny
+ARCHS = ["granite-3-2b", "gemma3-27b", "qwen2-moe-a2.7b",
+         "llama4-scout-17b-a16e", "phi-3-vision-4.2b"]
+ENGINE_ARCHS = ARCHS + ["whisper-tiny"]
 _PARAMS = {}
 
 
@@ -205,8 +226,12 @@ def test_attn_and_mlp_blocks(arch, dtype, tol):
                                   window=window, return_kv=True)
     for w, g in ((want, got), (kj, kt), (vj, vt)):
         _close(w, g, tol)
-    _close(JL.mlp_apply(cj, bj["mlp"], xj), TL.mlp_apply(ct, bt["mlp"], xt),
-           tol)
+    if "moe" in bj:                 # the feed-forward half is the MoE block
+        _close(JMOE.moe_apply(cj, bj["moe"], xj)[0],
+               TMOE.moe_apply(ct, bt["moe"], xt)[0], tol)
+    else:
+        _close(JL.mlp_apply(cj, bj["mlp"], xj),
+               TL.mlp_apply(ct, bt["mlp"], xt), tol)
     # decode: one token written into a 16-slot ring at position 20
     cache_j = JL.make_cache(cj, 2, 16)
     cache_t = TL.make_cache(ct, 2, 16)
@@ -224,6 +249,40 @@ def test_attn_and_mlp_blocks(arch, dtype, tol):
 # ------------------------------------------------------ forward / decode
 
 
+@contextlib.contextmanager
+def _routing_ties():
+    """The (batch, position) pairs at which some MoE layer of the port's
+    forward routed at a near tie: a kept choice's gate within ROUTE_TIE of
+    the next expert's.  Yields the set, filled as the forward runs."""
+    ties, dispatch = set(), TMOE._top_k_dispatch
+
+    def spy(gates, top_k, capacity):
+        g = torch.sort(gates, dim=-1, descending=True).values
+        gap = (g[..., :top_k] - g[..., 1:top_k + 1]).min(dim=-1).values
+        ties.update(map(tuple, torch.nonzero(gap < ROUTE_TIE).tolist()))
+        return dispatch(gates, top_k, capacity)
+    TMOE._top_k_dispatch = spy
+    try:
+        yield ties
+    finally:
+        TMOE._top_k_dispatch = dispatch
+
+
+def _close_but_at_ties(want, got, tol, ties):
+    """Logits (B,S,V) within ``tol``, but at the positions in ``ties``: a
+    bfloat16 MoE model may route a token at a near tie of its router to
+    the other expert, as the reference's own rounding could."""
+    want, got = _np(want), got.float().numpy()
+    off = {(b, s) for b, s in zip(*np.nonzero(
+        (np.abs(want - got) > tol).any(-1)))}
+    assert off <= ties, (off, ties)
+    keep = np.ones(want.shape[:2], bool)
+    for b, s in off:
+        keep[b, s] = False
+    np.testing.assert_allclose(got[keep], want[keep], atol=tol)
+
+
+
 def _tokens(cfg, B, S, seed):
     return np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (B, S)).astype(np.int32)
@@ -235,7 +294,7 @@ def test_forward_caches_and_decode_step(arch, dtype, tol):
     cj, ct, pj, pt = _setup(arch, dtype)
     toks = _tokens(cj, 2, 21, 7)
     cache_len = 27          # > S for global rings; local rings roll
-    lj, _, cachej = japi.forward_logits(
+    lj, auxj, cachej = japi.forward_logits(
         cj, pj, {"tokens": jnp.asarray(toks)}, attn_impl="pallas",
         want_caches=True, cache_len=cache_len)
     before = fa_ops.flash_attention.launches
@@ -243,7 +302,15 @@ def test_forward_caches_and_decode_step(arch, dtype, tol):
         ct, pt, {"tokens": torch.from_numpy(toks)}, want_caches=True,
         cache_len=cache_len)
     assert fa_ops.flash_attention.launches == before
-    assert lt.dtype == getattr(torch, dtype) and float(aux) == 0.0
+    assert lt.dtype == getattr(torch, dtype) and aux.dtype == torch.float32
+    # the MoE layers' summed Switch loss (float32 in both; routing from
+    # bfloat16 activations may differ in a near tie, so 1e-3 there), a
+    # zero without them
+    if cj.moe is None:
+        assert float(aux) == 0.0 == float(auxj)
+    else:
+        assert abs(float(aux) - float(auxj)) <= (
+            1e-6 if dtype == "float32" else 1e-3) * float(auxj)
     _close(lj, lt, tol)
     assert (lt[..., cj.vocab_size:] == -1e9).all()
     _caches_close(cachej, cachet, tol)
@@ -258,9 +325,11 @@ def test_forward_caches_and_decode_step(arch, dtype, tol):
     _caches_close(cachej, cachet, tol)
     # the port's exact route agrees with the reference's default one
     ej, _, _ = japi.forward_logits(cj, pj, {"tokens": jnp.asarray(toks)})
-    et, _, _ = tapi.forward_logits(ct, pt, {"tokens": torch.from_numpy(toks)},
-                                   attn_impl="exact")
-    _close(ej, et, tol)
+    with _routing_ties() as ties:
+        et, _, _ = tapi.forward_logits(ct, pt,
+                                       {"tokens": torch.from_numpy(toks)},
+                                       attn_impl="exact")
+    _close_but_at_ties(ej, et, tol, ties if dtype == "bfloat16" else set())
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -275,12 +344,19 @@ def test_init_caches_match_the_reference_layout(arch):
         assert str(got[path].dtype) == f"torch.{w.dtype}", path
 
 
-def test_unported_families_raise():
-    for arch in ("qwen2-moe-a2.7b", "whisper-tiny", "phi-3-vision-4.2b"):
-        if arch not in treg.ARCH_IDS:
-            continue
-        with pytest.raises(NotImplementedError):
-            tapi.param_specs(treg.get_smoke_config(arch))
+@pytest.mark.parametrize("arch", jreg.ARCH_IDS)
+def test_every_arch_builds_the_references_param_specs(arch):
+    """Every registry family has its parameter tree in the port: the same
+    leaves, shapes, dtypes, logical axes and inits as the reference's."""
+    spec = lambda s: (tuple(s.shape), s.dtype, tuple(s.axes), s.init,
+                      s.scale)
+    want = dict(_leaves(jax.tree_util.tree_map(
+        spec, japi.param_specs(jreg.get_config(arch)),
+        is_leaf=lambda x: hasattr(x, "init"))))
+    specs = tapi.param_specs(treg.get_config(arch))
+    got = {p: spec(s) for p, s in _leaves(specs)}
+    assert got == want
+    assert param_count(specs) == sum(np.prod(w[0]) for w in want.values())
 
 
 # -------------------------------------------------------------- sampling
@@ -332,7 +408,11 @@ def _ref_engine_loop(cfg, params, prompts, max_batch, **impl):
             toks[i, max_prompt - len(p):] = p
         prefill = jax.jit(jstep.make_prefill_step(
             cfg, cache_len=max_prompt + max_gen, **impl))
-        logits, caches = prefill(params, {"tokens": jnp.asarray(toks)})
+        inputs = {"tokens": jnp.asarray(toks)}
+        if cfg.frontend in ("frames", "patches"):    # as the reference's
+            inputs[cfg.frontend] = jnp.zeros(        # engine feeds them
+                (len(batch), cfg.frontend_len, cfg.d_model), jnp.bfloat16)
+        logits, caches = prefill(params, inputs)
         steps = []
         for step in range(max_gen):
             if step:
@@ -358,7 +438,7 @@ def _port_engine(ct, pt, prompts, max_batch, temperature=0.0):
     return [r.output for r in done], done
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ENGINE_ARCHS)
 def test_engine_matches_reference_loop_on_pallas_in_float32(arch):
     cj, ct, pj, pt = _setup(arch, "float32")
     want, ref_logits = _ref_engine_loop(cj, pj, PROMPTS, 3, attn_impl="pallas")
@@ -373,13 +453,13 @@ def test_engine_matches_reference_loop_on_pallas_in_float32(arch):
     toks = np.zeros((3, S), np.int64)
     for i, (p, _) in enumerate(batch):
         toks[i, S - len(p):] = p
+    inputs = tstep.model_inputs(ct, torch.from_numpy(toks))
     prefill = tstep.make_prefill_step(ct, cache_len=S + 4)
-    logits, _ = prefill(tstep.working_params(ct, pt),
-                        {"tokens": torch.from_numpy(toks)})
+    logits, _ = prefill(tstep.working_params(ct, pt), inputs)
     _close(np.stack([lg[0] for lg in ref_logits[:3]])[:, None], logits, F32)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ENGINE_ARCHS)
 def test_engine_matches_reference_engine_in_bfloat16(arch):
     cj, ct, pj, pt = _setup(arch, "bfloat16")
     eng = jengine.BatchingEngine(cj, pj, max_batch=3, temperature=0.0)
