@@ -11,7 +11,10 @@ is imported).
     ``(profile_hash, vm_name, nu, seed)``: the port computes the same
     ``profile_hash``, so adopted entries are hits for the same points;
   * ``params_from_reference`` — a reference model parameter tree (nested
-    dicts of arrays, stacked group axes and all) as the port's tensors.
+    dicts of arrays, stacked group axes and all) as the port's tensors;
+  * ``train_state_from_reference`` — a reference train state (params,
+    ``opt`` with its step, moments or 8-bit codes and scales and master
+    copy, ``ef_err``) as the port's, bit for bit.
 """
 from __future__ import annotations
 
@@ -83,9 +86,9 @@ def _tensor(a, device) -> torch.Tensor:
     if a.dtype.name == "bfloat16":          # ml_dtypes: carry the bits
         t = torch.from_numpy(a.view(np.uint16).astype(np.int16))
         return t.view(torch.bfloat16).to(device)
-    if a.dtype not in (np.float32, np.int32):
-        raise ValueError(f"parameter dtype {a.dtype} is not float32, "
-                         "bfloat16 or int32")
+    if a.dtype not in (np.float32, np.int32, np.int8):
+        raise ValueError(f"array dtype {a.dtype} is not float32, "
+                         "bfloat16, int32 or int8")
     return torch.from_numpy(a.copy()).to(device)
 
 
@@ -96,3 +99,12 @@ def params_from_reference(tree, device="cpu"):
     if isinstance(tree, dict):
         return {k: params_from_reference(v, device) for k, v in tree.items()}
     return _tensor(tree, device)
+
+
+def train_state_from_reference(tree, device="cpu"):
+    """A reference train state (``init_train_state``'s tree, as
+    ``numpy.asarray`` gives its leaves: params, ``opt.step``, ``opt.mv``
+    with m/v or the int8 codes and float32 scales, ``opt.master``,
+    ``ef_err``) as the same tree of torch tensors on ``device``, bit for
+    bit and dtype for dtype."""
+    return params_from_reference(tree, device)

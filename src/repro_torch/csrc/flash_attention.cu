@@ -14,7 +14,11 @@
 // finite NEG_INF matters: a row whose keys in a visited tile are all
 // masked gets m = NEG_INF and p = exp(0) = 1, and the next live tile wipes
 // that out through corr = exp(NEG_INF - m) = 0; with -inf that step would
-// be NaN.  Every row has at least its diagonal key.
+// be NaN.  Every row has at least its diagonal key.  Where the caller
+// passes an lse buffer (training), both routes also write each row's
+// log-sum-exp, m + log(max(l, 1e-37)) in natural-log units, as the
+// reference's jnp_impl._fwd returns it for its backward; the bf16 route
+// keeps m in log2 units, so its lse is m * ln 2 + log(l).
 //
 // What bounds it on the H100: at granite-3-2b's prefill (B=4, S=1024,
 // H=32, KV=8, Dh=64, bf16, causal) the function reads and writes 42 MB
@@ -109,7 +113,8 @@ constexpr int THREADS = TX * TY;
 template <int DMAX, int BQ, int BK>
 __global__ void __launch_bounds__(THREADS)
 fa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int S,
+              const float* __restrict__ v, float* __restrict__ o,
+              float* __restrict__ lse, int S,
               int group, int Dh, Strides qs, Strides ks, Strides vs,
               Strides os, int causal, int window, float scale) {
   constexpr int RT = BQ / TY;        // q rows per thread
@@ -228,6 +233,8 @@ fa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int qpos = q0 + ty + r * TY;
     if (qpos >= S) continue;
     const float den = fmaxf(l[r], 1e-37f);
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * gridDim.y + h) * S + qpos] = m[r] + logf(den);
 #pragma unroll
     for (int c = 0; c < CT; ++c) {
       const int d = tx + c * TX;
@@ -238,7 +245,7 @@ fa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int DMAX, int BQ, int BK>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       int B, int S, int H, int group, int Dh, Strides qs,
+                       float* lse, int B, int S, int H, int group, int Dh, Strides qs,
                        Strides ks, Strides vs, Strides os, int causal,
                        int window, float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)BQ * (DMAX + 1) +
@@ -252,7 +259,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, group, Dh, qs,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, group,
+      Dh, qs,
       ks, vs, os, causal, window, scale);
   return cudaGetLastError();
 }
@@ -281,7 +289,8 @@ __global__ void __launch_bounds__(Cfg<DP, NWG, BK>::THREADS, 1)
 fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
-                __nv_bfloat16* __restrict__ o, int S, int group, int Dh,
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                int S, int group, int Dh,
                 Strides os, int causal, int window, float scale_log2) {
   using C = Cfg<DP, NWG, BK>;
   extern __shared__ uint8_t smem_raw[];
@@ -455,6 +464,12 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   __nv_bfloat16* ob = o + b * os.b + h * os.h;
   const float d0 = fmaxf(l0, 1e-37f), d1 = fmaxf(l1, 1e-37f);
+  // lse in natural-log units: m is in log2 units, l = sum 2^(x - m)
+  if (lse != nullptr && lane % 4 == 0) {
+    float* lrow = lse + ((long long)b * gridDim.y + h) * S;
+    if (qpos0 < S) lrow[qpos0] = m0 * 0.6931471805599453f + logf(d0);
+    if (qpos1 < S) lrow[qpos1] = m1 * 0.6931471805599453f + logf(d1);
+  }
 #pragma unroll
   for (int i = 0; i < DP / 2; i += 2) {
     const bool lo = i % 4 < 2;
@@ -468,7 +483,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
 template <int DP, int NWG, int BK>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
-                         void* o, int B, int S, int H, int KV, int Dh,
+                         void* o, float* lse, int B, int S, int H, int KV, int Dh,
                          Strides qs, Strides ks, Strides vs, Strides os,
                          int causal, int window, float scale_log2,
                          cudaStream_t stream) {
@@ -486,7 +501,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   const dim3 grid((S + C::QROWS - 1) / C::QROWS, H, B);
   kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H / KV, Dh, os, causal,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, S, H / KV, Dh, os,
+      causal,
       window, scale_log2);
   return cudaGetLastError();
 }
@@ -495,9 +511,13 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike).  Strides are in
 // elements; the head dim must be contiguous.  bfloat16 also needs
-// 16-byte-aligned bases and strides that are multiples of 8 (TMA).
+// 16-byte-aligned bases and strides that are multiples of 8 (TMA).  lse,
+// where not null, receives each row's log-sum-exp m + log(max(l, 1e-37))
+// in natural-log units, (B, H, S) float32 contiguous (what the backward
+// reads); serving passes null.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int B, int S,
+    const void* q, const void* k, const void* v, void* o, void* lse_out,
+    int B, int S,
     int H, int KV, int Dh, long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh, long long vsb,
     long long vss, long long vsh, long long osb, long long oss,
@@ -511,27 +531,28 @@ extern "C" int flash_attention_launch(
   const float scale = (float)(1.0 / sqrt((double)Dh));
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)Dh));
   const int g = H / KV;
+  float* lse = static_cast<float*>(lse_out);
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   if (dtype == 0) {
     if (Dh <= 64)
-      err = launch_f32<64, 64, 64>(q, k, v, o, B, S, H, g, Dh, qs, ks, vs,
+      err = launch_f32<64, 64, 64>(q, k, v, o, lse, B, S, H, g, Dh, qs, ks, vs,
                                    os, causal, window, scale, st);
     else if (Dh <= 128)
-      err = launch_f32<128, 64, 32>(q, k, v, o, B, S, H, g, Dh, qs, ks, vs,
+      err = launch_f32<128, 64, 32>(q, k, v, o, lse, B, S, H, g, Dh, qs, ks, vs,
                                     os, causal, window, scale, st);
     else
-      err = launch_f32<256, 32, 32>(q, k, v, o, B, S, H, g, Dh, qs, ks, vs,
+      err = launch_f32<256, 32, 32>(q, k, v, o, lse, B, S, H, g, Dh, qs, ks, vs,
                                     os, causal, window, scale, st);
   } else {
     if (Dh <= 64)
-      err = launch_wgmma<64, 2, 128>(q, k, v, o, B, S, H, KV, Dh, qs, ks,
+      err = launch_wgmma<64, 2, 128>(q, k, v, o, lse, B, S, H, KV, Dh, qs, ks,
                                      vs, os, causal, window, scale_log2, st);
     else if (Dh <= 128)
-      err = launch_wgmma<128, 2, 64>(q, k, v, o, B, S, H, KV, Dh, qs, ks,
+      err = launch_wgmma<128, 2, 64>(q, k, v, o, lse, B, S, H, KV, Dh, qs, ks,
                                      vs, os, causal, window, scale_log2, st);
     else
-      err = launch_wgmma<256, 1, 64>(q, k, v, o, B, S, H, KV, Dh, qs, ks,
+      err = launch_wgmma<256, 1, 64>(q, k, v, o, lse, B, S, H, KV, Dh, qs, ks,
                                      vs, os, causal, window, scale_log2, st);
   }
   return (int)err;

@@ -82,10 +82,20 @@ SIGNATURES = {
     # out (32 words), rounds, collective (0 redux, 1 ballot + ffs, 2
     # shfl); stream: a probe of the fast step's collectives
     "dag_collective_chain_launch": [_P, _I, _I, _P],
-    # q, k, v, o; B, S, H, KV, Dh; (b, s, head) strides of q, k, v, o;
-    # causal, window, dtype; stream
-    "flash_attention_launch": [_P] * 4 + [_I] * 5 + [_L] * 12
+    # q, k, v, o, lse (null: none); B, S, H, KV, Dh; (b, s, head) strides
+    # of q, k, v, o; causal, window, dtype; stream
+    "flash_attention_launch": [_P] * 5 + [_I] * 5 + [_L] * 12
                               + [_I] * 3 + [_P],
+    # o, dout, delta; B, S, H, Dh; (b, s, head) strides of o, dout; dtype;
+    # stream
+    "fa_bwd_delta_launch": [_P] * 3 + [_I] * 4 + [_L] * 6 + [_I, _P],
+    # q, k, v, dout, lse, delta, dk, dv; B, S, H, KV, Dh; (b, s, head)
+    # strides of q, k, v, dout, dk, dv; causal, window, dtype; stream
+    "fa_bwd_dkdv_launch": [_P] * 8 + [_I] * 5 + [_L] * 18 + [_I] * 3
+                          + [_P],
+    # q, k, v, dout, lse, delta, dq; B, S, H, KV, Dh; (b, s, head) strides
+    # of q, k, v, dout, dq; causal, window, dtype; stream
+    "fa_bwd_dq_launch": [_P] * 7 + [_I] * 5 + [_L] * 15 + [_I] * 3 + [_P],
     # x, dt, A, B, C, y, state; B, S, H, P, N, chunk; (b, s, head) strides
     # of x and dt, A's stride, (b, s) strides of B and C; dtypes of x, dt,
     # A, B/C; route; stream

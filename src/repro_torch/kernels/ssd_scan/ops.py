@@ -17,7 +17,15 @@ alignment alone:
   cannot read.
 
 A route never falls back to the other: a failed launch raises.  A CPU
-tensor takes the plain version in ``ref.py``.  The semantics are
+tensor takes the plain version in ``ref.py``.
+
+``ssd`` is differentiable where autograd records (grad enabled and an
+input that requires it): ``SSD``, a ``torch.autograd.Function``, whose
+backward is the reference's ``ops._bwd``, a vjp through the plain scan
+(autograd through ``ref.ssd`` here), on CPU tensors.  The SSD backward
+kernel is not written yet: a backward on CUDA tensors
+raises rather than run the plain version, and a CUDA forward under
+autograd still returns outputs with their history.  The semantics are
 ``ssd_fwd``'s: the chunk is clamped to ``min(chunk, S)`` and S must be a
 multiple of the clamped chunk.  The inputs keep the reference's layouts
 and are read through their strides (the last axis of x, B_ and C_ must be
@@ -136,22 +144,61 @@ def launch(x, dt, A, B_, C_, chunk: int, route_: str):
     return y, state
 
 
-def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-        B_: torch.Tensor, C_: torch.Tensor, chunk: int = 128
-        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B,S,H,P); dt: (B,S,H); A: (H,); B_/C_: (B,S,N).  Returns
-    (y (B,S,H,P) in x's dtype, final state (B,H,P,N) float32)."""
-    chunk = _check(x, dt, A, B_, C_, chunk)
-    dev = x.device
-    if dev.type == "cpu":
+def _forward(x, dt, A, B_, C_, chunk):
+    """(y, state) of checked inputs: the kernel on CUDA, the plain version
+    on the CPU."""
+    if x.device.type == "cpu":
         return ref.ssd(x, dt, A, B_, C_, chunk)
-    if dev.type != "cuda":
-        raise ValueError(f"no ssd kernel for device {dev}")
     way = route(x, B_, C_)
     y, state = launch(x, dt, A, B_, C_, chunk, way)
     if y.numel():
         build.count(ssd, way)
     return y, state
+
+
+class SSD(torch.autograd.Function):
+    """The scan with the reference's backward: the forward saves its
+    inputs, the backward replays the plain scan under autograd and takes
+    its vjp at (dy, dstate).  CPU tensors only: on CUDA tensors the
+    backward raises (its kernel is not written yet)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B_, C_, chunk):
+        ctx.save_for_backward(x, dt, A, B_, C_)
+        ctx.chunk = chunk
+        return _forward(x, dt, A, B_, C_, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        ins = ctx.saved_tensors
+        if ins[0].is_cuda:
+            raise NotImplementedError(
+                "the SSD backward has no CUDA kernel yet; it does not run "
+                "the plain version on the card")
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(need) for t, need in
+                      zip(ins, ctx.needs_input_grad)]
+            y, state = ref.ssd(*leaves, ctx.chunk)
+            wrt = [t for t in leaves if t.requires_grad]
+            grads = iter(torch.autograd.grad((y, state), wrt, (dy, dstate),
+                                             allow_unused=True))
+        return (*(next(grads) if t.requires_grad else None
+                  for t in leaves), None)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+        B_: torch.Tensor, C_: torch.Tensor, chunk: int = 128
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B,S,H,P); dt: (B,S,H); A: (H,); B_/C_: (B,S,N).  Returns
+    (y (B,S,H,P) in x's dtype, final state (B,H,P,N) float32);
+    differentiable through ``SSD`` where autograd records."""
+    chunk = _check(x, dt, A, B_, C_, chunk)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no ssd kernel for device {x.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, B_, C_)):
+        return SSD.apply(x, dt, A, B_, C_, chunk)
+    return _forward(x, dt, A, B_, C_, chunk)
 
 
 ssd.launches = 0

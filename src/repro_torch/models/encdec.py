@@ -10,7 +10,10 @@ caches: each decoder layer's self-attention ring (updated in place, as
 the decoder-only models' are) and the encoder's cross K/V, computed once
 in the prefill and cast to bfloat16 whatever the activation dtype, as the
 reference does.  The reference's ``lax.scan`` over the stacked layers is
-a Python loop over the leading axis here.
+a Python loop over the leading axis here; under ``cfg.remat`` and
+autograd each encoder layer, and each decoder layer of a forward without
+caches, runs under ``transformer.remat`` (whole-layer recompute, the
+reference's ``nothing_saveable``).
 """
 from __future__ import annotations
 
@@ -21,9 +24,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import ParamSpec
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import (_embed, _index,
-                                            _kv_to_ring, _logits_from_hidden,
-                                            _stack)
+from repro_torch.models.transformer import (_embed, _kv_to_ring,
+                                            _logits_from_hidden, _stack,
+                                            remat, unbind)
 
 Params = Dict[str, Any]
 
@@ -53,11 +56,15 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *,
     B, F, _ = frames.shape
     h = frames.to(L.compute_dtype(cfg))
     positions = torch.arange(F, device=h.device).expand(B, F)
-    for i in range(cfg.n_enc_layers):
-        p = _index(params["enc"], i)
+
+    def body(h, p):
         h, _ = L.attn_apply(cfg, p["attn"], h, positions=positions,
                             causal=False, attn_impl=attn_impl)
-        h = L.mlp_apply(cfg, p["mlp"], h)
+        return L.mlp_apply(cfg, p["mlp"], h)
+
+    body = remat(cfg, body)
+    for p in unbind(params["enc"], cfg.n_enc_layers):
+        h = body(h, p)
     return L.rms_norm(h, params["enc_ln"], cfg.norm_eps)
 
 
@@ -80,14 +87,18 @@ def forward(cfg: ModelConfig, params: Params, frames: torch.Tensor,
     B, S, _ = h.shape
     positions = torch.arange(S, device=h.device).expand(B, S)
     cache_len = cache_len or S
-    caches = []
-    for i in range(cfg.n_layers):
-        p = _index(params["dec"], i)
+    def body(h, p):
         h, kv = L.attn_apply(cfg, p["self"], h, positions=positions,
                              attn_impl=attn_impl, return_kv=want_caches)
         h, _ = L.attn_apply(cfg, p["cross"], h, positions=positions,
                             kv_source=enc)
-        h = L.mlp_apply(cfg, p["mlp"], h)
+        return L.mlp_apply(cfg, p["mlp"], h), kv
+
+    if not want_caches:
+        body = remat(cfg, body)
+    caches = []
+    for p in unbind(params["dec"], cfg.n_layers):
+        h, kv = body(h, p)
         if want_caches:
             ck, cv = _cross_kv(cfg, p["cross"], enc)
             caches.append({"self": _kv_to_ring(cfg, "global", kv, cache_len),
@@ -118,8 +129,8 @@ def decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor,
     B = h.shape[0]
     cur_pos = int(cur_pos)
     positions = torch.full((B, 1), cur_pos, device=h.device)
-    for i in range(cfg.n_layers):
-        p, c = _index(params["dec"], i), _index(caches, i)
+    for p, c in zip(unbind(params["dec"], cfg.n_layers),
+                    unbind(caches, cfg.n_layers)):
         h, _ = L.attn_apply(cfg, p["self"], h, positions=positions,
                             cache=c["self"], cur_pos=cur_pos)
         # cross attention over the static cached K/V

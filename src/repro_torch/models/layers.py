@@ -9,11 +9,14 @@ matmul casts its weight to the activation dtype, as the reference's
 no-op.
 
 Full self-attention goes through ``kernels.flash_attention.ops``: the
-hand-written kernel for a CUDA tensor, its plain version for a CPU tensor
-(the reference's ``attn_impl="pallas"``).  ``attn_impl="exact"`` is
-``attention_exact``, the reference's einsum oracle.  The reference's
-chunked route (``attention_chunked``, a training-memory device) and its
-two-buffer decode cache come with the training slice.
+hand-written kernels for a CUDA tensor, their plain versions for a CPU
+tensor (the reference's ``attn_impl="pallas"``), differentiable through
+its autograd ``Function`` (the forward saves lse, the backward runs the
+flash backward kernels).  ``attn_impl="exact"`` is ``attention_exact``,
+the reference's einsum oracle.  The reference sends a long training
+sequence (S > 2048, a multiple of 1024) to its jnp flash attention with
+its custom VJP, for the memory; that is what every sequence takes here.
+The reference's two-buffer decode cache is not ported yet.
 """
 from __future__ import annotations
 

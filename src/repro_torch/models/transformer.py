@@ -10,15 +10,26 @@ than one group), ``tail`` the layers that do not fill a group.  A hybrid
 group's ``attn`` position has no parameters of its own: every application
 uses the top-level ``shared_attn`` tree, and each application keeps its own
 KV ring.  The reference's ``lax.scan`` over the stacked groups is a Python
-loop over the leading axis here; remat has no forward effect and is
-dropped.
+loop over the leading axis here, over views that ``unbind`` makes once per
+forward (under autograd a stacked leaf's gradient is then one stack of
+its groups' gradients).
+
+Remat: where ``cfg.remat`` is set and autograd records, each layer group
+runs under ``torch.utils.checkpoint`` (non-reentrant), as the reference
+wraps its group body in ``jax.checkpoint``: the backward recomputes the
+group's forward from its input.  Both of the reference's policies map to
+that whole-group recompute (``proj_outs``, which also saves the attention
+and MLP projection outputs, is kept as a name only).  The values do not
+change, only the memory: one group's activations at a time instead of
+every layer's.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import ParamSpec
@@ -107,18 +118,31 @@ def _layer_window(cfg: ModelConfig, kind: str) -> int:
     return cfg.local_window if kind == "local" else 0
 
 
-def _index(tree, g: int):
-    """Group ``g`` of a stacked tree (views, no copy)."""
+def unbind(tree, n: int) -> list:
+    """The ``n`` slices of a tree stacked along its leading axis, in order
+    (views, no copy).  Each leaf is unbound once: under autograd its
+    gradient is one stack of the slices' gradients, where indexing slice
+    by slice would add a full-size zero tensor per slice."""
     if isinstance(tree, dict):
-        return {k: _index(v, g) for k, v in tree.items()}
-    return tree[g]
+        parts = {k: unbind(v, n) for k, v in tree.items()}
+        return [{k: v[g] for k, v in parts.items()} for g in range(n)]
+    return tree.unbind(0)
 
 
 def _groups(cfg: ModelConfig, tree):
     """The per-group slices of a ``groups`` tree, in order."""
     if cfg.n_groups > 1:
-        return [_index(tree, g) for g in range(cfg.n_groups)]
+        return unbind(tree, cfg.n_groups)
     return [tree]
+
+
+def remat(cfg: ModelConfig, fn: Callable) -> Callable:
+    """``fn`` under non-reentrant activation checkpointing where
+    ``cfg.remat`` is set and autograd records, else ``fn`` itself."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+    return lambda *args: torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def _kv_to_ring(cfg: ModelConfig, kind: str, kv, cache_len: int):
@@ -194,13 +218,21 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
         return h, aux, (_kv_to_ring(cfg, kind, kv, cache_len)
                         if want_caches else None)
 
-    group_caches, group_aux = [], []
-    for gp in _groups(cfg, params["groups"]):
-        caches, aux_g = {}, zero
+    def group(h, gp, caches):
+        """(h, the group's aux loss); the group's caches into ``caches``."""
+        aux_g = zero
         for i, kind in enumerate(kinds):
             h, aux, caches[f"l{i}"] = layer(h, kind, gp[f"l{i}"])
             if aux is not None:
                 aux_g = aux_g + aux
+        return h, aux_g
+
+    # the caches are returned, not recomputed: remat only without them
+    body = group if want_caches else remat(cfg, group)
+    group_caches, group_aux = [], []
+    for gp in _groups(cfg, params["groups"]):
+        caches = {}
+        h, aux_g = body(h, gp, caches)
         group_caches.append(caches)
         group_aux.append(aux_g)
     aux_total = (torch.stack(group_aux).sum() if cfg.n_groups > 1

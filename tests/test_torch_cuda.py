@@ -1184,3 +1184,142 @@ def test_private_plan_on_the_card_equals_the_cpu(dev):
     want = {k: v.as_dict() for k, v in cpu.solutions.items()}
     got = {k: v.as_dict() for k, v in card.solutions.items()}
     assert scen.mismatches(want, got, rel=1e-3) == []
+
+
+# ------------------------------------------------------- flash backward
+# (B, S, H, KV, Dh, causal, window): granite's training shape, a window,
+# llama4-scout's GQA group 5 at head dim 128, zamba2's head dim 112, the
+# non-causal encoder shape, a ragged S, and the 32 x 32 tiles of Dh 256
+FA_BWD_CASES = [
+    (8, 1024, 32, 8, 64, True, 0), (2, 777, 8, 2, 64, True, 128),
+    (1, 512, 40, 8, 128, True, 0), (2, 384, 8, 8, 112, True, 0),
+    (2, 1500, 6, 6, 64, False, 0), (1, 200, 8, 1, 256, True, 0),
+    (1, 130, 4, 2, 16, False, 40),
+]
+# kernel against plain on identical inputs: f32 sums in other orders; in
+# bf16 a p or ds on a rounding edge may round the other way, and the
+# outputs round to bf16 (2**-8 relative)
+FA_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _fa_bwd_inputs(dev, case, dtype):
+    B, S, H, KV, Dh, causal, window = case
+    g = torch.Generator(device=dev).manual_seed(S + H + Dh)
+    q, k, v = (torch.randn((B, S, n, Dh), generator=g, device=dev
+                           ).to(dtype) for n in (H, KV, KV))
+    dout = torch.randn((B, S, H, Dh), generator=g, device=dev).to(dtype)
+    out, lse = fa_ref.flash_attention_fwd(q, k, v, causal=causal,
+                                          window=window)
+    return q, k, v, out, lse, dout
+
+
+@pytest.mark.parametrize("case", FA_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernels_match_plain(dev, case, dtype):
+    *_, causal, window = case
+    args = _fa_bwd_inputs(dev, case, dtype)
+    before = [w.launches for w in (fa_ops.fa_bwd_delta, fa_ops.fa_bwd_dkdv,
+                                   fa_ops.fa_bwd_dq)]
+    got = fa_ops.flash_attention_bwd(*args, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert [w.launches for w in (fa_ops.fa_bwd_delta, fa_ops.fa_bwd_dkdv,
+                                 fa_ops.fa_bwd_dq)] == [n + 1 for n in before]
+    want = fa_ref.flash_attention_bwd(*args, causal=causal, window=window)
+    tol = FA_BWD_TOL[dtype]
+    for g_, w_, x in zip(got, want, args[:3]):
+        assert g_.dtype == x.dtype and g_.shape == x.shape
+        torch.testing.assert_close(g_.float(), w_.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.parametrize("case", [(2, 300, 8, 2, 64, True, 0),
+                                  (1, 257, 4, 4, 128, True, 64),
+                                  (2, 130, 8, 1, 256, False, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_lse_from_both_routes(dev, case, dtype):
+    B, S, H, KV, Dh, causal, window = case
+    g = torch.Generator(device=dev).manual_seed(S)
+    q, k, v = (torch.randn((B, S, n, Dh), generator=g, device=dev
+                           ).to(dtype) for n in (H, KV, KV))
+    out, lse = fa_ops.flash_attention_fwd(q, k, v, causal=causal,
+                                          window=window)
+    want_out, want_lse = fa_ref.flash_attention_fwd(q, k, v, causal=causal,
+                                                    window=window)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, S)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want_out.float(), atol=tol,
+                               rtol=tol)
+
+
+def test_flash_autograd_on_the_card_matches_the_cpu(dev):
+    g = np.random.default_rng(3)
+    arrs = [torch.from_numpy(g.standard_normal((2, 96, n, 32)).astype(
+        np.float32)) for n in (8, 2, 2)]
+    grads = {}
+    for d in ("cpu", dev):
+        q, k, v = (a.to(d).detach().requires_grad_() for a in arrs)
+        out = fa_ops.flash_attention(q, k, v, causal=True, window=40)
+        assert out.grad_fn is not None
+        (out * out).sum().backward()
+        grads[str(d)] = [x.grad.cpu() for x in (q, k, v)]
+    for a, b in zip(grads["cpu"], grads[str(dev)]):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
+
+
+def test_ssd_backward_on_the_card_raises(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((1, 32, 2, 16), generator=g, device=dev,
+                    requires_grad=True)
+    dt = torch.rand((1, 32, 2), generator=g, device=dev) + 0.1
+    A = -torch.rand((2,), generator=g, device=dev)
+    Bm, Cm = (torch.randn((1, 32, 16), generator=g, device=dev)
+              for _ in range(2))
+    y, state = ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=16)
+    assert y.grad_fn is not None and state.grad_fn is not None
+    with pytest.raises(NotImplementedError, match="SSD backward"):
+        y.sum().backward()
+
+
+# a train step's gradients on the card against the CPU's (plain versions),
+# relative to each leaf's largest magnitude: float32 sums in other orders
+# (cuBLAS, the backward kernels); bfloat16 rounds at other places
+MODEL_GRAD_TOL = {"float32": 1e-4, "bfloat16": 0.06}
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "gemma3-27b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_model_backward_on_the_card_matches_the_cpu(dev, arch, dtype):
+    from repro_torch.train import step as tstep
+    cfg = get_smoke_config(arch).replace(dtype=dtype)
+    params = init_params(api.param_specs(cfg), torch.Generator().manual_seed(3))
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        1, cfg.vocab_size, (2, 65)).astype(np.int32))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    for d in ("cpu", dev):
+        before = [w.launches for w in (fa_ops.fa_bwd_delta,
+                                       fa_ops.fa_bwd_dkdv, fa_ops.fa_bwd_dq)]
+        (loss, _), grads = tstep.value_and_grad(
+            cfg, _to(params, d), {k: v.to(d) for k, v in batch.items()})
+        launched = [w.launches - n for w, n in zip(
+            (fa_ops.fa_bwd_delta, fa_ops.fa_bwd_dkdv, fa_ops.fa_bwd_dq),
+            before)]
+        assert launched == [cfg.n_layers if d == dev else 0] * 3
+        out[str(d)] = (float(loss), _leaves(grads))
+    assert abs(out[str(dev)][0] - out["cpu"][0]) < 1e-2
+    for path, want in out["cpu"][1].items():
+        got = out[str(dev)][1][path].cpu().float()
+        assert float(got.abs().max()) > 0, path       # every leaf gets one
+        scale = float(want.float().abs().max())
+        assert float((got - want.float()).abs().max()) <= \
+            MODEL_GRAD_TOL[dtype] * scale, path
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_leaves(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}

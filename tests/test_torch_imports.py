@@ -42,7 +42,14 @@ def test_importing_every_module_leaves_jax_and_repro_out():
               "repro_torch.obs.export", "repro_torch.cloud",
               "repro_torch.cloud.hosts", "repro_torch.cloud.placement",
               "repro_torch.cloud.joint", "repro_torch.cloud.windows",
-              "repro_torch.models.moe", "repro_torch.models.encdec"):
+              "repro_torch.models.moe", "repro_torch.models.encdec",
+              "repro_torch.optim", "repro_torch.optim.adamw",
+              "repro_torch.data", "repro_torch.data.pipeline",
+              "repro_torch.ckpt", "repro_torch.ckpt.checkpointer",
+              "repro_torch.distributed.compression",
+              "repro_torch.distributed.fault", "repro_torch.train",
+              "repro_torch.train.step", "repro_torch.train.trainer",
+              "repro_torch.launch.train"):
         assert m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
