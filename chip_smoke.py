@@ -17,10 +17,11 @@ Phases, each printing one line or a few:
      eight, qn_event_general; it fails without any of them), of the DAG's
      two event loops (dag_event_fast's six instances, dag_event_kernel),
      of both draw-table kernels, of each flash_attention instance and of
-     each ssd_scan kernel, and the flash and ssd_scan instances' wgmma
-     (HGMMA) and TMA (UTMALDG) instruction counts (cuobjdump -sass), and
-     fail if either bf16 kernel (flash's, the SSD scan's) has none of
-     either;
+     each ssd_scan kernel and of the flash backward's wgmma instances,
+     and the flash, flash backward and ssd_scan instances' wgmma (HGMMA)
+     and TMA (UTMALDG) instruction counts (cuobjdump -sass), and fail if
+     a bf16 kernel (flash's, each of the backward's two, the SSD scan's)
+     has none of either;
   3. hold each kernel against its plain PyTorch version on the card, on
      identical inputs: the draw tables (event_streams) bit-identical in
      both modes; qn_event in exponential and replay mode (padding,
@@ -217,19 +218,25 @@ Phases, each printing one line or a few:
      each plan's wall, and for the over-committed day and the real-size
      private run() the host's packers and checks against the kernels'
      device time (a profiled pass).
- 13. [train] (after phase 6) the flash backward's three kernels
-     (fa_bwd_delta, fa_bwd_dkdv, fa_bwd_dq), and the forward's lse from
+ 13. [train] (after phase 6) the flash backward's two routes (wgmma:
+     fa_bwd_dq_wgmma, which writes delta, then fa_bwd_dkdv_wgmma; simt:
+     fa_bwd_delta, fa_bwd_dkdv, fa_bwd_dq), and the forward's lse from
      both routes, held against their plain versions at granite-3-2b's
      training shape (B = 8, S = 1024, H = 32, KV = 8, head dim 64, bf16,
-     causal), gemma3-27b's local window, llama4-scout's GQA group 5 at head
-     dim 128, zamba2's head dim 112, whisper's non-causal encoder and the
-     training shape's heads in float32 (FA_BWD_CHECKS), within 2e-2 (bf16)
-     and 1e-4 (f32); each kernel timed at the training shape beside its
-     bound, the plain version and torch's SDPA backward (a yardstick);
-     then granite-3-2b trained at full width and depth through Trainer
-     (B = 8, S = 1024, 4 steps, the fp32 AdamW, remat on): each step's
-     loss, grad norm and wall, the peak memory, the launches a step (80
-     flash forward under remat, 40 of each backward kernel), one more step
+     causal), gemma3-27b's local window, llama4-scout's GQA group 5 at head dim
+     128, zamba2's head dim 112, whisper's non-causal encoder (each bf16
+     shape on both routes, the wgmma route's delta against the einsum and
+     two of its calls bit for bit) and the training shape's heads in
+     float32 (the simt route; FA_BWD_CHECKS), within 2e-2 (bf16) and 1e-4
+     (f32); the wgmma kernels timed at the training shape, the simt
+     kernels there and at the float32 row's shape, each beside its
+     bound, the plain version and torch's SDPA backward (a yardstick; for
+     the delta kernel the einsum that computes it); then granite-3-2b
+     trained at full width and depth through Trainer (B = 8, S = 1024, 4
+     steps, the fp32 AdamW, remat on): each step's loss, grad norm and
+     wall, the peak memory, the launches a step (80 flash forward under
+     remat, 40 of each wgmma backward kernel and none of the simt
+     route's), one more step
      profiled (the flash backward's share of the device time), the model
      FLOP/s against 989 TFLOP/s; at depth 2 and full width, one step on the
      card against the CPU (loss, grad norm, every gradient leaf, the
@@ -2086,6 +2093,17 @@ def flash_instance(mangled: str):
     return f"{m.group(1)}<{', '.join(re.findall(r'Li([0-9]+)E', m.group(2)))}>"
 
 
+def flash_bwd_instance(mangled: str):
+    """'fa_bwd_dq_wgmma_kernel<64, 128>' (or 'fa_bwd_dkdv_wgmma_kernel<64>')
+    for a line naming an instance of the flash backward's wgmma route
+    by its mangled name, else None."""
+    m = re.search(r"(fa_bwd_(?:dq|dkdv)_wgmma_kernel)I((?:Li\d+E)+)",
+                  mangled)
+    if m is None:
+        return None
+    return f"{m.group(1)}<{', '.join(re.findall(r'Li([0-9]+)E', m.group(2)))}>"
+
+
 def ssd_instance(mangled: str):
     """'ssd_wgmma_kernel<64, 128>' (or 'ssd_f32_kernel') for a line naming
     an ssd_scan kernel by its mangled name, else None."""
@@ -2848,7 +2866,18 @@ FA_BWD_CHECKS = [
 # way (absolute, on values of magnitude ~log S)
 FA_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LSE_TOL = 1e-4
-BWD_KERNELS = ("fa_bwd_delta", "fa_bwd_dkdv", "fa_bwd_dq")
+# the wrappers of each backward route, in launch order (the wgmma route's
+# dq pass writes delta; the simt route has a delta kernel), and each
+# wrapper's kernel
+BWD_ROUTE_KERNELS = {"wgmma": ("fa_bwd_dq_wgmma", "fa_bwd_dkdv_wgmma"),
+                     "simt": ("fa_bwd_delta", "fa_bwd_dkdv", "fa_bwd_dq")}
+BWD_KERNELS = (*BWD_ROUTE_KERNELS["wgmma"], *BWD_ROUTE_KERNELS["simt"])
+# the wgmma route's instances (dq <DP, BK>, dkdv <DP>): [build] fails
+# without their ptxas lines, HGMMA and UTMALDG
+FA_BWD_INSTANCES = ("fa_bwd_dq_wgmma_kernel<64, 128>",
+                    "fa_bwd_dq_wgmma_kernel<128, 64>",
+                    "fa_bwd_dkdv_wgmma_kernel<64>",
+                    "fa_bwd_dkdv_wgmma_kernel<128>")
 # granite-3-2b trained at full width and depth: Trainer with these, the
 # launcher's AdamW (lr 3e-4, warm-up max(10, steps // 20)) in the config's
 # fp32 mode, remat on
@@ -2874,29 +2903,33 @@ def live_pairs(S, causal, window) -> int:
 
 
 def fa_bwd_bounds(B, S, H, KV, Dh, causal, window, dtype):
-    """Each backward kernel's and the whole function's bound (ms, by):
-    operations at the card's peak for the type (the products each kernel
+    """Each backward kernel's bound, and the whole function's: {wrapper:
+    (ms, by, ops, bytes), "function": ...}.
+    Operations at the card's peak for the type (the products each kernel
     runs: dkdv recomputes q.k and do.v and runs P^T.dO and dS^T.Q, dq
     recomputes both and runs dS.K; the function's five), bytes each input
-    read once and each output written once."""
+    read once and each output written once (the wgmma dq pass reads out
+    and writes delta besides; the simt one reads the delta kernel's)."""
     e = 2 if dtype == torch.bfloat16 else 4
     peak = H100_BF16_OPS_PER_S if dtype == torch.bfloat16 else \
         H100_FP32_OPS_PER_S
     prod = 2 * B * H * Dh * live_pairs(S, causal, window)
-    q = B * S * H * Dh * e
-    kv = B * S * KV * Dh * e
+    q = B * S * H * Dh * e                   # q, out, dout or dq
+    kv = B * S * KV * Dh * e                 # k, v, dk or dv
     rows = B * H * S * 4                     # lse or delta, float32
-    work = {"fa_bwd_delta": (0, 2 * q + rows),
-            "fa_bwd_dkdv": (4 * prod, q + 2 * kv + q + 2 * rows + 2 * kv),
-            "fa_bwd_dq": (3 * prod, q + 2 * kv + q + 2 * rows + q),
-            "function": (5 * prod, 5 * q + 2 * kv + rows + q + 2 * kv)}
-    out = {}
-    for name, (ops, nbytes) in work.items():
+    dkdv = (4 * prod, 2 * q + 2 * kv + 2 * rows + 2 * kv)
+    work = {"fa_bwd_dq_wgmma": (3 * prod, 3 * q + 2 * kv + rows + q + rows),
+            "fa_bwd_dkdv_wgmma": dkdv,
+            "fa_bwd_delta": (0, 2 * q + rows),
+            "fa_bwd_dkdv": dkdv,
+            "fa_bwd_dq": (3 * prod, 2 * q + 2 * kv + 2 * rows + q),
+            "function": (5 * prod, 3 * q + 2 * kv + rows + q + 2 * kv)}
+
+    def bound(ops, nbytes):
         t_ops, t_bytes = ops / peak, nbytes / H100_BYTES_PER_S
-        out[name] = (1e3 * max(t_ops, t_bytes),
-                     "operations" if t_ops > t_bytes else "bytes",
-                     ops, nbytes)
-    return out
+        return (1e3 * max(t_ops, t_bytes),
+                "operations" if t_ops > t_bytes else "bytes", ops, nbytes)
+    return {n: bound(*w) for n, w in work.items()}
 
 
 def fa_bwd_inputs(dev, B, S, H, KV, Dh, dtype, seed):
@@ -2912,12 +2945,32 @@ def close_err(got, want, tol):
     return float(d.max()), bool((d <= tol + tol * want.float().abs()).all())
 
 
+def run_bwd_route(fa_ops, route, q, k, v, out, lse, dout, causal, window):
+    """One backward through ``route``'s kernel wrappers: (dq, dk, dv,
+    delta); the wgmma route's dq pass writes delta (into its rows buffer,
+    beside lse), the simt route's delta kernel does."""
+    if route == "wgmma":
+        dq, rows = fa_ops.fa_bwd_dq_wgmma(q, k, v, out, dout, lse, causal,
+                                          window)
+        dk, dv = fa_ops.fa_bwd_dkdv_wgmma(q, k, v, dout, rows, causal,
+                                          window)
+        return dq, dk, dv, fa_ops.rows_delta(rows, q.shape[1])
+    delta = fa_ops.fa_bwd_delta(out, dout)
+    dk, dv = fa_ops.fa_bwd_dkdv(q, k, v, dout, lse, delta, causal, window)
+    dq = fa_ops.fa_bwd_dq(q, k, v, dout, lse, delta, causal, window)
+    return dq, dk, dv, delta
+
+
 def check_flash_bwd(dev, fa_ops, fa_ref):
-    """The forward's lse (both routes) and each backward kernel against the
-    plain versions at FA_BWD_CHECKS, on identical inputs: the kernels'
-    forward output and lse feed both backwards.  Returns the largest
-    absolute error of each (lse, and by kernel)."""
-    err = dict.fromkeys(("lse", *BWD_KERNELS), 0.0)
+    """The forward's lse (both routes) and each backward route's kernels
+    against the plain versions at FA_BWD_CHECKS, on identical inputs: the
+    kernels' forward output and lse feed both backwards.  A shape whose
+    route is wgmma runs both routes, and a second wgmma backward
+    (flash_attention_bwd's own choice) must equal the first bit for bit;
+    the float32 row runs the simt route.  Each route's delta is held to
+    the einsum.  Returns the largest absolute error of lse and of each
+    wrapper's kernel (the wgmma route's delta under "wgmma_delta")."""
+    err = {"lse": 0.0}
     for label, B, S, H, KV, Dh, causal, window, dtype in FA_BWD_CHECKS:
         q, k, v, dout = fa_bwd_inputs(dev, B, S, H, KV, Dh, dtype, S + H)
         kw = dict(causal=causal, window=window)
@@ -2925,91 +2978,168 @@ def check_flash_bwd(dev, fa_ops, fa_ref):
         want_out, want_lse = fa_ref.flash_attention_fwd(q, k, v, **kw)
         tol = FA_BWD_TOL[dtype]
         checks = {"lse": close_err(lse, want_lse, LSE_TOL)}
-        delta = fa_ops.fa_bwd_delta(out, dout)
-        checks["fa_bwd_delta"] = close_err(delta, torch.einsum(
-            "bshd,bshd->bhs", dout.float(), out.float()), 1e-4)
-        dk, dv = fa_ops.fa_bwd_dkdv(q, k, v, dout, lse, delta, causal,
-                                    window)
-        dq = fa_ops.fa_bwd_dq(q, k, v, dout, lse, delta, causal, window)
-        torch.cuda.synchronize()
+        routes = ("wgmma", "simt") if fa_ops.bwd_route(q, k, v) == "wgmma" \
+            else ("simt",)
+        want_delta = torch.einsum("bshd,bshd->bhs", dout.float(),
+                                  out.float())
         wq, wk, wv = fa_ref.flash_attention_bwd(q, k, v, out, lse, dout,
                                                 **kw)
-        ek, okk = close_err(dk, wk, tol)
-        ev, okv = close_err(dv, wv, tol)
-        checks["fa_bwd_dkdv"] = (max(ek, ev), okk and okv)
-        checks["fa_bwd_dq"] = close_err(dq, wq, tol)
+        same = None
+        for route in routes:
+            dq, dk, dv, delta = run_bwd_route(fa_ops, route, q, k, v, out,
+                                              lse, dout, causal, window)
+            torch.cuda.synchronize()
+            n_delta, n_dq, n_dkdv = (
+                ("wgmma_delta", "fa_bwd_dq_wgmma", "fa_bwd_dkdv_wgmma")
+                if route == "wgmma" else
+                ("fa_bwd_delta", "fa_bwd_dq", "fa_bwd_dkdv"))
+            checks[n_delta] = close_err(delta, want_delta, 1e-4)
+            ek, okk = close_err(dk, wk, tol)
+            ev, okv = close_err(dv, wv, tol)
+            checks[n_dkdv] = (max(ek, ev), okk and okv)
+            checks[n_dq] = close_err(dq, wq, tol)
+            if route == "wgmma":
+                again = fa_ops.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                   **kw)
+                same = all(torch.equal(a, b) for a, b in
+                           zip(again, (dq, dk, dv)))
+                del again
+            del dq, dk, dv, delta
         for name, (e, _) in checks.items():
-            err[name] = max(err[name], e)
+            err[name] = max(err.get(name, 0.0), e)
         print(f"[train] flash backward against its plain version, {label} "
               f"(B={B} S={S} H={H} KV={KV} Dh={Dh} "
               f"{'causal' if causal else 'non-causal'} window={window} "
               f"{str(dtype)[6:]}): max abs err lse {checks['lse'][0]:.3e} "
-              f"(tol {LSE_TOL}), delta {checks['fa_bwd_delta'][0]:.3e}, "
-              f"dk/dv {checks['fa_bwd_dkdv'][0]:.3e}, dq "
-              f"{checks['fa_bwd_dq'][0]:.3e} (tol {tol}); forward "
-              f"{close_err(out, want_out, FA_TOL[dtype])[0]:.3e}",
+              f"(tol {LSE_TOL}); "
+              + "; ".join(f"{n} {e:.3e}" for n, (e, _) in checks.items()
+                          if n != "lse")
+              + f" (tol {tol}, delta 1e-4); forward "
+              f"{close_err(out, want_out, FA_TOL[dtype])[0]:.3e}"
+              + ("" if same is None else
+                 f"; two wgmma backwards bit-identical: {same}"),
               flush=True)
         bad = [n for n, (_, ok) in checks.items() if not ok]
         if bad:
             fail(f"flash backward {label}: {bad} beyond the tolerance")
-        del q, k, v, dout, out, lse, wq, wk, wv, dq, dk, dv
+        if same is False:
+            fail(f"flash backward {label}: two wgmma backwards differ")
+        del q, k, v, dout, out, lse, wq, wk, wv
         torch.cuda.empty_cache()
     return err
 
 
-def time_flash_bwd(dev, fa_ops, fa_ref):
-    """Each backward kernel at the training shape (CUDA events, after a
-    warm-up), the plain versions, torch's SDPA backward on the same
-    tensors (a yardstick: the port never calls it) and the bounds."""
+def sdpa_bwd_ms(q, k, v, dout, causal, reps):
+    """torch's SDPA backward on these tensors (a yardstick: the port never
+    calls it), ms a call."""
     import torch.nn.functional as F
 
-    _, B, S, H, KV, Dh, causal, window, dtype = FA_BWD_CHECKS[0]
-    q, k, v, dout = fa_bwd_inputs(dev, B, S, H, KV, Dh, dtype, 7)
-    out, lse = fa_ops.flash_attention_fwd(q, k, v, causal=causal)
-    delta = fa_ops.fa_bwd_delta(out, dout)
-    ms = {"fa_bwd_delta": cuda_ms(lambda: fa_ops.fa_bwd_delta(out, dout),
-                                  20),
-          "fa_bwd_dkdv": cuda_ms(lambda: fa_ops.fa_bwd_dkdv(
-              q, k, v, dout, lse, delta, causal, window), 5),
-          "fa_bwd_dq": cuda_ms(lambda: fa_ops.fa_bwd_dq(
-              q, k, v, dout, lse, delta, causal, window), 5)}
-    plain_delta = cuda_ms(lambda: torch.einsum(
-        "bshd,bshd->bhs", dout.float(), out.float()), 5)
-    plain = cuda_ms(lambda: fa_ref.flash_attention_bwd(
-        q, k, v, out, lse, dout, causal=causal), 2)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                        enable_gqa=True)
     dot = dout.transpose(1, 2)
-    sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
-        o, (qt, kt, vt), dot, retain_graph=True), 10)
+    return cuda_ms(lambda: torch.autograd.grad(
+        o, (qt, kt, vt), dot, retain_graph=True), reps)
+
+
+def time_flash_bwd(dev, fa_ops, fa_ref):
+    """The wgmma kernels at the training shape, the simt kernels there and
+    at the float32 row's shape, each beside its bound, the plain versions,
+    torch's SDPA backward on the same tensors and, for the delta kernel,
+    the einsum that computes it (CUDA events, after a warm-up).  Returns
+    ({wrapper: row}, the function's figures)."""
+    rows = {}
+    _, B, S, H, KV, Dh, causal, window, dtype = FA_BWD_CHECKS[0]
+    q, k, v, dout = fa_bwd_inputs(dev, B, S, H, KV, Dh, dtype, 7)
+    out, lse = fa_ops.flash_attention_fwd(q, k, v, causal=causal)
+    wargs = (causal, window)
+    _, rbuf = fa_ops.fa_bwd_dq_wgmma(q, k, v, out, dout, lse, *wargs)
+    ms = {"fa_bwd_dq_wgmma": cuda_ms(lambda: fa_ops.fa_bwd_dq_wgmma(
+              q, k, v, out, dout, lse, *wargs), 20),
+          "fa_bwd_dkdv_wgmma": cuda_ms(lambda: fa_ops.fa_bwd_dkdv_wgmma(
+              q, k, v, dout, rbuf, *wargs), 20)}
+    both = cuda_ms(lambda: fa_ops.flash_attention_bwd(
+        q, k, v, out, lse, dout, causal=causal, window=window), 20)
+    sdelta = fa_ops.fa_bwd_delta(out, dout)
+    sargs = (q, k, v, dout, lse, sdelta, causal, window)
+    simt_bf16 = {"fa_bwd_delta": cuda_ms(lambda: fa_ops.fa_bwd_delta(
+                     out, dout), 20),
+                 "fa_bwd_dkdv": cuda_ms(lambda: fa_ops.fa_bwd_dkdv(*sargs), 5),
+                 "fa_bwd_dq": cuda_ms(lambda: fa_ops.fa_bwd_dq(*sargs), 5)}
+    plain_delta = cuda_ms(lambda: torch.einsum(
+        "bshd,bshd->bhs", dout.float(), out.float()), 5)
+    plain = cuda_ms(lambda: fa_ref.flash_attention_bwd(
+        q, k, v, out, lse, dout, causal=causal), 2)
+    sdpa_bwd = sdpa_bwd_ms(q, k, v, dout, causal, 10)
     bounds = fa_bwd_bounds(B, S, H, KV, Dh, causal, window, dtype)
     shape = (f"B={B} S={S} H={H} KV={KV} Dh={Dh} {str(dtype)[6:]} "
              f"{'causal' if causal else 'non-causal'}")
-    rows = {}
-    for name in BWD_KERNELS:
-        b_ms, by, ops, nbytes = bounds[name]
-        rows[name] = {"ms": ms[name], "bound_ms": b_ms, "bound_by": by,
-                      "shape": shape,
-                      "plain_ms": plain_delta if name == "fa_bwd_delta"
-                      else plain,
-                      "library_ms": None if name == "fa_bwd_delta"
-                      else sdpa_bwd}
-        print(f"[time] {name} at {shape}: {ms[name]:.4f} ms, bound "
+
+    def row(name, t, b, shape, plain_ms, plain_d, sdpa):
+        b_ms, by, ops, nbytes = b[name]
+        print(f"[time] {name} at {shape}: {t:.4f} ms, bound "
               f"{b_ms:.5f} ms ({by}: {ops} flops, {nbytes} bytes)"
-              + (f", {ops / ms[name] / 1e9:.2f} TFLOP/s" if ops else ""),
+              + (f", {ops / t / 1e9:.2f} TFLOP/s" if ops else ""),
               flush=True)
+        # the delta kernel's plain version and library call are one einsum
+        return {"ms": t, "bound_ms": b_ms, "bound_by": by, "shape": shape,
+                "plain_ms": plain_d if name == "fa_bwd_delta" else plain_ms,
+                "library_ms": plain_d if name == "fa_bwd_delta" else sdpa}
+
+    for name, t in ms.items():
+        rows[name] = row(name, t, bounds, shape, plain, plain_delta,
+                         sdpa_bwd)
+    del q, k, v, dout, out, lse, rbuf, sdelta
+    torch.cuda.empty_cache()
+
+    # the simt route on its own inputs: the float32 row
+    label, B2, S2, H2, KV2, D2, c2, w2, dt2 = FA_BWD_CHECKS[-1]
+    q, k, v, dout = fa_bwd_inputs(dev, B2, S2, H2, KV2, D2, dt2, 7)
+    out, lse = fa_ops.flash_attention_fwd(q, k, v, causal=c2, window=w2)
+    sdelta = fa_ops.fa_bwd_delta(out, dout)
+    sargs = (q, k, v, dout, lse, sdelta, c2, w2)
+    f32 = {"fa_bwd_delta": cuda_ms(lambda: fa_ops.fa_bwd_delta(out, dout),
+                                   20),
+           "fa_bwd_dkdv": cuda_ms(lambda: fa_ops.fa_bwd_dkdv(*sargs), 5),
+           "fa_bwd_dq": cuda_ms(lambda: fa_ops.fa_bwd_dq(*sargs), 5)}
+    f_plain_delta = cuda_ms(lambda: torch.einsum(
+        "bshd,bshd->bhs", dout, out), 5)
+    f_plain = cuda_ms(lambda: fa_ref.flash_attention_bwd(
+        q, k, v, out, lse, dout, causal=c2, window=w2), 2)
+    f_sdpa = sdpa_bwd_ms(q, k, v, dout, c2, 10)
+    f_bounds = fa_bwd_bounds(B2, S2, H2, KV2, D2, c2, w2, dt2)
+    f_shape = (f"B={B2} S={S2} H={H2} KV={KV2} Dh={D2} {str(dt2)[6:]} "
+               f"{'causal' if c2 else 'non-causal'}")
+    for name, t in f32.items():
+        rows[name] = row(name, t, f_bounds, f_shape, f_plain,
+                         f_plain_delta, f_sdpa)
+        rows[name]["at_bf16_training_shape"] = {
+            "shape": shape, "ms": simt_bf16[name],
+            "bound_ms": bounds[name][0],
+            **({"library_ms": plain_delta} if name == "fa_bwd_delta"
+               else {"library_ms": sdpa_bwd})}
+    del q, k, v, dout, out, lse, sdelta
+    torch.cuda.empty_cache()
+
     total = sum(ms.values())
+    simt_total = sum(simt_bf16.values())
     f_ms, f_by, f_ops, f_bytes = bounds["function"]
-    print(f"[time] flash backward at {shape}: the three kernels "
+    print(f"[time] flash backward at {shape}: the wgmma route's two kernels "
           f"{total:.4f} ms ({f_ops / total / 1e9:.2f} TFLOP/s of the "
-          f"function's five products), bound {f_ms:.5f} ms ({f_by}); plain "
-          f"{plain:.3f} ms (delta alone {plain_delta:.4f} ms); torch's "
-          f"SDPA backward {sdpa_bwd:.4f} ms", flush=True)
-    return rows, {"ms": total, "bound_ms": f_ms, "bound_by": f_by,
-                  "plain_ms": plain, "sdpa_backward_ms": sdpa_bwd,
-                  "shape": shape}
+          f"function's five products; flash_attention_bwd {both:.4f} ms a "
+          f"call), the simt route's three {simt_total:.4f} ms "
+          f"({simt_bf16}), bound {f_ms:.5f} ms ({f_by}; the wgmma route's "
+          f"seven products {1.4 * f_ms:.5f} ms); plain {plain:.3f} ms "
+          f"(delta alone, one einsum {plain_delta:.4f} ms); torch's SDPA "
+          f"backward {sdpa_bwd:.4f} ms; at {f_shape}: the simt route "
+          f"{sum(f32.values()):.4f} ms, plain {f_plain:.3f} ms (delta's "
+          f"einsum {f_plain_delta:.4f} ms), SDPA backward {f_sdpa:.4f} ms",
+          flush=True)
+    return rows, {"ms": total, "call_ms": both, "bound_ms": f_ms,
+                  "bound_by": f_by, "plain_ms": plain,
+                  "sdpa_backward_ms": sdpa_bwd, "shape": shape,
+                  "simt_route_ms": simt_total}
 
 
 def model_flops(cfg, B, S):
@@ -3100,8 +3230,9 @@ def train_full(dev, kernels, fa_ops):
               f"grad_norm {h['grad_norm']!r}, lr {h['lr']:.3e}, wall "
               f"{h['step_time_s']:.4f} s", flush=True)
     per_step = {n: c / steps for n, c in got.items() if c}
+    # bf16 at head dim 64: the wgmma route, whose dq pass writes delta
     want = {"flash_attention": 2 * cfg.n_layers,
-            **dict.fromkeys(BWD_KERNELS, cfg.n_layers)}
+            **dict.fromkeys(BWD_ROUTE_KERNELS["wgmma"], cfg.n_layers)}
     launched = {n: c for n, c in got.items() if c}
     print(f"[train] {cfg.name} (full width and depth, {cfg.n_layers} "
           f"layers, remat on): {steps} steps of B={tc.global_batch} "
@@ -3112,8 +3243,8 @@ def train_full(dev, kernels, fa_ops):
           f"{want})", flush=True)
     if per_step != want:
         fail(f"{cfg.name} training: launches a step {per_step}, expected "
-             f"{want} (the forward twice under remat, each backward kernel "
-             "once per layer)")
+             f"{want} (the forward twice under remat, each wgmma backward "
+             f"kernel once per layer, no fa_bwd_delta, no simt kernel)")
     losses = [h["loss"] for h in hist]
     if len(losses) != steps or not all(np.isfinite(losses)) or \
             not all(np.isfinite(h["grad_norm"]) for h in hist):
@@ -3496,6 +3627,19 @@ def main() -> None:
             or not any("wgmma" in n for n in sass):
         fail("the bf16 flash kernel issues no wgmma (HGMMA) or no TMA load "
              "(UTMALDG)")
+    bwd_usage = flash_ptxas(build.build_log, flash_bwd_instance)
+    for name, props in bwd_usage.items():
+        print(f"[build] {name}: {props}", flush=True)
+    if set(bwd_usage) != set(FA_BWD_INSTANCES):
+        fail(f"ptxas reported {sorted(bwd_usage)} for the flash backward's "
+             f"wgmma instances, expected {FA_BWD_INSTANCES}")
+    bwd_sass = sass_counts(lib_path, flash_bwd_instance, ("HGMMA", "UTMALDG"))
+    print(f"[build] SASS of the flash backward's wgmma kernels (cuobjdump "
+          f"-sass): {bwd_sass}", flush=True)
+    if set(bwd_sass) != set(FA_BWD_INSTANCES) or \
+            any(not all(c.values()) for c in bwd_sass.values()):
+        fail("a flash backward wgmma kernel issues no wgmma (HGMMA) or no "
+             "TMA load (UTMALDG)")
     ssd_usage = flash_ptxas(build.build_log, ssd_instance)
     for name, props in ssd_usage.items():
         print(f"[build] {name}: {props}", flush=True)
@@ -5005,24 +5149,38 @@ def main() -> None:
          **ssd_time, "launches_by_path": path_launches("ssd_scan"),
          "launches_by_route": ssd_routes,
          "card_vs_cpu_logits_max_abs_diff": card_cpu_diff},
-        *({"name": name, "route": "cuda",
+        *({"name": name if route == "wgmma" or name == "fa_bwd_delta" else
+           f"{name}_{route}",
+           "route": "cuda",
            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
            "replaces": "src/repro/kernels/flash_attention/jnp_impl.py:117",
            "replaces_note": "the reference's flash backward _bwd_vjp, jnp "
                             "under the custom VJP of kernels/flash_attention/"
                             "ops.py: no Pallas kernel",
+           "kernel": f"{name}_kernel",
+           "wrapper": f"ops.{name}",
+           "bwd_route": route,
+           "bwd_route_note": "bfloat16 with a head dim of at most 128 "
+                             "(ops.bwd_route)" if route == "wgmma" else
+                             "float32, or a head dim in (128, 256]: not "
+                             "on the bf16 training path",
            "launches": train["launches"].get(name, 0),
-           "max_abs_err": fa_bwd_err[name], **fa_bwd_rows[name],
-           "plain_note": "the plain rowsum" if name == "fa_bwd_delta" else
+           "max_abs_err": fa_bwd_err[name],
+           **({"delta_max_abs_err": fa_bwd_err["wgmma_delta"]}
+              if name == "fa_bwd_dq_wgmma" else {}),
+           **fa_bwd_rows[name],
+           "plain_note": "the plain rowsum (one einsum)"
+                         if name == "fa_bwd_delta" else
                          "the plain backward (ref.flash_attention_bwd), "
                          "which computes dq, dk and dv at once",
-           "library_note": "no single PyTorch call" if name ==
+           "library_note": "torch.einsum('bshd,bshd->bhs', dout, out), the "
+                           "plain rowsum's one call" if name ==
                            "fa_bwd_delta" else
                            "scaled_dot_product_attention's backward "
                            "(torch.autograd.grad; dq, dk and dv at once)",
            **({"function": fa_bwd_function, "train_drive": train}
-              if name == "fa_bwd_dkdv" else {})}
-          for name in BWD_KERNELS),
+              if name == "fa_bwd_dkdv_wgmma" else {})}
+          for route, names in BWD_ROUTE_KERNELS.items() for name in names),
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

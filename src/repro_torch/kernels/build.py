@@ -96,6 +96,15 @@ SIGNATURES = {
     # q, k, v, dout, lse, delta, dq; B, S, H, KV, Dh; (b, s, head) strides
     # of q, k, v, dout, dq; causal, window, dtype; stream
     "fa_bwd_dq_launch": [_P] * 7 + [_I] * 5 + [_L] * 15 + [_I] * 3 + [_P],
+    # q, k, v, o, dout, lse, rows (written: lse * log2(e) and delta), dq;
+    # B, S, H, KV, Dh; (b, s, head) strides of q, k, v, o, dout, dq;
+    # causal, window, dtype; stream
+    "fa_bwd_dq_wgmma_launch": [_P] * 8 + [_I] * 5 + [_L] * 18 + [_I] * 3
+                              + [_P],
+    # q, k, v, dout, rows, dk, dv; B, S, H, KV, Dh; (b, s, head) strides
+    # of q, k, v, dout, dk, dv; causal, window, dtype; stream
+    "fa_bwd_dkdv_wgmma_launch": [_P] * 7 + [_I] * 5 + [_L] * 18 + [_I] * 3
+                                + [_P],
     # x, dt, A, B, C, y, state; B, S, H, P, N, chunk; (b, s, head) strides
     # of x and dt, A's stride, (b, s) strides of B and C; dtypes of x, dt,
     # A, B/C; route; stream

@@ -5,8 +5,12 @@ A CUDA tensor launches the hand-written kernels: the forward
 ``flash_attention_fwd``/``_fa_kernel``), bfloat16 by its wgmma route,
 whose tiles TMA loads, float32 by its SIMT route; the backward
 ``csrc/flash_attention_bwd.cu`` (the counterpart of the reference's
-``jnp_impl._bwd_vjp``), three kernels: ``fa_bwd_delta``, ``fa_bwd_dkdv``
-and ``fa_bwd_dq``.  A CPU tensor takes the plain versions in ``ref.py``.
+``jnp_impl._bwd_vjp``) by one of two routes, which ``bwd_route`` chooses
+from dtype and head dim: ``"wgmma"`` (bfloat16, Dh <= 128) launches
+``fa_bwd_dq_wgmma``, which also writes delta, then ``fa_bwd_dkdv_wgmma``,
+both on wgmma and TMA; ``"simt"`` (float32, or Dh in (128, 256])
+launches ``fa_bwd_delta``, ``fa_bwd_dkdv`` and ``fa_bwd_dq`` on the CUDA
+cores.  A CPU tensor takes the plain versions in ``ref.py``.
 The inputs keep the reference's (B,S,H,Dh)/(B,S,KV,Dh) layout: the
 kernels read them through their strides, so no transposed copy is made.
 
@@ -27,6 +31,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ref
 
 MAX_HEAD_DIM = 256
+MAX_WGMMA_BWD_HEAD_DIM = 128
+ROWS_TILE = 64            # the wgmma dkdv kernel's q rows a ring tile
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -122,8 +128,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def fa_bwd_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
-    """Launch ``fa_bwd_delta_kernel``: rowsum(dout * out), (B,H,S) float32,
-    on checked CUDA tensors."""
+    """Launch ``fa_bwd_delta_kernel`` (the simt route's): rowsum(dout *
+    out), (B,H,S) float32, on checked CUDA tensors."""
     B, S, H, Dh = out.shape
     delta = torch.empty((B, H, S), dtype=torch.float32, device=out.device)
     rc = build.launch(out.device, build.library().fa_bwd_delta_launch,
@@ -136,8 +142,8 @@ def fa_bwd_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
 
 
 def fa_bwd_dkdv(q, k, v, dout, lse, delta, causal: bool, window: int):
-    """Launch ``fa_bwd_dkdv_kernel``: (dk, dv) (B,S,KV,Dh) on checked CUDA
-    tensors."""
+    """Launch ``fa_bwd_dkdv_kernel`` (the simt route's): (dk, dv)
+    (B,S,KV,Dh) on checked CUDA tensors."""
     B, S, H, Dh = q.shape
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
@@ -153,8 +159,8 @@ def fa_bwd_dkdv(q, k, v, dout, lse, delta, causal: bool, window: int):
 
 
 def fa_bwd_dq(q, k, v, dout, lse, delta, causal: bool, window: int):
-    """Launch ``fa_bwd_dq_kernel``: dq (B,S,H,Dh) on checked CUDA
-    tensors."""
+    """Launch ``fa_bwd_dq_kernel`` (the simt route's): dq (B,S,H,Dh) on
+    checked CUDA tensors."""
     B, S, H, Dh = q.shape
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     strides = [s for x in (q, k, v, dout, dq) for s in _strides(x)]
@@ -168,14 +174,104 @@ def fa_bwd_dq(q, k, v, dout, lse, delta, causal: bool, window: int):
     return dq
 
 
+def _tma_ready(x):
+    """``x``, or a contiguous copy where TMA cannot read it (a base not
+    16-byte aligned, or a stride not a multiple of 16 bytes): a copy of
+    the layout, not a fallback."""
+    if x.data_ptr() % 16 == 0 and x.stride(-1) == 1 and \
+            not any(st % 8 for st in _strides(x)):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The backward kernels a CUDA launch of these inputs takes:
+    ``"wgmma"`` for bfloat16 with a head dim of at most 128 (TMA's zero
+    fill pads it to 64 or 128), ``"simt"`` for float32 and for head dims
+    in (128, 256].  A pure function of dtype and shape (q, k and v share
+    both; the bfloat16 inputs already satisfy ``_check_tma``)."""
+    if q.dtype == torch.bfloat16 and q.shape[-1] <= MAX_WGMMA_BWD_HEAD_DIM:
+        return "wgmma"
+    return "simt"
+
+
+def _check_wgmma(q):
+    if q.dtype != torch.bfloat16 or q.shape[-1] > MAX_WGMMA_BWD_HEAD_DIM:
+        raise ValueError(f"the wgmma backward takes bfloat16 with a head "
+                         f"dim of at most {MAX_WGMMA_BWD_HEAD_DIM}, not "
+                         f"{q.dtype} at {q.shape[-1]}")
+
+
+def rows_shape(q) -> Tuple[int, int, int, int]:
+    """The wgmma route's rows buffer for q (B,S,H,Dh): (B, H, S_pad, 2)
+    float32, S_pad = S rounded up to a multiple of 64 (the dkdv kernel
+    fetches a 64-row tile's 512 bytes in one bulk copy), which the dq pass
+    fills with each row's (lse * log2(e), delta), zeros past S."""
+    B, S, H, _ = q.shape
+    return (B, H, -(-S // ROWS_TILE) * ROWS_TILE, 2)
+
+
+def rows_delta(rows: torch.Tensor, S: int) -> torch.Tensor:
+    """delta (B,H,S) = rowsum(dout * out), a view of the rows buffer the
+    wgmma dq pass wrote."""
+    return rows[:, :, :S, 1]
+
+
+def fa_bwd_dq_wgmma(q, k, v, out, dout, lse, causal: bool, window: int):
+    """Launch ``fa_bwd_dq_wgmma_kernel`` (the wgmma route's first kernel)
+    on checked bfloat16 CUDA tensors that TMA can read, Dh <= 128: (dq
+    (B,S,H,Dh), the rows buffer (``rows_shape``) with each q row's (lse *
+    log2(e), delta = rowsum(dout * out)), which ``fa_bwd_dkdv_wgmma``
+    reads)."""
+    _check_wgmma(q)
+    B, S, H, Dh = q.shape
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    rows = torch.empty(rows_shape(q), dtype=torch.float32, device=q.device)
+    strides = [s for x in (q, k, v, out, dout, dq) for s in _strides(x)]
+    rc = build.launch(q.device, build.library().fa_bwd_dq_wgmma_launch,
+                      q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                      rows.data_ptr(), dq.data_ptr(), B, S, H, k.shape[2],
+                      Dh, *strides, int(bool(causal)), window,
+                      _DTYPES[q.dtype])
+    build.check(rc, "fa_bwd_dq_wgmma")
+    build.count(fa_bwd_dq_wgmma)
+    return dq, rows
+
+
+def fa_bwd_dkdv_wgmma(q, k, v, dout, rows, causal: bool, window: int):
+    """Launch ``fa_bwd_dkdv_wgmma_kernel`` (the wgmma route's second
+    kernel) on the inputs of ``fa_bwd_dq_wgmma`` and the rows buffer it
+    returned: (dk, dv) (B,S,KV,Dh)."""
+    _check_wgmma(q)
+    if tuple(rows.shape) != rows_shape(q) or rows.dtype != torch.float32 \
+            or not rows.is_contiguous() or rows.data_ptr() % 16 \
+            or rows.device != q.device:
+        raise ValueError(f"the wgmma dkdv kernel reads the rows buffer "
+                         f"{rows_shape(q)} of fa_bwd_dq_wgmma, not "
+                         f"{rows.dtype} {tuple(rows.shape)}")
+    B, S, H, Dh = q.shape
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    strides = [s for x in (q, k, v, dout, dk, dv) for s in _strides(x)]
+    rc = build.launch(q.device, build.library().fa_bwd_dkdv_wgmma_launch,
+                      q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      dout.data_ptr(), rows.data_ptr(), dk.data_ptr(),
+                      dv.data_ptr(), B, S, H, k.shape[2], Dh, *strides,
+                      int(bool(causal)), window, _DTYPES[q.dtype])
+    build.check(rc, "fa_bwd_dkdv_wgmma")
+    build.count(fa_bwd_dkdv_wgmma)
+    return dk, dv
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
                         dout: torch.Tensor, *, causal: bool = True,
                         window: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) from the forward's inputs, ``out`` and ``lse`` (B,H,S)
-    and the output's gradient ``dout``: the three backward kernels on
-    CUDA tensors, the plain version on CPU tensors."""
+    and the output's gradient ``dout``: on CUDA tensors the kernels of
+    ``bwd_route(q, k, v)``, on CPU tensors the plain version."""
     window = int(window)
     _check(q, k, v, window)
     if out.shape != q.shape or dout.shape != q.shape or \
@@ -189,13 +285,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.flash_attention_bwd(q, k, v, out, lse, dout,
                                        causal=causal, window=window)
     out, dout = (x.to(q.dtype) for x in (out, dout))
+    lse = lse.float().contiguous()
+    if q.numel() == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    if bwd_route(q, k, v) == "wgmma":
+        out, dout = _tma_ready(out), _tma_ready(dout)
+        dq, rows = fa_bwd_dq_wgmma(q, k, v, out, dout, lse, causal, window)
+        dk, dv = fa_bwd_dkdv_wgmma(q, k, v, dout, rows, causal, window)
+        return dq, dk, dv
     if out.stride(-1) != 1:
         out = out.contiguous()
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
-    lse = lse.float().contiguous()
-    if q.numel() == 0:
-        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     delta = fa_bwd_delta(out, dout)
     dk, dv = fa_bwd_dkdv(q, k, v, dout, lse, delta, causal, window)
     dq = fa_bwd_dq(q, k, v, dout, lse, delta, causal, window)
@@ -239,3 +340,5 @@ flash_attention.launches = 0
 fa_bwd_delta.launches = 0
 fa_bwd_dkdv.launches = 0
 fa_bwd_dq.launches = 0
+fa_bwd_dq_wgmma.launches = 0
+fa_bwd_dkdv_wgmma.launches = 0

@@ -4,6 +4,8 @@ skips (the fixture decides, at run time).  On the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -1213,23 +1215,128 @@ def _fa_bwd_inputs(dev, case, dtype):
     return q, k, v, out, lse, dout
 
 
-@pytest.mark.parametrize("case", FA_BWD_CASES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_backward_kernels_match_plain(dev, case, dtype):
+# ragged shapes on both routes: S = 77, 257 and 1000 (no multiple of a
+# tile), head dims 16, 80 and 112 (TMA's zero fill up to 64 or 128), a
+# window whose edge crosses the 64- and 128-row tiles, GQA groups 1, 4, 5
+FA_BWD_RAGGED = [
+    (1, 77, 4, 4, 16, True, 0), (2, 257, 8, 2, 80, False, 0),
+    (1, 1000, 5, 1, 112, True, 300), (2, 257, 20, 4, 64, True, 100),
+    (1, 1000, 16, 4, 80, False, 77),
+]
+
+
+# every wrapper of the backward, and those each route launches
+BWD_WRAPPERS = (fa_ops.fa_bwd_dq_wgmma, fa_ops.fa_bwd_dkdv_wgmma,
+                fa_ops.fa_bwd_delta, fa_ops.fa_bwd_dkdv, fa_ops.fa_bwd_dq)
+BWD_ROUTE_WRAPPERS = {"wgmma": BWD_WRAPPERS[:2], "simt": BWD_WRAPPERS[2:]}
+
+
+def _bwd_launches():
+    return [w.launches for w in BWD_WRAPPERS]
+
+
+def _simt_bwd(q, k, v, out, lse, dout, causal, window):
+    """(dq, dk, dv) from the simt route's three wrappers, whatever the
+    dtype."""
+    delta = fa_ops.fa_bwd_delta(out, dout)
+    dk, dv = fa_ops.fa_bwd_dkdv(q, k, v, dout, lse, delta, causal, window)
+    dq = fa_ops.fa_bwd_dq(q, k, v, dout, lse, delta, causal, window)
+    return dq, dk, dv
+
+
+def _check_bwd(dev, case, dtype, route=None):
+    """One backward of ``case`` against the plain version, asserting the
+    route's launches: ``flash_attention_bwd`` on ``bwd_route``'s kernels
+    (two on wgmma: dq, which writes delta, then dkdv; three on simt),
+    which must be ``route`` where one is named, or with ``route="simt"``
+    the simt wrappers called directly."""
     *_, causal, window = case
     args = _fa_bwd_inputs(dev, case, dtype)
-    before = [w.launches for w in (fa_ops.fa_bwd_delta, fa_ops.fa_bwd_dkdv,
-                                   fa_ops.fa_bwd_dq)]
-    got = fa_ops.flash_attention_bwd(*args, causal=causal, window=window)
+    before = _bwd_launches()
+    if route == "simt":
+        took, got = "simt", _simt_bwd(*args, causal, window)
+    else:
+        took = fa_ops.bwd_route(*args[:3])
+        assert route in (None, took)
+        got = fa_ops.flash_attention_bwd(*args, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert [w.launches for w in (fa_ops.fa_bwd_delta, fa_ops.fa_bwd_dkdv,
-                                 fa_ops.fa_bwd_dq)] == [n + 1 for n in before]
+    assert _bwd_launches() == [n + (w in BWD_ROUTE_WRAPPERS[took])
+                               for n, w in zip(before, BWD_WRAPPERS)]
     want = fa_ref.flash_attention_bwd(*args, causal=causal, window=window)
     tol = FA_BWD_TOL[dtype]
     for g_, w_, x in zip(got, want, args[:3]):
-        assert g_.dtype == x.dtype and g_.shape == x.shape
+        assert g_.shape == x.shape and g_.dtype == x.dtype
         torch.testing.assert_close(g_.float(), w_.float(), atol=tol,
                                    rtol=tol)
+
+
+@pytest.mark.parametrize("case", FA_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernels_match_plain(dev, case, dtype):
+    """Each case on its route (bfloat16 up to head dim 128: wgmma; float32
+    and head dim 256: simt)."""
+    _check_bwd(dev, case, dtype)
+
+
+@pytest.mark.parametrize("case", FA_BWD_CASES)
+def test_flash_backward_simt_route_on_bfloat16(dev, case):
+    """The simt kernels, called directly, on the bfloat16 cases: the route
+    of float32 and of head dims past 128 holds on bfloat16 inputs too."""
+    _check_bwd(dev, case, torch.bfloat16, route="simt")
+
+
+@pytest.mark.parametrize("case", FA_BWD_RAGGED)
+@pytest.mark.parametrize("route", ["wgmma", "simt"])
+def test_flash_backward_ragged_shapes_match_plain(dev, case, route):
+    _check_bwd(dev, case, torch.bfloat16, route=route)
+
+
+@pytest.mark.parametrize("case", [FA_BWD_CASES[0], FA_BWD_RAGGED[0],
+                                  FA_BWD_RAGGED[3]])
+def test_wgmma_dq_pass_writes_the_rows_buffer(dev, case):
+    """The wgmma dq pass's rows buffer: each q row's (lse * log2(e), delta)
+    with delta against the einsum, and zeros past S up to the 64-row
+    padding that the dkdv kernel's bulk copies read."""
+    *_, causal, window = case
+    q, k, v, out, lse, dout = _fa_bwd_inputs(dev, case, torch.bfloat16)
+    S = q.shape[1]
+    _, rows = fa_ops.fa_bwd_dq_wgmma(q, k, v, out, dout, lse, causal, window)
+    torch.cuda.synchronize()
+    assert tuple(rows.shape) == fa_ops.rows_shape(q)
+    torch.testing.assert_close(fa_ops.rows_delta(rows, S), torch.einsum(
+        "bshd,bshd->bhs", dout.float(), out.float()), atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(rows[:, :, :S, 0], lse * math.log2(math.e),
+                               atol=1e-5, rtol=1e-6)
+    assert not rows[:, :, S:].any()
+
+
+@pytest.mark.parametrize("case", [FA_BWD_CASES[0], FA_BWD_CASES[2],
+                                  FA_BWD_RAGGED[4]])
+def test_wgmma_backward_is_deterministic(dev, case):
+    """Two bfloat16 backwards of the same inputs give the same bits: the
+    GQA group's sum stays inside a dkdv block, with no atomics."""
+    *_, causal, window = case
+    args = _fa_bwd_inputs(dev, case, torch.bfloat16)
+    assert fa_ops.bwd_route(*args[:3]) == "wgmma"
+    a = fa_ops.flash_attention_bwd(*args, causal=causal, window=window)
+    b = fa_ops.flash_attention_bwd(*args, causal=causal, window=window)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype,Dh", [(0, 64), (1, 136), (1, 256)])
+def test_wgmma_backward_launchers_refuse_what_they_cannot_run(dev, dtype,
+                                                             Dh):
+    """The C launchers return cudaErrorInvalidValue (1) without a launch
+    for float32 (dtype 0) or a head dim past 128."""
+    lib = build.library()
+    buf = torch.zeros(1024, device=dev)
+    p, stream = buf.data_ptr(), torch.cuda.current_stream(dev).cuda_stream
+    shape = (1, 64, 2, 2, Dh)
+    strides = (64 * 2 * Dh, 2 * Dh, Dh) * 6
+    assert lib.fa_bwd_dq_wgmma_launch(*[p] * 8, *shape, *strides, 1, 0,
+                                      dtype, stream) == 1
+    assert lib.fa_bwd_dkdv_wgmma_launch(*[p] * 7, *shape, *strides, 1, 0,
+                                        dtype, stream) == 1
 
 
 @pytest.mark.parametrize("case", [(2, 300, 8, 2, 64, True, 0),
@@ -1298,14 +1405,15 @@ def test_model_backward_on_the_card_matches_the_cpu(dev, arch, dtype):
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     out = {}
     for d in ("cpu", dev):
-        before = [w.launches for w in (fa_ops.fa_bwd_delta,
-                                       fa_ops.fa_bwd_dkdv, fa_ops.fa_bwd_dq)]
+        before = _bwd_launches()
         (loss, _), grads = tstep.value_and_grad(
             cfg, _to(params, d), {k: v.to(d) for k, v in batch.items()})
-        launched = [w.launches - n for w, n in zip(
-            (fa_ops.fa_bwd_delta, fa_ops.fa_bwd_dkdv, fa_ops.fa_bwd_dq),
-            before)]
-        assert launched == [cfg.n_layers if d == dev else 0] * 3
+        # bfloat16 takes the wgmma route (no delta kernel), float32 simt
+        route = BWD_ROUTE_WRAPPERS["wgmma" if dtype == "bfloat16" else
+                                   "simt"]
+        n = cfg.n_layers if d == dev else 0
+        assert _bwd_launches() == [b + n * (w in route) for w, b in
+                                   zip(BWD_WRAPPERS, before)]
         out[str(d)] = (float(loss), _leaves(grads))
     assert abs(out[str(dev)][0] - out["cpu"][0]) < 1e-2
     for path, want in out["cpu"][1].items():

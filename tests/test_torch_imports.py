@@ -90,7 +90,9 @@ def _imported_names(path):
                          + [ROOT / "chip_smoke.py",
                             ROOT / "benchmarks" / "torch_scenarios.py",
                             ROOT / "benchmarks" / "torch_dag_event_ab.py",
-                            ROOT / "benchmarks" / "torch_qn_event_ab.py"],
+                            ROOT / "benchmarks" / "torch_qn_event_ab.py",
+                            ROOT / "benchmarks" / "torch_flash_bwd_ab.py",
+                            ROOT / "benchmarks" / "torch_flash_bwd_ulps.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_file_imports_jax_or_repro(path):
     for name in _imported_names(path):
