@@ -3,8 +3,8 @@ gaits, the repo's benchmarked planner scenarios, Spark/Tez DAG classes,
 the multi-tenant solver service, the private-cloud deployment plane, the
 paper's Table 3 and its serving analogue, the LM serving path (dense,
 Mamba2, hybrid, MoE, vision and encoder-decoder models) and LM training
-(granite-3-2b at full width and depth, through the flash backward
-kernels).
+(granite-3-2b and mamba2-780m at full width and depth, through the flash
+and SSD backward kernels).
 
     python3 chip_smoke.py
 
@@ -231,18 +231,27 @@ Phases, each printing one line or a few:
      (f32); the wgmma kernels timed at the training shape, the simt
      kernels there and at the float32 row's shape, each beside its
      bound, the plain version and torch's SDPA backward (a yardstick; for
-     the delta kernel the einsum that computes it); then granite-3-2b
-     trained at full width and depth through Trainer (B = 8, S = 1024, 4
-     steps, the fp32 AdamW, remat on): each step's loss, grad norm and
-     wall, the peak memory, the launches a step (80 flash forward under
+     the delta kernel the einsum that computes it); the SSD backward
+     (csrc/ssd_scan_bwd.cu, six kernels behind ssd_bwd) against
+     ref.ssd_bwd at mamba2-780m's and zamba2-7b's training shapes, in
+     float32, under the chunk, at 8 chunks with a nonzero dstate, at P = N
+     = 128 and on strided views (SSD_BWD_CHECKS), within 1e-4 of each
+     output's largest magnitude (and one bf16 step of a bf16 output), two
+     calls bit for bit, and timed at both training shapes beside its bound
+     and the plain version; then granite-3-2b and mamba2-780m trained at
+     full width and depth through Trainer (B = 8, S = 1024, 4 steps, the
+     fp32 AdamW, remat on): each step's loss, grad norm and wall, the
+     peak memory, the launches a step (granite: 80 flash forward under
      remat, 40 of each wgmma backward kernel and none of the simt
-     route's), one more step
-     profiled (the flash backward's share of the device time), the model
-     FLOP/s against 989 TFLOP/s; at depth 2 and full width, one step on the
-     card against the CPU (loss, grad norm, every gradient leaf, the
-     update) and a restart from a checkpoint on the card against the
-     uninterrupted run.
-Each drive of a main path sets the kernels' launch counts to 0 just before
+     route's; mamba2: 96 ssd_scan forwards, 48 SSD backwards and no
+     flash), one more step profiled (the backwards' shares of the device
+     time), the model FLOP/s against 989 TFLOP/s; at full width and a
+     cut depth (granite and mamba2 2, zamba2 3: the SSD and the flash
+     backward in one model), one step on the card against the CPU (loss,
+     grad norm, every gradient leaf, the update), and for granite a
+     restart from a checkpoint on the card against the uninterrupted
+     run.
+Each phase prints its seconds ([phase]).  Each drive of a main path sets the kernels' launch counts to 0 just before
 it and reads them just after.  The second-to-last line is the kernels'
 JSON record, the last line {"ok": true, "device": {...}}.  Any failure
 exits nonzero before it.  Needs one CUDA card, nvcc, and the repository's
@@ -252,6 +261,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import json
 import math
 import os
@@ -341,11 +351,15 @@ QN_BEFORE = {"qn_event_b32_ms": 115.261, "qn_event_b1_ms": 103.359,
 # after it), and on the large caps the busy slots span many threads'
 # blocks (a cap of 600 or 2000 spreads its slots over all 32 threads, a
 # cap of 16384 fills thread 0's 32 groups first).  Every lane must finish
-# jobs past the warm-up within the cut budget E
+# jobs past the warm-up within the cut budget E (the S = 8192 check's
+# 12288 events keep its two plain runs to ~17 s each on an H100's host,
+# against ~27 s at 16384; its slowest lane, a cap of 600 under maps of
+# 500 with 8 reduces, finishes 3 jobs there in exponential mode, none at
+# 8192)
 WIDE_CHECKS = [
     (20, 600, 8192, (False, True), [1, 17, 300, 600, 599],
      [500, 500, 500, 64, 120], [1, 1, 8, 1, 4]),
-    (20, 8192, 16384, (False, True), [1, 17, 600, 8000, 4000, 8192],
+    (20, 8192, 12288, (False, True), [1, 17, 600, 8000, 4000, 8192],
      [500, 500, 500, 64, 120, 32], [1, 1, 8, 1, 16, 4]),
     (32, 16384, 8192, (False, True), [1, 16384, 9000, 600, 2000],
      [500, 32, 64, 200, 64], [1, 1, 2, 1, 8]),
@@ -1008,6 +1022,16 @@ true, true, true, true, true, true, true, true, true, true, true], "contracts": 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     raise SystemExit(1)
+
+
+_PHASE = {"name": "start", "t0": time.perf_counter()}
+
+
+def phase(name: str) -> None:
+    """Print the seconds of the phase that ends here; ``name`` starts."""
+    now = time.perf_counter()
+    print(f"[phase] {_PHASE['name']}: {now - _PHASE['t0']:.1f} s", flush=True)
+    _PHASE.update(name=name, t0=now)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -2169,17 +2193,24 @@ def flash_ptxas(log: str, namer=flash_instance) -> dict:
     return {k: "; ".join(v.values()) for k, v in usage.items()}
 
 
-def sass_counts(lib, namer, ops) -> dict:
-    """Counts of the instructions ``ops`` in each kernel of the built
-    library's SASS (cuobjdump -sass) that ``namer`` names: for the flash
-    instances, wgmma (HGMMA) and TMA tile loads (UTMALDG)."""
+@functools.lru_cache(maxsize=None)
+def sass_lines(lib) -> tuple:
+    """The built library's SASS (cuobjdump -sass), dumped once: a dump of
+    the whole library takes ~14 s."""
     from repro_torch.kernels import build
 
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
-                          text=True, check=True).stdout
+    return tuple(subprocess.run([cuobjdump, "-sass", str(lib)],
+                                capture_output=True, text=True,
+                                check=True).stdout.splitlines())
+
+
+def sass_counts(lib, namer, ops) -> dict:
+    """Counts of the instructions ``ops`` in each kernel of the built
+    library's SASS that ``namer`` names: for the flash instances, wgmma
+    (HGMMA) and TMA tile loads (UTMALDG)."""
     counts, name = {}, None
-    for ln in sass.splitlines():
+    for ln in sass_lines(lib):
         if "Function :" in ln:
             name = namer(ln)
             if name:
@@ -2878,15 +2909,22 @@ FA_BWD_INSTANCES = ("fa_bwd_dq_wgmma_kernel<64, 128>",
                     "fa_bwd_dq_wgmma_kernel<128, 64>",
                     "fa_bwd_dkdv_wgmma_kernel<64>",
                     "fa_bwd_dkdv_wgmma_kernel<128>")
-# granite-3-2b trained at full width and depth: Trainer with these, the
+# the archs trained at full width and depth: Trainer with TRAIN_RUN, the
 # launcher's AdamW (lr 3e-4, warm-up max(10, steps // 20)) in the config's
 # fp32 mode, remat on
-TRAIN_ARCH = "granite-3-2b"
+TRAIN_ARCHS = ("granite-3-2b", "mamba2-780m")
 TRAIN_RUN = dict(steps=4, global_batch=8, seq_len=1024)
-# its card-vs-CPU step and restart at depth 2 (full width), on a batch
-# the CPU computes in seconds
-TRAIN_SMALL = dict(n_layers=2, global_batch=2, seq_len=256)
-# card against CPU, one step at depth 2 (bfloat16 activations, the
+# the card-vs-CPU step at full width and a cut depth, on a batch the CPU
+# computes in seconds: granite and mamba2 at depth 2, zamba2 at 3 (one
+# unit: two Mamba2 blocks and the shared attention at head dim 112); a
+# restart from a checkpoint is checked on granite's
+TRAIN_SMALL = {"granite-3-2b": 2, "mamba2-780m": 2, "zamba2-7b": 3}
+TRAIN_SMALL_RUN = dict(global_batch=2, seq_len=256)
+# the SSM archs' CPU step at one sequence of two chunks (zamba2's took 35
+# s at two sequences)
+TRAIN_SMALL_BATCH = {"mamba2-780m": 1, "zamba2-7b": 1}
+TRAIN_RESTART_ARCH = "granite-3-2b"
+# card against CPU, one step at the cut depth (bfloat16 activations, the
 # config's): the loss (absolute), the gradient norm (relative), each
 # gradient leaf relative to its largest magnitude (as
 # tests/test_torch_cuda.py's model backward), and the step's update
@@ -3143,19 +3181,44 @@ def time_flash_bwd(dev, fa_ops, fa_ref):
 
 
 def model_flops(cfg, B, S):
-    """A training step's model FLOPs (forward + backward, 3x the forward's
-    matmuls and causal attention; remat's recompute not counted) and with
-    the recompute (one more forward)."""
+    """A training step's model FLOPs: 3x the forward's (forward and
+    backward; remat's recompute not counted), and 4x with the recompute.
+    The forward's: every weight once a token (2 n B S; the embedding table
+    as the tied unembedding's matmul, norms negligible); causal attention,
+    4 B H Dh pairs a layer (q.k and p.v over the pairs s <= l); and per
+    Mamba2 layer the chunked scan's products, as ssd_bound counts them
+    (per (b, head, chunk) Q(Q+1) P for (C B^T o L) xdt over the pairs and
+    4 Q P N for C S^T and the state's update; C B^T once per (b, chunk),
+    Q(Q+1) N)."""
     from repro_torch.distributed.sharding import param_count
     from repro_torch.models import api
     n = param_count(api.param_specs(cfg))
-    # every weight once a token: the embedding table as the tied
-    # unembedding's matmul, the rest in the layers (norms: negligible)
+    kinds = cfg.all_layer_kinds()
+    n_ssd = kinds.count("mamba")
     matmul = 2 * n * B * S
+    n_attn = len(kinds) - n_ssd
     attn = 4 * B * cfg.n_heads * cfg.head_dim * live_pairs(S, True, 0) \
-        * cfg.n_layers
-    fwd = matmul + attn
+        * n_attn if n_attn else 0
+    ssd = 0
+    if n_ssd:
+        ssm = cfg.ssm
+        H, P, N = ssm.n_heads(cfg.d_model), ssm.head_dim, ssm.d_state
+        Q = min(ssm.chunk, S)
+        nc = S // Q
+        ssd = n_ssd * (B * H * nc * (Q * (Q + 1) * P + 4 * Q * P * N)
+                       + B * nc * Q * (Q + 1) * N)
+    fwd = matmul + attn + ssd
     return 3 * fwd, 4 * fwd, n
+
+
+# the profiled step's device time, by group: a kernel goes to the first
+# group one of whose patterns its name holds
+TRAIN_GROUPS = (("flash backward", ("fa_bwd",)),
+                ("flash forward", ("fa_wgmma", "fa_f32")),
+                ("SSD backward", ("ssd_bwd",)),
+                ("SSD forward", ("ssd_wgmma", "ssd_f32")),
+                ("matmuls", ("gemm", "gemv", "nvjet", "sm90_xmma", "cutlass",
+                             "cublas", "Kernel2")))
 
 
 def profile_train_step(run_step):
@@ -3173,18 +3236,32 @@ def profile_train_step(run_step):
             by_kernel[ev.name] += ev.time_range.elapsed_us() / 1e3
     groups = collections.Counter()
     for name, t in by_kernel.items():
-        key = next((g for g, pats in (
-            ("flash backward", ("fa_bwd",)),
-            ("flash forward", ("fa_wgmma", "fa_f32")),
-            ("matmuls", ("gemm", "gemv", "nvjet", "sm90_xmma", "cutlass",
-                         "cublas", "Kernel2")),
-        ) if any(p in name for p in pats)), "elementwise and the rest")
+        key = next((g for g, pats in TRAIN_GROUPS
+                    if any(p in name for p in pats)),
+                   "elementwise and the rest")
         groups[key] += t
     return wall_ms, sum(by_kernel.values()), groups, by_kernel
 
 
-def train_full(dev, kernels, fa_ops):
-    """granite-3-2b at full width and depth through Trainer: TRAIN_RUN's
+def train_launches(cfg) -> dict:
+    """The launches a training step must show, by wrapper: the flash
+    forward twice an attention layer under remat and each wgmma backward
+    kernel once (bf16, head dim <= 128: no fa_bwd_delta, no simt kernel);
+    the SSD scan twice a Mamba2 layer and its backward once."""
+    kinds = cfg.all_layer_kinds()
+    n_ssd = kinds.count("mamba")
+    n_attn = len(kinds) - n_ssd
+    want = {}
+    if n_attn:
+        want.update({"flash_attention": 2 * n_attn,
+                     **dict.fromkeys(BWD_ROUTE_KERNELS["wgmma"], n_attn)})
+    if n_ssd:
+        want.update(ssd_scan=2 * n_ssd, ssd_bwd=n_ssd)
+    return want
+
+
+def train_full(dev, kernels, fa_ops, arch):
+    """``arch`` at full width and depth through Trainer: TRAIN_RUN's
     steps, the launch counts set to 0 before and read after; then one more
     step under the profiler.  Returns the drive's figures."""
     import dataclasses
@@ -3194,10 +3271,11 @@ def train_full(dev, kernels, fa_ops):
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    cfg = get_config(TRAIN_ARCH)
+    t_drive = time.perf_counter()
+    cfg = get_config(arch)
     if not (cfg.remat and cfg.param_dtype == "float32"
             and cfg.optimizer_mode == "fp32"):
-        fail(f"{TRAIN_ARCH}: expected remat, float32 parameters and the fp32 "
+        fail(f"{arch}: expected remat, float32 parameters and the fp32 "
              "optimizer")
     steps = TRAIN_RUN["steps"]
     tc = TrainerConfig(steps=steps, global_batch=TRAIN_RUN["global_batch"],
@@ -3230,9 +3308,7 @@ def train_full(dev, kernels, fa_ops):
               f"grad_norm {h['grad_norm']!r}, lr {h['lr']:.3e}, wall "
               f"{h['step_time_s']:.4f} s", flush=True)
     per_step = {n: c / steps for n, c in got.items() if c}
-    # bf16 at head dim 64: the wgmma route, whose dq pass writes delta
-    want = {"flash_attention": 2 * cfg.n_layers,
-            **dict.fromkeys(BWD_ROUTE_KERNELS["wgmma"], cfg.n_layers)}
+    want = train_launches(cfg)
     launched = {n: c for n, c in got.items() if c}
     print(f"[train] {cfg.name} (full width and depth, {cfg.n_layers} "
           f"layers, remat on): {steps} steps of B={tc.global_batch} "
@@ -3243,8 +3319,8 @@ def train_full(dev, kernels, fa_ops):
           f"{want})", flush=True)
     if per_step != want:
         fail(f"{cfg.name} training: launches a step {per_step}, expected "
-             f"{want} (the forward twice under remat, each wgmma backward "
-             f"kernel once per layer, no fa_bwd_delta, no simt kernel)")
+             f"{want} (each forward kernel twice a layer of its kind under "
+             f"remat, each backward kernel once)")
     losses = [h["loss"] for h in hist]
     if len(losses) != steps or not all(np.isfinite(losses)) or \
             not all(np.isfinite(h["grad_norm"]) for h in hist):
@@ -3267,12 +3343,23 @@ def train_full(dev, kernels, fa_ops):
           f"device busy {busy:.2f} ms; by group (ms) "
           f"{ {g: round(t, 3) for g, t in groups.items()} }; top kernels "
           f"(ms): {top}", flush=True)
+    backward = {g: share.get(g, 0.0) for g in ("flash backward",
+                                               "SSD backward")}
+    n_ssd = cfg.all_layer_kinds().count("mamba")
+    ssd_bwd_ms = kernel_ms(by_kernel, SSD_BWD_KERNELS, n_ssd) if n_ssd \
+        else {}
+    if ssd_bwd_ms:
+        print(f"[train] {cfg.name} profiled step: the SSD backward's kernels, "
+              f"device ms a call {ssd_bwd_ms} (sum "
+              f"{sum(ssd_bwd_ms.values()):.4f} ms)", flush=True)
+    drive_s = time.perf_counter() - t_drive
     print(f"[train] {cfg.name}: {n_params} parameters; a step's model "
           f"FLOPs {flops:.4e} ({flops_remat:.4e} with the recompute); "
           f"median step {step_s:.4f} s of steps 1-{steps - 1} -> "
           f"{flops / step_s / 1e12:.2f} TFLOP/s, {100 * mfu:.2f}% of "
-          f"989 TFLOP/s; flash backward {100 * share.get('flash backward', 0):.1f}% "
-          f"of the device time", flush=True)
+          f"989 TFLOP/s; share of the device time: "
+          + ", ".join(f"{g} {100 * v:.1f}%" for g, v in backward.items())
+          + f"; drive {drive_s:.1f} s", flush=True)
     del state, holder, tr
     torch.cuda.empty_cache()
     return {"arch": cfg.name, "n_layers": cfg.n_layers,
@@ -3288,13 +3375,17 @@ def train_full(dev, kernels, fa_ops):
             "model_tflops_per_s": flops / step_s / 1e12, "mfu": mfu,
             "profiled_step": {"wall_ms": prof_wall, "busy_ms": busy,
                               "ms_by_group": dict(groups)},
-            "flash_backward_share": share.get("flash backward", 0.0)}
+            "flash_backward_share": backward["flash backward"],
+            "ssd_backward_share": backward["SSD backward"],
+            "ssd_bwd_device_ms_by_kernel": ssd_bwd_ms,
+            "drive_s": drive_s}
 
 
-def train_small(dev, kernels):
-    """At depth 2 and full width: one step on the card against the CPU
-    (the same state and batch), and a restart on the card from a
-    checkpoint against the uninterrupted run."""
+def train_small(dev, arch):
+    """At full width and TRAIN_SMALL[arch]'s depth: one step on the card
+    against the CPU (the same state and batch); for TRAIN_RESTART_ARCH also
+    a restart on the card from a checkpoint against the uninterrupted
+    run."""
     import signal
     import tempfile
 
@@ -3303,10 +3394,11 @@ def train_small(dev, kernels):
     from repro_torch.train import step as tstep
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    cfg = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_SMALL["n_layers"])
+    cfg = get_config(arch).replace(n_layers=TRAIN_SMALL[arch])
     opt = AdamWConfig(total_steps=4, warmup=2)
-    tc = TrainerConfig(steps=4, global_batch=TRAIN_SMALL["global_batch"],
-                       seq_len=TRAIN_SMALL["seq_len"], log_every=0, opt=opt)
+    tc = TrainerConfig(steps=4, log_every=0, opt=opt, **{
+        **TRAIN_SMALL_RUN, "global_batch": TRAIN_SMALL_BATCH.get(
+            arch, TRAIN_SMALL_RUN["global_batch"])})
     base = Trainer(cfg, tc, device=dev)
     state = base.init_state()
     batch = base.pipeline.batch_at(0)
@@ -3323,16 +3415,18 @@ def train_small(dev, kernels):
                        "update": {k: (a.float() - b_.float()) for (k, a), (_, b_)
                                   in zip(flat_leaves(to_device(params, "cpu")),
                                          flat_leaves(before))}}
+        del st, params, grads
+    del state
     cpu_s = time.perf_counter() - t0
     card, cpu = out["card"], out["cpu"]
+    worst_leaf = max(((float((a.float() - b_.float()).abs().max())
+                       / max(float(b_.float().abs().max()), 1e-30), k)
+                      for (k, a), (_, b_) in zip(flat_leaves(card["grads"]),
+                                                 flat_leaves(cpu["grads"]))))
     diffs = {"loss": abs(card["loss"] - cpu["loss"]),
              "grad_norm": abs(card["grad_norm"] - cpu["grad_norm"])
              / cpu["grad_norm"],
-             "grad_leaf": max(float((a.float() - b_.float()).abs().max())
-                              / max(float(b_.float().abs().max()), 1e-30)
-                              for (_, a), (_, b_) in zip(
-                                  flat_leaves(card["grads"]),
-                                  flat_leaves(cpu["grads"]))),
+             "grad_leaf": worst_leaf[0],
              "update_l2": float(torch.sqrt(sum(
                  ((card["update"][k] - u) ** 2).sum()
                  for k, u in cpu["update"].items())) / torch.sqrt(sum(
@@ -3343,15 +3437,20 @@ def train_small(dev, kernels):
           f"width), B={tc.global_batch} S={tc.seq_len}, one step: loss card "
           f"{card['loss']!r} cpu {cpu['loss']!r}, grad_norm card "
           f"{card['grad_norm']!r} cpu {cpu['grad_norm']!r}; differences "
-          f"{ {k: float(f'{v:.4e}') for k, v in diffs.items()} } (tol "
-          f"{TRAIN_CARD_CPU_TOL}); leaves without a gradient on the card: "
-          f"{zero or 'none'} ({cpu_s:.1f} s)", flush=True)
+          f"{ {k: float(f'{v:.4e}') for k, v in diffs.items()} } (largest "
+          f"leaf difference at {worst_leaf[1]}; tol {TRAIN_CARD_CPU_TOL}); "
+          f"leaves without a gradient on the card: {zero or 'none'} "
+          f"({cpu_s:.1f} s)", flush=True)
     if zero or any(diffs[k] > TRAIN_CARD_CPU_TOL[k] for k in diffs):
         fail(f"{cfg.name}: training on the card and on the cpu differ "
              f"beyond the tolerance, or a leaf got no gradient: {diffs}")
+    res = {"card_vs_cpu": diffs, "depth": cfg.n_layers, "seconds": cpu_s}
+    if arch != TRAIN_RESTART_ARCH:
+        return res
     # restart: 4 steps uninterrupted against 2, a checkpoint, and 2 more in
     # a new trainer restored from it
     t0 = time.perf_counter()
+    state = base.init_state()
     full = Trainer(cfg, tc, device=dev)
     full.run(copy_to(state, dev), 0)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3372,7 +3471,7 @@ def train_small(dev, kernels):
     if start != 2 or not np.allclose(got, want, rtol=1e-5, atol=0):
         fail(f"{cfg.name}: the resumed run's losses {got} differ from the "
              f"uninterrupted run's {want}")
-    return {"card_vs_cpu": diffs, "restart_losses": got.tolist(),
+    return {**res, "restart_losses": got.tolist(),
             "uninterrupted_losses": want.tolist()}
 
 
@@ -3557,6 +3656,194 @@ def time_ssd(dev, ssd_ops, ssd_ref):
                                    "bound_by")}}
 
 
+# the SSD backward's checks: (name, B, S, H, P, N, chunk, dtypes of x/dy,
+# dt and B/C, a nonzero dstate, layout).  The training shapes come as
+# training gives them: bf16 x, B, C and dy, float32 dt and A, and a zero
+# dstate (the final state feeds no loss)
+SSD_BWD_CHECKS = [
+    ("mamba2-780m training", 8, 1024, 48, 64, 128, 128, SERVING, False,
+     None),
+    ("zamba2-7b training", 2, 1024, 112, 64, 64, 128, SERVING, False, None),
+    ("float32", 2, 512, 8, 64, 128, 128, F32_3, True, None),
+    ("S < chunk (clamped to 96)", 2, 96, 8, 64, 128, 128, SERVING, True,
+     None),
+    ("8 chunks of 64, dstate", 2, 512, 4, 32, 48, 64, F32_3, True, None),
+    ("P = N = 128 (the scan kernels' largest tiles)", 1, 256, 4, 128, 128,
+     128, F32_3, True, None),
+    ("strided x (every other head), B and C views of one tensor", 2, 512,
+     8, 64, 128, 128, SERVING, True, "strided"),
+]
+SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC")
+SSD_BWD_KERNELS = ("ssd_bwd_scan_kernel<false>", "ssd_bwd_scan_kernel<true>",
+                   "ssd_bwd_rows_kernel", "ssd_bwd_cols_kernel",
+                   "ssd_bwd_dt_kernel", "ssd_bwd_reduce_kernel")
+# kernels against plain on identical inputs, each output against its own
+# largest magnitude: both compute in float32 from the same inputs and
+# differ only in the order of their sums (a product over up to 128 terms,
+# a cumulative sum over a chunk, a sum over heads or over (b, s)), so
+# SSD_BWD_ATOL x max|plain|, as the port's float32 backward is held to the
+# reference's.  An output in bfloat16 (dx, dB, dC at the training shapes)
+# is the same float32 value rounded by both, so where it sits on a rounding
+# edge the two differ by one bfloat16 step, up to 2^-7 of the value (at
+# the bottom of a binade: 1.0 on a dB of 128-256 at mamba2's training
+# shape): SSD_BWD_BF16_RTOL x |plain| besides
+SSD_BWD_ATOL = 1e-4
+SSD_BWD_BF16_RTOL = 2.0 ** -7
+
+
+def ssd_bwd_inputs(dev, B, S, H, P, N, types, nonzero, seed):
+    """x, dt, A, B_, C_ as ssd_inputs makes them, then dy (normal, in x's
+    dtype) and dstate (normal, or zeros), float32."""
+    x, dt, A, Bm, Cm = ssd_inputs(dev, B, S, H, P, N, types, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    dy = torch.randn((B, S, H, P), generator=g, device=dev).to(types[0])
+    ds = torch.randn((B, H, P, N), generator=g, device=dev) if nonzero \
+        else torch.zeros((B, H, P, N), device=dev)
+    return x, dt, A, Bm, Cm, dy, ds
+
+
+def ssd_bwd_close(got, want):
+    """{output: (max abs err, the largest error as a share of its
+    tolerance, within it and of the input's dtype)}."""
+    out = {}
+    for name, g_, w in zip(SSD_BWD_NAMES, got, want):
+        w32 = w.float()
+        tol = SSD_BWD_ATOL * float(w32.abs().max()) + (
+            SSD_BWD_BF16_RTOL * w32.abs() if w.dtype == torch.bfloat16
+            else 0.0)
+        d = (g_.float() - w32).abs()
+        share = float((d / (tol + 1e-30)).max()) if d.numel() else 0.0
+        out[name] = (float(d.max()) if d.numel() else 0.0, share,
+                     share <= 1.0 and g_.dtype == w.dtype
+                     and bool(torch.isfinite(g_).all()))
+    return out
+
+
+def check_ssd_bwd(dev, ssd_ops, ssd_ref):
+    """The backward kernels against ref.ssd_bwd at SSD_BWD_CHECKS, on
+    identical inputs, and a second call bit-identical to the first.
+    Returns the largest absolute error of each output."""
+    worst = dict.fromkeys(SSD_BWD_NAMES, 0.0)
+    for i, (label, B, S, H, P, N, chunk, types, nonzero, how) in \
+            enumerate(SSD_BWD_CHECKS):
+        args = ssd_bwd_inputs(dev, B, S, H * (2 if how else 1), P, N,
+                              types, nonzero, 300 + i)
+        x, dt, A, Bm, Cm, dy, ds = args
+        if how == "strided":
+            bc = torch.cat([Bm, Cm], dim=-1)
+            x, dt, A = x[:, :, ::2], dt[:, :, ::2], A[::2]
+            dy, ds = dy[:, :, ::2].contiguous(), ds[:, ::2].contiguous()
+            Bm, Cm = bc[..., :N], bc[..., N:]
+        args = (x, dt, A, Bm, Cm, dy, ds)
+        n0 = ssd_ops.ssd_bwd.launches
+        got = ssd_ops.ssd_bwd(*args, chunk=chunk)
+        again = ssd_ops.ssd_bwd(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        want = ssd_ref.ssd_bwd(*args, chunk=chunk)
+        res = ssd_bwd_close(got, want)
+        for name, (e, _, _) in res.items():
+            worst[name] = max(worst[name], e)
+        print(f"[train] ssd backward against its plain version, {label} "
+              f"(B={B} S={S} H={H} P={P} N={N} chunk={chunk}, x/dt/B "
+              f"{'/'.join(str(t)[6:] for t in types)}, dstate "
+              f"{'normal' if nonzero else 'zero'}): "
+              + "; ".join(f"{n} {e:.3e} ({s:.3f} of its tolerance)"
+                          for n, (e, s, _) in res.items())
+              + f" (atol {SSD_BWD_ATOL} x max|plain|, bf16 outputs + "
+              f"{SSD_BWD_BF16_RTOL} |plain|); two calls bit-identical: "
+              f"{same}; {ssd_ops.ssd_bwd.launches - n0} launches", flush=True)
+        bad = [n for n, (_, _, ok) in res.items() if not ok]
+        if bad:
+            fail(f"ssd backward {label}: {bad} beyond the tolerance")
+        if not same:
+            fail(f"ssd backward {label}: two calls differ")
+        if ssd_ops.ssd_bwd.launches - n0 != 2:
+            fail(f"ssd backward {label}: the wrapper counted "
+                 f"{ssd_ops.ssd_bwd.launches - n0} launches for 2 calls")
+        del args, got, want, x, dt, A, Bm, Cm, dy, ds
+        torch.cuda.empty_cache()
+    return worst
+
+
+def ssd_bwd_bound(args, Q):
+    """(bound ms, bound_by, bytes, flops) of the SSD backward on ``args``
+    (x, dt, A, B_, C_, dy, dstate): bytes, every input read once and dx,
+    ddt, dA, dB, dC written once in the inputs' dtypes; operations, per (b,
+    chunk, head) the two triangle products of width P (dy xdt^T, (G o L)^T
+    dy) and two of width N (dG B, dG^T C) over the Q(Q+1)/2 pairs s <= l
+    and five P x N x Q products (the states' replay, dy S0, B dS^T, xdt dS,
+    the cotangent's update), and G = C B^T once per (b, chunk), 2 flops per
+    multiply-add; at the bf16 tensor cores' rate for bf16 x, else the
+    float32 rate."""
+    x, dt, A, Bm, Cm, dy, ds = args
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    nbytes = sum(a.numel() * a.element_size() for a in args) + \
+        sum(a.numel() * a.element_size() for a in (x, dt, A, Bm, Cm))
+    nc, tri = S // Q, Q * (Q + 1) // 2
+    flops = 2 * (B * nc * H * (2 * tri * P + 2 * tri * N + 5 * Q * P * N)
+                 + B * nc * tri * N)
+    peak = H100_BF16_OPS_PER_S if x.dtype == torch.bfloat16 else \
+        H100_FP32_OPS_PER_S
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / peak
+    return (1e3 * max(t_bytes, t_ops),
+            "operations" if t_ops > t_bytes else "bytes", nbytes, flops)
+
+
+def kernel_ms(by_kernel, names, calls):
+    """{kernel: device ms a call} from a profile's ms by kernel name, for
+    the kernels ``names`` name (a template argument in <> must match too),
+    over ``calls`` calls."""
+    def match(n, ev):
+        base, _, arg = n.partition("<")
+        return base in ev and (not arg or f"<{arg}" in ev)
+    return {n: sum(t for ev, t in by_kernel.items() if match(n, ev)) / calls
+            for n in names}
+
+
+def time_ssd_bwd(dev, ssd_ops, ssd_ref):
+    """The backward at mamba2-780m's training shape (CUDA events around the
+    call, after a warm-up), its bound and the plain version's time, and
+    the call at zamba2-7b's training shape with its bound (each kernel's
+    device time comes from train_full's profiled step)."""
+    out = {}
+    for cell, i in (("mamba2", 0), ("zamba2", 1)):
+        _, B, S, H, P, N, Q, types, nonzero, _ = SSD_BWD_CHECKS[i]
+        args = ssd_bwd_inputs(dev, B, S, H, P, N, types, nonzero, 7)
+        ms = cuda_ms(lambda: ssd_ops.ssd_bwd(*args, chunk=Q), 10)
+        bound, bound_by, nbytes, flops = ssd_bwd_bound(args, Q)
+        row = {"ms": ms, "bound_ms": bound, "bound_by": bound_by,
+               "bytes": nbytes, "flops": flops,
+               "float32_bound_ms": 1e3 * max(nbytes / H100_BYTES_PER_S,
+                                             flops / H100_FP32_OPS_PER_S),
+               "shape": f"B={B} S={S} H={H} P={P} N={N} chunk={Q}, x/B/C/dy "
+                        "bf16, dt/A f32, dstate 0"}
+        if cell == "mamba2":
+            row["plain_ms"] = cuda_ms(lambda: ssd_ref.ssd_bwd(*args, chunk=Q),
+                                      2)
+        print(f"[time] ssd backward {cell} training {row['shape']}: "
+              f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), bound "
+              f"{bound:.5f} ms ({nbytes} bytes, {flops} flops; {bound_by}; "
+              f"at the float32 rate {row['float32_bound_ms']:.4f} ms)"
+              + ("" if cell != "mamba2" else
+                 f"; plain {row['plain_ms']:.3f} ms"), flush=True)
+        out[cell] = row
+        del args
+        torch.cuda.empty_cache()
+    m = out["mamba2"]
+    return {"ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "float32_bound_ms": m["float32_bound_ms"],
+            "library_ms": None,
+            "library_note": "no PyTorch call computes the SSD scan's "
+                            "backward",
+            "shape": m["shape"],
+            "at_zamba2_training": {k: out["zamba2"][k] for k in
+                                   ("shape", "ms", "bound_ms", "bound_by")}}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a "
@@ -3600,6 +3887,7 @@ def main() -> None:
     print(smi, flush=True)
 
     # ---------------------------------------------------------------- build
+    phase("build")
     t0 = time.perf_counter()
     build.library()
     usage = [ln.strip() for ln in build.build_log.splitlines()
@@ -3677,6 +3965,7 @@ def main() -> None:
     print(f"[build] SASS of the amva kernels: {amva_sass}", flush=True)
 
     # ----------------------------------------------- kernels vs plain (card)
+    phase("checks")
     gen = np.random.default_rng(11)
     H, S, E = 10, 512, 4096
     lanes = [  # (n_map, n_reduce, slots_cap, n_events_active)
@@ -3968,10 +4257,12 @@ def main() -> None:
                "amva_tensors": amva_ops.ps_fixed_point,
                "mva": amva_ops.mva_response,
                "flash_attention": fa_ops.flash_attention,
-               "ssd_scan": ssd_ops.ssd}
+               "ssd_scan": ssd_ops.ssd,
+               "ssd_bwd": ssd_ops.ssd_bwd}
     wrappers = tuple(kernels.values())
 
     # ------------------------------------------------------------ main path
+    phase("main path")
     DSpace4Cloud = optimizer.DSpace4Cloud
     prob, samples, _ = tpcds.scenario_problem("Q1", 10, 160_000.0)
     quick = quickstart_problem(problem)
@@ -4179,6 +4470,7 @@ def main() -> None:
           f" cpu={[v['predicted_ms'] for v in on_cpu.values()]}", flush=True)
 
     # ------------------------------------------------ benchmarked scenarios
+    phase("scenarios")
     # the repo's public-cloud planner benchmarks at their own budgets
     # (benchmarks/torch_scenarios.py), each a drive of its own: counts set
     # to 0 just before it and read just after, its wall without the
@@ -4347,6 +4639,7 @@ def main() -> None:
     added_wall["cloud"] = time.perf_counter() - t0
 
     # --------------------------------------------------------- LM serving
+    phase("serving")
     serving = serve_drives(dev, kernels, SERVE_CASES)
     by_path, card_cpu_diff = serving["by_path"], serving["card_vs_cpu"]
     ssd_routes = serving["ssd_routes"]
@@ -4396,6 +4689,7 @@ def main() -> None:
           f"{sum(added_wall.values()):.3f} s in all", flush=True)
 
     # ---------------------------------------------------------------- times
+    phase("time")
     # qn_event at every dispatch shape of the Q1 run() above: lanes of
     # m4.xlarge candidates up to the shape's max_slots, 2 replications.
     # Each shape is held against the plain version with the depth cut to
@@ -4954,22 +5248,33 @@ def main() -> None:
     ssd_time = time_ssd(dev, ssd_ops, ssd_ref)
 
     # -------------------------------------------------------------- [train]
-    # the flash backward against its plain version, then granite-3-2b
-    # trained at full width and depth (the launch counts set to 0 just
-    # before the drive), then the card against the CPU and a restart at
-    # depth 2
+    # the flash and SSD backwards against their plain versions, then
+    # granite-3-2b and mamba2-780m trained at full width and depth (the
+    # launch counts set to 0 just before each drive), then the card against
+    # the CPU at a cut depth (granite and mamba2 2, zamba2 3) and a restart
+    # (granite)
+    phase("train")
     t0 = time.perf_counter()
     fa_bwd_err = check_flash_bwd(dev, fa_ops, fa_ref)
     fa_bwd_rows, fa_bwd_function = time_flash_bwd(dev, fa_ops, fa_ref)
-    train = train_full(dev, kernels, fa_ops)
-    for k, n in train["launches"].items():
-        if k in launches:
-            launches[k] += n
-    by_path["train"] = train["launches"]
-    train["small"] = train_small(dev, kernels)
-    train["phase_s"] = time.perf_counter() - t0
-    print(f"[train] wall of the phase {train['phase_s']:.1f} s", flush=True)
+    ssd_bwd_err = check_ssd_bwd(dev, ssd_ops, ssd_ref)
+    ssd_bwd_time = time_ssd_bwd(dev, ssd_ops, ssd_ref)
+    print(f"[train] the backward kernels' checks and times: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    train = {}
+    for arch in TRAIN_ARCHS:
+        train[arch] = train_full(dev, kernels, fa_ops, arch)
+        for k, n in train[arch]["launches"].items():
+            if k in launches:
+                launches[k] += n
+        by_path[f"train.{arch}"] = train[arch]["launches"]
+    train_cut = {arch: train_small(dev, arch) for arch in TRAIN_SMALL}
+    train_s = time.perf_counter() - t0
+    print(f"[train] wall of the phase {train_s:.1f} s", flush=True)
     path_launches = lambda k: {a: n[k] for a, n in by_path.items() if k in n}
+    train_launch = lambda name: sum(t["launches"].get(name, 0)
+                                    for t in train.values())
+    phase("record")
 
     record = {"kernels": [
         {"name": "qn_event", "route": "cuda",
@@ -5164,7 +5469,8 @@ def main() -> None:
                              "(ops.bwd_route)" if route == "wgmma" else
                              "float32, or a head dim in (128, 256]: not "
                              "on the bf16 training path",
-           "launches": train["launches"].get(name, 0),
+           "launches": train_launch(name),
+           "launches_by_path": path_launches(name),
            "max_abs_err": fa_bwd_err[name],
            **({"delta_max_abs_err": fa_bwd_err["wgmma_delta"]}
               if name == "fa_bwd_dq_wgmma" else {}),
@@ -5178,10 +5484,31 @@ def main() -> None:
                            "fa_bwd_delta" else
                            "scaled_dot_product_attention's backward "
                            "(torch.autograd.grad; dq, dk and dv at once)",
-           **({"function": fa_bwd_function, "train_drive": train}
+           **({"function": fa_bwd_function,
+               "train_drive": train["granite-3-2b"],
+               "card_vs_cpu": train_cut}
               if name == "fa_bwd_dkdv_wgmma" else {})}
           for route, names in BWD_ROUTE_KERNELS.items() for name in names),
+        {"name": "ssd_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
+         "replaces": "src/repro/kernels/ssd_scan/ops.py:28",
+         "replaces_note": "the reference's SSD backward _bwd, a jax.vjp "
+                          "through the plain chunked scan ssd_chunked "
+                          "(src/repro/models/mamba2.py:107) under the custom "
+                          "VJP of kernels/ssd_scan/ops.py: no Pallas kernel",
+         "kernels": list(SSD_BWD_KERNELS),
+         "wrapper": "ops.ssd_bwd (one entry point, ssd_bwd_launch)",
+         "launches": launches["ssd_bwd"],
+         "launches_by_path": path_launches("ssd_bwd"),
+         "max_abs_err": max(ssd_bwd_err.values()),
+         "max_abs_err_by_output": ssd_bwd_err,
+         **ssd_bwd_time,
+         "device_ms_by_kernel": train["mamba2-780m"][
+             "ssd_bwd_device_ms_by_kernel"],
+         "plain_note": "ref.ssd_bwd, the vjp written out in plain PyTorch",
+         "train_drive": train["mamba2-780m"]},
     ]}
+    phase("end")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -109,6 +109,11 @@ SIGNATURES = {
     # of x and dt, A's stride, (b, s) strides of B and C; dtypes of x, dt,
     # A, B/C; route; stream
     "ssd_scan_launch": [_P] * 7 + [_I] * 6 + [_L] * 11 + [_I] * 5 + [_P],
+    # x, dt, A, B, C, dy, dstate; dx, ddt, dA, dB, dC; scratch: states,
+    # dstates, rows, chunks, dB and dC by head; B, S, H, P, N, chunk;
+    # (b, s, head) strides of x and dt, A's stride, (b, s) strides of B and
+    # C, (b, s, head) strides of dy; dtypes of x, dt, A, B/C, dy; stream
+    "ssd_bwd_launch": [_P] * 18 + [_I] * 6 + [_L] * 14 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

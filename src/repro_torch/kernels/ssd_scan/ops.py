@@ -20,17 +20,21 @@ A route never falls back to the other: a failed launch raises.  A CPU
 tensor takes the plain version in ``ref.py``.
 
 ``ssd`` is differentiable where autograd records (grad enabled and an
-input that requires it): ``SSD``, a ``torch.autograd.Function``, whose
-backward is the reference's ``ops._bwd``, a vjp through the plain scan
-(autograd through ``ref.ssd`` here), on CPU tensors.  The SSD backward
-kernel is not written yet: a backward on CUDA tensors
-raises rather than run the plain version, and a CUDA forward under
-autograd still returns outputs with their history.  The semantics are
-``ssd_fwd``'s: the chunk is clamped to ``min(chunk, S)`` and S must be a
-multiple of the clamped chunk.  The inputs keep the reference's layouts
-and are read through their strides (the last axis of x, B_ and C_ must be
+input that requires it): ``SSD``, a ``torch.autograd.Function``, saves
+the inputs, and its backward is ``ssd_bwd``, the vjp of the scan at (dy,
+dstate) that the reference's ``ops._bwd`` takes through the plain scan:
+on CUDA tensors the hand-written kernels of ``csrc/ssd_scan_bwd.cu``
+(one entry point, six kernels, float32 on the CUDA cores, every sum in a
+fixed order: two calls agree bit for bit), on CPU tensors
+``ref.ssd_bwd``.  A failed launch raises; nothing falls back to the
+plain version on the card.  The semantics are ``ssd_fwd``'s: the chunk
+is clamped to ``min(chunk, S)`` and S must be a multiple of the clamped
+chunk (the reference's backward does not clamp: its vjp raises where S
+is under the chunk).  The inputs keep the reference's layouts and are
+read through their strides (the last axis of x, B_ and C_ must be
 contiguous), so no transposed copy is made.  ``ssd.launches`` counts
-kernel launches, ``ssd.routes`` the launches of each route.
+forward launches, ``ssd.routes`` the launches of each route, and
+``ssd_bwd.launches`` backward launches.
 """
 from __future__ import annotations
 
@@ -156,11 +160,74 @@ def _forward(x, dt, A, B_, C_, chunk):
     return y, state
 
 
+def _check_cotangents(x, B_, dy, dstate) -> None:
+    """Raise on cotangents that do not match the scan's outputs."""
+    Bb, S, H, P = x.shape
+    N = B_.shape[-1]
+    for name, t, shape in (("dy", dy, (Bb, S, H, P)),
+                           ("dstate", dstate, (Bb, H, P, N))):
+        if not isinstance(t, torch.Tensor) or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be a tensor of shape {shape}")
+        if t.device != x.device:
+            raise ValueError(f"{name} must lie on x's device")
+        if t.dtype not in _DTYPES:
+            raise ValueError(f"ssd_bwd takes float32 or bfloat16; {name} is "
+                             f"{t.dtype}")
+
+
+def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            B_: torch.Tensor, C_: torch.Tensor, dy: torch.Tensor,
+            dstate: torch.Tensor, chunk: int = 128):
+    """The vjp of ``ssd`` at (dy (B,S,H,P), dstate (B,H,P,N)): (dx, ddt,
+    dA, dB, dC) in the dtypes of x, dt, A, B_ and C_.  CPU tensors take
+    ``ref.ssd_bwd``; CUDA tensors launch the kernels, their outputs
+    contiguous, with float32 scratch allocated here and freed on return
+    (each chunk's entering state and its cotangent, per-head partials of
+    dB and dC, a few rows: about 620 MB at mamba2-780m's training
+    shape)."""
+    chunk = _check(x, dt, A, B_, C_, chunk)
+    _check_cotangents(x, B_, dy, dstate)
+    if x.device.type == "cpu":
+        return ref.ssd_bwd(x, dt, A, B_, C_, dy, dstate, chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"no ssd_bwd kernel for device {x.device}")
+    Bb, S, H, P = x.shape
+    N = B_.shape[-1]
+    nc = S // chunk
+    dev, f32 = x.device, torch.float32
+    if dy.stride(-1) != 1:
+        dy = dy.contiguous()
+    dstate = dstate.to(f32).contiguous()
+    dx = torch.empty((Bb, S, H, P), dtype=x.dtype, device=dev)
+    ddt = torch.empty((Bb, S, H), dtype=dt.dtype, device=dev)
+    dA = torch.empty((H,), dtype=A.dtype, device=dev)
+    dB = torch.empty((Bb, S, N), dtype=B_.dtype, device=dev)
+    dC = torch.empty((Bb, S, N), dtype=C_.dtype, device=dev)
+    if dx.numel() == 0:
+        return dx.zero_(), ddt.zero_(), dA.zero_(), dB.zero_(), dC.zero_()
+    states = torch.empty((Bb, H, nc + 1, P, N), dtype=f32, device=dev)
+    dstates = torch.empty((Bb, H, nc, P, N), dtype=f32, device=dev)
+    rows = torch.empty((4, Bb, H, S), dtype=f32, device=dev)
+    chunks = torch.empty((2, Bb, H, nc), dtype=f32, device=dev)
+    dBp = torch.empty((Bb, H, S, N), dtype=f32, device=dev)
+    dCp = torch.empty_like(dBp)
+    strides = [*_strides(x, 3), *dt.stride(), A.stride(0), *_strides(B_, 2),
+               *_strides(C_, 2), *_strides(dy, 3)]
+    dtypes = [_DTYPES[t.dtype] for t in (x, dt, A, B_, dy)]
+    ptrs = [t.data_ptr() for t in (x, dt, A, B_, C_, dy, dstate, dx, ddt, dA,
+                                   dB, dC, states, dstates, rows, chunks,
+                                   dBp, dCp)]
+    rc = build.launch(dev, build.library().ssd_bwd_launch, *ptrs, Bb, S, H,
+                      P, N, chunk, *strides, *dtypes)
+    build.check(rc, "ssd_bwd")
+    build.count(ssd_bwd)
+    return dx, ddt, dA, dB, dC
+
+
 class SSD(torch.autograd.Function):
     """The scan with the reference's backward: the forward saves its
-    inputs, the backward replays the plain scan under autograd and takes
-    its vjp at (dy, dstate).  CPU tensors only: on CUDA tensors the
-    backward raises (its kernel is not written yet)."""
+    inputs, the backward is ``ssd_bwd`` at (dy, dstate) (the kernels on
+    the card, the plain version on the CPU)."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B_, C_, chunk):
@@ -170,20 +237,9 @@ class SSD(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dstate):
-        ins = ctx.saved_tensors
-        if ins[0].is_cuda:
-            raise NotImplementedError(
-                "the SSD backward has no CUDA kernel yet; it does not run "
-                "the plain version on the card")
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(need) for t, need in
-                      zip(ins, ctx.needs_input_grad)]
-            y, state = ref.ssd(*leaves, ctx.chunk)
-            wrt = [t for t in leaves if t.requires_grad]
-            grads = iter(torch.autograd.grad((y, state), wrt, (dy, dstate),
-                                             allow_unused=True))
-        return (*(next(grads) if t.requires_grad else None
-                  for t in leaves), None)
+        grads = ssd_bwd(*ctx.saved_tensors, dy, dstate, ctx.chunk)
+        return (*(g if need else None for g, need in
+                  zip(grads, ctx.needs_input_grad)), None)
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -203,3 +259,4 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 ssd.launches = 0
 ssd.routes = dict.fromkeys(ROUTES, 0)
+ssd_bwd.launches = 0

@@ -14,6 +14,12 @@ chunk of 128, where they reach about -100, the order alone moves y by
 ~4e-4); the reference sums in float32.  At chunk 128 both this version
 and the reference are within their float32 tolerance of the exact scan,
 not always of each other (tests/test_torch_ssd.py).
+
+``ssd_bwd`` is the plain version of the backward kernels
+(``csrc/ssd_scan_bwd.cu``): the vjp of ``ssd`` written out chunk by chunk
+in reverse, without autograd; the kernels take the same sums in other
+orders (tests/test_torch_ssd_bwd.py holds it to ``jax.vjp`` of the
+reference's op and to autograd through ``ssd``).
 """
 from __future__ import annotations
 
@@ -85,3 +91,102 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``min(chunk, S)``; raises ``ValueError`` when S is not a multiple of
     the clamped chunk."""
     return ssd_chunked(x, dt, A, B_, C_, min(int(chunk), x.shape[1]))
+
+
+def revcumsum(d: torch.Tensor, dim: int) -> torch.Tensor:
+    """Reverse inclusive cumulative sum of float32 ``d`` (the vjp of
+    ``cumsum``), in float64, rounded once to float32."""
+    return torch.flip(torch.cumsum(torch.flip(d.double(), (dim,)), dim=dim),
+                      (dim,)).float()
+
+
+def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            B_: torch.Tensor, C_: torch.Tensor, dy: torch.Tensor,
+            dstate: torch.Tensor, chunk: int = 128):
+    """The vjp of ``ssd`` at (dy, dstate), written out (no autograd):
+    (dx, ddt, dA, dB, dC) in the dtypes of x, dt, A, B_ and C_.
+
+    Per chunk, with xdt = x dt, cs = cumsum(dt A), L[l, s] = exp(cs[l] -
+    cs[s]) for s <= l, G = C B^T, S0 the state entering the chunk, decay[s]
+    = exp(cs[Q-1] - cs[s]) and dS the cotangent of the state leaving it:
+      d xdt[s] = sum_l (G o L)[l, s] dy[l] + decay[s] dS B[s]
+      dG       = L o (dy xdt^T), summed over heads; dL o L = dG o G
+      dC[l]    = sum_s dG[l, s] B[s] + exp(cs[l]) dy[l] S0
+      dB[s]    = sum_l dG[l, s] C[l] + decay[s] xdt[s] dS
+      dS_prev  = exp(cs[Q-1]) dS + sum_l exp(cs[l]) dy[l]^T C[l]
+      dcs      = rows of dL o L - its columns + exp(cs[l]) dy[l].(S0 C[l])
+                 - decay[s] xdt[s].(dS B[s]) (their sum again at Q-1)
+                 + exp(cs[Q-1]) <dS, S0> at Q-1
+    and da = the reverse cumulative sum of dcs, dx = d xdt dt, ddt =
+    sum_p d xdt x + da A (each term rounded to dt's dtype before the sum,
+    as the reference's two paths are), dA = sum_{b,s} da dt.  The chunks
+    run in reverse
+    after a forward replay that keeps each chunk's entering state.  Sums
+    in float32; the cumulative sums in float64, rounded once, as ``ssd``
+    takes its own."""
+    Bb, S, H, P = x.shape
+    N = B_.shape[-1]
+    Q = min(int(chunk), S)
+    if S % Q:
+        raise ValueError(f"sequence length {S} is not a multiple of the "
+                         f"chunk {Q}")
+    nc = S // Q
+    f32 = torch.float32
+    dtf, Af = dt.to(f32), A.to(f32)
+    xc = (x.to(f32) * dtf[..., None]).reshape(Bb, nc, Q, H, P)
+    dyc = dy.to(f32).reshape(Bb, nc, Q, H, P)
+    Bc = B_.to(f32).reshape(Bb, nc, Q, N)
+    Cc = C_.to(f32).reshape(Bb, nc, Q, N)
+    cs = cumsum((dtf * Af).reshape(Bb, nc, Q, H), dim=2)        # (B,nc,Q,H)
+    tril = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+
+    states = []                                  # the state entering each
+    state = torch.zeros((Bb, H, P, N), dtype=f32, device=x.device)
+    for c in range(nc):
+        states.append(state)
+        decay = torch.exp(cs[:, c, -1:] - cs[:, c])
+        state = state * torch.exp(cs[:, c, -1])[..., None, None] + \
+            torch.einsum("bsn,bsh,bshp->bhpn", Bc[:, c], decay, xc[:, c])
+
+    dS = dstate.to(f32)
+    dxdt = torch.empty((Bb, nc, Q, H, P), dtype=f32, device=x.device)
+    dB = torch.empty((Bb, nc, Q, N), dtype=f32, device=x.device)
+    dC = torch.empty_like(dB)
+    dcs = torch.empty((Bb, nc, Q, H), dtype=f32, device=x.device)
+    for c in reversed(range(nc)):
+        xk, dyk, Bk, Ck, S0 = xc[:, c], dyc[:, c], Bc[:, c], Cc[:, c], \
+            states[c]
+        csk = cs[:, c]                                           # (B,Q,H)
+        e = torch.exp(csk)
+        e_last = torch.exp(csk[:, -1])                           # (B,H)
+        decay = torch.exp(csk[:, -1:] - csk)
+        seg = csk.transpose(1, 2)[..., :, None] - \
+            csk.transpose(1, 2)[..., None, :]                    # (B,H,l,s)
+        L = torch.exp(seg.masked_fill(~tril, float("-inf")))
+        G = torch.einsum("bln,bsn->bls", Ck, Bk)[:, None]        # (B,1,l,s)
+        dG = L * torch.einsum("blhp,bshp->bhls", dyk, xk)        # (B,H,l,s)
+        dLL = dG * G
+        dxdt[:, c] = torch.einsum("bhls,blhp->bshp", G * L, dyk) + \
+            decay[..., None] * torch.einsum("bhpn,bsn->bshp", dS, Bk)
+        dC[:, c] = torch.einsum("bhls,bsn->bln", dG, Bk) + \
+            torch.einsum("blh,blhp,bhpn->bln", e, dyk, S0)
+        dB[:, c] = torch.einsum("bhls,bln->bsn", dG, Ck) + \
+            torch.einsum("bsh,bshp,bhpn->bsn", decay, xk, dS)
+        state_in = e * torch.einsum("blhp,bhpn,bln->blh", dyk, S0, Ck)
+        to_state = decay * torch.einsum("bshp,bhpn,bsn->bsh", xk, dS, Bk)
+        d = (dLL.sum(-1) - dLL.sum(-2)).transpose(1, 2) + state_in - to_state
+        d[:, -1] += to_state.sum(1) + e_last * (dS * S0).sum((-2, -1))
+        dcs[:, c] = d
+        dS = e_last[..., None, None] * dS + \
+            torch.einsum("blh,blhp,bln->bhpn", e, dyk, Ck)
+
+    da = revcumsum(dcs, dim=2).reshape(Bb, S, H)
+    dxdt = dxdt.reshape(Bb, S, H, P)
+    dx = dxdt * dtf[..., None]
+    # dt enters twice (x dt and dt A): each path's cotangent takes dt's
+    # dtype before the two are added, as the reference's vjp adds them
+    ddt = (dxdt * x.to(f32)).sum(-1).to(dt.dtype) + (da * Af).to(dt.dtype)
+    dA = (da * dtf).sum((0, 1))
+    return (dx.to(x.dtype), ddt, dA.to(A.dtype),
+            dB.reshape(Bb, S, N).to(B_.dtype),
+            dC.reshape(Bb, S, N).to(C_.dtype))

@@ -4,10 +4,13 @@ Trains a reduced (smoke) config of any registry arch, or with ``--full``
 its full-size config, through the trainer (synthetic data, AdamW in the
 config's optimizer mode, checkpoints with ``--ckpt-dir``).  ``--device``
 defaults to the CUDA card and fails without one; ``--device cpu`` runs
-the plain PyTorch versions of the kernels (an SSM or hybrid arch trains
-on the CPU only: the SSD backward kernel is not written yet).
+the plain PyTorch versions of the kernels.  A Mamba2 or hybrid arch needs
+``--seq`` a multiple of its SSD chunk (128 at full size, 16 in the smoke
+configs) or under it.
 
     python -m repro_torch.launch.train --arch granite-3-2b --full \\
+        --steps 4 --batch 8 --seq 1024
+    python -m repro_torch.launch.train --arch mamba2-780m --full \\
         --steps 4 --batch 8 --seq 1024
 """
 from __future__ import annotations

@@ -8,8 +8,8 @@ parameters, so the parameters themselves never carry autograd state) and
 a Python loop accumulates.  Every model kernel on the path is
 differentiable: flash attention through ``FlashAttention`` (the
 hand-written backward kernels on the card), the SSD scan through ``SSD``
-(CPU only, its backward kernel is queued).  ``adamw_update`` then writes
-the new parameters and moments in place (``optim.adamw``).
+(its hand-written backward kernels on the card).  ``adamw_update`` then
+writes the new parameters and moments in place (``optim.adamw``).
 """
 from __future__ import annotations
 

@@ -1374,7 +1374,10 @@ def test_flash_autograd_on_the_card_matches_the_cpu(dev):
         torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
 
 
-def test_ssd_backward_on_the_card_raises(dev):
+def test_ssd_backward_on_the_card_raises(dev, monkeypatch):
+    """The backward on the card launches its kernels (one count a call) or
+    raises: a launch the library refuses raises, and nothing falls back to
+    the plain version."""
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn((1, 32, 2, 16), generator=g, device=dev,
                     requires_grad=True)
@@ -1384,8 +1387,117 @@ def test_ssd_backward_on_the_card_raises(dev):
               for _ in range(2))
     y, state = ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=16)
     assert y.grad_fn is not None and state.grad_fn is not None
-    with pytest.raises(NotImplementedError, match="SSD backward"):
+    before = ssd_ops.ssd_bwd.launches
+    (y.float() ** 2).sum().backward(retain_graph=True)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd_bwd.launches == before + 1
+    want = ssd_ref.ssd_bwd(x.detach(), dt, A, Bm, Cm, 2 * y.detach(),
+                           torch.zeros_like(state), 16)[0]
+    torch.testing.assert_close(x.grad, want, atol=1e-4 * float(
+        want.abs().max()), rtol=0)
+    monkeypatch.setattr(build, "library",
+                        lambda real=build.library: _refusing(real))
+    with pytest.raises(RuntimeError, match="ssd_bwd kernel launch failed"):
         y.sum().backward()
+    assert ssd_ops.ssd_bwd.launches == before + 1
+
+
+def _refusing(real):
+    """The kernel library with its SSD backward entry point refusing every
+    launch."""
+    lib = real()
+
+    class Refusing:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        @staticmethod
+        def ssd_bwd_launch(*args):
+            return 1                         # cudaErrorInvalidValue
+    return Refusing()
+
+
+# the SSD backward's cases (B, S, H, P, N, chunk, dtypes, nonzero dstate):
+# the reference's SSD cases, the training shapes cut in batch (mamba2's
+# N = 128, zamba2's 112 heads at N = 64), a sequence under the chunk, P = N
+# = 128 (the scan kernels' largest tiles), N != P, H = 1, a chunk of 16 and
+# of 48 (a stripe of rows cut short), dt in bfloat16
+SSD_BWD_CASES = [
+    (2, 64, 3, 16, 16, 16, "float32", True),
+    (1, 128, 4, 32, 64, 32, "float32", True),
+    (1, 96, 2, 64, 128, 32, "serving", True),
+    (2, 1024, 48, 64, 128, 128, "serving", False),
+    (1, 1024, 112, 64, 64, 128, "serving", False),
+    (2, 96, 8, 64, 128, 128, "serving", True),
+    (1, 256, 4, 128, 128, 128, "float32", True),
+    (2, 384, 1, 64, 16, 128, "float32", True),
+    (2, 64, 4, 64, 128, 16, "serving", True),
+    (2, 192, 3, 32, 24, 48, "float32", True),
+    (2, 256, 4, 64, 128, 128, "bfloat16", True),
+]
+
+
+def _ssd_bwd_check(args, chunk):
+    """One call on the card, again bit for bit, against ref.ssd_bwd: each
+    output within 1e-4 of its largest magnitude (float32 sums in other
+    orders) and, in bfloat16, one rounding step (up to 2^-7) of itself
+    besides."""
+    before = ssd_ops.ssd_bwd.launches
+    got = ssd_ops.ssd_bwd(*args, chunk=chunk)
+    again = ssd_ops.ssd_bwd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd_bwd.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = ssd_ref.ssd_bwd(*args, chunk=chunk)
+    for name, g_, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        assert g_.dtype == w.dtype and g_.shape == w.shape, name
+        w32 = w.float()
+        tol = 1e-4 * float(w32.abs().max()) + (
+            2.0 ** -7 * w32.abs() if w.dtype == torch.bfloat16 else 0.0)
+        assert bool(((g_.float() - w32).abs() <= tol).all()), name
+
+
+@pytest.mark.parametrize("case", SSD_BWD_CASES)
+def test_ssd_backward_kernel_matches_plain(dev, case):
+    B, S, H, P, N, chunk, types, nonzero = case
+    x, dt, A, Bm, Cm = _ssd_inputs(dev, B, S, H, P, N, SSD_DTYPES[types],
+                                   S + H + N)
+    g = torch.Generator(device=dev).manual_seed(S + P)
+    dy = torch.randn(x.shape, generator=g, device=dev).to(x.dtype)
+    ds = torch.randn((B, H, P, N), generator=g, device=dev) if nonzero \
+        else torch.zeros((B, H, P, N), device=dev)
+    _ssd_bwd_check((x, dt, A, Bm, Cm, dy, ds), chunk)
+
+
+def test_ssd_backward_reads_strided_inputs(dev):
+    """x, dt and A as head-strided views, B and C as views into one
+    projection, dy a head-strided view."""
+    B, S, H, P, N = 2, 256, 6, 64, 128
+    x, dt, A, _, _ = _ssd_inputs(dev, B, S, 2 * H, P, N,
+                                 SSD_DTYPES["serving"], 3)
+    bc = torch.randn((B, S, 2 * N), device=dev).to(torch.bfloat16)
+    dy = torch.randn((B, S, 2 * H, P), device=dev).to(torch.bfloat16)
+    ds = torch.randn((B, H, P, N), device=dev)
+    _ssd_bwd_check((x[:, :, ::2], dt[:, :, ::2], A[::2], bc[..., :N],
+                    bc[..., N:], dy[:, :, 1::2], ds), 128)
+
+
+def test_ssd_autograd_on_the_card_matches_the_cpu(dev):
+    g = np.random.default_rng(5)
+    arrs = [g.standard_normal((2, 256, 4, 32)), g.uniform(0.05, 1.0,
+                                                          (2, 256, 4)),
+            -g.uniform(0.5, 2.0, (4,)), g.standard_normal((2, 256, 48)),
+            g.standard_normal((2, 256, 48))]
+    arrs = [torch.from_numpy(a.astype(np.float32)) for a in arrs]
+    grads = {}
+    for d in ("cpu", dev):
+        ins = [a.to(d, copy=True).requires_grad_() for a in arrs]
+        y, state = ssd_ops.ssd(*ins, chunk=64)
+        ((y * y).sum() + state.sum()).backward()
+        grads[str(d)] = [t.grad.cpu() for t in ins]
+    for a, b in zip(grads["cpu"], grads[str(dev)]):
+        torch.testing.assert_close(b, a, atol=1e-4 * float(a.abs().max()),
+                                   rtol=0)
 
 
 # a train step's gradients on the card against the CPU's (plain versions),
@@ -1419,6 +1531,35 @@ def test_model_backward_on_the_card_matches_the_cpu(dev, arch, dtype):
     for path, want in out["cpu"][1].items():
         got = out[str(dev)][1][path].cpu().float()
         assert float(got.abs().max()) > 0, path       # every leaf gets one
+        scale = float(want.float().abs().max())
+        assert float((got - want.float()).abs().max()) <= \
+            MODEL_GRAD_TOL[dtype] * scale, path
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-7b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_model_backward_on_the_card_matches_the_cpu(dev, arch, dtype):
+    """A Mamba2 or hybrid smoke model's gradients on the card (the SSD
+    backward kernels, once a Mamba2 layer) against the CPU's."""
+    from repro_torch.train import step as tstep
+    cfg = get_smoke_config(arch).replace(dtype=dtype)
+    n_ssd = cfg.all_layer_kinds().count("mamba")
+    params = init_params(api.param_specs(cfg), torch.Generator().manual_seed(3))
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        1, cfg.vocab_size, (2, 65)).astype(np.int32))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    for d in ("cpu", dev):
+        before = ssd_ops.ssd_bwd.launches
+        (loss, _), grads = tstep.value_and_grad(
+            cfg, _to(params, d), {k: v.to(d) for k, v in batch.items()})
+        assert ssd_ops.ssd_bwd.launches - before == (n_ssd if d == dev
+                                                     else 0)
+        out[str(d)] = (float(loss), _leaves(grads))
+    assert abs(out[str(dev)][0] - out["cpu"][0]) < 1e-2
+    for path, want in out["cpu"][1].items():
+        got = out[str(dev)][1][path].cpu().float()
+        assert float(got.abs().max()) > 0, path
         scale = float(want.float().abs().max())
         assert float((got - want.float()).abs().max()) <= \
             MODEL_GRAD_TOL[dtype] * scale, path

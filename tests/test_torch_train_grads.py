@@ -2,14 +2,16 @@
 ``jax.value_and_grad`` of the reference's ``train.step.loss_fn`` on the
 CPU, with the reference's weights carried across
 (``params_from_reference``), on the smoke configs of granite-3-2b (dense
-GQA), gemma3-27b (local windows), qwen2-moe-a2.7b (MoE with its aux loss)
-and mamba2-780m (the SSD scan), in float32 and bfloat16 activations.
+GQA), gemma3-27b (local windows), qwen2-moe-a2.7b (MoE with its aux loss),
+mamba2-780m (the SSD scan) and zamba2-7b (the SSD scan and the shared
+attention), in float32 and bfloat16 activations.
 The reference runs its Pallas kernels in interpret mode
 (``attn_impl="pallas"``, ``ssd_impl="pallas"``): its flash backward is
 the jnp ``_bwd_vjp``, its SSD backward a vjp through the plain scan.  The
-port runs its plain versions (a CPU tensor) through the same autograd
-``Function``s that launch the kernels on the card, and remat (on in every
-smoke config) through ``torch.utils.checkpoint``.
+port runs its plain versions (a CPU tensor; ``ref.ssd_bwd`` for the SSD
+backward) through the same autograd ``Function``s that launch the
+kernels on the card, and remat (on in every smoke config) through
+``torch.utils.checkpoint``.
 
 Tolerances, with their measured values (gradients relative to each
 leaf's largest magnitude):
@@ -28,6 +30,12 @@ leaf's largest magnitude):
     against them must stay within twice the reference's own (measured:
     up to 1.10 times it, on layer 0's ``wk``; both packages' errors are
     bfloat16 noise of the same size).
+  * bfloat16 zamba2-7b (two Mamba2 blocks and the shared attention):
+    each package's own bfloat16 gradients lie up to 0.12 (the reference's,
+    layer 1's ``wC``) from the float32 ones, so the 0.06 of a direct
+    comparison cannot hold (measured 0.087, layer 1's ``conv_B``).  It is
+    held to the float32 gradients as the MoE is (measured: up to 1.74
+    times the reference's own error).
 """
 import jax
 import jax.numpy as jnp
@@ -48,9 +56,13 @@ from repro_torch.train import step as tstep
 
 torch.set_num_threads(1)
 
-ARCHS = ["granite-3-2b", "gemma3-27b", "qwen2-moe-a2.7b", "mamba2-780m"]
+ARCHS = ["granite-3-2b", "gemma3-27b", "qwen2-moe-a2.7b", "mamba2-780m",
+         "zamba2-7b"]
 LOSS_TOL = {"float32": 1e-5, "bfloat16": 5e-3}
 GRAD_TOL = {"float32": 2e-5, "bfloat16": 0.06}
+# bfloat16 gradients held to the float32 ones, against the reference's own
+# error (see above)
+TO_FLOAT32 = ("qwen2-moe-a2.7b", "zamba2-7b")
 B, S = 2, 32                    # S: a multiple of the smoke SSD chunk
 _CACHE = {}
 
@@ -99,13 +111,13 @@ def test_loss_and_every_gradient_leaf_match_jax(arch, dtype):
     assert abs(at - aj) <= 1e-3 * max(1.0, abs(aj))
     assert (aj > 0) == (arch == "qwen2-moe-a2.7b")
     assert gj.keys() == gt.keys()
-    moe_bf16 = dtype == "bfloat16" and arch == "qwen2-moe-a2.7b"
-    if moe_bf16:
+    to_float32 = dtype == "bfloat16" and arch in TO_FLOAT32
+    if to_float32:
         truth = _both(arch, "float32")[0][2]
     for path, w in gj.items():
         g = gt[path]
         assert g.shape == w.shape and np.isfinite(g).all(), path
-        if moe_bf16:
+        if to_float32:
             ref_err = np.abs(w - truth[path]).max()
             assert np.abs(g - truth[path]).max() <= 2 * ref_err, path
         else:
