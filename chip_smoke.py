@@ -231,20 +231,26 @@ Phases, each printing one line or a few:
      (f32); the wgmma kernels timed at the training shape, the simt
      kernels there and at the float32 row's shape, each beside its
      bound, the plain version and torch's SDPA backward (a yardstick; for
-     the delta kernel the einsum that computes it); the SSD backward
-     (csrc/ssd_scan_bwd.cu, six kernels behind ssd_bwd) against
+     the delta kernel the einsum that computes it); the SSD backward's two
+     routes (wgmma: csrc/ssd_scan_bwd_wgmma.cuh, five kernels on TMA and
+     wgmma behind ssd_bwd for bf16 x, B, C and dy; simt:
+     csrc/ssd_scan_bwd.cu, six kernels, float32 and other layouts) against
      ref.ssd_bwd at mamba2-780m's and zamba2-7b's training shapes, in
      float32, under the chunk, at 8 chunks with a nonzero dstate, at P = N
-     = 128 and on strided views (SSD_BWD_CHECKS), within 1e-4 of each
+     = 128 in both dtypes, at chunks of 64 and 32 and on strided views
+     (SSD_BWD_CHECKS; every bf16 row on both routes), within 1e-4 of each
      output's largest magnitude (and one bf16 step of a bf16 output), two
-     calls bit for bit, and timed at both training shapes beside its bound
-     and the plain version; then granite-3-2b and mamba2-780m trained at
+     calls bit for bit, and both routes timed in turns at both training
+     shapes with each kernel's device ms beside the bound, PR 28's times
+     and the plain version ([build] fails unless each of the wgmma route's
+     instances shows HGMMA and UTMALDG in the SASS); then granite-3-2b and
+     mamba2-780m trained at
      full width and depth through Trainer (B = 8, S = 1024, 4 steps, the
      fp32 AdamW, remat on): each step's loss, grad norm and wall, the
      peak memory, the launches a step (granite: 80 flash forward under
      remat, 40 of each wgmma backward kernel and none of the simt
-     route's; mamba2: 96 ssd_scan forwards, 48 SSD backwards and no
-     flash), one more step profiled (the backwards' shares of the device
+     route's; mamba2: 96 ssd_scan forwards, 48 SSD backwards, all on the
+     wgmma route, and no flash), one more step profiled (the backwards' shares of the device
      time), the model FLOP/s against 989 TFLOP/s; at full width and a
      cut depth (granite and mamba2 2, zamba2 3: the SSD and the flash
      backward in one model), one step on the card against the CPU (loss,
@@ -2205,20 +2211,34 @@ def sass_lines(lib) -> tuple:
                                 check=True).stdout.splitlines())
 
 
-def sass_counts(lib, namer, ops) -> dict:
-    """Counts of the instructions ``ops`` in each kernel of the built
-    library's SASS that ``namer`` names: for the flash instances, wgmma
-    (HGMMA) and TMA tile loads (UTMALDG)."""
-    counts, name = {}, None
+# the instructions [build] counts in the SASS, over every caller
+SASS_OPS = ("HGMMA", "UTMALDG", "SHF", "LOP3", "IMAD", "IADD3", "MUFU",
+            "FCHK", "BSSY", "CALL", "BRA")
+
+
+@functools.lru_cache(maxsize=None)
+def sass_functions(lib) -> tuple:
+    """(function line, {op: count of SASS_OPS}) for each function of the
+    built library's SASS, in one pass over the dump (a pass a caller took
+    ~4 s of the build phase once the SSD backward's wgmma instances were
+    in)."""
+    out, counts = [], None
     for ln in sass_lines(lib):
         if "Function :" in ln:
-            name = namer(ln)
-            if name:
-                counts[name] = dict.fromkeys(ops, 0)
-        elif name:
-            for op in counts[name]:
-                counts[name][op] += f" {op}." in ln or f" {op} " in ln
-    return counts
+            counts = dict.fromkeys(SASS_OPS, 0)
+            out.append((ln, counts))
+        elif counts is not None:
+            for op in SASS_OPS:
+                counts[op] += f" {op}." in ln or f" {op} " in ln
+    return tuple(out)
+
+
+def sass_counts(lib, namer, ops) -> dict:
+    """Counts of the instructions ``ops`` (of SASS_OPS) in each kernel of
+    the built library's SASS that ``namer`` names: for the flash
+    instances, wgmma (HGMMA) and TMA tile loads (UTMALDG)."""
+    return {namer(ln): {op: c[op] for op in ops}
+            for ln, c in sass_functions(lib) if namer(ln)}
 
 
 def fa_inputs(dev, B, S, H, KV, Dh, dtype, seed):
@@ -3321,6 +3341,11 @@ def train_full(dev, kernels, fa_ops, arch):
         fail(f"{cfg.name} training: launches a step {per_step}, expected "
              f"{want} (each forward kernel twice a layer of its kind under "
              f"remat, each backward kernel once)")
+    ssd_routes = dict(kernels["ssd_bwd"].routes)
+    if ssd_routes != {"simt": 0, "wgmma": got["ssd_bwd"]}:
+        fail(f"{cfg.name} training: the SSD backward's calls by route "
+             f"{ssd_routes}, expected all {got['ssd_bwd']} on the wgmma "
+             "route")
     losses = [h["loss"] for h in hist]
     if len(losses) != steps or not all(np.isfinite(losses)) or \
             not all(np.isfinite(h["grad_norm"]) for h in hist):
@@ -3346,8 +3371,8 @@ def train_full(dev, kernels, fa_ops, arch):
     backward = {g: share.get(g, 0.0) for g in ("flash backward",
                                                "SSD backward")}
     n_ssd = cfg.all_layer_kinds().count("mamba")
-    ssd_bwd_ms = kernel_ms(by_kernel, SSD_BWD_KERNELS, n_ssd) if n_ssd \
-        else {}
+    ssd_bwd_ms = kernel_ms(by_kernel, SSD_BWD_ROUTE_KERNELS["wgmma"],
+                           n_ssd) if n_ssd else {}
     if ssd_bwd_ms:
         print(f"[train] {cfg.name} profiled step: the SSD backward's kernels, "
               f"device ms a call {ssd_bwd_ms} (sum "
@@ -3370,6 +3395,7 @@ def train_full(dev, kernels, fa_ops, arch):
             "median_step_s": step_s, "peak_bytes": peak,
             "init_peak_bytes": init_peak, "state_bytes": state_bytes,
             "launches": launched, "launches_per_step": per_step,
+            "ssd_bwd_routes": ssd_routes,
             "model_flops": flops,
             "model_flops_with_recompute": flops_remat,
             "model_tflops_per_s": flops / step_s / 1e12, "mfu": mfu,
@@ -3672,11 +3698,39 @@ SSD_BWD_CHECKS = [
      128, F32_3, True, None),
     ("strided x (every other head), B and C views of one tensor", 2, 512,
      8, 64, 128, 128, SERVING, True, "strided"),
+    # the wgmma route's largest tiles, and chunks under its tile of 128
+    # rows (one warpgroup of two idle) with a nonzero dstate
+    ("P = N = 128, bf16 (the wgmma route's largest tiles)", 1, 256, 4, 128,
+     128, 128, SERVING, True, None),
+    ("4 chunks of 64, dstate, bf16", 2, 256, 4, 64, 128, 64, SERVING, True,
+     None),
+    ("3 chunks of 32, dstate, bf16", 1, 96, 2, 64, 128, 32, SERVING, True,
+     None),
 ]
 SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC")
-SSD_BWD_KERNELS = ("ssd_bwd_scan_kernel<false>", "ssd_bwd_scan_kernel<true>",
+# the SSD backward's kernels, the wgmma route's five (ops.BWD_WGMMA_KERNELS,
+# csrc/ssd_scan_bwd_wgmma.cu) and the SIMT route's six (csrc/ssd_scan_bwd.cu)
+SSD_BWD_KERNELS = ("ssd_bwd_wgmma_state_kernel<true>",
+                   "ssd_bwd_wgmma_state_kernel<false>",
+                   "ssd_bwd_wgmma_chunk_kernel", "ssd_bwd_wgmma_dbdc_kernel",
+                   "ssd_bwd_wgmma_reduce_kernel",
+                   "ssd_bwd_scan_kernel<false>", "ssd_bwd_scan_kernel<true>",
                    "ssd_bwd_rows_kernel", "ssd_bwd_cols_kernel",
                    "ssd_bwd_dt_kernel", "ssd_bwd_reduce_kernel")
+SSD_BWD_ROUTE_KERNELS = {"wgmma": SSD_BWD_KERNELS[:5],
+                         "simt": SSD_BWD_KERNELS[5:]}
+# the wgmma route's instances that must show wgmma (HGMMA) and TMA tile
+# loads (UTMALDG) in the library's SASS: the state walks, the chunk pass
+# and the dB/dC pass at P and N padded to 64 or 128 (the reduce kernel
+# only sums)
+SSD_BWD_INSTANCES = tuple(
+    f"ssd_bwd_wgmma_{k}<{pp}, {nn}{', ' + r if r else ''}>"
+    for pp in (64, 128) for nn in (64, 128)
+    for k, r in (("state_kernel", "true"), ("state_kernel", "false"),
+                 ("chunk_kernel", ""), ("dbdc_kernel", "")))
+# PR 28's SIMT route, a call at the training shapes on an NVIDIA H100 80GB
+# HBM3 at 700 W (PERF.md)
+SSD_BWD_PR28_MS = {"mamba2": 9.6438, "zamba2": 3.5869}
 # kernels against plain on identical inputs, each output against its own
 # largest magnitude: both compute in float32 from the same inputs and
 # differ only in the order of their sums (a product over up to 128 terms,
@@ -3702,6 +3756,21 @@ def ssd_bwd_inputs(dev, B, S, H, P, N, types, nonzero, seed):
     return x, dt, A, Bm, Cm, dy, ds
 
 
+def ssd_bwd_instance(mangled: str):
+    """'ssd_bwd_wgmma_state_kernel<64, 128, true>' (or a chunk, dbdc or
+    reduce kernel of the SSD backward's wgmma route) for a line naming it
+    by its mangled name, else None."""
+    m = re.search(r"(ssd_bwd_wgmma_\w+?_kernel)(I((?:L[ib]\d+E)+)E)?",
+                  mangled)
+    if m is None:
+        return None
+    if not m.group(3):
+        return m.group(1)
+    args = [("true" if v == "1" else "false") if k == "b" else v
+            for k, v in re.findall(r"L([ib])(\d+)E", m.group(3))]
+    return f"{m.group(1)}<{', '.join(args)}>"
+
+
 def ssd_bwd_close(got, want):
     """{output: (max abs err, the largest error as a share of its
     tolerance, within it and of the input's dtype)}."""
@@ -3721,9 +3790,12 @@ def ssd_bwd_close(got, want):
 
 def check_ssd_bwd(dev, ssd_ops, ssd_ref):
     """The backward kernels against ref.ssd_bwd at SSD_BWD_CHECKS, on
-    identical inputs, and a second call bit-identical to the first.
-    Returns the largest absolute error of each output."""
-    worst = dict.fromkeys(SSD_BWD_NAMES, 0.0)
+    identical inputs, and a second call bit-identical to the first: a bf16
+    row on both routes (ssd_bwd, which must take the wgmma route, then the
+    SIMT route's kernels through ops.bwd_launch), a float32 row on the
+    SIMT route.  Returns the largest absolute error of each output, by
+    route."""
+    worst = {r: dict.fromkeys(SSD_BWD_NAMES, 0.0) for r in ("wgmma", "simt")}
     for i, (label, B, S, H, P, N, chunk, types, nonzero, how) in \
             enumerate(SSD_BWD_CHECKS):
         args = ssd_bwd_inputs(dev, B, S, H * (2 if how else 1), P, N,
@@ -3735,34 +3807,47 @@ def check_ssd_bwd(dev, ssd_ops, ssd_ref):
             dy, ds = dy[:, :, ::2].contiguous(), ds[:, ::2].contiguous()
             Bm, Cm = bc[..., :N], bc[..., N:]
         args = (x, dt, A, Bm, Cm, dy, ds)
-        n0 = ssd_ops.ssd_bwd.launches
-        got = ssd_ops.ssd_bwd(*args, chunk=chunk)
-        again = ssd_ops.ssd_bwd(*args, chunk=chunk)
-        torch.cuda.synchronize()
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        del again
         want = ssd_ref.ssd_bwd(*args, chunk=chunk)
-        res = ssd_bwd_close(got, want)
-        for name, (e, _, _) in res.items():
-            worst[name] = max(worst[name], e)
-        print(f"[train] ssd backward against its plain version, {label} "
-              f"(B={B} S={S} H={H} P={P} N={N} chunk={chunk}, x/dt/B "
-              f"{'/'.join(str(t)[6:] for t in types)}, dstate "
-              f"{'normal' if nonzero else 'zero'}): "
-              + "; ".join(f"{n} {e:.3e} ({s:.3f} of its tolerance)"
-                          for n, (e, s, _) in res.items())
-              + f" (atol {SSD_BWD_ATOL} x max|plain|, bf16 outputs + "
-              f"{SSD_BWD_BF16_RTOL} |plain|); two calls bit-identical: "
-              f"{same}; {ssd_ops.ssd_bwd.launches - n0} launches", flush=True)
-        bad = [n for n, (_, _, ok) in res.items() if not ok]
-        if bad:
-            fail(f"ssd backward {label}: {bad} beyond the tolerance")
-        if not same:
-            fail(f"ssd backward {label}: two calls differ")
-        if ssd_ops.ssd_bwd.launches - n0 != 2:
-            fail(f"ssd backward {label}: the wrapper counted "
-                 f"{ssd_ops.ssd_bwd.launches - n0} launches for 2 calls")
-        del args, got, want, x, dt, A, Bm, Cm, dy, ds
+        bf16 = types[0] == torch.bfloat16
+        for route in ("wgmma", "simt") if bf16 else ("simt",):
+            n0, r0 = ssd_ops.ssd_bwd.launches, dict(ssd_ops.ssd_bwd.routes)
+            if route == "simt" and bf16:   # the SIMT kernels on bf16 inputs
+                call = lambda: ssd_ops.bwd_launch(*args, min(chunk, S), "simt")
+            else:
+                call = lambda: ssd_ops.ssd_bwd(*args, chunk=chunk)
+            got = call()
+            again = call()
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            del again
+            res = ssd_bwd_close(got, want)
+            for name, (e, _, _) in res.items():
+                worst[route][name] = max(worst[route][name], e)
+            counted = {r: n - r0[r] for r, n in ssd_ops.ssd_bwd.routes.items()}
+            print(f"[train] ssd backward against its plain version, {label} "
+                  f"(B={B} S={S} H={H} P={P} N={N} chunk={chunk}, x/dt/B "
+                  f"{'/'.join(str(t)[6:] for t in types)}, dstate "
+                  f"{'normal' if nonzero else 'zero'}), {route} route: "
+                  + "; ".join(f"{n} {e:.3e} ({s:.3f} of its tolerance)"
+                              for n, (e, s, _) in res.items())
+                  + f" (atol {SSD_BWD_ATOL} x max|plain|, bf16 outputs + "
+                  f"{SSD_BWD_BF16_RTOL} |plain|); two calls bit-identical: "
+                  f"{same}; counted {ssd_ops.ssd_bwd.launches - n0} calls, "
+                  f"by route {counted}", flush=True)
+            bad = [n for n, (_, _, ok) in res.items() if not ok]
+            if bad:
+                fail(f"ssd backward {label} ({route}): {bad} beyond the "
+                     "tolerance")
+            if not same:
+                fail(f"ssd backward {label} ({route}): two calls differ")
+            want_counted = {r: 2 * (r == route) for r in counted} \
+                if route == "wgmma" or not bf16 else dict.fromkeys(counted, 0)
+            if counted != want_counted:
+                fail(f"ssd backward {label}: the wrapper counted {counted} "
+                     f"for 2 calls on the {route} route, expected "
+                     f"{want_counted}")
+            del got
+        del args, want, x, dt, A, Bm, Cm, dy, ds
         torch.cuda.empty_cache()
     return worst
 
@@ -3798,24 +3883,56 @@ def kernel_ms(by_kernel, names, calls):
     over ``calls`` calls."""
     def match(n, ev):
         base, _, arg = n.partition("<")
-        return base in ev and (not arg or f"<{arg}" in ev)
+        return base in ev and (not arg or f"<{arg}" in ev
+                               or f", {arg}" in ev)
     return {n: sum(t for ev, t in by_kernel.items() if match(n, ev)) / calls
             for n in names}
 
 
+def route_kernel_ms(fn, names, reps: int = 3) -> dict:
+    """{kernel: device ms a call} of ``reps`` calls of ``fn`` under the
+    profiler (profile_train_step's), for the kernels ``names`` name
+    (kernel_ms's matching); None for a kernel the profiler recorded no
+    launch of (it sometimes records no device event at all)."""
+    by_kernel = profile_train_step(lambda: [fn() for _ in range(reps)])[3]
+    return {n: ms or None for n, ms in
+            kernel_ms(by_kernel, names, reps).items()}
+
+
 def time_ssd_bwd(dev, ssd_ops, ssd_ref):
-    """The backward at mamba2-780m's training shape (CUDA events around the
-    call, after a warm-up), its bound and the plain version's time, and
-    the call at zamba2-7b's training shape with its bound (each kernel's
-    device time comes from train_full's profiled step)."""
+    """The backward at mamba2-780m's and zamba2-7b's training shapes on
+    both routes, in turns (wgmma, simt, wgmma, simt: CUDA events around
+    the call, after a warm-up), each route's kernels' device ms a call
+    (the profiler) and the wgmma route's scratch, beside the bound, PR
+    28's figures and, at mamba2's shape, the plain version's time."""
     out = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for cell, i in (("mamba2", 0), ("zamba2", 1)):
         _, B, S, H, P, N, Q, types, nonzero, _ = SSD_BWD_CHECKS[i]
         args = ssd_bwd_inputs(dev, B, S, H, P, N, types, nonzero, 7)
-        ms = cuda_ms(lambda: ssd_ops.ssd_bwd(*args, chunk=Q), 10)
+        if ssd_ops.bwd_route(args[0], args[3], args[4], args[5]) != "wgmma":
+            fail(f"the SSD backward's timing inputs at {cell}'s shape do not "
+                 "take the wgmma route")
+        calls = {"wgmma": lambda: ssd_ops.ssd_bwd(*args, chunk=Q),
+                 "simt": lambda: ssd_ops.bwd_launch(*args, Q, "simt")}
+        turns = {r: [] for r in calls}
+        for r in ("wgmma", "simt", "wgmma", "simt"):
+            turns[r].append(cuda_ms(calls[r], 10 if r == "wgmma" else 3))
         bound, bound_by, nbytes, flops = ssd_bwd_bound(args, Q)
-        row = {"ms": ms, "bound_ms": bound, "bound_by": bound_by,
-               "bytes": nbytes, "flops": flops,
+        by_kernel = {r: route_kernel_ms(calls[r], SSD_BWD_ROUTE_KERNELS[r])
+                     for r in calls}
+        G2, G3 = ssd_ops.bwd_groups(B, S // Q, H, sms)
+        scratch = sum(math.prod(shape) * torch.empty((), dtype=d).element_size()
+                      for shape, d in ssd_ops.bwd_scratch_shapes(
+                          B, S, H, P, N, Q, G2, G3).values())
+        row = {"ms": min(turns["wgmma"]), "ms_turns": turns["wgmma"],
+               "simt_ms": min(turns["simt"]), "simt_ms_turns": turns["simt"],
+               "pr28_simt_ms": SSD_BWD_PR28_MS[cell],
+               "device_ms_by_kernel": by_kernel["wgmma"],
+               "simt_device_ms_by_kernel": by_kernel["simt"],
+               "bound_ms": bound, "bound_by": bound_by,
+               "bytes": nbytes, "flops": flops, "head_groups": [G2, G3],
+               "scratch_bytes": scratch,
                "float32_bound_ms": 1e3 * max(nbytes / H100_BYTES_PER_S,
                                              flops / H100_FP32_OPS_PER_S),
                "shape": f"B={B} S={S} H={H} P={P} N={N} chunk={Q}, x/B/C/dy "
@@ -3823,25 +3940,28 @@ def time_ssd_bwd(dev, ssd_ops, ssd_ref):
         if cell == "mamba2":
             row["plain_ms"] = cuda_ms(lambda: ssd_ref.ssd_bwd(*args, chunk=Q),
                                       2)
-        print(f"[time] ssd backward {cell} training {row['shape']}: "
-              f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), bound "
-              f"{bound:.5f} ms ({nbytes} bytes, {flops} flops; {bound_by}; "
-              f"at the float32 rate {row['float32_bound_ms']:.4f} ms)"
+        print(f"[time] ssd backward {cell} training {row['shape']}: wgmma "
+              f"route {turns['wgmma']} ms ({flops / row['ms'] / 1e9:.2f} "
+              f"TFLOP/s; device ms a call by kernel {by_kernel['wgmma']}; "
+              f"scratch {scratch} B, head groups {G2}, {G3}), simt route "
+              f"{turns['simt']} ms (PR 28: {SSD_BWD_PR28_MS[cell]} ms; by "
+              f"kernel {by_kernel['simt']}), bound {bound:.5f} ms "
+              f"({nbytes} bytes, {flops} flops; {bound_by}; at the float32 "
+              f"rate {row['float32_bound_ms']:.4f} ms)"
               + ("" if cell != "mamba2" else
                  f"; plain {row['plain_ms']:.3f} ms"), flush=True)
         out[cell] = row
         del args
         torch.cuda.empty_cache()
     m = out["mamba2"]
-    return {"ms": m["ms"], "plain_ms": m["plain_ms"],
-            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-            "float32_bound_ms": m["float32_bound_ms"],
-            "library_ms": None,
+    keep = ("shape", "ms", "ms_turns", "simt_ms", "simt_ms_turns",
+            "pr28_simt_ms", "device_ms_by_kernel", "simt_device_ms_by_kernel",
+            "bound_ms", "bound_by", "scratch_bytes", "head_groups")
+    return {**{k: m[k] for k in keep}, "plain_ms": m["plain_ms"],
+            "float32_bound_ms": m["float32_bound_ms"], "library_ms": None,
             "library_note": "no PyTorch call computes the SSD scan's "
                             "backward",
-            "shape": m["shape"],
-            "at_zamba2_training": {k: out["zamba2"][k] for k in
-                                   ("shape", "ms", "bound_ms", "bound_by")}}
+            "at_zamba2_training": {k: out["zamba2"][k] for k in keep}}
 
 
 def main() -> None:
@@ -3938,6 +4058,18 @@ def main() -> None:
             or not any("wgmma" in n for n in ssd_sass):
         fail("the bf16 SSD kernel has no wgmma (HGMMA) or no TMA load "
              "(UTMALDG)")
+    ssd_bwd_usage = flash_ptxas(build.build_log, ssd_bwd_instance)
+    for name, props in ssd_bwd_usage.items():
+        print(f"[build] {name}: {props}", flush=True)
+    ssd_bwd_sass = sass_counts(lib_path, ssd_bwd_instance,
+                               ("HGMMA", "UTMALDG"))
+    print(f"[build] SASS of the SSD backward's wgmma route (cuobjdump "
+          f"-sass): {ssd_bwd_sass}", flush=True)
+    if not set(SSD_BWD_INSTANCES) <= set(ssd_bwd_usage) or any(
+            not all(ssd_bwd_sass.get(n, {}).values()) or n not in ssd_bwd_sass
+            for n in SSD_BWD_INSTANCES):
+        fail("an SSD backward wgmma kernel has no ptxas line, no wgmma "
+             "(HGMMA) or no TMA load (UTMALDG)")
     streams_sass = sass_counts(
         lib_path, lambda ln: "qn_streams_kernel" if "qn_streams_kernel"
         in ln else None, ("SHF", "LOP3", "IMAD", "IADD3"))
@@ -5274,6 +5406,8 @@ def main() -> None:
     path_launches = lambda k: {a: n[k] for a, n in by_path.items() if k in n}
     train_launch = lambda name: sum(t["launches"].get(name, 0)
                                     for t in train.values())
+    ssd_route_launch = lambda r: sum(t["ssd_bwd_routes"][r]
+                                     for t in train.values())
     phase("record")
 
     record = {"kernels": [
@@ -5489,24 +5623,53 @@ def main() -> None:
                "card_vs_cpu": train_cut}
               if name == "fa_bwd_dkdv_wgmma" else {})}
           for route, names in BWD_ROUTE_KERNELS.items() for name in names),
-        {"name": "ssd_bwd", "route": "cuda",
-         "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
+        {"name": "ssd_bwd_wgmma", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssd_scan_bwd_wgmma.cuh",
+         "sources": ["src/repro_torch/csrc/ssd_scan_bwd_wgmma.cuh",
+                     "src/repro_torch/csrc/ssd_scan_bwd_wgmma.cu",
+                     "src/repro_torch/csrc/ssd_scan_bwd_wgmma_p128.cu"],
          "replaces": "src/repro/kernels/ssd_scan/ops.py:28",
          "replaces_note": "the reference's SSD backward _bwd, a jax.vjp "
                           "through the plain chunked scan ssd_chunked "
                           "(src/repro/models/mamba2.py:107) under the custom "
                           "VJP of kernels/ssd_scan/ops.py: no Pallas kernel",
-         "kernels": list(SSD_BWD_KERNELS),
-         "wrapper": "ops.ssd_bwd (one entry point, ssd_bwd_launch)",
-         "launches": launches["ssd_bwd"],
+         "kernels": list(SSD_BWD_ROUTE_KERNELS["wgmma"]),
+         "wrapper": "ops.ssd_bwd, route ops.bwd_route 'wgmma' (bf16 x, B, C "
+                    "and dy TMA can read; one entry point, "
+                    "ssd_bwd_wgmma_launch, five kernels)",
+         "launches": ssd_route_launch("wgmma"),
          "launches_by_path": path_launches("ssd_bwd"),
-         "max_abs_err": max(ssd_bwd_err.values()),
-         "max_abs_err_by_output": ssd_bwd_err,
-         **ssd_bwd_time,
-         "device_ms_by_kernel": train["mamba2-780m"][
+         "max_abs_err": max(ssd_bwd_err["wgmma"].values()),
+         "max_abs_err_by_output": ssd_bwd_err["wgmma"],
+         **{k: v for k, v in ssd_bwd_time.items()
+            if not k.startswith("simt_")},
+         "device_ms_by_kernel_in_training": train["mamba2-780m"][
              "ssd_bwd_device_ms_by_kernel"],
          "plain_note": "ref.ssd_bwd, the vjp written out in plain PyTorch",
          "train_drive": train["mamba2-780m"]},
+        {"name": "ssd_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
+         "replaces": "src/repro/kernels/ssd_scan/ops.py:28",
+         "kernels": list(SSD_BWD_ROUTE_KERNELS["simt"]),
+         "wrapper": "ops.ssd_bwd, route ops.bwd_route 'simt' (float32 and "
+                    "any layout TMA cannot read; one entry point, "
+                    "ssd_bwd_launch, six kernels): not on the bf16 training "
+                    "path, timed on its inputs through ops.bwd_launch",
+         "launches": ssd_route_launch("simt"),
+         "max_abs_err": max(ssd_bwd_err["simt"].values()),
+         "max_abs_err_by_output": ssd_bwd_err["simt"],
+         "ms": ssd_bwd_time["simt_ms"],
+         "ms_turns": ssd_bwd_time["simt_ms_turns"],
+         "pr28_ms": ssd_bwd_time["pr28_simt_ms"],
+         "device_ms_by_kernel": ssd_bwd_time["simt_device_ms_by_kernel"],
+         "plain_ms": ssd_bwd_time["plain_ms"],
+         "bound_ms": ssd_bwd_time["bound_ms"],
+         "bound_by": ssd_bwd_time["bound_by"], "library_ms": None,
+         "library_note": ssd_bwd_time["library_note"],
+         "shape": ssd_bwd_time["shape"],
+         "at_zamba2_training": {
+             "ms": ssd_bwd_time["at_zamba2_training"]["simt_ms"],
+             "bound_ms": ssd_bwd_time["at_zamba2_training"]["bound_ms"]}},
     ]}
     phase("end")
     print(json.dumps(record), flush=True)

@@ -35,7 +35,58 @@
 // triangle products of width P and two of width N, and five P x N x Q
 // products: the states' replay, dy S0, B dS^T, xdt dS and the cotangent's
 // update; G once per (b, chunk)): 52 us on the bf16 tensor cores, 0.78 ms
-// on the f32 CUDA cores, where this first version runs.
+// on the f32 CUDA cores.
+//
+// Two routes, chosen by kernels/ssd_scan/ops.py bwd_route; neither falls
+// back to the other, and each takes every sum in a fixed order (no
+// atomics: two calls agree bit for bit).
+//
+// bfloat16 x, B, C and dy that TMA can read, P a multiple of 8: the
+// wgmma route, five kernels in ssd_scan_bwd_wgmma.cu (one entry point,
+// ssd_bwd_wgmma_launch).  What its design does about the limits of the
+// float32 route below (its figures: PERF.md):
+//  1. Arithmetic.  Every product runs on the tensor cores (wgmma, f32
+//     accumulators).  x, B, C and dy enter exactly; the f32 operands are
+//     split into bf16 parts as in the forward: three (hi + mid + lo, the
+//     f32 value exactly) where the product feeds dx, ddt or dcs (the
+//     states' updates, the states and cotangents in the chunk passes,
+//     G o L), two where it feeds only dB or dC (exp(cs) dy and decay dt x
+//     against the states, the sums of dG).  Two parts everywhere missed
+//     dA's tolerance on the card: dcs's reverse cumulative sum and dA's
+//     sum carry an error at a chunk's last step (<dS, S1>, to_state) over
+//     the chunk's sum of dt.  dt is folded into dG after x dy^T, so x
+//     stays an exact operand.
+//  2. Scratch.  The heads are summed inside the accumulators: dC's and
+//     dB's state terms are products whose K runs over (h, p), and dG is
+//     summed over a group of heads in registers before its products
+//     with B and C, once per (b, chunk, group).  The states and their
+//     cotangents cross kernels as bf16 images (three parts each, in the
+//     tiles' swizzled layout, moved by bulk copies): ~322 MB of scratch a
+//     call at the shape above (the states' and cotangents' images 151 MB
+//     each, the groups' dG sums, dB and dC partials and dcs's rows ~20
+//     MB) against this route's ~620 MB (per-head dB and dC partials 402
+//     MB among them).
+//  3. Redundant work.  G = C B^T once per (b, chunk, head group), kept in
+//     registers over the group's heads; B and C tiles loaded once per
+//     block; x, dy and the images by TMA or bulk copies in a ring of
+//     stages, one per head.
+// The kernels, in order: ssd_bwd_wgmma_state_kernel<true> (a block per
+// (b, h): the cotangent's reverse walk from dstate, each chunk's dS image)
+// and <false> (the states' replay, each chunk's entering state's image
+// and <dS, S1>), ssd_bwd_wgmma_chunk_kernel (a block per (b, chunk, head
+// group): dx, dcs's G terms and to_state, the group's sum of dG),
+// ssd_bwd_wgmma_dbdc_kernel (a block per (b, chunk, dB or dC, head
+// group): the state terms over the heads, the G terms, and for dC's
+// blocks each head's dcs, da, ddt and share of dA) and
+// ssd_bwd_wgmma_reduce_kernel (dB and dC over the head groups, dA over
+// (b, chunk)).  What still bounds it is latency: each warpgroup walks a
+// serial chain of products and waits per head or chunk (PERF.md).
+//
+// Everything else (float32 inputs, and layouts TMA cannot read): this
+// file's six SIMT kernels, the first design, below.  Every product is f32
+// on the CUDA cores, paced by shared-memory loads (5.37 TFLOP/s at the
+// shape above), and per-head dB and dC partials and the states go
+// through ~620 MB of float32 scratch.
 //
 // Design: six kernels on one stream from one entry point, each sum in a
 // fixed order and no atomics, so two calls on the same inputs agree bit for

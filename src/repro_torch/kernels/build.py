@@ -114,6 +114,13 @@ SIGNATURES = {
     # (b, s, head) strides of x and dt, A's stride, (b, s) strides of B and
     # C, (b, s, head) strides of dy; dtypes of x, dt, A, B/C, dy; stream
     "ssd_bwd_launch": [_P] * 18 + [_I] * 6 + [_L] * 14 + [_I] * 5 + [_P],
+    # x, dt, A, B, C, dy, dstate; dx, ddt, dA, dB, dC; scratch: the
+    # states' and cotangents' images, dG summed by head group, rows,
+    # chunks, dB and dC by head group; B, S, H, P, N, chunk, the head
+    # groups of the chunk and dB/dC passes; strides as ssd_bwd_launch's;
+    # dtypes of dt and A; stream: the bf16 route
+    "ssd_bwd_wgmma_launch": [_P] * 18 + [_I] * 8 + [_L] * 14 + [_I] * 2
+                            + [_P],
 }
 
 _lock = threading.Lock()

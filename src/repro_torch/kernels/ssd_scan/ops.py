@@ -22,19 +22,30 @@ tensor takes the plain version in ``ref.py``.
 ``ssd`` is differentiable where autograd records (grad enabled and an
 input that requires it): ``SSD``, a ``torch.autograd.Function``, saves
 the inputs, and its backward is ``ssd_bwd``, the vjp of the scan at (dy,
-dstate) that the reference's ``ops._bwd`` takes through the plain scan:
-on CUDA tensors the hand-written kernels of ``csrc/ssd_scan_bwd.cu``
-(one entry point, six kernels, float32 on the CUDA cores, every sum in a
-fixed order: two calls agree bit for bit), on CPU tensors
-``ref.ssd_bwd``.  A failed launch raises; nothing falls back to the
-plain version on the card.  The semantics are ``ssd_fwd``'s: the chunk
+dstate) that the reference's ``ops._bwd`` takes through the plain scan.
+On CUDA tensors it takes one of two routes of hand-written kernels, which
+``bwd_route`` chooses (the only chooser):
+
+- ``"wgmma"`` (``csrc/ssd_scan_bwd_wgmma.cu``, one entry point, five
+  kernels on TMA and wgmma, the heads summed inside the accumulators)
+  when the forward's ``route`` is ``"wgmma"`` and dy is bfloat16; dy
+  gets a contiguous copy where TMA cannot read it (a copy of the layout,
+  not a fallback).  Every training step of a bf16 model takes it.
+- ``"simt"`` (``csrc/ssd_scan_bwd.cu``, one entry point, six kernels,
+  float32 on the CUDA cores) for float32 inputs and any other layout.
+
+Every sum of both routes is in a fixed order (no atomics): two calls agree
+bit for bit.  On CPU tensors ``ssd_bwd`` is ``ref.ssd_bwd``.  A failed
+launch raises; nothing falls back to the other route or to the plain
+version on the card.  The semantics are ``ssd_fwd``'s: the chunk
 is clamped to ``min(chunk, S)`` and S must be a multiple of the clamped
 chunk (the reference's backward does not clamp: its vjp raises where S
 is under the chunk).  The inputs keep the reference's layouts and are
 read through their strides (the last axis of x, B_ and C_ must be
 contiguous), so no transposed copy is made.  ``ssd.launches`` counts
-forward launches, ``ssd.routes`` the launches of each route, and
-``ssd_bwd.launches`` backward launches.
+forward launches, ``ssd.routes`` the launches of each route,
+``ssd_bwd.launches`` backward calls and ``ssd_bwd.routes`` those of each
+backward route.
 """
 from __future__ import annotations
 
@@ -43,6 +54,9 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build
+# dy's copy where TMA cannot read it: the flash backward's, for the same
+# (B, S, heads, D) layout
+from repro_torch.kernels.flash_attention.ops import _tma_ready
 from repro_torch.kernels.ssd_scan import ref
 
 MAX_CHUNK = 128          # the kernel's shared-memory plan: Q, P, N <= 128
@@ -50,6 +64,7 @@ MAX_HEAD_DIM = 128
 MAX_STATE = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {"f32": 0, "wgmma": 1}
+BWD_ROUTES = ("simt", "wgmma")
 
 
 def _check(x, dt, A, B_, C_, chunk) -> int:
@@ -175,36 +190,66 @@ def _check_cotangents(x, B_, dy, dstate) -> None:
                              f"{t.dtype}")
 
 
-def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-            B_: torch.Tensor, C_: torch.Tensor, dy: torch.Tensor,
-            dstate: torch.Tensor, chunk: int = 128):
-    """The vjp of ``ssd`` at (dy (B,S,H,P), dstate (B,H,P,N)): (dx, ddt,
-    dA, dB, dC) in the dtypes of x, dt, A, B_ and C_.  CPU tensors take
-    ``ref.ssd_bwd``; CUDA tensors launch the kernels, their outputs
-    contiguous, with float32 scratch allocated here and freed on return
-    (each chunk's entering state and its cotangent, per-head partials of
-    dB and dC, a few rows: about 620 MB at mamba2-780m's training
-    shape)."""
-    chunk = _check(x, dt, A, B_, C_, chunk)
-    _check_cotangents(x, B_, dy, dstate)
-    if x.device.type == "cpu":
-        return ref.ssd_bwd(x, dt, A, B_, C_, dy, dstate, chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"no ssd_bwd kernel for device {x.device}")
+def bwd_route(x: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
+              dy: torch.Tensor) -> str:
+    """The backward kernels a CUDA launch of these inputs takes:
+    ``"wgmma"`` where the forward's ``route`` is ``"wgmma"`` (bfloat16 x,
+    B_ and C_ that TMA can read, P a multiple of 8) and dy is bfloat16,
+    else ``"simt"``.  dy's layout does not enter: ``ssd_bwd`` copies it
+    where TMA cannot read it.  A pure function of dtypes, shapes, strides
+    and base addresses."""
+    if dy.dtype == torch.bfloat16 and route(x, B_, C_) == "wgmma":
+        return "wgmma"
+    return "simt"
+
+
+def image_bytes(P: int, N: int) -> int:
+    """Bytes of one state's image on the wgmma route: its f32 values split
+    into three bf16 parts (hi + mid + lo, exact), P and N rounded up to 64
+    or 128 (the kernels' ``IMG``)."""
+    pad = lambda d: 64 if d <= 64 else 128
+    return 3 * pad(P) * pad(N) * 2
+
+
+def bwd_groups(Bb: int, nc: int, H: int, sms: int) -> Tuple[int, int]:
+    """(G2, G3): the groups of heads of the wgmma route's chunk pass (a
+    block per (chunk, b, group), 2 warpgroups) and of its dB/dC pass (a
+    block per (chunk, b, role, group)), each as many as fill the card's
+    ``sms`` multiprocessors once, at least 1 and at most H, normalised so
+    that every group holds a head (the C launcher refuses any other)."""
+    def norm(want):
+        g = max(1, min(H, want))
+        per = -(-H // g)
+        return -(-H // per)
+    return norm(sms // (Bb * nc)), norm(sms // (2 * Bb * nc))
+
+
+def bwd_scratch_shapes(Bb: int, S: int, H: int, P: int, N: int,
+                       chunk: int, G2: int, G3: int) -> dict:
+    """The wgmma route's scratch by name: shape, dtype (the chunk
+    clamped).  At mamba2-780m's training shape about 322 MB: the states'
+    and their cotangents' images (151.0 MB each), the chunk pass's sums of
+    dG over its head groups, dcs's per-step terms, the dB and dC partials
+    by head group."""
+    nc = S // chunk
+    u8, f32 = torch.uint8, torch.float32
+    return {"s_img": ((Bb * H * nc * image_bytes(P, N),), u8),
+            "ds_img": ((Bb * H * nc * image_bytes(P, N),), u8),
+            "dgsum": ((Bb, nc, G2, MAX_CHUNK, MAX_CHUNK), f32),
+            "rows": ((2, Bb, H, S), f32),
+            "chunks": ((2, Bb, H, nc), f32),
+            "dbc": ((2, Bb, G3, S, N), f32)}
+
+
+def _bwd_simt(x, dt, A, B_, C_, dy, dstate, chunk, outs):
+    """Launch the SIMT route (``ssd_bwd_launch``, six kernels) into
+    ``outs`` (dx, ddt, dA, dB, dC)."""
     Bb, S, H, P = x.shape
     N = B_.shape[-1]
     nc = S // chunk
     dev, f32 = x.device, torch.float32
     if dy.stride(-1) != 1:
         dy = dy.contiguous()
-    dstate = dstate.to(f32).contiguous()
-    dx = torch.empty((Bb, S, H, P), dtype=x.dtype, device=dev)
-    ddt = torch.empty((Bb, S, H), dtype=dt.dtype, device=dev)
-    dA = torch.empty((H,), dtype=A.dtype, device=dev)
-    dB = torch.empty((Bb, S, N), dtype=B_.dtype, device=dev)
-    dC = torch.empty((Bb, S, N), dtype=C_.dtype, device=dev)
-    if dx.numel() == 0:
-        return dx.zero_(), ddt.zero_(), dA.zero_(), dB.zero_(), dC.zero_()
     states = torch.empty((Bb, H, nc + 1, P, N), dtype=f32, device=dev)
     dstates = torch.empty((Bb, H, nc, P, N), dtype=f32, device=dev)
     rows = torch.empty((4, Bb, H, S), dtype=f32, device=dev)
@@ -214,14 +259,88 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     strides = [*_strides(x, 3), *dt.stride(), A.stride(0), *_strides(B_, 2),
                *_strides(C_, 2), *_strides(dy, 3)]
     dtypes = [_DTYPES[t.dtype] for t in (x, dt, A, B_, dy)]
-    ptrs = [t.data_ptr() for t in (x, dt, A, B_, C_, dy, dstate, dx, ddt, dA,
-                                   dB, dC, states, dstates, rows, chunks,
-                                   dBp, dCp)]
+    ptrs = [t.data_ptr() for t in (x, dt, A, B_, C_, dy, dstate, *outs,
+                                   states, dstates, rows, chunks, dBp, dCp)]
     rc = build.launch(dev, build.library().ssd_bwd_launch, *ptrs, Bb, S, H,
                       P, N, chunk, *strides, *dtypes)
     build.check(rc, "ssd_bwd")
-    build.count(ssd_bwd)
-    return dx, ddt, dA, dB, dC
+
+
+def _bwd_wgmma(x, dt, A, B_, C_, dy, dstate, chunk, outs):
+    """Launch the wgmma route (``ssd_bwd_wgmma_launch``, five kernels) into
+    ``outs`` (dx, ddt, dA, dB, dC); dy already TMA-ready."""
+    Bb, S, H, P = x.shape
+    N = B_.shape[-1]
+    dev = x.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    G2, G3 = bwd_groups(Bb, S // chunk, H, sms)
+    scratch = [torch.empty(shape, dtype=dtype, device=dev) for shape, dtype
+               in bwd_scratch_shapes(Bb, S, H, P, N, chunk, G2,
+                                     G3).values()]
+    strides = [*_strides(x, 3), *dt.stride(), A.stride(0), *_strides(B_, 2),
+               *_strides(C_, 2), *_strides(dy, 3)]
+    ptrs = [t.data_ptr() for t in (x, dt, A, B_, C_, dy, dstate, *outs,
+                                   *scratch)]
+    rc = build.launch(dev, build.library().ssd_bwd_wgmma_launch, *ptrs, Bb,
+                      S, H, P, N, chunk, G2, G3, *strides,
+                      _DTYPES[dt.dtype], _DTYPES[A.dtype])
+    build.check(rc, "ssd_bwd (wgmma route)")
+
+
+def bwd_launch(x, dt, A, B_, C_, dy, dstate, chunk: int, route_: str):
+    """Launch the backward kernels of ``route_`` on checked CUDA tensors
+    (``chunk`` already clamped); (dx, ddt, dA, dB, dC), contiguous.
+    ``ssd_bwd`` calls it with ``bwd_route(x, B_, C_, dy)`` and counts the
+    call; the card's checks call it directly to time the SIMT route on
+    bfloat16 inputs.  A route the inputs do not allow raises before any
+    launch."""
+    if route_ not in BWD_ROUTES:
+        raise ValueError(f"no backward route {route_!r}: {BWD_ROUTES}")
+    if route_ == "wgmma" and bwd_route(x, B_, C_, dy) != "wgmma":
+        raise ValueError(
+            "the wgmma backward takes bfloat16 x, B_, C_ and dy that TMA "
+            f"can read with P a multiple of 8, not {x.dtype}/{B_.dtype}/"
+            f"{dy.dtype} at P = {x.shape[-1]}")
+    Bb, S, H, P = x.shape
+    N = B_.shape[-1]
+    dev = x.device
+    dstate = dstate.to(torch.float32).contiguous()
+    outs = (torch.empty((Bb, S, H, P), dtype=x.dtype, device=dev),
+            torch.empty((Bb, S, H), dtype=dt.dtype, device=dev),
+            torch.empty((H,), dtype=A.dtype, device=dev),
+            torch.empty((Bb, S, N), dtype=B_.dtype, device=dev),
+            torch.empty((Bb, S, N), dtype=C_.dtype, device=dev))
+    if outs[0].numel() == 0:
+        return tuple(t.zero_() for t in outs)
+    if route_ == "wgmma":
+        _bwd_wgmma(x, dt, A, B_, C_, _tma_ready(dy), dstate, chunk, outs)
+    else:
+        _bwd_simt(x, dt, A, B_, C_, dy, dstate, chunk, outs)
+    return outs
+
+
+def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            B_: torch.Tensor, C_: torch.Tensor, dy: torch.Tensor,
+            dstate: torch.Tensor, chunk: int = 128):
+    """The vjp of ``ssd`` at (dy (B,S,H,P), dstate (B,H,P,N)): (dx, ddt,
+    dA, dB, dC) in the dtypes of x, dt, A, B_ and C_.  CPU tensors take
+    ``ref.ssd_bwd``; CUDA tensors launch the kernels of ``bwd_route``'s
+    route, their outputs contiguous, with scratch allocated here and freed
+    on return: on the wgmma route the states' and their cotangents' bf16
+    images and a few f32 partials (``bwd_scratch_shapes``, about 322 MB
+    at mamba2-780m's training shape), on the SIMT route f32 states,
+    cotangents and per-head partials of dB and dC (about 620 MB there)."""
+    chunk = _check(x, dt, A, B_, C_, chunk)
+    _check_cotangents(x, B_, dy, dstate)
+    if x.device.type == "cpu":
+        return ref.ssd_bwd(x, dt, A, B_, C_, dy, dstate, chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"no ssd_bwd kernel for device {x.device}")
+    way = bwd_route(x, B_, C_, dy)
+    outs = bwd_launch(x, dt, A, B_, C_, dy, dstate, chunk, way)
+    if outs[0].numel():
+        build.count(ssd_bwd, way)
+    return outs
 
 
 class SSD(torch.autograd.Function):
@@ -260,3 +379,4 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 ssd.launches = 0
 ssd.routes = dict.fromkeys(ROUTES, 0)
 ssd_bwd.launches = 0
+ssd_bwd.routes = dict.fromkeys(BWD_ROUTES, 0)

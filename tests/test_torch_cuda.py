@@ -1437,16 +1437,28 @@ SSD_BWD_CASES = [
 ]
 
 
-def _ssd_bwd_check(args, chunk):
+def _ssd_bwd_check(args, chunk, simt=False):
     """One call on the card, again bit for bit, against ref.ssd_bwd: each
     output within 1e-4 of its largest magnitude (float32 sums in other
     orders) and, in bfloat16, one rounding step (up to 2^-7) of itself
-    besides."""
-    before = ssd_ops.ssd_bwd.launches
-    got = ssd_ops.ssd_bwd(*args, chunk=chunk)
-    again = ssd_ops.ssd_bwd(*args, chunk=chunk)
+    besides.  ssd_bwd takes the route bwd_route names; ``simt`` runs the
+    SIMT route's kernels on the same inputs instead (ops.bwd_launch, no
+    count)."""
+    before = ssd_ops.ssd_bwd.launches, dict(ssd_ops.ssd_bwd.routes)
+    route = "simt" if simt else ssd_ops.bwd_route(args[0], args[3],
+                                                  args[4], args[5])
+    if simt:
+        call = lambda: ssd_ops.bwd_launch(*args, min(chunk, args[0].shape[1]),
+                                          "simt")
+    else:
+        call = lambda: ssd_ops.ssd_bwd(*args, chunk=chunk)
+    got = call()
+    again = call()
     torch.cuda.synchronize()
-    assert ssd_ops.ssd_bwd.launches == before + 2
+    n = 0 if simt else 2
+    assert ssd_ops.ssd_bwd.launches == before[0] + n
+    assert {r: c - before[1][r] for r, c in ssd_ops.ssd_bwd.routes.items()} \
+        == {r: n * (r == route) for r in ssd_ops.ssd_bwd.routes}
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     want = ssd_ref.ssd_bwd(*args, chunk=chunk)
     for name, g_, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
@@ -1457,8 +1469,7 @@ def _ssd_bwd_check(args, chunk):
         assert bool(((g_.float() - w32).abs() <= tol).all()), name
 
 
-@pytest.mark.parametrize("case", SSD_BWD_CASES)
-def test_ssd_backward_kernel_matches_plain(dev, case):
+def _ssd_bwd_case(dev, case):
     B, S, H, P, N, chunk, types, nonzero = case
     x, dt, A, Bm, Cm = _ssd_inputs(dev, B, S, H, P, N, SSD_DTYPES[types],
                                    S + H + N)
@@ -1466,7 +1477,76 @@ def test_ssd_backward_kernel_matches_plain(dev, case):
     dy = torch.randn(x.shape, generator=g, device=dev).to(x.dtype)
     ds = torch.randn((B, H, P, N), generator=g, device=dev) if nonzero \
         else torch.zeros((B, H, P, N), device=dev)
-    _ssd_bwd_check((x, dt, A, Bm, Cm, dy, ds), chunk)
+    return (x, dt, A, Bm, Cm, dy, ds), chunk
+
+
+@pytest.mark.parametrize("case", SSD_BWD_CASES)
+def test_ssd_backward_kernel_matches_plain(dev, case):
+    """bf16 x, B, C and dy take the wgmma route, float32 the SIMT one."""
+    args, chunk = _ssd_bwd_case(dev, case)
+    assert ssd_ops.bwd_route(*args[:1], *args[3:6]) == (
+        "simt" if case[6] == "float32" else "wgmma")
+    _ssd_bwd_check(args, chunk)
+
+
+@pytest.mark.parametrize("case", [c for c in SSD_BWD_CASES
+                                  if c[6] != "float32"])
+def test_ssd_backward_simt_kernels_on_bf16_inputs_match_plain(dev, case):
+    """The SIMT route's kernels on the inputs the wgmma route takes."""
+    _ssd_bwd_check(*_ssd_bwd_case(dev, case), simt=True)
+
+
+def test_ssd_backward_copies_a_dy_tma_cannot_read(dev):
+    """dy with rows of odd stride and one element past an aligned base:
+    the wgmma route on a contiguous copy, the same bits as on dy
+    contiguous."""
+    args, chunk = _ssd_bwd_case(dev, (2, 256, 4, 64, 128, 128, "serving",
+                                      True))
+    dy = args[5]
+    pad = torch.zeros(dy.shape[:-1] + (dy.shape[-1] + 1,), dtype=dy.dtype,
+                      device=dev)[..., :-1].copy_(dy)
+    buf = torch.empty(dy.numel() + 8, dtype=dy.dtype, device=dev)
+    off = buf[1:1 + dy.numel()].view(dy.shape).copy_(dy)
+    want = ssd_ops.ssd_bwd(*args, chunk=chunk)
+    for odd in (pad, off):
+        ins = (*args[:5], odd, args[6])
+        assert ssd_ops.bwd_route(*ins[:1], *ins[3:6]) == "wgmma"
+        got = ssd_ops.ssd_bwd(*ins, chunk=chunk)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_ssd_backward_wgmma_launcher_refuses_what_it_cannot_run(dev):
+    """ssd_bwd_wgmma_launch refuses (cudaErrorInvalidValue) P not a
+    multiple of 8, a chunk past 128, x not 16-byte aligned and head groups
+    that leave a group empty, before any launch."""
+    args, chunk = _ssd_bwd_case(dev, (1, 256, 4, 64, 128, 128, "serving",
+                                      True))
+    x, dt, A, Bm, Cm, dy, ds = args
+    Bb, S, H, P = x.shape
+    N = Bm.shape[-1]
+    outs = [torch.empty_like(t) for t in (x, dt, A, Bm, Cm)]
+    G2, G3 = ssd_ops.bwd_groups(Bb, S // chunk, H, 132)
+    scratch = [torch.empty(shape, dtype=d, device=dev) for shape, d in
+               ssd_ops.bwd_scratch_shapes(Bb, S, H, P, N, chunk, G2,
+                                          G3).values()]
+    lib = build.library()
+
+    def launch(xp=x.data_ptr(), P_=P, chunk_=chunk, G2_=G2, G3_=G3):
+        strides = [*ssd_ops._strides(x, 3), *dt.stride(), A.stride(0),
+                   *ssd_ops._strides(Bm, 2), *ssd_ops._strides(Cm, 2),
+                   *ssd_ops._strides(dy, 3)]
+        ptrs = [xp] + [t.data_ptr() for t in (dt, A, Bm, Cm, dy, ds, *outs,
+                                              *scratch)]
+        return build.launch(dev, lib.ssd_bwd_wgmma_launch, *ptrs, Bb, S, H,
+                            P_, N, chunk_, G2_, G3_, *strides, 0, 0)
+    invalid = 1                                  # cudaErrorInvalidValue
+    assert launch(P_=60) == invalid
+    assert launch(chunk_=256) == invalid
+    assert launch(xp=x.data_ptr() + 2) == invalid
+    assert launch(G2_=3) == invalid              # ceil(4 / 3) = 2: 2, 2, 0
+    assert launch(G3_=0) == invalid
+    assert launch() == 0
+    torch.cuda.synchronize()
 
 
 def test_ssd_backward_reads_strided_inputs(dev):
@@ -1480,6 +1560,42 @@ def test_ssd_backward_reads_strided_inputs(dev):
     ds = torch.randn((B, H, P, N), device=dev)
     _ssd_bwd_check((x[:, :, ::2], dt[:, :, ::2], A[::2], bc[..., :N],
                     bc[..., N:], dy[:, :, 1::2], ds), 128)
+
+
+def test_ssd_autograd_on_the_card_matches_the_cpu_in_bf16(dev):
+    """bf16 x, B and C (the wgmma route's backward on the card) against
+    the CPU's plain backward through autograd, dt and A float32: each
+    gradient within 1e-4 of its largest magnitude and one bf16 step."""
+    g = np.random.default_rng(6)
+    arrs = [g.standard_normal((2, 256, 4, 32)), np.log1p(np.exp(
+        g.standard_normal((2, 256, 4)))), -np.exp(0.3 * g.standard_normal(
+            4)), g.standard_normal((2, 256, 48)), g.standard_normal(
+        (2, 256, 48))]
+    kinds = (torch.bfloat16, torch.float32, torch.float32, torch.bfloat16,
+             torch.bfloat16)
+    arrs = [torch.from_numpy(a.astype(np.float32)).to(k)
+            for a, k in zip(arrs, kinds)]
+    # cotangents that do not depend on y: the card's forward rounds y
+    # to bf16 at other places than the CPU's
+    wy = torch.from_numpy(g.standard_normal((2, 256, 4, 32)).astype(
+        np.float32))
+    ws = torch.from_numpy(g.standard_normal((2, 4, 32, 48)).astype(
+        np.float32))
+    grads = {}
+    for d in ("cpu", dev):
+        ins = [a.to(d, copy=True).requires_grad_() for a in arrs]
+        before = dict(ssd_ops.ssd_bwd.routes)
+        y, state = ssd_ops.ssd(*ins, chunk=64)
+        ((y.float() * wy.to(d)).sum() + (state * ws.to(d)).sum()).backward()
+        assert ssd_ops.ssd_bwd.routes["wgmma"] - before["wgmma"] == (
+            0 if d == "cpu" else 1)
+        grads[str(d)] = [t.grad.cpu() for t in ins]
+    for a, b in zip(grads["cpu"], grads[str(dev)]):
+        assert a.dtype == b.dtype
+        w = a.float()
+        tol = 1e-4 * float(w.abs().max()) + (
+            2.0 ** -7 * w.abs() if a.dtype == torch.bfloat16 else 0.0)
+        assert bool(((b.float() - w).abs() <= tol).all())
 
 
 def test_ssd_autograd_on_the_card_matches_the_cpu(dev):

@@ -233,15 +233,19 @@ def test_a_reference_train_state_with_ssm_leaves_carries_across(arch, mode):
 
 
 def test_backward_kernels_are_named_for_the_profilers_group():
-    """Every kernel of the backward's source starts with ``ssd_bwd_``,
-    which chip_smoke.py's training profile gathers as "SSD backward" (and
-    its SSD_BWD_KERNELS names each); no forward kernel does."""
+    """Every kernel of the backward's sources (both routes) starts with
+    ``ssd_bwd_``, which chip_smoke.py's training profile gathers as "SSD
+    backward" (and its SSD_BWD_KERNELS names each); no forward kernel
+    does."""
     csrc = pathlib.Path(ssd_ops.__file__).resolve().parents[2] / "csrc"
     pattern = r"__global__ void __launch_bounds__\([^)]*\)\s*(\w+)\("
-    names = set(re.findall(pattern, (csrc / "ssd_scan_bwd.cu").read_text()))
-    assert names == {"ssd_bwd_scan_kernel", "ssd_bwd_rows_kernel",
-                     "ssd_bwd_cols_kernel", "ssd_bwd_dt_kernel",
-                     "ssd_bwd_reduce_kernel"}
+    simt = set(re.findall(pattern, (csrc / "ssd_scan_bwd.cu").read_text()))
+    assert simt == {"ssd_bwd_scan_kernel", "ssd_bwd_rows_kernel",
+                    "ssd_bwd_cols_kernel", "ssd_bwd_dt_kernel",
+                    "ssd_bwd_reduce_kernel"}
+    names = simt | set(re.findall(
+        pattern, (csrc / "ssd_scan_bwd_wgmma.cuh").read_text()))
+    assert all(n.startswith("ssd_bwd_") for n in names)
     forward = set(re.findall(pattern, (csrc / "ssd_scan.cu").read_text()))
     assert forward and not any("ssd_bwd" in n for n in forward)
     smoke = (csrc.parents[2] / "chip_smoke.py").read_text()
