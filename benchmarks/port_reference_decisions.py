@@ -50,6 +50,12 @@ Parts (all by default; each prints its wall time on stderr):
   plan: decisions, dispatches, the deployment summary and the placement's
   assignment; per day: dispatches, rounds, contracts, costs and
   ``windows_feasible``.
+* ``capacity``: the TPU capacity planner on ``tests/test_capacity.py``'s
+  synthetic costs (``benchmarks/torch_scenarios.py``'s
+  ``CAPACITY_*``): five serving classes planned by the KKT ranking and
+  QN-verified (slots, decisions, QN dispatches), the training plans, and
+  on a synthetic dry-run record ``load_dryrun``'s costs,
+  ``ElasticPlan.replan_capacity`` and the ``plan`` CLI's output.
 
 Each scenario function takes the budgets as keywords, with the benchmark's
 own as defaults (the two DAG parts take theirs from the constants of
@@ -602,6 +608,78 @@ def private_cloud_real(**budgets) -> dict:
     return out
 
 
+def capacity() -> dict:
+    """The TPU capacity planner (``core/capacity``) on
+    ``tests/test_capacity.py``'s synthetic costs, as
+    ``benchmarks/torch_scenarios.py`` ``capacity`` drives the port's: each
+    serving class's slots and its plan in both modes (with the QN
+    dispatches of each), the training plans, and on the synthetic dry-run
+    record ``load_dryrun``'s costs, ``ElasticPlan.replan_capacity`` and the
+    ``plan`` CLI's output."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from benchmarks.torch_scenarios import CAPACITY_CLI, CAPACITY_COSTS, \
+        CAPACITY_REPLAN, CAPACITY_SERVING, CAPACITY_TRAINING, DECISION_KEYS, \
+        capacity_record
+    from repro.core.capacity import CellCost, ServingClass, \
+        TPUCapacityPlanner, TrainClass, load_dryrun
+    from repro.distributed.fault import ElasticPlan
+    from repro.launch import plan as plan_cli
+
+    def decisions(sol):
+        return {f: sol.as_dict()[f] for f in DECISION_KEYS}
+
+    planner = TPUCapacityPlanner(
+        {k: CellCost(*v) for k, v in CAPACITY_COSTS.items()})
+    out = {"slots": {}, "serving": {}, "training": {}}
+    for spec in CAPACITY_SERVING:
+        cls = ServingClass(*spec)
+        out["slots"][cls.name] = {
+            vm.name: vm.cores for vm in planner.serving_problem(cls).vm_types}
+        out["serving"][cls.name] = {}
+        for mode, use_qn in (("kkt", False), ("qn", True)):
+            d0 = qn_sim.dispatch_count()
+            sol = planner.plan_serving([cls], use_qn=use_qn)[cls.name]
+            out["serving"][cls.name][mode] = {
+                **decisions(sol),
+                "dispatches": int(qn_sim.dispatch_count() - d0)}
+    for name, arch, steps, deadline_h in CAPACITY_TRAINING:
+        sol = planner.plan_training([TrainClass(
+            name=name, arch=arch, steps=steps, deadline_h=deadline_h)])[name]
+        out["training"][name] = decisions(sol)
+    with tempfile.TemporaryDirectory() as tmp:
+        record_path = os.path.join(tmp, "dryrun.json")
+        with open(record_path, "w") as f:
+            json.dump(capacity_record(), f)
+        out["record"] = {f"{arch}|{shape}": [c.flops_per_dev, c.bytes_per_dev,
+                                             c.coll_bytes_per_dev,
+                                             c.ref_chips]
+                         for (arch, shape), c in
+                         sorted(load_dryrun(record_path).items())}
+        arch, steps, deadline_h = CAPACITY_REPLAN
+        out["replan"] = {k: decisions(v) for k, v in ElasticPlan.
+                         replan_capacity(arch, steps, deadline_h,
+                                         dryrun_path=record_path).items()}
+        out["cli"] = {}
+        argv0 = sys.argv
+        for label, argv in CAPACITY_CLI.items():
+            buf = io.StringIO()
+            d0 = qn_sim.dispatch_count()
+            sys.argv = ["plan", *argv, "--dryrun", record_path]
+            try:
+                with contextlib.redirect_stdout(buf):
+                    plan_cli.main()
+            finally:
+                sys.argv = argv0
+            out["cli"][label] = {
+                "printed": json.loads(buf.getvalue()),
+                "dispatches": int(qn_sim.dispatch_count() - d0)}
+    return out
+
+
 def private_cloud() -> dict:
     return {"bench": private_cloud_bench(), "real": private_cloud_real()}
 
@@ -617,7 +695,8 @@ PARTS = {"plans": plans, "batched_qn": batched_qn,
          "cost_deadline": cost_deadline, "hc_convergence": hc_convergence,
          "vm_race": vm_race, "table3": table3, "serving_qn": serving_qn,
          "dag_sweep": dag_sweep, "spark_dag_plan": spark_dag_plan,
-         "service": service, "private_cloud": private_cloud}
+         "service": service, "private_cloud": private_cloud,
+         "capacity": capacity}
 
 
 def main() -> None:

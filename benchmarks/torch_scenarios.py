@@ -51,6 +51,11 @@ two DAG drivers run at their benchmark's budgets, the module's
   the public plan's cores, through ``run()``, ``run_fast()`` and the
   point-wise ``run()``, then as a private job in a ``SolverService``
   beside a public Q1 tenant, admitted against the cluster's cores.
+* ``capacity``       -- the TPU capacity planner (``core/capacity``) on
+  ``tests/test_capacity.py``'s synthetic costs: five serving classes
+  planned by the KKT ranking and QN-verified, the training plans, and on a
+  synthetic dry-run record ``load_dryrun``, ``ElasticPlan.replan_capacity``
+  and the ``plan`` CLI (``capacity_mismatches`` compares it).
 
 Each returns the dict its reference benchmark's ``run()`` returns (or, for
 ``serving_qn``, records), with the decisions and counts the reference
@@ -111,8 +116,11 @@ def _plan(rep, wall_s: float) -> dict:
             "dispatches": rep.qn_dispatches,
             "cost": rep.total_cost_per_h,
             "nu": {k: v.nu for k, v in rep.solutions.items()},
-            "classes": {k: {f: v.as_dict()[f] for f in DECISION_KEYS}
-                        for k, v in rep.solutions.items()}}
+            "classes": {k: _decisions(v) for k, v in rep.solutions.items()}}
+
+
+def _decisions(sol) -> dict:
+    return {f: sol.as_dict()[f] for f in DECISION_KEYS}
 
 
 def _timed_plan(dev, solve) -> dict:
@@ -1155,6 +1163,156 @@ def private_cloud(device=None) -> dict:
             "real": private_cloud_real(device)}
 
 
+# --------------------------------------------------------------- capacity
+# tests/test_capacity.py's synthetic per-device costs on the 256-chip
+# reference mesh, (flops, bytes, collective bytes) by (arch, shape)
+CAPACITY_COSTS = {
+    ("granite-3-2b", "train_4k"): (4.5e12, 6.0e11, 2.0e7),
+    ("granite-3-2b", "prefill_32k"): (1.2e12, 2.5e11, 1.0e7),
+    ("granite-3-2b", "decode_32k"): (2.0e9, 3.0e9, 5.0e6),
+    ("mamba2-780m", "decode_32k"): (6.0e6, 2.0e7, 1.0e5),
+}
+# the serving classes (name, arch, prompt_len, gen_len, sessions, think_ms,
+# deadline_ms): tests/test_capacity.py's two, examples/capacity_planning.py's
+# chat class, the same traffic on mamba2-780m (past 16384 slots), and a
+# crowd whose KKT ranking leaves v5e-16
+CAPACITY_SERVING = (
+    ("s", "granite-3-2b", 2048, 128, 32, 5_000.0, 20_000.0),
+    ("s256", "granite-3-2b", 2048, 128, 256, 5_000.0, 20_000.0),
+    ("chat-granite", "granite-3-2b", 4096, 256, 64, 10_000.0, 20_000.0),
+    ("chat-mamba2", "mamba2-780m", 4096, 256, 64, 10_000.0, 20_000.0),
+    ("crowd-granite", "granite-3-2b", 32768, 512, 2048, 5_000.0, 330.0),
+)
+# the training classes (name, arch, steps, deadline_h): tests/test_capacity.py's
+CAPACITY_TRAINING = (("t24", "granite-3-2b", 200_000, 24.0),
+                     ("t12", "granite-3-2b", 200_000, 12.0))
+# ElasticPlan.replan_capacity's (arch, steps remaining, deadline_h) on the
+# synthetic record
+CAPACITY_REPLAN = ("granite-3-2b", 120_000, 12.0)
+# the plan CLI's arguments, each run on the synthetic record
+CAPACITY_CLI = {
+    "serve-qn": ("serve", "--arch", "granite-3-2b", "--sessions", "64",
+                 "--deadline-ms", "20000"),
+    "serve-kkt": ("serve", "--arch", "mamba2-780m", "--sessions", "64",
+                  "--deadline-ms", "20000", "--no-qn"),
+    "train": ("train", "--arch", "granite-3-2b", "--steps", "200000",
+              "--deadline-h", "24"),
+}
+# the parts of a capacity drive whose predicted_ms come from the QN
+# (within a relative 1e-3 in exponential mode); the rest are exact
+CAPACITY_QN_PARTS = ("qn", "serve-qn")
+
+
+def capacity_record() -> list:
+    """``CAPACITY_COSTS`` as a dry-run record in the reference's format
+    (``launch/dryrun.py``'s keys), plus three rows ``load_dryrun`` skips:
+    the multi-pod mesh, an unsupported cell and a failed one."""
+    recs = [{"arch": arch, "shape": shape, "mesh": "16x16",
+             "supported": True, "n_devices": 256,
+             "cost_analysis": {"flops": fl, "bytes_accessed": nb},
+             "collective_bytes": {"all-reduce": coll * 0.75,
+                                  "all-gather": coll * 0.25}}
+            for (arch, shape), (fl, nb, coll) in CAPACITY_COSTS.items()]
+    recs.append({**recs[0], "mesh": "2x16x16", "n_devices": 512})
+    recs.append({"arch": "granite-3-2b", "shape": "long_500k",
+                 "mesh": "16x16", "supported": False})
+    recs.append({"arch": "gemma3-27b", "shape": "train_4k", "mesh": "16x16",
+                 "supported": True, "error": "compile failed"})
+    return recs
+
+
+def capacity(device=None) -> dict:
+    """The TPU capacity planner (``core/capacity``) on the synthetic costs:
+    each serving class's slots and its plan in both modes (the KKT
+    ranking alone, then QN-verified, with the QN dispatches of each), the
+    training plans, and on the synthetic record (in a temporary file)
+    ``load_dryrun``'s costs, ``ElasticPlan.replan_capacity`` and the
+    ``plan`` CLI's output.  ``walls`` holds each plan's host seconds
+    (ending in a synchronize)."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from repro_torch.core.capacity import CellCost, ServingClass, \
+        TPUCapacityPlanner, TrainClass, load_dryrun
+    from repro_torch.distributed.fault import ElasticPlan
+    from repro_torch.launch import plan as plan_cli
+
+    dev = resolve_device(device)
+    planner = TPUCapacityPlanner(
+        {k: CellCost(*v) for k, v in CAPACITY_COSTS.items()}, device=dev)
+    out = {"slots": {}, "serving": {}, "training": {}}
+    walls = {}
+    for spec in CAPACITY_SERVING:
+        cls = ServingClass(*spec)
+        out["slots"][cls.name] = {
+            vm.name: vm.cores for vm in planner.serving_problem(cls).vm_types}
+        out["serving"][cls.name] = {}
+        for mode, use_qn in (("kkt", False), ("qn", True)):
+            d0 = _dispatches()
+            t0 = time.perf_counter()
+            sol = planner.plan_serving([cls], use_qn=use_qn)[cls.name]
+            _sync(dev)
+            walls[f"{cls.name}.{mode}"] = time.perf_counter() - t0
+            out["serving"][cls.name][mode] = {
+                **_decisions(sol), "dispatches": _dispatches() - d0}
+    for name, arch, steps, deadline_h in CAPACITY_TRAINING:
+        sol = planner.plan_training([TrainClass(
+            name=name, arch=arch, steps=steps, deadline_h=deadline_h)])[name]
+        out["training"][name] = _decisions(sol)
+    with tempfile.TemporaryDirectory() as tmp:
+        record_path = os.path.join(tmp, "dryrun.json")
+        with open(record_path, "w") as f:
+            json.dump(capacity_record(), f)
+        out["record"] = {f"{arch}|{shape}": [c.flops_per_dev, c.bytes_per_dev,
+                                             c.coll_bytes_per_dev,
+                                             c.ref_chips]
+                         for (arch, shape), c in
+                         sorted(load_dryrun(record_path).items())}
+        arch, steps, deadline_h = CAPACITY_REPLAN
+        out["replan"] = {k: _decisions(v) for k, v in ElasticPlan.
+                         replan_capacity(arch, steps, deadline_h,
+                                         dryrun_path=record_path,
+                                         device=dev).items()}
+        out["cli"] = {}
+        for label, argv in CAPACITY_CLI.items():
+            buf = io.StringIO()
+            d0 = _dispatches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                plan_cli.main([*argv, "--dryrun", record_path,
+                               "--device", str(dev)])
+            _sync(dev)
+            walls[f"cli.{label}"] = time.perf_counter() - t0
+            out["cli"][label] = {"printed": json.loads(buf.getvalue()),
+                                 "dispatches": _dispatches() - d0}
+    out["walls"] = walls
+    return out
+
+
+def capacity_mismatches(ref: dict, got: dict, *, rel: float = 1e-3) -> list:
+    """``mismatches`` of a capacity drive: every number exact but the
+    predicted_ms of a QN-verified plan (``CAPACITY_QN_PARTS``), within
+    ``rel``."""
+    out = []
+    for key, want in ref.items():
+        have = got.get(key)
+        if key in ("serving", "cli") and isinstance(have, dict):
+            for name, part in want.items():
+                parts = part.items() if key == "serving" else [(name, part)]
+                for mode, w in parts:
+                    h = have.get(name, {})
+                    h = h.get(mode) if key == "serving" else h
+                    r = rel if mode in CAPACITY_QN_PARTS else 0.0
+                    path = f"{key}.{name}" + (f".{mode}" if key == "serving"
+                                              else "")
+                    out += [f"{path}.{p}" for p in mismatches(w, h, rel=r)]
+        else:
+            out += [f"{key}.{p}" for p in mismatches(want, have)]
+    return out
+
+
 # ------------------------------------------------------------- comparison
 
 def mismatches(ref, got, *, rel: float = 0.0) -> list:
@@ -1204,7 +1362,8 @@ SCENARIOS = {"batched_qn": batched_qn, "cost_deadline": cost_deadline,
              "service_throughput": service_throughput,
              "serve_many": serve_many,
              "spark_dag_service": spark_dag_service,
-             "q1_tenants": q1_tenants, "private_cloud": private_cloud}
+             "q1_tenants": q1_tenants, "private_cloud": private_cloud,
+             "capacity": capacity}
 
 
 def main(argv=None) -> None:

@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port on one CUDA card: the planner in both
 gaits, the repo's benchmarked planner scenarios, Spark/Tez DAG classes,
 the multi-tenant solver service, the private-cloud deployment plane, the
-paper's Table 3 and its serving analogue, the LM serving path (dense,
+TPU capacity planner, the paper's Table 3 and its serving analogue, the LM serving path (dense,
 Mamba2, hybrid, MoE, vision and encoder-decoder models) and LM training
 (granite-3-2b and mamba2-780m at full width and depth, through the flash
 and SSD backward kernels).
@@ -218,6 +218,27 @@ Phases, each printing one line or a few:
      each plan's wall, and for the over-committed day and the real-size
      private run() the host's packers and checks against the kernels'
      device time (a profiled pass).
+ 14. [capacity] (after [cloud]) the TPU capacity planner on the card
+     (benchmarks/torch_scenarios.py capacity, the launch counts set to 0
+     before it): tests/test_capacity.py's synthetic costs; five serving
+     classes (its two granite-3-2b classes of 32 and 256 sessions,
+     examples/capacity_planning.py's chat class, the same traffic on
+     mamba2-780m, 57209 slots a v5e-16, and a 2048-session crowd that
+     leaves v5e-16) planned by the KKT ranking alone and QN-verified (one
+     qn_event dispatch a probe: qn_event_wide for 32 users at 1536 slots,
+     qn_event_general past 32 users, at 65536 slots in its global
+     scratch); the training plans at 24 and 12 h; a synthetic dry-run
+     record through load_dryrun, ElasticPlan.replan_capacity and the
+     plan CLI; every number equal to REFERENCE["capacity"] (the QN plans'
+     predicted_ms within a relative 1e-3), each dispatch's route
+     (CAPACITY_ROUTES), each plan's wall, a profiled pass (the kernels'
+     device ms, qn_event_general's launches x (time - bound)); the
+     chat-granite and chat-mamba2 lanes' draw tables and event loop held
+     bit-identical to their plain versions and qn_event_general timed
+     there beside its bound; then launch/qn_record's quick cells on the
+     card, the plain and CUDA versions bit-identical, and their roofline
+     rows.  Phase 6 also gives flash_attention's float32 route its bound
+     at the float32 rate and SDPA's float32 time on the same tensors.
  13. [train] (after phase 6) the flash backward's two routes (wgmma:
      fa_bwd_dq_wgmma, which writes delta, then fa_bwd_dkdv_wgmma; simt:
      fa_bwd_delta, fa_bwd_dkdv, fa_bwd_dq), and the forward's lse from
@@ -1023,6 +1044,59 @@ true, true, true, true, true, true, true, true, true, true, true], "contracts": 
 "cores_total": 180, "unplaced": 0, "strategy": "ffd-energy"}}, "assignment": [0,
 0, 0, 0, 0, 1, 1, 1, 1, 1, 2, 2, 2, 2, 2, 3, 3, 3, 3, 3, 4, 4, 4, 4, 4,
 5, 5, 5, 5, 5, 6, 6, 6, 6, 6, 7, 7, 7, 7, 7, 8, 8, 8, 8]}}}
+""")
+
+# the live reference's numbers for the [capacity] drive (JSON from
+# benchmarks/port_reference_decisions.py capacity, JAX 0.9.0)
+REFERENCE["capacity"] = json.loads("""
+{"slots": {"s": {"v5e-16": 1264, "v5e-64": 5141, "v5e-256": 20651, "v5p-128":
+61365}, "s256": {"v5e-16": 1264, "v5e-64": 5141, "v5e-256": 20651, "v5p-128":
+61365}, "chat-granite": {"v5e-16": 632, "v5e-64": 2570, "v5e-256": 10325,
+"v5p-128": 30682}, "chat-mamba2": {"v5e-16": 57209, "v5e-64": 230009,
+"v5e-256": 921209, "v5p-128": 2735609}, "crowd-granite": {"v5e-16": 82,
+"v5e-64": 336, "v5e-256": 1350, "v5p-128": 4012}}, "serving": {"s": {"kkt":
+{"vm_type": "v5e-16", "nu": 1, "reserved": 1, "spot": 0, "cost_per_h": 19.2,
+"predicted_ms": 45.472057414923704, "feasible": true, "dispatches": 0}, "qn":
+{"vm_type": "v5e-16", "nu": 1, "reserved": 1, "spot": 0, "cost_per_h": 19.2,
+"predicted_ms": 59.69597625732422, "feasible": true, "dispatches": 1}},
+"s256": {"kkt": {"vm_type": "v5e-16", "nu": 1, "reserved": 1, "spot": 0,
+"cost_per_h": 19.2, "predicted_ms": 45.50749884278334, "feasible": true,
+"dispatches": 0}, "qn": {"vm_type": "v5e-16", "nu": 1, "reserved": 1, "spot":
+0, "cost_per_h": 19.2, "predicted_ms": 64.27202606201172, "feasible": true,
+"dispatches": 1}}, "chat-granite": {"kkt": {"vm_type": "v5e-16", "nu": 1,
+"reserved": 1, "spot": 0, "cost_per_h": 19.2, "predicted_ms":
+90.99826650436057, "feasible": true, "dispatches": 0}, "qn": {"vm_type":
+"v5e-16", "nu": 1, "reserved": 1, "spot": 0, "cost_per_h": 19.2,
+"predicted_ms": 133.88221740722656, "feasible": true, "dispatches": 1}},
+"chat-mamba2": {"kkt": {"vm_type": "v5e-16", "nu": 1, "reserved": 1, "spot":
+0, "cost_per_h": 19.2, "predicted_ms": 0.91413752937612, "feasible": true,
+"dispatches": 0}, "qn": {"vm_type": "v5e-16", "nu": 1, "reserved": 1, "spot":
+0, "cost_per_h": 19.2, "predicted_ms": 1.2605408430099487, "feasible": true,
+"dispatches": 1}}, "crowd-granite": {"kkt": {"vm_type": "v5e-64", "nu": 1,
+"reserved": 1, "spot": 0, "cost_per_h": 76.8, "predicted_ms":
+71.72195957168897, "feasible": true, "dispatches": 0}, "qn": {"vm_type":
+"v5e-64", "nu": 1, "reserved": 1, "spot": 0, "cost_per_h": 76.8,
+"predicted_ms": 71.19148254394531, "feasible": true, "dispatches": 1}}},
+"training": {"t24": {"vm_type": "v5e-16", "nu": 29, "reserved": 15, "spot":
+14, "cost_per_h": 408.96000000000004, "predicted_ms": 84088319.38028494,
+"feasible": true}, "t12": {"vm_type": "v5e-16", "nu": 57, "reserved": 29,
+"spot": 28, "cost_per_h": 798.72, "predicted_ms": 42811949.3119493,
+"feasible": true}}, "record": {"granite-3-2b|decode_32k": [2000000000.0,
+1975820800.0, 5000000.0, 256], "granite-3-2b|prefill_32k": [1200000000000.0,
+2311366672.0, 10000000.0, 256], "granite-3-2b|train_4k": [4500000000000.0,
+4975469248.0, 20000000.0, 256], "mamba2-780m|decode_32k": [6000000.0,
+348753984.0, 100000.0, 256]}, "replan": {"replan-granite-3-2b": {"vm_type":
+"v5e-16", "nu": 2, "reserved": 1, "spot": 1, "cost_per_h": 27.84,
+"predicted_ms": 22861389.593908627, "feasible": true}}, "cli": {"serve-qn":
+{"printed": {"class": "serve-granite-3-2b", "vm_type": "v5e-16", "nu": 1,
+"reserved": 1, "spot": 0, "cost_per_h": 19.2, "predicted_ms":
+81.47190856933594, "feasible": true}, "dispatches": 1}, "serve-kkt":
+{"printed": {"class": "serve-mamba2-780m", "vm_type": "v5e-16", "nu": 1,
+"reserved": 1, "spot": 0, "cost_per_h": 19.2, "predicted_ms":
+9.414087459199461, "feasible": true}, "dispatches": 0}, "train": {"printed":
+{"class": "train-granite-3-2b", "vm_type": "v5e-16", "nu": 1, "reserved": 1,
+"spot": 0, "cost_per_h": 19.2, "predicted_ms": 73156446.70050761, "feasible":
+true}, "dispatches": 0}}}
 """)
 
 def fail(msg: str) -> None:
@@ -2010,6 +2084,214 @@ def check_cloud(dev, scen, kernels, launches, qn_routes, dag_routes):
     return runs
 
 
+# [capacity] the route each QN dispatch of the drive must take, in the
+# drive's order (the QN-verified plans of benchmarks/torch_scenarios.py's
+# CAPACITY_SERVING, then the plan CLI's serve-qn): the 32-session class at
+# 1536 slots takes qn_event_wide, every class past 32 users qn_event_general
+# (chat-mamba2's lane past 16384 slots, in its global scratch)
+CAPACITY_ROUTES = ("qn_event_wide",) + ("qn_event_general",) * 5
+# the classes whose lane is held bit-identical to the plain version and
+# timed (qn_event_general at 768 and 65536 slots, 64 users)
+CAPACITY_LANES = ("chat-granite", "chat-mamba2")
+
+
+def qn_lane_bound(B: int, E: int, H: int, S: int, active: int) -> tuple:
+    """The least time of a qn_event launch of B lanes (E events, H users,
+    S slots, ``active`` events in all): its tables and per-lane inputs read
+    and outputs written once at the card's memory rate, or its events'
+    instructions (a slot search of 2 log2 S and 4 H a user's clocks each)
+    at one instruction a lane a clock.  Returns (ms, bytes, operations)."""
+    nbytes = 4 * (3 * B * E + B * H + 9 * B)
+    n_ops = active * (2 * max(1, (S - 1).bit_length()) + 4 * H)
+    return (1e3 * max(nbytes / H100_BYTES_PER_S, n_ops / H100_INSTR_PER_S),
+            nbytes, n_ops)
+
+
+def check_capacity(dev, scen, kernels, launches, qn_routes):
+    """[capacity] the TPU capacity planner on the card
+    (``benchmarks/torch_scenarios.py`` ``capacity``: five serving classes
+    planned by the KKT ranking and QN-verified, the training plans, the
+    synthetic dry-run record through ``load_dryrun``,
+    ``ElasticPlan.replan_capacity`` and the ``plan`` CLI), with the launch
+    counts set to 0 before it: every number against
+    REFERENCE["capacity"] (the QN plans' predicted_ms within a relative
+    1e-3, the rest exact), each QN dispatch's route (``CAPACITY_ROUTES``;
+    ``sim_batch`` is wrapped to record each call), each plan's wall; the
+    ``CAPACITY_LANES`` lanes' draw tables and event loop once more against
+    their plain versions, bit for bit, and qn_event_general timed there
+    beside its bound; then ``launch/qn_record``'s quick cells on the card,
+    both implementations bit-identical.  Adds the launches to the totals;
+    returns the record."""
+    from repro_torch.core import qn_sim
+    from repro_torch.kernels import build
+    from repro_torch.kernels.qn_event import ops as qn_ops
+    from repro_torch.kernels.qn_event import ref as qn_ref
+    from repro_torch.launch import qn_record, roofline
+
+    wrappers = tuple(kernels.values())
+    calls = []
+    sim_batch = qn_ops.sim_batch
+
+    def recording_sim_batch(*args, **kw):
+        before = dict(qn_ops.qn_event.routes)
+        out = sim_batch(*args, **kw)
+        calls.append({"args": args, "kw": kw, "route": [
+            r for r, n in qn_ops.qn_event.routes.items() if n > before[r]]})
+        return out
+
+    reset_launches(*wrappers)
+    qn_sim.reset_sim_stats()
+    qn_ops.sim_batch = recording_sim_batch
+    t0 = time.perf_counter()
+    try:
+        got = scen.capacity(dev)
+    finally:
+        qn_ops.sim_batch = sim_batch
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counted = {k: w.launches for k, w in kernels.items()}
+    by_route = dict(qn_ops.qn_event.routes)
+    for k, n in counted.items():
+        launches[k] += n
+    for r, n in by_route.items():
+        qn_routes[r] += n
+    names = [c[0] for c in scen.CAPACITY_SERVING] + ["cli.serve-qn"]
+    shapes = [{"name": name, "lanes": int(c["args"][0].shape[0]),
+               "h_users": c["kw"]["h_users"],
+               "max_slots": c["kw"]["max_slots"],
+               "n_events": c["kw"]["n_events"], "route": c["route"]}
+              for name, c in zip(names, calls)]
+    print(f"[capacity] drive: wall {wall:.3f} s; qn_event launches by route "
+          f"{by_route}; the dispatches in order: "
+          f"{json.dumps(shapes)}", flush=True)
+    for name, modes in got["serving"].items():
+        print(f"[capacity] {name}: slots {got['slots'][name]}; " + "; ".join(
+            f"{mode} {json.dumps(sol)} in "
+            f"{got['walls'][f'{name}.{mode}']:.4f} s"
+            for mode, sol in modes.items()), flush=True)
+    print(f"[capacity] training {json.dumps(got['training'])}; the record's "
+          f"costs {json.dumps(got['record'])}; replan "
+          f"{json.dumps(got['replan'])}; CLI {json.dumps(got['cli'])} (walls "
+          f"{json.dumps({k: round(v, 4) for k, v in got['walls'].items() if k.startswith('cli.')})})",
+          flush=True)
+    mism = scen.capacity_mismatches(REFERENCE["capacity"], got)
+    print(f"[capacity] numbers differing from the reference's: "
+          f"{mism or 'none'}", flush=True)
+    if mism:
+        fail(f"capacity: the port differs from the reference at {mism}")
+    n_disp = sum(v["qn"]["dispatches"] for v in got["serving"].values()) + \
+        got["cli"]["serve-qn"]["dispatches"]
+    want = dict.fromkeys(kernels, 0)
+    want.update(qn_event=n_disp, event_streams=n_disp)
+    if counted != want or len(calls) != n_disp:
+        fail(f"capacity: launches {counted} over {len(calls)} sim_batch "
+             f"calls, expected {want}")
+    if [c["route"] for c in calls] != [[r] for r in CAPACITY_ROUTES]:
+        fail(f"capacity: the dispatches took {[c['route'] for c in calls]}, "
+             f"expected {list(CAPACITY_ROUTES)}")
+    # once more under the profiler: each kernel's device ms over the drive,
+    # and qn_event_general's launches x (time - bound)
+    _, dev_ms, note = profiled_pass(kernels, lambda: scen.capacity(dev),
+                                    planner_counts(kernels), "capacity")
+    general_bound = sum(qn_lane_bound(s["lanes"], s["n_events"], s["h_users"],
+                                      s["max_slots"],
+                                      s["lanes"] * s["n_events"])[0]
+                        for s in shapes if s["route"] == ["qn_event_general"])
+    general_ms = dev_ms.get("qn_event_general")
+    print(f"[capacity] profiled again: {note['text']}; qn_event_general's "
+          f"launches x (time - bound): "
+          + ("not measured" if general_ms is None else
+             f"{general_ms - general_bound:.4f} ms"), flush=True)
+    lanes = {}
+    for name in CAPACITY_LANES:
+        c = calls[names.index(name)]
+        nm, nr, ma, ra, tk, cap, seed, nea, m_s, r_s = c["args"]
+        H, S, E = (c["kw"][k] for k in ("h_users", "max_slots", "n_events"))
+        kw = dict(max_slots=S, warmup_jobs=c["kw"]["warmup_jobs"],
+                  replay=m_s is not None)
+        scratch = build.library().qn_event_scratch_bytes(H, S, E)
+        tables = qn_ops.event_streams(tk, seed, nea, h_users=H, n_events=E,
+                                      m_samples=m_s, r_samples=r_s)
+        same_tables = all(torch.equal(a, b) for a, b in zip(
+            tables, qn_ref.event_streams(tk, seed, nea, h_users=H,
+                                         n_events=E, m_samples=m_s,
+                                         r_samples=r_s)))
+        args = (nm, nr, cap, nea, ma, ra, tk, *tables)
+        k0 = dict(qn_ops.qn_event.routes)
+        ks, kc = qn_ops.qn_event(*args, **kw)
+        took = [r for r, n in qn_ops.qn_event.routes.items() if n > k0[r]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ps, pc = qn_ref.qn_event(*args, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        same = torch.equal(ks, ps) and torch.equal(kc, pc)
+        ms = cuda_ms(lambda: qn_ops.qn_event(*args, **kw), 20)
+        B = int(nm.shape[0])
+        bound, nbytes, n_ops = qn_lane_bound(B, E, H, S, int(nea.sum()))
+        lanes[name] = {
+            "shape": f"B={B} E={E} S={S} H={H} "
+                     f"{'replay' if kw['replay'] else 'exponential'}",
+            "slots_cap": int(cap[0]), "route": took,
+            "scratch_bytes_a_lane": scratch, "bit_identical": same,
+            "tables_bit_identical": same_tables, "jobs": kc.tolist(),
+            "ms": ms, "ns_per_event": ms * 1e6 / E, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_bytes": nbytes, "bound_operations": n_ops,
+            "bound_by": ("operations" if n_ops / H100_INSTR_PER_S
+                         > nbytes / H100_BYTES_PER_S else "bytes")}
+        print(f"[capacity] {name}'s lane ({lanes[name]['shape']}, cap "
+              f"{int(cap[0])}; {', '.join(took)}, global scratch {scratch} "
+              f"bytes a lane): event_streams bit-identical={same_tables}, "
+              f"qn_event bit-identical={same} jobs={kc.tolist()}; kernel "
+              f"{ms:.4f} ms ({ms * 1e6 / E:.1f} ns an event), plain "
+              f"{plain_ms:.1f} ms, bound {bound:.6f} ms "
+              f"({lanes[name]['bound_by']}: {nbytes} bytes, {n_ops} "
+              f"operations)", flush=True)
+        if not (same and same_tables) or took != ["qn_event_general"] or \
+                float(kc.min()) <= 0:
+            fail(f"capacity: {name}'s lane on {took} is not bit-identical "
+                 f"to its plain version or completed no job")
+        if S > 16384 and scratch <= 0:
+            fail(f"capacity: {name}'s lane at {S} slots took no global "
+                 f"scratch")
+    # launch/qn_record's quick cells: the plain and the CUDA versions on the
+    # same tensors, bit-identical
+    reset_launches(*wrappers)
+    rec_path = build.BUILD_DIR / "dryrun_qn_torch.json"
+    t0 = time.perf_counter()
+    recs = qn_record.record_qn_cells(out=str(rec_path), quick=True,
+                                     device=dev)
+    rec_wall = time.perf_counter() - t0
+    rec_counted = {k: w.launches for k, w in kernels.items() if w.launches}
+    for k, n in rec_counted.items():
+        launches[k] += n
+    for r, n in qn_ops.qn_event.routes.items():
+        qn_routes[r] += n
+    cells = [r for r in recs if r["cell"] != "meta"]
+    print(f"[capacity] qn_record quick: wall {rec_wall:.3f} s, launches "
+          f"{rec_counted}\n" + roofline.format_kernel_table(
+              roofline.analyze_qn_file(str(rec_path))), flush=True)
+    if sorted((r["cell"], r["impl"]) for r in cells) != [
+            ("amva_ps", "cuda"), ("amva_ps", "plain"), ("qn_event", "cuda"),
+            ("qn_event", "plain")] or \
+            not all(r["parity_bit_exact"] is True for r in cells):
+        fail(f"capacity: qn_record's cells {cells} are not bit-identical "
+             f"in both implementations")
+    return {"wall_s": wall, "walls": got["walls"],
+            "launches": counted, "launches_by_route": by_route,
+            "profiled_device_ms": dev_ms,
+            "profiled_wall_s": note["wall_s"],
+            "general_launches_x_time_minus_bound_ms": (
+                None if general_ms is None else general_ms - general_bound),
+            "dispatches": shapes, "lanes": lanes,
+            "qn_record": {"wall_s": rec_wall, "launches": rec_counted,
+                          "cells": [{k: r[k] for k in (
+                              "cell", "impl", "batch", "wall_s",
+                              "events_per_s", "candidates_per_s",
+                              "parity_bit_exact") if k in r}
+                              for r in cells]}}
+
+
 def chain_ns(fn, short: int, long: int) -> float:
     """ns a step of a single thread's dependent chain: ``fn(n)`` launches a
     one-element kernel of ``n`` dependent steps; the difference of a long
@@ -2872,6 +3154,10 @@ def time_flash(dev, fa_ops, fa_ref, B, S, H, KV, Dh, causal=True):
     lib_ms = cuda_ms(sdpa, 20)
     qf, kf, vf = q.float(), k.float(), v.float()
     f32_ms = cuda_ms(lambda: fa_ops.flash_attention(qf, kf, vf, **kw), 5)
+    sdpa_f32 = lambda: F.scaled_dot_product_attention(
+        qf.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2),
+        is_causal=causal, enable_gqa=True)
+    lib_f32_ms = cuda_ms(sdpa_f32, 5)
     # bytes: q, k, v read once, o written once; operations: the live
     # query-key pairs (causal: the lower triangle), 2 flops each for q.k
     # and for p.v per Dh
@@ -2879,6 +3165,10 @@ def time_flash(dev, fa_ops, fa_ref, B, S, H, KV, Dh, causal=True):
     flops = 4 * B * H * Dh * (S * (S + 1) // 2 if causal else S * S)
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_OPS_PER_S
     bound = 1e3 * max(t_bytes, t_ops)
+    # the float32 route's: twice the bytes, its flops on the CUDA cores
+    # (TF32 is off) at the non-tensor float32 rate
+    t_bytes32, t_ops32 = 2 * t_bytes, flops / H100_FP32_OPS_PER_S
+    bound32 = 1e3 * max(t_bytes32, t_ops32)
     dev_txt = "not measured" if dev_ms is None else \
         f"{dev_ms:.4f} ms ({flops / dev_ms / 1e9:.2f} TFLOP/s)"
     print(f"[time] flash_attention B={B} S={S} H={H} KV={KV} Dh={Dh} bf16 "
@@ -2887,11 +3177,16 @@ def time_flash(dev, fa_ops, fa_ref, B, S, H, KV, Dh, causal=True):
           f"the device alone {dev_txt}; launch {launch}), plain "
           f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (max abs diff to the "
           f"kernel {lib_err:.3e}), bound {bound:.5f} ms ({nbytes} bytes, "
-          f"{flops} flops); the float32 route {f32_ms:.4f} ms", flush=True)
+          f"{flops} flops); the float32 route {f32_ms:.4f} ms (bound at "
+          f"the float32 rate {bound32:.5f} ms, sdpa in float32 "
+          f"{lib_f32_ms:.4f} ms)", flush=True)
     return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": bound,
             "bound_by": "operations" if t_ops > t_bytes else "bytes",
-            "float32_route_ms": f32_ms}
+            "float32_route_ms": f32_ms, "float32_route_bound_ms": bound32,
+            "float32_route_bound_by": ("operations" if t_ops32 > t_bytes32
+                                       else "bytes"),
+            "float32_library_ms": lib_f32_ms}
 
 
 # ------------------------------------------------------------------ [train]
@@ -4770,6 +5065,15 @@ def main() -> None:
                              qn_route_launches, dag_route_launches)
     added_wall["cloud"] = time.perf_counter() - t0
 
+    # [capacity] the TPU capacity planner: five serving classes in both
+    # modes, the training plans, the synthetic record through load_dryrun,
+    # replan_capacity and the plan CLI; then launch/qn_record on the card
+    phase("capacity")
+    t0 = time.perf_counter()
+    capacity_run = check_capacity(dev, scen, kernels, launches,
+                                  qn_route_launches)
+    added_wall["capacity"] = time.perf_counter() - t0
+
     # --------------------------------------------------------- LM serving
     phase("serving")
     serving = serve_drives(dev, kernels, SERVE_CASES)
@@ -4927,11 +5231,8 @@ def main() -> None:
     # free, earliest end, as from a heap) and 4*H user compares (reduce
     # key, map key, think end, pending), one instruction each
     active = int(lane_args[3].sum())
-    qn_bytes = 4 * (3 * Bm * E_main + Bm * H_main + 7 * Bm + 2 * Bm)
-    log_s = max(1, (S_main - 1).bit_length())
-    qn_ops_n = active * (2 * log_s + 4 * H_main)
-    qn_bound = 1e3 * max(qn_bytes / H100_BYTES_PER_S,
-                         qn_ops_n / H100_INSTR_PER_S)
+    qn_bound, qn_bytes, qn_ops_n = qn_lane_bound(Bm, E_main, H_main, S_main,
+                                                 active)
     # the draw tables' bound: the tables written (and the per-lane inputs
     # read) at the card's memory rate, or their threefry work on the
     # integer pipe at the card's INT32 rate, whichever is larger
@@ -5440,6 +5741,8 @@ def main() -> None:
                                            (H_huge, E_huge))},
          "plans": plans, "scenarios": scenario_runs,
          "service": service_runs, "cloud": cloud_runs,
+         "capacity": capacity_run,
+         "general_at_capacity_lanes": capacity_run["lanes"],
          "table3_rows": table3_rows,
          "serving_qn": {k: {f: v[f] for f in
                             ("arch", "n_layers", "solo_latency_ms",

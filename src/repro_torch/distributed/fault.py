@@ -7,9 +7,8 @@ preemption and stragglers.
   median; sustained outliers are flagged for replacement.
 * ``ElasticPlan.shard_assignment``: on a fleet change, the old data
   shards map onto the new ones; the pipeline is randomly addressable, so
-  re-sharding moves no data.  The reference's ``replan_capacity`` calls
-  the capacity planner (``core/capacity``), which the port does not have
-  yet, so it is left out.
+  re-sharding moves no data.  ``ElasticPlan.replan_capacity`` re-runs the
+  capacity planner (``core/capacity``) for the training that remains.
 """
 from __future__ import annotations
 
@@ -86,3 +85,18 @@ class ElasticPlan:
 
     def shard_assignment(self) -> Dict[int, int]:
         return {i: i % self.new_shards for i in range(self.old_shards)}
+
+    @staticmethod
+    def replan_capacity(arch: str, steps_remaining: int, deadline_h: float,
+                        dryrun_path: str = "results/dryrun.json",
+                        device=None):
+        """The capacity planner's allocation for the remaining steps
+        (reserved base + preemptible top-up), from the dry-run record at
+        ``dryrun_path``.  ``device`` is the planner's (the CUDA card by
+        default)."""
+        from repro_torch.core.capacity import (TPUCapacityPlanner,
+                                               TrainClass, load_dryrun)
+        planner = TPUCapacityPlanner(load_dryrun(dryrun_path), device=device)
+        return planner.plan_training([TrainClass(
+            name=f"replan-{arch}", arch=arch, steps=steps_remaining,
+            deadline_h=deadline_h)])

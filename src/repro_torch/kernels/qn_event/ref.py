@@ -170,3 +170,19 @@ def qn_event(n_map, n_reduce, slots_cap, n_events_active, m_avg, r_avg,
         resp_cnt = resp_cnt + torch.where(counted, 1.0, 0.0)
         done_jobs = done_jobs + (b_complete & job_done).to(i64)
     return resp_sum, resp_cnt
+
+
+def sim_batch(n_map, n_reduce, m_avg, r_avg, think_ms, slots_cap, seed,
+              n_events_active, m_samples, r_samples, *, h_users: int,
+              max_slots: int, n_events: int, warmup_jobs: int):
+    """The plain version of ``ops.sim_batch``: the draw tables and the
+    event loop above, on the device of the inputs.  Returns ``(mean_resp,
+    resp_cnt)`` per lane."""
+    think0, st_m, st_r, td = event_streams(
+        think_ms, seed, n_events_active, h_users=h_users, n_events=n_events,
+        m_samples=m_samples, r_samples=r_samples)
+    resp_sum, resp_cnt = qn_event(
+        n_map, n_reduce, slots_cap, n_events_active, m_avg, r_avg, think_ms,
+        think0, st_m, st_r, td, max_slots=max_slots,
+        warmup_jobs=warmup_jobs, replay=m_samples is not None)
+    return resp_sum / torch.clamp(resp_cnt, min=1.0), resp_cnt

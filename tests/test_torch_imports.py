@@ -49,7 +49,9 @@ def test_importing_every_module_leaves_jax_and_repro_out():
               "repro_torch.distributed.compression",
               "repro_torch.distributed.fault", "repro_torch.train",
               "repro_torch.train.step", "repro_torch.train.trainer",
-              "repro_torch.launch.train"):
+              "repro_torch.launch.train", "repro_torch.core.capacity",
+              "repro_torch.launch.roofline", "repro_torch.launch.plan",
+              "repro_torch.launch.qn_record"):
         assert m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
