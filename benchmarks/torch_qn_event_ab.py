@@ -16,7 +16,12 @@ paper's Q1-10u scenario (``tpcds.scenario_problem("Q1", 10, 160_000.0)``:
   * ``wide_h10`` / ``wide_h20``: a cost_deadline probe past 512 slots, one
     lane of cap 8000 in a batch of 8192 slots, 65536 events of which
     37725 active (Q1's ``events_needed``), H = 10 and 20; there the
-    general kernel (``general=True``) is timed too.
+    general kernel (``general=True``) is timed too;
+  * ``cap_h64`` / ``cap_h2048``: a capacity planner's serving lane past
+    its 512 events (one map and one reduce a job, exponential means of 40
+    and 60 ms): one lane of 16384 events, H = 64 in 64 slots (150 ms
+    think) and H = 2048 in 384 (330 ms), on the route the library names
+    (``qn_event_many`` since it exists) and on the general kernel.
 
 Prints the label and per shape ``(ms a launch, ns an event, the route's
 launches, the response sum, the job count)`` over 5 launches after a
@@ -54,10 +59,19 @@ def lanes(B, E, active, S, H, caps):
     return args, tables
 
 
-def timed(args, tables, S, active, general=False):
+def cap_lanes(E, S, H, think):
+    args = (i32([1]), i32([1]), i32([S]), i32([E]), f32([40.0]),
+            f32([60.0]), f32([think]))
+    tables = ops.event_streams(
+        args[6], torch.tensor([5], dtype=torch.int64, device=dev), args[3],
+        h_users=H, n_events=E)
+    return args, tables
+
+
+def timed(args, tables, S, active, general=False, replay=True):
     def run():
         return ops.qn_event(*args, *tables, max_slots=S, warmup_jobs=8,
-                            replay=True, general=general)
+                            replay=replay, general=general)
 
     before = dict(ops.qn_event.routes)
     s, c = run()
@@ -85,4 +99,9 @@ for H in (10, 20):
     a, t = lanes(1, 65536, 37725, 8192, H, [8000])
     out[f"wide_h{H}"] = timed(a, t, 8192, 37725)
     out[f"wide_h{H}_general"] = timed(a, t, 8192, 37725, general=True)
+for H, S, think in ((64, 64, 150.0), (2048, 384, 330.0)):
+    a, t = cap_lanes(16384, S, H, think)
+    out[f"cap_h{H}"] = timed(a, t, S, 16384, replay=False)
+    out[f"cap_h{H}_general"] = timed(a, t, S, 16384, general=True,
+                                     replay=False)
 print(sys.argv[2], out, flush=True)

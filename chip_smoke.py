@@ -14,7 +14,8 @@ Phases, each printing one line or a few:
   2. build the CUDA kernels from src/repro_torch/csrc (one nvcc process per
      source, all at once); print the registers and spills (ptxas) of the
      qn_event kernels (qn_event_fast's two instances, qn_event_wide's
-     eight, qn_event_general; it fails without any of them), of the DAG's
+     eight, qn_event_many's twenty, qn_event_general; it fails without
+     any of them), of the DAG's
      two event loops (dag_event_fast's six instances, dag_event_kernel),
      of both draw-table kernels, of each flash_attention instance and of
      each ssd_scan kernel and of the flash backward's wgmma instances,
@@ -106,7 +107,9 @@ Phases, each printing one line or a few:
      figures of the kernel they replaced; qn_event_wide against
      qn_event_general in turns at cost_deadline's probe shape past 512
      slots (Q1, cap 8000 of 8192 slots, 37725 active events, H = 10 and
-     20), with its bound and its step's collective floor; mva at N = 4097,
+     20), with its bound and its step's collective floor; qn_event_many
+     against qn_event_general in turns at H = 64 (64 slots) and 2048 (384
+     slots), 16384 events, with its collective floor; mva at N = 4097,
      H = 25 and
      at the degenerate case's N = 1,
      H = 5; for mva and flash_attention also the kernel's own device time
@@ -125,7 +128,8 @@ Phases, each printing one line or a few:
      optimizer point-wise, batched and run_fast), cost_deadline (Figures
      5-7 on the reference's quick grids: initial solution, the amva
      frontier, Algorithm 1 on the point-wise evaluator; every qn_event
-     launch past 512 slots on qn_event_wide, none on qn_event_general),
+     launch past 512 slots on qn_event_wide, none on qn_event_general;
+     the launches by route printed beside those before the slot cut),
      hc_convergence
      (race=False in three gaits) and vm_race (a four-type catalog locked
      against raced, lower-bound pruning, mixed fusion groups, per-lane
@@ -225,17 +229,19 @@ Phases, each printing one line or a few:
      examples/capacity_planning.py's chat class, the same traffic on
      mamba2-780m, 57209 slots a v5e-16, and a 2048-session crowd that
      leaves v5e-16) planned by the KKT ranking alone and QN-verified (one
-     qn_event dispatch a probe: qn_event_wide for 32 users at 1536 slots,
-     qn_event_general past 32 users, at 65536 slots in its global
-     scratch); the training plans at 24 and 12 h; a synthetic dry-run
-     record through load_dryrun, ElasticPlan.replan_capacity and the
-     plan CLI; every number equal to REFERENCE["capacity"] (the QN plans'
-     predicted_ms within a relative 1e-3), each dispatch's route
-     (CAPACITY_ROUTES), each plan's wall, a profiled pass (the kernels'
-     device ms, qn_event_general's launches x (time - bound)); the
-     chat-granite and chat-mamba2 lanes' draw tables and event loop held
-     bit-identical to their plain versions and qn_event_general timed
-     there beside its bound; then launch/qn_record's quick cells on the
+     qn_event dispatch a probe, its slots cut to those its users can
+     fill: qn_event_fast for 32 users, qn_event_many past 32); the
+     training plans at 24 and 12 h; a synthetic dry-run record through
+     load_dryrun, ElasticPlan.replan_capacity and the plan CLI; every
+     number equal to REFERENCE["capacity"] (the QN plans' predicted_ms
+     within a relative 1e-3), each dispatch's route (CAPACITY_ROUTES,
+     printed beside the routes before the cut), each plan's wall, a
+     profiled pass (the kernels' device ms, qn_event_many's launches x
+     (time - bound)); each qn_event_many lane's draw tables and event
+     loop held bit-identical to their plain versions on the uncut lane
+     and to qn_event_general asked for, and timed in turns against
+     qn_event_general on the cut and the uncut lane beside its bound
+     (its collective floor in [time]); then launch/qn_record's quick cells on the
      card, the plain and CUDA versions bit-identical, and their roofline
      rows.  Phase 6 also gives flash_attention's float32 route its bound
      at the float32 rate and SDPA's float32 time on the same tensors.
@@ -396,12 +402,28 @@ WIDE_WARMUP = 1
 # of 16 slots a thread, as the batch's slots need, and the mode)
 QN_INSTANCES = [f"qn_event_fast<{m}>" for m in ("false", "true")] + [
     f"qn_event_wide<{g}, {m}>" for g in (4, 8, 16, 32)
-    for m in ("false", "true")]
+    for m in ("false", "true")] + [
+    f"qn_event_many<{g}, {ug}, {m}>" for g in (0, 4, 8, 16, 32)
+    for ug in (1, 4) for m in ("false", "true")]
 # cost_deadline's probe shape past 512 slots (Q1: 500 maps, 1 reduce, 10 s
 # think; cap 8000 in a batch of 8192 slots, 65536 events of which 37725
 # active, Q1's events_needed), timed for qn_event_wide against
-# qn_event_general at H = 10 (figures 5-6) and 20 (figure 7)
+# qn_event_general at H = 10 (figures 5-6) and 20 (figure 7).  Since the
+# slot cut (core/qn_sim.py slots_in_use) a probe of 10 users runs at most
+# 5000 of them; the kernels are timed on this lane as given
 WIDE_TIME = dict(cap=8000, max_slots=8192, n_events=65536, active=37725)
+# qn_event_many against qn_event_general at the capacity planner's widths,
+# deeper than its 512 events: (H, slots, think ms), one map and one reduce
+# a job, exponential mode
+MANY_TIME = [(64, 64, 150.0), (2048, 384, 330.0)]
+MANY_TIME_E = 16384
+# the routes before the slot cut (this script's run on the tree before
+# it): the capacity drive's dispatches in order and cost_deadline's
+# launches by route
+ROUTES_BEFORE_CUT = {
+    "capacity": ("qn_event_wide",) + ("qn_event_general",) * 5,
+    "cost_deadline": {"qn_event_general": 0, "qn_event_fast": 102,
+                      "qn_event_wide": 1155}}
 
 
 def wide_lanes(dev, caps, n_map, n_reduce, E, H, replay):
@@ -434,6 +456,10 @@ THREEFRY_INT32_OPS = 42
 # halves of split(key_i), their bits, the think key and its bits); per
 # lane split(key); per user its bits
 THREEFRY_PER_EVENT = {False: 4, True: 7}
+# the QN event loop's kernels (qn_event's routes, kernels/qn_event/ops.py
+# ROUTES), as the profiler names them
+QN_ROUTE_KERNELS = ("qn_event_fast", "qn_event_wide", "qn_event_many",
+                    "qn_event_general")
 # the device kernels' names (every route's), for their share of a
 # profiled prefill; a kernel's share counts every launch whose name holds
 # one of them
@@ -1345,8 +1371,7 @@ def check_table3(scen, t3, ref, got, wall, note):
     kernels differ from those the wrapper counted fails."""
     diff = scen.mismatches(ref, t3)
     qn_events = [e for e in note["events"]
-                 if e[1] in ("qn_event_fast", "qn_event_wide",
-                             "qn_event_general")]
+                 if e[1] in QN_ROUTE_KERNELS]
     measured = len(qn_events) == got["qn_event"]
     names = iter(qn_events)
     rows = []
@@ -1726,8 +1751,7 @@ SERVICE_DRIVES = ("service_throughput", "serve_many", "spark_dag_service",
 
 def event_loops(counted) -> tuple:
     """(qn_event, dag_event) launches of a planner_counts dict."""
-    return (sum(counted[k] for k in ("qn_event_fast", "qn_event_wide",
-                                     "qn_event_general")),
+    return (sum(counted[k] for k in QN_ROUTE_KERNELS),
             counted["dag_event_fast"] + counted["dag_event_kernel"])
 
 
@@ -2086,25 +2110,50 @@ def check_cloud(dev, scen, kernels, launches, qn_routes, dag_routes):
 
 # [capacity] the route each QN dispatch of the drive must take, in the
 # drive's order (the QN-verified plans of benchmarks/torch_scenarios.py's
-# CAPACITY_SERVING, then the plan CLI's serve-qn): the 32-session class at
-# 1536 slots takes qn_event_wide, every class past 32 users qn_event_general
-# (chat-mamba2's lane past 16384 slots, in its global scratch)
-CAPACITY_ROUTES = ("qn_event_wide",) + ("qn_event_general",) * 5
-# the classes whose lane is held bit-identical to the plain version and
-# timed (qn_event_general at 768 and 65536 slots, 64 users)
-CAPACITY_LANES = ("chat-granite", "chat-mamba2")
+# CAPACITY_SERVING, then the plan CLI's serve-qn), each lane's slots cut
+# to those its users can fill (core/qn_sim.py slots_in_use; one map and
+# one reduce a job, so one slot a session): the 32-session class at 32
+# slots takes qn_event_fast, every class past 32 users qn_event_many (64,
+# 256 and 336 slots, flat blocks).  Before the cut (ROUTES_BEFORE_CUT) the
+# 32-session class took qn_event_wide at 1536 slots and the rest
+# qn_event_general, chat-mamba2's 65536 slots in its global scratch
+CAPACITY_ROUTES = ("qn_event_fast",) + ("qn_event_many",) * 5
 
 
-def qn_lane_bound(B: int, E: int, H: int, S: int, active: int) -> tuple:
+def qn_lane_bound(B: int, E: int, H: int, S: int, active: int,
+                  user_ops: int = None) -> tuple:
     """The least time of a qn_event launch of B lanes (E events, H users,
     S slots, ``active`` events in all): its tables and per-lane inputs read
     and outputs written once at the card's memory rate, or its events'
-    instructions (a slot search of 2 log2 S and 4 H a user's clocks each)
-    at one instruction a lane a clock.  Returns (ms, bytes, operations)."""
+    instructions (a slot search of 2 log2 S and ``user_ops``, by default
+    4 H a user's clocks, each) at one instruction a lane a clock.  Returns
+    (ms, bytes, operations)."""
     nbytes = 4 * (3 * B * E + B * H + 9 * B)
-    n_ops = active * (2 * max(1, (S - 1).bit_length()) + 4 * H)
+    n_ops = active * (2 * max(1, (S - 1).bit_length())
+                      + (4 * H if user_ops is None else user_ops))
     return (1e3 * max(nbytes / H100_BYTES_PER_S, n_ops / H100_INSTR_PER_S),
             nbytes, n_ops)
+
+
+def many_lane_bound(B: int, E: int, H: int, S: int, active: int) -> tuple:
+    """qn_lane_bound for qn_event_many's lanes (33 to 2048 users), whose
+    step scans no user: an event's user search is that of a heap of the
+    users, 2 log2 H (a pop and a push), as its slot search is 2 log2 S."""
+    return qn_lane_bound(B, E, H, S, active,
+                         user_ops=2 * max(1, (H - 1).bit_length()))
+
+
+def many_floor_ns(redux_ns: float, ballot_ns: float, n_map: int,
+                  n_reduce: int) -> float:
+    """qn_event_many's least time a step from its collectives alone: every
+    step opens with the queue's and the earliest end's reductions and the
+    free slots' ballot, issued together (the longer of a redux and a
+    ballot); a completion and a think end then wait on a second redux, the
+    earliest end's thread and user.  A job of m maps and r reduces is m + r
+    dispatches, m + r completions and one think end: (2(m + r) + 1) steps
+    and (m + r + 1) second reductions."""
+    n = n_map + n_reduce
+    return max(redux_ns, ballot_ns) + (n + 1) * redux_ns / (2 * n + 1)
 
 
 def check_capacity(dev, scen, kernels, launches, qn_routes):
@@ -2116,13 +2165,18 @@ def check_capacity(dev, scen, kernels, launches, qn_routes):
     counts set to 0 before it: every number against
     REFERENCE["capacity"] (the QN plans' predicted_ms within a relative
     1e-3, the rest exact), each QN dispatch's route (``CAPACITY_ROUTES``;
-    ``sim_batch`` is wrapped to record each call), each plan's wall; the
-    ``CAPACITY_LANES`` lanes' draw tables and event loop once more against
-    their plain versions, bit for bit, and qn_event_general timed there
-    beside its bound; then ``launch/qn_record``'s quick cells on the card,
-    both implementations bit-identical.  Adds the launches to the totals;
-    returns the record."""
+    ``sim_batch`` is wrapped to record each call, ``qn_sim.slots_in_use``
+    to record each lane's slots before the cut), each plan's wall; each
+    lane that took qn_event_many once more: its draw tables against the
+    plain version, the kernel on the cut lane against the plain version of
+    the uncut lane and against qn_event_general asked for on the cut and
+    on the uncut lane (past 16384 slots in its global scratch), bit for
+    bit, and timed in turns against qn_event_general on the cut and on the
+    uncut lane, beside its bound; then ``launch/qn_record``'s quick cells
+    on the card, both implementations bit-identical.  Adds the launches to
+    the totals; returns the record."""
     from repro_torch.core import qn_sim
+    from repro_torch.core.shapes import bucket_slots
     from repro_torch.kernels import build
     from repro_torch.kernels.qn_event import ops as qn_ops
     from repro_torch.kernels.qn_event import ref as qn_ref
@@ -2131,22 +2185,30 @@ def check_capacity(dev, scen, kernels, launches, qn_routes):
     wrappers = tuple(kernels.values())
     calls = []
     sim_batch = qn_ops.sim_batch
+    slots_in_use = qn_sim.slots_in_use
+    uncut = []
+
+    def recording_slots_in_use(slots, *args):
+        uncut.append(np.asarray(slots))
+        return slots_in_use(slots, *args)
 
     def recording_sim_batch(*args, **kw):
         before = dict(qn_ops.qn_event.routes)
         out = sim_batch(*args, **kw)
-        calls.append({"args": args, "kw": kw, "route": [
+        calls.append({"args": args, "kw": kw, "uncut": uncut[-1], "route": [
             r for r, n in qn_ops.qn_event.routes.items() if n > before[r]]})
         return out
 
     reset_launches(*wrappers)
     qn_sim.reset_sim_stats()
     qn_ops.sim_batch = recording_sim_batch
+    qn_sim.slots_in_use = recording_slots_in_use
     t0 = time.perf_counter()
     try:
         got = scen.capacity(dev)
     finally:
         qn_ops.sim_batch = sim_batch
+        qn_sim.slots_in_use = slots_in_use
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counted = {k: w.launches for k, w in kernels.items()}
@@ -2158,6 +2220,8 @@ def check_capacity(dev, scen, kernels, launches, qn_routes):
     names = [c[0] for c in scen.CAPACITY_SERVING] + ["cli.serve-qn"]
     shapes = [{"name": name, "lanes": int(c["args"][0].shape[0]),
                "h_users": c["kw"]["h_users"],
+               "slots_cap": c["args"][5].tolist(),
+               "slots_before_cut": c["uncut"].tolist(),
                "max_slots": c["kw"]["max_slots"],
                "n_events": c["kw"]["n_events"], "route": c["route"]}
               for name, c in zip(names, calls)]
@@ -2186,30 +2250,37 @@ def check_capacity(dev, scen, kernels, launches, qn_routes):
     if counted != want or len(calls) != n_disp:
         fail(f"capacity: launches {counted} over {len(calls)} sim_batch "
              f"calls, expected {want}")
-    if [c["route"] for c in calls] != [[r] for r in CAPACITY_ROUTES]:
-        fail(f"capacity: the dispatches took {[c['route'] for c in calls]}, "
-             f"expected {list(CAPACITY_ROUTES)}")
+    took_routes = [c["route"] for c in calls]
+    print(f"[capacity] the dispatches' routes {took_routes}; before the slot "
+          f"cut {list(ROUTES_BEFORE_CUT['capacity'])}", flush=True)
+    if took_routes != [[r] for r in CAPACITY_ROUTES]:
+        fail(f"capacity: the dispatches took {took_routes}, expected "
+             f"{list(CAPACITY_ROUTES)}")
     # once more under the profiler: each kernel's device ms over the drive,
-    # and qn_event_general's launches x (time - bound)
+    # and qn_event_many's launches x (time - bound)
     _, dev_ms, note = profiled_pass(kernels, lambda: scen.capacity(dev),
                                     planner_counts(kernels), "capacity")
-    general_bound = sum(qn_lane_bound(s["lanes"], s["n_events"], s["h_users"],
-                                      s["max_slots"],
-                                      s["lanes"] * s["n_events"])[0]
-                        for s in shapes if s["route"] == ["qn_event_general"])
-    general_ms = dev_ms.get("qn_event_general")
-    print(f"[capacity] profiled again: {note['text']}; qn_event_general's "
+    many_bound = sum(many_lane_bound(s["lanes"], s["n_events"],
+                                     s["h_users"], s["max_slots"],
+                                     s["lanes"] * s["n_events"])[0]
+                     for s in shapes if s["route"] == ["qn_event_many"])
+    many_ms = dev_ms.get("qn_event_many")
+    print(f"[capacity] profiled again: {note['text']}; qn_event_many's "
           f"launches x (time - bound): "
-          + ("not measured" if general_ms is None else
-             f"{general_ms - general_bound:.4f} ms"), flush=True)
+          + ("not measured" if many_ms is None else
+             f"{many_ms - many_bound:.4f} ms"), flush=True)
     lanes = {}
-    for name in CAPACITY_LANES:
-        c = calls[names.index(name)]
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)
+    for name, c in zip(names, calls):
+        if c["route"] != ["qn_event_many"]:
+            continue
         nm, nr, ma, ra, tk, cap, seed, nea, m_s, r_s = c["args"]
         H, S, E = (c["kw"][k] for k in ("h_users", "max_slots", "n_events"))
+        cap_u = i32(np.broadcast_to(c["uncut"], cap.shape).copy())
+        S_u = bucket_slots(int(cap_u.max()))
         kw = dict(max_slots=S, warmup_jobs=c["kw"]["warmup_jobs"],
                   replay=m_s is not None)
-        scratch = build.library().qn_event_scratch_bytes(H, S, E)
+        kw_u = {**kw, "max_slots": S_u}
         tables = qn_ops.event_streams(tk, seed, nea, h_users=H, n_events=E,
                                       m_samples=m_s, r_samples=r_s)
         same_tables = all(torch.equal(a, b) for a, b in zip(
@@ -2217,43 +2288,83 @@ def check_capacity(dev, scen, kernels, launches, qn_routes):
                                          n_events=E, m_samples=m_s,
                                          r_samples=r_s)))
         args = (nm, nr, cap, nea, ma, ra, tk, *tables)
+        args_u = (nm, nr, cap_u, nea, ma, ra, tk, *tables)
         k0 = dict(qn_ops.qn_event.routes)
         ks, kc = qn_ops.qn_event(*args, **kw)
         took = [r for r, n in qn_ops.qn_event.routes.items() if n > k0[r]]
+        gs, gc = qn_ops.qn_event(*args, general=True, **kw)
+        # qn_event_general on the uncut lane: past 16384 slots its state
+        # lies in a global scratch slice a lane
+        gus, guc = qn_ops.qn_event(*args_u, general=True, **kw_u)
+        scratch = build.library().qn_event_scratch_bytes(H, S_u, E)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ps, pc = qn_ref.qn_event(*args, **kw)
+        ps, pc = qn_ref.qn_event(*args_u, **kw_u)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         same = torch.equal(ks, ps) and torch.equal(kc, pc)
-        ms = cuda_ms(lambda: qn_ops.qn_event(*args, **kw), 20)
+        same_general = torch.equal(gs, ps) and torch.equal(gc, pc)
+        same_general_uncut = torch.equal(gus, ps) and torch.equal(guc, pc)
+        err = max(float((x - y).abs().max()) for x, y in
+                  ((ks, ps), (kc, pc), (gs, ps), (gc, pc), (gus, ps),
+                   (guc, pc)))
+        # in turns: the new route on the cut lane, the general kernel on the
+        # cut lane and on the uncut one (the cut's share, then the kernel's)
+        runs = (lambda: qn_ops.qn_event(*args, **kw),
+                lambda: qn_ops.qn_event(*args, general=True, **kw),
+                lambda: qn_ops.qn_event(*args_u, general=True, **kw_u))
+        turns = [cuda_ms(runs[j], 20) for j in (0, 1, 2, 2, 1, 0)]
+        ms, general_ms, general_uncut_ms = (
+            (turns[j] + turns[5 - j]) / 2 for j in range(3))
         B = int(nm.shape[0])
-        bound, nbytes, n_ops = qn_lane_bound(B, E, H, S, int(nea.sum()))
+        bound, nbytes, n_ops = many_lane_bound(B, E, H, S, int(nea.sum()))
         lanes[name] = {
             "shape": f"B={B} E={E} S={S} H={H} "
                      f"{'replay' if kw['replay'] else 'exponential'}",
-            "slots_cap": int(cap[0]), "route": took,
-            "scratch_bytes_a_lane": scratch, "bit_identical": same,
+            "slots_cap": int(cap[0]), "slots_before_cut": int(cap_u[0]),
+            "max_slots_before_cut": S_u, "route": took, "n_events": E,
+            "n_map": int(nm[0]), "n_reduce": int(nr[0]),
+            "bit_identical_to_plain_uncut": same,
+            "general_bit_identical": same_general,
+            "general_uncut_bit_identical": same_general_uncut,
+            "general_uncut_scratch_bytes_a_lane": scratch,
             "tables_bit_identical": same_tables, "jobs": kc.tolist(),
-            "ms": ms, "ns_per_event": ms * 1e6 / E, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_bytes": nbytes, "bound_operations": n_ops,
+            "max_abs_err": err, "ms": ms, "ns_per_event": ms * 1e6 / E,
+            "general_ms": general_ms,
+            "general_ns_per_event": general_ms * 1e6 / E,
+            "general_uncut_ms": general_uncut_ms,
+            "general_uncut_ns_per_event": general_uncut_ms * 1e6 / E,
+            "turns_ms": turns, "plain_uncut_ms": plain_ms,
+            "bound_ms": bound, "bound_bytes": nbytes,
+            "bound_operations": n_ops,
             "bound_by": ("operations" if n_ops / H100_INSTR_PER_S
                          > nbytes / H100_BYTES_PER_S else "bytes")}
         print(f"[capacity] {name}'s lane ({lanes[name]['shape']}, cap "
-              f"{int(cap[0])}; {', '.join(took)}, global scratch {scratch} "
-              f"bytes a lane): event_streams bit-identical={same_tables}, "
-              f"qn_event bit-identical={same} jobs={kc.tolist()}; kernel "
-              f"{ms:.4f} ms ({ms * 1e6 / E:.1f} ns an event), plain "
-              f"{plain_ms:.1f} ms, bound {bound:.6f} ms "
+              f"{int(cap[0])}, {int(cap_u[0])} before the cut in "
+              f"{S_u}; {', '.join(took)}): event_streams bit-identical="
+              f"{same_tables}, qn_event_many bit-identical to the plain "
+              f"uncut lane={same} (qn_event_general: {same_general}; "
+              f"qn_event_general on the uncut lane, global scratch "
+              f"{scratch} bytes a lane: {same_general_uncut}) "
+              f"jobs={kc.tolist()}; qn_event_many {ms:.4f} ms "
+              f"({ms * 1e6 / E:.1f} ns an event), qn_event_general on the "
+              f"cut lane {general_ms:.4f} ms ({general_ms * 1e6 / E:.1f} "
+              f"ns), on the uncut lane {general_uncut_ms:.4f} ms "
+              f"({general_uncut_ms * 1e6 / E:.1f} ns) (in turns: "
+              f"{', '.join(f'{t:.4f}' for t in turns)} ms); plain on the "
+              f"uncut lane {plain_ms:.1f} ms; bound {bound:.6f} ms "
               f"({lanes[name]['bound_by']}: {nbytes} bytes, {n_ops} "
               f"operations)", flush=True)
-        if not (same and same_tables) or took != ["qn_event_general"] or \
-                float(kc.min()) <= 0:
+        if not (same and same_general and same_general_uncut
+                and same_tables) or \
+                took != ["qn_event_many"] or float(kc.min()) <= 0:
             fail(f"capacity: {name}'s lane on {took} is not bit-identical "
-                 f"to its plain version or completed no job")
-        if S > 16384 and scratch <= 0:
-            fail(f"capacity: {name}'s lane at {S} slots took no global "
-                 f"scratch")
+                 f"to the plain version of its uncut lane, or "
+                 f"qn_event_general on either lane is not, or the lane "
+                 f"completed no job")
+        if S_u > 16384 and scratch <= 0:
+            fail(f"capacity: {name}'s uncut lane of {S_u} slots took no "
+                 f"global scratch")
     # launch/qn_record's quick cells: the plain and the CUDA versions on the
     # same tensors, bit-identical
     reset_launches(*wrappers)
@@ -2281,8 +2392,10 @@ def check_capacity(dev, scen, kernels, launches, qn_routes):
             "launches": counted, "launches_by_route": by_route,
             "profiled_device_ms": dev_ms,
             "profiled_wall_s": note["wall_s"],
-            "general_launches_x_time_minus_bound_ms": (
-                None if general_ms is None else general_ms - general_bound),
+            "many_bound_ms": many_bound,
+            "many_launches_x_time_minus_bound_ms": (
+                None if many_ms is None else many_ms - many_bound),
+            "routes_before_cut": list(ROUTES_BEFORE_CUT["capacity"]),
             "dispatches": shapes, "lanes": lanes,
             "qn_record": {"wall_s": rec_wall, "launches": rec_counted,
                           "cells": [{k: r[k] for k in (
@@ -2427,21 +2540,24 @@ def ssd_instance(mangled: str):
 
 
 def qn_instance(mangled: str):
-    """'qn_event_fast' (or another of the QN event loop's three kernels, or
+    """'qn_event_fast' (or another of the QN event loop's kernels, or
     a draw-table kernel, or one of the DAG's two event loops) for a line
     naming it by its mangled name, else None."""
-    m = re.search(r"(qn_event_fast|qn_event_wide|qn_event_general|"
+    m = re.search(r"(qn_event_fast|qn_event_wide|qn_event_many|"
+                  r"qn_event_general|"
                   r"qn_streams_kernel|dag_event_fast|dag_event_kernel|"
                   r"dag_streams_kernel)", mangled)
     return m.group(1) if m else None
 
 
 def qn_template_instance(mangled: str):
-    """'qn_event_wide<16, true>' (or 'qn_event_fast<false>') for a line
-    naming an instance of the QN event loop's fast or wide kernel (its
-    groups of 16 slots a thread; replay mode or not) by its mangled name,
-    else None."""
-    m = re.search(r"(qn_event_(?:fast|wide))I((?:L[ib]\d+E)+)E", mangled)
+    """'qn_event_wide<16, true>' (or 'qn_event_fast<false>', or
+    'qn_event_many<0, 4, true>') for a line naming an instance of the QN
+    event loop's fast, wide or many kernel (its groups of 16 slots a
+    thread, 0 for a flat block; its groups of 16 users a thread; replay
+    mode or not) by its mangled name, else None."""
+    m = re.search(r"(qn_event_(?:fast|wide|many))I((?:L[ib]\d+E)+)E",
+                  mangled)
     if m is None:
         return None
     args = [("true" if v == "1" else "false") if k == "b" else v
@@ -4444,7 +4560,7 @@ def main() -> None:
         gs, gc = qn_ops.qn_event(*args, general=True, **kw)
         if {k: n - k0[k] for k, n in qn_ops.qn_event.routes.items()} != \
                 {"qn_event_fast": 1, "qn_event_general": 1,
-                 "qn_event_wide": 0}:
+                 "qn_event_wide": 0, "qn_event_many": 0}:
             fail(f"qn_event reported the kernels {qn_ops.qn_event.routes} "
                  f"(from {k0}) for one launch without and one with "
                  f"general=True")
@@ -4937,7 +5053,10 @@ def main() -> None:
         check_scenario(scen, name, out, REFERENCE[name], got_launches,
                        n_disp, wall)
         print(f"[scenarios] {name}: qn_event launches by route {by_route}, "
-              f"{past_512} of them past 512 slots", flush=True)
+              f"{past_512} of them past 512 slots (their slots cut to those "
+              f"the users can fill)"
+              + (f"; before the cut {ROUTES_BEFORE_CUT[name]}"
+                 if name in ROUTES_BEFORE_CUT else ""), flush=True)
         # cost_deadline's probes past 512 slots (at most 20 users) must
         # take qn_event_wide, and none qn_event_general
         if name == "cost_deadline" and (
@@ -5531,6 +5650,70 @@ def main() -> None:
               f"bytes, {w_ops} operations); {int(wc[0])} jobs past the "
               f"warm-up", flush=True)
 
+    # qn_event_many against qn_event_general at the capacity planner's
+    # widths (MANY_TIME: 64 users in 64 slots, 2048 in 384; one map and one
+    # reduce a job) past the planner's 512 events, in turns (many,
+    # general, general, many), beside the bound and the step's collective
+    # floor (many_floor_ns); then the floor of each planner lane that
+    # [capacity] timed
+    many_time = {}
+    for H_mt, S_mt, think_mt in MANY_TIME:
+        lane_mt = (i32([1]), i32([1]), i32([S_mt]), i32([MANY_TIME_E]),
+                   f32([40.0]), f32([60.0]), f32([think_mt]))
+        tables_mt = qn_ops.event_streams(
+            lane_mt[6], torch.tensor([5], dtype=torch.int64, device=dev),
+            lane_mt[3], h_users=H_mt, n_events=MANY_TIME_E)
+        run_m = lambda g: qn_ops.qn_event(
+            *lane_mt, *tables_mt, max_slots=S_mt, warmup_jobs=8,
+            replay=False, general=g)
+        k0 = dict(qn_ops.qn_event.routes)
+        ms_, mc_ = run_m(False)
+        took_m = [k for k, n in qn_ops.qn_event.routes.items() if n > k0[k]]
+        gs, gc = run_m(True)
+        if took_m != ["qn_event_many"] or not (
+                torch.equal(ms_, gs) and torch.equal(mc_, gc)) \
+                or float(mc_[0]) <= 0:
+            fail(f"qn_event at H={H_mt} S={S_mt}: took {took_m}, jobs "
+                 f"{mc_.tolist()}, the general kernel's bits "
+                 f"{'equal' if torch.equal(ms_, gs) else 'differ'}")
+        turns = [cuda_ms(lambda g=g: run_m(g), 5)
+                 for g in (False, True, True, False)]
+        bound, nbytes, n_ops = many_lane_bound(1, MANY_TIME_E, H_mt, S_mt,
+                                               MANY_TIME_E)
+        floor_ns = many_floor_ns(redux_ns, ballot_ns, 1, 1)
+        row = {"shape": f"B=1 E={MANY_TIME_E} S={S_mt} H={H_mt} think "
+                        f"{think_mt} ms exponential",
+               "ms": (turns[0] + turns[3]) / 2,
+               "general_ms": (turns[1] + turns[2]) / 2, "turns_ms": turns,
+               "bound_ms": bound,
+               "bound_by": ("operations" if n_ops / H100_INSTR_PER_S
+                            > nbytes / H100_BYTES_PER_S else "bytes"),
+               "step_floor_ns": floor_ns,
+               "step_floor_ms": floor_ns * MANY_TIME_E * 1e-6,
+               "jobs": float(mc_[0])}
+        row.update(ns_per_event=row["ms"] * 1e6 / MANY_TIME_E,
+                   general_ns_per_event=row["general_ms"] * 1e6
+                   / MANY_TIME_E)
+        many_time[H_mt] = row
+        print(f"[time] qn_event {row['shape']}: qn_event_many "
+              f"{row['ms']:.4f} ms/launch, {row['ns_per_event']:.1f} ns an "
+              f"event; qn_event_general (asked for) {row['general_ms']:.4f} "
+              f"ms, {row['general_ns_per_event']:.1f} ns (in turns: "
+              f"{', '.join(f'{t:.4f}' for t in turns)} ms); step floor "
+              f"{row['step_floor_ms']:.4f} ms ({floor_ns:.2f} ns a step: "
+              f"max(redux, ballot) a step and a second redux a completion "
+              f"or think end); bound {bound:.6f} ms ({row['bound_by']}: "
+              f"{nbytes} bytes, {n_ops} operations); {int(mc_[0])} jobs "
+              f"past the warm-up", flush=True)
+    for name, row in capacity_run["lanes"].items():
+        row["step_floor_ns"] = many_floor_ns(redux_ns, ballot_ns,
+                                             row["n_map"], row["n_reduce"])
+        row["step_floor_ms"] = row["step_floor_ns"] * row["n_events"] * 1e-6
+        print(f"[time] qn_event_many at {name}'s lane ({row['shape']}): "
+              f"{row['ms']:.4f} ms, step floor {row['step_floor_ms']:.4f} "
+              f"ms ({row['step_floor_ns']:.2f} ns a step), bound "
+              f"{row['bound_ms']:.6f} ms", flush=True)
+
     # [dag] both routes at dag_sweep's frontier shape (the Spark chain at
     # nu = 1..16 on m4.xlarge: B = 16, E = 8192, K = 4, H = 3, slots up to
     # 128, seed 0, exponential mode; held against the plain version once
@@ -5711,6 +5894,7 @@ def main() -> None:
                                      for t in train.values())
     phase("record")
 
+    many_lane = capacity_run["lanes"]["chat-granite"]
     record = {"kernels": [
         {"name": "qn_event", "route": "cuda",
          "source": "src/repro_torch/csrc/qn_event.cu",
@@ -5728,6 +5912,8 @@ def main() -> None:
          "general_ms": qn_general_ms,
          "kernels": {"qn_event_fast": "at most 32 users, 512 slots",
                      "qn_event_wide": "at most 32 users, 513-16384 slots",
+                     "qn_event_many": "33-2048 users, at most 16384 "
+                                      "slots, fewer than 2**20 events",
                      "qn_event_general": "any lane"},
          "launches_by_route": qn_route_launches,
          "wide_checked": wide_checked,
@@ -5742,13 +5928,32 @@ def main() -> None:
          "plans": plans, "scenarios": scenario_runs,
          "service": service_runs, "cloud": cloud_runs,
          "capacity": capacity_run,
-         "general_at_capacity_lanes": capacity_run["lanes"],
+         "many_at_capacity_lanes": capacity_run["lanes"],
          "table3_rows": table3_rows,
          "serving_qn": {k: {f: v[f] for f in
                             ("arch", "n_layers", "solo_latency_ms",
                              "qn_tau_ms", "engine_T_ms", "theta_pct",
                              "wall_s", "launches")}
                         for k, v in serving_qn.items()}},
+        {"name": "qn_event_many", "route": "cuda",
+         "source": "src/repro_torch/csrc/qn_event.cu",
+         "replaces": "src/repro/kernels/qn_event/kernel.py:255",
+         "kernel": "qn_event_many<G, UG, REPLAY>",
+         "wrapper": "ops.qn_event, the route plan() picks for 33-2048 "
+                    "users (qn_event.routes['qn_event_many'])",
+         "launches": qn_route_launches["qn_event_many"],
+         "max_abs_err": max(r["max_abs_err"]
+                            for r in capacity_run["lanes"].values()),
+         **{k: many_lane[k] for k in (
+             "ms", "shape", "ns_per_event", "general_ms", "general_uncut_ms",
+             "bound_ms", "bound_by", "step_floor_ms")},
+         "plain_ms": many_lane["plain_uncut_ms"],
+         "plain_note": "chat-granite's lane; the plain version on the "
+                       "uncut lane (632 slots in 768), the same bits",
+         "library_ms": None,
+         "library_note": "no PyTorch call simulates the network",
+         "at_capacity_lanes": capacity_run["lanes"],
+         "at_depth": {f"H={H}": row for H, row in many_time.items()}},
         {"name": "event_streams", "route": "cuda",
          "source": "src/repro_torch/csrc/qn_streams.cu",
          "replaces": "src/repro/kernels/qn_event/kernel.py:63",

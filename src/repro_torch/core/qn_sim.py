@@ -3,9 +3,11 @@
 The port of the reference's ``repro/core/qn_sim.py``, both gaits.
 ``response_time_batch`` marshals a candidate sweep into one flat lane
 batch (lane = candidate x replication), pads it exactly as the reference
-does (candidate axis to the shape grid, ``max_slots`` to its bucket, scan
-length to the batch maximum, each lane keeping its own logical event
-budget), and runs it as ONE fused dispatch of ``kernels.qn_event``: the
+does (candidate axis to the shape grid, scan length to the batch maximum,
+each lane keeping its own logical event budget), cuts each lane's slots
+to those its users can fill (``slots_in_use``: the same bits) and
+``max_slots`` to their bucket, and runs it as ONE fused dispatch of
+``kernels.qn_event``: the
 draw tables are made on the device, then the event-loop kernel runs every
 lane.  The dispatch accounting (``sim_stats``/``padding_stats``) uses the
 reference's formulas, so the two packages' counter deltas agree call for
@@ -14,7 +16,7 @@ kernel, CPU tensors take its plain version.
 
 The scalar point-wise gait (``simulate``/``response_time``, the paper's
 one simulation per probe) runs each replication as one single-lane
-``kernels.qn_event`` dispatch with the same buckets, seed and budget as
+``kernels.qn_event`` dispatch with the same cut, seed and budget as
 the reference's scalar program, so a scalar probe equals the same
 candidate's lane of ``response_time_batch`` exactly.
 """
@@ -54,6 +56,19 @@ def events_needed(n_map: int, n_reduce: int, warmup_jobs: int,
     per job, times jobs; padded 1.5x."""
     per_job = 2 * (n_map + n_reduce) + 4
     return int(1.5 * per_job * (min_jobs + warmup_jobs))
+
+
+def slots_in_use(slots, h_users, n_map, n_reduce):
+    """The slots a lane can ever fill, ``min(slots, max(1, h_users *
+    max(n_map, n_reduce)))`` (scalars or numpy arrays).  A user has at
+    most ``max(n_map, n_reduce)`` tasks in flight and a dispatch takes the
+    first free slot, so a task starts in slot j only while slots 0..j-1
+    are busy: no slot at or past ``h_users * max(n_map, n_reduce)`` is
+    ever used, and a lane cut to that many gives the same bits.  Both
+    gaits cut their lanes here before bucketing ``max_slots``, so the
+    event loop lays out and routes only the slots that can be used."""
+    return np.minimum(slots, np.maximum(
+        1, h_users * np.maximum(n_map, n_reduce)))
 
 
 def padded_event_budget(n_map: int, n_reduce: int, *, min_jobs: int = 40,
@@ -254,6 +269,7 @@ def response_time_batch(n_map, n_reduce, m_avg, r_avg, think_ms,
                                            warmup_jobs=warmup_jobs)
                        for c in range(C)], np.int64)
     scan_len = int(n_ev.max())
+    sl = slots_in_use(sl, int(h_users), nm, nr)
     max_slots = _shapes.bucket_slots(int(sl.max()))
     (nm, nr, ma, ra, tk, sl, n_ev), seeds, shards = fused_lanes(
         (nm, nr, ma, ra, tk, sl, n_ev), n_ev, replications=replications,
@@ -317,7 +333,8 @@ def _simulate(p: QNParams, replications: int, m_samples, r_samples,
               device) -> Tuple[float, float]:
     """The scalar gait: each replication is one single-lane dispatch of
     ``kernels.qn_event`` at the pow2 budget of ``p.n_events`` (fold offset
-    and scan length alike) and the bucketed ``max_slots``, seeded
+    and scan length alike) and the bucketed ``max_slots`` of the slots in
+    use (``slots_in_use``), seeded
     ``p.seed + 1000*r``.  Replay mode ignores the profile means."""
     dev = resolve_device(device)
     ne = _shapes.bucket_events(p.n_events)
@@ -334,8 +351,9 @@ def _simulate(p: QNParams, replications: int, m_samples, r_samples,
         return torch.tensor([x], dtype=dt, device=dev)
 
     i32, f32 = torch.int32, torch.float32
+    slots = int(slots_in_use(p.slots, p.h_users, p.n_map, p.n_reduce))
     lane = (t(p.n_map, i32), t(p.n_reduce, i32), t(m_avg, f32),
-            t(r_avg, f32), t(p.think_ms, f32), t(p.slots, i32))
+            t(r_avg, f32), t(p.think_ms, f32), t(slots, i32))
     span_args = dict(events=ne, replay=True) if replay else dict(events=ne)
     outs = []
     for r in range(replications):
@@ -344,7 +362,7 @@ def _simulate(p: QNParams, replications: int, m_samples, r_samples,
             outs.append(torch.cat(qn_event_ops.sim_batch(
                 *lane, t(p.seed + 1000 * r, torch.int64), t(ne, i32),
                 ms, rs, h_users=int(p.h_users),
-                max_slots=_shapes.bucket_slots(p.slots), n_events=ne,
+                max_slots=_shapes.bucket_slots(slots), n_events=ne,
                 warmup_jobs=p.warmup_jobs)))
     if not outs:
         return _combine([], [])

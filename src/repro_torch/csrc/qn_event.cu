@@ -34,7 +34,7 @@
 //     first minimum, so the lowest lane holding the warp's minimum holds
 //     the first index, as jnp.argmin and ref.py break ties.
 //
-// Three kernels share that layout:
+// Four kernels share that layout:
 //   * qn_event_fast, the main path (at most 512 slots, at most 32 users):
 //     each thread holds one user in registers and a block of at most 16
 //     slots in shared memory.  A queued user's key is unique (class, the
@@ -70,6 +70,22 @@
 //     minimum and refreshes the block over its group minima (tree_min over
 //     at most 32), so no step runs a loop of runtime length.  An instance per block size (4, 8, 16
 //     or 32 groups a thread, as the batch's slots need) and mode;
+//   * qn_event_many, the same step in a copy of its own for lanes of 33 to
+//     2048 users (the capacity planner's serving classes: 64 to 2048
+//     sessions) with the slots of FlatBlock or GroupBlock: thread t owns
+//     a contiguous block of at most 64 users, in groups of 16 in dynamic
+//     shared memory (a queue key, a think key, pending, remaining, phase
+//     and job start each).
+//     Each group's first minimum of both keys sits beside it (one group a
+//     thread up to 512 users: its minima are the block's), and the thread
+//     keeps its block's minima in registers.  A queue key is unique as
+//     qn_event_fast's (class, rank, user: 11 bits of user leave 20 of
+//     rank), so the queue's redux names the user.  A step changes at most
+//     one user's key up (a think ends, a dispatch empties a user) and one
+//     down (a fork, a job end): a raise refreshes the user's group
+//     (min or tree_min over its 16 keys, read at the step's top) and the
+//     block over at most 4 group minima; a fall is O(1).  No loop has a
+//     runtime length;
 //   * qn_event_general, any H and slot count: slot and user state in
 //     memory (dynamic shared memory, opt-in above 48 KB, or past the
 //     card's shared memory a global scratch slice per lane), runtime-length
@@ -98,10 +114,14 @@ constexpr int kFastUsers = 32;   // users of the fast and wide routes
 constexpr int kRankBits = 26;    // their arrival ranks
 constexpr int kLaneShift = 27;   // (lane, user) of the second redux
 constexpr int kWideGroups = 32;  // groups of kFastSlots a wide thread holds
+constexpr int kManyUsers = 2048;     // users of qn_event_many
+constexpr int kManyUserBits = 11;    // their queue keys' user field
+constexpr int kManyRankBits = 20;    // and arrival ranks
+constexpr int kManyGroups = 4;       // groups of 16 users a thread past 512
 
 // The route qn_event_launch reports; kernels/qn_event/ops.py ROUTES names
 // them in this order
-enum Route { kGeneral = 0, kFast = 1, kWide = 2 };
+enum Route { kGeneral = 0, kFast = 1, kWide = 2, kMany = 3 };
 
 // The three draw tables (st_m, st_r, td) of one lane, as 32-bit words
 using QnDraws = Draws<3>;
@@ -562,8 +582,457 @@ __global__ void __launch_bounds__(32, 1) qn_event_wide(QN_LANE_PARAMS) {
   lane_loop<REPLAY>(blk, QN_LANE_ARGS);
 }
 
+// ---------------------------------------------------------------------------
+// qn_event_many: 33 to 2048 users, at most 16384 slots, fewer than 2^20
+// events.  Its own step: the fast and wide step above keeps its user in
+// registers, and sharing one step between the two user sides cost
+// qn_event_fast ~1% on the card
+// ---------------------------------------------------------------------------
+
+// the first minimum of 16 unique keys (no index needed: the key names it)
+__device__ __forceinline__ unsigned min16(const unsigned (&k)[16]) {
+  unsigned m[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) m[j] = min(k[2 * j], k[2 * j + 1]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) m[j] = min(m[2 * j], m[2 * j + 1]);
+  return min(min(m[0], m[1]), min(m[2], m[3]));
+}
+
+__device__ __forceinline__ void load16(const unsigned* p, unsigned (&k)[16]) {
+  const uint4* v = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint4 a = v[j];
+    k[4 * j] = a.x;
+    k[4 * j + 1] = a.y;
+    k[4 * j + 2] = a.z;
+    k[4 * j + 3] = a.w;
+  }
+}
+
+// x[g] of a register array, by selects (a runtime index would put the
+// array in local memory)
+template <int N, class T>
+__device__ __forceinline__ T pick(const T (&x)[N], int g) {
+  T r = x[0];
+#pragma unroll
+  for (int j = 1; j < N; ++j) r = j == g ? x[j] : r;
+  return r;
+}
+
+// qn_event_many's: thread t owns users [base, base + bu), bu = ceil(H / 32)
+// <= 16 UG (the users past H hold kNone keys), in UG groups of 16 in
+// dynamic shared memory: six arrays (queue key, think key, pending,
+// remaining tasks of the stage, phase, job start) at stride kStride, the
+// padding word at kPad; past one group, each group's first minima (queue
+// key; think key and its user) at stride kGStride, the padding word at UG.
+// Users' indices in the arrays are local (0 .. 16 UG).  A stage ends when
+// its remaining tasks reach 0, so in-flight counts need no word of their own.
+// The thread's first minima of its users' queue keys (q_min; a queue key
+// names its user: the map bit, the arrival rank, the user in kBits) and of
+// their think keys (h_min, its user h_user()) sit in registers.  The step
+// calls prefetch() at its top; dispatch(g) when the queue's head g sends a
+// task; complete() for the user of a completing task (forked: a reduce
+// stage forked and queued); refill() when that completion takes the
+// dispatch of the new head into the slot it freed; think() for the end of
+// the earliest think.  Every thread runs each call; one that owns nothing
+// writes padding words
+template <int UG>
+struct UserBlock {
+  static_assert(UG == 1 || UG == kManyGroups, "one group a thread, or four");
+  static constexpr int kBits = kManyUserBits;
+  static constexpr unsigned kMask = (1u << kBits) - 1u;
+  static constexpr int kPad = 16 * UG;
+  static constexpr int kStride = 16 * UG + 4;   // 16-byte aligned, spread
+  static constexpr int kGStride = UG + 4;
+  static constexpr int kWords =
+      6 * 32 * kStride + (UG > 1 ? 3 * 32 * kGStride : 0);
+  unsigned *qk, *hk, *gq, *gh;
+  int *pend, *rem, *phase, *ghl;
+  float* jst;
+  int base;
+  unsigned inv;              // ceil(2^20 / bu): owner(u) = u * inv >> 20
+  unsigned q_min, h_min;
+  int h_loc;                 // h_min's user, local
+  // read at the step's top: q_min's user (local ql, its group qg, its
+  // pending count qp) and its group's keys, h_loc's group's think keys,
+  // the group minima
+  int ql, qg, qp;
+  unsigned qv[16], hv[16];
+  unsigned gqv[UG], ghv[UG];
+  int ghlv[UG];
+  // this step's fork (complete): the user (local fl, group fg), its queue
+  // key, the queue minima (block, group fg) before it
+  bool forked;
+  int fl, fg;
+  unsigned fk, pre_q, pre_g;
+
+  __device__ void init(unsigned* smem, const float* think0, int t, int H) {
+    const int bu = max((H + 31) / 32, 1);
+    const int n = min(max(H - t * bu, 0), bu);
+    const size_t s = 32 * (size_t)kStride, o = (size_t)t * kStride;
+    base = t * bu;
+    inv = ((1u << 20) + bu - 1) / bu;
+    qk = smem + o;
+    hk = smem + s + o;
+    pend = (int*)(smem + 2 * s) + o;
+    rem = (int*)(smem + 3 * s) + o;
+    phase = (int*)(smem + 4 * s) + o;
+    jst = (float*)(smem + 5 * s) + o;
+    gq = smem + 6 * s + t * kGStride;
+    gh = smem + 6 * s + 32 * kGStride + t * kGStride;
+    ghl = (int*)(smem + 6 * s + 64 * kGStride) + t * kGStride;
+    for (int l = 0; l <= kPad; ++l) {
+      qk[l] = kNone;
+      hk[l] = l < n ? clock_key(think0[base + l]) : kNone;
+      pend[l] = rem[l] = phase[l] = 0;
+      jst[l] = 0.0f;
+    }
+    q_min = h_min = kNone;
+    h_loc = 0;
+    for (int g = 0; g < UG; ++g) {
+      unsigned m = kNone;
+      int loc = 16 * g;
+      for (int l = 16 * g; l < 16 * g + 16; ++l) {
+        if (hk[l] < m) {
+          m = hk[l];
+          loc = l;
+        }
+      }
+      if constexpr (UG > 1) {
+        gq[g] = kNone;
+        gh[g] = m;
+        ghl[g] = loc;
+      }
+      if (m < h_min) {
+        h_min = m;
+        h_loc = loc;
+      }
+    }
+  }
+
+  __device__ __forceinline__ void prefetch() {
+    ql = q_min == kNone ? 0 : (int)(q_min & kMask) - base;
+    qg = ql >> 4;
+    qp = pend[ql];
+    load16(qk + 16 * qg, qv);
+    load16(hk + (h_loc & ~15), hv);
+    if constexpr (UG > 1) {
+      const uint4 a = *reinterpret_cast<const uint4*>(gq);
+      const uint4 b = *reinterpret_cast<const uint4*>(gh);
+      const uint4 c = *reinterpret_cast<const uint4*>(ghl);
+      gqv[0] = a.x, gqv[1] = a.y, gqv[2] = a.z, gqv[3] = a.w;
+      ghv[0] = b.x, ghv[1] = b.y, ghv[2] = b.z, ghv[3] = b.w;
+      ghlv[0] = (int)c.x, ghlv[1] = (int)c.y, ghlv[2] = (int)c.z,
+      ghlv[3] = (int)c.w;
+    }
+  }
+
+  __device__ __forceinline__ int h_user() const { return base + h_loc; }
+
+  __device__ __forceinline__ int owner(int u) const {
+    return (int)(((unsigned)u * inv) >> 20);
+  }
+
+  // q_min's user ql leaves the queue where `gone`: group qg's minimum over
+  // its other keys and `extra` (a key this step queued there), then the
+  // block's over the group minima
+  __device__ __forceinline__ void leave_queue(bool gone, unsigned extra) {
+    unsigned k[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) k[j] = j == (ql & 15) ? kNone : qv[j];
+    const unsigned m = min(min16(k), extra);
+    qk[gone ? ql : kPad] = kNone;
+    if constexpr (UG > 1) {
+      gq[gone ? qg : UG] = m;
+#pragma unroll
+      for (int j = 0; j < UG; ++j) gqv[j] = gone && j == qg ? m : gqv[j];
+      q_min = gone ? min(min(gqv[0], gqv[1]), min(gqv[2], gqv[3])) : q_min;
+    } else {
+      q_min = gone ? m : q_min;
+    }
+  }
+
+  // user l (group g) joins the queue with key k where `mine`: O(1)
+  __device__ __forceinline__ void join_queue(bool mine, int l, int g,
+                                             unsigned k) {
+    qk[mine ? l : kPad] = k;
+    if constexpr (UG > 1) {
+      const unsigned m = min(pick(gqv, g), k);
+      gq[mine ? g : UG] = m;
+#pragma unroll
+      for (int j = 0; j < UG; ++j) gqv[j] = mine && j == g ? m : gqv[j];
+    }
+    q_min = mine ? min(q_min, k) : q_min;
+  }
+
+  __device__ __forceinline__ void dispatch(unsigned g) {
+    const bool mine = q_min == g;
+    const int p = qp - 1;
+    pend[mine ? ql : kPad] = p;
+    leave_queue(mine && p == 0, kNone);
+  }
+
+  __device__ __forceinline__ bool complete(int who, float clock, float td,
+                                           float tm, int nr, unsigned rank,
+                                           float* resp) {
+    const bool mine = (int)threadIdx.x == owner(who);
+    const int l = mine ? who - base : 0;
+    const int r = rem[l] - 1;
+    const int ph = phase[l];
+    const float js = jst[l];
+    const bool stage_done = mine && r == 0;
+    const bool fork = stage_done && ph == 1;        // map stage done
+    const bool job_done = stage_done && ph != 1;    // reduce stage done
+    const int s = mine ? l : kPad;
+    rem[s] = fork ? nr : r;
+    phase[s] = fork ? 2 : job_done ? 0 : ph;
+    pend[fork ? l : kPad] = nr;
+    // the reduce stage queues
+    fl = l;
+    fg = l >> 4;
+    fk = (rank << kBits) | (unsigned)who;
+    forked = fork && nr > 0;
+    pre_q = q_min;
+    if constexpr (UG > 1) pre_g = pick(gqv, fg);
+    join_queue(forked, l, fg, fk);
+    // the job ends and a think starts: its key falls
+    const unsigned k = clock_key(__fmaf_rn(td, tm, clock));
+    hk[job_done ? l : kPad] = k;
+    if constexpr (UG > 1) {
+      const unsigned gk = pick(ghv, fg);
+      const int gl = pick(ghlv, fg);
+      const bool lo = before(k, l, gk, gl);
+      gh[job_done ? fg : UG] = lo ? k : gk;
+      ghl[job_done ? fg : UG] = lo ? l : gl;
+    }
+    const bool lo = job_done & before(k, l, h_min, h_loc);
+    h_min = lo ? k : h_min;
+    h_loc = lo ? l : h_loc;
+    *resp = job_done ? __fsub_rn(clock, js) : 0.0f;
+    return job_done;
+  }
+
+  // the dispatch of the head right after a completion: the old head
+  // (g_queue, whose pending count the step's top read), or the user that
+  // has just forked (its pending count nr)
+  __device__ __forceinline__ void refill(unsigned head, unsigned g_queue,
+                                         int nr) {
+    const bool mine = q_min == head;
+    if (head == g_queue) {
+      const int p = qp - 1;
+      pend[mine ? ql : kPad] = p;
+      leave_queue(mine && p == 0, forked && fg == qg ? fk : kNone);
+    } else {
+      // a reduce stage of one task leaves the queue as it joined: the
+      // minima go back to what they were before the fork
+      const int p = nr - 1;
+      pend[mine ? fl : kPad] = p;
+      const bool gone = mine && p == 0;
+      qk[gone ? fl : kPad] = kNone;
+      if constexpr (UG > 1) gq[gone ? fg : UG] = pre_g;
+      q_min = gone ? pre_q : q_min;
+    }
+  }
+
+  __device__ __forceinline__ void think(bool mine, float clock, int nm,
+                                        unsigned rank) {
+    const int l = h_loc;
+    const int s = mine ? l : kPad;
+    phase[s] = 1;
+    pend[s] = nm;
+    rem[s] = nm;
+    jst[s] = clock;
+    hk[s] = clock_key(QN_INF);
+    // user l's think key leaves: its group's first minimum (tree_min over
+    // 16), then the block's over the group minima
+    unsigned kk[16];
+    int ii[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      kk[j] = j == (l & 15) ? clock_key(QN_INF) : hv[j];
+      ii[j] = (l & ~15) + j;
+    }
+    tree_min<16>(kk, ii);
+    const int g = l >> 4;
+    if constexpr (UG > 1) {
+      gh[mine ? g : UG] = kk[0];
+      ghl[mine ? g : UG] = ii[0];
+      unsigned bk[UG];
+      int bl[UG];
+#pragma unroll
+      for (int j = 0; j < UG; ++j) {
+        bk[j] = j == g ? kk[0] : ghv[j];
+        bl[j] = j == g ? ii[0] : ghlv[j];
+      }
+      tree_min<UG>(bk, bl);
+      kk[0] = bk[0];
+      ii[0] = bl[0];
+    }
+    h_min = mine ? kk[0] : h_min;
+    h_loc = mine ? ii[0] : h_loc;
+    // the job's maps queue
+    join_queue(mine, l, g,
+               nm > 0 ? kMapBit | (rank << kBits) | (unsigned)(base + l)
+                      : kNone);
+  }
+};
+
+template <bool REPLAY, class Block, int UG>
+__device__ __forceinline__ void many_loop(
+    Block& blk, UserBlock<UG>& usr, const int* __restrict__ n_map,
+    const int* __restrict__ n_reduce, const int* __restrict__ n_active,
+    const float* __restrict__ m_avg, const float* __restrict__ r_avg,
+    const float* __restrict__ think_ms, const float* __restrict__ st_m,
+    const float* __restrict__ st_r, const float* __restrict__ td,
+    float* __restrict__ resp_sum_out, float* __restrict__ resp_cnt_out,
+    int n_events, int warmup_jobs) {
+  const int lane = blockIdx.x;
+  const int t = threadIdx.x;
+  const unsigned below = (1u << t) - 1u;     // lanes under this one
+  const unsigned user_mask = (1u << kLaneShift) - 1u;
+  const unsigned key_user = (1u << UserBlock<UG>::kBits) - 1u;
+  const unsigned k_inf = clock_key(QN_INF);
+
+  const int nm = n_map[lane], nr = n_reduce[lane];
+  const float ma = m_avg[lane], ra = r_avg[lane], tm = think_ms[lane];
+  const int steps = max(0, min(n_events, n_active[lane]));
+
+  QnDraws draws;
+  init_draws(draws, st_m, st_r, td, lane, n_events, t);
+  float now = 0.0f, resp_sum = 0.0f, resp_cnt = 0.0f;
+  unsigned rank = 0;          // distinct clocks so far, less one
+  int done_jobs = 0;
+  // a job finished by the previous step: its ballot and response, applied
+  // once this step's selections are issued
+  unsigned last_done = 0;
+  float last_resp = 0.0f;
+
+  // steps in blocks of 32, one block of draws each (switched here, not in
+  // the step)
+  for (int b = 0; b < steps; b += 32) {
+    draws.block(b, t);
+    const int b_end = min(b + 32, steps);
+    for (int i = b; i < b_end; ++i) {
+      blk.prefetch();
+      usr.prefetch();
+      const unsigned adv = advance_key(blk.lo_key, usr.h_min);
+      const unsigned g_queue = __reduce_min_sync(FULL_MASK, usr.q_min);
+      const unsigned g_adv = __reduce_min_sync(FULL_MASK, adv);
+      const unsigned b_free = __ballot_sync(FULL_MASK, blk.any_free());
+      const float stm_i = __uint_as_float(draws.word(0, i));
+      const float str_i =
+          REPLAY ? __uint_as_float(draws.word(1, i)) : stm_i;
+      const float td_i = __uint_as_float(draws.word(2, i));
+
+      const bool counted = last_done != 0 && done_jobs >= warmup_jobs;
+      resp_sum = counted ? __fadd_rn(resp_sum, last_resp) : resp_sum;
+      resp_cnt = counted ? __fadd_rn(resp_cnt, 1.0f) : resp_cnt;
+      done_jobs += last_done != 0;
+      last_done = 0;
+
+      if (b_free != 0 && g_queue != kNone) {                 // dispatch
+        const int u = (int)(g_queue & key_user);
+        const bool is_map = (g_queue & kMapBit) != 0;
+        const float end = REPLAY ? __fadd_rn(now, is_map ? stm_i : str_i)
+                                 : __fmaf_rn(stm_i, is_map ? ma : ra, now);
+        // owners' updates as selects; a thread that owns nothing writes
+        // to its block's padding word
+        usr.dispatch(g_queue);
+        blk.dispatch(blk.any_free() && (b_free & below) == 0,
+                     clock_key(end), u);
+        continue;
+      }
+      const unsigned ka = g_adv >> 1;
+      if (ka >= k_inf) continue;                             // nothing left
+      blk.prepare();
+      const float clock = key_clock(ka);
+      const bool is_think = (g_adv & 1u) != 0;
+      // the lowest lane holding the earliest end, and its user
+      const unsigned g_who = __reduce_min_sync(
+          FULL_MASK,
+          adv == g_adv ? ((unsigned)t << kLaneShift) |
+                             ((is_think ? usr.h_user() : blk.usr) & user_mask)
+                       : kNone);
+      const int w = (int)(g_who >> kLaneShift);
+      const int who = (int)(g_who & user_mask);
+      rank += clock != now;
+      now = clock;
+      if (!is_think) {                                       // completion
+        blk.free_slot(t == w);
+        // the task's user
+        float resp;
+        const bool job_done =
+            usr.complete(who, clock, td_i, tm, nr, rank, &resp);
+        last_done = __ballot_sync(FULL_MASK, job_done);
+        last_resp = __shfl_sync(FULL_MASK, resp, usr.owner(who));
+        // With no slot free before it, the completion leaves one free slot
+        // (the one it ended); when anything is queued, the next step is a
+        // dispatch into it, taken here (within the block of draws)
+        const unsigned head =
+            __any_sync(FULL_MASK, usr.forked)
+                ? min(g_queue, (rank << UserBlock<UG>::kBits) | (unsigned)who)
+                : g_queue;
+        if (b_free == 0 && head != kNone && i + 1 < b_end) {
+          i += 1;
+          const int u = (int)(head & key_user);
+          const bool is_map = (head & kMapBit) != 0;
+          const float st = __uint_as_float(__shfl_sync(
+              FULL_MASK, REPLAY && !is_map ? draws.cur[1] : draws.cur[0],
+              i & 31));
+          const float end = REPLAY ? __fadd_rn(now, st)
+                                   : __fmaf_rn(st, is_map ? ma : ra, now);
+          usr.refill(head, g_queue, nr);
+          blk.refill(t == w, clock_key(end), u);
+        }
+      } else {                                               // think end
+        usr.think(t == w, clock, nm, rank);
+      }
+    }
+  }
+  if (last_done != 0 && done_jobs >= warmup_jobs) {
+    resp_sum = __fadd_rn(resp_sum, last_resp);
+    resp_cnt = __fadd_rn(resp_cnt, 1.0f);
+  }
+  if (t == 0) {
+    resp_sum_out[lane] = resp_sum;
+    resp_cnt_out[lane] = resp_cnt;
+  }
+}
+
+#define QN_MANY_ARGS                                                        \
+  n_map, n_reduce, n_active, m_avg, r_avg, think_ms, st_m, st_r, td,        \
+      resp_sum_out, resp_cnt_out, n_events, warmup_jobs
+
+// 33 to 2048 users: UG groups of 16 users a thread in dynamic shared
+// memory (UserBlock<UG>::kWords words), after the slots' G groups of 16 a
+// thread (GroupBlock<G>::kWords words) or, at G = 0 (at most 512 slots), a
+// FlatBlock in static shared memory
+template <int G, int UG, bool REPLAY>
+__global__ void __launch_bounds__(32, 1) qn_event_many(QN_LANE_PARAMS) {
+  extern __shared__ __align__(16) unsigned smem[];
+  __shared__ __align__(16) unsigned s_key[G == 0 ? 32 * kFastStride : 4];
+  __shared__ int s_user[G == 0 ? 32 * kFastStride : 4];
+  const int cap = min(max(slots_cap[blockIdx.x], 0), S);
+  const float* think_lane = think0 + (size_t)blockIdx.x * H;
+  UserBlock<UG> usr;
+  if constexpr (G == 0) {
+    FlatBlock blk;
+    blk.init(s_key, s_user, threadIdx.x, cap);
+    usr.init(smem, think_lane, threadIdx.x, H);
+    many_loop<REPLAY>(blk, usr, QN_MANY_ARGS);
+  } else {
+    GroupBlock<G> blk;
+    blk.init(smem, threadIdx.x, cap);
+    usr.init(smem + GroupBlock<G>::kWords, think_lane, threadIdx.x, H);
+    many_loop<REPLAY>(blk, usr, QN_MANY_ARGS);
+  }
+}
+
 #undef QN_LANE_PARAMS
 #undef QN_LANE_ARGS
+#undef QN_MANY_ARGS
 
 // ---------------------------------------------------------------------------
 // qn_event_general: any H, any slot count, state in memory
@@ -759,12 +1228,16 @@ __global__ void __launch_bounds__(32) qn_event_general(
 // global scratch slice per lane.  Lanes of at most 32 users and fewer than
 // 2^26 events take qn_event_fast up to 512 slots and qn_event_wide up to
 // 16384 (its instance of `groups` groups of 16 slots a thread, in
-// wide_words of shared memory); qn_event_general takes the rest, and every
-// batch asked for with general.
+// wide_words of shared memory); lanes of 33 to 2048 users and fewer than
+// 2^20 events take qn_event_many up to 16384 slots (flat up to 512, else
+// the same groups; ugroups groups of 16 users a thread; many_words of
+// dynamic shared memory); qn_event_general takes the rest, and every batch
+// asked for with general.
 struct Plan {
   Route route;
-  int groups;
-  size_t wide_words;
+  int groups, ugroups;
+  bool flat;
+  size_t wide_words, many_words;
   int sw, nwords, uw;
   size_t words;
   bool in_smem;
@@ -778,6 +1251,11 @@ int plan(int h_users, int max_slots, int n_events, bool general, Plan* p) {
                   : p->groups == 8 ? GroupBlock<8>::kWords
                   : p->groups == 16 ? GroupBlock<16>::kWords
                                     : GroupBlock<kWideGroups>::kWords;
+  p->flat = max_slots <= 32 * kFastSlots;
+  p->ugroups = h_users <= 32 * UserBlock<1>::kPad ? 1 : kManyGroups;
+  p->many_words = (p->flat ? 0 : p->wide_words) +
+                  (p->ugroups == 1 ? UserBlock<1>::kWords
+                                   : UserBlock<kManyGroups>::kWords);
   p->sw = (bs + 3) / 4 * 4;
   p->nwords = (p->sw + 31) / 32;
   p->uw = (h_users + 31) / 32;
@@ -790,7 +1268,13 @@ int plan(int h_users, int max_slots, int n_events, bool general, Plan* p) {
   p->in_smem = 4 * p->words <= (size_t)limit;
   const bool narrow = !general && h_users <= kFastUsers &&
                       n_events < (1 << kRankBits);
-  p->route = !narrow ? kGeneral
+  const bool many = !general && h_users > kFastUsers &&
+                    h_users <= kManyUsers &&
+                    n_events < (1 << kManyRankBits) &&
+                    max_slots <= 32 * kWideGroups * kFastSlots &&
+                    4 * p->many_words <= (size_t)limit;
+  p->route = many ? kMany
+             : !narrow ? kGeneral
              : max_slots <= 32 * kFastSlots ? kFast
              : max_slots <= 32 * kWideGroups * kFastSlots &&
                        4 * p->wide_words <= (size_t)limit
@@ -814,12 +1298,30 @@ LaneKernel wide_kernel(int groups) {
                         : qn_event_wide<kWideGroups, REPLAY>;
 }
 
+// the instance of qn_event_many with UG groups of users a thread and a
+// flat slot block or `groups` groups of slots a thread
+template <int UG, bool REPLAY>
+LaneKernel many_instance(bool flat, int groups) {
+  return flat           ? qn_event_many<0, UG, REPLAY>
+         : groups == 4  ? qn_event_many<4, UG, REPLAY>
+         : groups == 8  ? qn_event_many<8, UG, REPLAY>
+         : groups == 16 ? qn_event_many<16, UG, REPLAY>
+                        : qn_event_many<kWideGroups, UG, REPLAY>;
+}
+
+template <bool REPLAY>
+LaneKernel many_kernel(const Plan& p) {
+  return p.ugroups == 1
+             ? many_instance<1, REPLAY>(p.flat, p.groups)
+             : many_instance<kManyGroups, REPLAY>(p.flat, p.groups);
+}
+
 }  // namespace
 
 // Bytes of global scratch each lane of qn_event_general needs (0 when its
-// state fits in shared memory, as it always does where qn_event_fast or
-// qn_event_wide can run), or -1 when the query fails or the size
-// overflows an int.
+// state fits in shared memory, as it always does where qn_event_fast,
+// qn_event_wide or qn_event_many can run), or -1 when the query fails or
+// the size overflows an int.
 extern "C" int qn_event_scratch_bytes(int h_users, int max_slots,
                                       int n_events) {
   Plan p;
@@ -829,7 +1331,7 @@ extern "C" int qn_event_scratch_bytes(int h_users, int max_slots,
 }
 
 // *route: the kernel that ran (Route: 0 qn_event_general, 1 qn_event_fast,
-// 2 qn_event_wide), for the wrapper's count.
+// 2 qn_event_wide, 3 qn_event_many), for the wrapper's count.
 extern "C" int qn_event_launch(
     const int* n_map, const int* n_reduce, const int* slots_cap,
     const int* n_active, const float* m_avg, const float* r_avg,
@@ -848,15 +1350,18 @@ extern "C" int qn_event_launch(
     size_t smem = 0;
     if (p.route == kFast) {
       kernel = replay ? qn_event_fast<true> : qn_event_fast<false>;
-    } else {
+    } else if (p.route == kWide) {
       kernel = replay ? wide_kernel<true>(p.groups)
                       : wide_kernel<false>(p.groups);
       smem = 4 * p.wide_words;
-      if (smem > 48 * 1024) {
-        rc = (int)cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (rc != 0) return rc;
-      }
+    } else {
+      kernel = replay ? many_kernel<true>(p) : many_kernel<false>(p);
+      smem = 4 * p.many_words;
+    }
+    if (smem > 48 * 1024) {
+      rc = (int)cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (rc != 0) return rc;
     }
     kernel<<<lanes, 32, smem, s>>>(
         n_map, n_reduce, slots_cap, n_active, m_avg, r_avg, think_ms, think0,

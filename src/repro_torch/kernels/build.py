@@ -54,8 +54,8 @@ SIGNATURES = {
     "amva_mva_launch": [_P, _P, _P, _I, _I, _P],
     # counts, means, think0, tables (11); resp_sum, resp_cnt, scratch;
     # lanes, H, max_slots, E, warmup_jobs, replay, general; out: the route
-    # that ran (0 qn_event_general, 1 qn_event_fast, 2 qn_event_wide:
-    # qn_event/ops.py ROUTES); stream
+    # that ran (0 qn_event_general, 1 qn_event_fast, 2 qn_event_wide,
+    # 3 qn_event_many: qn_event/ops.py ROUTES); stream
     "qn_event_launch": [_P] * 11 + [_P, _P, _P] + [_I] * 7 + [_P, _P],
     # H, max_slots, E -> per-lane bytes of global scratch (0: shared
     # memory)

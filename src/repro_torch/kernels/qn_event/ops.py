@@ -7,7 +7,7 @@ counterpart of the reference's ``kernels/qn_event/kernel.py:
 event_streams``).  ``qn_event`` runs the event loop: a CUDA tensor
 launches ``csrc/qn_event.cu``, a CPU tensor takes ``ref.qn_event``.  Each
 wrapper's ``launches`` counts its kernel launches, and ``qn_event.routes``
-the launches of each of its three kernels, as the library reports the one
+the launches of each of its four kernels, as the library reports the one
 it ran.  A build or launch failure raises; a CUDA tensor never takes the
 plain version.
 ``sim_batch`` composes the two into the reference's ``_sim_batch_jit``
@@ -105,10 +105,12 @@ def qn_event(n_map, n_reduce, slots_cap, n_events_active, m_avg, r_avg,
     ``slots_cap`` must not exceed ``max_slots``.  Times, means and draws
     are durations, never negative: the card's kernel orders clocks by
     their bits.  On the card lanes of at most 32 users take
-    ``qn_event_fast`` up to 512 slots and ``qn_event_wide`` up to 16384;
-    more users or slots (or any lane, with ``general=True``: the kernels
-    give the same bits, and the flag lets them be timed and checked
-    against each other) take ``qn_event_general``, whose state needs
+    ``qn_event_fast`` up to 512 slots and ``qn_event_wide`` up to 16384,
+    lanes of 33 to 2048 users ``qn_event_many`` up to 16384 slots (with
+    fewer than 2**20 events); more users or slots (or any lane, with
+    ``general=True``: the kernels give the same bits, and the flag lets
+    them be timed and checked against each other) take
+    ``qn_event_general``, whose state needs
     ``qn_event_scratch_bytes`` of global scratch a lane once it outgrows
     the card's shared memory.  The library decides (``plan()`` in
     ``csrc/qn_event.cu``) and reports the kernel it ran."""
@@ -154,7 +156,8 @@ def qn_event(n_map, n_reduce, slots_cap, n_events_active, m_avg, r_avg,
 
 # the kernels by the route index the library reports (enum Route in
 # csrc/qn_event.cu)
-ROUTES = ("qn_event_general", "qn_event_fast", "qn_event_wide")
+ROUTES = ("qn_event_general", "qn_event_fast", "qn_event_wide",
+          "qn_event_many")
 qn_event.launches = 0
 qn_event.routes = dict.fromkeys(ROUTES, 0)
 

@@ -172,6 +172,56 @@ def test_qn_event_routes_match_the_launchers_route_indices():
         (32, 512, 16384)
 
 
+def test_qn_event_many_route_in_the_source():
+    """``qn_event_many`` (33 to 2048 users): its ``Route`` entry, its
+    ``__launch_bounds__`` kernel and its instances (a flat slot block or
+    4 to 32 groups of slots a thread, one or four groups of users, each
+    mode), ``plan()``'s rule for it (more than 32 users up to 2048, fewer
+    than 2**20 events, up to 16384 slots, its shared memory under the
+    card's limit; ``general`` takes none of it), the queue key's fields
+    filling 32 bits, and the largest instance's shared memory (computed
+    from the source's layout) under an H100's 232448 bytes a block."""
+    src = (CSRC / "qn_event.cu").read_text()
+    assert re.search(r"enum Route \{[^}]*kMany = 3[^}]*\};", src)
+    assert re.search(r"template <int G, int UG, bool REPLAY>\n__global__ "
+                     r"void __launch_bounds__\(32, 1\) qn_event_many\(", src)
+    many = re.search(r"LaneKernel many_instance\(bool flat, int groups\) "
+                     r"\{(.*?)\n\}", src, re.S)[1]
+    assert [int(g) for g in re.findall(r"qn_event_many<(\d+), UG, REPLAY>",
+                                       many)] == [0, 4, 8, 16]
+    assert "qn_event_many<kWideGroups, UG, REPLAY>" in many
+    assert "many_instance<1, REPLAY>" in src and \
+        "many_instance<kManyGroups, REPLAY>" in src
+    launch = re.search(r'extern "C" int qn_event_launch\(.*', src, re.S)[0]
+    assert "kernel = replay ? many_kernel<true>(p) : many_kernel<false>(p);" \
+        in launch and "smem = 4 * p.many_words;" in launch
+    plan = re.search(r"int plan\([^)]*\) \{(.*?)\n\}", src, re.S)[1]
+    rule = re.search(r"const bool many = (.*?);", plan, re.S)[1]
+    assert " ".join(rule.split()) == (
+        "!general && h_users > kFastUsers && h_users <= kManyUsers && "
+        "n_events < (1 << kManyRankBits) && "
+        "max_slots <= 32 * kWideGroups * kFastSlots && "
+        "4 * p->many_words <= (size_t)limit")
+    assert "p->route = many ? kMany" in plan
+    assert "p->ugroups = h_users <= 32 * UserBlock<1>::kPad ? 1 : " \
+        "kManyGroups;" in plan
+    const = {k: int(v) for k, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);",
+        src + (CSRC / "event_loop.cuh").read_text())}
+    assert 1 << const["kManyUserBits"] == const["kManyUsers"] == 2048
+    assert 1 + const["kManyRankBits"] + const["kManyUserBits"] == 32
+    assert 32 * 16 * const["kManyGroups"] == const["kManyUsers"]
+    # GroupBlock<G>::kWords and UserBlock<UG>::kWords as the source lays
+    # them out, at the largest instance
+    G, UG = const["kWideGroups"], const["kManyGroups"]
+    assert "kWords = 64 * kStride + 64 * kGStride + 32 * kFStride;" in src
+    slot_words = 64 * (G * 16 + 4) + 64 * (G + 4) + 32 * (G + 1)
+    assert re.search(r"kWords =\s+6 \* 32 \* kStride \+ \(UG > 1 \? "
+                     r"3 \* 32 \* kGStride : 0\);", src)
+    user_words = 6 * 32 * (16 * UG + 4) + 3 * 32 * (UG + 4)
+    assert 4 * (slot_words + user_words) == 200832 <= 232448
+
+
 # (h_users, max_slots, K, E, depth) -> the route: a lane deeper than its
 # stage arrays takes the general route (past 31 stages the fast route's
 # queue key could not hold it), one within them the fast one

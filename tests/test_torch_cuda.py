@@ -132,15 +132,15 @@ def _qn_lanes(dev, g, caps, E, think):
             f32(g.uniform(*think, B)))
 
 
-# more than 32 users (or 16384 slots) take the kernel for any H and slot
+# more than 2048 users (or 16384 slots) take the kernel for any H and slot
 # count; H = 2049 needs more than 48 KB of shared memory a lane, H = 12000
 # more than the card's 227 KB (its state then lives in a global scratch
 # slice); at most 32 users past 512 slots take qn_event_wide, up to its
-# 16384, and the general kernel asked for gives the same bits.  Long
-# thinks let jobs finish within the budget
+# 16384, 33 to 2048 users qn_event_many, and the general kernel asked for
+# gives the same bits.  Long thinks let jobs finish within the budget
 QN_ANY_CASES = [(2049, 64, "qn_event_general"),
                 (2049, 8192, "qn_event_general"),
-                (40, 600, "qn_event_general"),
+                (40, 600, "qn_event_many"),
                 (12000, 64, "qn_event_general"),
                 (20, 8192, "qn_event_wide"), (10, 600, "qn_event_wide"),
                 (32, 16384, "qn_event_wide")]
@@ -166,23 +166,28 @@ def test_qn_event_kernel_any_users_and_slots(dev, H, S, took):
     ps, pc = qn_ref.qn_event(*lanes, *tables, **kw)
     assert torch.equal(ks, ps) and torch.equal(kc, pc)
     assert bool((kc > 0).all())
-    if took == "qn_event_wide":
+    if took in ("qn_event_wide", "qn_event_many"):
         gs, gc = qn_ops.qn_event(*lanes, *tables, general=True, **kw)
         assert torch.equal(gs, ps) and torch.equal(gc, pc)
 
 
 # a replay list of one repeated value: every task lasts the same, so slot
-# ends tie and the lower index must win, as in the plain version; caps of
-# 1 and of max_slots
+# ends tie and the lower index must win, as in the plain version and in
+# qn_event_general asked for; caps of 1 and of max_slots (past 512 users on
+# a budget of 4096 events: every user's think ends within the first ms, so
+# 2048 users spend 2048 events on them before the first task ends)
 @pytest.mark.parametrize("H,S,took", [(5, 40, "qn_event_fast"),
                                       (32, 512, "qn_event_fast"),
-                                      (40, 600, "qn_event_general"),
+                                      (40, 600, "qn_event_many"),
                                       (20, 8192, "qn_event_wide"),
-                                      (32, 600, "qn_event_wide")])
+                                      (32, 600, "qn_event_wide"),
+                                      (64, 64, "qn_event_many"),
+                                      (600, 384, "qn_event_many"),
+                                      (2048, 384, "qn_event_many")])
 def test_qn_event_kernel_exact_ties(dev, H, S, took):
     g = np.random.default_rng(7 + S)
     f32, _ = _cuda_f32_i32(dev)
-    E = 2048
+    E = 2048 if H <= 512 else 4096
     lanes = _qn_lanes(dev, g, [1, S, 17, S - 3], E, (0.0, 1.0))
     seeds = torch.arange(4, device=dev) * 1000
     smp = (f32([40.0]), f32([40.0]))
@@ -196,15 +201,28 @@ def test_qn_event_kernel_exact_ties(dev, H, S, took):
     ps, pc = qn_ref.qn_event(*lanes, *tables, **kw)
     assert torch.equal(ks, ps) and torch.equal(kc, pc)
     assert bool((kc > 0).all())
+    gs, gc = qn_ops.qn_event(*lanes, *tables, general=True, **kw)
+    assert torch.equal(gs, ps) and torch.equal(gc, pc)
 
 
 # the routes' edges: (H, S, general) -> the kernel the library reports;
-# each equal to the plain version bit for bit
+# each equal to the plain version bit for bit (past 512 users on a budget
+# of 4096 events, so that the single-slot lane's queue of every user's
+# tasks drains far enough to finish jobs)
 QN_ROUTE_EDGES = [((32, 512, False), "qn_event_fast"),
                   ((32, 513, False), "qn_event_wide"),
                   ((32, 16384, False), "qn_event_wide"),
                   ((32, 16385, False), "qn_event_general"),
-                  ((33, 600, False), "qn_event_general"),
+                  ((33, 600, False), "qn_event_many"),
+                  ((33, 512, False), "qn_event_many"),
+                  ((64, 513, False), "qn_event_many"),
+                  ((33, 16384, False), "qn_event_many"),
+                  ((33, 16385, False), "qn_event_general"),
+                  ((512, 64, False), "qn_event_many"),
+                  ((513, 64, False), "qn_event_many"),
+                  ((2048, 64, False), "qn_event_many"),
+                  ((2049, 64, False), "qn_event_general"),
+                  ((64, 64, True), "qn_event_general"),
                   ((20, 8192, True), "qn_event_general")]
 
 
@@ -213,7 +231,7 @@ def test_qn_event_route_edges(dev, shape, took):
     H, S, general = shape
     g = np.random.default_rng(H + S)
     f32, _ = _cuda_f32_i32(dev)
-    E = 1024
+    E = 1024 if H <= 512 else 4096
     lanes = _qn_lanes(dev, g, [S, 1, S - 1], E, (300.0, 900.0))
     seeds = torch.tensor([5, 1005, 2005], dtype=torch.int64, device=dev)
     smp = (f32(g.uniform(30, 90, 37)), f32(g.uniform(20, 50, 11)))
@@ -261,6 +279,63 @@ def test_qn_event_wide_kernel_bit_identical_to_plain(dev, replay, S):
     assert torch.equal(ks, ps) and torch.equal(kc, pc)
     assert torch.equal(gs, ps) and torch.equal(gc, pc)
     assert bool((kc > 0).all())
+
+
+# qn_event_many at the capacity planner's widths and past them: 33 to 2048
+# users, slots in a flat block (64, 384), in groups (5000: cost_deadline's
+# cut Q1 probe) and at the route's limit (16384); maps of 8 and 30 on long
+# thinks (jobs finish: one user at a time), of 2 and 1 on short thinks
+# (every user busy at once, the busy slots spread over many threads'
+# blocks); in replay mode few distinct samples, so that ends tie.  Bit for
+# bit against the plain version and qn_event_general asked for
+@pytest.mark.parametrize("replay", [False, True])
+@pytest.mark.parametrize("S", [64, 384, 5000, 16384])
+@pytest.mark.parametrize("H", [33, 64, 256, 2048])
+def test_qn_event_many_kernel_bit_identical_to_plain(dev, H, S, replay):
+    g = np.random.default_rng(H + S + replay)
+    f32, i32 = _cuda_f32_i32(dev)
+    E = 1024
+    caps = [S, 17, S, max(1, S // 3)]
+    B = len(caps)
+    lanes = (i32([8, 30, 2, 1]), i32([2, 5, 3, 1]), i32(caps),
+             i32([E, E, E, E - 100]), f32(g.uniform(50, 90, B)),
+             f32(g.uniform(20, 60, B)), f32([1e5, 1e5, 5.0, 50.0]))
+    seeds = torch.arange(B, device=dev) * 1000 + 7
+    smp = (f32(g.integers(1, 4, 29) * 20.0), f32(g.integers(1, 3, 7) * 10.0)) \
+        if replay else (None, None)
+    tables = qn_ops.event_streams(lanes[6], seeds, lanes[3], h_users=H,
+                                  n_events=E, m_samples=smp[0],
+                                  r_samples=smp[1])
+    kw = dict(max_slots=S, warmup_jobs=2, replay=replay)
+    before = dict(qn_ops.qn_event.routes)
+    ks, kc = qn_ops.qn_event(*lanes, *tables, **kw)
+    _assert_took(before, "qn_event_many")
+    gs, gc = qn_ops.qn_event(*lanes, *tables, general=True, **kw)
+    ps, pc = qn_ref.qn_event(*lanes, *tables, **kw)
+    assert torch.equal(ks, ps) and torch.equal(kc, pc)
+    assert torch.equal(gs, ps) and torch.equal(gc, pc)
+    assert bool((kc[:2] > 0).all())
+
+
+# qn_event_many's queue keys hold 20 bits of arrival rank: a batch of 2**20
+# events or more takes qn_event_general (the tables' width decides, not
+# the lanes' budgets, kept short here for the plain run)
+@pytest.mark.parametrize("E,took", [((1 << 20) - 1, "qn_event_many"),
+                                    (1 << 20, "qn_event_general")])
+def test_qn_event_many_event_limit(dev, E, took):
+    g = np.random.default_rng(E)
+    f32, i32 = _cuda_f32_i32(dev)
+    lanes = _qn_lanes(dev, g, [64, 5], E, (300.0, 900.0))
+    lanes = (*lanes[:3], i32([600, 300]), *lanes[4:])
+    seeds = torch.tensor([11, 1011], dtype=torch.int64, device=dev)
+    tables = qn_ops.event_streams(lanes[6], seeds, lanes[3], h_users=64,
+                                  n_events=E)
+    kw = dict(max_slots=64, warmup_jobs=1, replay=False)
+    before = dict(qn_ops.qn_event.routes)
+    ks, kc = qn_ops.qn_event(*lanes, *tables, **kw)
+    _assert_took(before, took)
+    ps, pc = qn_ref.qn_event(*lanes, *tables, **kw)
+    assert torch.equal(ks, ps) and torch.equal(kc, pc)
 
 
 def _dag_lanes(dev, g, chains, caps, nea, think):
