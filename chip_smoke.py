@@ -2,9 +2,10 @@
 gaits, the repo's benchmarked planner scenarios, Spark/Tez DAG classes,
 the multi-tenant solver service, the private-cloud deployment plane, the
 TPU capacity planner, the paper's Table 3 and its serving analogue, the LM serving path (dense,
-Mamba2, hybrid, MoE, vision and encoder-decoder models) and LM training
-(granite-3-2b and mamba2-780m at full width and depth, through the flash
-and SSD backward kernels).
+Mamba2, hybrid, MoE, vision and encoder-decoder models, and the two-buffer
+decode cache), LM training (granite-3-2b and mamba2-780m at full width
+and depth, through the flash and SSD backward kernels), a GPipe pipeline
+over granite-3-2b's 40 layers and DiLoCo over mamba2-780m's pods.
 
     python3 chip_smoke.py
 
@@ -95,7 +96,13 @@ Phases, each printing one line or a few:
      (whisper) with the same weights and prompts, whose logits must agree
      (a model with a front end also on random frames or patches; a step
      whose MoE routing differs at a near tie of the CPU's gates is printed
-     and not compared);
+     and not compared); then granite-3-2b's two-buffer decode at full
+     width and depth (TWO_BUFFER: two prompts of 1024 tokens prefilled,
+     40 flash launches, the caches copied into an init_caches(recent_len=
+     32) layout, 32 greedy tokens decoded on the single ring and on the
+     two buffers: the logits within the reference's 5e-2, the tokens
+     equal, the main buffers bitwise unchanged, ms per decode step of
+     each);
   6. qn_event held bit-identical to its plain version at every dispatch
      shape of the Q1-10u drives (the batched run's B = 32 lanes and the
      point-wise walk's single lanes), both kernels, the depth cut to 16384
@@ -284,6 +291,20 @@ Phases, each printing one line or a few:
      grad norm, every gradient leaf, the update), and for granite a
      restart from a checkpoint on the card against the uninterrupted
      run.
+ 15. [distributed] (after [train]) GPipe over granite-3-2b's 40 layers at
+     full width (PIPELINE: 4 stages of 10 layer groups stacked with
+     stack_stage_params, 8 microbatches of 1 x 1024 tokens in bf16, the
+     embedding before stage 0 and the final norm and logits after the
+     last stage): 11 ticks, bubble fraction 3/11, 440 flash launches; the
+     output bit-identical to the same stage function applied stage after
+     stage to each microbatch, microbatch 0's logits equal to the model's
+     own forward; then DiLoCo over mamba2-780m at full width and depth
+     (DILOCO: 2 pods fed the Zipf stream from seeds 10 and 11, 2 inner
+     steps of B = 8, S = 1024 a round with [train]'s settings, 2 rounds;
+     768 ssd_scan and 384 SSD backward launches, all on the wgmma route):
+     each round's loss and wall, the pods bit-identical to the anchor
+     after every re-sync, the last outer update within one float32 ulp of
+     its formula in float64 on DILOCO_CHECK_LEAVES, the peak memory.
 Each phase prints its seconds ([phase]).  Each drive of a main path sets the kernels' launch counts to 0 just before
 it and reads them just after.  The second-to-last line is the kernels'
 JSON record, the last line {"ok": true, "device": {...}}.  Any failure
@@ -442,6 +463,33 @@ def wide_lanes(dev, caps, n_map, n_reduce, E, H, replay):
     smp = (f32(20.0 * gen.integers(1, 4, 29)),
            f32(10.0 * gen.integers(1, 3, 7))) if replay else (None, None)
     return lanes, seeds, smp
+
+
+def plain_in_one_run(qn_ref, checks, warmup_jobs, replay):
+    """The plain event loop over the lanes of several checks at once:
+    ``checks`` is a list of (qn_event's positional tensors, max_slots).  A
+    lane's result depends neither on the other lanes nor on slots past its
+    cap, and a lane stops at its own event budget, so one run at the
+    widest check's slots, the shorter checks' draw tables padded to the
+    longest, gives each check its own lanes' results; the plain loop costs
+    ~2 ms an event whatever the lanes.  Returns ((sums, counts) a check,
+    the run's ms, its shape)."""
+    S_max = max(s for _, s in checks)
+    E_max = max(a[8].shape[1] for a, _ in checks)        # st_m: (B, E)
+    args = tuple(torch.cat([
+        torch.nn.functional.pad(a[j], (0, E_max - a[j].shape[1])) if j > 7
+        else a[j] for a, _ in checks]) for j in range(len(checks[0][0])))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ps, pc = qn_ref.qn_event(*args, max_slots=S_max, warmup_jobs=warmup_jobs,
+                             replay=replay)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    out, off = [], 0
+    for a, _ in checks:
+        out.append((ps[off:off + len(a[0])], pc[off:off + len(a[0])]))
+        off += len(a[0])
+    return out, ms, f"B={off} E={E_max} S={S_max} H={args[7].shape[1]}"
 
 
 # the integer-pipe instructions a threefry2x32 needs: its 20 rounds'
@@ -3928,6 +3976,417 @@ def flat_leaves(tree, prefix=""):
         yield prefix, tree
 
 
+# [serve]'s two-buffer decode: granite-3-2b at full width and depth, two
+# prompts of 1024 tokens prefilled, the prefill's caches copied into an
+# init_caches(recent_len=) layout (tests/test_two_buffer_decode.py's
+# _copy_into), then `steps` greedy tokens decoded on the single ring and
+# on the two buffers.  The recent ring holds every decoded token (recent =
+# steps): the reference's engine never folds it into the main cache.  The
+# logits within the reference's own bound, the tokens equal
+TWO_BUFFER = dict(arch="granite-3-2b", batch=2, prompt=1024, recent=32,
+                  steps=32)
+TWO_BUFFER_TOL = 5e-2
+# the GPipe drive: granite-3-2b's 40 layers in 4 stages of 10 groups, 8
+# microbatches of 1 x 1024 tokens in bf16, without gradients; 11 ticks of
+# 4 stages of 10 layers: 440 flash launches, bubbles included
+PIPELINE = dict(arch="granite-3-2b", stages=4, microbatches=8, seq=1024)
+# the DiLoCo drive: mamba2-780m at full width and depth, [train]'s settings
+# (float32 parameters, the fp32 AdamW, remat), 2 pods fed the Zipf stream
+# from the seeds of tests/test_compression_diloco.py, 2 inner steps a
+# round, 2 rounds at B=8, S=1024; the leaves whose last outer update is
+# held to its formula in float64
+DILOCO = dict(arch="mamba2-780m", seeds=(10, 11), inner_steps=2, rounds=2,
+              batch=8, seq=1024)
+DILOCO_CHECK_LEAVES = ("/final_ln", "/groups/l0/A_log", "/groups/l0/dt_bias",
+                       "/groups/l0/wdt")
+
+
+def copy_into(two_buf, caches):
+    """tests/test_two_buffer_decode.py's _copy_into on the port's trees:
+    each leaf of ``two_buf`` that ``caches`` has at the same path and
+    shape takes its values (a copy)."""
+    src = dict(flat_leaves(caches))
+    for path, leaf in flat_leaves(two_buf):
+        s = src.get(path)
+        if s is not None and s.shape == leaf.shape:
+            leaf.copy_(s)
+    return two_buf
+
+
+def two_buffer_decode(dev, kernels):
+    """TWO_BUFFER's drive: the prefill's launches (the counts set to 0
+    before it), the decode on one ring and on two buffers (no kernel
+    launch in either), each step's logits and tokens compared, the main
+    buffers bitwise unchanged, ms per decode step of each."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import api
+    from repro_torch.serve import step
+
+    t_drive = time.perf_counter()
+    tb = TWO_BUFFER
+    cfg = get_config(tb["arch"])
+    B, S, T = tb["batch"], tb["prompt"], tb["steps"]
+    params = step.init_working_params(
+        cfg, torch.Generator(device=dev).manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        1, cfg.vocab_size, (B, S))).to(dev)
+    decode = step.make_decode_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        reset_launches(*kernels.values())
+        logits, one = step.make_prefill_step(cfg, cache_len=S + T)(
+            params, step.model_inputs(cfg, toks))
+        torch.cuda.synchronize()
+        prefill = {k: w.launches for k, w in kernels.items() if w.launches}
+        with torch.device(dev):
+            two = copy_into(api.init_caches(cfg, B, S + T,
+                                            recent_len=tb["recent"]), one)
+        main = {p: t.clone() for p, t in flat_leaves(two)
+                if p.endswith(("/k", "/v", "/pos"))}
+        single = [p for p in main if p.endswith("/k")
+                  and p[:-1] + "rk" not in dict(flat_leaves(two))]
+        if single or not main:
+            fail(f"{cfg.name}: init_caches(recent_len=) left single rings "
+                 f"at {single or 'every layer'}")
+
+        def run(caches, forced=None):
+            """Each step's logits, greedy picks and seconds; the next
+            token is the pick, or ``forced``'s."""
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            outs, picks, secs = [], [], []
+            for t in range(T):
+                t0 = time.perf_counter()
+                lg, caches = decode(params, tok, caches, S + t)
+                pick = lg[:, -1].argmax(-1, keepdim=True)
+                tok = pick if forced is None else forced[:, t:t + 1]
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                outs.append(lg[:, -1].float())
+                picks.append(pick)
+            return torch.stack(outs), torch.cat(picks, 1), secs
+
+        # the two buffers decode the single ring's tokens: a pick that
+        # differs at a near tie would otherwise feed each path other
+        # tokens from there on
+        reset_launches(*kernels.values())
+        ring_logits, ring_toks, ring_s = run(one)
+        two_logits, two_toks, two_s = run(two, forced=ring_toks)
+        decode_launches = {k: w.launches for k, w in kernels.items()
+                           if w.launches}
+    diff = float((ring_logits - two_logits).abs().max())
+    per_step = [float((a - b).abs().max())
+                for a, b in zip(ring_logits, two_logits)]
+    unchanged = all(torch.equal(main[p], t) for p, t in flat_leaves(two)
+                    if p in main)
+    rpos = sorted({int(x) for p, t in flat_leaves(two)
+                   if p.endswith("/rpos") for x in t.flatten().tolist()})
+    peak = torch.cuda.max_memory_allocated()
+    ring_ms = float(np.median(ring_s)) * 1e3
+    two_ms = float(np.median(two_s)) * 1e3
+    # a pick that differs is a near tie when the single ring's own logits
+    # of the two picks lie within the logits' bound of each other
+    ties, flips = [], []
+    for b, t in torch.nonzero(ring_toks != two_toks).tolist():
+        row = ring_logits[t, b]
+        gap = float(row[ring_toks[b, t]] - row[two_toks[b, t]])
+        (ties if gap <= TWO_BUFFER_TOL else flips).append((t, b, gap))
+    tokens_equal = not ties and not flips
+    drive_s = time.perf_counter() - t_drive
+    print(f"[serve] two-buffer decode, {cfg.name} (full width and depth, "
+          f"{cfg.n_layers} layers): B={B}, prompts of {S} tokens, recent "
+          f"ring {tb['recent']}, {T} greedy tokens; prefill launches "
+          f"{prefill}, decode launches {decode_launches or 'none'}; logits "
+          f"against the single ring max abs diff {diff:.4e} (by step "
+          f"{[float(f'{d:.3e}') for d in per_step]}; tol {TWO_BUFFER_TOL}; "
+          f"the two buffers fed the single ring's tokens); greedy tokens "
+          f"equal: {tokens_equal} (near ties, (step, request, the single "
+          f"ring's gap): {ties or 'none'}); main buffers bitwise "
+          f"unchanged: {unchanged}; recent rings hold positions "
+          f"{rpos[0]}..{rpos[-1]} ({len(rpos)} distinct); ms per "
+          f"decode step (median of {T}, host clock to a synchronize): "
+          f"single ring {ring_ms:.3f}, two buffers {two_ms:.3f} "
+          f"({two_ms / ring_ms:.3f}x); peak {peak / 1e9:.3f} GB; drive "
+          f"{drive_s:.1f} s", flush=True)
+    if prefill != {"flash_attention": cfg.n_layers} or decode_launches:
+        fail(f"{cfg.name} two-buffer drive: prefill launches {prefill}, "
+             f"decode launches {decode_launches}; expected "
+             f"{cfg.n_layers} flash launches and none in decode")
+    if diff > TWO_BUFFER_TOL or flips or not unchanged or \
+            rpos != [-1] * (tb["recent"] > T) + list(range(S, S + T)) or \
+            not bool(torch.isfinite(two_logits).all()):
+        fail(f"{cfg.name}: two-buffer decode differs from the single ring "
+             f"(logits {diff}, picks off a near tie {flips}), moved its main "
+             f"buffers ({not unchanged}) or holds positions {rpos}")
+    del params, one, two, main
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "batch": B, "prompt": S, "recent": tb["recent"],
+            "steps": T, "max_abs_diff": diff, "tokens_equal": tokens_equal,
+            "near_ties": ties,
+            "main_unchanged": unchanged, "prefill_launches": prefill,
+            "single_ring_ms_per_step": ring_ms,
+            "two_buffer_ms_per_step": two_ms, "peak_bytes": peak,
+            "drive_s": drive_s}
+
+
+def pipeline_drive(dev, kernels):
+    """PIPELINE's drive: the embedding before stage 0, pipeline_forward
+    (the counts set to 0 before it), the final norm and logits after the
+    last stage; against the same stage function applied stage after stage
+    to each microbatch (bit-identical: the same kernels at the same
+    shapes) and microbatch 0's logits against the model's own forward."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.pipeline import (PipelineConfig,
+                                                  pipeline_forward,
+                                                  pipeline_stats,
+                                                  split_microbatches,
+                                                  stack_stage_params)
+    from repro_torch.distributed.sharding import map_tree
+    from repro_torch.models import api
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import step
+
+    t_drive = time.perf_counter()
+    pc = PIPELINE
+    cfg = get_config(pc["arch"])
+    n_st, M, S = pc["stages"], pc["microbatches"], pc["seq"]
+    per = cfg.n_groups // n_st
+    kinds = cfg.layer_kinds()
+    params = step.init_working_params(
+        cfg, torch.Generator(device=dev).manual_seed(0))
+    stacked = stack_stage_params(tuple(
+        map_tree(lambda t, s=s: t[s * per:(s + 1) * per], params["groups"])
+        for s in range(n_st)))
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        1, cfg.vocab_size, (M, S))).to(dev)
+    positions = torch.arange(S, device=dev).expand(1, S)
+
+    def stage_fn(sp, h):
+        for gp in T.unbind(sp, per):
+            for i, kind in enumerate(kinds):
+                h = T.apply_block_full(cfg, kind, gp[f"l{i}"], None, h,
+                                       positions)[0]
+        return h
+
+    pcfg = PipelineConfig(n_stages=n_st, n_microbatches=M)
+    stats = pipeline_stats(pcfg)
+    flash = kernels["flash_attention"]
+    torch.cuda.reset_peak_memory_stats()
+    def sequential():
+        seq = []
+        for m in range(M):
+            h = mbs[m]
+            for sp in T.unbind(stacked, n_st):
+                h = stage_fn(sp, h)
+            seq.append(h)
+        return torch.stack(seq)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with torch.no_grad():
+        mbs = split_microbatches(T._embed(cfg, params["embed"], toks), M)
+        torch.cuda.synchronize()
+        reset_launches(*kernels.values())
+        out, first = timed(lambda: pipeline_forward(stage_fn, stacked, mbs,
+                                                    pcfg))
+        got = {k: w.launches for k, w in kernels.items() if w.launches}
+        reset_launches(*kernels.values())
+        seq, _ = timed(sequential)
+        seq_launches = flash.launches
+        # walls in turns, both warm: stages one after another, pipeline,
+        # pipeline, one after another
+        turns = [timed(fn)[1] for fn in (
+            sequential, lambda: pipeline_forward(stage_fn, stacked, mbs, pcfg),
+            lambda: pipeline_forward(stage_fn, stacked, mbs, pcfg),
+            sequential)]
+        wall, seq_wall = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        logits = [T._logits_from_hidden(cfg, L.rms_norm(
+            out[m], params["final_ln"], cfg.norm_eps), params["embed"])
+            for m in range(M)]
+        own, _, _ = api.forward_logits(cfg, params, {"tokens": toks[:1]})
+    equal = torch.equal(out, seq)
+    diff = float((out.float() - seq.float()).abs().max())
+    finite = all(bool(torch.isfinite(lg).all()) for lg in logits)
+    own_equal = torch.equal(logits[0], own)
+    peak = torch.cuda.max_memory_allocated()
+    want = stats["ticks"] * n_st * per * len(kinds)
+    drive_s = time.perf_counter() - t_drive
+    print(f"[distributed] pipeline, {cfg.name} (full width and depth, "
+          f"{cfg.n_layers} layers): {n_st} stages of {per} groups, {M} "
+          f"microbatches of 1 x {S} tokens, bf16; {stats['ticks']} ticks, "
+          f"bubble fraction {stats['bubble_fraction']:.6f}; launches {got} "
+          f"(expected flash_attention {want}); the stages one after "
+          f"another: {seq_launches} flash launches, bit-identical: {equal} "
+          f"(max abs diff {diff:.3e}); wall {wall:.4f} s against "
+          f"{seq_wall:.4f} s one after another ({wall / seq_wall:.3f}x; "
+          f"in turns {[round(t, 4) for t in turns]}, the first, cold "
+          f"pipeline {first:.4f} s); "
+          f"logits after the last stage {tuple(logits[0].shape)} x {M}, "
+          f"finite: {finite}; microbatch 0's logits equal to the model's "
+          f"forward: {own_equal}; peak {peak / 1e9:.3f} GB; drive "
+          f"{drive_s:.1f} s", flush=True)
+    if got != {"flash_attention": want} or \
+            seq_launches != M * n_st * per * len(kinds):
+        fail(f"{cfg.name} pipeline: launches {got} and {seq_launches} "
+             f"(stage after stage), expected {want} and "
+             f"{M * n_st * per * len(kinds)} flash launches")
+    if not (equal and finite and own_equal):
+        fail(f"{cfg.name} pipeline: output differs from the stages applied "
+             f"one after another (max {diff}) or from the model's forward, "
+             "or its logits are not finite")
+    del params, stacked, out, seq, logits
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, **stats, "stages": n_st, "groups_per_stage": per,
+            "microbatches": M, "seq_len": S, "wall_s": wall,
+            "sequential_wall_s": seq_wall, "walls_in_turns_s": turns,
+            "first_wall_s": first, "launches": got,
+            "sequential_launches": seq_launches, "bit_identical": equal,
+            "forward_equal": own_equal, "peak_bytes": peak,
+            "drive_s": drive_s}
+
+
+def outer_formula(beta: float, lr: float, a, m, pp):
+    """The outer update of one leaf in float64 on the CPU, each operation
+    rounded to float32 as the reference's float32 arithmetic rounds it
+    (its Python floats taken in float32, XLA's mean the sum times 1/n):
+    (new anchor, new momentum) as float64 tensors."""
+    r = lambda x: x.to(torch.float32).to(torch.float64)
+    f32 = lambda v: float(np.float32(v))
+    a, m, pp = (t.to("cpu", torch.float64) for t in (a, m, pp))
+    total = pp[0]
+    for p in pp[1:]:
+        total = r(total + p)
+    delta = r(a - r(total * f32(1.0 / pp.shape[0])))
+    m_new = r(r(f32(beta) * m) + delta)
+    step_ = r(r(f32(beta) * m_new) + delta)
+    return r(a - r(f32(lr) * step_)), m_new
+
+
+def diloco_drive(dev, kernels):
+    """DILOCO's drive: the pods replicated from one seeded state, the
+    rounds (the counts set to 0 before the first, read after the last),
+    each round's wall and loss, the pods bit-identical to each other and to
+    the anchor after every re-sync, the last outer update held to
+    ``outer_formula`` on DILOCO_CHECK_LEAVES within one float32 ulp."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import pipeline_for_model
+    from repro_torch.distributed import diloco
+    from repro_torch.distributed.sharding import init_params
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import AdamWConfig, tree_leaves
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    t_drive = time.perf_counter()
+    dc = DILOCO
+    cfg = get_config(dc["arch"])
+    n_pods, K, R = len(dc["seeds"]), dc["inner_steps"], dc["rounds"]
+    opt = AdamWConfig(total_steps=K * R + 1, warmup=max(10, K * R // 20),
+                      mode=cfg.optimizer_mode)
+    dcfg = diloco.DiLoCoConfig(n_pods=n_pods, inner_steps=K)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(api.param_specs(cfg),
+                         torch.Generator(device=dev).manual_seed(0))
+    pods = diloco.replicate_for_pods(init_train_state(cfg, opt, params),
+                                     n_pods)
+    outer = diloco.init_outer_state(params)
+    del params
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    pipes = [pipeline_for_model(cfg, dc["batch"], dc["seq"], seed=s,
+                                device=dev) for s in dc["seeds"]]
+
+    def batch_fn(r):
+        steps = [[p.batch_at(r * K + i) for i in range(K)] for p in pipes]
+        return {name: torch.stack([torch.stack([b[name] for b in pod])
+                                   for pod in steps])
+                for name in steps[0][0]}
+
+    round_fn = diloco.make_diloco_round(dcfg, make_train_step(cfg, opt),
+                                        batch_fn)
+    # the last round's outer update: the checked leaves' inputs and outputs
+    real, seen = diloco.outer_update, {}
+
+    def spied(c, o, pod_params):
+        before = {p: [dict(flat_leaves(t))[p].to("cpu", copy=True)
+                      for t in (o["anchor"], o["momentum"], pod_params)]
+                  for p in DILOCO_CHECK_LEAVES}
+        out = real(c, o, pod_params)
+        seen.update({p: (*before[p], dict(flat_leaves(o["anchor"]))[p].cpu(),
+                         dict(flat_leaves(o["momentum"]))[p].cpu())
+                     for p in DILOCO_CHECK_LEAVES})
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(*kernels.values())
+    losses, walls, resynced = [], [], []
+    diloco.outer_update = spied
+    try:
+        for r in range(R):
+            t0 = time.perf_counter()
+            pods, outer, metrics = round_fn(pods, outer, r)
+            losses.append(float(metrics["loss"]))
+            walls.append(time.perf_counter() - t0)
+            resynced.append(all(
+                torch.equal(leaf[p], anchor)
+                for leaf, anchor in zip(tree_leaves(pods["params"]),
+                                        tree_leaves(outer["anchor"]))
+                for p in range(n_pods)))
+    finally:
+        diloco.outer_update = real
+    got = {k: w.launches for k, w in kernels.items() if w.launches}
+    routes = dict(kernels["ssd_bwd"].routes)
+    peak = torch.cuda.max_memory_allocated()
+    ulps = {}
+    for p, (a, m, pp, a_new, m_new) in seen.items():
+        want_a, want_m = outer_formula(dcfg.outer_beta, dcfg.outer_lr, a, m,
+                                       pp)
+        ulps[p] = max(
+            float(((got_t.double() - want) / torch.from_numpy(np.spacing(
+                want.abs().to(torch.float32).numpy())).double()).abs().max())
+            for got_t, want in ((a_new, want_a), (m_new, want_m)))
+    n_ssd = cfg.all_layer_kinds().count("mamba")
+    want_launches = {"ssd_scan": 2 * n_ssd * n_pods * K * R,
+                     "ssd_bwd": n_ssd * n_pods * K * R}
+    drive_s = time.perf_counter() - t_drive
+    print(f"[distributed] DiLoCo, {cfg.name} (full width and depth, "
+          f"{cfg.n_layers} layers, remat on, {cfg.optimizer_mode} AdamW): "
+          f"{n_pods} pods (streams {dc['seeds']}), {K} inner steps of "
+          f"B={dc['batch']} S={dc['seq']} a round, {R} rounds; state drawn "
+          f"and replicated in {init_s:.2f} s (peak {init_peak / 1e9:.3f} "
+          f"GB); round losses {losses}, walls {[round(w, 4) for w in walls]} "
+          f"s; pods bit-identical to the anchor after each re-sync: "
+          f"{resynced}; launches {got} (expected {want_launches}), SSD "
+          f"backward by route {routes}; the last outer update against its "
+          f"formula in float64 (each operation rounded to float32) on "
+          f"{list(DILOCO_CHECK_LEAVES)}: largest difference in float32 ulps "
+          f"{ulps}; peak during the rounds {peak} B ({peak / 1e9:.3f} GB); "
+          f"drive {drive_s:.1f} s", flush=True)
+    if got != want_launches or routes != {"simt": 0,
+                                          "wgmma": want_launches["ssd_bwd"]}:
+        fail(f"{cfg.name} DiLoCo: launches {got}, SSD backward routes "
+             f"{routes}; expected {want_launches}, all on the wgmma route")
+    if not all(resynced) or not all(np.isfinite(losses)) or \
+            len(seen) != len(DILOCO_CHECK_LEAVES) or \
+            max(ulps.values()) > 1.0:
+        fail(f"{cfg.name} DiLoCo: re-sync {resynced}, losses {losses}, "
+             f"outer update off its formula by {ulps} float32 ulps")
+    del pods, outer
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "pods": n_pods, "inner_steps": K, "rounds": R,
+            "global_batch": dc["batch"], "seq_len": dc["seq"],
+            "losses": losses, "round_walls_s": walls, "resynced": resynced,
+            "launches": got, "ssd_bwd_routes": routes,
+            "outer_update_ulps": ulps, "peak_bytes": peak,
+            "init_peak_bytes": init_peak, "drive_s": drive_s}
+
+
 # ssd_scan checks: (name, B, S, H, P, N, chunk, dtypes of x, dt and B/C).
 # x, B and C in bfloat16 take the wgmma route, the rest the float32 route
 F32_3, BF16_3 = (torch.float32,) * 3, (torch.bfloat16,) * 3
@@ -4626,10 +5085,12 @@ def main() -> None:
     if float(kc.min()) <= 0:
         fail(f"qn_event at H={H_huge} completed no job in a lane")
     # qn_event_wide (at most 32 users past 512 slots, up to 16384:
-    # cost_deadline's probes) against one plain run of each check, and
+    # cost_deadline's probes) against the plain version, and
     # qn_event_general asked for at the same inputs: every lane bit for
-    # bit, each lane finishing jobs past the warm-up
+    # bit, each lane finishing jobs past the warm-up; the checks with the
+    # same users and mode share one plain run (plain_in_one_run)
     wide_checked = {}    # each check's kernel and plain ms, by shape
+    wide_runs = collections.defaultdict(list)
     for H_w, S_w, E_w, modes, caps_w, nm_w, nr_w in WIDE_CHECKS:
         for replay in modes:
             lanes_w, seeds_w, smp_w = wide_lanes(dev, caps_w, nm_w, nr_w,
@@ -4638,20 +5099,24 @@ def main() -> None:
                    f"replay={replay}")
             tables_w = check_streams(lanes_w[6], seeds_w, lanes_w[3], H_w,
                                      E_w, smp_w, tag)
+            args_w = (*lanes_w, *tables_w)
             kw = dict(max_slots=S_w, warmup_jobs=WIDE_WARMUP, replay=replay)
             k0 = dict(qn_ops.qn_event.routes)
-            ks, kc = qn_ops.qn_event(*lanes_w, *tables_w, **kw)
+            ks, kc = qn_ops.qn_event(*args_w, **kw)
             took = [k for k, n in qn_ops.qn_event.routes.items()
                     if n > k0[k]]
-            gs, gc = qn_ops.qn_event(*lanes_w, *tables_w, general=True,
-                                     **kw)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            ps, pc = qn_ref.qn_event(*lanes_w, *tables_w, **kw)
-            torch.cuda.synchronize()
-            plain_ms = (time.perf_counter() - t0) * 1e3
-            kernel_ms = cuda_ms(
-                lambda: qn_ops.qn_event(*lanes_w, *tables_w, **kw), 3)
+            gs, gc = qn_ops.qn_event(*args_w, general=True, **kw)
+            kernel_ms = cuda_ms(lambda: qn_ops.qn_event(*args_w, **kw), 3)
+            if took != ["qn_event_wide"]:
+                fail(f"qn_event at {tag} took {took}, not qn_event_wide")
+            wide_runs[(H_w, replay)].append(
+                (tag, S_w, args_w, (ks, kc, gs, gc), kernel_ms, took,
+                 caps_w, nm_w))
+    for (H_w, replay), group in wide_runs.items():
+        plain, plain_ms, plain_shape = plain_in_one_run(
+            qn_ref, [(g[2], g[1]) for g in group], WIDE_WARMUP, replay)
+        for (tag, _, _, (ks, kc, gs, gc), kernel_ms, took, caps_w, nm_w), \
+                (ps, pc) in zip(group, plain):
             same = torch.equal(ks, ps) and torch.equal(kc, pc)
             same_general = torch.equal(gs, ps) and torch.equal(gc, pc)
             qn_err = max(qn_err, float((ks - ps).abs().max()),
@@ -4661,10 +5126,9 @@ def main() -> None:
             print(f"[check] qn_event {tag} caps {caps_w} maps {nm_w} "
                   f"({', '.join(took)}): bit-identical={same} "
                   f"(qn_event_general: {same_general}) jobs={kc.tolist()}; "
-                  f"kernel {kernel_ms:.3f} ms, plain {plain_ms:.1f} ms",
+                  f"kernel {kernel_ms:.3f} ms, plain {plain_ms:.1f} ms (one "
+                  f"run of {len(group)} checks' lanes, {plain_shape})",
                   flush=True)
-            if took != ["qn_event_wide"]:
-                fail(f"qn_event at {tag} took {took}, not qn_event_wide")
             if not (same and same_general):
                 fail(f"qn_event differs from its plain version at {tag}")
             if float(kc.min()) <= 0:
@@ -5201,6 +5665,11 @@ def main() -> None:
     for name, n in serving["launches"].items():
         launches[name] += n
     added_wall["serving"] = serving["wall_s"]
+    two_buffer = two_buffer_decode(dev, kernels)
+    for name, n in two_buffer["prefill_launches"].items():
+        launches[name] += n
+    by_path["serve.two_buffer"] = two_buffer["prefill_launches"]
+    added_wall["serving.two_buffer"] = two_buffer["drive_s"]
 
     # the serving analogue of Table 3: tau from profiled BatchingEngine
     # rounds against the engine's closed-loop T, at granite-3-2b's smoke
@@ -5277,15 +5746,11 @@ def main() -> None:
         return lane_args, make
 
     # the point-wise walk's single-lane shapes too (B=1, one per bucket of
-    # slots it probed).  A lane's result does not depend on the other
-    # lanes, and a single lane's arguments are lane 0's of the batched
-    # shape with the same events, slots and users: its kernel is held
-    # against lane 0 of that shape's plain run (the plain loop takes ~2 ms
-    # an event whatever the lanes, ~30 s at the cut)
+    # slots it probed); the shapes with the same events and users share
+    # one plain run (plain_in_one_run: ~43 s at the cut, not one a shape)
     shapes = [s for s, _ in shape_count.most_common()] + \
         [s for s, _ in pw_shape_count.most_common()]
-    checked = {}
-    plain_runs = {}
+    runs = []
     for Bm, E_main, S_main, H_main in shapes:
         lane_args, make = main_lanes(Bm, E_main, S_main, H_main)
         tables = check_streams(lane_args[6], *make.seeds_nea, H_main, E_main,
@@ -5295,38 +5760,38 @@ def main() -> None:
         cut_kw = dict(max_slots=S_main, warmup_jobs=8, replay=True)
         ks, kc = qn_ops.qn_event(*cut, **cut_kw)
         gs, gc = qn_ops.qn_event(*cut, general=True, **cut_kw)
-        torch.cuda.synchronize()
-        shared = plain_runs.get((E_main, S_main, H_main))
-        if shared is not None and Bm == 1:
-            ps, pc, plain_ms = shared[0][:1], shared[1][:1], shared[2]
-            plain_of = f"lane 0 of the B={shared[3]} plain run"
-        else:
-            t0 = time.perf_counter()
-            ps, pc = qn_ref.qn_event(*cut, **cut_kw)
-            torch.cuda.synchronize()
-            plain_ms = (time.perf_counter() - t0) * 1e3
-            plain_runs[(E_main, S_main, H_main)] = (ps, pc, plain_ms, Bm)
-            plain_of = "its own plain run"
-        if not (torch.equal(ks, ps) and torch.equal(kc, pc)
-                and torch.equal(gs, ps) and torch.equal(gc, pc)):
-            fail(f"qn_event differs from its plain version at the main "
-                 f"path's widths B={Bm} S={S_main} H={H_main}")
-        if float(kc.min()) <= 0:
-            fail(f"qn_event at the main path's widths B={Bm} S={S_main} "
-                 f"E={E_cut} left a lane without jobs past the warm-up")
-        qn_err = max(qn_err, float((ks - ps).abs().max()),
-                     float((kc - pc).abs().max()),
-                     float((gs - ps).abs().max()),
-                     float((gc - pc).abs().max()))
         cut_ms = cuda_ms(lambda: qn_ops.qn_event(*cut, **cut_kw), 3)
-        checked[(Bm, E_main, S_main, H_main)] = (plain_ms, cut_ms)
-        n_disp = (shape_count + pw_shape_count)[(Bm, E_main, S_main, H_main)]
-        print(f"[check] qn_event at the main path's widths B={Bm} "
-              f"S={S_main} H={H_main}, E={E_cut} ({n_disp} of the drives' "
-              f"dispatches): bit-identical=True (qn_event_general too), "
-              f"jobs a lane {int(kc.min())}-{int(kc.max())}; kernel "
-              f"{cut_ms:.3f} ms, plain {plain_ms:.1f} ms ({plain_of}); "
-              f"event_streams at E={E_main}: bit-identical=True", flush=True)
+        runs.append(((Bm, E_main, S_main, H_main), cut, (ks, kc, gs, gc),
+                     cut_ms))
+    checked = {}
+    for E_main, H_main in dict.fromkeys((sh[1], sh[3]) for sh in shapes):
+        group = [r for r in runs if (r[0][1], r[0][3]) == (E_main, H_main)]
+        plain, plain_ms, plain_shape = plain_in_one_run(
+            qn_ref, [(r[1], r[0][2]) for r in group], 8, True)
+        for ((Bm, _, S_main, _), _, (ks, kc, gs, gc), cut_ms), (ps, pc) in \
+                zip(group, plain):
+            if not (torch.equal(ks, ps) and torch.equal(kc, pc)
+                    and torch.equal(gs, ps) and torch.equal(gc, pc)):
+                fail(f"qn_event differs from its plain version at the main "
+                     f"path's widths B={Bm} S={S_main} H={H_main}")
+            if float(kc.min()) <= 0:
+                fail(f"qn_event at the main path's widths B={Bm} S={S_main} "
+                     f"E={E_cut} left a lane without jobs past the warm-up")
+            qn_err = max(qn_err, float((ks - ps).abs().max()),
+                         float((kc - pc).abs().max()),
+                         float((gs - ps).abs().max()),
+                         float((gc - pc).abs().max()))
+            checked[(Bm, E_main, S_main, H_main)] = (plain_ms, cut_ms,
+                                                     plain_shape)
+            n_disp = (shape_count + pw_shape_count)[(Bm, E_main, S_main,
+                                                     H_main)]
+            print(f"[check] qn_event at the main path's widths B={Bm} "
+                  f"S={S_main} H={H_main}, E={E_cut} ({n_disp} of the "
+                  f"drives' dispatches): bit-identical=True (qn_event_general "
+                  f"too), jobs a lane {int(kc.min())}-{int(kc.max())}; kernel "
+                  f"{cut_ms:.3f} ms, plain {plain_ms:.1f} ms (one run of the "
+                  f"{len(group)} shapes' lanes, {plain_shape}); event_streams "
+                  f"at E={E_main}: bit-identical=True", flush=True)
 
     (Bm, E_main, S_main, H_main), n_shape = shape_count.most_common(1)[0]
     lane_args, make = main_lanes(Bm, E_main, S_main, H_main)
@@ -5343,7 +5808,8 @@ def main() -> None:
     _, cnt = run_qn()
     if not bool((cnt > 0).all()):
         fail("qn_event at the main path's shape left a lane without jobs")
-    qn_plain_ms, qn_cut_ms = checked[(Bm, E_main, S_main, H_main)]
+    qn_plain_ms, qn_cut_ms, qn_plain_shape = checked[(Bm, E_main, S_main,
+                                                      H_main)]
     # bound: each table and parameter read once, each output written once;
     # per active event the least work the function needs: a log2(S)
     # selection among the slots for each of the two slot choices (first
@@ -5369,7 +5835,7 @@ def main() -> None:
           f"at this shape {qn_general_ms:.3f} ms; bound "
           f"{qn_bound:.4f} ms ({qn_bytes} bytes, {qn_ops_n} operations); "
           f"at E={E_cut}: kernel {qn_cut_ms:.3f} ms, plain "
-          f"{qn_plain_ms:.1f} ms", flush=True)
+          f"{qn_plain_ms:.1f} ms ({qn_plain_shape})", flush=True)
     print(f"[time] event_streams B={Bm} E={E_main} H={H_main} (replay): "
           f"kernel {streams_ms:.4f} ms (before, eager: "
           f"{QN_BEFORE['event_streams_b32_ms']} ms), plain {streams_plain_ms:.3f}"
@@ -5887,11 +6353,24 @@ def main() -> None:
     train_cut = {arch: train_small(dev, arch) for arch in TRAIN_SMALL}
     train_s = time.perf_counter() - t0
     print(f"[train] wall of the phase {train_s:.1f} s", flush=True)
+
+    # --------------------------------------------------------- [distributed]
+    # GPipe over granite-3-2b's 40 layers, DiLoCo over mamba2-780m's pods,
+    # each at full width and depth, the launch counts set to 0 just before
+    # each drive
+    phase("distributed")
+    pipeline_run = pipeline_drive(dev, kernels)
+    diloco_run = diloco_drive(dev, kernels)
+    for run, path in ((pipeline_run, "distributed.pipeline"),
+                      (diloco_run, "distributed.diloco")):
+        for k, n in run["launches"].items():
+            launches[k] += n
+        by_path[path] = run["launches"]
     path_launches = lambda k: {a: n[k] for a, n in by_path.items() if k in n}
     train_launch = lambda name: sum(t["launches"].get(name, 0)
                                     for t in train.values())
-    ssd_route_launch = lambda r: sum(t["ssd_bwd_routes"][r]
-                                     for t in train.values())
+    ssd_route_launch = lambda r: sum(t["ssd_bwd_routes"][r] for t in (
+        *train.values(), diloco_run))
     phase("record")
 
     many_lane = capacity_run["lanes"]["chat-granite"]
@@ -5901,7 +6380,9 @@ def main() -> None:
          "replaces": "src/repro/kernels/qn_event/kernel.py:255",
          "launches": launches["qn_event"], "max_abs_err": qn_err,
          "ms": qn_ms, "plain_ms": qn_plain_ms,
-         "plain_shape": f"B={Bm} E={E_cut} S={S_main} H={H_main}",
+         "plain_shape": qn_plain_shape,
+         "plain_note": "one plain run of the lanes of every main-path "
+                       "dispatch shape at the widest shape's slots",
          "ms_at_plain_shape": qn_cut_ms,
          "bound_ms": qn_bound,
          "bound_by": ("operations" if qn_ops_n / H100_INSTR_PER_S
@@ -6086,7 +6567,8 @@ def main() -> None:
          "card_vs_cpu_logits_max_abs_diff": card_cpu_diff,
          "at_zamba2_prefill": {"shape": "B=4 S=896 H=32 KV=32 Dh=112 bf16 "
                                         "causal", **fa_zamba2},
-         **fa_more, "serving_drives": serving["figures"]},
+         **fa_more, "serving_drives": serving["figures"],
+         "two_buffer_decode": two_buffer, "pipeline": pipeline_run},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/kernel.py:69",
@@ -6094,7 +6576,7 @@ def main() -> None:
                      "float32 or a layout TMA cannot read": "ssd_f32_kernel"},
          "launches": launches["ssd_scan"], "max_abs_err": ssd_err,
          **ssd_time, "launches_by_path": path_launches("ssd_scan"),
-         "launches_by_route": ssd_routes,
+         "launches_by_route": ssd_routes, "diloco": diloco_run,
          "card_vs_cpu_logits_max_abs_diff": card_cpu_diff},
         *({"name": name if route == "wgmma" or name == "fa_bwd_delta" else
            f"{name}_{route}",

@@ -38,10 +38,13 @@ def forward_logits(cfg: ModelConfig, params: Params,
                                cache_len=cache_len)
 
 
-def init_caches(cfg: ModelConfig, batch: int, cache_len: int) -> Params:
+def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
+                recent_len: int = 0) -> Params:
     if cfg.is_encoder_decoder:
-        return encdec.init_caches(cfg, batch, cache_len)
-    return transformer.init_caches(cfg, batch, cache_len)
+        return encdec.init_caches(cfg, batch, cache_len,
+                                  recent_len=recent_len)
+    return transformer.init_caches(cfg, batch, cache_len,
+                                   recent_len=recent_len)
 
 
 def decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor,

@@ -109,11 +109,14 @@ def forward(cfg: ModelConfig, params: Params, frames: torch.Tensor,
     return logits, aux, (_stack(caches) if want_caches else None)
 
 
-def init_caches(cfg: ModelConfig, batch: int, cache_len: int) -> Params:
-    """Zero decode caches (self ring pos = -1 -> masked; cross K/V over
+def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
+                recent_len: int = 0) -> Params:
+    """Zero decode caches (self ring pos = -1 -> masked, with a recent
+    ring of ``recent_len`` slots beside it if that is > 0; cross K/V over
     ``frontend_len`` frames), on torch's default device."""
     cross = (batch, cfg.frontend_len, cfg.n_kv_heads, cfg.head_dim)
-    return _stack([{"self": L.make_cache(cfg, batch, cache_len),
+    return _stack([{"self": L.make_cache(cfg, batch, cache_len,
+                                         recent=recent_len),
                     "cross_k": torch.zeros(cross, dtype=torch.bfloat16),
                     "cross_v": torch.zeros(cross, dtype=torch.bfloat16)}
                    for _ in range(cfg.n_layers)])

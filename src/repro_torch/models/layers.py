@@ -16,7 +16,13 @@ flash backward kernels).  ``attn_impl="exact"`` is ``attention_exact``,
 the reference's einsum oracle.  The reference sends a long training
 sequence (S > 2048, a multiple of 1024) to its jnp flash attention with
 its custom VJP, for the memory; that is what every sequence takes here.
-The reference's two-buffer decode cache is not ported yet.
+
+A decode cache is one ring, or (``make_cache(recent=)``) the reference's
+two buffers: the prefill's main cache, only read while decoding, and a
+small ring of the recent tokens, the two attended as partial softmaxes
+merged (``_attention_partial``, ``_merge_partials``).  The reference's
+serving engine never folds the ring into the main cache, and the port
+adds no fold either.
 """
 from __future__ import annotations
 
@@ -122,6 +128,14 @@ def attention_exact(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def _valid_slots(positions: torch.Tensor, cur_pos: int,
+                 window: int) -> torch.Tensor:
+    """The cache slots a one-token query at ``cur_pos`` attends: written
+    (position >= 0), not ahead of it and, in a window, inside it."""
+    valid = (positions >= 0) & (positions <= cur_pos)
+    return valid & (positions > cur_pos - window) if window else valid
+
+
 def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_positions: torch.Tensor,
                      cur_pos: int, *, window: int = 0) -> torch.Tensor:
@@ -136,10 +150,8 @@ def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
     qg = q[:, 0].reshape(B, KV, H // KV, Dh)
     scale = 1.0 / math.sqrt(Dh)
     logits = torch.einsum("bkgd,bskd->bkgs", qg, k_cache).float() * scale
-    valid = (cache_positions >= 0) & (cache_positions <= cur_pos)
-    if window:
-        valid &= cache_positions > cur_pos - window
-    logits = logits.masked_fill(~valid, NEG_INF)
+    logits = logits.masked_fill(
+        ~_valid_slots(cache_positions, cur_pos, window), NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bkgs,bskd->bkgd", probs, v_cache)
     return out.reshape(B, 1, H, Dh)
@@ -168,13 +180,60 @@ def cross_attn_specs(cfg: ModelConfig,
     return attn_specs(cfg, prefix)
 
 
-def make_cache(cfg: ModelConfig, batch: int, length: int) -> Params:
-    """Decode KV cache: one bf16 ring of ``length`` slots (pos -1 =
-    unwritten), on torch's default device."""
-    shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=torch.bfloat16),
-            "v": torch.zeros(shape, dtype=torch.bfloat16),
-            "pos": torch.full((length,), -1, dtype=torch.int32)}
+def make_cache(cfg: ModelConfig, batch: int, length: int,
+               recent: int = 0) -> Params:
+    """Decode KV cache, on torch's default device: one bf16 ring of
+    ``length`` slots (pos -1 = unwritten).  With ``recent > 0`` it is the
+    reference's two buffers: ``k/v/pos``, the prefill's cache, which
+    decode only reads, and ``rk/rv/rpos``, a ring of ``recent`` slots
+    that each decoded token is written into."""
+    def ring(n):
+        shape = (batch, n, cfg.n_kv_heads, cfg.head_dim)
+        return (torch.zeros(shape, dtype=torch.bfloat16),
+                torch.zeros(shape, dtype=torch.bfloat16),
+                torch.full((n,), -1, dtype=torch.int32))
+
+    c = dict(zip(("k", "v", "pos"), ring(length)))
+    if recent > 0:
+        c.update(zip(("rk", "rv", "rpos"), ring(recent)))
+    return c
+
+
+def _attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       valid: torch.Tensor):
+    """Unnormalized one-token attention over one KV source.
+
+    q: (B,1,H,Dh); k/v: (B,S,KV,Dh); valid: (S,) bool.  Returns (acc
+    (B,H,Dh), m (B,H), l (B,H)) float32 partial-softmax stats.  GQA by
+    grouped einsums (no repeat-expansion of the cache); the logits are
+    float32 and the weights are cast to v's dtype before p.V, as in the
+    reference.  A source with no valid slot has m = NEG_INF, which is
+    finite, so ``_merge_partials`` weighs it by exp(NEG_INF - m) = 0."""
+    B, _, H, Dh = q.shape
+    KV = k.shape[-2]
+    qg = q[:, 0].reshape(B, KV, H // KV, Dh)
+    scale = 1.0 / math.sqrt(Dh)
+    logits = torch.einsum("bkgd,bskd->bkgs", qg, k).float() * scale
+    logits = logits.masked_fill(~valid, NEG_INF)
+    m = logits.amax(dim=-1)                                   # (B,KV,G)
+    p = torch.exp(logits - m[..., None])
+    acc = torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype), v).float()
+    return acc.reshape(B, H, Dh), m.reshape(B, H), p.sum(dim=-1).reshape(B, H)
+
+
+def _merge_partials(parts) -> torch.Tensor:
+    """Combine partial-softmax (acc, m, l) triples into the normalized
+    output (B,H,Dh), float32."""
+    m = parts[0][1]
+    for _, m_i, _ in parts[1:]:
+        m = torch.maximum(m, m_i)
+    acc = torch.zeros_like(parts[0][0])
+    l = torch.zeros_like(parts[0][2])
+    for acc_i, m_i, l_i in parts:
+        corr = torch.exp(m_i - m)
+        acc = acc + acc_i * corr[..., None]
+        l = l + l_i * corr
+    return acc / torch.clamp_min(l, 1e-37)[..., None]
 
 
 def attn_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
@@ -188,8 +247,11 @@ def attn_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
       * full (train / prefill): ``cache is None``; optionally
         ``return_kv`` to hand back roped K/V for cache construction.
       * decode: ``cache`` given -- one-token query written into the ring
-        at slot ``cur_pos % length``.  The port updates the cache tensors
-        in place (the reference returns new arrays): no copy of the cache
+        at slot ``cur_pos % length``; in a two-buffer cache (``"rk"`` in
+        it) into the recent ring at ``cur_pos % recent``, the main
+        ``k/v/pos`` only read, and the attention is the merge of one
+        partial softmax over each.  The port updates the ring's tensors in
+        place (the reference returns new arrays): no copy of the cache
         per token.  Returns the same dict.
       * cross: ``kv_source`` given (encoder states) -- K/V from it without
         rope, exact non-causal attention (the reference's einsum oracle,
@@ -225,14 +287,26 @@ def attn_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
         out = out.reshape(B, S, cfg.q_dim) @ p["wo"].to(h.dtype)
         return x + out, ((k, v) if return_kv else None)
 
-    # ---- decode: single token, single ring --------------------------------
+    # ---- decode: single token --------------------------------------------
+    # the token goes into the ring: the recent one of a two-buffer cache,
+    # whose main k/v/pos are only read, else the cache itself
     assert cur_pos is not None
-    slot = int(cur_pos) % cache["k"].shape[1]
-    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
-    cache["pos"][slot] = int(cur_pos)
-    out = attention_decode(q, cache["k"].to(h.dtype), cache["v"].to(h.dtype),
-                           cache["pos"], int(cur_pos), window=window)
+    cur_pos = int(cur_pos)
+    ring = ("rk", "rv", "rpos") if "rk" in cache else ("k", "v", "pos")
+    slot = cur_pos % cache[ring[0]].shape[1]
+    cache[ring[0]][:, slot] = k[:, 0].to(cache[ring[0]].dtype)
+    cache[ring[1]][:, slot] = v[:, 0].to(cache[ring[1]].dtype)
+    cache[ring[2]][slot] = cur_pos
+    if "rk" in cache:
+        out = _merge_partials([
+            _attention_partial(q, cache[kk].to(h.dtype),
+                               cache[vk].to(h.dtype),
+                               _valid_slots(cache[pk], cur_pos, window))
+            for kk, vk, pk in (("k", "v", "pos"), ring)]).to(h.dtype)
+    else:
+        out = attention_decode(q, cache["k"].to(h.dtype),
+                               cache["v"].to(h.dtype), cache["pos"], cur_pos,
+                               window=window)
     out = out.reshape(B, 1, cfg.q_dim) @ p["wo"].to(h.dtype)
     return x + out, cache
 

@@ -181,6 +181,26 @@ def _attn_params(cfg: ModelConfig, kind: str, bp: Params,
     return shared if kind == "attn" and cfg.shared_attn else bp
 
 
+def apply_block_full(cfg: ModelConfig, kind: str, bp: Params,
+                     shared: Optional[Params], h: torch.Tensor,
+                     positions: torch.Tensor, *, attn_impl: str = "auto",
+                     want_cache: bool = False):
+    """One layer of ``kind`` in full (train / prefill) mode, the
+    reference's ``_apply_block_full``: (h, aux loss or None, cache or
+    None), the cache a Mamba2 layer's state or an attention layer's roped
+    (K, V).  ``shared`` is the top-level ``shared_attn`` tree (hybrid
+    models), ``positions`` (B, S)."""
+    if kind == "mamba":
+        h, state = M.mamba_apply(cfg, bp, h, return_state=want_cache)
+        return h, None, state
+    ap = _attn_params(cfg, kind, bp, shared)
+    h, kv = L.attn_apply(cfg, ap["attn"], h, positions=positions,
+                         window=_layer_window(cfg, kind),
+                         attn_impl=attn_impl, return_kv=want_cache)
+    h, aux = _ffn(cfg, ap, h)
+    return h, aux, kv
+
+
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
             extra_embeds: Optional[torch.Tensor] = None,
             attn_impl: str = "auto", want_caches: bool = False,
@@ -207,16 +227,12 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
 
     def layer(h, kind, bp):
         """(h, aux or None, cache or None)."""
-        if kind == "mamba":
-            h, state = M.mamba_apply(cfg, bp, h, return_state=want_caches)
-            return h, None, state
-        ap = _attn_params(cfg, kind, bp, shared)
-        h, kv = L.attn_apply(cfg, ap["attn"], h, positions=positions,
-                             window=_layer_window(cfg, kind),
-                             attn_impl=attn_impl, return_kv=want_caches)
-        h, aux = _ffn(cfg, ap, h)
-        return h, aux, (_kv_to_ring(cfg, kind, kv, cache_len)
-                        if want_caches else None)
+        h, aux, cache = apply_block_full(cfg, kind, bp, shared, h, positions,
+                                         attn_impl=attn_impl,
+                                         want_cache=want_caches)
+        if want_caches and kind != "mamba":
+            cache = _kv_to_ring(cfg, kind, cache, cache_len)
+        return h, aux, cache
 
     def group(h, gp, caches):
         """(h, the group's aux loss); the group's caches into ``caches``."""
@@ -258,9 +274,12 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
 # Decode (one token, ring-buffer caches)
 # --------------------------------------------------------------------------
 
-def init_caches(cfg: ModelConfig, batch: int, cache_len: int) -> Params:
+def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
+                recent_len: int = 0) -> Params:
     """Zero-initialized decode caches (pos = -1 -> masked), on torch's
-    default device."""
+    default device.  ``recent_len > 0`` gives the full-length caches the
+    two-buffer layout (``layers.make_cache``); windowed local caches stay
+    single small rings, Mamba2 caches are unchanged."""
     kinds = cfg.layer_kinds()
 
     def one(kind: str) -> Params:
@@ -268,7 +287,8 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int) -> Params:
             return M.make_mamba_cache(cfg, batch)
         window = _layer_window(cfg, kind)
         length = min(window, cache_len) if window else cache_len
-        return L.make_cache(cfg, batch, length)
+        return L.make_cache(cfg, batch, length,
+                            recent=0 if window else recent_len)
 
     groups = [{f"l{i}": one(kind) for i, kind in enumerate(kinds)}
               for _ in range(cfg.n_groups)]

@@ -15,7 +15,7 @@ from repro_torch.core.optimizer import DSpace4Cloud
 from repro_torch.core.problem import (ApplicationClass, JobProfile, Problem,
                                       VMType)
 from repro_torch.configs.registry import get_smoke_config
-from repro_torch.distributed.sharding import init_params
+from repro_torch.distributed.sharding import init_params, map_tree
 from repro_torch.kernels import build
 from repro_torch.kernels.amva import ops as amva_ops
 from repro_torch.kernels.amva import ref as amva_ref
@@ -1152,6 +1152,112 @@ def _to(tree, d):
     if isinstance(tree, dict):
         return {k: _to(v, d) for k, v in tree.items()}
     return tree.to(d)
+
+
+def _paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "gemma3-27b", "zamba2-7b",
+                                  "whisper-tiny"])
+def test_two_buffer_decode_on_the_card_matches_the_cpu(dev, arch):
+    """The prefill's caches copied into an ``init_caches(recent_len=4)``
+    layout, three decode steps on each device: the card's logits within
+    the serving steps' 0.08 of the CPU's, within the reference's 5e-2 of
+    the card's own single ring, and the main buffers unchanged."""
+    cfg = get_smoke_config(arch)
+    params = init_params(api.param_specs(cfg), torch.Generator().manual_seed(1))
+    S, B = 32 if cfg.ssm else 19, 2
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        1, cfg.vocab_size, (B, S)))
+    out = {}
+    for d in ("cpu", dev):
+        p = _to(step.working_params(cfg, params), d)
+        _, one = step.make_prefill_step(cfg, cache_len=S + 8)(
+            p, step.model_inputs(cfg, toks.to(d)))
+        with torch.device(d):
+            two = api.init_caches(cfg, B, S + 8, recent_len=4)
+        src = dict(_paths(one))
+        for path, leaf in _paths(two):
+            if path in src and src[path].shape == leaf.shape:
+                leaf.copy_(src[path])
+        paths = dict(_paths(two))
+        main = {path: t.clone() for path, t in paths.items()
+                if path.endswith(("/k", "/v", "/pos"))
+                and path.rsplit("/", 1)[0] + "/rk" in paths}
+        assert main
+        rows = []
+        for i, tok in enumerate(([[5], [9]], [[3], [1]], [[7], [7]])):
+            tok = torch.tensor(tok, device=d)
+            l_two, two = step.make_decode_step(cfg)(p, tok, two, S + i)
+            l_one, one = step.make_decode_step(cfg)(p, tok, one, S + i)
+            rows.append((l_two.float().cpu(), l_one.float().cpu()))
+        for path, t in _paths(two):
+            if path in main:
+                assert torch.equal(t, main[path]), path
+        out[str(d)] = rows
+    for (card, card_one), (cpu, _) in zip(out[str(dev)], out["cpu"]):
+        torch.testing.assert_close(card, cpu, atol=0.08, rtol=0)
+        assert float((card - card_one).abs().max()) < 5e-2
+        assert torch.equal(card.argmax(-1), card_one.argmax(-1))
+
+
+def test_pipeline_through_flash_on_the_card_matches_the_cpu(dev):
+    """granite-3-2b's smoke config at 4 layers in 2 stages of 2 groups, 4
+    microbatches of 1 x 64 tokens (bf16): on the card every stage call
+    runs the flash kernel (5 ticks x 2 stages x 2 layers = 20 launches),
+    the output equals the card's stages applied one after another bit for
+    bit, and the logits from it (final norm and unembedding) are the
+    CPU's within the serving steps' 0.08, the quantity that bound holds
+    there (on the hidden states themselves 5 of 16384 elements differed
+    by up to 0.105, the largest at a value of 0.62)."""
+    from repro_torch.distributed.pipeline import (PipelineConfig,
+                                                  pipeline_forward,
+                                                  split_microbatches)
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    cfg = get_smoke_config("granite-3-2b").replace(n_layers=4)
+    params = step.working_params(cfg, init_params(
+        api.param_specs(cfg), torch.Generator().manual_seed(3)))
+    n_st, M, S = 2, 4, 64
+    per = cfg.n_groups // n_st
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        1, cfg.vocab_size, (M, S)))
+    pcfg = PipelineConfig(n_stages=n_st, n_microbatches=M)
+    out = {}
+    for d in ("cpu", dev):
+        p = _to(params, d)
+        positions = torch.arange(S, device=d).expand(1, S)
+
+        def stage(sp, h):
+            for gp in T.unbind(sp, per):
+                h = T.apply_block_full(cfg, "global", gp["l0"], None, h,
+                                       positions)[0]
+            return h
+
+        stacked = map_tree(lambda v: v.reshape((n_st, per) + v.shape[1:]),
+                           p["groups"])
+        mbs = split_microbatches(T._embed(cfg, p["embed"], toks.to(d)), M)
+        before = fa_ops.flash_attention.launches
+        got = pipeline_forward(stage, stacked, mbs, pcfg)
+        assert fa_ops.flash_attention.launches - before == (
+            20 if d == dev else 0)
+        if d == dev:
+            seq = []
+            for m in range(M):
+                h = mbs[m]
+                for sp in T.unbind(stacked, n_st):
+                    h = stage(sp, h)
+                seq.append(h)
+            assert torch.equal(got, torch.stack(seq))
+        h = L.rms_norm(got[:, 0], p["final_ln"], cfg.norm_eps)
+        out[str(d)] = T._logits_from_hidden(cfg, h, p["embed"]).float().cpu()
+    torch.testing.assert_close(out[str(dev)], out["cpu"], atol=0.08, rtol=0)
+
 
 
 def _service_mixed_problem():

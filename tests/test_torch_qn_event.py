@@ -219,6 +219,49 @@ def test_plain_loop_bit_exact_vs_pallas_at_wide_lanes(replay):
     assert bool((c[:7] > 0).all()) and c[7] == 0
 
 
+@pytest.mark.parametrize("replay", [False, True])
+def test_plain_lanes_do_not_depend_on_batch_slots_or_padding(replay):
+    """What chip_smoke.py's shared plain runs (``plain_in_one_run``) rely
+    on: a lane's result is the same bits alone, beside another check's
+    lanes, in a batch of more slots than its cap, and with its draw tables
+    padded past its own event budget."""
+    def check(caps, nea, seed0):
+        B = len(caps)
+        g = np.random.default_rng(seed0)
+        t = dict(
+            n_map=torch.full((B,), 8, dtype=torch.int32),
+            n_reduce=torch.full((B,), 2, dtype=torch.int32),
+            slots_cap=torch.tensor(caps, dtype=torch.int32),
+            n_events_active=torch.tensor(nea, dtype=torch.int32),
+            m_avg=torch.tensor(g.uniform(30, 50, B), dtype=torch.float32),
+            r_avg=torch.tensor(g.uniform(50, 70, B), dtype=torch.float32),
+            think_ms=torch.tensor(g.uniform(200, 900, B),
+                                  dtype=torch.float32))
+        smp = (torch.tensor(MS), torch.tensor(RS)) if replay else (None,
+                                                                    None)
+        tables = qn_ops.event_streams(
+            t["think_ms"], torch.arange(B) * 1000 + seed0,
+            t["n_events_active"], h_users=3, n_events=max(nea),
+            m_samples=smp[0], r_samples=smp[1])
+        return (t["n_map"], t["n_reduce"], t["slots_cap"],
+                t["n_events_active"], t["m_avg"], t["r_avg"],
+                t["think_ms"], *tables)
+
+    kw = dict(warmup_jobs=2, replay=replay)
+    a = check([1, 3, 8, 5], [600, 600, 300, 600], 1)
+    b = check([20, 7, 32], [1200, 900, 1200], 2)
+    want_a = qn_ops.qn_event(*a, max_slots=8, **kw)
+    want_b = qn_ops.qn_event(*b, max_slots=32, **kw)
+    pad = 1200 - a[8].shape[1]
+    both = [torch.cat([torch.nn.functional.pad(x, (0, pad)) if j > 7 else x,
+                       y]) for j, (x, y) in enumerate(zip(a, b))]
+    got_s, got_c = qn_ops.qn_event(*both, max_slots=32, **kw)
+    for got, want in ((got_s[:4], want_a[0]), (got_c[:4], want_a[1]),
+                      (got_s[4:], want_b[0]), (got_c[4:], want_b[1])):
+        assert torch.equal(got, want)
+    assert bool((want_a[1] > 0).all()) and bool((want_b[1] > 0).all())
+
+
 def test_event_streams_on_cpu_launches_no_kernel():
     lanes, smp, st = _lanes(3, True)
     before = qn_ops.event_streams.launches
