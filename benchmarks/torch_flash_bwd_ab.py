@@ -58,7 +58,7 @@ def cuda_ms(fn, reps):
 def main():
     build.library()
     notes = [ln[ln.find("(C75"):][:90] for ln in build.build_log.splitlines()
-             if "(C75" in ln and "fa_bwd" in ln]
+             if "(C75" in ln and "wgmma_kernel" in ln and "fa_bwd" in ln]
     dev = torch.device("cuda", 0)
     res = {"label": sys.argv[2], "card": torch.cuda.get_device_name(0),
            "ptxas_notes": notes}

@@ -92,8 +92,9 @@ Phases, each printing one line or a few:
      layer, the kernels' share of the prefill's device time, and for an
      MoE model its router, dispatch, experts and combine) and then
      compared with the CPU at depth 2 (granite, mamba2, qwen2-moe,
-     phi-3-vision), 3 (zamba2, one group), 1 (llama4-scout) or 2 + 2
-     (whisper) with the same weights and prompts, whose logits must agree
+     phi-3-vision), 3 (zamba2, one group), 1 (llama4-scout, its
+     vocabulary cut to 8192 tokens) or 2 + 2 (whisper) with the same
+     weights and prompts, whose logits must agree
      (a model with a front end also on random frames or patches; a step
      whose MoE routing differs at a near tie of the CPU's gates is printed
      and not compared); then granite-3-2b's two-buffer decode at full
@@ -253,19 +254,27 @@ Phases, each printing one line or a few:
      rows.  Phase 6 also gives flash_attention's float32 route its bound
      at the float32 rate and SDPA's float32 time on the same tensors.
  13. [train] (after phase 6) the flash backward's two routes (wgmma:
-     fa_bwd_dq_wgmma, which writes delta, then fa_bwd_dkdv_wgmma; simt:
-     fa_bwd_delta, fa_bwd_dkdv, fa_bwd_dq), and the forward's lse from
-     both routes, held against their plain versions at granite-3-2b's
-     training shape (B = 8, S = 1024, H = 32, KV = 8, head dim 64, bf16,
-     causal), gemma3-27b's local window, llama4-scout's GQA group 5 at head dim
-     128, zamba2's head dim 112, whisper's non-causal encoder (each bf16
-     shape on both routes, the wgmma route's delta against the einsum and
-     two of its calls bit for bit) and the training shape's heads in
-     float32 (the simt route; FA_BWD_CHECKS), within 2e-2 (bf16) and 1e-4
-     (f32); the wgmma kernels timed at the training shape, the simt
-     kernels there and at the float32 row's shape, each beside its
-     bound, the plain version and torch's SDPA backward (a yardstick; for
-     the delta kernel the einsum that computes it); the SSD backward's two
+     for bf16 at head dim <= 128 its pair, fa_bwd_dq_wgmma, which writes
+     delta, then fa_bwd_dkdv_wgmma; for bf16 past 128 and float32 up to
+     128 its parts kernels, fa_bwd_prep, fa_bwd_dq_parts,
+     fa_bwd_dkdv_parts; simt: fa_bwd_delta, fa_bwd_dkdv, fa_bwd_dq), and
+     the forward's lse from both routes, held against their plain
+     versions at granite-3-2b's training shape (B = 8, S = 1024, H = 32,
+     KV = 8, head dim 64, bf16, causal), gemma3-27b's local window,
+     llama4-scout's GQA group 5 at head dim 128, zamba2's head dim 112,
+     whisper's non-causal encoder, nemotron-4-340b's training attention
+     (B = 1, S = 4096, H = 96, KV = 8, head dim 192, bf16), the training
+     shape's heads and the four other shapes in float32, nemotron's
+     heads at S = 1024 in float32 and the float32 step's own attention
+     (B = 2, S = 256) (FA_BWD_CHECKS: each wgmma row on its
+     kernels and on the simt route, the route's delta against the einsum
+     and two of its calls bit for bit; the float32 Dh 192 row on simt),
+     within 2e-2 (bf16) and 1e-4 (f32), each printing its share of the
+     tolerance; the pair timed at the training shape, the parts kernels,
+     the simt kernels and SDPA's backward at the float32 check row and at
+     nemotron's shape, each beside its bound, the plain version and
+     torch's SDPA backward (a yardstick; for the delta kernels the einsum
+     that computes delta); the SSD backward's two
      routes (wgmma: csrc/ssd_scan_bwd_wgmma.cuh, five kernels on TMA and
      wgmma behind ssd_bwd for bf16 x, B, C and dy; simt:
      csrc/ssd_scan_bwd.cu, six kernels, float32 and other layouts) against
@@ -290,7 +299,10 @@ Phases, each printing one line or a few:
      backward in one model), one step on the card against the CPU (loss,
      grad norm, every gradient leaf, the update), and for granite a
      restart from a checkpoint on the card against the uninterrupted
-     run.
+     run; granite at depth 2 in float32 (TRAIN_F32_ARCH): one Trainer
+     step on the card with its launches counted (2 of each parts kernel,
+     none of the simt route's), then its step against the CPU's within
+     TRAIN_F32_TOL.
  15. [distributed] (after [train]) GPipe over granite-3-2b's 40 layers at
      full width (PIPELINE: 4 stages of 10 layer groups stacked with
      stack_stage_params, 8 microbatches of 1 x 1024 tokens in bf16, the
@@ -360,8 +372,10 @@ CARD_CPU_TOL = 0.03125
 # (arch, launches each kernel must show over the 8-request drive, the
 # drive's cut of the config ({}: full width and depth), the card-vs-CPU
 # comparison's cut); a kernel not named must show none.  llama4-scout's
-# 48 layers hold 213.5 GB in bf16, so its drive keeps 8 (37.4 GB), and
-# the CPU side of its comparison one
+# 48 layers hold 213.5 GB in bf16, so its drive keeps 8 (37.4 GB); its
+# comparison (top-1 routing at capacity factor 1.25 beside a shared
+# expert) keeps one layer and 8192 of the 202048 tokens of its
+# vocabulary: the CPU's pass over the whole vocabulary took 56 s
 SERVE_CASES = [
     ("granite-3-2b", {"flash_attention": 80}, {}, {"n_layers": 2}),
     ("mamba2-780m", {"ssd_scan": 96}, {}, {"n_layers": 2}),
@@ -369,7 +383,7 @@ SERVE_CASES = [
      {"n_layers": 3}),
     ("qwen2-moe-a2.7b", {"flash_attention": 48}, {}, {"n_layers": 2}),
     ("llama4-scout-17b-a16e", {"flash_attention": 16}, {"n_layers": 8},
-     {"n_layers": 1}),
+     {"n_layers": 1, "vocab_size": 8192}),
     ("whisper-tiny", {"flash_attention": 16}, {},
      {"n_layers": 2, "n_enc_layers": 2}),
     ("phi-3-vision-4.2b", {"flash_attention": 64}, {}, {"n_layers": 2}),
@@ -2567,11 +2581,12 @@ def flash_instance(mangled: str):
 
 
 def flash_bwd_instance(mangled: str):
-    """'fa_bwd_dq_wgmma_kernel<64, 128>' (or 'fa_bwd_dkdv_wgmma_kernel<64>')
-    for a line naming an instance of the flash backward's wgmma route
-    by its mangled name, else None."""
-    m = re.search(r"(fa_bwd_(?:dq|dkdv)_wgmma_kernel)I((?:Li\d+E)+)",
-                  mangled)
+    """'fa_bwd_dq_wgmma_kernel<64, 128>' (or 'fa_bwd_dkdv_wgmma_kernel<64>',
+    or a parts kernel's 'fa_bwd_dq_parts_kernel<192, 2, 2, 1>') for a line
+    naming an instance of the flash backward's wgmma route by its mangled
+    name, else None."""
+    m = re.search(r"(fa_bwd_(?:dq|dkdv)_(?:wgmma|parts)_kernel)I"
+                  r"((?:Li\d+E)+)", mangled)
     if m is None:
         return None
     return f"{m.group(1)}<{', '.join(re.findall(r'Li([0-9]+)E', m.group(2)))}>"
@@ -3357,8 +3372,12 @@ def time_flash(dev, fa_ops, fa_ref, B, S, H, KV, Dh, causal=True):
 # the flash backward's kernels held to the plain version:
 # (label, B, S, H, KV, Dh, causal, window, dtype).  The training shape,
 # gemma3-27b's local window, llama4-scout's GQA group 5 at head dim 128,
-# zamba2-7b's head dim 112, whisper-tiny's non-causal encoder, and the
-# training shape's heads in float32
+# zamba2-7b's head dim 112, whisper-tiny's non-causal encoder,
+# nemotron-4-340b's training attention (head dim 192, GQA group 12: the
+# parts kernels' bf16 shape), the training shape's heads in float32, the
+# same four other shapes in float32, nemotron's heads at S = 1024 in
+# float32 (head dim 192: the simt route) and the float32 training step's
+# own attention (train_f32: B=2, S=256)
 FA_BWD_CHECKS = [
     ("granite-3-2b training", 8, 1024, 32, 8, 64, True, 0, torch.bfloat16),
     ("gemma3-27b local window", 1, 2048, 32, 16, 128, True, 1024,
@@ -3367,27 +3386,61 @@ FA_BWD_CHECKS = [
      torch.bfloat16),
     ("zamba2-7b head dim 112", 2, 896, 32, 32, 112, True, 0, torch.bfloat16),
     ("whisper-tiny encoder", 4, 1500, 6, 6, 64, False, 0, torch.bfloat16),
+    ("nemotron-4-340b training", 1, 4096, 96, 8, 192, True, 0,
+     torch.bfloat16),
     ("granite-3-2b heads in float32", 2, 1024, 32, 8, 64, True, 0,
      torch.float32),
+    ("gemma3-27b local window in float32", 1, 2048, 32, 16, 128, True, 1024,
+     torch.float32),
+    ("llama4-scout GQA group 5 in float32", 1, 1024, 40, 8, 128, True, 0,
+     torch.float32),
+    ("zamba2-7b head dim 112 in float32", 2, 896, 32, 32, 112, True, 0,
+     torch.float32),
+    ("whisper-tiny encoder in float32", 4, 1500, 6, 6, 64, False, 0,
+     torch.float32),
+    ("nemotron-4-340b heads in float32", 1, 1024, 96, 8, 192, True, 0,
+     torch.float32),
+    ("granite-3-2b float32 step", 2, 256, 32, 8, 64, True, 0,
+     torch.float32),
 ]
+# the rows time_flash_bwd times: the bf16 pair's training shape, the
+# float32 check row, nemotron's training attention
+FA_BWD_TRAINING_ROW = "granite-3-2b training"
+FA_BWD_F32_ROW = "granite-3-2b heads in float32"
+FA_BWD_NEMOTRON_ROW = "nemotron-4-340b training"
 # kernel against plain on identical inputs: float32 sums in other orders;
 # in bfloat16 a p or ds on a rounding edge may round the other way, and
 # the outputs round to bfloat16 (2**-8 relative).  lse is float32 either
 # way (absolute, on values of magnitude ~log S)
 FA_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LSE_TOL = 1e-4
-# the wrappers of each backward route, in launch order (the wgmma route's
-# dq pass writes delta; the simt route has a delta kernel), and each
-# wrapper's kernel
-BWD_ROUTE_KERNELS = {"wgmma": ("fa_bwd_dq_wgmma", "fa_bwd_dkdv_wgmma"),
+# the wrappers of each backward route's kernels, in launch order: the
+# wgmma route's pair (bf16 at Dh <= 128; its dq pass writes delta) or its
+# parts kernels (bf16 past Dh 128, float32 up to 128: fa_bwd_prep writes
+# delta and float32's bf16 parts), ops.wgmma_kernels choosing; the simt
+# route (float32 past Dh 128) has a delta kernel.  Each wrapper launches
+# the kernel of its name
+BWD_ROUTE_KERNELS = {"pair": ("fa_bwd_dq_wgmma", "fa_bwd_dkdv_wgmma"),
+                     "parts": ("fa_bwd_prep", "fa_bwd_dq_parts",
+                               "fa_bwd_dkdv_parts"),
                      "simt": ("fa_bwd_delta", "fa_bwd_dkdv", "fa_bwd_dq")}
-BWD_KERNELS = (*BWD_ROUTE_KERNELS["wgmma"], *BWD_ROUTE_KERNELS["simt"])
-# the wgmma route's instances (dq <DP, BK>, dkdv <DP>): [build] fails
+BWD_KERNELS = tuple(n for names in BWD_ROUTE_KERNELS.values()
+                    for n in names)
+# the wgmma route's instances (pair: dq <DP, BK>, dkdv <DP>; parts: dq
+# <DP, WGS, STAGES, PARTS>, dkdv <DP, STAGES, PARTS>): [build] fails
 # without their ptxas lines, HGMMA and UTMALDG
 FA_BWD_INSTANCES = ("fa_bwd_dq_wgmma_kernel<64, 128>",
                     "fa_bwd_dq_wgmma_kernel<128, 64>",
                     "fa_bwd_dkdv_wgmma_kernel<64>",
-                    "fa_bwd_dkdv_wgmma_kernel<128>")
+                    "fa_bwd_dkdv_wgmma_kernel<128>",
+                    "fa_bwd_dq_parts_kernel<192, 2, 2, 1>",
+                    "fa_bwd_dq_parts_kernel<256, 1, 2, 1>",
+                    "fa_bwd_dq_parts_kernel<64, 2, 2, 3>",
+                    "fa_bwd_dq_parts_kernel<128, 1, 1, 3>",
+                    "fa_bwd_dkdv_parts_kernel<192, 3, 1>",
+                    "fa_bwd_dkdv_parts_kernel<256, 2, 1>",
+                    "fa_bwd_dkdv_parts_kernel<64, 3, 3>",
+                    "fa_bwd_dkdv_parts_kernel<128, 1, 3>")
 # the archs trained at full width and depth: Trainer with TRAIN_RUN, the
 # launcher's AdamW (lr 3e-4, warm-up max(10, steps // 20)) in the config's
 # fp32 mode, remat on
@@ -3411,6 +3464,14 @@ TRAIN_RESTART_ARCH = "granite-3-2b"
 # take the other sign, and Adam's first step moves it by lr either way)
 TRAIN_CARD_CPU_TOL = {"loss": 0.02, "grad_norm": 0.02, "grad_leaf": 0.06,
                       "update_l2": 0.1}
+# the float32 step: granite-3-2b at depth 2 and full width with compute
+# dtype float32 (the parts kernels' first model path), one step on the
+# card through Trainer (the launch counts set to 0 before and read after)
+# and one against the CPU from the same state and batch, TRAIN_SMALL_RUN;
+# both sides in float32, sums in other orders (the argument: CHANGES.md)
+TRAIN_F32_ARCH = "granite-3-2b"
+TRAIN_F32_TOL = {"loss": 1e-4, "grad_norm": 1e-4, "grad_leaf": 1e-3,
+                 "update_l2": 0.02}
 
 
 def live_pairs(S, causal, window) -> int:
@@ -3425,8 +3486,14 @@ def fa_bwd_bounds(B, S, H, KV, Dh, causal, window, dtype):
     Operations at the card's peak for the type (the products each kernel
     runs: dkdv recomputes q.k and do.v and runs P^T.dO and dS^T.Q, dq
     recomputes both and runs dS.K; the function's five), bytes each input
-    read once and each output written once (the wgmma dq pass reads out
-    and writes delta besides; the simt one reads the delta kernel's)."""
+    read once and each output written once (the pair's dq pass reads out
+    and writes delta besides; the simt one reads the delta kernel's).  The
+    parts kernels on float32 run bf16 products on the tensor cores: each
+    recomputation six terms and each accumulation three over three bf16
+    parts an operand (6 bytes an element), so their operations are those
+    terms at the bf16 peak; fa_bwd_prep moves bytes only (it reads out,
+    dout and lse and writes the rows buffer; for float32 it also reads q,
+    k and v and writes their parts and dout's)."""
     e = 2 if dtype == torch.bfloat16 else 4
     peak = H100_BF16_OPS_PER_S if dtype == torch.bfloat16 else \
         H100_FP32_OPS_PER_S
@@ -3435,6 +3502,18 @@ def fa_bwd_bounds(B, S, H, KV, Dh, causal, window, dtype):
     kv = B * S * KV * Dh * e                 # k, v, dk or dv
     rows = B * H * S * 4                     # lse or delta, float32
     dkdv = (4 * prod, 2 * q + 2 * kv + 2 * rows + 2 * kv)
+    # the parts kernels: operands in bf16 parts, the rows buffer (lse,
+    # delta) read, outputs in the inputs' type
+    f32 = dtype == torch.float32
+    pe = 6 if f32 else 2                     # bytes an operand element
+    pq, pkv = q // e * pe, kv // e * pe
+    rterms, aterms = (6, 3) if f32 else (1, 1)
+    parts_dq = ((2 * rterms + aterms) * prod,
+                2 * pq + 2 * pkv + 2 * rows + q)
+    parts_dkdv = ((2 * rterms + 2 * aterms) * prod,
+                  2 * pq + 2 * pkv + 2 * rows + 2 * kv)
+    prep = (0, 2 * q + rows + 2 * rows
+            + ((q + 2 * kv + 2 * pq + 2 * pkv) if f32 else 0))
     work = {"fa_bwd_dq_wgmma": (3 * prod, 3 * q + 2 * kv + rows + q + rows),
             "fa_bwd_dkdv_wgmma": dkdv,
             "fa_bwd_delta": (0, 2 * q + rows),
@@ -3442,11 +3521,16 @@ def fa_bwd_bounds(B, S, H, KV, Dh, causal, window, dtype):
             "fa_bwd_dq": (3 * prod, 2 * q + 2 * kv + 2 * rows + q),
             "function": (5 * prod, 3 * q + 2 * kv + rows + q + 2 * kv)}
 
-    def bound(ops, nbytes):
-        t_ops, t_bytes = ops / peak, nbytes / H100_BYTES_PER_S
+    def bound(ops, nbytes, rate=peak):
+        t_ops, t_bytes = ops / rate, nbytes / H100_BYTES_PER_S
         return (1e3 * max(t_ops, t_bytes),
                 "operations" if t_ops > t_bytes else "bytes", ops, nbytes)
-    return {n: bound(*w) for n, w in work.items()}
+    out = {n: bound(*w) for n, w in work.items()}
+    out.update({"fa_bwd_prep": bound(*prep),
+                "fa_bwd_dq_parts": bound(*parts_dq, H100_BF16_OPS_PER_S),
+                "fa_bwd_dkdv_parts": bound(*parts_dkdv,
+                                           H100_BF16_OPS_PER_S)})
+    return out
 
 
 def fa_bwd_inputs(dev, B, S, H, KV, Dh, dtype, seed):
@@ -3455,21 +3539,34 @@ def fa_bwd_inputs(dev, B, S, H, KV, Dh, dtype, seed):
                              ).to(dtype) for n in (H, KV, KV, H))
 
 
+def fa_bwd_row(label):
+    return next(r for r in FA_BWD_CHECKS if r[0] == label)
+
+
 def close_err(got, want, tol):
-    """max |got - want| and whether every element is within tol + tol *
-    |want| (torch.testing's atol = rtol = tol)."""
+    """(max |got - want|, whether every element is within tol + tol *
+    |want| (torch.testing's atol = rtol = tol), the largest share of that
+    tolerance an element takes)."""
     d = (got.float() - want.float()).abs()
-    return float(d.max()), bool((d <= tol + tol * want.float().abs()).all())
+    room = tol + tol * want.float().abs()
+    return float(d.max()), bool((d <= room).all()), float((d / room).max())
 
 
 def run_bwd_route(fa_ops, route, q, k, v, out, lse, dout, causal, window):
-    """One backward through ``route``'s kernel wrappers: (dq, dk, dv,
-    delta); the wgmma route's dq pass writes delta (into its rows buffer,
-    beside lse), the simt route's delta kernel does."""
-    if route == "wgmma":
+    """One backward through ``route``'s kernel wrappers ("pair", "parts"
+    or "simt"): (dq, dk, dv, delta); the pair's dq pass and fa_bwd_prep
+    write delta (into the rows buffer, beside lse), the simt route's
+    delta kernel does."""
+    if route == "pair":
         dq, rows = fa_ops.fa_bwd_dq_wgmma(q, k, v, out, dout, lse, causal,
                                           window)
         dk, dv = fa_ops.fa_bwd_dkdv_wgmma(q, k, v, dout, rows, causal,
+                                          window)
+        return dq, dk, dv, fa_ops.rows_delta(rows, q.shape[1])
+    if route == "parts":
+        rows, operands = fa_ops.fa_bwd_prep(q, k, v, out, dout, lse)
+        dq = fa_ops.fa_bwd_dq_parts(q, operands, rows, causal, window)
+        dk, dv = fa_ops.fa_bwd_dkdv_parts(q, k, operands, rows, causal,
                                           window)
         return dq, dk, dv, fa_ops.rows_delta(rows, q.shape[1])
     delta = fa_ops.fa_bwd_delta(out, dout)
@@ -3478,16 +3575,28 @@ def run_bwd_route(fa_ops, route, q, k, v, out, lse, dout, causal, window):
     return dq, dk, dv, delta
 
 
+# the error keys of each route's (delta, dq, dkdv): the pair's delta is
+# its dq pass's, the parts kernels' fa_bwd_prep's
+BWD_ERR_NAMES = {"pair": ("wgmma_delta", "fa_bwd_dq_wgmma",
+                          "fa_bwd_dkdv_wgmma"),
+                 "parts": ("fa_bwd_prep", "fa_bwd_dq_parts",
+                           "fa_bwd_dkdv_parts"),
+                 "simt": ("fa_bwd_delta", "fa_bwd_dq", "fa_bwd_dkdv")}
+
+
 def check_flash_bwd(dev, fa_ops, fa_ref):
     """The forward's lse (both routes) and each backward route's kernels
     against the plain versions at FA_BWD_CHECKS, on identical inputs: the
-    kernels' forward output and lse feed both backwards.  A shape whose
-    route is wgmma runs both routes, and a second wgmma backward
+    kernels' forward output and lse feed both backwards.  A row whose
+    route is wgmma runs its kernels (the pair or the parts kernels) and
+    the simt route beside them, and a second wgmma backward
     (flash_attention_bwd's own choice) must equal the first bit for bit;
-    the float32 row runs the simt route.  Each route's delta is held to
-    the einsum.  Returns the largest absolute error of lse and of each
-    wrapper's kernel (the wgmma route's delta under "wgmma_delta")."""
-    err = {"lse": 0.0}
+    a float32 row past Dh 128 runs the simt route.  Each route's delta is
+    held to the einsum.  Returns ({key: the largest absolute error} over
+    every row, and over the float32 rows, {key: the largest share of its
+    tolerance}): the keys are lse and BWD_ERR_NAMES' (the pair's delta
+    under "wgmma_delta", the parts kernels' under "fa_bwd_prep")."""
+    err, err_f32, share = {"lse": 0.0}, {}, {}
     for label, B, S, H, KV, Dh, causal, window, dtype in FA_BWD_CHECKS:
         q, k, v, dout = fa_bwd_inputs(dev, B, S, H, KV, Dh, dtype, S + H)
         kw = dict(causal=causal, window=window)
@@ -3495,8 +3604,8 @@ def check_flash_bwd(dev, fa_ops, fa_ref):
         want_out, want_lse = fa_ref.flash_attention_fwd(q, k, v, **kw)
         tol = FA_BWD_TOL[dtype]
         checks = {"lse": close_err(lse, want_lse, LSE_TOL)}
-        routes = ("wgmma", "simt") if fa_ops.bwd_route(q, k, v) == "wgmma" \
-            else ("simt",)
+        routes = (fa_ops.wgmma_kernels(q), "simt") \
+            if fa_ops.bwd_route(q, k, v) == "wgmma" else ("simt",)
         want_delta = torch.einsum("bshd,bshd->bhs", dout.float(),
                                   out.float())
         wq, wk, wv = fa_ref.flash_attention_bwd(q, k, v, out, lse, dout,
@@ -3506,44 +3615,44 @@ def check_flash_bwd(dev, fa_ops, fa_ref):
             dq, dk, dv, delta = run_bwd_route(fa_ops, route, q, k, v, out,
                                               lse, dout, causal, window)
             torch.cuda.synchronize()
-            n_delta, n_dq, n_dkdv = (
-                ("wgmma_delta", "fa_bwd_dq_wgmma", "fa_bwd_dkdv_wgmma")
-                if route == "wgmma" else
-                ("fa_bwd_delta", "fa_bwd_dq", "fa_bwd_dkdv"))
+            n_delta, n_dq, n_dkdv = BWD_ERR_NAMES[route]
             checks[n_delta] = close_err(delta, want_delta, 1e-4)
-            ek, okk = close_err(dk, wk, tol)
-            ev, okv = close_err(dv, wv, tol)
-            checks[n_dkdv] = (max(ek, ev), okk and okv)
+            ek, okk, sk = close_err(dk, wk, tol)
+            ev, okv, sv = close_err(dv, wv, tol)
+            checks[n_dkdv] = (max(ek, ev), okk and okv, max(sk, sv))
             checks[n_dq] = close_err(dq, wq, tol)
-            if route == "wgmma":
+            if route != "simt":
                 again = fa_ops.flash_attention_bwd(q, k, v, out, lse, dout,
                                                    **kw)
                 same = all(torch.equal(a, b) for a, b in
                            zip(again, (dq, dk, dv)))
                 del again
             del dq, dk, dv, delta
-        for name, (e, _) in checks.items():
+        for name, (e, _, sh) in checks.items():
             err[name] = max(err.get(name, 0.0), e)
+            share[name] = max(share.get(name, 0.0), sh)
+            if dtype == torch.float32:
+                err_f32[name] = max(err_f32.get(name, 0.0), e)
         print(f"[train] flash backward against its plain version, {label} "
               f"(B={B} S={S} H={H} KV={KV} Dh={Dh} "
               f"{'causal' if causal else 'non-causal'} window={window} "
-              f"{str(dtype)[6:]}): max abs err lse {checks['lse'][0]:.3e} "
-              f"(tol {LSE_TOL}); "
-              + "; ".join(f"{n} {e:.3e}" for n, (e, _) in checks.items()
-                          if n != "lse")
+              f"{str(dtype)[6:]}; routes {routes}): max abs err lse "
+              f"{checks['lse'][0]:.3e} (tol {LSE_TOL}); "
+              + "; ".join(f"{n} {e:.3e} ({sh:.3f} of its tolerance)"
+                          for n, (e, _, sh) in checks.items() if n != "lse")
               + f" (tol {tol}, delta 1e-4); forward "
               f"{close_err(out, want_out, FA_TOL[dtype])[0]:.3e}"
               + ("" if same is None else
                  f"; two wgmma backwards bit-identical: {same}"),
               flush=True)
-        bad = [n for n, (_, ok) in checks.items() if not ok]
+        bad = [n for n, (_, ok, _) in checks.items() if not ok]
         if bad:
             fail(f"flash backward {label}: {bad} beyond the tolerance")
         if same is False:
             fail(f"flash backward {label}: two wgmma backwards differ")
         del q, k, v, dout, out, lse, wq, wk, wv
         torch.cuda.empty_cache()
-    return err
+    return err, err_f32, share
 
 
 def sdpa_bwd_ms(q, k, v, dout, causal, reps):
@@ -3560,14 +3669,74 @@ def sdpa_bwd_ms(q, k, v, dout, causal, reps):
         o, (qt, kt, vt), dot, retain_graph=True), reps)
 
 
+def fa_bwd_shape(B, S, H, KV, Dh, causal, dtype):
+    return (f"B={B} S={S} H={H} KV={KV} Dh={Dh} {str(dtype)[6:]} "
+            f"{'causal' if causal else 'non-causal'}")
+
+
+def bwd_time_row(name, t, b, shape, plain_ms, plain_d, sdpa):
+    """One kernel's [time] line and its figures: ms beside its bound,
+    the plain version (the delta kernels': the einsum) and SDPA's
+    backward (delta's library call: the einsum)."""
+    b_ms, by, ops, nbytes = b[name]
+    print(f"[time] {name} at {shape}: {t:.4f} ms, bound {b_ms:.5f} ms "
+          f"({by}: {ops} flops, {nbytes} bytes)"
+          + (f", {ops / t / 1e9:.2f} TFLOP/s" if ops else ""), flush=True)
+    delta = name in ("fa_bwd_delta", "fa_bwd_prep")
+    return {"ms": t, "bound_ms": b_ms, "bound_by": by, "shape": shape,
+            "plain_ms": plain_d if delta else plain_ms,
+            "library_ms": plain_d if delta else sdpa}
+
+
+def time_routes_at(dev, fa_ops, fa_ref, label, reps_simt):
+    """At FA_BWD_CHECKS' row ``label``: the parts kernels one by one and
+    flash_attention_bwd (its route), the simt kernels, the plain version,
+    the delta einsum and SDPA's backward, CUDA events after a warm-up.
+    Returns (the figures, the bounds, the shape)."""
+    _, B, S, H, KV, Dh, causal, window, dtype = fa_bwd_row(label)
+    q, k, v, dout = fa_bwd_inputs(dev, B, S, H, KV, Dh, dtype, 7)
+    out, lse = fa_ops.flash_attention_fwd(q, k, v, causal=causal,
+                                          window=window)
+    wargs = (causal, window)
+    rows, operands = fa_ops.fa_bwd_prep(q, k, v, out, dout, lse)
+    parts = {"fa_bwd_prep": cuda_ms(lambda: fa_ops.fa_bwd_prep(
+                 q, k, v, out, dout, lse), 20),
+             "fa_bwd_dq_parts": cuda_ms(lambda: fa_ops.fa_bwd_dq_parts(
+                 q, operands, rows, *wargs), 10),
+             "fa_bwd_dkdv_parts": cuda_ms(lambda: fa_ops.fa_bwd_dkdv_parts(
+                 q, k, operands, rows, *wargs), 10)}
+    call = cuda_ms(lambda: fa_ops.flash_attention_bwd(
+        q, k, v, out, lse, dout, causal=causal, window=window), 10)
+    sdelta = fa_ops.fa_bwd_delta(out, dout)
+    sargs = (q, k, v, dout, lse, sdelta, *wargs)
+    simt = {"fa_bwd_delta": cuda_ms(lambda: fa_ops.fa_bwd_delta(out, dout),
+                                    20),
+            "fa_bwd_dkdv": cuda_ms(lambda: fa_ops.fa_bwd_dkdv(*sargs),
+                                   reps_simt),
+            "fa_bwd_dq": cuda_ms(lambda: fa_ops.fa_bwd_dq(*sargs),
+                                 reps_simt)}
+    plain_delta = cuda_ms(lambda: torch.einsum(
+        "bshd,bshd->bhs", dout.float(), out.float()), 5)
+    plain = cuda_ms(lambda: fa_ref.flash_attention_bwd(
+        q, k, v, out, lse, dout, causal=causal, window=window), 1)
+    sdpa = sdpa_bwd_ms(q, k, v, dout, causal, 10)
+    del q, k, v, dout, out, lse, rows, operands, sdelta
+    torch.cuda.empty_cache()
+    return ({"parts": parts, "call": call, "simt": simt, "plain": plain,
+             "plain_delta": plain_delta, "sdpa": sdpa},
+            fa_bwd_bounds(B, S, H, KV, Dh, causal, window, dtype),
+            fa_bwd_shape(B, S, H, KV, Dh, causal, dtype))
+
+
 def time_flash_bwd(dev, fa_ops, fa_ref):
-    """The wgmma kernels at the training shape, the simt kernels there and
-    at the float32 row's shape, each beside its bound, the plain versions,
-    torch's SDPA backward on the same tensors and, for the delta kernel,
-    the einsum that computes it (CUDA events, after a warm-up).  Returns
+    """The pair at the training shape (and the simt kernels there), the
+    parts kernels, the simt kernels and SDPA's backward at the float32
+    check row and at nemotron-4-340b's training attention, each beside its
+    bound and the plain version (CUDA events, after a warm-up).  Returns
     ({wrapper: row}, the function's figures)."""
     rows = {}
-    _, B, S, H, KV, Dh, causal, window, dtype = FA_BWD_CHECKS[0]
+    _, B, S, H, KV, Dh, causal, window, dtype = fa_bwd_row(
+        FA_BWD_TRAINING_ROW)
     q, k, v, dout = fa_bwd_inputs(dev, B, S, H, KV, Dh, dtype, 7)
     out, lse = fa_ops.flash_attention_fwd(q, k, v, causal=causal)
     wargs = (causal, window)
@@ -3590,73 +3759,78 @@ def time_flash_bwd(dev, fa_ops, fa_ref):
         q, k, v, out, lse, dout, causal=causal), 2)
     sdpa_bwd = sdpa_bwd_ms(q, k, v, dout, causal, 10)
     bounds = fa_bwd_bounds(B, S, H, KV, Dh, causal, window, dtype)
-    shape = (f"B={B} S={S} H={H} KV={KV} Dh={Dh} {str(dtype)[6:]} "
-             f"{'causal' if causal else 'non-causal'}")
-
-    def row(name, t, b, shape, plain_ms, plain_d, sdpa):
-        b_ms, by, ops, nbytes = b[name]
-        print(f"[time] {name} at {shape}: {t:.4f} ms, bound "
-              f"{b_ms:.5f} ms ({by}: {ops} flops, {nbytes} bytes)"
-              + (f", {ops / t / 1e9:.2f} TFLOP/s" if ops else ""),
-              flush=True)
-        # the delta kernel's plain version and library call are one einsum
-        return {"ms": t, "bound_ms": b_ms, "bound_by": by, "shape": shape,
-                "plain_ms": plain_d if name == "fa_bwd_delta" else plain_ms,
-                "library_ms": plain_d if name == "fa_bwd_delta" else sdpa}
-
+    shape = fa_bwd_shape(B, S, H, KV, Dh, causal, dtype)
     for name, t in ms.items():
-        rows[name] = row(name, t, bounds, shape, plain, plain_delta,
-                         sdpa_bwd)
+        rows[name] = bwd_time_row(name, t, bounds, shape, plain, plain_delta,
+                                  sdpa_bwd)
     del q, k, v, dout, out, lse, rbuf, sdelta
     torch.cuda.empty_cache()
 
-    # the simt route on its own inputs: the float32 row
-    label, B2, S2, H2, KV2, D2, c2, w2, dt2 = FA_BWD_CHECKS[-1]
-    q, k, v, dout = fa_bwd_inputs(dev, B2, S2, H2, KV2, D2, dt2, 7)
-    out, lse = fa_ops.flash_attention_fwd(q, k, v, causal=c2, window=w2)
-    sdelta = fa_ops.fa_bwd_delta(out, dout)
-    sargs = (q, k, v, dout, lse, sdelta, c2, w2)
-    f32 = {"fa_bwd_delta": cuda_ms(lambda: fa_ops.fa_bwd_delta(out, dout),
-                                   20),
-           "fa_bwd_dkdv": cuda_ms(lambda: fa_ops.fa_bwd_dkdv(*sargs), 5),
-           "fa_bwd_dq": cuda_ms(lambda: fa_ops.fa_bwd_dq(*sargs), 5)}
-    f_plain_delta = cuda_ms(lambda: torch.einsum(
-        "bshd,bshd->bhs", dout, out), 5)
-    f_plain = cuda_ms(lambda: fa_ref.flash_attention_bwd(
-        q, k, v, out, lse, dout, causal=c2, window=w2), 2)
-    f_sdpa = sdpa_bwd_ms(q, k, v, dout, c2, 10)
-    f_bounds = fa_bwd_bounds(B2, S2, H2, KV2, D2, c2, w2, dt2)
-    f_shape = (f"B={B2} S={S2} H={H2} KV={KV2} Dh={D2} {str(dt2)[6:]} "
-               f"{'causal' if c2 else 'non-causal'}")
-    for name, t in f32.items():
-        rows[name] = row(name, t, f_bounds, f_shape, f_plain,
-                         f_plain_delta, f_sdpa)
+    # the parts kernels and the simt route at the float32 check row (the
+    # float32 step's dtype) and at nemotron's shape (bf16, Dh 192), SDPA's
+    # backward beside them
+    f32, f_bounds, f_shape = time_routes_at(dev, fa_ops, fa_ref,
+                                            FA_BWD_F32_ROW, 5)
+    nem, n_bounds, n_shape = time_routes_at(dev, fa_ops, fa_ref,
+                                            FA_BWD_NEMOTRON_ROW, 2)
+    for name in BWD_ROUTE_KERNELS["parts"]:
+        rows[name] = bwd_time_row(name, f32["parts"][name], f_bounds, f_shape,
+                                  f32["plain"], f32["plain_delta"],
+                                  f32["sdpa"])
+        rows[name]["at_nemotron_training"] = bwd_time_row(
+            name, nem["parts"][name], n_bounds, n_shape, nem["plain"],
+            nem["plain_delta"], nem["sdpa"])
+    for name in BWD_ROUTE_KERNELS["simt"]:
+        rows[name] = bwd_time_row(name, f32["simt"][name], f_bounds, f_shape,
+                                  f32["plain"], f32["plain_delta"],
+                                  f32["sdpa"])
         rows[name]["at_bf16_training_shape"] = {
             "shape": shape, "ms": simt_bf16[name],
             "bound_ms": bounds[name][0],
-            **({"library_ms": plain_delta} if name == "fa_bwd_delta"
-               else {"library_ms": sdpa_bwd})}
-    del q, k, v, dout, out, lse, sdelta
-    torch.cuda.empty_cache()
+            "library_ms": plain_delta if name == "fa_bwd_delta"
+            else sdpa_bwd}
+        rows[name]["at_nemotron_training"] = bwd_time_row(
+            name, nem["simt"][name], n_bounds, n_shape, nem["plain"],
+            nem["plain_delta"], nem["sdpa"])
 
     total = sum(ms.values())
     simt_total = sum(simt_bf16.values())
     f_ms, f_by, f_ops, f_bytes = bounds["function"]
-    print(f"[time] flash backward at {shape}: the wgmma route's two kernels "
+    print(f"[time] flash backward at {shape}: the pair's two kernels "
           f"{total:.4f} ms ({f_ops / total / 1e9:.2f} TFLOP/s of the "
           f"function's five products; flash_attention_bwd {both:.4f} ms a "
           f"call), the simt route's three {simt_total:.4f} ms "
-          f"({simt_bf16}), bound {f_ms:.5f} ms ({f_by}; the wgmma route's "
-          f"seven products {1.4 * f_ms:.5f} ms); plain {plain:.3f} ms "
-          f"(delta alone, one einsum {plain_delta:.4f} ms); torch's SDPA "
-          f"backward {sdpa_bwd:.4f} ms; at {f_shape}: the simt route "
-          f"{sum(f32.values()):.4f} ms, plain {f_plain:.3f} ms (delta's "
-          f"einsum {f_plain_delta:.4f} ms), SDPA backward {f_sdpa:.4f} ms",
-          flush=True)
+          f"({simt_bf16}), bound {f_ms:.5f} ms ({f_by}; the pair's seven "
+          f"products {1.4 * f_ms:.5f} ms); plain {plain:.3f} ms (delta "
+          f"alone, one einsum {plain_delta:.4f} ms); torch's SDPA backward "
+          f"{sdpa_bwd:.4f} ms", flush=True)
+    routes = {}
+    for tag, fig, bnd, shp in (("float32", f32, f_bounds, f_shape),
+                               ("nemotron", nem, n_bounds, n_shape)):
+        p_total, s_total = sum(fig["parts"].values()), sum(
+            fig["simt"].values())
+        fb = bnd["function"]
+        routes[tag] = {"shape": shp, "parts_ms": p_total,
+                       "call_ms": fig["call"], "simt_ms": s_total,
+                       "sdpa_backward_ms": fig["sdpa"],
+                       "plain_ms": fig["plain"], "bound_ms": fb[0],
+                       "bound_by": fb[1],
+                       "parts_vs_sdpa": fig["sdpa"] / fig["call"],
+                       "simt_vs_parts": s_total / fig["call"]}
+        print(f"[time] flash backward at {shp}: the parts kernels "
+              f"{p_total:.4f} ms ({fig['parts']}; flash_attention_bwd "
+              f"{fig['call']:.4f} ms a call), the simt route "
+              f"{s_total:.4f} ms ({fig['simt']}); the function's bound "
+              f"{fb[0]:.5f} ms ({fb[1]}: five products at the "
+              f"{'float32' if 'float32' in shp else 'bf16'} peak); plain "
+              f"{fig['plain']:.3f} ms; torch's SDPA backward "
+              f"{fig['sdpa']:.4f} ms: flash_attention_bwd "
+              f"{fig['sdpa'] / fig['call']:.2f}x SDPA's speed, "
+              f"{s_total / fig['call']:.2f}x the simt route's", flush=True)
     return rows, {"ms": total, "call_ms": both, "bound_ms": f_ms,
                   "bound_by": f_by, "plain_ms": plain,
                   "sdpa_backward_ms": sdpa_bwd, "shape": shape,
-                  "simt_route_ms": simt_total}
+                  "simt_route_ms": simt_total, "parts_routes": routes}
 
 
 def model_flops(cfg, B, S):
@@ -3724,16 +3898,19 @@ def profile_train_step(run_step):
 
 def train_launches(cfg) -> dict:
     """The launches a training step must show, by wrapper: the flash
-    forward twice an attention layer under remat and each wgmma backward
-    kernel once (bf16, head dim <= 128: no fa_bwd_delta, no simt kernel);
-    the SSD scan twice a Mamba2 layer and its backward once."""
+    forward twice an attention layer under remat and each backward kernel
+    that ``ops.bwd_kernels`` names for the config's dtype and head dim
+    once; the SSD scan twice a Mamba2 layer and its backward once."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
     kinds = cfg.all_layer_kinds()
     n_ssd = kinds.count("mamba")
     n_attn = len(kinds) - n_ssd
     want = {}
     if n_attn:
+        route = fa_ops.bwd_kernels(getattr(torch, cfg.dtype), cfg.head_dim)
         want.update({"flash_attention": 2 * n_attn,
-                     **dict.fromkeys(BWD_ROUTE_KERNELS["wgmma"], n_attn)})
+                     **dict.fromkeys(BWD_ROUTE_KERNELS[route], n_attn)})
     if n_ssd:
         want.update(ssd_scan=2 * n_ssd, ssd_bwd=n_ssd)
     return want
@@ -3958,6 +4135,86 @@ def train_small(dev, arch):
              f"uninterrupted run's {want}")
     return {**res, "restart_losses": got.tolist(),
             "uninterrupted_losses": want.tolist()}
+
+
+def train_f32(dev, kernels, fa_ops):
+    """TRAIN_F32_ARCH at full width and TRAIN_SMALL's depth with compute
+    dtype float32: one step through Trainer on the card, the launch counts
+    set to 0 before and read after (the backward's float32 path: the parts
+    kernels), then one step on the card against the CPU from the same
+    state and batch, held to TRAIN_F32_TOL.  Returns the figures."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.optim.adamw import AdamWConfig, adamw_update
+    from repro_torch.train import step as tstep
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    arch = TRAIN_F32_ARCH
+    cfg = get_config(arch).replace(n_layers=TRAIN_SMALL[arch],
+                                   dtype="float32")
+    opt = AdamWConfig(total_steps=4, warmup=2)
+    tc = TrainerConfig(steps=1, log_every=0, opt=opt, **TRAIN_SMALL_RUN)
+    tr = Trainer(cfg, tc, device=dev)
+    state = tr.init_state()
+    batch = tr.pipeline.batch_at(0)
+    bwd = [getattr(fa_ops, n) for n in BWD_KERNELS]
+    reset_launches(*kernels.values(), *bwd)
+    t0 = time.perf_counter()
+    tr.run(copy_to(state, dev), 0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {n: w.launches for n, w in kernels.items() if w.launches}
+    got.update({n: w.launches for n, w in zip(BWD_KERNELS, bwd)
+                if w.launches})
+    want = train_launches(cfg)
+    print(f"[train] {cfg.name} in float32 at depth {cfg.n_layers} (full "
+          f"width), B={tc.global_batch} S={tc.seq_len}: one Trainer step on "
+          f"the card in {wall:.2f} s, loss {tr.history[-1]['loss']!r}; "
+          f"launches {got} (expected {want})", flush=True)
+    if got != want:
+        fail(f"{cfg.name} float32 step: launches {got}, expected {want}")
+    out = {}
+    t0 = time.perf_counter()
+    for label, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        st = copy_to(state, d)               # the optimizer writes in place
+        b = to_device(batch, d)
+        (loss, _), grads = tstep.value_and_grad(cfg, st["params"], b)
+        before = copy_to(st["params"], "cpu")
+        params, _, m = adamw_update(opt, st["params"], grads, st["opt"])
+        out[label] = {"loss": float(loss), "grad_norm": float(m["grad_norm"]),
+                      "grads": to_device(grads, "cpu"),
+                      "update": {k: (a.float() - b_.float()) for (k, a), (_, b_)
+                                 in zip(flat_leaves(to_device(params, "cpu")),
+                                        flat_leaves(before))}}
+        del st, params, grads
+    cmp_s = time.perf_counter() - t0
+    card, cpu = out["card"], out["cpu"]
+    worst_leaf = max(((float((a - b_).abs().max())
+                       / max(float(b_.abs().max()), 1e-30), k)
+                      for (k, a), (_, b_) in zip(flat_leaves(card["grads"]),
+                                                 flat_leaves(cpu["grads"]))))
+    diffs = {"loss": abs(card["loss"] - cpu["loss"]),
+             "grad_norm": abs(card["grad_norm"] - cpu["grad_norm"])
+             / cpu["grad_norm"],
+             "grad_leaf": worst_leaf[0],
+             "update_l2": float(torch.sqrt(sum(
+                 ((card["update"][k] - u) ** 2).sum()
+                 for k, u in cpu["update"].items())) / torch.sqrt(sum(
+                     (u ** 2).sum() for u in cpu["update"].values())))}
+    print(f"[train] card vs cpu in float32, {cfg.name} at depth "
+          f"{cfg.n_layers}: loss card {card['loss']!r} cpu {cpu['loss']!r}, "
+          f"grad_norm card {card['grad_norm']!r} cpu {cpu['grad_norm']!r}; "
+          f"differences { {k: float(f'{v:.4e}') for k, v in diffs.items()} } "
+          f"(largest leaf difference at {worst_leaf[1]}; tol "
+          f"{TRAIN_F32_TOL}; {cmp_s:.1f} s)", flush=True)
+    if any(diffs[k] > TRAIN_F32_TOL[k] for k in diffs):
+        fail(f"{cfg.name} in float32: the card's step and the cpu's differ "
+             f"beyond the tolerance: {diffs}")
+    import signal
+
+    signal.signal(signal.SIGTERM, signal.SIG_DFL)    # Trainer's handler
+    return {"launches": got, "card_vs_cpu": diffs, "tol": TRAIN_F32_TOL,
+            "depth": cfg.n_layers, "wall_s": wall,
+            "loss": tr.history[-1]["loss"]}
 
 
 def copy_to(tree, dev):
@@ -4911,6 +5168,12 @@ def main() -> None:
     if set(bwd_usage) != set(FA_BWD_INSTANCES):
         fail(f"ptxas reported {sorted(bwd_usage)} for the flash backward's "
              f"wgmma instances, expected {FA_BWD_INSTANCES}")
+    bwd_notes = collections.Counter(
+        (flash_bwd_instance(ln), ln[ln.index("(C75"):][:7])
+        for ln in build.build_log.splitlines()
+        if "(C75" in ln and flash_bwd_instance(ln))
+    print(f"[build] ptxas performance notes on the flash backward's wgmma "
+          f"instances: {dict(bwd_notes) or 'none'}", flush=True)
     bwd_sass = sass_counts(lib_path, flash_bwd_instance, ("HGMMA", "UTMALDG"))
     print(f"[build] SASS of the flash backward's wgmma kernels (cuobjdump "
           f"-sass): {bwd_sass}", flush=True)
@@ -6337,7 +6600,8 @@ def main() -> None:
     # (granite)
     phase("train")
     t0 = time.perf_counter()
-    fa_bwd_err = check_flash_bwd(dev, fa_ops, fa_ref)
+    fa_bwd_err, fa_bwd_err_f32, fa_bwd_share = check_flash_bwd(dev, fa_ops,
+                                                               fa_ref)
     fa_bwd_rows, fa_bwd_function = time_flash_bwd(dev, fa_ops, fa_ref)
     ssd_bwd_err = check_ssd_bwd(dev, ssd_ops, ssd_ref)
     ssd_bwd_time = time_ssd_bwd(dev, ssd_ops, ssd_ref)
@@ -6351,6 +6615,11 @@ def main() -> None:
                 launches[k] += n
         by_path[f"train.{arch}"] = train[arch]["launches"]
     train_cut = {arch: train_small(dev, arch) for arch in TRAIN_SMALL}
+    train_f32_run = train_f32(dev, kernels, fa_ops)
+    for k, n in train_f32_run["launches"].items():
+        if k in launches:
+            launches[k] += n
+    by_path["train.float32"] = train_f32_run["launches"]
     train_s = time.perf_counter() - t0
     print(f"[train] wall of the phase {train_s:.1f} s", flush=True)
 
@@ -6367,8 +6636,8 @@ def main() -> None:
             launches[k] += n
         by_path[path] = run["launches"]
     path_launches = lambda k: {a: n[k] for a, n in by_path.items() if k in n}
-    train_launch = lambda name: sum(t["launches"].get(name, 0)
-                                    for t in train.values())
+    train_launch = lambda name: sum(t["launches"].get(name, 0) for t in (
+        *train.values(), train_f32_run))
     ssd_route_launch = lambda r: sum(t["ssd_bwd_routes"][r] for t in (
         *train.values(), diloco_run))
     phase("record")
@@ -6578,40 +6847,53 @@ def main() -> None:
          **ssd_time, "launches_by_path": path_launches("ssd_scan"),
          "launches_by_route": ssd_routes, "diloco": diloco_run,
          "card_vs_cpu_logits_max_abs_diff": card_cpu_diff},
-        *({"name": name if route == "wgmma" or name == "fa_bwd_delta" else
+        *({"name": name if route != "simt" or name == "fa_bwd_delta" else
            f"{name}_{route}",
            "route": "cuda",
-           "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+           "source": "src/repro_torch/csrc/flash_attention_bwd_parts.cuh"
+                     if route == "parts" else
+                     "src/repro_torch/csrc/flash_attention_bwd.cu",
            "replaces": "src/repro/kernels/flash_attention/jnp_impl.py:117",
            "replaces_note": "the reference's flash backward _bwd_vjp, jnp "
                             "under the custom VJP of kernels/flash_attention/"
                             "ops.py: no Pallas kernel",
            "kernel": f"{name}_kernel",
            "wrapper": f"ops.{name}",
-           "bwd_route": route,
-           "bwd_route_note": "bfloat16 with a head dim of at most 128 "
-                             "(ops.bwd_route)" if route == "wgmma" else
-                             "float32, or a head dim in (128, 256]: not "
-                             "on the bf16 training path",
+           "bwd_route": "simt" if route == "simt" else "wgmma",
+           "bwd_route_note": {
+               "pair": "wgmma, its pair: bfloat16 with a head dim of at "
+                       "most 128 (ops.bwd_route, ops.wgmma_kernels)",
+               "parts": "wgmma, its parts kernels: bfloat16 with a head "
+                        "dim in (128, 256], float32 up to 128 (three bf16 "
+                        "parts an operand); timed at the float32 check "
+                        "row and at nemotron-4-340b's training attention",
+               "simt": "float32 with a head dim in (128, 256]; timed on "
+                       "the float32 check row's inputs and beside the "
+                       "parts kernels at nemotron's"}[route],
            "launches": train_launch(name),
            "launches_by_path": path_launches(name),
            "max_abs_err": fa_bwd_err[name],
+           "max_share_of_tolerance": fa_bwd_share[name],
+           **({"max_abs_err_float32": fa_bwd_err_f32[name]}
+              if name in fa_bwd_err_f32 else {}),
            **({"delta_max_abs_err": fa_bwd_err["wgmma_delta"]}
               if name == "fa_bwd_dq_wgmma" else {}),
            **fa_bwd_rows[name],
            "plain_note": "the plain rowsum (one einsum)"
-                         if name == "fa_bwd_delta" else
+                         if name in ("fa_bwd_delta", "fa_bwd_prep") else
                          "the plain backward (ref.flash_attention_bwd), "
                          "which computes dq, dk and dv at once",
            "library_note": "torch.einsum('bshd,bshd->bhs', dout, out), the "
-                           "plain rowsum's one call" if name ==
-                           "fa_bwd_delta" else
+                           "plain rowsum's one call" if name in
+                           ("fa_bwd_delta", "fa_bwd_prep") else
                            "scaled_dot_product_attention's backward "
                            "(torch.autograd.grad; dq, dk and dv at once)",
            **({"function": fa_bwd_function,
                "train_drive": train["granite-3-2b"],
                "card_vs_cpu": train_cut}
-              if name == "fa_bwd_dkdv_wgmma" else {})}
+              if name == "fa_bwd_dkdv_wgmma" else {}),
+           **({"float32_train_step": train_f32_run}
+              if name == "fa_bwd_dkdv_parts" else {})}
           for route, names in BWD_ROUTE_KERNELS.items() for name in names),
         {"name": "ssd_bwd_wgmma", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_scan_bwd_wgmma.cuh",

@@ -30,10 +30,13 @@
 // (benchmarks/torch_flash_bwd_ulps.py).
 //
 // Two routes, chosen by ops.bwd_route from the inputs' dtype and head
-// dim; neither falls back to the other.
+// dim; neither falls back to the other.  The wgmma route is this file's
+// pair for bfloat16 with Dh <= 128 and, for bfloat16 past 128 and float32
+// up to 128, the parts kernels of flash_attention_bwd_parts.cuh; the simt
+// route (float32 past Dh 128) is this file's SIMT kernels.
 //
-// bfloat16 with Dh <= 128: two kernels on Hopper's TMA, mbarriers and
-// wgmma, launched in this order on one stream:
+// bfloat16 with Dh <= 128, the pair: two kernels on Hopper's TMA,
+// mbarriers and wgmma, launched in this order on one stream:
 //  (1) fa_bwd_dq_wgmma_kernel: one block per (b, q head, tile of 128 q
 //      rows), two warpgroups of 64 rows.  TMA loads the block's Q, dO and
 //      O tiles; the warpgroups compute delta = rowsum(dO * O) in f32 from
@@ -102,8 +105,9 @@
 // SFU's rate, 16 a clock an SM, bounds the element-wise work), ds = p *
 // (dp - delta) * scale, as above; q.k and do.v are f32 accumulators.
 //
-// float32, and bfloat16 with Dh in (128, 256]: the SIMT kernels below,
-// launched in this order on one stream:
+// float32 with Dh in (128, 256] (and any input a test or chip_smoke.py
+// hands their wrappers): the SIMT kernels below, launched in this order
+// on one stream:
 //  (a) fa_bwd_delta_kernel: delta = rowsum(dO * O) in f32, one warp a row.
 //  (b) fa_bwd_dkdv_kernel: one block per (b, kv head, tile of BK keys).
 //      It loops over the G q heads of its GQA group and, for each, over
@@ -145,6 +149,7 @@
 #include <cstdint>
 
 #include "hopper.cuh"
+#include "flash_attention_bwd.cuh"
 
 namespace {
 
@@ -174,12 +179,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
   return to_f32<T>(from_f32<T>(x));
-}
-
-__device__ __forceinline__ bool live(int qpos, int kpos, int S, int causal,
-                                     int window) {
-  return qpos < S && kpos < S && (!causal || kpos <= qpos) &&
-         (!window || kpos > qpos - window);
 }
 
 // rows r0 .. r0+ROWS-1 of a (B,S,heads,Dh) tensor's (b, head) slice into
@@ -514,49 +513,6 @@ bool bad_shape(int B, int S, int H, int KV, int Dh, int window, int dtype) {
 }
 
 // ---------------------------------------------------- bf16 route: wgmma
-constexpr float LOG2E = 1.4426950408889634f;
-
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  if constexpr (N == 128) wgmma_ss_n128(d, da, db, scale_d);
-  else wgmma_ss_n64(d, da, db, scale_d);
-}
-
-// D = A.B^T over the head dim (16 columns a step): A the 64 rows of a
-// warpgroup at `a`, B the N rows at `b`, both K-major tiles of 128-byte
-// column blocks `a_cb` and `b_cb` bytes apart
-template <int N>
-__device__ __forceinline__ void rows_product(float (&d)[N / 2], uint32_t a,
-                                             uint32_t a_cb, uint32_t b,
-                                             uint32_t b_cb, int ksteps) {
-  for (int t = 0; t < ksteps; ++t) {
-    const uint32_t off = (t % 4) * 32;          // within the 128-byte row
-    wgmma_ss<N>(d, smem_desc(a + (t / 4) * a_cb + off, 16, 1024),
-                smem_desc(b + (t / 4) * b_cb + off, 16, 1024), t);
-  }
-}
-
-// D += F.B over KT rows of B (16 a step): F the bf16 A fragments of a
-// (64, KT) accumulator, B a (KT, DP) tile at `b`, Dh contiguous (MN-major:
-// column blocks KT * 128 bytes apart, 8-row groups 1024)
-template <int DP, int KT>
-__device__ __forceinline__ void frag_product(float (&d)[DP / 2],
-                                             const uint32_t (&f)[KT / 4],
-                                             uint32_t b) {
-#pragma unroll
-  for (int t = 0; t < KT / 16; ++t) {
-    const uint32_t a[4] = {f[4 * t], f[4 * t + 1], f[4 * t + 2],
-                           f[4 * t + 3]};
-    wgmma_rs<DP>(d, a, smem_desc(b + t * 16 * 128, KT * 128, 1024));
-  }
-}
-
-__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // acc + the dot product of two 16-byte chunks of 8 bf16 each (exact
 // products, f32 sums)
 __device__ __forceinline__ float dot8(uint4 x, uint4 y, float acc) {
@@ -570,55 +526,6 @@ __device__ __forceinline__ float dot8(uint4 x, uint4 y, float acc) {
   }
   return acc;
 }
-
-// p = 2^(s * scale_log2 - l): one fused multiply-add (the library is
-// built with --fmad=false, so it is spelled) and the SFU's ex2 (relative
-// error 2^-22; results below 2^-126 flush to 0, far under a bf16 p's
-// rounding)
-__device__ __forceinline__ float prob(float s, float scale_log2, float l) {
-  float p;
-  asm("ex2.approx.ftz.f32 %0, %1;"
-      : "=f"(p) : "f"(__fmaf_rn(s, scale_log2, -l)));
-  return p;
-}
-
-// the next stage of a ring, and its phase: flips when the ring wraps
-template <int STAGES>
-__device__ __forceinline__ void ring_next(int& stage, uint32_t& phase) {
-  if (++stage == STAGES) {
-    stage = 0;
-    phase ^= 1;
-  }
-}
-
-// One 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
-// aligned) into shared memory, completing on the mbarrier `bar`.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
-         "r"(bar)
-      : "memory");
-}
-
-// The ring's producer, run by thread 0 between its own tiles: the next
-// tile goes to the stage of the oldest one once every warp has released
-// that, so up to STAGES - 1 tiles are in flight ahead of the consumers.
-template <int STAGES>
-struct Ring {
-  int next = 0, stage = 0;
-  uint32_t phase = 0;
-  template <typename Load>
-  __device__ __forceinline__ void issue(uint32_t bar_full,
-                                        uint32_t bar_empty, Load load) {
-    mbar_wait(bar_empty + 8 * stage, phase ^ 1);
-    load(stage, bar_full + 8 * stage);
-    ++next;
-    ring_next<STAGES>(stage, phase);
-  }
-};
 
 template <int DP, int BK>
 struct DqCfg {
@@ -995,9 +902,6 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// the rows buffer's padded length: S rounded up to the dkdv ring's tile
-int rows_pad(int S) { return (S + 63) / 64 * 64; }
-
 struct WgArgs {
   const void *q, *k, *v, *dout;
   int B, S, H, KV, Dh;
@@ -1065,8 +969,7 @@ WgArgs wg_args(const void* q, const void* k, const void* v, const void* dout,
                int B, int S, int H, int KV, int Dh, Strides qs, Strides ks,
                Strides vs, Strides dos, int causal, int window) {
   return WgArgs{q, k, v, dout, B, S, H, KV, Dh, qs, ks, vs, dos, causal,
-                window, (float)(1.0 / sqrt((double)Dh)),
-                (float)(1.4426950408889634 / sqrt((double)Dh))};
+                window, scale_of(Dh), scale_log2_of(Dh)};
 }
 
 }  // namespace
@@ -1112,7 +1015,7 @@ extern "C" int fa_bwd_dkdv_launch(
                   static_cast<const float*>(delta), B, S, H, KV, Dh,
                   Strides{qsb, qss, qsh}, Strides{ksb, kss, ksh},
                   Strides{vsb, vss, vsh}, Strides{dsb, dss, dsh}, causal,
-                  window, (float)(1.0 / sqrt((double)Dh))};
+                  window, scale_of(Dh)};
   const Strides dks{dksb, dkss, dksh}, dvs{dvsb, dvss, dvsh};
   cudaStream_t st = (cudaStream_t)stream;
   auto run = [&](auto tag) {
@@ -1141,7 +1044,7 @@ extern "C" int fa_bwd_dq_launch(
                   static_cast<const float*>(delta), B, S, H, KV, Dh,
                   Strides{qsb, qss, qsh}, Strides{ksb, kss, ksh},
                   Strides{vsb, vss, vsh}, Strides{dsb, dss, dsh}, causal,
-                  window, (float)(1.0 / sqrt((double)Dh))};
+                  window, scale_of(Dh)};
   const Strides dqs{dqsb, dqss, dqsh};
   cudaStream_t st = (cudaStream_t)stream;
   auto run = [&](auto tag) {

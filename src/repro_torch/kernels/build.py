@@ -105,6 +105,19 @@ SIGNATURES = {
     # of q, k, v, dout, dk, dv; causal, window, dtype; stream
     "fa_bwd_dkdv_wgmma_launch": [_P] * 7 + [_I] * 5 + [_L] * 18 + [_I] * 3
                                 + [_P],
+    # q, k, v, o, dout, lse, rows, and the parts of q, k, v, dout (null
+    # for bfloat16); B, S, H, KV, Dh; (b, s, head) strides of q, k, v, o,
+    # dout; dtype; stream
+    "fa_bwd_prep_launch": [_P] * 11 + [_I] * 5 + [_L] * 15 + [_I, _P],
+    # the operands q, k, v, dout (parts or tensors), rows, dq; B, S, H,
+    # KV, Dh; (b, s, head) strides of the operands and dq; causal, window,
+    # dtype; stream
+    "fa_bwd_dq_parts_launch": [_P] * 6 + [_I] * 5 + [_L] * 15 + [_I] * 3
+                              + [_P],
+    # the operands, rows, dk, dv; B, S, H, KV, Dh; strides of the operands,
+    # dk, dv; causal, window, dtype; stream
+    "fa_bwd_dkdv_parts_launch": [_P] * 7 + [_I] * 5 + [_L] * 18 + [_I] * 3
+                                + [_P],
     # x, dt, A, B, C, y, state; B, S, H, P, N, chunk; (b, s, head) strides
     # of x and dt, A's stride, (b, s) strides of B and C; dtypes of x, dt,
     # A, B/C; route; stream

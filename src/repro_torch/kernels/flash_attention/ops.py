@@ -4,13 +4,16 @@ A CUDA tensor launches the hand-written kernels: the forward
 ``csrc/flash_attention.cu`` (the counterpart of the reference's
 ``flash_attention_fwd``/``_fa_kernel``), bfloat16 by its wgmma route,
 whose tiles TMA loads, float32 by its SIMT route; the backward
-``csrc/flash_attention_bwd.cu`` (the counterpart of the reference's
-``jnp_impl._bwd_vjp``) by one of two routes, which ``bwd_route`` chooses
-from dtype and head dim: ``"wgmma"`` (bfloat16, Dh <= 128) launches
-``fa_bwd_dq_wgmma``, which also writes delta, then ``fa_bwd_dkdv_wgmma``,
-both on wgmma and TMA; ``"simt"`` (float32, or Dh in (128, 256])
-launches ``fa_bwd_delta``, ``fa_bwd_dkdv`` and ``fa_bwd_dq`` on the CUDA
-cores.  A CPU tensor takes the plain versions in ``ref.py``.
+``csrc/flash_attention_bwd.cu`` and ``csrc/flash_attention_bwd_parts.cuh``
+(the counterparts of the reference's ``jnp_impl._bwd_vjp``) by one of two
+routes, which ``bwd_route`` chooses from dtype and head dim: ``"wgmma"``
+(bfloat16 at Dh <= 256, float32 at Dh <= 128) on wgmma and TMA, where
+bfloat16 at Dh <= 128 launches the pair ``fa_bwd_dq_wgmma``, which also
+writes delta, then ``fa_bwd_dkdv_wgmma``, and the rest the parts kernels
+``fa_bwd_prep`` (delta, and float32's operands as three bf16 parts each),
+``fa_bwd_dq_parts`` and ``fa_bwd_dkdv_parts``; ``"simt"`` (float32 at Dh
+in (128, 256]) launches ``fa_bwd_delta``, ``fa_bwd_dkdv`` and ``fa_bwd_dq``
+on the CUDA cores.  A CPU tensor takes the plain versions in ``ref.py``.
 The inputs keep the reference's (B,S,H,Dh)/(B,S,KV,Dh) layout: the
 kernels read them through their strides, so no transposed copy is made.
 
@@ -31,7 +34,12 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ref
 
 MAX_HEAD_DIM = 256
-MAX_WGMMA_BWD_HEAD_DIM = 128
+# the wgmma backward's head-dim limits: bfloat16, float32 (the parts
+# kernels' float32 tiles, three bf16 parts an operand, fit shared memory
+# up to 128), and the bfloat16 pair's
+MAX_WGMMA_BWD_HEAD_DIM = 256
+MAX_F32_WGMMA_BWD_HEAD_DIM = 128
+MAX_PAIR_HEAD_DIM = 128
 ROWS_TILE = 64            # the wgmma dkdv kernel's q rows a ring tile
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -186,34 +194,65 @@ def _tma_ready(x):
 
 def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The backward kernels a CUDA launch of these inputs takes:
-    ``"wgmma"`` for bfloat16 with a head dim of at most 128 (TMA's zero
-    fill pads it to 64 or 128), ``"simt"`` for float32 and for head dims
-    in (128, 256].  A pure function of dtype and shape (q, k and v share
-    both; the bfloat16 inputs already satisfy ``_check_tma``)."""
-    if q.dtype == torch.bfloat16 and q.shape[-1] <= MAX_WGMMA_BWD_HEAD_DIM:
+    ``"wgmma"`` for bfloat16 with a head dim of at most 256 and for
+    float32 with one of at most 128 (TMA's zero fill pads it to a
+    multiple of 64), ``"simt"`` for float32 at head dims in (128, 256].
+    A pure function of dtype and shape (q, k and v share both; the
+    bfloat16 inputs already satisfy ``_check_tma``)."""
+    Dh = q.shape[-1]
+    if (q.dtype == torch.bfloat16 and Dh <= MAX_WGMMA_BWD_HEAD_DIM) or (
+            q.dtype == torch.float32 and Dh <= MAX_F32_WGMMA_BWD_HEAD_DIM):
         return "wgmma"
     return "simt"
 
 
+def wgmma_kernels(q) -> str:
+    """Which kernels the wgmma route launches for q: ``"pair"``
+    (bfloat16 at Dh <= 128: ``fa_bwd_dq_wgmma``, ``fa_bwd_dkdv_wgmma``)
+    or ``"parts"`` (``fa_bwd_prep``, ``fa_bwd_dq_parts``,
+    ``fa_bwd_dkdv_parts``)."""
+    if q.dtype == torch.bfloat16 and q.shape[-1] <= MAX_PAIR_HEAD_DIM:
+        return "pair"
+    return "parts"
+
+
+def bwd_kernels(dtype: torch.dtype, head_dim: int) -> str:
+    """The backward kernels a CUDA launch at this dtype and head dim takes:
+    ``"pair"`` or ``"parts"`` (the wgmma route, as ``wgmma_kernels``) or
+    ``"simt"``, for a caller that holds a config rather than tensors."""
+    q = torch.empty((0, head_dim), dtype=dtype, device="meta")
+    return wgmma_kernels(q) if bwd_route(q, q, q) == "wgmma" else "simt"
+
+
 def _check_wgmma(q):
-    if q.dtype != torch.bfloat16 or q.shape[-1] > MAX_WGMMA_BWD_HEAD_DIM:
-        raise ValueError(f"the wgmma backward takes bfloat16 with a head "
-                         f"dim of at most {MAX_WGMMA_BWD_HEAD_DIM}, not "
-                         f"{q.dtype} at {q.shape[-1]}")
+    if q.dtype != torch.bfloat16 or q.shape[-1] > MAX_PAIR_HEAD_DIM:
+        raise ValueError(f"the wgmma pair takes bfloat16 with a head dim "
+                         f"of at most {MAX_PAIR_HEAD_DIM}, not {q.dtype} at "
+                         f"{q.shape[-1]}")
+
+
+def _check_parts(q):
+    if bwd_route(q, q, q) != "wgmma" or wgmma_kernels(q) != "parts":
+        raise ValueError(f"the parts kernels take bfloat16 with a head dim "
+                         f"in ({MAX_PAIR_HEAD_DIM}, {MAX_WGMMA_BWD_HEAD_DIM}] "
+                         f"or float32 with one of at most "
+                         f"{MAX_F32_WGMMA_BWD_HEAD_DIM}, not {q.dtype} at "
+                         f"{q.shape[-1]}")
 
 
 def rows_shape(q) -> Tuple[int, int, int, int]:
     """The wgmma route's rows buffer for q (B,S,H,Dh): (B, H, S_pad, 2)
     float32, S_pad = S rounded up to a multiple of 64 (the dkdv kernel
-    fetches a 64-row tile's 512 bytes in one bulk copy), which the dq pass
-    fills with each row's (lse * log2(e), delta), zeros past S."""
+    fetches a 64-row tile's 512 bytes in one bulk copy), which the pair's
+    dq pass or ``fa_bwd_prep`` fills with each row's (lse * log2(e),
+    delta), zeros past S."""
     B, S, H, _ = q.shape
     return (B, H, -(-S // ROWS_TILE) * ROWS_TILE, 2)
 
 
 def rows_delta(rows: torch.Tensor, S: int) -> torch.Tensor:
     """delta (B,H,S) = rowsum(dout * out), a view of the rows buffer the
-    wgmma dq pass wrote."""
+    pair's dq pass or ``fa_bwd_prep`` wrote."""
     return rows[:, :, :S, 1]
 
 
@@ -244,12 +283,7 @@ def fa_bwd_dkdv_wgmma(q, k, v, dout, rows, causal: bool, window: int):
     kernel) on the inputs of ``fa_bwd_dq_wgmma`` and the rows buffer it
     returned: (dk, dv) (B,S,KV,Dh)."""
     _check_wgmma(q)
-    if tuple(rows.shape) != rows_shape(q) or rows.dtype != torch.float32 \
-            or not rows.is_contiguous() or rows.data_ptr() % 16 \
-            or rows.device != q.device:
-        raise ValueError(f"the wgmma dkdv kernel reads the rows buffer "
-                         f"{rows_shape(q)} of fa_bwd_dq_wgmma, not "
-                         f"{rows.dtype} {tuple(rows.shape)}")
+    _check_rows(q, rows, "the wgmma dkdv kernel")
     B, S, H, Dh = q.shape
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
@@ -261,6 +295,90 @@ def fa_bwd_dkdv_wgmma(q, k, v, dout, rows, causal: bool, window: int):
                       int(bool(causal)), window, _DTYPES[q.dtype])
     build.check(rc, "fa_bwd_dkdv_wgmma")
     build.count(fa_bwd_dkdv_wgmma)
+    return dk, dv
+
+
+def _check_rows(q, rows, who):
+    if tuple(rows.shape) != rows_shape(q) or rows.dtype != torch.float32 \
+            or not rows.is_contiguous() or rows.data_ptr() % 16 \
+            or rows.device != q.device:
+        raise ValueError(f"{who} reads the rows buffer {rows_shape(q)}, "
+                         f"not {rows.dtype} {tuple(rows.shape)}")
+
+
+def parts_shape(x) -> Tuple[int, int, int, int]:
+    """A float32 operand's parts for the parts kernels: (B, S, n, 3 DP)
+    bfloat16, DP = Dh rounded up to 64, hi, mid and lo (their sum the
+    value exactly) in [0, DP), [DP, 2 DP), [2 DP, 3 DP), zeros past Dh."""
+    B, S, n, Dh = x.shape
+    return (B, S, n, 3 * (-(-Dh // 64) * 64))
+
+
+def fa_bwd_prep(q, k, v, out, dout, lse):
+    """Launch ``fa_bwd_prep_kernel`` (the parts kernels' first) on checked
+    CUDA tensors: (the rows buffer (``rows_shape``) with each q row's (lse
+    * log2(e), delta = rowsum(dout * out)), the operands (q, k, v, dout)
+    the products read: for float32 their bf16 parts (``parts_shape``), for
+    bfloat16 the tensors themselves)."""
+    _check_parts(q)
+    B, S, H, Dh = q.shape
+    KV = k.shape[2]
+    rows = torch.empty(rows_shape(q), dtype=torch.float32, device=q.device)
+    if q.dtype == torch.float32:
+        operands = tuple(torch.empty(parts_shape(x), dtype=torch.bfloat16,
+                                     device=q.device)
+                         for x in (q, k, v, dout))
+        ptrs = [x.data_ptr() for x in operands]
+    else:
+        operands, ptrs = (q, k, v, dout), [None] * 4
+    strides = [s for x in (q, k, v, out, dout) for s in _strides(x)]
+    rc = build.launch(q.device, build.library().fa_bwd_prep_launch,
+                      q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                      rows.data_ptr(), *ptrs, B, S, H, KV, Dh, *strides,
+                      _DTYPES[q.dtype])
+    build.check(rc, "fa_bwd_prep")
+    build.count(fa_bwd_prep)
+    return rows, operands
+
+
+def fa_bwd_dq_parts(q, operands, rows, causal: bool, window: int):
+    """Launch ``fa_bwd_dq_parts_kernel`` on the operands and the rows
+    buffer ``fa_bwd_prep`` returned for q: dq (B,S,H,Dh) in q's dtype."""
+    _check_parts(q)
+    _check_rows(q, rows, "the parts dq kernel")
+    B, S, H, Dh = q.shape
+    qp, kp, vp, dop = operands
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    strides = [s for x in (qp, kp, vp, dop, dq) for s in _strides(x)]
+    rc = build.launch(q.device, build.library().fa_bwd_dq_parts_launch,
+                      qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                      dop.data_ptr(), rows.data_ptr(), dq.data_ptr(), B, S,
+                      H, kp.shape[2], Dh, *strides, int(bool(causal)),
+                      window, _DTYPES[q.dtype])
+    build.check(rc, "fa_bwd_dq_parts")
+    build.count(fa_bwd_dq_parts)
+    return dq
+
+
+def fa_bwd_dkdv_parts(q, k, operands, rows, causal: bool, window: int):
+    """Launch ``fa_bwd_dkdv_parts_kernel`` on the operands and the rows
+    buffer ``fa_bwd_prep`` returned for q: (dk, dv) (B,S,KV,Dh) in k's
+    dtype."""
+    _check_parts(q)
+    _check_rows(q, rows, "the parts dkdv kernel")
+    B, S, H, Dh = q.shape
+    qp, kp, vp, dop = operands
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    strides = [s for x in (qp, kp, vp, dop, dk, dv) for s in _strides(x)]
+    rc = build.launch(q.device, build.library().fa_bwd_dkdv_parts_launch,
+                      qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                      dop.data_ptr(), rows.data_ptr(), dk.data_ptr(),
+                      dv.data_ptr(), B, S, H, k.shape[2], Dh, *strides,
+                      int(bool(causal)), window, _DTYPES[q.dtype])
+    build.check(rc, "fa_bwd_dkdv_parts")
+    build.count(fa_bwd_dkdv_parts)
     return dk, dv
 
 
@@ -290,8 +408,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     if bwd_route(q, k, v) == "wgmma":
         out, dout = _tma_ready(out), _tma_ready(dout)
-        dq, rows = fa_bwd_dq_wgmma(q, k, v, out, dout, lse, causal, window)
-        dk, dv = fa_bwd_dkdv_wgmma(q, k, v, dout, rows, causal, window)
+        if wgmma_kernels(q) == "pair":
+            dq, rows = fa_bwd_dq_wgmma(q, k, v, out, dout, lse, causal,
+                                       window)
+            dk, dv = fa_bwd_dkdv_wgmma(q, k, v, dout, rows, causal, window)
+            return dq, dk, dv
+        rows, operands = fa_bwd_prep(q, k, v, out, dout, lse)
+        dq = fa_bwd_dq_parts(q, operands, rows, causal, window)
+        dk, dv = fa_bwd_dkdv_parts(q, k, operands, rows, causal, window)
         return dq, dk, dv
     if out.stride(-1) != 1:
         out = out.contiguous()
@@ -342,3 +466,6 @@ fa_bwd_dkdv.launches = 0
 fa_bwd_dq.launches = 0
 fa_bwd_dq_wgmma.launches = 0
 fa_bwd_dkdv_wgmma.launches = 0
+fa_bwd_prep.launches = 0
+fa_bwd_dq_parts.launches = 0
+fa_bwd_dkdv_parts.launches = 0

@@ -1372,12 +1372,15 @@ def test_private_plan_on_the_card_equals_the_cpu(dev):
 # ------------------------------------------------------- flash backward
 # (B, S, H, KV, Dh, causal, window): granite's training shape, a window,
 # llama4-scout's GQA group 5 at head dim 128, zamba2's head dim 112, the
-# non-causal encoder shape, a ragged S, and the 32 x 32 tiles of Dh 256
+# non-causal encoder shape, a ragged S, Dh 256, Dh 136 (TMA pads it to
+# 192) and nemotron-4-340b's Dh 192 with its GQA group 12 (bfloat16: the
+# parts kernels; float32 past 128: the simt kernels)
 FA_BWD_CASES = [
     (8, 1024, 32, 8, 64, True, 0), (2, 777, 8, 2, 64, True, 128),
     (1, 512, 40, 8, 128, True, 0), (2, 384, 8, 8, 112, True, 0),
     (2, 1500, 6, 6, 64, False, 0), (1, 200, 8, 1, 256, True, 0),
-    (1, 130, 4, 2, 16, False, 40),
+    (1, 130, 4, 2, 16, False, 40), (2, 300, 8, 2, 136, True, 0),
+    (1, 520, 24, 2, 192, True, 0),
 ]
 # kernel against plain on identical inputs: f32 sums in other orders; in
 # bf16 a p or ds on a rounding edge may round the other way, and the
@@ -1397,19 +1400,25 @@ def _fa_bwd_inputs(dev, case, dtype):
 
 
 # ragged shapes on both routes: S = 77, 257 and 1000 (no multiple of a
-# tile), head dims 16, 80 and 112 (TMA's zero fill up to 64 or 128), a
-# window whose edge crosses the 64- and 128-row tiles, GQA groups 1, 4, 5
+# tile), head dims 16, 80, 112, 136 and 184 (TMA's zero fill up to 64, 128
+# or 192), a window whose edge crosses the 64- and 128-row tiles, GQA
+# groups 1, 4, 5, 6
 FA_BWD_RAGGED = [
     (1, 77, 4, 4, 16, True, 0), (2, 257, 8, 2, 80, False, 0),
     (1, 1000, 5, 1, 112, True, 300), (2, 257, 20, 4, 64, True, 100),
-    (1, 1000, 16, 4, 80, False, 77),
+    (1, 1000, 16, 4, 80, False, 77), (1, 257, 12, 2, 136, True, 100),
+    (2, 77, 6, 6, 184, False, 0),
 ]
 
 
-# every wrapper of the backward, and those each route launches
+# every wrapper of the backward, and those each route launches (the
+# wgmma route's pair or its parts kernels, by ``wgmma_kernels``)
 BWD_WRAPPERS = (fa_ops.fa_bwd_dq_wgmma, fa_ops.fa_bwd_dkdv_wgmma,
-                fa_ops.fa_bwd_delta, fa_ops.fa_bwd_dkdv, fa_ops.fa_bwd_dq)
-BWD_ROUTE_WRAPPERS = {"wgmma": BWD_WRAPPERS[:2], "simt": BWD_WRAPPERS[2:]}
+                fa_ops.fa_bwd_delta, fa_ops.fa_bwd_dkdv, fa_ops.fa_bwd_dq,
+                fa_ops.fa_bwd_prep, fa_ops.fa_bwd_dq_parts,
+                fa_ops.fa_bwd_dkdv_parts)
+BWD_ROUTE_WRAPPERS = {"pair": BWD_WRAPPERS[:2], "simt": BWD_WRAPPERS[2:5],
+                      "parts": BWD_WRAPPERS[5:]}
 
 
 def _bwd_launches():
@@ -1428,9 +1437,9 @@ def _simt_bwd(q, k, v, out, lse, dout, causal, window):
 def _check_bwd(dev, case, dtype, route=None):
     """One backward of ``case`` against the plain version, asserting the
     route's launches: ``flash_attention_bwd`` on ``bwd_route``'s kernels
-    (two on wgmma: dq, which writes delta, then dkdv; three on simt),
-    which must be ``route`` where one is named, or with ``route="simt"``
-    the simt wrappers called directly."""
+    (on wgmma the pair, dq, which writes delta, then dkdv, or the three
+    parts kernels; three on simt), which must be ``route`` where one is
+    named, or with ``route="simt"`` the simt wrappers called directly."""
     *_, causal, window = case
     args = _fa_bwd_inputs(dev, case, dtype)
     before = _bwd_launches()
@@ -1440,6 +1449,8 @@ def _check_bwd(dev, case, dtype, route=None):
         took = fa_ops.bwd_route(*args[:3])
         assert route in (None, took)
         got = fa_ops.flash_attention_bwd(*args, causal=causal, window=window)
+        if took == "wgmma":
+            took = fa_ops.wgmma_kernels(args[0])
     torch.cuda.synchronize()
     assert _bwd_launches() == [n + (w in BWD_ROUTE_WRAPPERS[took])
                                for n, w in zip(before, BWD_WRAPPERS)]
@@ -1454,15 +1465,15 @@ def _check_bwd(dev, case, dtype, route=None):
 @pytest.mark.parametrize("case", FA_BWD_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_backward_kernels_match_plain(dev, case, dtype):
-    """Each case on its route (bfloat16 up to head dim 128: wgmma; float32
-    and head dim 256: simt)."""
+    """Each case on its route (wgmma: bfloat16 up to head dim 256, float32
+    up to 128; simt: float32 past 128)."""
     _check_bwd(dev, case, dtype)
 
 
 @pytest.mark.parametrize("case", FA_BWD_CASES)
 def test_flash_backward_simt_route_on_bfloat16(dev, case):
     """The simt kernels, called directly, on the bfloat16 cases: the route
-    of float32 and of head dims past 128 holds on bfloat16 inputs too."""
+    of float32 at head dims past 128 holds on bfloat16 inputs too."""
     _check_bwd(dev, case, torch.bfloat16, route="simt")
 
 
@@ -1470,6 +1481,14 @@ def test_flash_backward_simt_route_on_bfloat16(dev, case):
 @pytest.mark.parametrize("route", ["wgmma", "simt"])
 def test_flash_backward_ragged_shapes_match_plain(dev, case, route):
     _check_bwd(dev, case, torch.bfloat16, route=route)
+
+
+@pytest.mark.parametrize("case", FA_BWD_RAGGED)
+def test_flash_backward_ragged_shapes_float32(dev, case):
+    """float32 at the ragged shapes on its route (up to head dim 128 the
+    parts kernels, three bf16 parts an operand; past it simt), held to
+    the plain version's float32 tolerance."""
+    _check_bwd(dev, case, torch.float32)
 
 
 @pytest.mark.parametrize("case", [FA_BWD_CASES[0], FA_BWD_RAGGED[0],
@@ -1491,13 +1510,16 @@ def test_wgmma_dq_pass_writes_the_rows_buffer(dev, case):
     assert not rows[:, :, S:].any()
 
 
-@pytest.mark.parametrize("case", [FA_BWD_CASES[0], FA_BWD_CASES[2],
-                                  FA_BWD_RAGGED[4]])
-def test_wgmma_backward_is_deterministic(dev, case):
-    """Two bfloat16 backwards of the same inputs give the same bits: the
-    GQA group's sum stays inside a dkdv block, with no atomics."""
+@pytest.mark.parametrize("case,dtype", [
+    (FA_BWD_CASES[0], torch.bfloat16), (FA_BWD_CASES[2], torch.bfloat16),
+    (FA_BWD_RAGGED[4], torch.bfloat16), (FA_BWD_CASES[8], torch.bfloat16),
+    (FA_BWD_CASES[0], torch.float32), (FA_BWD_RAGGED[2], torch.float32)])
+def test_wgmma_backward_is_deterministic(dev, case, dtype):
+    """Two backwards of the same inputs on the wgmma route (the pair or
+    the parts kernels) give the same bits: the GQA group's sum stays
+    inside a dkdv block, with no atomics."""
     *_, causal, window = case
-    args = _fa_bwd_inputs(dev, case, torch.bfloat16)
+    args = _fa_bwd_inputs(dev, case, dtype)
     assert fa_ops.bwd_route(*args[:3]) == "wgmma"
     a = fa_ops.flash_attention_bwd(*args, causal=causal, window=window)
     b = fa_ops.flash_attention_bwd(*args, causal=causal, window=window)
@@ -1517,6 +1539,56 @@ def test_wgmma_backward_launchers_refuse_what_they_cannot_run(dev, dtype,
     assert lib.fa_bwd_dq_wgmma_launch(*[p] * 8, *shape, *strides, 1, 0,
                                       dtype, stream) == 1
     assert lib.fa_bwd_dkdv_wgmma_launch(*[p] * 7, *shape, *strides, 1, 0,
+                                        dtype, stream) == 1
+
+
+@pytest.mark.parametrize("case,dtype", [
+    (FA_BWD_RAGGED[5], torch.bfloat16), (FA_BWD_CASES[8], torch.bfloat16),
+    (FA_BWD_RAGGED[0], torch.float32), (FA_BWD_RAGGED[2], torch.float32)])
+def test_parts_prep_writes_rows_and_parts(dev, case, dtype):
+    """fa_bwd_prep's rows buffer (each q row's (lse * log2(e), delta),
+    zeros past S) and, for float32, each operand's three bf16 parts: hi
+    the value rounded to bf16, hi + mid + lo the value exactly, zeros past
+    Dh."""
+    *_, causal, window = case
+    q, k, v, out, lse, dout = _fa_bwd_inputs(dev, case, dtype)
+    S, Dh = q.shape[1], q.shape[3]
+    rows, operands = fa_ops.fa_bwd_prep(q, k, v, out, dout, lse)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(fa_ops.rows_delta(rows, S), torch.einsum(
+        "bshd,bshd->bhs", dout.float(), out.float()), atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(rows[:, :, :S, 0], lse * math.log2(math.e),
+                               atol=1e-5, rtol=1e-6)
+    assert not rows[:, :, S:].any()
+    if dtype == torch.bfloat16:
+        assert all(a is b for a, b in zip(operands, (q, k, v, dout)))
+        return
+    for x, p in zip((q, k, v, dout), operands):
+        assert tuple(p.shape) == fa_ops.parts_shape(x)
+        DP = p.shape[-1] // 3
+        hi, mid, lo = (p[..., i * DP:i * DP + Dh].float() for i in range(3))
+        assert torch.equal(hi, x.to(torch.bfloat16).float())
+        assert torch.equal(hi + mid + lo, x)
+        assert all(not p[..., i * DP + Dh:(i + 1) * DP].any()
+                   for i in range(3))
+
+
+@pytest.mark.parametrize("dtype,Dh", [(1, 128), (1, 264), (0, 136),
+                                      (0, 256)])
+def test_parts_launchers_refuse_what_they_cannot_run(dev, dtype, Dh):
+    """The parts kernels' C launchers return cudaErrorInvalidValue (1)
+    without a launch off their limits: bfloat16 (dtype 1) only past head
+    dim 128 (the pair's) up to 256, float32 (dtype 0) up to 128."""
+    lib = build.library()
+    buf = torch.zeros(1024, device=dev)
+    p, stream = buf.data_ptr(), torch.cuda.current_stream(dev).cuda_stream
+    shape = (1, 64, 2, 2, Dh)
+    strides = (64 * 2 * Dh, 2 * Dh, Dh) * 6
+    assert lib.fa_bwd_prep_launch(*[p] * 11, *shape, *strides[:15], dtype,
+                                  stream) == 1
+    assert lib.fa_bwd_dq_parts_launch(*[p] * 6, *shape, *strides[:15], 1, 0,
+                                      dtype, stream) == 1
+    assert lib.fa_bwd_dkdv_parts_launch(*[p] * 7, *shape, *strides, 1, 0,
                                         dtype, stream) == 1
 
 
@@ -1817,9 +1889,10 @@ def test_model_backward_on_the_card_matches_the_cpu(dev, arch, dtype):
         before = _bwd_launches()
         (loss, _), grads = tstep.value_and_grad(
             cfg, _to(params, d), {k: v.to(d) for k, v in batch.items()})
-        # bfloat16 takes the wgmma route (no delta kernel), float32 simt
-        route = BWD_ROUTE_WRAPPERS["wgmma" if dtype == "bfloat16" else
-                                   "simt"]
+        # both dtypes take the wgmma route at the smoke head dim 16:
+        # bfloat16 its pair (no delta kernel), float32 its parts kernels
+        route = BWD_ROUTE_WRAPPERS["pair" if dtype == "bfloat16" else
+                                   "parts"]
         n = cfg.n_layers if d == dev else 0
         assert _bwd_launches() == [b + n * (w in route) for w, b in
                                    zip(BWD_WRAPPERS, before)]

@@ -374,13 +374,20 @@ def test_ef_int8_transform_is_the_references():
 
 # ------------------------------------------------ flash forward / backward
 
-# (B, S, H, KV, Dh, causal, window, block): GQA groups 1, 4 and 5; causal,
-# window, non-causal; S not a multiple of the reference's block (its
-# jnp_impl then runs one block of S)
+# (B, S, H, KV, Dh, causal, window, block): GQA groups 1, 4, 5 and 12;
+# causal, window, non-causal; S not a multiple of the reference's block
+# (its jnp_impl then runs one block of S); nemotron-4-340b's head dim 192
+# and the largest, 256 (the parts kernels' bfloat16 head dims)
 FA_CASES = [(2, 64, 4, 4, 16, True, 0, 16), (1, 96, 8, 2, 32, True, 24, 32),
             (2, 48, 5, 1, 16, False, 0, 16), (1, 70, 10, 2, 24, True, 0, 70),
-            (1, 40, 4, 1, 64, False, 12, 40)]
+            (1, 40, 4, 1, 64, False, 12, 40),
+            (1, 48, 12, 1, 192, True, 0, 16),
+            (1, 40, 4, 2, 256, False, 8, 40)]
 FA_TOL = {"float32": (2e-5, 2e-5, 2e-5), "bfloat16": (0.01, 2e-2, 0.05)}
+# bfloat16 gradients past head dim 128 reach magnitudes of 8 and more,
+# where one bf16 step (2**-7 relative: the reference rounds q.k and do.v
+# to bf16, the port keeps them in f32) exceeds the absolute tolerance
+FA_WIDE_GRAD_RTOL = {"float32": 0.0, "bfloat16": 2.0 ** -7}
 DT = {"float32": (jnp.float32, torch.float32),
       "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -407,17 +414,20 @@ def test_plain_flash_forward_and_backward_match_jnp_impl(case, dtype):
     np.testing.assert_allclose(out_t.float().numpy(),
                                np.asarray(out_j, np.float32), atol=out_tol,
                                rtol=out_tol)
-    before = [w.launches for w in (fa_ops.fa_bwd_delta, fa_ops.fa_bwd_dkdv,
-                                   fa_ops.fa_bwd_dq)]
+    wrappers = (fa_ops.fa_bwd_delta, fa_ops.fa_bwd_dkdv, fa_ops.fa_bwd_dq,
+                fa_ops.fa_bwd_dq_wgmma, fa_ops.fa_bwd_dkdv_wgmma,
+                fa_ops.fa_bwd_prep, fa_ops.fa_bwd_dq_parts,
+                fa_ops.fa_bwd_dkdv_parts)
+    before = [w.launches for w in wrappers]
     got = fa_ops.flash_attention_bwd(qt, kt, vt, out_t, lse_t, dot,
                                      causal=causal, window=window)
-    assert [w.launches for w in (fa_ops.fa_bwd_delta, fa_ops.fa_bwd_dkdv,
-                                 fa_ops.fa_bwd_dq)] == before   # no kernel
+    assert [w.launches for w in wrappers] == before   # no kernel
+    rtol = FA_WIDE_GRAD_RTOL[dtype] if Dh > 128 else 0.0
     for w, t, x in zip(want, got, (qt, kt, vt)):
         assert t.dtype == x.dtype and t.shape == x.shape
         np.testing.assert_allclose(t.float().numpy(),
                                    np.asarray(w, np.float32), atol=grad_tol,
-                                   rtol=0)
+                                   rtol=rtol)
 
 
 @pytest.mark.parametrize("causal,window,G", [(True, 0, 1), (True, 5, 4),
