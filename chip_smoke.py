@@ -18,12 +18,14 @@ Phases, each printing one line or a few:
      eight, qn_event_many's twenty, qn_event_general; it fails without
      any of them), of the DAG's
      two event loops (dag_event_fast's six instances, dag_event_kernel),
-     of both draw-table kernels, of each flash_attention instance and of
-     each ssd_scan kernel and of the flash backward's wgmma instances,
-     and the flash, flash backward and ssd_scan instances' wgmma (HGMMA)
-     and TMA (UTMALDG) instruction counts (cuobjdump -sass), and fail if
-     a bf16 kernel (flash's, each of the backward's two, the SSD scan's)
-     has none of either;
+     of both draw-table kernels, of each flash_attention instance (the
+     float32 wgmma route's split and fa_fwd_parts_kernel among them; it
+     fails without them) and of each ssd_scan kernel and of the flash
+     backward's wgmma instances, and the flash, flash backward and
+     ssd_scan instances' wgmma (HGMMA) and TMA (UTMALDG) instruction
+     counts (cuobjdump -sass), and fail if a wgmma kernel (flash's bf16
+     and float32 ones, each of the backward's, the SSD scan's) has none
+     of either;
   3. hold each kernel against its plain PyTorch version on the card, on
      identical inputs: the draw tables (event_streams) bit-identical in
      both modes; qn_event in exponential and replay mode (padding,
@@ -41,7 +43,12 @@ Phases, each printing one line or a few:
      lengths), gemma3's local window, stablelm's head dim 80, zamba2's
      shared attention (H = KV = 32, head dim 112), a non-causal case, the
      wgmma kernel's edges (head dims 8 and 256, S = 1 and 65, GQA group
-     8), and float32 cases at head dims 64 and 128, and the prefill
+     8), and float32 rows (the wgmma route at head dims 8, 64 and 128,
+     S = 1 and 65, ragged S, non-causal, GQA group 8 with a window;
+     nemotron-4-340b's heads at S = 1024, head dim 192, past its limit,
+     on fa_f32_kernel), each float32 row also holding lse against plain
+     (1e-4) and printing its share of the tolerance, and each wgmma
+     float32 row its split's parts bit for bit, and the prefill
      shapes of both rounds of every serving drive below (qwen2-moe's head
      dim 128, llama4-scout's GQA group 5, phi-3-vision's head dim 96 over
      576 patches and its prompts, whisper's decoder and its encoder's
@@ -251,8 +258,12 @@ Phases, each printing one line or a few:
      qn_event_general on the cut and the uncut lane beside its bound
      (its collective floor in [time]); then launch/qn_record's quick cells on the
      card, the plain and CUDA versions bit-identical, and their roofline
-     rows.  Phase 6 also gives flash_attention's float32 route its bound
-     at the float32 rate and SDPA's float32 time on the same tensors.
+     rows.  Phase 6 also times the float32 forward at granite-3-2b's
+     heads (B = 4, S = 1024): the wgmma route's call, its split and
+     fa_fwd_parts_kernel alone and on the device, and fa_f32_kernel on
+     the same inputs, in turns, beside the function's float32 bound, the
+     parts terms' and the split's bounds, the plain versions and SDPA in
+     float32; and ssd_scan's float32 route its bound at the float32 rate.
  13. [train] (after phase 6) the flash backward's two routes (wgmma:
      for bf16 at head dim <= 128 its pair, fa_bwd_dq_wgmma, which writes
      delta, then fa_bwd_dkdv_wgmma; for bf16 past 128 and float32 up to
@@ -300,8 +311,10 @@ Phases, each printing one line or a few:
      grad norm, every gradient leaf, the update), and for granite a
      restart from a checkpoint on the card against the uninterrupted
      run; granite at depth 2 in float32 (TRAIN_F32_ARCH): one Trainer
-     step on the card with its launches counted (2 of each parts kernel,
-     none of the simt route's), then its step against the CPU's within
+     step on the card with its launches counted (4 forwards, each a
+     fa_fwd_split and a fa_fwd_parts_kernel launch, none of
+     fa_f32_kernel; 2 of each parts kernel, none of the simt route's),
+     then its step against the CPU's within
      TRAIN_F32_TOL.
  15. [distributed] (after [train]) GPipe over granite-3-2b's 40 layers at
      full width (PIPELINE: 4 stages of 10 layer groups stacked with
@@ -525,7 +538,8 @@ QN_ROUTE_KERNELS = ("qn_event_fast", "qn_event_wide", "qn_event_many",
 # the device kernels' names (every route's), for their share of a
 # profiled prefill; a kernel's share counts every launch whose name holds
 # one of them
-DEVICE_KERNELS = {"flash_attention": ("fa_wgmma_kernel", "fa_f32_kernel"),
+DEVICE_KERNELS = {"flash_attention": ("fa_wgmma_kernel", "fa_fwd_parts_kernel",
+                                      "fa_fwd_split_kernel", "fa_f32_kernel"),
                   "ssd_scan": ("ssd_wgmma_kernel", "ssd_f32_kernel")}
 
 # Decisions and numbers of the JAX reference (src/repro) for the same calls
@@ -2496,6 +2510,25 @@ FA_CHECKS = [
     ("float32", 2, 513, 8, 4, 128, torch.float32, True, 128),
     ("granite prefill, float32", 4, 777, 32, 8, 64, torch.float32, True, 0),
 ]
+# float32 rows at the edges of the float32 wgmma route and one past its
+# head-dim limit (fa_f32_kernel), checked after the served shapes so that
+# every earlier row keeps its seed (its index)
+FA_F32_CHECKS = [
+    ("S = 1, float32", 4, 1, 32, 8, 64, torch.float32, True, 0),
+    ("S = 65, float32", 2, 65, 32, 8, 64, torch.float32, True, 0),
+    ("head dim 8, float32", 2, 300, 8, 2, 8, torch.float32, True, 0),
+    ("non-causal, float32", 2, 300, 8, 2, 64, torch.float32, False, 0),
+    ("GQA group 8, window, float32", 2, 512, 32, 4, 128, torch.float32,
+     True, 64),
+    ("ragged S at head dim 128, float32", 2, 777, 8, 2, 128, torch.float32,
+     True, 0),
+    ("nemotron-4-340b heads past the wgmma limit, float32", 1, 1024, 96, 8,
+     192, torch.float32, True, 0),
+]
+# the float32 wgmma forward's instances (fa_fwd_parts_kernel<DP, WGS, BK,
+# STAGES>): [build] fails without their ptxas lines, HGMMA and UTMALDG
+FA_FWD_INSTANCES = ("fa_fwd_parts_kernel<64, 2, 64, 3>",
+                    "fa_fwd_parts_kernel<128, 2, 32, 2>")
 
 
 # flash_attention timed at the prefill shapes the MoE, encoder-decoder
@@ -2572,9 +2605,13 @@ def describe(cfg) -> str:
 
 
 def flash_instance(mangled: str):
-    """'fa_wgmma_kernel<64, 2, 128>' for a line naming a flash_attention
+    """'fa_wgmma_kernel<64, 2, 128>' (or 'fa_fwd_parts_kernel<64, 2, 64,
+    3>', or 'fa_fwd_split_kernel') for a line naming a flash_attention
     kernel instance by its mangled name, else None."""
-    m = re.search(r"(fa_(?:wgmma|f32)_kernel)I((?:Li\d+E)+)", mangled)
+    if "fa_fwd_split_kernel" in mangled:
+        return "fa_fwd_split_kernel"
+    m = re.search(r"(fa_(?:wgmma|f32|fwd_parts)_kernel)I((?:Li\d+E)+)",
+                  mangled)
     if m is None:
         return None
     return f"{m.group(1)}<{', '.join(re.findall(r'Li([0-9]+)E', m.group(2)))}>"
@@ -2734,29 +2771,60 @@ def served_flash_shapes():
     return shapes
 
 
-def check_flash(dev, fa_ops, fa_ref) -> float:
-    """Kernel against plain at FA_CHECKS and at the prefill shapes of
-    serve_full's two rounds for every served config; the largest abs
-    error."""
-    worst = 0.0
+def check_flash(dev, fa_ops, fa_ref) -> dict:
+    """Kernel against plain at FA_CHECKS, at the prefill shapes of
+    serve_full's two rounds for every served config and at
+    FA_F32_CHECKS, each row on the
+    kernel ``fa_ops.fwd_kernel`` names (bf16 as served, without lse); a
+    float32 row also holds lse against plain (LSE_TOL) and prints its
+    share of the tolerance, and a
+    row of the float32 wgmma route holds its split's parts bit for bit
+    against ``ref.split_parts``.  Returns the largest abs error ("all",
+    and by kernel), the largest share of the tolerance by kernel, the
+    largest lse error and the split's."""
+    res = {"all": 0.0, "share": {}, "lse": 0.0, "fa_fwd_split": 0.0}
     for i, (name, B, S, H, KV, Dh, dtype, causal, window) in \
-            enumerate(FA_CHECKS + served_flash_shapes()):
+            enumerate(FA_CHECKS + served_flash_shapes() + FA_F32_CHECKS):
         q, k, v = fa_inputs(dev, B, S, H, KV, Dh, dtype, i)
-        out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+        kernel = fa_ops.fwd_kernel(q)
+        if dtype == torch.float32:
+            out, lse = fa_ops.flash_attention_fwd(q, k, v, causal=causal,
+                                                  window=window)
+        else:                        # as served: no lse
+            out, lse = fa_ops.flash_attention(q, k, v, causal=causal,
+                                              window=window), None
         torch.cuda.synchronize()
-        want = fa_ref.flash_attention(q, k, v, causal=causal, window=window)
-        err = float((out.float() - want.float()).abs().max())
+        want, want_lse = fa_ref.flash_attention_fwd(q, k, v, causal=causal,
+                                                    window=window)
         tol = FA_TOL[dtype]
-        ok = out.dtype == dtype and bool(torch.isfinite(out).all()) and \
-            torch.allclose(out.float(), want.float(), atol=tol, rtol=tol)
-        worst = max(worst, err)
+        err, ok, share = close_err(out, want, tol)
+        ok = ok and out.dtype == dtype and bool(torch.isfinite(out).all())
+        extra = ""
+        if dtype == torch.float32:
+            lse_err, lse_ok, _ = close_err(lse, want_lse, LSE_TOL)
+            ok = ok and lse_ok
+            res["lse"] = max(res["lse"], lse_err)
+            extra = f"; {share:.3f} of the tolerance; lse {lse_err:.3e} " \
+                    f"(tol {LSE_TOL})"
+        if kernel == "fa_fwd_parts_kernel":
+            split = max(float((a.float() - fa_ref.split_parts(x).float())
+                              .abs().max())
+                        for a, x in zip(fa_ops.fa_fwd_split(q, k, v),
+                                        (q, k, v)))
+            ok = ok and split == 0.0
+            res["fa_fwd_split"] = max(res["fa_fwd_split"], split)
+            extra += f"; split parts off plain by {split:.1e}"
+        res["all"] = max(res["all"], err)
+        res[kernel] = max(res.get(kernel, 0.0), err)
+        res["share"][kernel] = max(res["share"].get(kernel, 0.0), share)
         print(f"[check] flash_attention {name}: B={B} S={S} H={H} KV={KV} "
-              f"Dh={Dh} {str(dtype)[6:]} causal={causal} window={window}: "
-              f"max_abs_err={err:.3e} (tol {tol:g} abs + rel) ok={ok}",
-              flush=True)
+              f"Dh={Dh} {str(dtype)[6:]} causal={causal} window={window} "
+              f"({kernel}): max_abs_err={err:.3e} (tol {tol:g} abs + rel)"
+              f"{extra} ok={ok}", flush=True)
         if not ok:
             fail(f"flash_attention differs from its plain version ({name})")
-    return worst
+        del q, k, v, out, lse, want, want_lse
+    return res
 
 
 def left_pad(prompts):
@@ -3278,11 +3346,15 @@ def enqueue_ms(fn, reps: int = 50) -> float:
     return ms
 
 
-def device_ms(fn, kernel: str, reps: int = 20):
+def device_ms(fn, kernel: str, reps: int = 20, per_call=None):
     """The mean device time (ms) of the launches of ``kernel`` over
     ``reps`` calls of ``fn`` (torch.profiler), None if the profiler saw
     none, and the first such launch's attributes in the trace (registers
-    per thread, shared memory, blocks per SM; {} where absent)."""
+    per thread, shared memory, blocks per SM; {} where absent).  Given
+    ``per_call``, the launches of ``kernel`` a call makes, the figure
+    stands only where the profiler's events and the trace's kernel records
+    both count reps * per_call launches and their means agree within 1%;
+    else None, and a [profile] line says what each returned."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import build
@@ -3302,20 +3374,42 @@ def device_ms(fn, kernel: str, reps: int = 20):
             events = json.load(f).get("traceEvents", [])
     finally:
         path.unlink(missing_ok=True)
-    args = next((e.get("args", {}) for e in events
-                 if e.get("cat") == "kernel" and kernel in e.get("name", "")),
-                {})
+    recs = [e for e in events
+            if e.get("cat") == "kernel" and kernel in e.get("name", "")]
+    args = recs[0].get("args", {}) if recs else {}
     launch = {k: args[k] for k in ("registers per thread", "shared memory",
                                    "blocks per SM", "grid", "block")
               if k in args}
-    return (sum(us) / len(us) / 1e3 if us else None), launch
+    ms = sum(us) / len(us) / 1e3 if us else None
+    if per_call is None:
+        return ms, launch
+    durs = [float(e.get("dur", 0.0)) for e in recs]
+    want = reps * per_call
+    if len(us) == len(durs) == want and \
+            abs(sum(durs) / want / 1e3 - ms) <= 0.01 * ms:
+        return ms, launch
+    host0 = min((e["ts"] for e in events if "ts" in e and e.get("cat") in
+                 ("cpu_op", "cuda_runtime", "cuda_driver")), default=None)
+    early = sum(host0 is not None and e.get("ts", host0) < host0
+                for e in recs)
+    spread = lambda xs: ("none" if not xs else f"min {min(xs):.1f}, median "
+                         f"{sorted(xs)[len(xs) // 2]:.1f}, max "
+                         f"{max(xs):.1f} us")
+    names = sorted({ev.name for ev in prof.events()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA
+                    and kernel in ev.name})
+    print(f"[profile] device_ms {kernel}: {want} launched; the profiler's "
+          f"events {len(us)} ({spread(us)}), the trace's kernel records "
+          f"{len(durs)} ({spread(durs)}), {early} of them before the "
+          f"session's first host event; names {names}: not measured",
+          flush=True)
+    return None, launch
 
 
 def time_flash(dev, fa_ops, fa_ref, B, S, H, KV, Dh, causal=True):
     """The flash kernel at a prefill shape (bf16): kernel (CUDA events
     around the call, and its device time alone), plain version, torch's
-    SDPA (yardstick), the bound, and the float32 route's kernel on the
-    same inputs in float32."""
+    SDPA (yardstick) and the bound (float32: time_flash_f32)."""
     import torch.nn.functional as F
 
     q, k, v = fa_inputs(dev, B, S, H, KV, Dh, torch.bfloat16, 99)
@@ -3328,15 +3422,9 @@ def time_flash(dev, fa_ops, fa_ref, B, S, H, KV, Dh, causal=True):
                     .abs().max())
     ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v, **kw), 20)
     dev_ms, launch = device_ms(lambda: fa_ops.flash_attention(q, k, v, **kw),
-                               "fa_wgmma_kernel")
+                               "fa_wgmma_kernel", per_call=1)
     plain_ms = cuda_ms(lambda: fa_ref.flash_attention(q, k, v, **kw), 5)
     lib_ms = cuda_ms(sdpa, 20)
-    qf, kf, vf = q.float(), k.float(), v.float()
-    f32_ms = cuda_ms(lambda: fa_ops.flash_attention(qf, kf, vf, **kw), 5)
-    sdpa_f32 = lambda: F.scaled_dot_product_attention(
-        qf.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2),
-        is_causal=causal, enable_gqa=True)
-    lib_f32_ms = cuda_ms(sdpa_f32, 5)
     # bytes: q, k, v read once, o written once; operations: the live
     # query-key pairs (causal: the lower triangle), 2 flops each for q.k
     # and for p.v per Dh
@@ -3344,10 +3432,6 @@ def time_flash(dev, fa_ops, fa_ref, B, S, H, KV, Dh, causal=True):
     flops = 4 * B * H * Dh * (S * (S + 1) // 2 if causal else S * S)
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_OPS_PER_S
     bound = 1e3 * max(t_bytes, t_ops)
-    # the float32 route's: twice the bytes, its flops on the CUDA cores
-    # (TF32 is off) at the non-tensor float32 rate
-    t_bytes32, t_ops32 = 2 * t_bytes, flops / H100_FP32_OPS_PER_S
-    bound32 = 1e3 * max(t_bytes32, t_ops32)
     dev_txt = "not measured" if dev_ms is None else \
         f"{dev_ms:.4f} ms ({flops / dev_ms / 1e9:.2f} TFLOP/s)"
     print(f"[time] flash_attention B={B} S={S} H={H} KV={KV} Dh={Dh} bf16 "
@@ -3356,16 +3440,130 @@ def time_flash(dev, fa_ops, fa_ref, B, S, H, KV, Dh, causal=True):
           f"the device alone {dev_txt}; launch {launch}), plain "
           f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (max abs diff to the "
           f"kernel {lib_err:.3e}), bound {bound:.5f} ms ({nbytes} bytes, "
-          f"{flops} flops); the float32 route {f32_ms:.4f} ms (bound at "
-          f"the float32 rate {bound32:.5f} ms, sdpa in float32 "
-          f"{lib_f32_ms:.4f} ms)", flush=True)
+          f"{flops} flops)", flush=True)
     return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": bound,
-            "bound_by": "operations" if t_ops > t_bytes else "bytes",
-            "float32_route_ms": f32_ms, "float32_route_bound_ms": bound32,
-            "float32_route_bound_by": ("operations" if t_ops32 > t_bytes32
-                                       else "bytes"),
-            "float32_library_ms": lib_f32_ms}
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
+# the float32 forward timed (time_flash_f32): granite-3-2b's heads at the
+# bf16 time's prefill shape (B, S, H, KV, Dh), causal
+FA_F32_TIME = (4, 1024, 32, 8, 64)
+# the fewest bf16 terms that meet the reference's 2e-5 (the bound's):
+# S = Q.K^T six, P.V the backward's three (lo.hi, hi.mid, hi.hi); and
+# the terms fa_fwd_parts_kernel runs (P.V five, for margin), its work rate
+FA_F32_BOUND_TERMS = 6 + 3
+FA_F32_KERNEL_TERMS = 6 + 5
+
+
+def fa_f32_bounds(B, S, H, KV, Dh, causal=True) -> dict:
+    """Bounds of the float32 forward, ms, with what bounds each: the
+    function's (its two products at the CUDA cores' float32 rate, or q,
+    k, v and o in float32 at the memory's), the split pass's (bytes: 4
+    read and 6 written an element of q, k and v, DP columns a part),
+    fa_fwd_parts_kernel's (the FA_F32_BOUND_TERMS bf16 products that meet
+    the tolerance at the tensor cores' rate, or the parts and o) and the
+    route's (their sum); and the FA_F32_KERNEL_TERMS products' flops."""
+    DP = -(-Dh // 64) * 64
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 4 * B * H * Dh * pairs            # q.k and p.v, 2 a term each
+    elems = B * S * (H + 2 * KV)              # of q, k and v
+    out = 4 * B * S * H * Dh
+    f32_ops, f32_bytes = flops / H100_FP32_OPS_PER_S, \
+        (4 * elems * Dh + out) / H100_BYTES_PER_S
+    split_bytes = elems * (4 * Dh + 6 * DP)
+    terms = FA_F32_BOUND_TERMS * (flops / 2) / H100_BF16_OPS_PER_S
+    parts_bytes = (6 * elems * DP + out) / H100_BYTES_PER_S
+    by = lambda o, b: "operations" if o > b else "bytes"
+    split = 1e3 * split_bytes / H100_BYTES_PER_S
+    parts = 1e3 * max(terms, parts_bytes)
+    return {"function": (1e3 * max(f32_ops, f32_bytes), by(f32_ops, f32_bytes)),
+            "fa_fwd_split": (split, "bytes", split_bytes),
+            "fa_fwd_parts": (parts, by(terms, parts_bytes)),
+            "route": (split + parts, "operations and bytes"),
+            "flops": flops, "term_flops": FA_F32_KERNEL_TERMS * flops // 2}
+
+
+def time_flash_f32(dev, fa_ops, fa_ref, B, S, H, KV, Dh, causal=True):
+    """The float32 forward at (B, S, H, KV, Dh): the wgmma route's call
+    (fa_fwd_split, then fa_fwd_parts_kernel) and fa_f32_kernel's (route
+    "simt") on the same inputs in turns (wgmma, simt, simt, wgmma), each
+    kernel alone (CUDA events around the call, and queued back to back
+    behind a spin: its device time where the profiler records none) and on
+    the device (profiler), the plain
+    version and the split's, torch's SDPA in float32 (a yardstick the
+    port never calls), the bounds, and each route's largest error against
+    plain with its share of FA_TOL."""
+    import torch.nn.functional as F
+
+    q, k, v = fa_inputs(dev, B, S, H, KV, Dh, torch.float32, 99)
+    kw = dict(causal=causal)
+    wgmma = lambda: fa_ops.flash_attention(q, k, v, **kw)
+    simt = lambda: fa_ops.flash_attention_simt(q, k, v, **kw)
+    turns = [cuda_ms(f, 10) for f in (wgmma, simt, simt, wgmma)]
+    parts = fa_ops.fa_fwd_split(q, k, v)
+    split_ms = cuda_ms(lambda: fa_ops.fa_fwd_split(q, k, v), 20)
+    parts_ms = cuda_ms(lambda: fa_ops.fa_fwd_parts(q, k, parts, causal, 0,
+                                                   False), 20)
+    split_queued = queued_ms(lambda: fa_ops.fa_fwd_split(q, k, v))
+    parts_queued = queued_ms(lambda: fa_ops.fa_fwd_parts(q, k, parts, causal,
+                                                         0, False))
+    split_dev, _ = device_ms(wgmma, "fa_fwd_split_kernel", 10, per_call=1)
+    parts_dev, launch = device_ms(wgmma, "fa_fwd_parts_kernel", 10,
+                                  per_call=1)
+    simt_dev, _ = device_ms(simt, "fa_f32_kernel", 5, per_call=1)
+    split_plain_ms = cuda_ms(lambda: [fa_ref.split_parts(x)
+                                      for x in (q, k, v)], 3)
+    plain_ms = cuda_ms(lambda: fa_ref.flash_attention(q, k, v, **kw), 3)
+    sdpa = lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=causal, enable_gqa=True)
+    lib_ms = cuda_ms(sdpa, 5)
+    want = fa_ref.flash_attention(q, k, v, **kw)
+    tol = FA_TOL[torch.float32]
+    err, _, share = close_err(wgmma(), want, tol)
+    simt_err, _, simt_share = close_err(simt(), want, tol)
+    split_err = max(float((a.float() - fa_ref.split_parts(x).float())
+                          .abs().max()) for a, x in zip(parts, (q, k, v)))
+    b = fa_f32_bounds(B, S, H, KV, Dh, causal)
+    ms, simt_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
+    print(f"[time] flash_attention B={B} S={S} H={H} KV={KV} Dh={Dh} "
+          f"float32 {'causal' if causal else 'non-causal'}: the wgmma route "
+          f"{ms:.4f} ms a call ({b['flops'] / ms / 1e9:.2f} TFLOP/s of the "
+          f"function; split {split_ms:.4f} ms alone, {split_queued:.4f} ms "
+          f"queued back to back, device {fmt(split_dev)}; "
+          f"fa_fwd_parts_kernel {parts_ms:.4f} ms alone, {parts_queued:.4f} "
+          f"ms queued, device {fmt(parts_dev)}, "
+          f"{b['term_flops'] / parts_ms / 1e9:.2f} "
+          f"TFLOP/s of its {FA_F32_KERNEL_TERMS} bf16 terms, "
+          f"{parts_ms / b['fa_fwd_parts'][0]:.2f}x its bound; launch "
+          f"{launch}); "
+          f"fa_f32_kernel {simt_ms:.4f} ms a call (device {fmt(simt_dev)}); "
+          f"in turns {', '.join(f'{t:.4f}' for t in turns)} ms (wgmma, "
+          f"simt, simt, wgmma): {simt_ms / ms:.2f}x; plain {plain_ms:.4f} "
+          f"ms, the split's plain {split_plain_ms:.4f} ms; sdpa in float32 "
+          f"{lib_ms:.4f} ms; bounds: the function {b['function'][0]:.5f} ms "
+          f"({b['function'][1]}, float32 rate), the split "
+          f"{b['fa_fwd_split'][0]:.5f} ms ({b['fa_fwd_split'][2]} bytes), "
+          f"fa_fwd_parts_kernel {b['fa_fwd_parts'][0]:.5f} ms "
+          f"({b['fa_fwd_parts'][1]}: the {FA_F32_BOUND_TERMS} bf16 terms "
+          f"that meet the tolerance), the route {b['route'][0]:.5f} ms; max "
+          f"abs err against plain: wgmma {err:.3e} ({share:.3f} of "
+          f"tolerance {tol:g} abs + rel), simt {simt_err:.3e} "
+          f"({simt_share:.3f}), split {split_err:.1e}", flush=True)
+    return {"ms": ms, "simt_ms": simt_ms, "turns_ms": turns,
+            "split_ms": split_ms, "split_queued_ms": split_queued,
+            "split_device_ms": split_dev, "parts_ms": parts_ms,
+            "parts_queued_ms": parts_queued, "parts_device_ms": parts_dev,
+            "simt_device_ms": simt_dev, "launch": launch,
+            "plain_ms": plain_ms, "split_plain_ms": split_plain_ms,
+            "library_ms": lib_ms, "bounds": b, "max_abs_err": err,
+            "max_share_of_tolerance": share, "simt_max_abs_err": simt_err,
+            "simt_max_share_of_tolerance": simt_share,
+            "split_max_abs_err": split_err,
+            "shape": f"B={B} S={S} H={H} KV={KV} Dh={Dh} float32 "
+                     f"{'causal' if causal else 'non-causal'}"}
 
 
 # ------------------------------------------------------------------ [train]
@@ -3867,7 +4065,7 @@ def model_flops(cfg, B, S):
 # the profiled step's device time, by group: a kernel goes to the first
 # group one of whose patterns its name holds
 TRAIN_GROUPS = (("flash backward", ("fa_bwd",)),
-                ("flash forward", ("fa_wgmma", "fa_f32")),
+                ("flash forward", ("fa_wgmma", "fa_fwd", "fa_f32")),
                 ("SSD backward", ("ssd_bwd",)),
                 ("SSD forward", ("ssd_wgmma", "ssd_f32")),
                 ("matmuls", ("gemm", "gemv", "nvjet", "sm90_xmma", "cutlass",
@@ -3913,6 +4111,21 @@ def train_launches(cfg) -> dict:
                      **dict.fromkeys(BWD_ROUTE_KERNELS[route], n_attn)})
     if n_ssd:
         want.update(ssd_scan=2 * n_ssd, ssd_bwd=n_ssd)
+    return want
+
+
+def train_fwd_routes(cfg) -> dict:
+    """The flash forward's launches a training step must show, by kernel
+    (``ops.FWD_KERNELS``): two an attention layer under remat, all on the
+    kernel ``ops.fwd_kernel`` names for the config's dtype and head dim."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    n_attn = sum(k != "mamba" for k in cfg.all_layer_kinds())
+    q = torch.empty((0, cfg.head_dim), dtype=getattr(torch, cfg.dtype),
+                    device="meta")
+    want = dict.fromkeys(fa_ops.FWD_KERNELS, 0)
+    if n_attn:
+        want[fa_ops.fwd_kernel(q)] = 2 * n_attn
     return want
 
 
@@ -4140,9 +4353,11 @@ def train_small(dev, arch):
 def train_f32(dev, kernels, fa_ops):
     """TRAIN_F32_ARCH at full width and TRAIN_SMALL's depth with compute
     dtype float32: one step through Trainer on the card, the launch counts
-    set to 0 before and read after (the backward's float32 path: the parts
-    kernels), then one step on the card against the CPU from the same
-    state and batch, held to TRAIN_F32_TOL.  Returns the figures."""
+    set to 0 before and read after (the forward's float32 wgmma route,
+    fa_fwd_split and fa_fwd_parts_kernel, and none of fa_f32_kernel; the
+    backward's parts kernels), then one step on the card against the CPU
+    from the same state and batch, held to TRAIN_F32_TOL.  Returns the
+    figures."""
     from repro_torch.configs.registry import get_config
     from repro_torch.optim.adamw import AdamWConfig, adamw_update
     from repro_torch.train import step as tstep
@@ -4157,7 +4372,7 @@ def train_f32(dev, kernels, fa_ops):
     state = tr.init_state()
     batch = tr.pipeline.batch_at(0)
     bwd = [getattr(fa_ops, n) for n in BWD_KERNELS]
-    reset_launches(*kernels.values(), *bwd)
+    reset_launches(*kernels.values(), *bwd, fa_ops.fa_fwd_split)
     t0 = time.perf_counter()
     tr.run(copy_to(state, dev), 0)
     torch.cuda.synchronize()
@@ -4165,13 +4380,21 @@ def train_f32(dev, kernels, fa_ops):
     got = {n: w.launches for n, w in kernels.items() if w.launches}
     got.update({n: w.launches for n, w in zip(BWD_KERNELS, bwd)
                 if w.launches})
-    want = train_launches(cfg)
+    fwd_routes = dict(fa_ops.flash_attention.routes)
+    split = fa_ops.fa_fwd_split.launches
+    want, want_routes = train_launches(cfg), train_fwd_routes(cfg)
     print(f"[train] {cfg.name} in float32 at depth {cfg.n_layers} (full "
           f"width), B={tc.global_batch} S={tc.seq_len}: one Trainer step on "
           f"the card in {wall:.2f} s, loss {tr.history[-1]['loss']!r}; "
-          f"launches {got} (expected {want})", flush=True)
+          f"launches {got} (expected {want}); the forward's by kernel "
+          f"{fwd_routes}, fa_fwd_split {split} (expected {want_routes})",
+          flush=True)
     if got != want:
         fail(f"{cfg.name} float32 step: launches {got}, expected {want}")
+    if fwd_routes != want_routes or \
+            split != want_routes["fa_fwd_parts_kernel"]:
+        fail(f"{cfg.name} float32 step: the forward's kernels {fwd_routes} "
+             f"and {split} splits, expected {want_routes}")
     out = {}
     t0 = time.perf_counter()
     for label, d in (("card", dev), ("cpu", torch.device("cpu"))):
@@ -4212,7 +4435,9 @@ def train_f32(dev, kernels, fa_ops):
     import signal
 
     signal.signal(signal.SIGTERM, signal.SIG_DFL)    # Trainer's handler
-    return {"launches": got, "card_vs_cpu": diffs, "tol": TRAIN_F32_TOL,
+    return {"launches": got, "forward_routes": fwd_routes,
+            "split_launches": split, "card_vs_cpu": diffs,
+            "tol": TRAIN_F32_TOL,
             "depth": cfg.n_layers, "wall_s": wall,
             "loss": tr.history[-1]["loss"]}
 
@@ -4786,9 +5011,18 @@ def time_ssd(dev, ssd_ops, ssd_ref):
             row["float32_route_ms"] = cuda_ms(
                 lambda: ssd_ops.launch(*args, Q, "f32"), 5)
             row["plain_ms"] = cuda_ms(lambda: ssd_ref.ssd(*args, chunk=Q), 3)
+            # the float32 route on the CUDA cores: the same bytes, its
+            # operations at the non-tensor float32 rate
+            t_ops32 = flops / H100_FP32_OPS_PER_S
+            t_bytes = nbytes / H100_BYTES_PER_S
+            row["float32_route_bound_ms"] = 1e3 * max(t_ops32, t_bytes)
+            row["float32_route_bound_by"] = ("operations" if t_ops32 > t_bytes
+                                             else "bytes")
         dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
         extra = "" if cell != "mamba2" else (
-            f"; the float32 route {row['float32_route_ms']:.4f} ms, plain "
+            f"; the float32 route {row['float32_route_ms']:.4f} ms (bound "
+            f"{row['float32_route_bound_ms']:.5f} ms, "
+            f"{row['float32_route_bound_by']} at the float32 rate), plain "
             f"{row['plain_ms']:.4f} ms")
         print(f"[time] ssd_scan {cell} prefill {row['shape']}: wgmma route "
               f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s; on the device "
@@ -4804,6 +5038,8 @@ def time_ssd(dev, ssd_ops, ssd_ref):
                             "SSD scan",
             "shape": m["shape"],
             "float32_route_ms": m["float32_route_ms"],
+            "float32_route_bound_ms": m["float32_route_bound_ms"],
+            "float32_route_bound_by": m["float32_route_bound_by"],
             "at_zamba2_prefill": {k: out["zamba2"][k] for k in
                                   ("shape", "ms", "device_ms", "bound_ms",
                                    "bound_by")}}
@@ -5152,16 +5388,22 @@ def main() -> None:
     if not {*QN_INSTANCES, "qn_event_general"} <= set(qn_usage):
         fail(f"ptxas reported no registers for a qn_event kernel: "
              f"{sorted(set(QN_INSTANCES) - set(qn_usage))}")
-    for name, props in flash_ptxas(build.build_log).items():
+    fa_usage = flash_ptxas(build.build_log)
+    for name, props in fa_usage.items():
         print(f"[build] {name}: {props}", flush=True)
+    if not {*FA_FWD_INSTANCES, "fa_fwd_split_kernel"} <= set(fa_usage):
+        fail(f"ptxas reported no registers for a float32 wgmma forward "
+             f"kernel: {sorted(fa_usage)}")
     lib_path = build.BUILD_DIR / f"libqn_{build.source_hash()}.so"
     sass = sass_counts(lib_path, flash_instance, ("HGMMA", "UTMALDG"))
     print(f"[build] SASS of the flash kernels (cuobjdump -sass): {sass}",
           flush=True)
-    if any(not all(c.values()) for n, c in sass.items() if "wgmma" in n) \
-            or not any("wgmma" in n for n in sass):
-        fail("the bf16 flash kernel issues no wgmma (HGMMA) or no TMA load "
-             "(UTMALDG)")
+    if any(not all(c.values()) for n, c in sass.items()
+           if "wgmma" in n or "parts" in n) \
+            or not any("wgmma" in n for n in sass) \
+            or not set(FA_FWD_INSTANCES) <= set(sass):
+        fail("a wgmma flash forward kernel (bf16, or float32 on its parts) "
+             "issues no wgmma (HGMMA) or no TMA load (UTMALDG)")
     bwd_usage = flash_ptxas(build.build_log, flash_bwd_instance)
     for name, props in bwd_usage.items():
         print(f"[build] {name}: {props}", flush=True)
@@ -5517,7 +5759,7 @@ def main() -> None:
           f"bit-identical=True (H=0 returns the demand)", flush=True)
     dag_err, dag_streams_err, dag_checked = check_dag(dev, dag_ops, dag_ref,
                                                       build, gen)
-    fa_err = check_flash(dev, fa_ops, fa_ref)
+    fa_checked = check_flash(dev, fa_ops, fa_ref)
     ssd_err = check_ssd(dev, ssd_ops, ssd_ref)
     kernels = {"qn_event": qn_ops.qn_event,
                "event_streams": qn_ops.event_streams,
@@ -6584,6 +6826,7 @@ def main() -> None:
           f"(one dag_streams launch each)", flush=True)
 
     fa_time = time_flash(dev, fa_ops, fa_ref, 4, 1024, 32, 8, 64)
+    fa_f32_time = time_flash_f32(dev, fa_ops, fa_ref, *FA_F32_TIME)
     fa_zamba2 = time_flash(dev, fa_ops, fa_ref, 4, 896, 32, 32, 112)
     fa_more = {f"at_{name}": {"shape": f"B={a[0]} S={a[1]} H={a[2]} "
                                        f"KV={a[3]} Dh={a[4]} bf16 "
@@ -6826,8 +7069,22 @@ def main() -> None:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:87",
-         "launches": launches["flash_attention"], "max_abs_err": fa_err,
-         "lse_max_abs_err": fa_bwd_err["lse"],
+         "kernels": {"bfloat16": "fa_wgmma_kernel",
+                     "float32 at Dh <= 128": "fa_fwd_split_kernel, then "
+                                             "fa_fwd_parts_kernel (entries "
+                                             "fa_fwd_split, fa_fwd_parts)",
+                     "float32 past Dh 128": "fa_f32_kernel (entry "
+                                            "flash_attention_simt)"},
+         "launches": launches["flash_attention"],
+         "launches_note": "forwards on any route; every drive but the "
+                          "float32 step runs bf16 (fa_wgmma_kernel)",
+         "launches_by_kernel_in_the_float32_step":
+             train_f32_run["forward_routes"],
+         "max_abs_err": fa_checked["all"],
+         "max_abs_err_by_kernel": {k: v for k, v in fa_checked.items()
+                                   if k.endswith("_kernel")},
+         "max_share_of_tolerance_by_kernel": fa_checked["share"],
+         "lse_max_abs_err": max(fa_bwd_err["lse"], fa_checked["lse"]),
          **fa_time,
          "shape": "B=4 S=1024 H=32 KV=8 Dh=64 bf16 causal",
          "library_note": "torch.nn.functional.scaled_dot_product_attention"
@@ -6838,6 +7095,81 @@ def main() -> None:
                                         "causal", **fa_zamba2},
          **fa_more, "serving_drives": serving["figures"],
          "two_buffer_decode": two_buffer, "pipeline": pipeline_run},
+        {"name": "fa_fwd_parts", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_fwd_parts.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:87",
+         "kernel": "fa_fwd_parts_kernel",
+         "wrapper": "ops.fa_fwd_parts, from ops.flash_attention on "
+                    "fwd_route 'wgmma' (float32 at Dh <= 128), after "
+                    "ops.fa_fwd_split",
+         "launches": train_f32_run["forward_routes"]["fa_fwd_parts_kernel"],
+         "launches_by_path": {"train.float32": train_f32_run[
+             "forward_routes"]["fa_fwd_parts_kernel"]},
+         "max_abs_err": fa_checked.get("fa_fwd_parts_kernel"),
+         "max_share_of_tolerance": fa_checked["share"].get(
+             "fa_fwd_parts_kernel"),
+         "lse_max_abs_err": fa_checked["lse"],
+         "ms": fa_f32_time["parts_ms"],
+         "queued_ms": fa_f32_time["parts_queued_ms"],
+         "device_ms": fa_f32_time["parts_device_ms"],
+         "route_call_ms": fa_f32_time["ms"],
+         "turns_ms": fa_f32_time["turns_ms"],
+         "turns_note": "a call of the wgmma route, fa_f32_kernel's, "
+                       "fa_f32_kernel's, the wgmma route's",
+         "plain_ms": fa_f32_time["plain_ms"],
+         "bound_ms": fa_f32_time["bounds"]["fa_fwd_parts"][0],
+         "bound_by": fa_f32_time["bounds"]["fa_fwd_parts"][1],
+         "bound_note": f"the {FA_F32_BOUND_TERMS} bf16 terms that meet 2e-5 "
+                       f"at 989 TFLOP/s (it runs {FA_F32_KERNEL_TERMS}); the "
+                       f"function's float32 bound (67 TFLOP/s) "
+                       f"{fa_f32_time['bounds']['function'][0]:.5f} ms, the "
+                       f"route's (with the split) "
+                       f"{fa_f32_time['bounds']['route'][0]:.5f} ms",
+         "library_ms": fa_f32_time["library_ms"],
+         "library_note": "scaled_dot_product_attention in float32 on the "
+                         "same tensors (is_causal, enable_gqa)",
+         "shape": fa_f32_time["shape"], "float32_train_step":
+             {k: train_f32_run[k] for k in ("forward_routes",
+                                            "split_launches")}},
+        {"name": "fa_fwd_split", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_fwd_parts.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:87",
+         "replaces_note": "no Pallas kernel of its own: the float32 wgmma "
+                          "route's first pass",
+         "kernel": "fa_fwd_split_kernel", "wrapper": "ops.fa_fwd_split",
+         "launches": train_f32_run["split_launches"],
+         "launches_by_path": {"train.float32":
+                              train_f32_run["split_launches"]},
+         "max_abs_err": fa_checked["fa_fwd_split"],
+         "ms": fa_f32_time["split_ms"],
+         "queued_ms": fa_f32_time["split_queued_ms"],
+         "device_ms": fa_f32_time["split_device_ms"],
+         "plain_ms": fa_f32_time["split_plain_ms"],
+         "plain_note": "ref.split_parts on q, k and v",
+         "bound_ms": fa_f32_time["bounds"]["fa_fwd_split"][0],
+         "bound_by": "bytes", "library_ms": None,
+         "library_note": "no single PyTorch call writes the three bf16 parts",
+         "shape": fa_f32_time["shape"]},
+        {"name": "flash_attention_simt", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:87",
+         "kernel": "fa_f32_kernel",
+         "wrapper": "ops.flash_attention on fwd_route 'simt' (float32 "
+                    "past Dh 128), or ops.flash_attention_simt",
+         "launches": train_f32_run["forward_routes"]["fa_f32_kernel"],
+         "launches_note": "none on the driven paths: the float32 step "
+                          "takes the wgmma route",
+         "max_abs_err": fa_checked.get("fa_f32_kernel"),
+         "max_share_of_tolerance": fa_checked["share"].get("fa_f32_kernel"),
+         "max_abs_err_at_the_timed_shape": fa_f32_time["simt_max_abs_err"],
+         "ms": fa_f32_time["simt_ms"],
+         "device_ms": fa_f32_time["simt_device_ms"],
+         "plain_ms": fa_f32_time["plain_ms"],
+         "bound_ms": fa_f32_time["bounds"]["function"][0],
+         "bound_by": fa_f32_time["bounds"]["function"][1],
+         "library_ms": fa_f32_time["library_ms"],
+         "library_note": "scaled_dot_product_attention in float32",
+         "shape": fa_f32_time["shape"]},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan/kernel.py:69",

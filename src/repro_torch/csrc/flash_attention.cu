@@ -28,7 +28,12 @@
 // H=KV=32, Dh=112) it moves 103 MB (30.7 us) for 23.0 GFLOP (23.3 us):
 // bytes bound it.
 //
-// Two routes, chosen by the inputs' dtype; neither falls back to the other.
+// Two routes, chosen by ops.fwd_route from the inputs' dtype and head
+// dim; neither falls back to the other.  "wgmma": bfloat16 runs this
+// file's fa_wgmma_kernel, float32 at head dims up to 128 the split pass
+// and fa_fwd_parts_kernel of flash_attention_fwd_parts.cu (their own
+// entry points).  "simt": float32 past head dim 128 runs this file's
+// fa_f32_kernel.
 //
 // bfloat16: fa_wgmma_kernel, built from Hopper's TMA, mbarriers and wgmma.
 // One block owns one (b, q head, tile of 64 * NWG q rows): NWG consumer
@@ -79,14 +84,29 @@
 // cudaGetDriverEntryPoint, so the library links against the runtime
 // alone.
 //
-// float32: fa_f32_kernel, the first port's SIMT kernel, f32 on the CUDA
-// cores (TF32 would break the reference's 2e-5; no served model runs
-// attention in f32).  One block of 128 threads per (b, h, q tile of BQ
-// rows); Q, K and V tiles staged in shared memory, read through the
+// float32: on the wgmma route (Dh <= 128) the inputs go through a split
+// pass into three bf16 parts each and fa_fwd_parts_kernel runs both
+// products on the tensor cores (flash_attention_fwd_parts.cu's note:
+// what bounds it, its design against the limits of the kernel below,
+// its shared-memory table).  TF32 would break the reference's 2e-5, and
+// wgmma reads TF32 operands from shared memory only K-major, while V is
+// P.V's MN-major operand; bf16 parts allow both.  No served model runs
+// attention in float32; the float32 training step does (chip_smoke.py).
+// Past Dh 128 three parts of a Q tile and a K/V ring do not fit a
+// block's shared memory, and float32 runs fa_f32_kernel, the first
+// port's SIMT kernel, f32 on the CUDA cores (flash_attention_launch with
+// dtype 0 runs it at any head dim: chip_smoke.py times it against the
+// wgmma route at Dh 64).  One block of 128 threads per (b, h, q tile of
+// BQ rows); Q, K and V tiles staged in shared memory, read through the
 // strides; thread (ty, tx) of the 8 x 16 grid owns q rows ty + 8r, its
 // keys tx + 16c and output columns tx + 16c, the row max and sum
 // half-warp shuffles.  (BQ, BK) = (64, 64), (64, 32), (32, 32) for head
-// dims up to 64, 128 and 256.
+// dims up to 64, 128 and 256.  What bounds it: its products on the CUDA
+// cores (0.257 ms at 67 TFLOP/s at granite-3-2b's heads, B=4, S=1024),
+// each FMA paced by shared-memory loads (8 q and 4 k values a thread
+// for 32 FMAs), P staged through shared memory with three block
+// barriers a tile, synchronous scalar loads with no ring, and expf on
+// every logit.
 //
 // The library is built with --fmad=false (for the bit parity of qn_event
 // and amva): multiply-adds that should fuse are spelled __fmaf_rn.
@@ -509,7 +529,9 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike).  Strides are in
+// dtype: 0 = float32 (fa_f32_kernel, the simt route; the wgmma route of
+// float32 is flash_attention_fwd_parts.cu's entry points), 1 =
+// bfloat16 (fa_wgmma_kernel); q, k, v and o alike.  Strides are in
 // elements; the head dim must be contiguous.  bfloat16 also needs
 // 16-byte-aligned bases and strides that are multiples of 8 (TMA).  lse,
 // where not null, receives each row's log-sum-exp m + log(max(l, 1e-37))

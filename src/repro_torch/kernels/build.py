@@ -86,6 +86,13 @@ SIGNATURES = {
     # of q, k, v, o; causal, window, dtype; stream
     "flash_attention_launch": [_P] * 5 + [_I] * 5 + [_L] * 12
                               + [_I] * 3 + [_P],
+    # q, k, v (float32), their parts qp, kp, vp; B, S, H, KV, Dh; (b, s,
+    # head) strides of q, k, v; stream: the float32 wgmma route's split
+    "fa_fwd_split_launch": [_P] * 6 + [_I] * 5 + [_L] * 9 + [_P],
+    # qp, kp, vp, o, lse (null: none); B, S, H, KV, Dh; (b, s, head)
+    # strides of o; causal, window; stream: its wgmma kernel
+    "fa_fwd_parts_launch": [_P] * 5 + [_I] * 5 + [_L] * 3 + [_I] * 2
+                           + [_P],
     # o, dout, delta; B, S, H, Dh; (b, s, head) strides of o, dout; dtype;
     # stream
     "fa_bwd_delta_launch": [_P] * 3 + [_I] * 4 + [_L] * 6 + [_I, _P],

@@ -1,28 +1,38 @@
 """Wrappers of the flash-attention kernels, forward and backward.
 
-A CUDA tensor launches the hand-written kernels: the forward
-``csrc/flash_attention.cu`` (the counterpart of the reference's
-``flash_attention_fwd``/``_fa_kernel``), bfloat16 by its wgmma route,
-whose tiles TMA loads, float32 by its SIMT route; the backward
-``csrc/flash_attention_bwd.cu`` and ``csrc/flash_attention_bwd_parts.cuh``
-(the counterparts of the reference's ``jnp_impl._bwd_vjp``) by one of two
-routes, which ``bwd_route`` chooses from dtype and head dim: ``"wgmma"``
-(bfloat16 at Dh <= 256, float32 at Dh <= 128) on wgmma and TMA, where
-bfloat16 at Dh <= 128 launches the pair ``fa_bwd_dq_wgmma``, which also
-writes delta, then ``fa_bwd_dkdv_wgmma``, and the rest the parts kernels
-``fa_bwd_prep`` (delta, and float32's operands as three bf16 parts each),
-``fa_bwd_dq_parts`` and ``fa_bwd_dkdv_parts``; ``"simt"`` (float32 at Dh
-in (128, 256]) launches ``fa_bwd_delta``, ``fa_bwd_dkdv`` and ``fa_bwd_dq``
-on the CUDA cores.  A CPU tensor takes the plain versions in ``ref.py``.
-The inputs keep the reference's (B,S,H,Dh)/(B,S,KV,Dh) layout: the
-kernels read them through their strides, so no transposed copy is made.
+A CUDA tensor launches the hand-written kernels.  The forward (the
+counterpart of the reference's ``flash_attention_fwd``/``_fa_kernel``)
+takes one of two routes, which ``fwd_route`` chooses from dtype and head
+dim: ``"wgmma"``, on Hopper's wgmma and TMA, where bfloat16 launches
+``fa_wgmma_kernel`` (``csrc/flash_attention.cu``) and float32 at Dh <=
+128 launches ``fa_fwd_split`` (the inputs as three bf16 parts each)
+then ``fa_fwd_parts_kernel`` (``csrc/flash_attention_fwd_parts.cu``);
+``"simt"`` (float32 at Dh in (128, 256]) launches ``fa_f32_kernel`` on
+the CUDA cores, which ``flash_attention_simt`` runs at any float32 head
+dim, to hold the two routes against each other.  The backward ``csrc/flash_attention_bwd.cu`` and
+``csrc/flash_attention_bwd_parts.cuh`` (the counterparts of the
+reference's ``jnp_impl._bwd_vjp``) takes one of two routes, which
+``bwd_route`` chooses from dtype and head dim: ``"wgmma"`` (bfloat16 at
+Dh <= 256, float32 at Dh <= 128) on wgmma and TMA, where bfloat16 at Dh
+<= 128 launches the pair ``fa_bwd_dq_wgmma``, which also writes delta,
+then ``fa_bwd_dkdv_wgmma``, and the rest the parts kernels
+``fa_bwd_prep`` (delta, and float32's operands as three bf16 parts
+each), ``fa_bwd_dq_parts`` and ``fa_bwd_dkdv_parts``; ``"simt"``
+(float32 at Dh in (128, 256]) launches ``fa_bwd_delta``, ``fa_bwd_dkdv``
+and ``fa_bwd_dq`` on the CUDA cores.  No route gives way to another: a
+build or launch that fails raises.  A CPU tensor takes the plain
+versions in ``ref.py``.  The inputs keep the reference's
+(B,S,H,Dh)/(B,S,KV,Dh) layout: the kernels read them through their
+strides, so no transposed copy is made.
 
 ``flash_attention`` is differentiable: where autograd records (grad
 enabled and an input that requires it), it runs ``FlashAttention``, a
 ``torch.autograd.Function`` that, as the reference's custom VJP does,
 saves (q, k, v, out, lse) in its forward and runs the backward from them.
 Otherwise (serving) it runs the forward alone, without lse.  Each
-wrapper's ``launches`` counts its kernel's launches.
+wrapper's ``launches`` counts its kernel's launches;
+``flash_attention.launches`` counts forwards on any route and
+``flash_attention.routes`` each forward kernel's (``FWD_KERNELS``).
 """
 from __future__ import annotations
 
@@ -34,6 +44,13 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ref
 
 MAX_HEAD_DIM = 256
+# the float32 wgmma forward's head-dim limit: three bf16 parts of a Q
+# tile and a K/V ring fit shared memory up to 128
+MAX_F32_WGMMA_FWD_HEAD_DIM = 128
+FWD_ROUTES = ("wgmma", "simt")
+# the forward's kernels, counted in flash_attention.routes: bfloat16's,
+# the float32 wgmma route's (after fa_fwd_split), the simt route's
+FWD_KERNELS = ("fa_wgmma_kernel", "fa_fwd_parts_kernel", "fa_f32_kernel")
 # the wgmma backward's head-dim limits: bfloat16, float32 (the parts
 # kernels' float32 tiles, three bf16 parts an operand, fit shared memory
 # up to 128), and the bfloat16 pair's
@@ -101,27 +118,125 @@ def _check_tma(*tensors):
                              f"(TMA), not {x.stride()}")
 
 
-def _forward(q, k, v, causal, window, want_lse):
-    """(out, lse or None) of checked inputs: the kernel on CUDA, the plain
-    version on the CPU."""
+def fwd_route(q: torch.Tensor) -> str:
+    """The forward kernels a CUDA launch of q takes: ``"wgmma"`` for
+    bfloat16 (``fa_wgmma_kernel``) and for float32 with a head dim of at
+    most 128 (``fa_fwd_split``, then ``fa_fwd_parts_kernel``: three bf16
+    parts an operand; TMA pads the head dim to a multiple of 64),
+    ``"simt"`` (``fa_f32_kernel``) for float32 at head dims in (128,
+    256].  A pure function of dtype and head dim."""
+    if q.dtype == torch.bfloat16 or (
+            q.dtype == torch.float32
+            and q.shape[-1] <= MAX_F32_WGMMA_FWD_HEAD_DIM):
+        return "wgmma"
+    return "simt"
+
+
+def fwd_kernel(q: torch.Tensor, route=None) -> str:
+    """The forward kernel (of ``FWD_KERNELS``) a CUDA launch of q on
+    ``route`` (None: ``fwd_route(q)``) runs; raises for a route q cannot
+    take (bfloat16 has no simt kernel; float32 past head dim 128 no
+    wgmma one)."""
+    want = fwd_route(q)
+    if route is None:
+        route = want
+    if route not in FWD_ROUTES:
+        raise ValueError(f"no forward route {route!r}: {FWD_ROUTES}")
+    if route == "wgmma" and want == "simt":
+        raise ValueError(f"the float32 wgmma forward takes a head dim of "
+                         f"at most {MAX_F32_WGMMA_FWD_HEAD_DIM}, not "
+                         f"{q.shape[-1]}")
+    if q.dtype == torch.bfloat16:
+        if route == "simt":
+            raise ValueError("bfloat16 has no simt forward kernel")
+        return FWD_KERNELS[0]
+    return FWD_KERNELS[1] if route == "wgmma" else FWD_KERNELS[2]
+
+
+def fa_fwd_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The float32 wgmma route's split pass on checked float32 tensors at
+    a head dim of at most 128: the parts (``parts_shape``, bf16 hi, mid
+    and lo, their sum the value exactly, zeros past Dh) of q, k and v,
+    contiguous, what ``fa_fwd_parts_kernel``'s TMA maps read.  A CUDA
+    tensor launches ``fa_fwd_split_kernel``; a CPU tensor takes
+    ``ref.split_parts``."""
+    if q.dtype != torch.float32 or fwd_route(q) != "wgmma":
+        raise ValueError(f"the split takes float32 with a head dim of at "
+                         f"most {MAX_F32_WGMMA_FWD_HEAD_DIM}, not "
+                         f"{q.dtype} at {q.shape[-1]}")
+    if q.device.type == "cpu":
+        return tuple(ref.split_parts(x) for x in (q, k, v))
+    B, S, H, Dh = q.shape
+    parts = tuple(torch.empty(parts_shape(x), dtype=torch.bfloat16,
+                              device=q.device) for x in (q, k, v))
+    rc = build.launch(q.device, build.library().fa_fwd_split_launch,
+                      q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      *(x.data_ptr() for x in parts), B, S, H, k.shape[2],
+                      Dh, *_strides(q), *_strides(k), *_strides(v))
+    build.check(rc, "fa_fwd_split")
+    build.count(fa_fwd_split)
+    return parts
+
+
+def _outputs(q, want_lse):
+    B, S, H, _ = q.shape
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if want_lse else None)
+    return out, lse
+
+
+def fa_fwd_parts(q, k, parts, causal: bool, window: int, want_lse: bool):
+    """Launch ``fa_fwd_parts_kernel`` (the float32 wgmma route's second
+    kernel) on the parts ``fa_fwd_split`` returned for checked float32
+    CUDA tensors q, k: (out (B,S,H,Dh) float32, lse (B,H,S) or None).
+    Counted in ``flash_attention``'s launches and routes."""
+    if fwd_kernel(q) != "fa_fwd_parts_kernel":
+        raise ValueError(f"fa_fwd_parts_kernel takes float32 with a head "
+                         f"dim of at most {MAX_F32_WGMMA_FWD_HEAD_DIM}, "
+                         f"not {q.dtype} at {q.shape[-1]}")
+    if tuple(p.shape for p in parts) != (parts_shape(q), parts_shape(k),
+                                         parts_shape(k)) or any(
+            p.dtype != torch.bfloat16 or not p.is_contiguous()
+            or p.data_ptr() % 16 or p.device != q.device for p in parts):
+        raise ValueError("fa_fwd_parts_kernel reads the parts fa_fwd_split "
+                         "writes")
+    B, S, H, Dh = q.shape
+    out, lse = _outputs(q, want_lse)
+    rc = build.launch(
+        q.device, build.library().fa_fwd_parts_launch,
+        *(p.data_ptr() for p in parts), out.data_ptr(),
+        lse.data_ptr() if want_lse else None, B, S, H, k.shape[2], Dh,
+        *_strides(out), int(bool(causal)), window)
+    build.check(rc, "fa_fwd_parts_kernel")
+    build.count(flash_attention, "fa_fwd_parts_kernel")
+    return out, lse
+
+
+def _forward(q, k, v, causal, window, want_lse, route=None):
+    """(out, lse or None) of checked inputs: the kernels of ``route``
+    (None: ``fwd_route(q)``) on CUDA, the plain version on the CPU."""
+    kernel = fwd_kernel(q, route)
     if q.device.type == "cpu":
         out, lse = ref.flash_attention_fwd(q, k, v, causal=causal,
                                            window=window)
         return out, (lse if want_lse else None)
+    if q.numel() == 0:
+        return _outputs(q, want_lse)
+    if kernel == "fa_fwd_parts_kernel":
+        return fa_fwd_parts(q, k, fa_fwd_split(q, k, v), causal, window,
+                            want_lse)
     B, S, H, Dh = q.shape
-    out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-           if want_lse else None)
-    if out.numel() == 0:
-        return out, lse
+    out, lse = _outputs(q, want_lse)
     strides = [s for x in (q, k, v, out) for s in _strides(x)]
     rc = build.launch(
         q.device, build.library().flash_attention_launch, q.data_ptr(),
         k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if want_lse else None, B, S, H, k.shape[2], Dh,
         *strides, int(bool(causal)), window, _DTYPES[q.dtype])
-    build.check(rc, "flash_attention")
-    build.count(flash_attention)
+    build.check(rc, kernel)
+    build.count(flash_attention, kernel)
     return out, lse
 
 
@@ -133,6 +248,19 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     window = int(window)
     _check(q, k, v, window)
     return _forward(q, k, v, causal, window, want_lse=True)
+
+
+def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window: int = 0) -> torch.Tensor:
+    """The float32 forward on the simt route (``fa_f32_kernel``) at any
+    head dim, also where ``fwd_route`` takes wgmma: to hold or time the
+    two routes against each other.  Not differentiable; bfloat16 raises
+    (no simt kernel)."""
+    window = int(window)
+    _check(q, k, v, window)
+    return _forward(q, k, v, causal, window, want_lse=False,
+                    route="simt")[0]
 
 
 def fa_bwd_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
@@ -307,9 +435,10 @@ def _check_rows(q, rows, who):
 
 
 def parts_shape(x) -> Tuple[int, int, int, int]:
-    """A float32 operand's parts for the parts kernels: (B, S, n, 3 DP)
-    bfloat16, DP = Dh rounded up to 64, hi, mid and lo (their sum the
-    value exactly) in [0, DP), [DP, 2 DP), [2 DP, 3 DP), zeros past Dh."""
+    """A float32 operand's parts for the parts kernels (the backward's and
+    the float32 wgmma forward's): (B, S, n, 3 DP) bfloat16, DP = Dh
+    rounded up to 64, hi, mid and lo (their sum the value exactly) in [0,
+    DP), [DP, 2 DP), [2 DP, 3 DP), zeros past Dh."""
     B, S, n, Dh = x.shape
     return (B, S, n, 3 * (-(-Dh // 64) * 64))
 
@@ -461,6 +590,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.routes = dict.fromkeys(FWD_KERNELS, 0)
+fa_fwd_split.launches = 0
 fa_bwd_delta.launches = 0
 fa_bwd_dkdv.launches = 0
 fa_bwd_dq.launches = 0

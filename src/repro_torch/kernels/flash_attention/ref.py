@@ -8,7 +8,8 @@ head ``h`` reads kv head ``h // (H // KV)``) and its final cast to q's
 dtype.  The kernel's online softmax reaches the same values up to float32
 rounding.  ``flash_attention_fwd`` also returns each row's log-sum-exp
 (B, H, S) in natural-log units, what the reference's ``jnp_impl._fwd``
-saves for its backward.
+saves for its backward.  ``split_parts`` is the plain version of the
+float32 wgmma route's split pass.
 
 ``flash_attention_bwd`` is the counterpart of the reference's
 ``jnp_impl._bwd_vjp`` (what its ``_block_grads`` computes), materialized:
@@ -76,6 +77,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: (B,S,H,Dh); k/v: (B,S,KV,Dh) -> (B,S,H,Dh) in q's dtype."""
     return flash_attention_fwd(q, k, v, causal=causal, window=window)[0]
+
+
+def split_parts(x: torch.Tensor) -> torch.Tensor:
+    """The split pass's plain version: float32 ``x`` (B,S,n,Dh) as three
+    bfloat16 parts (B,S,n,3 DP), DP = Dh rounded up to 64: hi = x rounded
+    to bf16 in columns [0, DP), mid = the rest rounded in [DP, 2 DP), lo =
+    what mid leaves in [2 DP, 3 DP), zeros past Dh.  8 + 8 + 8 bits: the
+    three parts sum to ``x`` exactly where |x| >= 2^-110 or x = 0 (below,
+    mid and lo fall among the subnormals and lose bits)."""
+    B, S, n, Dh = x.shape
+    DP = -(-Dh // 64) * 64
+    out = torch.zeros((B, S, n, 3, DP), dtype=torch.bfloat16,
+                      device=x.device)
+    rest = x.float()
+    for p in range(3):
+        out[..., p, :Dh] = rest.to(torch.bfloat16)
+        rest = rest - out[..., p, :Dh].float()
+    return out.reshape(B, S, n, 3 * DP)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

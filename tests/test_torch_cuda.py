@@ -1006,6 +1006,130 @@ def test_flash_attention_kernel_raises_where_tma_cannot_read(dev, make,
     assert fa_ops.flash_attention.launches == before
 
 
+# float32 edge cases of the wgmma route (fa_fwd_split, then
+# fa_fwd_parts_kernel; B, S, H, KV, Dh, causal, window): head dims 8 ...
+# 128 (DP 64 and 128; 72 pads to 128), S around the 64-row warpgroup,
+# the 128-row block and the 64- and 32-key tiles, ragged 777; GQA groups
+# 1, 4 and 8; windows 1, 64 and 1024; non-causal
+FA_F32_EDGE_CASES = [
+    (3, 1, 4, 1, 64, True, 0), (2, 63, 8, 1, 64, True, 0),
+    (2, 65, 4, 4, 64, False, 0), (1, 127, 4, 1, 128, True, 64),
+    (1, 129, 8, 2, 64, True, 0), (2, 777, 8, 2, 64, True, 0),
+    (2, 200, 4, 4, 8, True, 0), (2, 200, 8, 2, 16, True, 0),
+    (2, 300, 4, 1, 72, True, 64), (1, 300, 8, 2, 128, True, 1),
+    (1, 2048, 8, 2, 128, True, 1024), (1, 777, 8, 1, 112, False, 1024),
+    (2, 256, 32, 8, 64, True, 0),       # granite-3-2b's heads
+]
+
+
+@pytest.mark.parametrize("case", FA_F32_EDGE_CASES)
+def test_flash_attention_float32_wgmma_route_edge_shapes(dev, case):
+    """The float32 wgmma route against the plain version within the
+    reference's 2e-5, lse within 2e-5 too; one launch of the split and of
+    fa_fwd_parts_kernel, none of fa_f32_kernel; a second call the same
+    bits."""
+    B, S, H, KV, Dh, causal, window = case
+    g = torch.Generator(device=dev).manual_seed(S * H + Dh + window)
+    q, k, v = (torch.randn((B, S, n, Dh), generator=g, device=dev)
+               for n in (H, KV, KV))
+    assert fa_ops.fwd_route(q) == "wgmma"
+    routes = dict(fa_ops.flash_attention.routes)
+    split = fa_ops.fa_fwd_split.launches
+    out, lse = fa_ops.flash_attention_fwd(q, k, v, causal=causal,
+                                          window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.fa_fwd_split.launches == split + 1
+    assert {r: n - routes[r] for r, n in fa_ops.flash_attention.routes.items()
+            } == {"fa_wgmma_kernel": 0, "fa_fwd_parts_kernel": 1,
+                  "fa_f32_kernel": 0}
+    want, want_lse = fa_ref.flash_attention_fwd(q, k, v, causal=causal,
+                                                window=window)
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=2e-5)
+    again, lse2 = fa_ops.flash_attention_fwd(q, k, v, causal=causal,
+                                             window=window)
+    assert torch.equal(again, out) and torch.equal(lse2, lse)
+
+
+def _f32_views(dev, layout, B, S, H, KV, Dh):
+    """float32 q, k, v as views no TMA map could take: slices of one
+    fused projection, (B, n, S, Dh) tensors seen as (B, S, n, Dh), a q
+    whose base is 4 bytes off 16, or heads 66 elements (264 bytes)
+    apart."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    if layout == "fused":
+        qkv = torch.randn((B, S, H + 2 * KV, Dh), generator=g, device=dev)
+        return qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    if layout == "heads_first":
+        return tuple(torch.randn((B, n, S, Dh), generator=g, device=dev
+                                 ).transpose(1, 2) for n in (H, KV, KV))
+    if layout == "odd_base":
+        buf = torch.randn(B * S * H * Dh + 1, generator=g, device=dev)
+        k, v = (torch.randn((B, S, KV, Dh), generator=g, device=dev)
+                for _ in range(2))
+        return buf[1:].view(B, S, H, Dh), k, v
+    return tuple(torch.randn((B, S, n, Dh + 2), generator=g, device=dev
+                             )[..., :Dh] for n in (H, KV, KV))
+
+
+@pytest.mark.parametrize("layout,shape", [
+    ("fused", (1, 300, 32, 8, 64)), ("heads_first", (2, 150, 8, 2, 64)),
+    ("heads_first", (1, 129, 4, 1, 128)), ("odd_base", (2, 100, 4, 2, 64)),
+    ("odd_head_stride", (2, 100, 4, 2, 64))])
+def test_flash_attention_float32_route_reads_any_strides(dev, layout, shape):
+    """float32 views TMA could not read go through the split, which reads
+    the strides: the parts equal the plain split of the same values bit
+    for bit, and both routes agree with plain."""
+    q, k, v = _f32_views(dev, layout, *shape)
+    parts = fa_ops.fa_fwd_split(q, k, v)
+    for got, x in zip(parts, (q, k, v)):
+        assert torch.equal(got, fa_ref.split_parts(x.contiguous()))
+    want = fa_ref.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), window=64)
+    for entry in (fa_ops.flash_attention, fa_ops.flash_attention_simt):
+        out = entry(q, k, v, window=64)
+        torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_attention_float32_routes_by_head_dim(dev):
+    """Past head dim 128 float32 takes fa_f32_kernel; at 128 the wgmma
+    route; flash_attention_simt runs fa_f32_kernel at any float32 head
+    dim; neither bfloat16 nor a head dim past 128 has the other route."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    for Dh, kernel in ((136, "fa_f32_kernel"), (128, "fa_fwd_parts_kernel")):
+        q = torch.randn((1, 70, 4, Dh), generator=g, device=dev)
+        before = dict(fa_ops.flash_attention.routes)
+        fa_ops.flash_attention(q, q, q)
+        assert fa_ops.flash_attention.routes[kernel] == before[kernel] + 1
+    q = torch.randn((1, 70, 4, 64), generator=g, device=dev)
+    before = fa_ops.flash_attention.routes["fa_f32_kernel"]
+    fa_ops.flash_attention_simt(q, q, q)
+    assert fa_ops.flash_attention.routes["fa_f32_kernel"] == before + 1
+    with pytest.raises(ValueError, match="no simt forward"):
+        fa_ops.flash_attention_simt(q.bfloat16(), q.bfloat16(), q.bfloat16())
+    wide = torch.randn((1, 70, 4, 192), generator=g, device=dev)
+    with pytest.raises(ValueError, match="at most 128"):
+        fa_ops.fa_fwd_parts(wide, wide, fa_ops.fa_fwd_split(q, q, q), True,
+                            0, False)
+
+
+def test_float32_wgmma_launchers_refuse_what_they_cannot_run(dev):
+    """The C launchers of the float32 wgmma route refuse a head dim past
+    128 (and one not a multiple of 8) with cudaErrorInvalidValue, without
+    a launch."""
+    lib = build.library()
+    p = torch.zeros(1 << 16, device=dev).data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
+    for Dh in (136, 12):
+        shape = (1, 64, 2, 2, Dh)
+        strides = (64 * 2 * Dh, 2 * Dh, Dh) * 3
+        assert lib.fa_fwd_split_launch(*[p] * 6, *shape, *strides,
+                                       stream) == 1
+        assert lib.fa_fwd_parts_launch(*[p] * 5, *shape, *strides[:3], 1, 0,
+                                       stream) == 1
+
+
 # B, S, H, P, N, chunk: the reference's SSD_CASES (tests/test_kernels.py),
 # the smoke configs' shape, zamba2's (N=64) and mamba2's (N=128) at full
 # width, the largest the kernel takes, and S < chunk (the clamp)
