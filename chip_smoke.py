@@ -59,7 +59,8 @@ Phases, each printing one line or a few:
      sequence shorter than the chunk, strided inputs and mamba2's shape
      in float32, the bf16 route's edges (chunk 16, S = 40 under the chunk
      of 128, P = 128, N = 16 and 64, S = 8192, dt in bf16) and an
-     unaligned view, within the reference's tolerances (5e-2 bf16, 1e-4
+     unaligned view (the parts route, as every float32 row), each twice
+     (bit-identical), within the reference's tolerances (5e-2 bf16, 1e-4
      f32), each case on the route its dtypes and layout name (wgmma for
      bf16 x/B/C that TMA can read, else float32);
   4. the planner's main path at real size: the paper's §4.3 scenario
@@ -134,8 +135,7 @@ Phases, each printing one line or a few:
      granite's and zamba2's prefill shapes and at qwen2-moe's, llama4-
      scout's, whisper's encoder's and phi-3-vision's (FLASH_TIMES);
      ssd_scan's wgmma route at mamba2's and zamba2's prefill shapes (and
-     its device time alone) and its float32 route at mamba2's, each
-     beside its bound; amva's device time alone and its share of a
+     its device time alone), each beside its bound; amva's device time alone and its share of a
      run_fast plan's wall;
   7. (after phase 4) [scenarios] the repo's public-cloud planner
      benchmarks at their own budgets (benchmarks/torch_scenarios.py):
@@ -263,7 +263,14 @@ Phases, each printing one line or a few:
      fa_fwd_parts_kernel alone and on the device, and fa_f32_kernel on
      the same inputs, in turns, beside the function's float32 bound, the
      parts terms' and the split's bounds, the plain versions and SDPA in
-     float32; and ssd_scan's float32 route its bound at the float32 rate.
+     float32; ssd_scan in float32 at mamba2's prefill shape (B = 4, S =
+     1024, SSD_F32_TIME): the parts route's call, its split and its four
+     kernels alone and each on the device, and ssd_f32_kernel on the same
+     inputs, in turns, beside the function's float32 bound, the parts
+     terms' and the split's bounds and the plain versions; and
+     fa_f32_kernel and the SIMT flash backward at nemotron-4-340b's heads
+     in float32 (FA_F32_WIDE_TIME) beside SDPA's float32 forward and
+     backward.
  13. [train] (after phase 6) the flash backward's two routes (wgmma:
      for bf16 at head dim <= 128 its pair, fa_bwd_dq_wgmma, which writes
      delta, then fa_bwd_dkdv_wgmma; for bf16 past 128 and float32 up to
@@ -310,12 +317,14 @@ Phases, each printing one line or a few:
      backward in one model), one step on the card against the CPU (loss,
      grad norm, every gradient leaf, the update), and for granite a
      restart from a checkpoint on the card against the uninterrupted
-     run; granite at depth 2 in float32 (TRAIN_F32_ARCH): one Trainer
-     step on the card with its launches counted (4 forwards, each a
-     fa_fwd_split and a fa_fwd_parts_kernel launch, none of
-     fa_f32_kernel; 2 of each parts kernel, none of the simt route's),
-     then its step against the CPU's within
-     TRAIN_F32_TOL.
+     run; granite and mamba2 at depth 2 in float32 (TRAIN_F32_ARCHS):
+     one Trainer step each on the card with its launches counted by
+     kernel and route (granite: 4 forwards, each a fa_fwd_split and a
+     fa_fwd_parts_kernel launch, none of fa_f32_kernel, 2 of each flash
+     parts kernel, none of the simt route's; mamba2: 4 ssd_scan forwards
+     on the parts route, each after an ssd_split, none of
+     ssd_f32_kernel, 2 SSD backwards on the SIMT route), then each step
+     against the CPU's within TRAIN_F32_TOL.
  15. [distributed] (after [train]) GPipe over granite-3-2b's 40 layers at
      full width (PIPELINE: 4 stages of 10 layer groups stacked with
      stack_stage_params, 8 microbatches of 1 x 1024 tokens in bf16, the
@@ -370,6 +379,10 @@ H100_BF16_OPS_PER_S = 989e12    # dense tensor cores, H100 SXM data sheet
 FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # the reference's (tests/test_kernels.py), on y and on the final state
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# the largest share of the float32 tolerance, tol + tol |want|, that the
+# SSD scan's parts route may take on float32 inputs (y and the final
+# state): the aim its bf16 terms were chosen by (tests/test_torch_ssd_f32.py)
+SSD_F32_AIM = 0.5
 # card vs CPU logits at depth 2 (3 for zamba2, 1 for llama4-scout), full
 # width: the logits are bf16, and cuBLAS and the CPU's GEMMs sum in other
 # orders, so a logit may round to the neighbouring bf16 value.  Measured
@@ -540,7 +553,8 @@ QN_ROUTE_KERNELS = ("qn_event_fast", "qn_event_wide", "qn_event_many",
 # one of them
 DEVICE_KERNELS = {"flash_attention": ("fa_wgmma_kernel", "fa_fwd_parts_kernel",
                                       "fa_fwd_split_kernel", "fa_f32_kernel"),
-                  "ssd_scan": ("ssd_wgmma_kernel", "ssd_f32_kernel")}
+                  "ssd_scan": ("ssd_wgmma_kernel", "ssd_parts_",
+                               "ssd_f32_kernel")}
 
 # Decisions and numbers of the JAX reference (src/repro) for the same calls
 # and scenarios, printed by
@@ -2525,6 +2539,11 @@ FA_F32_CHECKS = [
     ("nemotron-4-340b heads past the wgmma limit, float32", 1, 1024, 96, 8,
      192, torch.float32, True, 0),
 ]
+# the SSD scan's parts route's wgmma instances (csrc/ssd_scan_parts.cu,
+# <NP>: N rounded up to 64): [build] fails without their ptxas lines,
+# HGMMA and UTMALDG
+SSD_PARTS_INSTANCES = tuple(f"ssd_parts_{k}_kernel<{np_}>"
+                            for k in ("g", "state", "y") for np_ in (64, 128))
 # the float32 wgmma forward's instances (fa_fwd_parts_kernel<DP, WGS, BK,
 # STAGES>): [build] fails without their ptxas lines, HGMMA and UTMALDG
 FA_FWD_INSTANCES = ("fa_fwd_parts_kernel<64, 2, 64, 3>",
@@ -2630,13 +2649,16 @@ def flash_bwd_instance(mangled: str):
 
 
 def ssd_instance(mangled: str):
-    """'ssd_wgmma_kernel<64, 128>' (or 'ssd_f32_kernel') for a line naming
-    an ssd_scan kernel by its mangled name, else None."""
-    m = re.search(r"(ssd_wgmma_kernel)I((?:Li\d+E)+)", mangled)
+    """'ssd_wgmma_kernel<64, 128>' or 'ssd_parts_y_kernel<128>' (or
+    'ssd_f32_kernel', 'ssd_parts_split_kernel', 'ssd_parts_scan_kernel')
+    for a line naming an ssd_scan kernel by its mangled name, else None."""
+    m = re.search(r"(ssd_wgmma_kernel|ssd_parts_(?:g|state|y)_kernel)I"
+                  r"((?:Li\d+E)+)", mangled)
     if m:
         return (f"{m.group(1)}<"
                 f"{', '.join(re.findall(r'Li([0-9]+)E', m.group(2)))}>")
-    return "ssd_f32_kernel" if "ssd_f32_kernel" in mangled else None
+    return next((k for k in ("ssd_f32_kernel", "ssd_parts_split_kernel",
+                             "ssd_parts_scan_kernel") if k in mangled), None)
 
 
 def qn_instance(mangled: str):
@@ -2915,9 +2937,9 @@ def serve_full(dev, kernels, arch, expect, cut):
     if got != want:
         fail(f"{cfg.name}: kernel launches {got}, expected {want} (one per "
              "prefill layer of its kind per round)")
-    if ssd_routes["f32"]:
-        fail(f"{cfg.name}: a served prefill took the SSD scan's float32 "
-             f"route: {ssd_routes}")
+    if ssd_routes["parts"]:
+        fail(f"{cfg.name}: a served prefill took an SSD scan route other "
+             f"than wgmma: {ssd_routes}")
     if len(done) != 8 or any(
             len(r.output) != n_gen or not all(0 <= t < cfg.vocab_size
                                               for t in r.output)
@@ -3034,9 +3056,9 @@ def serve_card_vs_cpu(dev, kernels, arch, cut):
         if got != want:
             fail(f"{cfg.name} cut {cut} engine on {d}: launches {got}, "
                  f"expected {want}")
-        if kernels["ssd_scan"].routes["f32"]:
-            fail(f"{cfg.name} cut {cut}: the SSD scan took its float32 "
-                 "route")
+        if kernels["ssd_scan"].routes["parts"]:
+            fail(f"{cfg.name} cut {cut}: the SSD scan took a route other "
+                 "than wgmma")
     card, cpu = outs
     # the card teacher-forced along the CPU's tokens
     t0 = time.perf_counter()
@@ -3566,6 +3588,45 @@ def time_flash_f32(dev, fa_ops, fa_ref, B, S, H, KV, Dh, causal=True):
                      f"{'causal' if causal else 'non-causal'}"}
 
 
+# fa_f32_kernel and the SIMT flash backward where they run, float32 past
+# Dh 128: nemotron-4-340b's heads (B, S, H, KV, Dh), causal
+FA_F32_WIDE_TIME = (1, 1024, 96, 8, 192)
+
+
+def time_flash_f32_wide(dev, fa_ops, B, S, H, KV, Dh):
+    """fa_f32_kernel (the forward's simt route) and the SIMT backward's
+    three kernels at a float32 shape past Dh 128, each beside torch's
+    SDPA forward or backward in float32 on the same tensors (yardsticks
+    the port never calls) and the function's bound at the float32 rate."""
+    import torch.nn.functional as F
+
+    q, k, v, dout = fa_bwd_inputs(dev, B, S, H, KV, Dh, torch.float32, 11)
+    if fa_ops.fwd_kernel(q) != "fa_f32_kernel" or \
+            fa_ops.bwd_route(q, k, v) != "simt":
+        fail(f"float32 at Dh {Dh} does not take the simt routes")
+    fwd_ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v, causal=True), 5)
+    sdpa = lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, enable_gqa=True)
+    sdpa_ms = cuda_ms(sdpa, 5)
+    out, lse = fa_ops.flash_attention_fwd(q, k, v, causal=True)
+    bwd_ms = cuda_ms(lambda: run_bwd_route(fa_ops, "simt", q, k, v, out, lse,
+                                           dout, True, 0), 3)
+    sdpa_bwd = sdpa_bwd_ms(q, k, v, dout, True, 3)
+    fb = fa_f32_bounds(B, S, H, KV, Dh)["function"]
+    bb = fa_bwd_bounds(B, S, H, KV, Dh, True, 0, torch.float32)["function"]
+    shape = fa_bwd_shape(B, S, H, KV, Dh, True, torch.float32)
+    print(f"[time] flash float32 past Dh 128 at {shape}: fa_f32_kernel "
+          f"{fwd_ms:.4f} ms (bound {fb[0]:.5f} ms, {fb[1]}), torch's SDPA "
+          f"forward {sdpa_ms:.4f} ms ({sdpa_ms / fwd_ms:.2f}x the kernel's "
+          f"time); the SIMT backward's three kernels {bwd_ms:.4f} ms (bound "
+          f"{bb[0]:.5f} ms, {bb[1]}), SDPA's backward {sdpa_bwd:.4f} ms "
+          f"({sdpa_bwd / bwd_ms:.2f}x)", flush=True)
+    return {"shape": shape, "fwd_ms": fwd_ms, "sdpa_fwd_ms": sdpa_ms,
+            "fwd_bound_ms": fb[0], "bwd_ms": bwd_ms,
+            "sdpa_bwd_ms": sdpa_bwd, "bwd_bound_ms": bb[0]}
+
+
 # ------------------------------------------------------------------ [train]
 # the flash backward's kernels held to the plain version:
 # (label, B, S, H, KV, Dh, causal, window, dtype).  The training shape,
@@ -3662,12 +3723,14 @@ TRAIN_RESTART_ARCH = "granite-3-2b"
 # take the other sign, and Adam's first step moves it by lr either way)
 TRAIN_CARD_CPU_TOL = {"loss": 0.02, "grad_norm": 0.02, "grad_leaf": 0.06,
                       "update_l2": 0.1}
-# the float32 step: granite-3-2b at depth 2 and full width with compute
-# dtype float32 (the parts kernels' first model path), one step on the
-# card through Trainer (the launch counts set to 0 before and read after)
-# and one against the CPU from the same state and batch, TRAIN_SMALL_RUN;
-# both sides in float32, sums in other orders (the argument: CHANGES.md)
-TRAIN_F32_ARCH = "granite-3-2b"
+# the float32 steps: granite-3-2b (the flash parts kernels' model path)
+# and mamba2-780m (the SSD scan's parts route and the SIMT SSD backward)
+# at depth 2 and full width with compute dtype float32, one step each on
+# the card through Trainer (the launch counts set to 0 before and read
+# after) and one against the CPU from the same state and batch,
+# TRAIN_SMALL_RUN; both sides in float32, sums in other orders (the
+# argument: CHANGES.md)
+TRAIN_F32_ARCHS = ("granite-3-2b", "mamba2-780m")
 TRAIN_F32_TOL = {"loss": 1e-4, "grad_norm": 1e-4, "grad_leaf": 1e-3,
                  "update_l2": 0.02}
 
@@ -4067,7 +4130,7 @@ def model_flops(cfg, B, S):
 TRAIN_GROUPS = (("flash backward", ("fa_bwd",)),
                 ("flash forward", ("fa_wgmma", "fa_fwd", "fa_f32")),
                 ("SSD backward", ("ssd_bwd",)),
-                ("SSD forward", ("ssd_wgmma", "ssd_f32")),
+                ("SSD forward", ("ssd_wgmma", "ssd_parts", "ssd_f32")),
                 ("matmuls", ("gemm", "gemv", "nvjet", "sm90_xmma", "cutlass",
                              "cublas", "Kernel2")))
 
@@ -4114,6 +4177,42 @@ def train_launches(cfg) -> dict:
     return want
 
 
+def _ssd_meta(cfg):
+    """x, B_, C_ of a config's SSD scan as meta tensors of its dtype."""
+    dtype, ssm = getattr(torch, cfg.dtype), cfg.ssm
+    H, P, N = ssm.n_heads(cfg.d_model), ssm.head_dim, ssm.d_state
+    return (torch.empty((1, 1, H, P), dtype=dtype, device="meta"),
+            torch.empty((1, 1, N), dtype=dtype, device="meta"),
+            torch.empty((1, 1, N), dtype=dtype, device="meta"))
+
+
+def train_ssd_routes(cfg) -> dict:
+    """The SSD scan's launches a training step must show, by route
+    (``ops.ROUTES``): two a Mamba2 layer under remat, all on the route
+    ``ops.route`` names for the config's dtype."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    n_ssd = cfg.all_layer_kinds().count("mamba")
+    want = dict.fromkeys(ssd_ops.ROUTES, 0)
+    if n_ssd:
+        want[ssd_ops.route(*_ssd_meta(cfg))] = 2 * n_ssd
+    return want
+
+
+def train_ssd_bwd_routes(cfg) -> dict:
+    """The SSD backward's calls a training step must show, by route: one a
+    Mamba2 layer, on the route ``ops.bwd_route`` names for the config's
+    dtype."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    n_ssd = cfg.all_layer_kinds().count("mamba")
+    want = dict.fromkeys(ssd_ops.BWD_ROUTES, 0)
+    if n_ssd:
+        x, B_, C_ = _ssd_meta(cfg)
+        want[ssd_ops.bwd_route(x, B_, C_, x)] = n_ssd
+    return want
+
+
 def train_fwd_routes(cfg) -> dict:
     """The flash forward's launches a training step must show, by kernel
     (``ops.FWD_KERNELS``): two an attention layer under remat, all on the
@@ -4121,10 +4220,10 @@ def train_fwd_routes(cfg) -> dict:
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
     n_attn = sum(k != "mamba" for k in cfg.all_layer_kinds())
-    q = torch.empty((0, cfg.head_dim), dtype=getattr(torch, cfg.dtype),
-                    device="meta")
     want = dict.fromkeys(fa_ops.FWD_KERNELS, 0)
     if n_attn:
+        q = torch.empty((0, cfg.head_dim), dtype=getattr(torch, cfg.dtype),
+                        device="meta")
         want[fa_ops.fwd_kernel(q)] = 2 * n_attn
     return want
 
@@ -4350,20 +4449,21 @@ def train_small(dev, arch):
             "uninterrupted_losses": want.tolist()}
 
 
-def train_f32(dev, kernels, fa_ops):
-    """TRAIN_F32_ARCH at full width and TRAIN_SMALL's depth with compute
-    dtype float32: one step through Trainer on the card, the launch counts
-    set to 0 before and read after (the forward's float32 wgmma route,
-    fa_fwd_split and fa_fwd_parts_kernel, and none of fa_f32_kernel; the
-    backward's parts kernels), then one step on the card against the CPU
-    from the same state and batch, held to TRAIN_F32_TOL.  Returns the
-    figures."""
+def train_f32(dev, kernels, fa_ops, ssd_ops, arch):
+    """``arch`` (of TRAIN_F32_ARCHS) at full width and TRAIN_SMALL's depth
+    with compute dtype float32: one step through Trainer on the card, the
+    launch counts set to 0 before and read after (granite: the flash
+    forward's float32 wgmma route, fa_fwd_split and fa_fwd_parts_kernel,
+    and none of fa_f32_kernel, and the backward's parts kernels; mamba2:
+    the SSD scan's parts route, ssd_split and its kernels, and none of
+    ssd_f32_kernel, and the SIMT SSD backward), then one step on the card
+    against the CPU from the same state and batch, held to TRAIN_F32_TOL.
+    Returns the figures."""
     from repro_torch.configs.registry import get_config
     from repro_torch.optim.adamw import AdamWConfig, adamw_update
     from repro_torch.train import step as tstep
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    arch = TRAIN_F32_ARCH
     cfg = get_config(arch).replace(n_layers=TRAIN_SMALL[arch],
                                    dtype="float32")
     opt = AdamWConfig(total_steps=4, warmup=2)
@@ -4372,7 +4472,8 @@ def train_f32(dev, kernels, fa_ops):
     state = tr.init_state()
     batch = tr.pipeline.batch_at(0)
     bwd = [getattr(fa_ops, n) for n in BWD_KERNELS]
-    reset_launches(*kernels.values(), *bwd, fa_ops.fa_fwd_split)
+    reset_launches(*kernels.values(), *bwd, fa_ops.fa_fwd_split,
+                   ssd_ops.ssd_split)
     t0 = time.perf_counter()
     tr.run(copy_to(state, dev), 0)
     torch.cuda.synchronize()
@@ -4380,21 +4481,27 @@ def train_f32(dev, kernels, fa_ops):
     got = {n: w.launches for n, w in kernels.items() if w.launches}
     got.update({n: w.launches for n, w in zip(BWD_KERNELS, bwd)
                 if w.launches})
-    fwd_routes = dict(fa_ops.flash_attention.routes)
-    split = fa_ops.fa_fwd_split.launches
-    want, want_routes = train_launches(cfg), train_fwd_routes(cfg)
+    routes = {"flash forward": dict(fa_ops.flash_attention.routes),
+              "fa_fwd_split": fa_ops.fa_fwd_split.launches,
+              "ssd_scan": dict(ssd_ops.ssd.routes),
+              "ssd_split": ssd_ops.ssd_split.launches,
+              "ssd_bwd": dict(ssd_ops.ssd_bwd.routes)}
+    fwd, ssd_fwd = train_fwd_routes(cfg), train_ssd_routes(cfg)
+    want_routes = {"flash forward": fwd,
+                   "fa_fwd_split": fwd["fa_fwd_parts_kernel"],
+                   "ssd_scan": ssd_fwd, "ssd_split": ssd_fwd["parts"],
+                   "ssd_bwd": train_ssd_bwd_routes(cfg)}
+    want = train_launches(cfg)
     print(f"[train] {cfg.name} in float32 at depth {cfg.n_layers} (full "
           f"width), B={tc.global_batch} S={tc.seq_len}: one Trainer step on "
           f"the card in {wall:.2f} s, loss {tr.history[-1]['loss']!r}; "
-          f"launches {got} (expected {want}); the forward's by kernel "
-          f"{fwd_routes}, fa_fwd_split {split} (expected {want_routes})",
-          flush=True)
+          f"launches {got} (expected {want}); by kernel and route {routes} "
+          f"(expected {want_routes})", flush=True)
     if got != want:
         fail(f"{cfg.name} float32 step: launches {got}, expected {want}")
-    if fwd_routes != want_routes or \
-            split != want_routes["fa_fwd_parts_kernel"]:
-        fail(f"{cfg.name} float32 step: the forward's kernels {fwd_routes} "
-             f"and {split} splits, expected {want_routes}")
+    if routes != want_routes:
+        fail(f"{cfg.name} float32 step: launches by kernel and route "
+             f"{routes}, expected {want_routes}")
     out = {}
     t0 = time.perf_counter()
     for label, d in (("card", dev), ("cpu", torch.device("cpu"))):
@@ -4435,11 +4542,13 @@ def train_f32(dev, kernels, fa_ops):
     import signal
 
     signal.signal(signal.SIGTERM, signal.SIG_DFL)    # Trainer's handler
-    return {"launches": got, "forward_routes": fwd_routes,
-            "split_launches": split, "card_vs_cpu": diffs,
-            "tol": TRAIN_F32_TOL,
-            "depth": cfg.n_layers, "wall_s": wall,
-            "loss": tr.history[-1]["loss"]}
+    return {"launches": got, "forward_routes": routes["flash forward"],
+            "split_launches": routes["fa_fwd_split"],
+            "ssd_routes": routes["ssd_scan"],
+            "ssd_split_launches": routes["ssd_split"],
+            "ssd_bwd_routes": routes["ssd_bwd"], "card_vs_cpu": diffs,
+            "tol": TRAIN_F32_TOL, "depth": cfg.n_layers, "wall_s": wall,
+            "compare_s": cmp_s, "loss": tr.history[-1]["loss"]}
 
 
 def copy_to(tree, dev):
@@ -4870,7 +4979,7 @@ def diloco_drive(dev, kernels):
 
 
 # ssd_scan checks: (name, B, S, H, P, N, chunk, dtypes of x, dt and B/C).
-# x, B and C in bfloat16 take the wgmma route, the rest the float32 route
+# x, B and C in bfloat16 take the wgmma route, the rest the parts route
 F32_3, BF16_3 = (torch.float32,) * 3, (torch.bfloat16,) * 3
 SERVING = (torch.bfloat16, torch.float32, torch.bfloat16)
 SSD_CHECKS = [(f"reference case {i} {str(t[0])[6:]}", *case, t)
@@ -4911,12 +5020,15 @@ def ssd_inputs(dev, B, S, H, P, N, types, seed):
             rnd(B, S, N).to(tbc))
 
 
-def check_ssd(dev, ssd_ops, ssd_ref) -> float:
-    """Kernel against plain at SSD_CHECKS, on strided views and on an
+def check_ssd(dev, ssd_ops, ssd_ref) -> dict:
+    """Kernels against plain at SSD_CHECKS, on strided views and on an
     unaligned view; each case must take the route its dtypes and layout
-    name (wgmma for bfloat16 x/B/C that TMA can read).  The largest abs
-    error over y and the final state."""
-    worst = 0.0
+    name (wgmma for bfloat16 x/B/C that TMA can read, else parts) and give
+    the same bits in a second call.  The largest abs error over y and the
+    final state, in all and by route, and by route the largest share of
+    the tolerance (tol + tol |want|), which on a float32 row of the parts
+    route must not pass SSD_F32_AIM."""
+    out = {"max_abs_err": 0.0, "by_route": {}}
     cases = [(name, (B, S, H, P, N, types), chunk, None)
              for name, B, S, H, P, N, chunk, types in SSD_CHECKS]
     cases.append(("strided x, B and C views", (4, 512, 96, 64, 128, SERVING),
@@ -4931,38 +5043,52 @@ def check_ssd(dev, ssd_ops, ssd_ref) -> float:
             x, dt, A = x[:, :, ::2], dt[:, :, ::2], A[::2]
             Bm, Cm = bc[..., :N], bc[..., N:]
             H //= 2
-        if how == "unaligned":         # TMA cannot read it: float32 route
+        if how == "unaligned":         # TMA cannot read it: the parts route
             buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
             x = buf[1:].view(x.shape).copy_(x)
         want_route = ("wgmma" if types[0] == types[2] == torch.bfloat16
-                      and how != "unaligned" else "f32")
+                      and how != "unaligned" else "parts")
         before = dict(ssd_ops.ssd.routes)
         y, st = ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=chunk)
         torch.cuda.synchronize()
         took = [r for r, n in ssd_ops.ssd.routes.items() if n != before[r]]
+        y2, st2 = ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=chunk)
+        same = torch.equal(y, y2) and torch.equal(st, st2)
         want_y, want_st = ssd_ref.ssd(x, dt, A, Bm, Cm, chunk=chunk)
         tol = SSD_TOL[types[0]]
         err = max(float((y.float() - want_y.float()).abs().max()),
                   float((st - want_st).abs().max()))
         # the largest error as a share of its tolerance, tol + tol |want|
-        share = max(float(((got.float() - want.float()).abs()
-                           / (tol + tol * want.float().abs())).max())
-                    for got, want in ((y, want_y), (st, want_st)))
+        shares = [float(((got.float() - want.float()).abs()
+                         / (tol + tol * want.float().abs())).max())
+                  for got, want in ((y, want_y), (st, want_st))]
         ok = y.dtype == x.dtype and st.dtype == torch.float32 and \
             bool(torch.isfinite(y).all()) and \
             torch.allclose(y.float(), want_y.float(), atol=tol, rtol=tol) \
             and torch.allclose(st, want_st, atol=tol, rtol=tol)
-        worst = max(worst, err)
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        r = out["by_route"].setdefault(want_route, {
+            "max_abs_err": 0.0, "max_share": {}})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        kind = str(types[0])[6:]
+        r["max_share"][kind] = max(r["max_share"].get(kind, 0.0), *shares)
         print(f"[check] ssd_scan {name}: B={B} S={S} H={H} P={P} N={N} "
               f"chunk={chunk} x/dt/B {'/'.join(str(t)[6:] for t in types)}"
               f", route {took}: max_abs_err={err:.3e} (tol {tol:g} abs + "
-              f"rel; {share:.3f} of it) ok={ok}", flush=True)
+              f"rel; y {shares[0]:.3f}, state {shares[1]:.3f} of it; a "
+              f"second call bit-identical {same}) ok={ok}", flush=True)
         if took != [want_route]:
             fail(f"ssd_scan took route {took} for {name}, not "
                  f"{want_route}")
         if not ok:
             fail(f"ssd_scan differs from its plain version ({name})")
-    return worst
+        if not same:
+            fail(f"ssd_scan's two calls differ ({name})")
+        if want_route == "parts" and types[0] == torch.float32 and \
+                not max(shares) <= SSD_F32_AIM:
+            fail(f"ssd_scan's parts route at {max(shares):.3f} of the "
+                 f"float32 tolerance, past {SSD_F32_AIM} ({name})")
+    return out
 
 
 def ssd_bound(args, Q):
@@ -4987,10 +5113,11 @@ def ssd_bound(args, Q):
 
 def time_ssd(dev, ssd_ops, ssd_ref):
     """The SSD kernel at mamba2-780m's prefill shape (B=4, S=1024; x, B, C
-    bf16, dt f32): the wgmma route (CUDA events around the call, and its
-    device time alone), the float32 route on the same inputs, the plain
-    version, and the bound; and the wgmma route at zamba2-7b's prefill
-    shape (B=4, S=896, H=112, N=64) with its bound."""
+    bf16, dt f32): the wgmma route (CUDA events around the call; its
+    device time alone, from the profiler and queued back to back; the
+    host's time a call), the plain version, and the bound; and the wgmma
+    route at zamba2-7b's prefill shape (B=4, S=896, H=112, N=64) with its
+    bound (float32: time_ssd_f32)."""
     Q = 128
     out = {}
     for cell, (B, S, H, P, N) in (("mamba2", (4, 1024, 48, 64, 128)),
@@ -4999,50 +5126,160 @@ def time_ssd(dev, ssd_ops, ssd_ref):
         if ssd_ops.route(args[0], args[3], args[4]) != "wgmma":
             fail(f"the SSD timing inputs at {cell}'s shape do not take the "
                  "wgmma route")
-        ms = cuda_ms(lambda: ssd_ops.ssd(*args, chunk=Q), 20)
-        dev_ms, launch = device_ms(lambda: ssd_ops.ssd(*args, chunk=Q),
-                                   "ssd_wgmma_kernel")
+        call = lambda: ssd_ops.ssd(*args, chunk=Q)
+        ms = cuda_ms(call, 20)
+        dev_ms, launch = device_ms(call, "ssd_wgmma_kernel", per_call=1)
+        queued, host = queued_ms(call), enqueue_ms(call)
         bound, bound_by, nbytes, flops = ssd_bound(args, Q)
-        row = {"ms": ms, "device_ms": dev_ms, "bound_ms": bound,
-               "bound_by": bound_by,
+        row = {"ms": ms, "device_ms": dev_ms, "queued_ms": queued,
+               "host_ms": host, "bound_ms": bound, "bound_by": bound_by,
                "shape": f"B={B} S={S} H={H} P={P} N={N} chunk={Q}, x/B/C "
                         "bf16, dt f32"}
         if cell == "mamba2":
-            row["float32_route_ms"] = cuda_ms(
-                lambda: ssd_ops.launch(*args, Q, "f32"), 5)
             row["plain_ms"] = cuda_ms(lambda: ssd_ref.ssd(*args, chunk=Q), 3)
-            # the float32 route on the CUDA cores: the same bytes, its
-            # operations at the non-tensor float32 rate
-            t_ops32 = flops / H100_FP32_OPS_PER_S
-            t_bytes = nbytes / H100_BYTES_PER_S
-            row["float32_route_bound_ms"] = 1e3 * max(t_ops32, t_bytes)
-            row["float32_route_bound_by"] = ("operations" if t_ops32 > t_bytes
-                                             else "bytes")
         dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
-        extra = "" if cell != "mamba2" else (
-            f"; the float32 route {row['float32_route_ms']:.4f} ms (bound "
-            f"{row['float32_route_bound_ms']:.5f} ms, "
-            f"{row['float32_route_bound_by']} at the float32 rate), plain "
-            f"{row['plain_ms']:.4f} ms")
+        extra = "" if cell != "mamba2" else f"; plain {row['plain_ms']:.4f} ms"
         print(f"[time] ssd_scan {cell} prefill {row['shape']}: wgmma route "
               f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s; on the device "
-              f"alone {dev_txt}; launch {launch}), bound {bound:.5f} ms "
+              f"alone {dev_txt}, queued {queued:.4f} ms; the host "
+              f"{host:.4f} ms a call; launch {launch}), bound {bound:.5f} ms "
               f"({nbytes} bytes, {flops} flops; {bound_by}){extra}",
               flush=True)
         out[cell] = row
     m = out["mamba2"]
     return {"ms": m["ms"], "device_ms": m["device_ms"],
+            "queued_ms": m["queued_ms"], "host_ms": m["host_ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": None,
             "library_note": "no single PyTorch call computes the chunked "
                             "SSD scan",
             "shape": m["shape"],
-            "float32_route_ms": m["float32_route_ms"],
-            "float32_route_bound_ms": m["float32_route_bound_ms"],
-            "float32_route_bound_by": m["float32_route_bound_by"],
             "at_zamba2_prefill": {k: out["zamba2"][k] for k in
-                                  ("shape", "ms", "device_ms", "bound_ms",
-                                   "bound_by")}}
+                                  ("shape", "ms", "device_ms", "queued_ms",
+                                   "host_ms", "bound_ms", "bound_by")}}
+
+
+# the SSD scan's float32 forward timed (time_ssd_f32): mamba2-780m's
+# prefill shape (B, S, H, P, N), chunk 128, every input float32
+SSD_F32_TIME = (4, 1024, 48, 64, 128)
+# the bf16 terms a product of the parts route sums (csrc/ssd_scan_parts.cu
+# TERMS: the six down to 2^-16, the fewest that meet the float32
+# tolerance, tests/test_torch_ssd_f32.py), counted by its bound
+SSD_F32_TERMS = 6
+# the parts route's kernels after the split, in launch order
+SSD_PARTS_KERNELS = ("ssd_parts_g_kernel", "ssd_parts_state_kernel",
+                     "ssd_parts_scan_kernel", "ssd_parts_y_kernel")
+
+
+def ssd_f32_bounds(B, S, H, P, N, Q) -> dict:
+    """Bounds of the float32 SSD forward, ms, with what bounds each: the
+    function's (ssd_bound's products at the CUDA cores' float32 rate, or
+    its float32 inputs and outputs at the memory's), the split's (bytes:
+    4 read and 6 written an element of x, B and C, P and N rounded up to
+    64 a part), the parts kernels' (the SSD_F32_TERMS bf16 terms of every
+    product at the tensor cores' rate, or the parts, dt, y and the state)
+    and the route's (their sum); the function's flops and the terms'."""
+    nc = S // Q
+    pad = lambda d: -(-d // 64) * 64
+    flops = B * H * nc * (Q * (Q + 1) * P + 4 * Q * P * N) \
+        + B * nc * Q * (Q + 1) * N
+    io = 4 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N
+              + B * H * P * N)
+    by = lambda o, b: "operations" if o > b else "bytes"
+    f_ops, f_bytes = flops / H100_FP32_OPS_PER_S, io / H100_BYTES_PER_S
+    parts_elems = B * S * (H * pad(P) + 2 * pad(N))
+    split_bytes = 4 * B * S * (H * P + 2 * N) + 6 * parts_elems
+    split = 1e3 * split_bytes / H100_BYTES_PER_S
+    t_ops = SSD_F32_TERMS * flops / H100_BF16_OPS_PER_S
+    t_bytes = (6 * parts_elems + 4 * (B * S * H + B * S * H * P
+                                      + B * H * P * N)) / H100_BYTES_PER_S
+    parts = 1e3 * max(t_ops, t_bytes)
+    return {"function": (1e3 * max(f_ops, f_bytes), by(f_ops, f_bytes)),
+            "split": (split, "bytes", split_bytes),
+            "parts": (parts, by(t_ops, t_bytes)),
+            "route": (split + parts, "operations and bytes"),
+            "flops": flops, "term_flops": SSD_F32_TERMS * flops}
+
+
+def time_ssd_f32(dev, ssd_ops, ssd_ref, B, S, H, P, N, Q=128):
+    """The float32 SSD forward at (B, S, H, P, N): the parts route's call
+    (ssd_split, then the four parts kernels) and ssd_f32_kernel's
+    (``launch(..., "f32")``) on the same float32 inputs in turns (parts,
+    f32, f32, parts), the split and the parts kernels alone (CUDA events,
+    and queued back to back) and each kernel on the device (profiler),
+    the plain version and the split's, the bounds, and each route's
+    largest error against plain with its share of 1e-4 + 1e-4 |want|.
+    Fails where the parts route's share passes SSD_F32_AIM,
+    ssd_f32_kernel's passes 1, or the split's parts differ from its plain
+    version's."""
+    args = ssd_inputs(dev, B, S, H, P, N, F32_3, 7)
+    x, dt, A, Bm, Cm = args
+    if ssd_ops.route(x, Bm, Cm) != "parts":
+        fail("the float32 SSD timing inputs do not take the parts route")
+    new = lambda: ssd_ops.ssd(*args, chunk=Q)
+    old = lambda: ssd_ops.launch(*args, Q, "f32")
+    turns = [cuda_ms(f, 10) for f in (new, old, old, new)]
+    parts = ssd_ops.ssd_split(x, Bm, Cm)
+    split = lambda: ssd_ops.ssd_split(x, Bm, Cm)
+    kernels = lambda: ssd_ops.ssd_parts(*args, parts, Q)
+    split_ms, parts_ms = cuda_ms(split, 20), cuda_ms(kernels, 20)
+    split_queued, parts_queued = queued_ms(split), queued_ms(kernels)
+    dev_ms = {k: device_ms(new, k, 10, per_call=1)[0]
+              for k in ("ssd_parts_split_kernel", *SSD_PARTS_KERNELS)}
+    old_dev, _ = device_ms(old, "ssd_f32_kernel", 5, per_call=1)
+    plain_ms = cuda_ms(lambda: ssd_ref.ssd(*args, chunk=Q), 3)
+    split_plain_ms = cuda_ms(lambda: ssd_ref.split(x, Bm, Cm), 3)
+    want = ssd_ref.ssd(*args, chunk=Q)
+    tol = SSD_TOL[torch.float32]
+    errs = {}
+    for name, fn in (("parts", new), ("f32", old)):
+        got = fn()
+        errs[name] = (max(float((g - w).abs().max())
+                          for g, w in zip(got, want)),
+                      max(float(((g - w).abs() / (tol + tol * w.abs())).max())
+                          for g, w in zip(got, want)))
+    split_err = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(parts, ssd_ref.split(x, Bm, Cm)))
+    if not errs["parts"][1] <= SSD_F32_AIM or not errs["f32"][1] <= 1.0 or \
+            split_err != 0:
+        fail(f"the float32 SSD forward at mamba2's prefill shape: the parts "
+             f"route at {errs['parts'][1]:.3f} of its tolerance (at most "
+             f"{SSD_F32_AIM}), ssd_f32_kernel at {errs['f32'][1]:.3f} (at "
+             f"most 1), the split {split_err:.1e} off its plain version")
+    b = ssd_f32_bounds(B, S, H, P, N, Q)
+    ms, f32_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f}"
+    shape = f"B={B} S={S} H={H} P={P} N={N} chunk={Q}, every input float32"
+    print(f"[time] ssd_scan float32 at {shape}: the parts route {ms:.4f} ms "
+          f"a call ({b['flops'] / ms / 1e9:.2f} TFLOP/s of the function; "
+          f"split {split_ms:.4f} ms alone, {split_queued:.4f} queued; the "
+          f"four parts kernels {parts_ms:.4f} ms alone, {parts_queued:.4f} "
+          f"queued, {b['term_flops'] / parts_ms / 1e9:.2f} TFLOP/s of their "
+          f"{SSD_F32_TERMS} bf16 terms a product, "
+          f"{parts_ms / b['parts'][0]:.2f}x their bound; device ms by "
+          f"kernel { {k: fmt(v) for k, v in dev_ms.items()} }); "
+          f"ssd_f32_kernel {f32_ms:.4f} ms a call (device {fmt(old_dev)}); "
+          f"in turns {', '.join(f'{t:.4f}' for t in turns)} ms (parts, f32, "
+          f"f32, parts): {f32_ms / ms:.2f}x; plain {plain_ms:.4f} ms, the "
+          f"split's plain {split_plain_ms:.4f} ms; bounds: the function "
+          f"{b['function'][0]:.5f} ms ({b['function'][1]}, float32 rate), "
+          f"the split {b['split'][0]:.5f} ms ({b['split'][2]} bytes), the "
+          f"parts kernels {b['parts'][0]:.5f} ms ({b['parts'][1]}), the "
+          f"route {b['route'][0]:.5f} ms ({b['route'][0] / ms:.3f} of its "
+          f"time); max abs err against plain: parts {errs['parts'][0]:.3e} "
+          f"({errs['parts'][1]:.3f} of tolerance {tol:g} abs + rel), f32 "
+          f"{errs['f32'][0]:.3e} ({errs['f32'][1]:.3f}), split "
+          f"{split_err:.1e}", flush=True)
+    return {"ms": ms, "f32_ms": f32_ms, "turns_ms": turns,
+            "split_ms": split_ms, "split_queued_ms": split_queued,
+            "parts_ms": parts_ms, "parts_queued_ms": parts_queued,
+            "device_ms_by_kernel": dev_ms, "f32_device_ms": old_dev,
+            "plain_ms": plain_ms, "split_plain_ms": split_plain_ms,
+            "bounds": b, "max_abs_err": errs["parts"][0],
+            "max_share_of_tolerance": errs["parts"][1],
+            "f32_max_abs_err": errs["f32"][0],
+            "f32_max_share_of_tolerance": errs["f32"][1],
+            "split_max_abs_err": split_err, "shape": shape}
 
 
 # the SSD backward's checks: (name, B, S, H, P, N, chunk, dtypes of x/dy,
@@ -5316,6 +5553,32 @@ def time_ssd_bwd(dev, ssd_ops, ssd_ref):
         out[cell] = row
         del args
         torch.cuda.empty_cache()
+    # the SIMT route where it runs: the float32 mamba2 step's shape
+    # (TRAIN_SMALL_RUN, full width), every input float32, dstate 0
+    B, S = TRAIN_SMALL_RUN["global_batch"], TRAIN_SMALL_RUN["seq_len"]
+    _, _, _, H, P, N, Q, _, _, _ = SSD_BWD_CHECKS[0]
+    args = ssd_bwd_inputs(dev, B, S, H, P, N, F32_3, False, 7)
+    if ssd_ops.bwd_route(args[0], args[3], args[4], args[5]) != "simt":
+        fail("the float32 SSD backward's timing inputs do not take the simt "
+             "route")
+    call = lambda: ssd_ops.ssd_bwd(*args, chunk=Q)
+    _, _, nbytes, flops = ssd_bwd_bound(args, Q)
+    f32_step = {"shape": f"B={B} S={S} H={H} P={P} N={N} chunk={Q}, every "
+                         "input float32, dstate 0",
+                "ms": cuda_ms(call, 10),
+                "device_ms_by_kernel": route_kernel_ms(
+                    call, SSD_BWD_ROUTE_KERNELS["simt"]),
+                "bound_ms": 1e3 * max(nbytes / H100_BYTES_PER_S,
+                                      flops / H100_FP32_OPS_PER_S),
+                "bound_by": "operations at the float32 rate"
+                if flops / H100_FP32_OPS_PER_S > nbytes / H100_BYTES_PER_S
+                else "bytes"}
+    print(f"[time] ssd backward at the float32 mamba2 step's shape "
+          f"{f32_step['shape']}: the simt route {f32_step['ms']:.4f} ms "
+          f"(device ms a call by kernel {f32_step['device_ms_by_kernel']}), "
+          f"bound {f32_step['bound_ms']:.5f} ms ({f32_step['bound_by']})",
+          flush=True)
+    del args
     m = out["mamba2"]
     keep = ("shape", "ms", "ms_turns", "simt_ms", "simt_ms_turns",
             "pr28_simt_ms", "device_ms_by_kernel", "simt_device_ms_by_kernel",
@@ -5324,7 +5587,8 @@ def time_ssd_bwd(dev, ssd_ops, ssd_ref):
             "float32_bound_ms": m["float32_bound_ms"], "library_ms": None,
             "library_note": "no PyTorch call computes the SSD scan's "
                             "backward",
-            "at_zamba2_training": {k: out["zamba2"][k] for k in keep}}
+            "at_zamba2_training": {k: out["zamba2"][k] for k in keep},
+            "simt_at_float32_step": f32_step}
 
 
 def main() -> None:
@@ -5429,10 +5693,15 @@ def main() -> None:
     ssd_sass = sass_counts(lib_path, ssd_instance, ("HGMMA", "UTMALDG"))
     print(f"[build] SASS of the ssd_scan kernels (cuobjdump -sass): "
           f"{ssd_sass}", flush=True)
-    if any(not all(c.values()) for n, c in ssd_sass.items() if "wgmma" in n) \
-            or not any("wgmma" in n for n in ssd_sass):
-        fail("the bf16 SSD kernel has no wgmma (HGMMA) or no TMA load "
-             "(UTMALDG)")
+    if any(not all(c.values()) for n, c in ssd_sass.items()
+           if "wgmma" in n or n in SSD_PARTS_INSTANCES) \
+            or not any("wgmma" in n for n in ssd_sass) \
+            or not set(SSD_PARTS_INSTANCES) <= set(ssd_sass) \
+            or not {*SSD_PARTS_INSTANCES, "ssd_parts_split_kernel",
+                    "ssd_parts_scan_kernel"} <= set(ssd_usage):
+        fail("an SSD forward kernel on wgmma (bf16, or float32 on its "
+             "parts) has no ptxas line, no wgmma (HGMMA) or no TMA load "
+             f"(UTMALDG): {sorted(ssd_usage)}")
     ssd_bwd_usage = flash_ptxas(build.build_log, ssd_bwd_instance)
     for name, props in ssd_bwd_usage.items():
         print(f"[build] {name}: {props}", flush=True)
@@ -6834,6 +7103,8 @@ def main() -> None:
                               **time_flash(dev, fa_ops, fa_ref, *a)}
                for name, a in FLASH_TIMES.items()}
     ssd_time = time_ssd(dev, ssd_ops, ssd_ref)
+    ssd_f32_time = time_ssd_f32(dev, ssd_ops, ssd_ref, *SSD_F32_TIME)
+    fa_wide_time = time_flash_f32_wide(dev, fa_ops, *FA_F32_WIDE_TIME)
 
     # -------------------------------------------------------------- [train]
     # the flash and SSD backwards against their plain versions, then
@@ -6858,11 +7129,14 @@ def main() -> None:
                 launches[k] += n
         by_path[f"train.{arch}"] = train[arch]["launches"]
     train_cut = {arch: train_small(dev, arch) for arch in TRAIN_SMALL}
-    train_f32_run = train_f32(dev, kernels, fa_ops)
-    for k, n in train_f32_run["launches"].items():
-        if k in launches:
-            launches[k] += n
-    by_path["train.float32"] = train_f32_run["launches"]
+    train_f32_runs = {arch: train_f32(dev, kernels, fa_ops, ssd_ops, arch)
+                      for arch in TRAIN_F32_ARCHS}
+    train_f32_run = train_f32_runs["granite-3-2b"]
+    for arch, run in train_f32_runs.items():
+        for k, n in run["launches"].items():
+            if k in launches:
+                launches[k] += n
+        by_path[f"train.float32.{arch}"] = run["launches"]
     train_s = time.perf_counter() - t0
     print(f"[train] wall of the phase {train_s:.1f} s", flush=True)
 
@@ -6880,9 +7154,9 @@ def main() -> None:
         by_path[path] = run["launches"]
     path_launches = lambda k: {a: n[k] for a, n in by_path.items() if k in n}
     train_launch = lambda name: sum(t["launches"].get(name, 0) for t in (
-        *train.values(), train_f32_run))
+        *train.values(), *train_f32_runs.values()))
     ssd_route_launch = lambda r: sum(t["ssd_bwd_routes"][r] for t in (
-        *train.values(), diloco_run))
+        *train.values(), train_f32_runs["mamba2-780m"], diloco_run))
     phase("record")
 
     many_lane = capacity_run["lanes"]["chat-granite"]
@@ -7169,16 +7443,97 @@ def main() -> None:
          "bound_by": fa_f32_time["bounds"]["function"][1],
          "library_ms": fa_f32_time["library_ms"],
          "library_note": "scaled_dot_product_attention in float32",
-         "shape": fa_f32_time["shape"]},
+         "shape": fa_f32_time["shape"],
+         "at_float32_past_dh128": fa_wide_time},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_scan.cu",
-         "replaces": "src/repro/kernels/ssd_scan/kernel.py:69",
-         "kernels": {"bfloat16": "ssd_wgmma_kernel",
-                     "float32 or a layout TMA cannot read": "ssd_f32_kernel"},
-         "launches": launches["ssd_scan"], "max_abs_err": ssd_err,
+         "replaces": "src/repro/kernels/ssd_scan/kernel.py:81",
+         "kernels": {"bfloat16 TMA can read": "ssd_wgmma_kernel",
+                     "float32, mixed, or a layout TMA cannot read":
+                         "ssd_parts_split_kernel, then the four parts "
+                         "kernels (entries ssd_split, ssd_parts)",
+                     "no caller (launch(..., 'f32') only)":
+                         "ssd_f32_kernel"},
+         "launches": launches["ssd_scan"],
+         "launches_note": "forwards on any route; every drive but the "
+                          "float32 mamba2 step runs bf16 (ssd_wgmma_kernel)",
+         "max_abs_err": ssd_err["by_route"]["wgmma"]["max_abs_err"],
+         "max_share_of_tolerance": ssd_err["by_route"]["wgmma"]["max_share"],
          **ssd_time, "launches_by_path": path_launches("ssd_scan"),
-         "launches_by_route": ssd_routes, "diloco": diloco_run,
+         "launches_by_route_in_serving": ssd_routes, "diloco": diloco_run,
          "card_vs_cpu_logits_max_abs_diff": card_cpu_diff},
+        {"name": "ssd_parts", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssd_scan_parts.cu",
+         "replaces": "src/repro/kernels/ssd_scan/kernel.py:81",
+         "kernels": list(SSD_PARTS_KERNELS),
+         "wrapper": "ops.ssd_parts, from ops.ssd on route 'parts' (float32, "
+                    "mixed dtypes, layouts TMA cannot read), after "
+                    "ops.ssd_split",
+         "launches": train_f32_runs["mamba2-780m"]["ssd_routes"]["parts"],
+         "launches_by_path": {"train.float32.mamba2-780m": train_f32_runs[
+             "mamba2-780m"]["ssd_routes"]["parts"]},
+         "max_abs_err": ssd_err["by_route"]["parts"]["max_abs_err"],
+         "max_share_of_tolerance": ssd_err["by_route"]["parts"]["max_share"],
+         "ms": ssd_f32_time["parts_ms"],
+         "queued_ms": ssd_f32_time["parts_queued_ms"],
+         "device_ms_by_kernel": ssd_f32_time["device_ms_by_kernel"],
+         "route_call_ms": ssd_f32_time["ms"],
+         "turns_ms": ssd_f32_time["turns_ms"],
+         "turns_note": "a call of the parts route, ssd_f32_kernel's, "
+                       "ssd_f32_kernel's, the parts route's",
+         "plain_ms": ssd_f32_time["plain_ms"],
+         "bound_ms": ssd_f32_time["bounds"]["parts"][0],
+         "bound_by": ssd_f32_time["bounds"]["parts"][1],
+         "bound_note": f"the {SSD_F32_TERMS} bf16 terms of each product "
+                       f"(the fewest that meet 1e-4) at 989 TFLOP/s; the "
+                       f"function's float32 bound (67 TFLOP/s) "
+                       f"{ssd_f32_time['bounds']['function'][0]:.5f} ms, the "
+                       f"route's (with the split) "
+                       f"{ssd_f32_time['bounds']['route'][0]:.5f} ms",
+         "library_ms": None,
+         "library_note": "no single PyTorch call computes the chunked SSD "
+                         "scan",
+         "shape": ssd_f32_time["shape"],
+         "float32_train_step": train_f32_runs["mamba2-780m"]},
+        {"name": "ssd_split", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssd_scan_parts.cu",
+         "replaces": "src/repro/kernels/ssd_scan/kernel.py:81",
+         "replaces_note": "no Pallas kernel of its own: the parts route's "
+                          "first pass",
+         "kernel": "ssd_parts_split_kernel", "wrapper": "ops.ssd_split",
+         "launches": train_f32_runs["mamba2-780m"]["ssd_split_launches"],
+         "launches_by_path": {"train.float32.mamba2-780m": train_f32_runs[
+             "mamba2-780m"]["ssd_split_launches"]},
+         "max_abs_err": ssd_f32_time["split_max_abs_err"],
+         "ms": ssd_f32_time["split_ms"],
+         "queued_ms": ssd_f32_time["split_queued_ms"],
+         "plain_ms": ssd_f32_time["split_plain_ms"],
+         "plain_note": "ref.split on x, B and C",
+         "bound_ms": ssd_f32_time["bounds"]["split"][0],
+         "bound_by": "bytes", "library_ms": None,
+         "library_note": "no single PyTorch call writes the three bf16 parts",
+         "shape": ssd_f32_time["shape"]},
+        {"name": "ssd_scan_f32", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan/kernel.py:81",
+         "kernel": "ssd_f32_kernel",
+         "wrapper": "ops.launch(..., 'f32') only: no route of ops.ssd takes "
+                    "it since the parts route",
+         "launches": 0,
+         "launches_note": "no caller: no route of ops.ssd (ops.ROUTES) "
+                          "reaches it, so no driven path launches it; the "
+                          "float32 step takes the parts route",
+         "max_abs_err": ssd_f32_time["f32_max_abs_err"],
+         "max_share_of_tolerance": ssd_f32_time["f32_max_share_of_tolerance"],
+         "ms": ssd_f32_time["f32_ms"],
+         "device_ms": ssd_f32_time["f32_device_ms"],
+         "plain_ms": ssd_f32_time["plain_ms"],
+         "bound_ms": ssd_f32_time["bounds"]["function"][0],
+         "bound_by": ssd_f32_time["bounds"]["function"][1],
+         "library_ms": None,
+         "library_note": "no single PyTorch call computes the chunked SSD "
+                         "scan",
+         "shape": ssd_f32_time["shape"]},
         *({"name": name if route != "simt" or name == "fa_bwd_delta" else
            f"{name}_{route}",
            "route": "cuda",
@@ -7242,7 +7597,8 @@ def main() -> None:
                     "and dy TMA can read; one entry point, "
                     "ssd_bwd_wgmma_launch, five kernels)",
          "launches": ssd_route_launch("wgmma"),
-         "launches_by_path": path_launches("ssd_bwd"),
+         "launches_by_path": {k: n for k, n in path_launches("ssd_bwd").items()
+                              if k != "train.float32.mamba2-780m"},
          "max_abs_err": max(ssd_bwd_err["wgmma"].values()),
          "max_abs_err_by_output": ssd_bwd_err["wgmma"],
          **{k: v for k, v in ssd_bwd_time.items()
@@ -7257,9 +7613,12 @@ def main() -> None:
          "kernels": list(SSD_BWD_ROUTE_KERNELS["simt"]),
          "wrapper": "ops.ssd_bwd, route ops.bwd_route 'simt' (float32 and "
                     "any layout TMA cannot read; one entry point, "
-                    "ssd_bwd_launch, six kernels): not on the bf16 training "
-                    "path, timed on its inputs through ops.bwd_launch",
+                    "ssd_bwd_launch, six kernels): the float32 training "
+                    "step's; timed on the bf16 training inputs through "
+                    "ops.bwd_launch",
          "launches": ssd_route_launch("simt"),
+         "launches_by_path": {"train.float32.mamba2-780m": train_f32_runs[
+             "mamba2-780m"]["ssd_bwd_routes"]["simt"]},
          "max_abs_err": max(ssd_bwd_err["simt"].values()),
          "max_abs_err_by_output": ssd_bwd_err["simt"],
          "ms": ssd_bwd_time["simt_ms"],
@@ -7271,6 +7630,7 @@ def main() -> None:
          "bound_by": ssd_bwd_time["bound_by"], "library_ms": None,
          "library_note": ssd_bwd_time["library_note"],
          "shape": ssd_bwd_time["shape"],
+         "at_float32_step": ssd_bwd_time["simt_at_float32_step"],
          "at_zamba2_training": {
              "ms": ssd_bwd_time["at_zamba2_training"]["simt_ms"],
              "bound_ms": ssd_bwd_time["at_zamba2_training"]["bound_ms"]}},

@@ -144,10 +144,6 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a,
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
 __device__ __forceinline__ void sts_u32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.u32 [%0], %1;" :: "r"(addr), "r"(v) : "memory");
 }

@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the port's wgmma kernels
-// (flash_attention.cu, ssd_scan.cu): mbarriers, TMA tile loads, wgmma on
-// bf16 operands from shared memory or registers, the shared-memory matrix
-// descriptor of a 128-byte-swizzled tile, and the host-side encoding of a
+// (flash_attention*.cu, ssd_scan*.cu): mbarriers, the async-proxy fence,
+// TMA tile loads, transposed ldmatrix, wgmma on bf16 operands from shared
+// memory or registers, the shared-memory matrix descriptor of a
+// 128-byte-swizzled tile, and the host-side encoding of a
 // TMA tensor map through the CUDA driver's cuTensorMapEncodeTiled
 // (reached via the runtime, so the library links against the runtime
 // alone).  Each source that includes this header gets its own copy
@@ -20,6 +21,24 @@ struct Strides {                     // element strides of (B, S, heads)
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Order this thread's generic-proxy writes to shared memory before the
+// async proxy's accesses (TMA, wgmma) that follow a barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Four 8 x 8 b16 matrices from shared memory, transposed: lane 8m + r
+// gives the address of row r of matrix m; register m gets (row
+// 2(lane%4), +1; column lane/4).
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&d)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(addr));
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {

@@ -373,10 +373,6 @@ struct WArgs {
   int dt_bf16, a_bf16;
 };
 
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
 // One TMA box of the 4-D map from shared memory at `src`; one bulk
 // group per call.
 __device__ __forceinline__ void tma_store(const CUtensorMap* map,
@@ -401,17 +397,6 @@ __device__ __forceinline__ float ex2(float x) {
   float r;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
   return r;
-}
-
-// Four 8 x 8 b16 matrices, transposed: lane 8m + r gives the address of
-// row r of matrix m; register m gets (row 2(lane%4), +1; column lane/4).
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&d)[4],
-                                              uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];"
-      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
-      : "r"(addr));
 }
 
 // (v0, v1) rounded to a bf16 pair, v0 in the low half.

@@ -73,10 +73,6 @@ __device__ __forceinline__ float bf16r(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
 // L = exp(d) for d = cs[l] - cs[s] <= 0, the difference taken in f32 (near
 // each other it is exact), with expf as the plain version takes it: 2^(d
 // log2(e)) would round d log2(e) first, a relative error of up to |d|
@@ -91,17 +87,6 @@ __device__ __forceinline__ float exp_diff(float d) {
 __device__ __forceinline__ void ldsm_x4(uint32_t (&d)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
-      : "r"(addr));
-}
-
-// The same, transposed: register m gets (rows 2(lane%4), +1; column
-// lane/4) of matrix m.
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&d)[4],
-                                              uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];"
       : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
       : "r"(addr));
 }

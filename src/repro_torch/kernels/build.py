@@ -129,6 +129,15 @@ SIGNATURES = {
     # of x and dt, A's stride, (b, s) strides of B and C; dtypes of x, dt,
     # A, B/C; route; stream
     "ssd_scan_launch": [_P] * 7 + [_I] * 6 + [_L] * 11 + [_I] * 5 + [_P],
+    # x, B, C, their parts xp and bcp; B, S, H, P, N; (b, s, head) strides
+    # of x, (b, s) strides of B and C; dtypes of x and B/C; stream: the
+    # float32 SSD route's split
+    "ssd_parts_split_launch": [_P] * 5 + [_I] * 5 + [_L] * 7 + [_I] * 2
+                              + [_P],
+    # xp, bcp, dt, A, y, state; scratch g, u, e; B, S, H, P, N, chunk;
+    # (b, s, head) strides of dt, A's stride; dtypes of dt, A and y;
+    # stream: its four kernels
+    "ssd_parts_launch": [_P] * 9 + [_I] * 6 + [_L] * 4 + [_I] * 3 + [_P],
     # x, dt, A, B, C, dy, dstate; dx, ddt, dA, dB, dC; scratch: states,
     # dstates, rows, chunks, dB and dC by head; B, S, H, P, N, chunk;
     # (b, s, head) strides of x and dt, A's stride, (b, s) strides of B and

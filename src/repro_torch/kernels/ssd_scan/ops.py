@@ -1,23 +1,30 @@
 """Wrapper of the Mamba2 SSD chunked scan.
 
-A CUDA tensor launches the hand-written kernel ``csrc/ssd_scan.cu`` (the
-counterpart of the reference's ``ssd_fwd``/``_ssd_kernel``) by one of two
-routes, which ``route`` chooses from the inputs' dtypes, strides and
-alignment alone:
+A CUDA tensor launches hand-written kernels (the counterpart of the
+reference's ``ssd_fwd``/``_ssd_kernel``) by one of two routes, which
+``route`` chooses from the inputs' dtypes, strides and alignment alone
+(the only chooser):
 
-- ``"wgmma"`` (``ssd_wgmma_kernel``: TMA tiles, wgmma products) when x, B_
-  and C_ are bfloat16 and TMA can read them: each base 16-byte aligned and
-  each (b, s, head) stride of x and (b, s) stride of B_ and C_ a multiple
-  of 8 elements (16 bytes); and the head dim P is a multiple of 8, since
-  y, contiguous, is written by TMA too.  dt and A may be float32 or
-  bfloat16.  Every served model's prefill takes it.
-- ``"f32"`` (``ssd_f32_kernel``, f32 on the CUDA cores) for everything
-  else: float32 inputs, whose 1e-4 tolerance the tensor cores' bf16
-  operands cannot promise at chunk 128, mixed dtypes, and any layout TMA
-  cannot read.
+- ``"wgmma"`` (``csrc/ssd_scan.cu``, ``ssd_wgmma_kernel``: TMA tiles,
+  wgmma products) when x, B_ and C_ are bfloat16 and TMA can read them:
+  each base 16-byte aligned and each (b, s, head) stride of x and (b, s)
+  stride of B_ and C_ a multiple of 8 elements (16 bytes); and the head
+  dim P is a multiple of 8, since y, contiguous, is written by TMA too.
+  dt and A may be float32 or bfloat16.  Every served model's prefill
+  takes it.
+- ``"parts"`` (``csrc/ssd_scan_parts.cu``) for everything else: float32
+  inputs, mixed dtypes and any layout TMA cannot read.  ``ssd_split``
+  writes x, B_ and C_ as three bf16 parts each (their sum the value
+  exactly; through any strides), then ``ssd_parts`` runs four wgmma and
+  TMA kernels on them (C B^T once per (b, chunk), each chunk's state
+  term, the states' scan, y); every product six bf16 terms, within the
+  float32 tolerance 1e-4.
 
-A route never falls back to the other: a failed launch raises.  A CPU
-tensor takes the plain version in ``ref.py``.
+``ssd_f32_kernel`` (float32 on the CUDA cores, the route every float32
+input took before the parts kernels) has no caller on any path: only
+``launch(..., "f32")`` runs it, to hold or time the two against each
+other.  A route never falls back to another: a failed launch raises.  A
+CPU tensor takes the plain version in ``ref.py``.
 
 ``ssd`` is differentiable where autograd records (grad enabled and an
 input that requires it): ``SSD``, a ``torch.autograd.Function``, saves
@@ -43,7 +50,8 @@ chunk (the reference's backward does not clamp: its vjp raises where S
 is under the chunk).  The inputs keep the reference's layouts and are
 read through their strides (the last axis of x, B_ and C_ must be
 contiguous), so no transposed copy is made.  ``ssd.launches`` counts
-forward launches, ``ssd.routes`` the launches of each route,
+forward launches, ``ssd.routes`` the launches of each route (``launch(...,
+"f32")`` counts none), ``ssd_split.launches`` the split's,
 ``ssd_bwd.launches`` backward calls and ``ssd_bwd.routes`` those of each
 backward route.
 """
@@ -59,11 +67,15 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ops import _tma_ready
 from repro_torch.kernels.ssd_scan import ref
 
-MAX_CHUNK = 128          # the kernel's shared-memory plan: Q, P, N <= 128
+MAX_CHUNK = 128          # the kernels' shared-memory plans: Q, P, N <= 128
 MAX_HEAD_DIM = 128
 MAX_STATE = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-ROUTES = {"f32": 0, "wgmma": 1}
+# the forward's routes, route()'s values, counted in ssd.routes
+# (ssd_f32_kernel runs only through launch(..., "f32"), uncounted)
+ROUTES = ("wgmma", "parts")
+# the route index of ssd_scan_launch (csrc/ssd_scan.cu)
+_LAUNCH_ROUTES = {"f32": 0, "wgmma": 1}
 BWD_ROUTES = ("simt", "wgmma")
 
 
@@ -120,28 +132,119 @@ def _strides(t, axes):
 
 
 def route(x: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor) -> str:
-    """The kernel a CUDA launch of these inputs takes: ``"wgmma"`` when x,
-    B_ and C_ are bfloat16 with 16-byte-aligned bases and strides that are
-    multiples of 8 elements (what TMA can read) and the head dim is a
-    multiple of 8 (y, contiguous, is written by TMA too), else ``"f32"``.
-    A pure function of dtypes, shapes, strides and base addresses (dt and
-    A do not enter: the kernel reads them with plain loads)."""
+    """The kernels a CUDA launch of these inputs takes: ``"wgmma"`` when
+    x, B_ and C_ are bfloat16 with 16-byte-aligned bases and strides that
+    are multiples of 8 elements (what TMA can read) and the head dim is a
+    multiple of 8 (y, contiguous, is written by TMA too), else ``"parts"``
+    (the split reads any dtypes and strides).  A pure function of dtypes,
+    shapes, strides and base addresses (dt and A do not enter: the
+    kernels read them with plain loads)."""
     tensors = ((x, 3), (B_, 2), (C_, 2))
     if x.shape[-1] % 8 or any(t.dtype != torch.bfloat16
                               for t, _ in tensors):
-        return "f32"
+        return "parts"
     for t, axes in tensors:
         if t.data_ptr() % 16 or any(st % 8 for st in _strides(t, axes)):
-            return "f32"
+            return "parts"
     return "wgmma"
 
 
+def _pad64(d: int) -> int:
+    """``d`` rounded up to a multiple of 64 (a tile's column block)."""
+    return -(-d // 64) * 64
+
+
+def parts_shapes(x: torch.Tensor, B_: torch.Tensor):
+    """The split's outputs' shapes: x's parts (B, S, H, 3 DP) and B's and
+    C's (B, S, 2, 3 NP), DP and NP the head dim and the state size rounded
+    up to 64 (``ref.split``)."""
+    Bb, S, H, P = x.shape
+    return (Bb, S, H, 3 * _pad64(P)), (Bb, S, 2, 3 * _pad64(B_.shape[-1]))
+
+
+def parts_scratch_shapes(Bb: int, S: int, H: int, P: int, N: int,
+                         chunk: int) -> dict:
+    """The parts kernels' f32 scratch by name (the chunk clamped): C B^T
+    in the y kernel's fragment order (``g``, 64 KB a (b, chunk)), each
+    chunk's state term and then the state entering it (``u``, P and N
+    rounded up to 64; 50.3 MB at mamba2-780m's prefill shape) and
+    exp(cs[Q-1]) a chunk (``e``)."""
+    return {"g": (Bb, S // chunk, 4, 128, 32),
+            "u": (Bb, H, S // chunk, _pad64(P), _pad64(N)),
+            "e": (Bb, H, S // chunk)}
+
+
+def ssd_split(x: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The parts route's split pass on checked tensors: (xp, bcp)
+    (``parts_shapes``: bf16 hi, mid and lo, their sum the value exactly,
+    zeros past P and N; bcp's head 0 B_'s, head 1 C_'s), contiguous, what
+    the parts kernels' TMA maps read.  A CUDA tensor launches
+    ``ssd_parts_split_kernel`` (any strides, float32 or bfloat16); a CPU
+    tensor takes ``ref.split``."""
+    if x.device.type == "cpu":
+        return ref.split(x, B_, C_)
+    Bb, S, H, P = x.shape
+    N = B_.shape[-1]
+    xp, bcp = (torch.empty(shape, dtype=torch.bfloat16, device=x.device)
+               for shape in parts_shapes(x, B_))
+    if xp.numel() == 0:
+        return xp, bcp
+    rc = build.launch(x.device, build.library().ssd_parts_split_launch,
+                      x.data_ptr(), B_.data_ptr(), C_.data_ptr(),
+                      xp.data_ptr(), bcp.data_ptr(), Bb, S, H, P, N,
+                      *_strides(x, 3), *_strides(B_, 2), *_strides(C_, 2),
+                      _DTYPES[x.dtype], _DTYPES[B_.dtype])
+    build.check(rc, "ssd_parts_split")
+    build.count(ssd_split)
+    return xp, bcp
+
+
+def ssd_parts(x, dt, A, B_, C_, parts, chunk: int):
+    """The parts route's kernels on the parts ``ssd_split`` returned for
+    checked tensors (``chunk`` already clamped): (y (B,S,H,P) in x's
+    dtype, state (B,H,P,N) f32), scratch (``parts_scratch_shapes``)
+    allocated here and freed on return.  Counted in ``ssd``'s launches and
+    routes.  The kernels run on the card only (``ssd`` takes the plain
+    scan on the CPU): any other tensor raises."""
+    if x.device.type != "cuda":
+        raise ValueError("the parts kernels run on the card only, not on "
+                         f"{x.device}")
+    if tuple(p.shape for p in parts) != parts_shapes(x, B_) or any(
+            p.dtype != torch.bfloat16 or not p.is_contiguous()
+            or p.data_ptr() % 16 or p.device != x.device for p in parts):
+        raise ValueError("the parts kernels read the parts ssd_split writes")
+    Bb, S, H, P = x.shape
+    N = B_.shape[-1]
+    dev = x.device
+    y = torch.empty(x.shape, dtype=x.dtype, device=dev)
+    state = torch.empty((Bb, H, P, N), dtype=torch.float32, device=dev)
+    if y.numel() == 0:
+        return y, state.zero_()
+    g, u, e = (torch.empty(shape, dtype=torch.float32, device=dev)
+               for shape in parts_scratch_shapes(Bb, S, H, P, N,
+                                                 chunk).values())
+    rc = build.launch(dev, build.library().ssd_parts_launch,
+                      *(p.data_ptr() for p in parts), dt.data_ptr(),
+                      A.data_ptr(), y.data_ptr(), state.data_ptr(),
+                      g.data_ptr(), u.data_ptr(), e.data_ptr(), Bb, S, H, P,
+                      N, chunk, *dt.stride(), A.stride(0), _DTYPES[dt.dtype],
+                      _DTYPES[A.dtype], _DTYPES[x.dtype])
+    build.check(rc, "ssd_parts")
+    build.count(ssd, "parts")
+    return y, state
+
+
 def launch(x, dt, A, B_, C_, chunk: int, route_: str):
-    """Launch the kernel of ``route_`` on checked CUDA tensors (``chunk``
-    already clamped); the (y, state) it writes.  ``ssd`` calls it with
-    ``route(x, B_, C_)``; the card's checks call it directly to time the
-    float32 route on bfloat16 inputs.  A route the inputs do not allow
-    raises."""
+    """Launch ``ssd_scan_launch``'s kernel of ``route_`` (``"wgmma"`` or
+    ``"f32"``, ``ssd_f32_kernel``) on checked CUDA tensors (``chunk``
+    already clamped), without counting; the (y, state) it writes.
+    ``ssd`` calls it with the wgmma route; the card's checks call it with
+    ``"f32"`` to hold or time ``ssd_f32_kernel`` (any dtypes and layouts)
+    against the parts route.  A route the inputs do not allow raises."""
+    if route_ not in _LAUNCH_ROUTES:
+        raise ValueError(f"ssd_scan_launch has no route {route_!r}: "
+                         f"{tuple(_LAUNCH_ROUTES)}")
     Bb, S, H, P = x.shape
     N = B_.shape[-1]
     dev = x.device
@@ -158,7 +261,7 @@ def launch(x, dt, A, B_, C_, chunk: int, route_: str):
         rc = lib.ssd_scan_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
             C_.data_ptr(), y.data_ptr(), state.data_ptr(), Bb, S, H, P, N,
-            chunk, *strides, *dtypes, ROUTES[route_], stream)
+            chunk, *strides, *dtypes, _LAUNCH_ROUTES[route_], stream)
     build.check(rc, f"ssd_scan ({route_} route)")
     return y, state
 
@@ -168,10 +271,11 @@ def _forward(x, dt, A, B_, C_, chunk):
     on the CPU."""
     if x.device.type == "cpu":
         return ref.ssd(x, dt, A, B_, C_, chunk)
-    way = route(x, B_, C_)
-    y, state = launch(x, dt, A, B_, C_, chunk, way)
+    if route(x, B_, C_) == "parts":
+        return ssd_parts(x, dt, A, B_, C_, ssd_split(x, B_, C_), chunk)
+    y, state = launch(x, dt, A, B_, C_, chunk, "wgmma")
     if y.numel():
-        build.count(ssd, way)
+        build.count(ssd, "wgmma")
     return y, state
 
 
@@ -378,5 +482,6 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 ssd.launches = 0
 ssd.routes = dict.fromkeys(ROUTES, 0)
+ssd_split.launches = 0
 ssd_bwd.launches = 0
 ssd_bwd.routes = dict.fromkeys(BWD_ROUTES, 0)

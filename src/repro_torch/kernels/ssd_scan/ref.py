@@ -15,6 +15,10 @@ chunk of 128, where they reach about -100, the order alone moves y by
 and the reference are within their float32 tolerance of the exact scan,
 not always of each other (tests/test_torch_ssd.py).
 
+``split_parts`` and ``split`` are the plain version of the float32 route's
+split pass (``csrc/ssd_scan_parts.cu``): x, B and C as three bfloat16
+parts each, whose sum is the value exactly.
+
 ``ssd_bwd`` is the plain version of the backward kernels
 (``csrc/ssd_scan_bwd.cu``): the vjp of ``ssd`` written out chunk by chunk
 in reverse, without autograd; the kernels take the same sums in other
@@ -91,6 +95,41 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``min(chunk, S)``; raises ``ValueError`` when S is not a multiple of
     the clamped chunk."""
     return ssd_chunked(x, dt, A, B_, C_, min(int(chunk), x.shape[1]))
+
+
+def split_parts(t: torch.Tensor) -> torch.Tensor:
+    """One operand's split: ``t`` (..., D), float32 or bfloat16, as three
+    bfloat16 parts (..., 3 DP), DP = D rounded up to 64: hi = t rounded to
+    bf16 in columns [0, DP), mid = what hi leaves, rounded, in [DP, 2 DP),
+    lo = what mid leaves in [2 DP, 3 DP), zeros past D.  8 + 8 + 8 bits:
+    the parts sum to ``t`` exactly where |t| >= 2^-110 or t = 0 (below,
+    mid and lo fall among the subnormals and lose bits)."""
+    D = t.shape[-1]
+    DP = -(-D // 64) * 64
+    out = torch.zeros((*t.shape[:-1], 3, DP), dtype=torch.bfloat16,
+                      device=t.device)
+    rest = t.float()
+    for p in range(3):
+        out[..., p, :D] = rest.to(torch.bfloat16)
+        rest = rest - out[..., p, :D].float()
+    return out.reshape(*t.shape[:-1], 3 * DP)
+
+
+def split(x: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split pass: (xp (B,S,H,3 DP), bcp (B,S,2,3 NP)), x's parts and
+    B's and C's (bcp's head 0 B, head 1 C), contiguous bfloat16, as
+    ``ssd_parts_split_kernel`` writes them."""
+    return split_parts(x), torch.stack([split_parts(B_), split_parts(C_)],
+                                       dim=2)
+
+
+def join_parts(parts: torch.Tensor, D: int) -> torch.Tensor:
+    """The value the three parts of ``split_parts`` hold, float32 (..., D):
+    hi + mid, then + lo (each sum exact)."""
+    DP = parts.shape[-1] // 3
+    hi, mid, lo = (parts[..., i * DP:i * DP + D].float() for i in range(3))
+    return (hi + mid) + lo
 
 
 def revcumsum(d: torch.Tensor, dim: int) -> torch.Tensor:

@@ -1174,10 +1174,11 @@ def _ssd_check(args, chunk, route):
 @pytest.mark.parametrize("case", SSD_CARD_CASES)
 @pytest.mark.parametrize("types", list(SSD_DTYPES))
 def test_ssd_kernel_matches_plain(dev, case, types):
-    """x, B and C in bfloat16 take the wgmma route, float32 the SIMT one."""
+    """x, B and C in bfloat16 take the wgmma route, float32 the parts
+    route."""
     B, S, H, P, N, chunk = case
     args = _ssd_inputs(dev, B, S, H, P, N, SSD_DTYPES[types], S + H + P)
-    _ssd_check(args, chunk, "f32" if types == "float32" else "wgmma")
+    _ssd_check(args, chunk, "parts" if types == "float32" else "wgmma")
 
 
 # the wgmma route's edges (B, S, H, P, N, chunk, dtypes): chunks under
@@ -1202,13 +1203,104 @@ def test_ssd_wgmma_kernel_edge_shapes(dev, case):
 
 
 def test_ssd_kernel_takes_the_float32_route_where_tma_cannot_read(dev):
-    """x one element past an aligned base: the float32 route, held to the
-    plain version at bfloat16's tolerance."""
+    """x one element past an aligned base: the parts route (its split
+    reads any layout), held to the plain version at bfloat16's
+    tolerance."""
     x, dt, A, Bm, Cm = _ssd_inputs(dev, 2, 256, 4, 64, 128,
                                    SSD_DTYPES["serving"], 5)
     buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
     xu = buf[1:].view(x.shape).copy_(x)
-    _ssd_check((xu, dt, A, Bm, Cm), 128, "f32")
+    _ssd_check((xu, dt, A, Bm, Cm), 128, "parts")
+
+
+# the parts route's edges (B, S, H, P, N, chunk, dtypes of x, dt, B/C):
+# P and N off the multiples of 64 (and of 8), chunks under 16 and 64, the
+# longest sequence, mixed dtypes, dt in bfloat16
+SSD_PARTS_CASES = [
+    (2, 48, 3, 12, 5, 16, (torch.float32,) * 3),
+    (3, 40, 4, 64, 128, 128, (torch.float32,) * 3),
+    (2, 256, 4, 128, 64, 128, (torch.float32,) * 3),
+    (1, 256, 3, 100, 72, 128, (torch.float32,) * 3),
+    (2, 96, 4, 64, 128, 24, (torch.float32,) * 3),
+    (1, 8192, 4, 64, 128, 128, (torch.float32,) * 3),
+    (2, 256, 4, 64, 128, 128, (torch.float32, torch.float32,
+                               torch.bfloat16)),
+    (2, 256, 4, 64, 128, 128, (torch.bfloat16, torch.float32,
+                               torch.float32)),
+    (2, 256, 4, 64, 128, 128, (torch.float32, torch.bfloat16,
+                               torch.float32)),
+    (2, 256, 4, 12, 128, 128, (torch.bfloat16,) * 3),
+]
+
+
+@pytest.mark.parametrize("case", SSD_PARTS_CASES)
+def test_ssd_parts_route_edge_shapes(dev, case):
+    """Held to the plain version at the tolerance of x's dtype, and a
+    second call bit-identical."""
+    B, S, H, P, N, chunk, types = case
+    args = _ssd_inputs(dev, B, S, H, P, N, types, S + N + P)
+    _ssd_check(args, chunk, "parts")
+    first = ssd_ops.ssd(*args, chunk=chunk)
+    for a, b in zip(first, ssd_ops.ssd(*args, chunk=chunk)):
+        assert torch.equal(a, b)
+
+
+def test_ssd_parts_route_reads_strided_float32_inputs(dev):
+    """x as a head-strided view and B/C as views into one projection, in
+    float32: the split reads them through their strides."""
+    B, S, H, P, N = 2, 256, 6, 64, 128
+    x, dt, A, _, _ = _ssd_inputs(dev, B, S, 2 * H, P, N,
+                                 SSD_DTYPES["float32"], 3)
+    bc = torch.randn((B, S, 2 * N), device=dev)
+    args = (x[:, :, ::2], dt[:, :, :H], A[:H], bc[..., :N], bc[..., N:])
+    _ssd_check(args, 128, "parts")
+
+
+def test_ssd_split_matches_plain_bit_for_bit(dev):
+    """The split kernel's parts are ref.split's, through strided views and
+    in both dtypes."""
+    for types in (SSD_DTYPES["float32"], SSD_DTYPES["bfloat16"]):
+        x, _, _, Bm, Cm = _ssd_inputs(dev, 2, 64, 6, 80, 40, types, 9)
+        bc = torch.cat([Bm, Cm], dim=-1)        # B and C of one projection
+        before = ssd_ops.ssd_split.launches
+        for args in ((x, Bm, Cm), (x[:, :, ::2], bc[..., :40], bc[..., 40:])):
+            got = ssd_ops.ssd_split(*args)
+            want = ssd_ref.split(*(a.contiguous() for a in args))
+            for name, g, w in zip(("xp", "bcp"), got, want):
+                bad = (g.float() != w.float()).nonzero()
+                assert g.shape == w.shape and len(bad) == 0, (
+                    name, types[0], args[0].stride(), len(bad),
+                    bad[:4].tolist(), g.float()[tuple(bad[:4].T)].tolist(),
+                    w.float()[tuple(bad[:4].T)].tolist())
+        assert ssd_ops.ssd_split.launches == before + 2
+
+
+def test_ssd_parts_launchers_refuse_what_they_cannot_run(dev):
+    """P, N or the chunk past 128, S not a multiple of the chunk: refused
+    (cudaErrorInvalidValue) before a launch."""
+    lib = build.library()
+    p = torch.zeros(1 << 16, device=dev).data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
+    for P, N in ((130, 16), (16, 130)):
+        assert lib.ssd_parts_split_launch(*[p] * 5, 1, 32, 2, P, N,
+                                          *[1] * 7, 0, 0, stream) == 1
+    for P, N, S, chunk in ((130, 16, 32, 16), (16, 130, 32, 16),
+                           (16, 16, 256, 256), (16, 16, 48, 32)):
+        assert lib.ssd_parts_launch(*[p] * 9, 1, S, 2, P, N, chunk,
+                                    *[1] * 4, 0, 0, 0, stream) == 1
+
+
+def test_ssd_f32_kernel_still_matches_plain(dev):
+    """ssd_f32_kernel, behind ops.launch only: held to the plain version on
+    float32 inputs at mamba2's state, beside the parts route."""
+    args = _ssd_inputs(dev, 1, 256, 4, 64, 128, SSD_DTYPES["float32"], 4)
+    before = dict(ssd_ops.ssd.routes)
+    y, state = ssd_ops.launch(*args, 128, "f32")
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd.routes == before
+    want_y, want_state = ssd_ref.ssd(*args, chunk=128)
+    torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(state, want_state, atol=1e-4, rtol=1e-4)
 
 
 def test_ssd_kernel_reads_strided_inputs(dev):

@@ -205,8 +205,9 @@ def _meta(B, S, H, P, N, types):
 
 def _want(types):
     """x, B and C in bfloat16 take the wgmma route, anything else the
-    float32 one."""
-    return "wgmma" if types[0] == types[2] == torch.bfloat16 else "f32"
+    parts route; ``route`` never names the third, "f32" (``ssd_f32_kernel``,
+    run only through ``ops.launch``)."""
+    return "wgmma" if types[0] == types[2] == torch.bfloat16 else "parts"
 
 
 @pytest.mark.parametrize("case", SSD_CARD_CASES)
@@ -265,17 +266,17 @@ def _views(name):
 
 @pytest.mark.parametrize("name,want", [
     ("head-strided x, B and C of one projection", "wgmma"),
-    ("x one element past an aligned base", "f32"),
-    ("x's head stride 66 elements", "f32"),
-    ("C 24 bytes past B (N = 12)", "f32"),
-    ("head dim 12", "f32"),
-    ("B and C float32", "f32"),
-    ("x float32", "f32"),
+    ("x one element past an aligned base", "parts"),
+    ("x's head stride 66 elements", "parts"),
+    ("C 24 bytes past B (N = 12)", "parts"),
+    ("head dim 12", "parts"),
+    ("B and C float32", "parts"),
+    ("x float32", "parts"),
     ("batch of one with an odd batch stride", "wgmma"),
 ])
 def test_route_of_views(name, want):
     """Strided views TMA can read take the wgmma route; an unaligned base,
     a stride or a head dim that is not a multiple of 8 elements, or a
-    float32 operand, the float32 route.  A batch of one reads no batch
-    stride, whatever torch reports for it."""
+    float32 operand, the parts route (its split reads any strides).  A
+    batch of one reads no batch stride, whatever torch reports for it."""
     assert ssd_ops.route(*_views(name)) == want
